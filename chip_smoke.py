@@ -1,0 +1,401 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--ncycles N] [--niterations N]
+
+Phases, in order; any failure ends the run with a non-zero exit code:
+
+1. card and build: the card's name and power limit; the CUDA kernel
+   ``symbolicregression_jl_tpu_torch/csrc/postfix_eval.cu`` built with nvcc,
+   with ptxas's register / shared-memory / spill line;
+2. kernel vs plain PyTorch version on the card at the main path's shapes
+   (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's children at 64
+   islands x 1000, 64,000 trees = one rescore), poisoning trees included;
+3. timing of every kernel mode with CUDA events, beside its plain version
+   and its bound (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s);
+4. the main path: ``equation_search`` at 64 islands x 1000, maxsize 20,
+   ``+ - * /`` with ``cos exp``, L2 loss, then ``predict``; the launch
+   counts are zeroed just before and read just after;
+5. the cycle alone at the same widths: milliseconds per cycle with the
+   constant fold through the slot-values kernel and through its plain
+   version (interleaved, twice each), and a profile of 20 cycles without
+   init, simplify or rescore (device kernels per cycle, idle share);
+6. recovery of ``x0*x0 - x1*x2`` on the card.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
+package beside it, the script exits non-zero and prints no result.
+"""
+
+import argparse
+import json
+import os
+import platform
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+ROWS = 2048
+T_CYCLE = 64 * 84  # children per cycle: 64 islands x B=84
+T_RESCORE = 64 * 1000
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def feynman_data(seed=0):
+    """Feynman-I.6.2a: y = exp(-theta^2/2)/sqrt(2 pi), theta ~ U(1, 3)."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(1.0, 3.0, ROWS).astype(np.float32)
+    y = (np.exp(-(theta ** 2) / 2.0) / np.sqrt(2 * np.pi)).astype(np.float32)
+    return theta[None, :], y
+
+
+def host_cpu():
+    """The host's CPU model and the cores this process may use."""
+    name = platform.processor() or "unknown CPU"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"{name}, {len(os.sched_getaffinity(0))} cores usable"
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call of fn over reps calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ncycles", type=int, default=550,
+                    help="cycles per iteration of the main-path search")
+    ap.add_argument("--niterations", type=int, default=2)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device is available; nothing was run")
+        return 2
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.models.mutate_device import (
+        gen_random_tree_fixed_size,
+    )
+    from symbolicregression_jl_tpu_torch.models.trees import (
+        TreeBatch, UNA, encode_tree, parse_expression, stack_trees,
+    )
+    from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
+    from symbolicregression_jl_tpu_torch.ops.operators import make_operator_set
+    from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+
+    # ---- 1. card and build ------------------------------------------------
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    cpu = host_cpu()
+    log(f"host: {cpu}")
+    tb = time.time()
+    ke.build_library(force=True)
+    log(f"build: nvcc {time.time() - tb:.1f} s")
+    for line in ke.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"ptxas: {line.strip()}")
+
+    # ---- 2. kernel vs plain at the main path's shapes ---------------------
+    ops = make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    X_np, y_np = feynman_data()
+    X = torch.tensor(X_np, device=dev)
+    y = torch.tensor(y_np, device=dev)
+    gen = make_generator(1, dev)
+    sizes = torch.randint(3, 21, (T_RESCORE,), generator=gen, device=dev)
+    trees = gen_random_tree_fixed_size(gen, sizes, 1, ops, 24, dev)
+    poison = [parse_expression(s, ops) for s in (
+        "x0 / (x0 - x0)", "exp(exp(exp(exp(x0))))", "(x0 * 0.5) / (x0 - x0)",
+        "cos(x0) + exp(exp(exp(exp(x0 + 1.5))))")]
+    pt = stack_trees([encode_tree(e, 24, device=dev) for e in poison])
+    trees = TreeBatch(*(torch.cat([a[: T_RESCORE - 4], b]) for a, b in
+                        zip(trees, pt)))
+    cycle = trees[T_RESCORE - T_CYCLE:]  # includes the poisoning trees
+    err = {"value": 0.0, "fused_l2": 0.0, "slots": 0.0}
+    rel = dict(err)
+
+    def note(name, got, ref):
+        err[name] = max(err[name], float((got - ref).abs().max()))
+        rel[name] = max(rel[name], float(((got - ref).abs()
+                                          / ref.abs().clamp_min(1e-30)).max()))
+
+    def check_value(tb_):
+        yk, okk = ke.eval_trees(tb_, X, ops)
+        yp, okp = ke.eval_trees_plain(tb_, X, ops)
+        assert torch.equal(okk, okp), "value mode: ok differs"
+        assert int((~okk).sum()) >= 4, "poisoning trees were not poisoned"
+        torch.testing.assert_close(yk[okk], yp[okk], rtol=1e-5, atol=1e-6)
+        note("value", yk[okk], yp[okk])
+
+    def check_fused(tb_, chunk=8192):
+        lk = ke.eval_loss_trees(tb_, X, y, ops)
+        lp = torch.cat([ke.eval_loss_trees_plain(tb_[i:i + chunk], X, y, ops)
+                        for i in range(0, tb_.length.shape[0], chunk)])
+        assert torch.equal(torch.isinf(lk), torch.isinf(lp)), "fused: inf differs"
+        fin = torch.isfinite(lp)
+        torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-4, atol=0)
+        note("fused_l2", lk[fin], lp[fin])
+
+    X1 = torch.zeros((1, 1), device=dev)
+
+    def check_slots(tb_):
+        sk, _ = ke.eval_slot_values(tb_, X1, ops)
+        sp, _ = ke.eval_slot_values_plain(tb_, X1, ops)
+        fin = torch.isfinite(sp)
+        assert torch.equal(torch.isfinite(sk), fin), "slots: finite set differs"
+        torch.testing.assert_close(sk[fin], sp[fin], rtol=1e-5, atol=1e-6)
+        note("slots", sk[fin], sp[fin])
+
+    check_value(cycle)
+    check_fused(cycle)
+    check_fused(trees)
+    check_slots(cycle)
+    check_slots(trees)
+    torch.cuda.synchronize()
+    log(f"kernel vs plain: agree at T={T_CYCLE} and T={T_RESCORE} x {ROWS} "
+        f"rows; max abs err {err}; max rel err {rel}")
+
+    # ---- 3. timing ----------------------------------------------------------
+    n_op_nodes = lambda tb_: int((tb_.kind >= UNA).sum())
+
+    def bound(tb_, mode, nrows):
+        T, L = tb_.kind.shape
+        nfeat = X.shape[0] if mode != ke.MODE_SLOTS else 1
+        # the kernel reads the five table entries of live slots only, plus
+        # each tree's length and its place in the length sort
+        bytes_in = (nfeat * nrows * 4 + int(tb_.length.sum()) * 5 * 4
+                    + T * 8 * 2)
+        if mode == ke.MODE_FUSED_L2:
+            bytes_in += nrows * 4
+        bytes_out = T * 4 + {ke.MODE_VALUE: T * nrows * 4,
+                             ke.MODE_FUSED_L2: T * 4,
+                             ke.MODE_SLOTS: T * L * 4}[mode]
+        ops_ = n_op_nodes(tb_) * nrows + (3 * T * nrows
+                                          if mode == ke.MODE_FUSED_L2 else 0)
+        t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_ / F32_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    plain_fn = {
+        ke.MODE_VALUE: lambda tb_: [ke.eval_trees_plain(tb_[i:i + 8192], X, ops)
+                                    for i in range(0, tb_.length.shape[0], 8192)],
+        ke.MODE_FUSED_L2: lambda tb_: [ke.eval_loss_trees_plain(tb_[i:i + 8192], X, y, ops)
+                                       for i in range(0, tb_.length.shape[0], 8192)],
+        ke.MODE_SLOTS: lambda tb_: [ke.eval_slot_values_plain(tb_[i:i + 8192], X1, ops)
+                                    for i in range(0, tb_.length.shape[0], 8192)],
+    }
+    timings = {}
+    for mode in (ke.MODE_FUSED_L2, ke.MODE_VALUE, ke.MODE_SLOTS):
+        name = ke.MODE_NAMES[mode]
+        for tb_ in (cycle, trees):
+            T = tb_.length.shape[0]
+            Xm = X1 if mode == ke.MODE_SLOTS else X
+            ym = y if mode == ke.MODE_FUSED_L2 else None
+            prep = ke.prepare_launch(tb_, Xm, ym, ops, mode)
+            ms = cuda_ms(lambda: ke.run_prepared(prep), 50)
+            wrap = {ke.MODE_VALUE: lambda: ke.eval_trees(tb_, X, ops),
+                    ke.MODE_FUSED_L2: lambda: ke.eval_loss_trees(tb_, X, y, ops),
+                    ke.MODE_SLOTS: lambda: ke.eval_slot_values(tb_, X1, ops)}[mode]
+            wrap_ms = cuda_ms(wrap, 20)
+            plain_ms = cuda_ms(lambda: plain_fn[mode](tb_), 2)
+            b_ms, b_by = bound(tb_, mode, Xm.shape[1])
+            timings[(name, T)] = dict(T=T, rows=Xm.shape[1], ms=ms,
+                                      wrapper_ms=wrap_ms, plain_ms=plain_ms,
+                                      bound_ms=b_ms, bound_by=b_by,
+                                      roofline_share=b_ms / ms)
+            log(f"timing {name} T={T}: kernel {ms:.4f} ms, with host prep "
+                f"{wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}), share {b_ms / ms:.4f}, "
+                f"{T * Xm.shape[1] / (ms * 1e-3):.4g} trees*rows/s")
+
+    # ---- 4. the main path at full width -------------------------------------
+    for k in ke.LAUNCHES:
+        ke.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    per_iter = []
+    t_it = [time.time()]
+
+    def on_iteration(it, cands):
+        best = min(c.loss for c in cands)
+        per_iter.append((time.time() - t_it[0], best))
+        log(f"main path: iteration {it + 1}: {per_iter[-1][0]:.2f} s, "
+            f"best loss {best:.6g}, frontier {len(cands)}")
+        t_it[0] = time.time()
+
+    cfg = dict(binary_operators=["+", "-", "*", "/"],
+               unary_operators=["cos", "exp"], npopulations=64, npop=1000,
+               maxsize=20, loss="L2DistLoss", should_optimize_constants=False,
+               verbosity=0)
+    log(f"main path: equation_search 64 x 1000, {ROWS} rows, maxsize 20, "
+        f"{args.niterations} iterations of {args.ncycles} cycles"
+        + ("" if args.ncycles == 550 else " (cut from 550 to fit the time limit)"))
+    t_main = time.time()
+    res = equation_search(X_np, y_np, niterations=args.niterations,
+                          ncycles_per_iteration=args.ncycles, seed=0,
+                          on_iteration=on_iteration, **cfg)
+    pred = res.predict(X_np)
+    torch.cuda.synchronize()
+    main_s = time.time() - t_main
+    launches = dict(ke.LAUNCHES)
+    total_launches = sum(launches.values())
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main path: {main_s:.1f} s, launches {launches} (total "
+        f"{total_launches}), peak memory {peak / 2**30:.2f} GiB")
+    log(res)
+    assert res.candidates, "empty hall of fame"
+    assert len(per_iter) == args.niterations
+    assert all(np.isfinite(b) for _, b in per_iter), per_iter
+    assert per_iter[-1][1] <= per_iter[0][1], per_iter
+    assert launches["fused_l2"] >= args.niterations * args.ncycles, launches
+    assert all(v > 0 for v in launches.values()), launches
+    assert pred.shape == (ROWS,)
+    best = res.best()
+    log(f"main path: best {best.equation} loss {best.loss:.6g}; "
+        f"s/iteration {[round(s, 3) for s, _ in per_iter]}")
+
+    # ---- 5. the cycle alone ---------------------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from symbolicregression_jl_tpu_torch.api import _baseline_loss
+    from symbolicregression_jl_tpu_torch.models.evolve import (
+        init_island_state, s_r_cycle_islands,
+    )
+    from symbolicregression_jl_tpu_torch.models.options import make_options
+
+    opts = make_options(**cfg)
+    base = _baseline_loss(X, y, None, opts)
+    cgen = make_generator(2, dev)
+    st = init_island_state(cgen, opts, 1, X, y, None, base, 64)
+
+    def cycles(n):
+        nonlocal st
+        torch.cuda.synchronize()
+        tc = time.time()
+        st = s_r_cycle_islands(cgen, st, opts.maxsize, X, y, None, base, opts,
+                               ncycles=n)
+        torch.cuda.synchronize()
+        return (time.time() - tc) * 1e3 / n
+
+    cycles(5)  # warm-up
+    kernel_fold = ke.eval_slot_values
+    cycle_ms = {"kernel_fold": [], "plain_fold": []}
+    for variant in ("kernel_fold", "plain_fold", "kernel_fold", "plain_fold"):
+        ke.eval_slot_values = (kernel_fold if variant == "kernel_fold"
+                               else ke.eval_slot_values_plain)
+        try:
+            cycle_ms[variant].append(cycles(30))
+        finally:
+            ke.eval_slot_values = kernel_fold
+        log(f"cycle alone: {variant}: {cycle_ms[variant][-1]:.2f} ms per cycle "
+            "(30 cycles, host clock)")
+
+    prof_cycles = 20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms = cycles(prof_cycles) * prof_cycles
+    ka = prof.key_averages()
+    dev_attr = ("self_device_time_total"
+                if hasattr(ka[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    kernels_ev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    assert kernels_ev, "the profiler recorded no device activity"
+    busy_ms = sum(getattr(e, dev_attr) for e in kernels_ev) / 1e3
+    n_kernels = sum(e.count for e in kernels_ev)
+    log(ka.table(sort_by=dev_attr, row_limit=15))
+    kernel_cycle = min(cycle_ms["kernel_fold"])
+    cycle_profile = dict(
+        cycles=prof_cycles, wall_ms_profiled=prof_ms, device_busy_ms=busy_ms,
+        kernels_per_cycle=n_kernels / prof_cycles,
+        idle_share_profiled=1 - busy_ms / prof_ms,
+        idle_share_unprofiled=1 - busy_ms / prof_cycles / kernel_cycle)
+    log(f"cycle alone, profiled: {prof_cycles} cycles, wall {prof_ms:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms, {n_kernels / prof_cycles:.0f} device "
+        f"kernels per cycle, idle share {cycle_profile['idle_share_profiled']:.3f}"
+        f" under the profiler, {cycle_profile['idle_share_unprofiled']:.3f} "
+        f"against the unprofiled {kernel_cycle:.2f} ms per cycle")
+
+    # ---- 6. recovery on the card -------------------------------------------
+    rng = np.random.default_rng(0)
+    Xr = rng.integers(-3, 4, size=(5, 100)).astype(np.float32)
+    yr = Xr[0] * Xr[0] - Xr[1] * Xr[2]
+    tr = time.time()
+    rec = equation_search(Xr, yr, binary_operators=["+", "-", "*"],
+                          should_optimize_constants=False, npopulations=16,
+                          npop=100, tournament_selection_n=6,
+                          ncycles_per_iteration=40, maxsize=12,
+                          niterations=30, seed=0, early_stop_condition=1e-6,
+                          verbosity=0)
+    rb = rec.best_loss()
+    log(f"recovery: {rb.equation} loss {rb.loss:.3g} after {rec.iterations} "
+        f"iterations, {time.time() - tr:.1f} s")
+    assert rb.loss < 1e-6, rec
+
+    # ---- the record -----------------------------------------------------------
+    replaces = {
+        "fused_l2": "symbolicregression_jl_tpu/ops/pallas_eval.py:1014 "
+                    "(_postfix_call via eval_loss_trees_pallas :1257)",
+        "value": "symbolicregression_jl_tpu/ops/pallas_eval.py:1014 "
+                 "(_postfix_call via eval_trees_pallas :1059)",
+        "slots": "symbolicregression_jl_tpu/models/mutate_device.py:469 "
+                 "(_const_fold_scan, a lax.scan, not a Pallas kernel)",
+    }
+    headline = {"fused_l2": T_CYCLE, "value": T_CYCLE, "slots": T_CYCLE}
+    kernels = []
+    for name in ("fused_l2", "value", "slots"):
+        h = timings[(name, headline[name])]
+        kernels.append({
+            "name": f"postfix_eval.{name}",
+            "route": "cuda",
+            "source": "symbolicregression_jl_tpu_torch/csrc/postfix_eval.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": err[name],
+            "max_rel_err": rel[name],
+            "ms": h["ms"], "plain_ms": h["plain_ms"],
+            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "library_ms": None,
+            "shapes": [v for (n, _), v in timings.items() if n == name],
+        })
+    log(f"total {time.time() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels, "card": card, "host": cpu,
+                      "main_path": {"s_per_iteration": [s for s, _ in per_iter],
+                                    "ncycles": args.ncycles,
+                                    "peak_bytes": peak},
+                      "cycle_ms": cycle_ms, "cycle_profile": cycle_profile}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

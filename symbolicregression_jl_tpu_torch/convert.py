@@ -1,0 +1,73 @@
+"""Carry the JAX package's search state across to this package.
+
+The input is numpy only — e.g. ``jax.tree_util.tree_map(np.asarray,
+state)._asdict()`` for an ``IslandState`` — as nested mappings or
+attribute-bearing tuples; nothing of the JAX package is imported. Node
+codes and operator numbering are the same in both packages, so trees
+carry across unchanged. The JAX ``key`` field is dropped: this package
+draws from a ``torch.Generator`` held by the caller.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from .models.evolve import IslandState
+from .models.parsimony import RunningSearchStatistics
+from .models.population import HallOfFame, Population
+from .models.trees import TreeBatch
+from .utils.device import resolve_device
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _tensor(x, dtype, device):
+    return torch.as_tensor(np.array(x), device=device).to(dtype)
+
+
+def trees_from_numpy(t, device="cuda") -> TreeBatch:
+    dev = resolve_device(device)
+    ints = [_tensor(_field(t, f), torch.int64, dev) for f in ("kind", "op", "feat")]
+    return TreeBatch(*ints, _tensor(_field(t, "cval"), torch.float32, dev),
+                     _tensor(_field(t, "length"), torch.int64, dev))
+
+
+def population_from_numpy(p, device="cuda") -> Population:
+    dev = resolve_device(device)
+    return Population(
+        trees=trees_from_numpy(_field(p, "trees"), dev),
+        scores=_tensor(_field(p, "scores"), torch.float32, dev),
+        losses=_tensor(_field(p, "losses"), torch.float32, dev),
+        birth=_tensor(_field(p, "birth"), torch.int64, dev),
+    )
+
+
+def hall_of_fame_from_numpy(h, device="cuda") -> HallOfFame:
+    dev = resolve_device(device)
+    return HallOfFame(
+        trees=trees_from_numpy(_field(h, "trees"), dev),
+        scores=_tensor(_field(h, "scores"), torch.float32, dev),
+        losses=_tensor(_field(h, "losses"), torch.float32, dev),
+        exists=_tensor(_field(h, "exists"), torch.bool, dev),
+    )
+
+
+def island_state_from_numpy(s, device="cuda") -> IslandState:
+    """A JAX ``IslandState`` with a leading islands axis (as numpy) ->
+    this package's ``IslandState`` on ``device``."""
+    dev = resolve_device(device)
+    stats = _field(s, "stats")
+    return IslandState(
+        pop=population_from_numpy(_field(s, "pop"), dev),
+        stats=RunningSearchStatistics(
+            _tensor(_field(stats, "frequencies"), torch.float32, dev)),
+        hof=hall_of_fame_from_numpy(_field(s, "hof"), dev),
+        birth_counter=_tensor(_field(s, "birth_counter"), torch.int64, dev),
+        num_evals=_tensor(_field(s, "num_evals"), torch.float32, dev),
+        mut_counts=_tensor(_field(s, "mut_counts"), torch.int64, dev),
+    )

@@ -1,0 +1,63 @@
+"""Scoring: loss evaluation + baseline-normalised, parsimony-penalised score
+(counterpart of ``symbolicregression_jl_tpu/models/fitness.py``).
+
+Routing is by device, with no work gate: the kernel wrapper runs the CUDA
+kernel for CUDA tensors and its plain version for CPU tensors. Unweighted
+L2 scoring takes the fused-loss epilogue; weighted scoring and other
+elementwise losses take value mode followed by the loss and
+``aggregate_loss``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops import kernel_eval
+from ..ops.losses import aggregate_loss, contain_nonfinite, resolve_loss
+from ..ops.operators import OperatorSet
+from ..utils import rng
+from .complexity import compute_complexity
+from .options import Options
+from .trees import TreeBatch
+
+
+def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
+                    weights: Optional[torch.Tensor], operators: OperatorSet,
+                    loss, row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-tree aggregated loss over all rows (or the ``row_idx``
+    minibatch); +inf where the evaluation left the finite domain."""
+    if row_idx is not None:
+        X = X[:, row_idx]
+        y = y[row_idx]
+        weights = None if weights is None else weights[row_idx]
+    if weights is None and isinstance(loss, str) and loss in kernel_eval.FUSED_LOSSES:
+        return kernel_eval.eval_loss_trees(trees, X, y, operators)
+    y_pred, ok = kernel_eval.eval_trees(trees, X, operators)
+    elem = resolve_loss(loss)(y_pred, y)
+    return contain_nonfinite(aggregate_loss(elem, weights), ok)
+
+
+def loss_to_score(loss: torch.Tensor, baseline: float,
+                  complexity: torch.Tensor, options: Options) -> torch.Tensor:
+    """score = loss/baseline + complexity*parsimony."""
+    return loss / baseline + complexity.to(loss.dtype) * options.parsimony
+
+
+def score_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
+                weights: Optional[torch.Tensor], baseline: float,
+                options: Options, row_idx: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(score, loss) per tree."""
+    loss = eval_loss_trees(trees, X, y, weights, options.operators,
+                           options.loss, row_idx)
+    score = loss_to_score(loss, baseline, compute_complexity(trees, options),
+                          options)
+    return contain_nonfinite(score, ref=loss), loss
+
+
+def sample_batch_idx(gen: torch.Generator, n_rows: int, batch_size: int,
+                     device) -> torch.Tensor:
+    """Minibatch rows sampled with replacement."""
+    return rng.randint(gen, (batch_size,), 0, n_rows, device)

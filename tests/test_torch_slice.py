@@ -1,0 +1,252 @@
+"""The PyTorch port's first slice as a whole: JAX search state carried
+across with ``convert.py`` and advanced by both packages, invariants of the
+stochastic modules over many draws, search-level recovery, and the port's
+rules (no JAX imports, the card is the default device). The card-only
+tests are in ``test_torch_gpu.py``."""
+
+import ast
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from symbolicregression_jl_tpu.models import evolve as jevolve
+from symbolicregression_jl_tpu.models import fitness as jfit
+from symbolicregression_jl_tpu.models import population as jpop
+from symbolicregression_jl_tpu.models.options import make_options as jmake
+from symbolicregression_jl_tpu.parallel import migration as jmig
+import symbolicregression_jl_tpu_torch as sr
+from symbolicregression_jl_tpu_torch import convert
+from symbolicregression_jl_tpu_torch.models import constraints as tcons
+from symbolicregression_jl_tpu_torch.models import evolve as tevolve
+from symbolicregression_jl_tpu_torch.models import fitness as tfit
+from symbolicregression_jl_tpu_torch.models import mutate_device as tmut
+from symbolicregression_jl_tpu_torch.models import population as tpop
+from symbolicregression_jl_tpu_torch.models.trees import is_valid_postfix
+from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
+from symbolicregression_jl_tpu_torch.ops import operators as tops
+from symbolicregression_jl_tpu_torch.parallel import migration as tmig
+from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+
+from torch_port_helpers import L, assert_trees_equal
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+CFG = dict(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp"],
+           npopulations=2, npop=24, maxsize=20)
+
+
+@pytest.fixture(scope="module")
+def carried():
+    """A JAX init_island_state (2 islands of 24), its data and options, and
+    the same state carried across to the port."""
+    rng = np.random.default_rng(4)
+    X = rng.uniform(-2, 2, (3, 64)).astype(np.float32)
+    y = (np.cos(X[0]) * X[1] - X[2]).astype(np.float32)
+    baseline = float(np.mean((y - y.mean()) ** 2))
+    jo = jmake(**CFG)
+    to = sr.make_options(should_optimize_constants=False, **CFG)
+    init = jax.jit(jax.vmap(lambda k: jevolve.init_island_state(
+        k, jo, 3, jnp.asarray(X), jnp.asarray(y), None, baseline)))
+    jstates = init(jax.random.split(jax.random.PRNGKey(3), 2))
+    npstate = jax.tree_util.tree_map(np.asarray, jstates)._asdict()
+    tstates = convert.island_state_from_numpy(npstate, "cpu")
+    return X, y, baseline, jo, to, jstates, tstates
+
+
+def _close_trees(ref, got):
+    """Structure exact; constants folded through cos/exp may differ by an
+    ulp or two between XLA's and torch's CPU math, so cval at rtol 1e-6."""
+    for f in ("kind", "op", "feat", "length"):
+        np.testing.assert_array_equal(np.asarray(getattr(ref, f)),
+                                      getattr(got, f).numpy(), err_msg=f)
+    np.testing.assert_allclose(got.cval.numpy(), np.asarray(ref.cval), rtol=1e-6)
+
+
+def test_carried_state_round_trips(carried):
+    _, _, _, _, _, jstates, tstates = carried
+    assert_trees_equal(jstates.pop.trees, tstates.pop.trees)
+    np.testing.assert_array_equal(np.asarray(jstates.pop.losses),
+                                  tstates.pop.losses.numpy())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_score_trees_on_carried_population(carried, weighted):
+    """Both packages rescore the whole carried population (unweighted:
+    the fused-loss path; weighted: value mode + aggregate_loss): rtol 1e-5
+    (the row reductions sum in different orders)."""
+    X, y, baseline, jo, to, jstates, tstates = carried
+    w = np.random.default_rng(9).uniform(0.1, 2.0, X.shape[1]).astype(np.float32)
+    flat = jax.tree_util.tree_map(lambda x: x.reshape((-1,) + x.shape[2:]),
+                                  jstates.pop.trees)
+    s_j, l_j = jax.jit(lambda t: jfit.score_trees(
+        t, jnp.asarray(X), jnp.asarray(y), jnp.asarray(w) if weighted else None,
+        baseline, jo))(flat)
+    s_t, l_t = tfit.score_trees(tstates.pop.trees.map(lambda x: x.reshape((-1,) + x.shape[2:])),
+                                torch.tensor(X), torch.tensor(y),
+                                torch.tensor(w) if weighted else None,
+                                baseline, to)
+    for ref, got in ((s_j, s_t), (l_j, l_t)):
+        ref = np.asarray(ref)
+        np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(ref))
+        fin = np.isfinite(ref)
+        np.testing.assert_allclose(got.numpy()[fin], ref[fin], rtol=1e-5)
+
+
+def test_simplify_merge_pareto_on_carried_state(carried):
+    X, y, baseline, jo, to, jstates, tstates = carried
+    js = jax.jit(lambda s: jevolve.simplify_population_islands(
+        s, jnp.int32(20), jnp.asarray(X), jnp.asarray(y), None, baseline, jo))(jstates)
+    ts = tevolve.simplify_population_islands(
+        tstates, 20, torch.tensor(X), torch.tensor(y), None, baseline, to)
+    _close_trees(js.pop.trees, ts.pop.trees)
+    for f in ("scores", "losses"):
+        np.testing.assert_allclose(getattr(ts.pop, f).numpy(),
+                                   np.asarray(getattr(js.pop, f)), rtol=1e-5)
+    gj = jax.jit(jmig.merge_hofs_across_islands)(js.hof)
+    gt = tmig.merge_hofs_across_islands(ts.hof)
+    _close_trees(gj.trees, gt.trees)
+    np.testing.assert_array_equal(np.asarray(gj.exists), gt.exists.numpy())
+    fin = np.asarray(gj.exists)
+    np.testing.assert_allclose(gt.losses.numpy()[fin], np.asarray(gj.losses)[fin],
+                               rtol=1e-5)
+    np.testing.assert_array_equal(
+        np.asarray(jax.jit(jpop.calculate_pareto_frontier)(gj)),
+        tpop.calculate_pareto_frontier(gt).numpy())
+
+
+# ---------------------------------------------------------------------------
+# Stochastic modules: invariants over many draws
+# ---------------------------------------------------------------------------
+
+
+def _assert_valid(trees, max_len=L):
+    trees = trees.map(lambda x: x.reshape((-1,) + x.shape[trees.length.dim():]))
+    n = trees.length
+    assert int(n.max()) <= max_len and int(n.min()) >= 1
+    pad = torch.arange(trees.max_len) >= n.unsqueeze(-1)
+    assert (trees.kind[pad] == 0).all()
+    for i in range(n.shape[0]):
+        assert is_valid_postfix(trees[i]), i
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mutations_and_crossover_yield_valid_programs(carried, seed):
+    *_, to, _, tstates = carried
+    ops = to.operators
+    gen = make_generator(seed, "cpu")
+    t = tstates.pop.trees.map(lambda x: x.reshape((-1,) + x.shape[2:]))
+    for _ in range(6):  # grow, then edit the grown trees
+        t, _ = tmut.append_random_op(gen, t, 3, ops)
+        outs = [
+            tmut.mutate_constant(gen, t, 1.0, 0.076, 0.01)[0],
+            tmut.mutate_operator(gen, t, ops)[0],
+            tmut.insert_random_op(gen, t, 3, ops, at_root=False)[0],
+            tmut.insert_random_op(gen, t, 3, ops, at_root=True)[0],
+            tmut.delete_random_op(gen, t, 3, ops)[0],
+            tmut.simplify_tree(t, ops)[0],
+            tmut.combine_operators(t, ops)[0],
+            *tmut.crossover_trees(gen, t, t.map(lambda x: x.flip(0)))[:2],
+        ]
+        for o in outs:
+            _assert_valid(o)
+    sizes = torch.randint(1, 21, (64,), generator=torch.Generator().manual_seed(seed))
+    g = tmut.gen_random_tree_fixed_size(gen, sizes, 3, ops, L, "cpu")
+    _assert_valid(g)
+    assert (g.length <= sizes).all()
+
+
+def test_proposed_children_respect_maxsize_and_constraints(carried):
+    X, y, baseline, _, _, _, tstates = carried
+    opts = sr.make_options(should_optimize_constants=False,
+                           constraints={"cos": 5, "/": (-1, 3)},
+                           nested_constraints={"cos": {"cos": 0}}, **CFG)
+    gen = make_generator(7, "cpu")
+    states = tstates
+    Xt, yt = torch.tensor(X), torch.tensor(y)
+    for _ in range(8):
+        prop = tevolve._propose_children(gen, states, 1.0, 9, 3, opts)
+        changed = prop.was_mutated | prop.use_cross
+        ok = tcons.check_constraints(prop.children, opts, 9)
+        assert ok[changed].all()
+        _assert_valid(prop.children)
+        states = tevolve.reg_evol_cycle_islands(gen, states, 1.0, 9, Xt, yt,
+                                                None, baseline, opts)
+    _assert_valid(states.pop.trees)
+
+
+# ---------------------------------------------------------------------------
+# Search level
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_equation_search_recovers_constant_free_target_on_cpu(seed):
+    """Seeds 0-5 all reach loss 0 within 4 iterations on the CPU; three
+    of them run here, each in ~10 s."""
+    rng = np.random.default_rng(0)
+    X = rng.integers(-3, 4, size=(5, 100)).astype(np.float32)
+    y = X[0] * X[0] - X[1] * X[2]
+    res = sr.equation_search(
+        X, y, device="cpu", binary_operators=["+", "-", "*"],
+        should_optimize_constants=False, npopulations=16, npop=100,
+        tournament_selection_n=6, ncycles_per_iteration=40, maxsize=12,
+        niterations=8, seed=seed,
+        early_stop_condition=1e-6, verbosity=0)
+    best = res.best_loss()
+    assert best.loss < 1e-6, res
+    np.testing.assert_allclose(res.predict(X, complexity=best.complexity), y,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Rules
+# ---------------------------------------------------------------------------
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "symbolicregression_jl_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "symbolicregression_jl_tpu"), (
+                    f"{path} imports {name}")
+
+
+def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.zeros((1, 8), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sr.equation_search(X, X[0], should_optimize_constants=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.trees_from_numpy({f: np.zeros((1, 4)) for f in
+                                  ("kind", "op", "feat", "cval")} |
+                                 {"length": np.ones(1)})
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(recorder=True),
+                                dict(should_optimize_constants=False, row_shards=2),
+                                dict(should_optimize_constants=False,
+                                     eval_backend="pallas")])
+def test_unsupported_options_raise(kw):
+    with pytest.raises(NotImplementedError):
+        sr.make_options(**kw)
+
+
+def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
+    """An operator the kernel does not carry raises on a CUDA tensor
+    instead of falling back (checked without a card: the opcode table is
+    built before any launch)."""
+    ops = tops.make_operator_set(["+"], ["erf"])
+    with pytest.raises(NotImplementedError):
+        tke.kernel_opcode_table(ops, "cpu")
