@@ -4,22 +4,34 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
-1. card and build: the card's name and power limit; the CUDA kernel
-   ``symbolicregression_jl_tpu_torch/csrc/postfix_eval.cu`` built with nvcc,
-   with ptxas's register / shared-memory / spill line;
-2. kernel vs plain PyTorch version on the card at the main path's shapes
-   (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's children at 64
-   islands x 1000, 64,000 trees = one rescore), poisoning trees included;
-3. timing of every kernel mode with CUDA events, beside its plain version
-   and its bound (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s);
-4. the main path: ``equation_search`` at 64 islands x 1000, maxsize 20,
-   ``+ - * /`` with ``cos exp``, L2 loss, then ``predict``; the launch
-   counts are zeroed just before and read just after;
-5. the cycle alone at the same widths: milliseconds per cycle with the
+1. card and build: the card's name and power limit; the CUDA kernels
+   ``symbolicregression_jl_tpu_torch/csrc/postfix_eval.cu`` (scoring) and
+   ``csrc/postfix_grad.cu`` (constant optimisation) built with nvcc, one
+   process each, started together, with ptxas's register / shared-memory
+   / spill lines;
+2. scoring kernel vs plain PyTorch version on the card at the main path's
+   shapes (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's children
+   at 64 islands x 1000, 64,000 trees = one rescore), poisoning trees
+   included;
+3. constant-optimisation kernel vs plain version at the main path's
+   shapes: the gradient variant at 26,880 instances (one BFGS step at 64
+   islands x 3 starts x 140 members), the loss-only variant at 215,040
+   (its line search, 8 candidates each); unweighted and weighted with
+   zero-weight rows, poisoning trees included;
+4. timing of every kernel with CUDA events, beside its plain version and
+   its bound (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s);
+5. the main path: ``equation_search`` at 64 islands x 1000, maxsize 20,
+   ``+ - * /`` with ``cos exp``, L2 loss, default constant optimisation
+   (BFGS), then ``predict``; the launch counts are zeroed just before and
+   read just after, and each iteration's optimisation pass is timed;
+6. the cycle alone at the same widths: milliseconds per cycle with the
    constant fold through the slot-values kernel and through its plain
    version (interleaved, twice each), and a profile of 20 cycles without
    init, simplify or rescore (device kernels per cycle, idle share);
-6. recovery of ``x0*x0 - x1*x2`` on the card.
+7. the optimisation pass alone on that 64 x 1000 state: milliseconds per
+   pass, and a profile of one pass (device kernels, the kernels' share);
+8. recovery on the card: ``x0*x0 - x1*x2`` without constant optimisation,
+   ``2*cos(x4) + x1^2 - 2`` with it.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -33,6 +45,7 @@ import platform
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,6 +55,8 @@ F32_OPS_PER_S = 67e12
 ROWS = 2048
 T_CYCLE = 64 * 84  # children per cycle: 64 islands x B=84
 T_RESCORE = 64 * 1000
+T_OPT = 64 * 3 * 140  # BFGS instances: islands x starts x round(1000 * 0.14)
+LS_STEPS = 8  # line-search candidates per instance
 
 
 def log(*a):
@@ -102,6 +117,7 @@ def main():
         TreeBatch, UNA, encode_tree, parse_expression, stack_trees,
     )
     from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
+    from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
     from symbolicregression_jl_tpu_torch.ops.operators import make_operator_set
     from symbolicregression_jl_tpu_torch.utils.rng import make_generator
 
@@ -118,13 +134,17 @@ def main():
     cpu = host_cpu()
     log(f"host: {cpu}")
     tb = time.time()
-    ke.build_library(force=True)
-    log(f"build: nvcc {time.time() - tb:.1f} s")
-    for line in ke.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc process per source
+        for f in [pool.submit(m.build_library, True) for m in (ke, kg)]:
+            f.result()
+    log(f"build: nvcc {time.time() - tb:.1f} s for both sources")
+    for name, m in (("postfix_eval", ke), ("postfix_grad", kg)):
+        for line in m.BUILD_LOG.splitlines():
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
+                log(f"ptxas {name}: {line.strip()}")
 
-    # ---- 2. kernel vs plain at the main path's shapes ---------------------
+    # ---- 2. scoring kernel vs plain at the main path's shapes -------------
     ops = make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
     X_np, y_np = feynman_data()
     X = torch.tensor(X_np, device=dev)
@@ -143,6 +163,8 @@ def main():
     rel = dict(err)
 
     def note(name, got, ref):
+        if got.numel() == 0:
+            return
         err[name] = max(err[name], float((got - ref).abs().max()))
         rel[name] = max(rel[name], float(((got - ref).abs()
                                           / ref.abs().clamp_min(1e-30)).max()))
@@ -183,7 +205,85 @@ def main():
     log(f"kernel vs plain: agree at T={T_CYCLE} and T={T_RESCORE} x {ROWS} "
         f"rows; max abs err {err}; max rel err {rel}")
 
-    # ---- 3. timing ----------------------------------------------------------
+    # ---- 3. constant-optimisation kernel vs plain ---------------------------
+    # one BFGS step's instances: the same random trees and poisoning trees;
+    # the line search runs each tree's structure for 8 perturbed constant
+    # vectors
+    opt_trees = TreeBatch(*(torch.cat([a[: T_OPT - 4], b]) for a, b in
+                            zip(trees, pt)))
+    w_zero = torch.rand(ROWS, generator=gen, device=dev) + 0.5
+    w_zero[:64] = 0.0  # zero-weight rows
+    ls_cval = opt_trees.cval.repeat_interleave(LS_STEPS, 0) * (
+        1 + 0.1 * torch.randn((T_OPT * LS_STEPS, 24), generator=gen, device=dev))
+    ls_trees = opt_trees.map(
+        lambda f: f.repeat_interleave(LS_STEPS, 0))._replace(cval=ls_cval)
+    for name in ("loss_grad", "loss"):
+        err[name] = rel[name] = 0.0
+
+    def check_losses(name, lk, okk, lp, okp):
+        assert torch.equal(okk, okp), f"{name}: ok differs"
+        assert int((~okk).sum()) >= 4, "poisoning trees were not poisoned"
+        fin = okp & torch.isfinite(lp)
+        assert torch.equal(okp & torch.isfinite(lk), fin), f"{name}: inf differs"
+        torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-5, atol=0)
+        note(name, lk[fin], lp[fin])
+
+    def check_grad(weights, chunk=4096):
+        """Gradients, against the sum over rows of the terms' magnitudes
+        (``scale``, float32): where a term is NaN both are NaN; where
+        ``scale`` is finite no partial sum in any order overflows, so both
+        are finite and agree within rtol 1e-4 plus 1e-5 of ``scale`` (both
+        sum 2,048 rows in float32, in different orders, and terms of both
+        signs cancel); where ``scale`` overflowed the result depends on
+        the order of the sum and is only counted."""
+        lk, gk, okk = kg.eval_loss_grad(opt_trees, X, y, weights, ops)
+        outs = [kg.eval_loss_grad_plain(opt_trees[i:i + chunk], X, y, weights,
+                                        ops, scale=True)
+                for i in range(0, T_OPT, chunk)]
+        lp, gp, okp, scale = (torch.cat(z) for z in zip(*outs))
+        check_losses("loss_grad", lk, okk, lp, okp)
+        gk, gp, scale = gk[okp], gp[okp], scale[okp]
+        nan_term = torch.isnan(scale)
+        assert bool(torch.isnan(gk[nan_term]).all()), "gradient NaN differs"
+        assert bool(torch.isnan(gp[nan_term]).all()), "plain gradient NaN differs"
+        fin = torch.isfinite(scale)
+        assert bool(torch.isfinite(gk[fin]).all()), "gradient overflowed"
+        excess = ((gk - gp).abs() - 1e-4 * gp.abs()) / scale.clamp_min(1e-30)
+        worst = float(excess[fin].max()) if bool(fin.any()) else 0.0
+        beyond = (excess > 1e-5) & fin
+        assert not bool(beyond.any()), (
+            f"{int(beyond.sum())} gradients differ; worst excess {worst:.3g} "
+            "of the row-sum yardstick")
+        note("loss_grad", gk[fin], gp[fin])
+        compared = fin & (gp != 0)
+        return (int(okk.sum()), int(compared.sum()),
+                int((compared & (gk == gp)).sum()),
+                int((~fin & ~nan_term).sum()), worst)
+
+    def check_loss(weights, chunk=16384):
+        fn = kg.make_loss_kernel(opt_trees, X, y, weights, ops,
+                                 with_grad=False, reps=LS_STEPS)
+        lk, _, okk = fn(ls_cval)
+        outs = [kg.eval_loss_plain(ls_trees[i:i + chunk], X, y, weights, ops)
+                for i in range(0, T_OPT * LS_STEPS, chunk)]
+        lp, okp = (torch.cat(z) for z in zip(*outs))
+        check_losses("loss", lk, okk, lp, okp)
+
+    for weights, label in ((None, "unweighted"), (w_zero, "weighted, 64 zero-weight rows")):
+        n_ok, n_grad, n_equal, n_over, worst = check_grad(weights)
+        check_loss(weights)
+        torch.cuda.synchronize()
+        log(f"constant-opt kernel vs plain ({label}): agree at {T_OPT} instances "
+            f"(gradient; {n_ok} not poisoned, {n_grad} non-zero CONST "
+            f"gradients compared, {n_equal} of them bit-equal, worst excess "
+            f"{worst:.3g} of the row-sum "
+            f"yardstick, {n_over} whose row sum overflows) and "
+            f"{T_OPT * LS_STEPS} (loss only) x {ROWS} rows")
+    log(f"constant-opt kernel: max abs err loss_grad {err['loss_grad']:.3g}, "
+        f"loss {err['loss']:.3g}; max rel err loss_grad {rel['loss_grad']:.3g}, "
+        f"loss {rel['loss']:.3g}")
+
+    # ---- 4. timing ----------------------------------------------------------
     n_op_nodes = lambda tb_: int((tb_.kind >= UNA).sum())
 
     def bound(tb_, mode, nrows):
@@ -236,35 +336,97 @@ def main():
                 f"({b_by}), share {b_ms / ms:.4f}, "
                 f"{T * Xm.shape[1] / (ms * 1e-3):.4g} trees*rows/s")
 
-    # ---- 4. the main path at full width -------------------------------------
-    for k in ke.LAUNCHES:
-        ke.LAUNCHES[k] = 0
-    torch.cuda.reset_peak_memory_stats()
+    def grad_bound(tb_, reps, with_grad):
+        """Inputs read once: X, y and wn, the four tables of live slots,
+        each tree's length and sort position, the constants of live slots;
+        outputs: loss and poison flag per instance, and the gradient row.
+        Operations per row: each operator node forward (and backward with
+        the gradient), 4 for the weighted squared error (2 more for the
+        seed)."""
+        T, L = tb_.kind.shape
+        N = T * reps
+        live = int(tb_.length.sum())
+        bytes_in = (X.shape[0] * ROWS * 4 + 2 * ROWS * 4 + live * 4 * 4
+                    + T * 8 * 2 + reps * live * 4)
+        bytes_out = N * 4 * 2 + (N * L * 4 if with_grad else 0)
+        ops_ = (reps * n_op_nodes(tb_) * ROWS * (2 if with_grad else 1)
+                + N * ROWS * (6 if with_grad else 4))
+        t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_ / F32_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    for name, with_grad, reps, cv in (("loss_grad", True, 1, opt_trees.cval),
+                                      ("loss", False, LS_STEPS, ls_cval)):
+        raw = kg.stage_launch(opt_trees, X, y, None, ops, with_grad, reps)
+        ms = cuda_ms(lambda: raw(cv), 50)
+        fn = kg.make_loss_kernel(opt_trees, X, y, None, ops, with_grad, reps)
+        wrap_ms = cuda_ms(lambda: fn(cv), 20)
+        if with_grad:
+            plain = lambda: [kg.eval_loss_grad_plain(opt_trees[i:i + 4096], X, y,
+                                                     None, ops)
+                             for i in range(0, T_OPT, 4096)]
+        else:
+            plain = lambda: [kg.eval_loss_plain(ls_trees[i:i + 16384], X, y,
+                                                None, ops)
+                             for i in range(0, T_OPT * LS_STEPS, 16384)]
+        plain_ms = cuda_ms(plain, 1)
+        b_ms, b_by = grad_bound(opt_trees, reps, with_grad)
+        N = T_OPT * reps
+        timings[(name, N)] = dict(T=N, rows=ROWS, ms=ms, wrapper_ms=wrap_ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, roofline_share=b_ms / ms)
+        log(f"timing {name} N={N}: kernel {ms:.4f} ms, with the wrapper's ok "
+            f"mask {wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}), share {b_ms / ms:.4f}, "
+            f"{N * ROWS / (ms * 1e-3):.4g} instances*rows/s")
+
+    # ---- 5. the main path at full width -------------------------------------
+    import symbolicregression_jl_tpu_torch.api as api_mod
+
     per_iter = []
+    opt_s = []  # host seconds of each iteration's optimisation pass
     t_it = [time.time()]
+    untimed_optimize = api_mod.optimize_islands_constants
+
+    def timed_optimize(*a, **k):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = untimed_optimize(*a, **k)
+        torch.cuda.synchronize()
+        opt_s.append(time.time() - t)
+        return out
 
     def on_iteration(it, cands):
         best = min(c.loss for c in cands)
         per_iter.append((time.time() - t_it[0], best))
-        log(f"main path: iteration {it + 1}: {per_iter[-1][0]:.2f} s, "
-            f"best loss {best:.6g}, frontier {len(cands)}")
+        log(f"main path: iteration {it + 1}: {per_iter[-1][0]:.2f} s, of which "
+            f"the optimisation pass {opt_s[-1]:.3f} s; best loss {best:.6g}, "
+            f"frontier {len(cands)}")
         t_it[0] = time.time()
 
     cfg = dict(binary_operators=["+", "-", "*", "/"],
                unary_operators=["cos", "exp"], npopulations=64, npop=1000,
-               maxsize=20, loss="L2DistLoss", should_optimize_constants=False,
-               verbosity=0)
+               maxsize=20, loss="L2DistLoss", verbosity=0)
     log(f"main path: equation_search 64 x 1000, {ROWS} rows, maxsize 20, "
-        f"{args.niterations} iterations of {args.ncycles} cycles"
+        f"default constant optimisation, {args.niterations} iterations of "
+        f"{args.ncycles} cycles"
         + ("" if args.ncycles == 550 else " (cut from 550 to fit the time limit)"))
+    api_mod.optimize_islands_constants = timed_optimize
+    for counts in (ke.LAUNCHES, kg.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.reset_peak_memory_stats()
     t_main = time.time()
-    res = equation_search(X_np, y_np, niterations=args.niterations,
-                          ncycles_per_iteration=args.ncycles, seed=0,
-                          on_iteration=on_iteration, **cfg)
-    pred = res.predict(X_np)
-    torch.cuda.synchronize()
+    try:
+        res = equation_search(X_np, y_np, niterations=args.niterations,
+                              ncycles_per_iteration=args.ncycles, seed=0,
+                              on_iteration=on_iteration, **cfg)
+        pred = res.predict(X_np)
+        torch.cuda.synchronize()
+    finally:
+        api_mod.optimize_islands_constants = untimed_optimize
+    launches = {**ke.LAUNCHES, **kg.LAUNCHES}
     main_s = time.time() - t_main
-    launches = dict(ke.LAUNCHES)
     total_launches = sum(launches.values())
     peak = torch.cuda.max_memory_allocated()
     log(f"main path: {main_s:.1f} s, launches {launches} (total "
@@ -275,13 +437,19 @@ def main():
     assert all(np.isfinite(b) for _, b in per_iter), per_iter
     assert per_iter[-1][1] <= per_iter[0][1], per_iter
     assert launches["fused_l2"] >= args.niterations * args.ncycles, launches
+    # one BFGS pass per iteration: the start and 8 steps (gradient), 8 line
+    # searches (loss only)
+    assert launches["loss_grad"] == 9 * args.niterations, launches
+    assert launches["loss"] == 8 * args.niterations, launches
+    assert len(opt_s) == args.niterations, opt_s
     assert all(v > 0 for v in launches.values()), launches
     assert pred.shape == (ROWS,)
     best = res.best()
     log(f"main path: best {best.equation} loss {best.loss:.6g}; "
-        f"s/iteration {[round(s, 3) for s, _ in per_iter]}")
+        f"s/iteration {[round(s, 3) for s, _ in per_iter]}, optimisation pass "
+        f"s/iteration {[round(s, 3) for s in opt_s]}")
 
-    # ---- 5. the cycle alone ---------------------------------------------------
+    # ---- 6. the cycle alone ---------------------------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -343,7 +511,53 @@ def main():
         f" under the profiler, {cycle_profile['idle_share_unprofiled']:.3f} "
         f"against the unprofiled {kernel_cycle:.2f} ms per cycle")
 
-    # ---- 6. recovery on the card -------------------------------------------
+    # ---- 7. the optimisation pass alone ----------------------------------------
+    from symbolicregression_jl_tpu_torch.models.evolve import (
+        optimize_islands_constants,
+    )
+
+    def opt_pass():
+        nonlocal st
+        torch.cuda.synchronize()
+        tc = time.time()
+        st = optimize_islands_constants(cgen, st, X, y, None, base, opts)
+        torch.cuda.synchronize()
+        return (time.time() - tc) * 1e3
+
+    opt_pass()  # warm-up
+    pass_ms = [opt_pass() for _ in range(3)]
+    before = dict(kg.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_pass_ms = opt_pass()
+    assert kg.LAUNCHES["loss_grad"] - before["loss_grad"] == 9
+    assert kg.LAUNCHES["loss"] - before["loss"] == 8
+    ka = prof.key_averages()
+    log(ka.table(sort_by=dev_attr, row_limit=12))
+    pass_ev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    assert pass_ev, "the profiler recorded no device activity"
+    pass_busy = sum(getattr(e, dev_attr) for e in pass_ev) / 1e3
+    grad_dev = sum(getattr(e, dev_attr) for e in pass_ev
+                   if "postfix_grad" in e.key) / 1e3
+    by_events = (9 * timings[("loss_grad", T_OPT)]["ms"]
+                 + 8 * timings[("loss", T_OPT * LS_STEPS)]["ms"])
+    pass_profile = dict(
+        ms_per_pass=pass_ms, wall_ms_profiled=prof_pass_ms,
+        device_busy_ms=pass_busy,
+        device_kernels=sum(e.count for e in pass_ev),
+        grad_kernels_device_ms=grad_dev,
+        kernel_share_profiled=grad_dev / min(pass_ms),
+        kernel_share_by_events=by_events / min(pass_ms),
+        idle_share_unprofiled=1 - pass_busy / min(pass_ms))
+    log(f"optimisation pass alone (64 x 1000, {T_OPT} BFGS instances): "
+        f"{[round(m, 2) for m in pass_ms]} ms per pass (host clock); profiled: "
+        f"{pass_profile['device_kernels']} device kernels, device busy "
+        f"{pass_busy:.2f} ms, the two kernels {grad_dev:.2f} ms of it; kernel "
+        f"share {pass_profile['kernel_share_profiled']:.3f} (profiler) / "
+        f"{pass_profile['kernel_share_by_events']:.3f} (9 x gradient + 8 x "
+        f"loss-only kernel ms from phase 4), idle share "
+        f"{pass_profile['idle_share_unprofiled']:.3f}")
+
+    # ---- 8. recovery on the card -------------------------------------------
     rng = np.random.default_rng(0)
     Xr = rng.integers(-3, 4, size=(5, 100)).astype(np.float32)
     yr = Xr[0] * Xr[0] - Xr[1] * Xr[2]
@@ -358,6 +572,21 @@ def main():
     log(f"recovery: {rb.equation} loss {rb.loss:.3g} after {rec.iterations} "
         f"iterations, {time.time() - tr:.1f} s")
     assert rb.loss < 1e-6, rec
+    # the reference's precompile workload, constants fitted by BFGS
+    Xc = (rng.standard_normal((5, 100)) * 2).astype(np.float32)
+    yc = 2 * np.cos(Xc[4]) + Xc[1] ** 2 - 2
+    tr = time.time()
+    before = dict(kg.LAUNCHES)
+    rec2 = equation_search(Xc, yc, binary_operators=["+", "-", "*", "/"],
+                           unary_operators=["cos", "exp"], npopulations=16,
+                           npop=100, ncycles_per_iteration=40, maxsize=18,
+                           niterations=30, seed=0, early_stop_condition=1e-3,
+                           verbosity=0)
+    rb2 = rec2.best_loss()
+    log(f"recovery with constants: {rb2.equation} loss {rb2.loss:.3g} after "
+        f"{rec2.iterations} iterations, {time.time() - tr:.1f} s")
+    assert kg.LAUNCHES["loss_grad"] - before["loss_grad"] == 9 * rec2.iterations
+    assert rb2.loss < 1e-2, rec2
 
     # ---- the record -----------------------------------------------------------
     replaces = {
@@ -368,14 +597,23 @@ def main():
         "slots": "symbolicregression_jl_tpu/models/mutate_device.py:469 "
                  "(_const_fold_scan, a lax.scan, not a Pallas kernel)",
     }
-    headline = {"fused_l2": T_CYCLE, "value": T_CYCLE, "slots": T_CYCLE}
+    grad_src = "symbolicregression_jl_tpu/ops/pallas_grad.py:414 "
+    replaces["loss_grad"] = grad_src + (
+        "(make_loss_kernel(with_grad=True) :290, body _make_grad_kernel :64, "
+        "via eval_loss_grad_pallas :235 and models/constant_opt.py:340)")
+    replaces["loss"] = grad_src + (
+        "(make_loss_kernel(with_grad=False) :290, via eval_loss_pallas :266 "
+        "and models/constant_opt.py:347)")
+    headline = {"fused_l2": T_CYCLE, "value": T_CYCLE, "slots": T_CYCLE,
+                "loss_grad": T_OPT, "loss": T_OPT * LS_STEPS}
     kernels = []
-    for name in ("fused_l2", "value", "slots"):
+    for name in ("fused_l2", "value", "slots", "loss_grad", "loss"):
         h = timings[(name, headline[name])]
+        src = "postfix_grad" if name in ("loss_grad", "loss") else "postfix_eval"
         kernels.append({
-            "name": f"postfix_eval.{name}",
+            "name": f"{src}.{name}",
             "route": "cuda",
-            "source": "symbolicregression_jl_tpu_torch/csrc/postfix_eval.cu",
+            "source": f"symbolicregression_jl_tpu_torch/csrc/{src}.cu",
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": err[name],
@@ -388,9 +626,11 @@ def main():
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card, "host": cpu,
                       "main_path": {"s_per_iteration": [s for s, _ in per_iter],
+                                    "optimize_s_per_iteration": opt_s,
                                     "ncycles": args.ncycles,
                                     "peak_bytes": peak},
-                      "cycle_ms": cycle_ms, "cycle_profile": cycle_profile}))
+                      "cycle_ms": cycle_ms, "cycle_profile": cycle_profile,
+                      "optimize_pass": pass_profile}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,12 @@
 """``equation_search``: the search loop on one device (counterpart of
-``symbolicregression_jl_tpu/api.py`` for one output, without the constant
-optimisation legs).
+``symbolicregression_jl_tpu/api.py`` for one output).
 
 One iteration = the cycle loop on every island (each cycle scores all
 islands' children in one kernel call), simplify + full-data rescore,
-hall-of-fame merge across islands, migration. Between iterations the
-host reads the merged hall of fame once and checks the stop conditions.
+constant optimisation (the ``should_optimize_constants`` pass, then the
+``optimize``-mutation pass), hall-of-fame merge across islands,
+migration. Between iterations the host reads the merged hall of fame
+once and checks the stop conditions.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import torch
 
 from .models.evolve import (
     IslandState,
+    expected_optimize_count,
     init_island_state,
+    optimize_islands_constants,
     s_r_cycle_islands,
     simplify_population_islands,
 )
@@ -158,6 +161,9 @@ def equation_search(X, y, *, weights=None,
     states = init_island_state(gen, options, nfeatures, Xt, yt, wt, baseline, I)
     ghof = merge_hofs_across_islands(states.hof)
     early_stop = options.early_stop_fn()
+    # the `optimize` mutation: one iteration-level pass sized to the
+    # expected number of sampled optimize slots
+    n_opt_mut = expected_optimize_count(options)
     cands: List[Candidate] = []
     it = -1
     for it in range(niterations):
@@ -166,6 +172,14 @@ def equation_search(X, y, *, weights=None,
                                    options)
         states = simplify_population_islands(states, cm, Xt, yt, wt,
                                              baseline, options)
+        if options.should_optimize_constants and options.optimizer_probability > 0:
+            states = optimize_islands_constants(gen, states, Xt, yt, wt,
+                                                baseline, options)
+        if n_opt_mut > 0:
+            states = optimize_islands_constants(
+                gen, states, Xt, yt, wt, baseline, options,
+                probability=min(1.0, n_opt_mut / options.npop),
+                count_optimize_telemetry=True)
         ghof = merge_hofs_across_islands(states.hof)
         states = migrate(gen, states, ghof, options)
         cands = hof_to_candidates(ghof, options, variable_names)

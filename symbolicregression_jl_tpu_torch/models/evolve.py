@@ -20,6 +20,7 @@ import torch
 
 from ..utils import rng
 from .complexity import compute_complexity
+from .constant_opt import optimize_constants_islands
 from .constraints import check_constraints
 from .fitness import sample_batch_idx, score_trees
 from .mutate_device import (
@@ -83,6 +84,15 @@ class IslandState(NamedTuple):
     birth_counter: torch.Tensor  # (I,) int64
     num_evals: torch.Tensor  # (I,) float32
     mut_counts: torch.Tensor  # (I, len(MUTATION_NAMES), 2) proposed/accepted
+
+
+def _map_tensors(fn, x):
+    """``fn`` on every tensor of a nest of NamedTuples."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple):
+        return type(x)(*(_map_tensors(fn, f) for f in x))
+    return x
 
 
 def _flat(trees: TreeBatch, nb: int = 2) -> TreeBatch:
@@ -377,6 +387,67 @@ def simplify_population_islands(states: IslandState, curmaxsize, X, y,
         hof=update_hall_of_fame(states.hof, trees, scores, losses, options),
         num_evals=states.num_evals + npop,
     )
+
+
+def optimize_islands_constants(gen, states: IslandState, X, y, weights,
+                               baseline: float, options: Options,
+                               probability: Optional[float] = None,
+                               count_optimize_telemetry: bool = False
+                               ) -> IslandState:
+    """Constant-optimise every island's population in one batch and fold
+    the improved members into each island's hall of fame. With
+    ``count_optimize_telemetry`` (the ``optimize``-mutation pass) the
+    attempted / improved counts land in the OPTIMIZE row of
+    ``mut_counts``."""
+    pops, n_evals, n_attempted = optimize_constants_islands(
+        gen, states.pop, X, y, weights, baseline, options, probability)
+    return fold_optimized(states, pops, n_evals, n_attempted, options,
+                          count_optimize_telemetry)
+
+
+def fold_optimized(states: IslandState, pops: Population, n_evals,
+                   n_attempted, options: Options,
+                   count_optimize_telemetry: bool = False) -> IslandState:
+    """The islands' state after an optimisation pass returned ``pops``."""
+    counts = states.mut_counts
+    if count_optimize_telemetry:
+        n_improved = (pops.losses < states.pop.losses).sum(-1)
+        counts = counts.clone()
+        counts[:, OPTIMIZE, 0] += n_attempted
+        counts[:, OPTIMIZE, 1] += n_improved
+    return states._replace(
+        pop=pops,
+        hof=update_hall_of_fame(states.hof, pops.trees, pops.scores,
+                                pops.losses, options),
+        num_evals=states.num_evals + n_evals,
+        mut_counts=counts,
+    )
+
+
+def optimize_island_constants(gen, state: IslandState, X, y, weights,
+                              baseline: float, options: Options,
+                              probability: Optional[float] = None,
+                              count_optimize_telemetry: bool = False
+                              ) -> IslandState:
+    """The one-island form of ``optimize_islands_constants``."""
+    out = optimize_islands_constants(
+        gen, _map_tensors(lambda x: x.unsqueeze(0), state), X, y, weights,
+        baseline, options, probability, count_optimize_telemetry)
+    return _map_tensors(lambda x: x[0], out)
+
+
+def expected_optimize_count(options: Options) -> float:
+    """Expected ``optimize`` mutation events per island per iteration:
+    cycles x mutation slots x P(kind == optimize), crossover slots
+    excluded. One iteration-level optimisation pass is sized to it."""
+    w = options.mutation_weights.as_tuple()
+    total = sum(w)
+    if total <= 0 or w[OPTIMIZE] <= 0:
+        return 0.0
+    B = options.n_parallel_tournaments
+    B += B % 2
+    return (options.ncycles_per_iteration * B
+            * (1.0 - options.crossover_probability) * w[OPTIMIZE] / total)
 
 
 def init_island_state(gen, options: Options, nfeatures: int, X, y, weights,

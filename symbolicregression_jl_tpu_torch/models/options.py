@@ -16,6 +16,7 @@ from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
 
+from ..ops.kernel_eval import FUSED_LOSSES
 from ..ops.losses import resolve_loss
 from ..ops.operators import OperatorSet, canonical_name, make_operator_set
 
@@ -64,17 +65,14 @@ _DEPRECATED_KWARGS = {
     "earlyStopCondition": "early_stop_condition",
 }
 
-_CONST_OPT = "constant optimisation (BFGS on the gradient kernel) is the next slice of the port"
+_LATER_OPTIMIZERS = "Nelder-Mead and Newton come with a later slice of the port"
 
 # JAX Options fields this slice does not honour, with the value that means
 # "off" and the slice that brings them. Passing anything else raises.
 _UNSUPPORTED = {
-    "should_optimize_constants": (False, _CONST_OPT),
-    "optimizer_algorithm": ("BFGS", _CONST_OPT),
-    "optimizer_probability": (0.14, _CONST_OPT),
-    "optimizer_nrestarts": (2, _CONST_OPT),
-    "optimizer_iterations": (8, _CONST_OPT),
-    "optimizer_backend": ("auto", _CONST_OPT),
+    "optimizer_algorithm": ("BFGS", _LATER_OPTIMIZERS),
+    "optimizer_backend": ("auto", "'jnp' and 'pallas' are the JAX package's "
+                          "routing levers; the port routes by device"),
     "recorder": (False, "the lineage recorder comes with the host subsystems slice"),
     "cache_fitness": (False, "the evaluation memo bank comes with the cache/ slice"),
     "telemetry": (False, "telemetry comes with the telemetry/ slice"),
@@ -89,7 +87,6 @@ _UNSUPPORTED = {
     "independent_island_batches": (False, "per-island minibatches come with a later slice"),
 }
 _ACCEPTED_OFF_VALUES = {
-    "should_optimize_constants": (False,),
     "kernel_program": ("auto", "postfix"),
 }
 # TPU levers of the JAX package that the port does not carry at all
@@ -133,7 +130,7 @@ class Options:
     hof_migration: bool = True
     fraction_replaced: float = 0.00036
     fraction_replaced_hof: float = 0.035
-    # --- constant optimisation (must stay off in this slice) ---
+    # --- constant optimisation (BFGS, L2 loss) ---
     should_optimize_constants: bool = True
     optimizer_algorithm: str = "BFGS"
     optimizer_probability: float = 0.14
@@ -198,9 +195,15 @@ class Options:
                     f"{name}={value!r} is not supported by the PyTorch port "
                     f"yet: {why}"
                 )
-        if self.mutation_weights.optimize > 0:
+        optimizes = ((self.should_optimize_constants
+                      and self.optimizer_probability > 0)
+                     or self.mutation_weights.optimize > 0)
+        if optimizes and self.loss not in FUSED_LOSSES:
             raise NotImplementedError(
-                f"mutation_weights.optimize > 0 is not supported: {_CONST_OPT}"
+                f"constant optimisation with loss={self.loss!r}: the gradient "
+                "kernel carries L2 only; other elementwise losses come with a "
+                "later slice of the port (pass should_optimize_constants="
+                "False to search without it)"
             )
         if not 0 < self.tournament_selection_p <= 1:
             raise ValueError("tournament_selection_p must be in (0, 1]")

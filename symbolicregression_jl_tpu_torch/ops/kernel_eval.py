@@ -187,26 +187,37 @@ def eval_slot_values_plain(trees: TreeBatch, X: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def build_library(force: bool = False) -> pathlib.Path:
-    """Compile csrc/postfix_eval.cu with nvcc into build/ (once)."""
-    global BUILD_LOG
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return LIBRARY
+def compile_library(source: pathlib.Path, library: pathlib.Path,
+                    extra_flags=()) -> str:
+    """Compile one CUDA source with nvcc into a shared library with a plain
+    C interface; returns nvcc's output (the -Xptxas -v lines included)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     if not os.path.exists(nvcc):
         nvcc = "nvcc"
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp.so")
+    tmp = library.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp.so")
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
-    BUILD_LOG = proc.stdout + proc.stderr
+    log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{BUILD_LOG}")
-    os.replace(tmp, LIBRARY)
+        raise RuntimeError(f"nvcc failed to build {source}:\n{log}")
+    os.replace(tmp, library)
+    return log
+
+
+def is_built(source: pathlib.Path, library: pathlib.Path) -> bool:
+    return (library.exists()
+            and library.stat().st_mtime >= source.stat().st_mtime)
+
+
+def build_library(force: bool = False) -> pathlib.Path:
+    """Compile csrc/postfix_eval.cu with nvcc into build/ (once)."""
+    global BUILD_LOG
+    if force or not is_built(SOURCE, LIBRARY):
+        BUILD_LOG = compile_library(SOURCE, LIBRARY)
     return LIBRARY
 
 

@@ -20,6 +20,12 @@ def l2_dist_loss(pred, target):
     return d * d
 
 
+def l2_dist_loss_grad(pred, target):
+    """d l2_dist_loss / d pred: the seed of the constant-gradient kernel's
+    adjoint sweep."""
+    return 2.0 * (pred - target)
+
+
 def l1_dist_loss(pred, target):
     return torch.abs(pred - target)
 

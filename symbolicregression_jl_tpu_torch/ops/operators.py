@@ -214,6 +214,80 @@ KERNEL_BINARY_IDS: Dict[str, int] = {
     "min": 46,
 }
 
+# ---------------------------------------------------------------------------
+# Closed-form derivatives of the kernel operators (the adjoint sweep of the
+# loss+gradient kernel, csrc/postfix_grad.cu, computes the same forms)
+# ---------------------------------------------------------------------------
+# Each entry is the vector-Jacobian product of the JAX registry function:
+# unary ``vjp(a, v, w) -> dL/da`` and binary ``vjp(b, a, v, w) -> (dL/db,
+# dL/da)``, where ``a`` (and the left operand ``b``) are the operands, ``v``
+# the operator's value and ``w`` the adjoint arriving at it. The forms are
+# the lax JVP rules, so the guards and edges come out as ``jax.vjp`` gives
+# them: a select (the NaN-domain guards, ``abs``) passes 0 whatever ``w``
+# is, a product gives ``0 * inf = NaN``; ``max``/``min`` (hence ``relu``)
+# split a tie 0.5/0.5; ``abs'(0) = 1``; ``sqrt'(+-0) = +-inf``; the
+# exponent derivative of ``^`` uses log(1) at base 0; ``sign'`` is 0.
+
+_LN2_F32 = float(torch.tensor(math.log(2.0), dtype=torch.float32))
+_INV_LN10_F32 = float(torch.tensor(1.0 / math.log(10.0), dtype=torch.float32))
+
+
+def _sel(cond, x):
+    return torch.where(cond, x, torch.zeros_like(x))
+
+
+def _balanced_eq(x, z, y):
+    """1 where x alone reaches the max/min z, 0.5 on a tie, else 0."""
+    one = torch.ones_like(z)
+    return torch.where(x == z, torch.where(y == z, 0.5 * one, one), 0.0 * one)
+
+
+def _pow_vjp(b, a, v, w):
+    bad = ((b < 0) & (a != torch.round(a))) | ((b == 0) & (a < 0))
+    base = torch.where(bad, torch.ones_like(b), b)
+    g = _sel(~bad, w)
+    db = _sel(~bad, g * (a * torch.pow(base, a - 1.0)))
+    da = g * (torch.log(torch.where(base == 0, torch.ones_like(base), base))
+              * torch.pow(base, a))
+    return db, da
+
+
+UNARY_VJP: Dict[str, Callable] = {
+    "cos": lambda a, v, w: -(w * torch.sin(a)),
+    "sin": lambda a, v, w: w * torch.cos(a),
+    "tan": lambda a, v, w: w * (1.0 + v * v),
+    "exp": lambda a, v, w: w * v,
+    "log": lambda a, v, w: _sel(a > 0, w / a),
+    "log2": lambda a, v, w: _sel(a > 0, (w / _LN2_F32) / a),
+    "log10": lambda a, v, w: _sel(a > 0, (w * _INV_LN10_F32) / a),
+    "log1p": lambda a, v, w: _sel(a > -1, w / (a + 1.0)),
+    "sqrt": lambda a, v, w: _sel(a >= 0, w * (0.5 / v)),
+    "abs": lambda a, v, w: torch.where(a >= 0, w, -w),
+    "square": lambda a, v, w: 2.0 * (w * a),
+    "cube": lambda a, v, w: (a * a) * w + 2.0 * ((w * a) * a),
+    "neg": lambda a, v, w: -w,
+    "relu": lambda a, v, w: w * _balanced_eq(a, v, torch.zeros_like(a)),
+    "sinh": lambda a, v, w: w * torch.cosh(a),
+    "cosh": lambda a, v, w: w * torch.sinh(a),
+    "tanh": lambda a, v, w: (w + w * v) * (1.0 - v),
+    "sigmoid": lambda a, v, w: w * (v * (1.0 - v)),
+    "inv": lambda a, v, w: -w * (1.0 / (a * a)),
+    "identity": lambda a, v, w: w,
+    "sign": lambda a, v, w: torch.zeros_like(w),
+    "gauss": lambda a, v, w: -2.0 * ((w * v) * a),
+}
+
+BINARY_VJP: Dict[str, Callable] = {
+    "+": lambda b, a, v, w: (w, w),
+    "-": lambda b, a, v, w: (w, -w),
+    "*": lambda b, a, v, w: (w * a, b * w),
+    "/": lambda b, a, v, w: (w / a, (-w * b) * (1.0 / (a * a))),
+    "^": _pow_vjp,
+    "pow": _pow_vjp,
+    "max": lambda b, a, v, w: (w * _balanced_eq(b, v, a), w * _balanced_eq(a, v, b)),
+    "min": lambda b, a, v, w: (w * _balanced_eq(b, v, a), w * _balanced_eq(a, v, b)),
+}
+
 _ALIASES = {
     "plus": "+",
     "sub": "-",

@@ -1,6 +1,7 @@
-"""The PyTorch port on a CUDA card: the kernel in every mode against its
-plain version, each operator the kernel carries on the edge grid, and a
-short search. Marked ``gpu``; each skips without a card (decided in a
+"""The PyTorch port on a CUDA card: the scoring kernel in every mode and
+the constant-gradient kernel in both variants against their plain
+versions, each operator the kernels carry (and its derivative) on the edge
+grid, and short searches. Marked ``gpu``; each skips without a card (decided in a
 fixture, so every test worker collects the same tests).
 
 This file imports neither JAX nor the JAX package, because the machine
@@ -16,8 +17,11 @@ import torch
 
 import symbolicregression_jl_tpu_torch as sr
 from symbolicregression_jl_tpu_torch.models import mutate_device as tmut
-from symbolicregression_jl_tpu_torch.models.trees import BIN, UNA, VAR, TreeBatch
+from symbolicregression_jl_tpu_torch.models.trees import (
+    BIN, CONST, UNA, VAR, TreeBatch, encode_tree, parse_expression, stack_trees,
+)
 from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
+from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 from symbolicregression_jl_tpu_torch.utils.rng import make_generator
 
@@ -103,3 +107,124 @@ def test_equation_search_on_card(cuda):
         verbosity=0)
     assert tke.LAUNCHES["fused_l2"] - before >= 2 * 40
     assert res.candidates and np.isfinite(res.best_loss().loss)
+
+
+def _assert_grad_outputs_close(got, ref, scale=None):
+    """ok equal; loss at rtol 1e-5 where ok and finite. CONST-slot
+    gradients against ``scale``, the sum over rows of the terms'
+    magnitudes: where a term is NaN both are NaN; where ``scale`` is
+    finite no partial sum overflows in any order, so both are finite and
+    agree within rtol 1e-4 plus 1e-5 of ``scale`` (rows summed in
+    different orders; terms of both signs cancel); where ``scale``
+    overflowed the result depends on the order of the sum."""
+    (lk, gk, okk), (lp, gp, okp) = got, ref
+    assert torch.equal(okk, okp)
+    fin = okp & torch.isfinite(lp)
+    assert torch.equal(torch.isfinite(lk[okp]), fin[okp])
+    torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-5, atol=0)
+    if gp is None:
+        return
+    gk, gp, scale = gk[okp], gp[okp], scale[okp]
+    nan_term = torch.isnan(scale)
+    assert bool(torch.isnan(gk[nan_term]).all())
+    m = torch.isfinite(scale)
+    assert bool(torch.isfinite(gk[m]).all())
+    tol = 1e-4 * gp.abs() + 1e-5 * scale
+    assert bool(((gk - gp).abs() <= tol)[m].all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+def test_grad_kernel_matches_plain_on_card(cuda, weighted):
+    """Both variants, poisoning trees and zero-weight rows included, and
+    the line search's repeated structure (reps = 8)."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp", "sqrt", "log"])
+    gen = make_generator(1, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, 24, (500,), device=cuda), 3, ops, L, cuda)
+    edge = stack_trees([encode_tree(parse_expression(e, ops), L, device=cuda)
+                        for e in ("x0 / (x1 - x1)", "exp(exp(exp(x1 * 1.5)))",
+                                  "2.5", "0.7 + cos(x0 * 1.3)", "sqrt(1.2 * x0)")])
+    trees = TreeBatch(*(torch.cat([a, b]) for a, b in zip(trees, edge)))
+    X = torch.randn(3, 333, device=cuda) * 2
+    X[0] = X[0].abs()
+    X[0, :4] = 0.0
+    y = torch.randn(333, device=cuda)
+    w = None
+    if weighted:
+        w = torch.rand(333, device=cuda) + 0.5
+        w[:4] = 0.0
+    before = dict(tkg.LAUNCHES)
+    got = tkg.eval_loss_grad(trees, X, y, w, ops)
+    *ref, scale = tkg.eval_loss_grad_plain(trees, X, y, w, ops, scale=True)
+    assert 0 < int(got[2].sum()) < 505
+    _assert_grad_outputs_close(got, ref, scale)
+    lk, okk = tkg.eval_loss(trees, X, y, w, ops)
+    lp, okp = tkg.eval_loss_plain(trees, X, y, w, ops)
+    _assert_grad_outputs_close((lk, None, okk), (lp, None, okp))
+    cv = trees.cval.repeat_interleave(8, 0) * (
+        1 + 0.1 * torch.randn(505 * 8, L, device=cuda))
+    rep = trees.map(lambda f: f.repeat_interleave(8, 0))._replace(cval=cv)
+    *ref, scale = tkg.eval_loss_grad_plain(rep, X, y, w, ops, scale=True)
+    for with_grad in (True, False):
+        fn = tkg.make_loss_kernel(trees, X, y, w, ops, with_grad, reps=8)
+        got = fn(cv.reshape(505, 8, L))
+        got = tuple(None if g is None else g.reshape((505 * 8,) + g.shape[2:])
+                    for g in got)
+        _assert_grad_outputs_close(
+            got, ref if with_grad else (ref[0], None, ref[2]), scale)
+    assert tkg.LAUNCHES["loss_grad"] == before["loss_grad"] + 2
+    assert tkg.LAUNCHES["loss"] == before["loss"] + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted({**tops.KERNEL_UNARY_IDS,
+                                         **tops.KERNEL_BINARY_IDS}))
+def test_grad_kernel_operator_grid_on_card(cuda, name):
+    """Each operator over constant operands from the edge grid (one
+    instance per grid point, one row): the loss-gradient kernel's
+    derivative against the plain version's derivative table."""
+    unary = name in tops.KERNEL_UNARY_IDS
+    ops = (tops.make_operator_set([], [name]) if unary
+           else tops.make_operator_set([name], []))
+    if unary:
+        cv = torch.tensor(GRID)[:, None]
+        kind = [CONST, UNA]
+    else:
+        a, b = np.meshgrid(GRID, GRID, indexing="ij")
+        cv = torch.tensor(np.stack([b.ravel(), a.ravel()], -1))
+        kind = [CONST, CONST, BIN]
+    n, T = len(kind), cv.shape[0]
+    cval = torch.zeros((T, L))
+    cval[:, : cv.shape[1]] = cv
+    t = TreeBatch(torch.tensor([kind + [0] * (L - n)] * T),
+                  torch.zeros((T, L), dtype=torch.int64),
+                  torch.zeros((T, L), dtype=torch.int64), cval,
+                  torch.full((T,), n))
+    X, y = torch.zeros((1, 1)), torch.full((1,), 0.25)
+    lp, gp, okp = tkg.eval_loss_grad_plain(t, X, y, None, ops)
+    lk, gk, okk = tkg.eval_loss_grad(t.map(lambda f: f.to(cuda)), X.to(cuda),
+                                     y.to(cuda), None, ops)
+    lk, gk, okk = lk.cpu(), gk.cpu(), okk.cpu()
+    assert torch.equal(okk, okp)
+    for got, ref in ((lk, lp), (gk, gp)):
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        m = ~torch.isnan(ref)
+        torch.testing.assert_close(got[m], ref[m], rtol=1e-5, atol=1e-30)
+
+
+@pytest.mark.gpu
+def test_equation_search_with_constant_optimisation_on_card(cuda):
+    """Default constant optimisation: per iteration one BFGS pass of 9
+    gradient and 8 line-search launches."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-3, 3, (2, 200)).astype(np.float32)
+    y = 2.5 * np.cos(X[0]) + 0.7
+    before = dict(tkg.LAUNCHES)
+    res = sr.equation_search(
+        X, y, binary_operators=["+", "*"], unary_operators=["cos"],
+        npopulations=8, npop=60, ncycles_per_iteration=30, maxsize=10,
+        niterations=3, seed=0, verbosity=0)
+    assert tkg.LAUNCHES["loss_grad"] - before["loss_grad"] == 9 * 3
+    assert tkg.LAUNCHES["loss"] - before["loss"] == 8 * 3
+    assert res.best_loss().loss < 1e-2

@@ -210,6 +210,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "symbolicregression_jl_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    port = REPO / "symbolicregression_jl_tpu_torch"
+    assert {port / "ops" / "kernel_grad.py",
+            port / "models" / "constant_opt.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
@@ -234,7 +237,8 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
                                  {"length": np.ones(1)})
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(recorder=True),
+@pytest.mark.parametrize("kw", [dict(optimizer_algorithm="NelderMead"),
+                                dict(recorder=True),
                                 dict(should_optimize_constants=False, row_shards=2),
                                 dict(should_optimize_constants=False,
                                      eval_backend="pallas")])
