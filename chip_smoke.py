@@ -5,25 +5,34 @@
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. card and build: the card's name and power limit; the CUDA kernels
-   ``symbolicregression_jl_tpu_torch/csrc/postfix_eval.cu`` (scoring) and
-   ``csrc/postfix_grad.cu`` (constant optimisation) built with nvcc, one
+   ``symbolicregression_jl_tpu_torch/csrc/postfix_eval.cu`` (scoring),
+   ``csrc/postfix_grad.cu`` (constant optimisation) and
+   ``csrc/instr_eval.cu`` (instruction programs) built with nvcc, one
    process each, started together, with ptxas's register / shared-memory
    / spill lines;
-2. scoring kernel vs plain PyTorch version on the card at the main path's
-   shapes (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's children
-   at 64 islands x 1000, 64,000 trees = one rescore), poisoning trees
-   included;
+2. scoring kernels vs plain PyTorch versions on the card at the main
+   path's shapes (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's
+   children at 64 islands x 1000, 64,000 trees = one rescore), poisoning
+   trees, bare leaves and a unary chain included: the postfix kernel in
+   every mode, and the instruction-program kernels, whose values must be
+   bit-equal to the postfix value mode's;
 3. constant-optimisation kernel vs plain version at the main path's
    shapes: the gradient variant at 26,880 instances (one BFGS step at 64
    islands x 3 starts x 140 members), the loss-only variant at 215,040
    (its line search, 8 candidates each); unweighted and weighted with
-   zero-weight rows, poisoning trees included;
+   zero-weight rows, poisoning trees included; then every kernel on random
+   trees over all 44 registry operators, the hand-written digamma against
+   torch.digamma, and a short search over the operators the earlier
+   slices did not carry;
 4. timing of every kernel with CUDA events, beside its plain version and
    its bound (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s);
 5. the main path: ``equation_search`` at 64 islands x 1000, maxsize 20,
    ``+ - * /`` with ``cos exp``, L2 loss, default constant optimisation
    (BFGS), then ``predict``; the launch counts are zeroed just before and
-   read just after, and each iteration's optimisation pass is timed;
+   read just after, and each iteration's optimisation pass is timed; then
+   the same search with ``kernel_program="instr"`` and ``"instr_packed"``
+   (one iteration each, same seed: their halls of fame must be
+   bit-equal), the counts zeroed before and read after each;
 6. the cycle alone at the same widths: milliseconds per cycle with the
    constant fold through the slot-values kernel and through its plain
    version (interleaved, twice each), and a profile of 20 cycles without
@@ -118,7 +127,10 @@ def main():
     )
     from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
     from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
-    from symbolicregression_jl_tpu_torch.ops.operators import make_operator_set
+    from symbolicregression_jl_tpu_torch.ops import kernel_instr as ki
+    from symbolicregression_jl_tpu_torch.ops.operators import (
+        BINARY_REGISTRY, UNARY_REGISTRY, make_operator_set,
+    )
     from symbolicregression_jl_tpu_torch.utils.rng import make_generator
 
     dev = torch.device("cuda")
@@ -134,11 +146,12 @@ def main():
     cpu = host_cpu()
     log(f"host: {cpu}")
     tb = time.time()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc process per source
-        for f in [pool.submit(m.build_library, True) for m in (ke, kg)]:
+    with ThreadPoolExecutor(3) as pool:  # one nvcc process per source
+        for f in [pool.submit(m.build_library, True) for m in (ke, kg, ki)]:
             f.result()
-    log(f"build: nvcc {time.time() - tb:.1f} s for both sources")
-    for name, m in (("postfix_eval", ke), ("postfix_grad", kg)):
+    log(f"build: nvcc {time.time() - tb:.1f} s for the three sources")
+    for name, m in (("postfix_eval", ke), ("postfix_grad", kg),
+                    ("instr_eval", ki)):
         for line in m.BUILD_LOG.splitlines():
             if ("registers" in line or "spill" in line or "smem" in line
                     or "Compiling entry" in line):
@@ -156,8 +169,12 @@ def main():
         "x0 / (x0 - x0)", "exp(exp(exp(exp(x0))))", "(x0 * 0.5) / (x0 - x0)",
         "cos(x0) + exp(exp(exp(exp(x0 + 1.5))))")]
     pt = stack_trees([encode_tree(e, 24, device=dev) for e in poison])
-    trees = TreeBatch(*(torch.cat([a[: T_RESCORE - 4], b]) for a, b in
-                        zip(trees, pt)))
+    # bare leaves (one IDENT step of the instruction program) and a unary
+    # chain (no leaf to drop) just before the poisoning trees
+    edge = stack_trees([encode_tree(parse_expression(s, ops), 24, device=dev)
+                        for s in ("0.5", "x0", "cos(" * 9 + "x0" + ")" * 9)])
+    trees = TreeBatch(*(torch.cat([a[: T_RESCORE - 7], e, b]) for a, e, b in
+                        zip(trees, edge, pt)))
     cycle = trees[T_RESCORE - T_CYCLE:]  # includes the poisoning trees
     err = {"value": 0.0, "fused_l2": 0.0, "slots": 0.0}
     rel = dict(err)
@@ -196,11 +213,49 @@ def main():
         torch.testing.assert_close(sk[fin], sp[fin], rtol=1e-5, atol=1e-6)
         note("slots", sk[fin], sp[fin])
 
+    for name in ("instr", "instr_packed"):
+        err[name] = rel[name] = 0.0
+
+    def ulp_mismatch(got, ref):
+        """(count, max ulp distance) of the elements whose bits differ."""
+        gi, ri = got.view(torch.int32).long(), ref.view(torch.int32).long()
+        diff = gi != ri
+        n = int(diff.sum())
+        return n, int((gi - ri).abs()[diff].max()) if n else 0
+
+    def check_instr(tb_, Xc, opsc, label, chunk=8192):
+        """B5 and B6: ok equal to the postfix value mode's and values
+        bit-equal to it where ok; against the plain version at rtol 1e-5 /
+        atol 1e-6."""
+        yv, okv = ke.eval_trees(tb_, Xc, opsc)
+        for name, packed in (("instr", False), ("instr_packed", True)):
+            yk, okk = ki.eval_trees_instr(tb_, Xc, opsc, packed)
+            assert torch.equal(okk, okv), (
+                f"{name} {label}: ok differs from the value mode at "
+                f"{int((okk != okv).sum())} trees")
+            n, ulp = ulp_mismatch(yk[okv], yv[okv])
+            if n:
+                log(f"{name} {label}: {n} values differ from the postfix value "
+                    f"mode, max {ulp} ulp")
+            assert n == 0, f"{name} {label}: not bit-equal to the value mode"
+            for i in range(0, tb_.length.shape[0], chunk):
+                yp, okp = ki.eval_trees_instr_plain(tb_[i:i + chunk], Xc, opsc,
+                                                    packed)
+                assert torch.equal(okp, okk[i:i + chunk]), f"{name}: ok vs plain"
+                torch.testing.assert_close(yk[i:i + chunk][okp], yp[okp],
+                                           rtol=1e-5, atol=1e-6)
+                note(name, yk[i:i + chunk][okp], yp[okp])
+        return int(okv.sum())
+
     check_value(cycle)
     check_fused(cycle)
     check_fused(trees)
     check_slots(cycle)
     check_slots(trees)
+    for tb_ in (cycle, trees):
+        n_ok = check_instr(tb_, X, ops, f"T={tb_.length.shape[0]}")
+        log(f"instr kernels T={tb_.length.shape[0]}: ok equal and values "
+            f"bit-equal to the postfix value mode ({n_ok} trees not poisoned)")
     torch.cuda.synchronize()
     log(f"kernel vs plain: agree at T={T_CYCLE} and T={T_RESCORE} x {ROWS} "
         f"rows; max abs err {err}; max rel err {rel}")
@@ -220,15 +275,16 @@ def main():
     for name in ("loss_grad", "loss"):
         err[name] = rel[name] = 0.0
 
-    def check_losses(name, lk, okk, lp, okp):
+    def check_losses(name, lk, okk, lp, okp, min_poisoned=4):
         assert torch.equal(okk, okp), f"{name}: ok differs"
-        assert int((~okk).sum()) >= 4, "poisoning trees were not poisoned"
+        assert int((~okk).sum()) >= min_poisoned, "poisoning trees were not poisoned"
         fin = okp & torch.isfinite(lp)
         assert torch.equal(okp & torch.isfinite(lk), fin), f"{name}: inf differs"
         torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-5, atol=0)
         note(name, lk[fin], lp[fin])
 
-    def check_grad(weights, chunk=4096):
+    def check_grad(weights, chunk=4096, tb_=opt_trees, Xc=X, yc=y, opsc=ops,
+                   min_poisoned=4):
         """Gradients, against the sum over rows of the terms' magnitudes
         (``scale``, float32): where a term is NaN both are NaN; where
         ``scale`` is finite no partial sum in any order overflows, so both
@@ -236,12 +292,12 @@ def main():
         sum 2,048 rows in float32, in different orders, and terms of both
         signs cancel); where ``scale`` overflowed the result depends on
         the order of the sum and is only counted."""
-        lk, gk, okk = kg.eval_loss_grad(opt_trees, X, y, weights, ops)
-        outs = [kg.eval_loss_grad_plain(opt_trees[i:i + chunk], X, y, weights,
-                                        ops, scale=True)
-                for i in range(0, T_OPT, chunk)]
+        lk, gk, okk = kg.eval_loss_grad(tb_, Xc, yc, weights, opsc)
+        outs = [kg.eval_loss_grad_plain(tb_[i:i + chunk], Xc, yc, weights,
+                                        opsc, scale=True)
+                for i in range(0, tb_.length.shape[0], chunk)]
         lp, gp, okp, scale = (torch.cat(z) for z in zip(*outs))
-        check_losses("loss_grad", lk, okk, lp, okp)
+        check_losses("loss_grad", lk, okk, lp, okp, min_poisoned)
         gk, gp, scale = gk[okp], gp[okp], scale[okp]
         nan_term = torch.isnan(scale)
         assert bool(torch.isnan(gk[nan_term]).all()), "gradient NaN differs"
@@ -260,14 +316,17 @@ def main():
                 int((compared & (gk == gp)).sum()),
                 int((~fin & ~nan_term).sum()), worst)
 
-    def check_loss(weights, chunk=16384):
-        fn = kg.make_loss_kernel(opt_trees, X, y, weights, ops,
+    def check_loss(weights, chunk=16384, tb_=opt_trees, cv=ls_cval, Xc=X,
+                   yc=y, opsc=ops, min_poisoned=4):
+        fn = kg.make_loss_kernel(tb_, Xc, yc, weights, opsc,
                                  with_grad=False, reps=LS_STEPS)
-        lk, _, okk = fn(ls_cval)
-        outs = [kg.eval_loss_plain(ls_trees[i:i + chunk], X, y, weights, ops)
-                for i in range(0, T_OPT * LS_STEPS, chunk)]
+        lk, _, okk = fn(cv)
+        rep = tb_.map(lambda f: f.repeat_interleave(LS_STEPS, 0))._replace(
+            cval=cv.reshape(-1, cv.shape[-1]))
+        outs = [kg.eval_loss_plain(rep[i:i + chunk], Xc, yc, weights, opsc)
+                for i in range(0, rep.length.shape[0], chunk)]
         lp, okp = (torch.cat(z) for z in zip(*outs))
-        check_losses("loss", lk, okk, lp, okp)
+        check_losses("loss", lk, okk, lp, okp, min_poisoned)
 
     for weights, label in ((None, "unweighted"), (w_zero, "weighted, 64 zero-weight rows")):
         n_ok, n_grad, n_equal, n_over, worst = check_grad(weights)
@@ -282,6 +341,85 @@ def main():
     log(f"constant-opt kernel: max abs err loss_grad {err['loss_grad']:.3g}, "
         f"loss {err['loss']:.3g}; max rel err loss_grad {rel['loss_grad']:.3g}, "
         f"loss {rel['loss']:.3g}")
+
+    # ---- 3b. every kernel on all 44 registry operators ----------------------
+    all_ops = make_operator_set(sorted(set(BINARY_REGISTRY) - {"pow"}),
+                                sorted(UNARY_REGISTRY))
+    T_GRID = 4096
+    ggen = make_generator(3, dev)
+    g_trees = gen_random_tree_fixed_size(
+        ggen, torch.randint(1, 21, (T_GRID,), generator=ggen, device=dev), 3,
+        all_ops, 24, dev)
+    Xg = torch.randn((3, ROWS), generator=ggen, device=dev) * 1.5
+    yg = torch.randn(ROWS, generator=ggen, device=dev)
+    grid_err = dict.fromkeys(("value", "fused_l2", "slots", "loss_grad", "loss",
+                              "instr", "instr_packed"), 0.0)
+    saved = dict(err), dict(rel)
+    for k in grid_err:
+        err[k] = rel[k] = 0.0
+    yk, okk = ke.eval_trees(g_trees, Xg, all_ops)
+    yp, okp = ke.eval_trees_plain(g_trees, Xg, all_ops)
+    assert torch.equal(okk, okp), "44 operators, value mode: ok differs"
+    torch.testing.assert_close(yk[okk], yp[okk], rtol=1e-5, atol=1e-6)
+    note("value", yk[okk], yp[okk])
+    lk = ke.eval_loss_trees(g_trees, Xg, yg, all_ops)
+    lp = ke.eval_loss_trees_plain(g_trees, Xg, yg, all_ops)
+    assert torch.equal(torch.isinf(lk), torch.isinf(lp)), "44 operators: inf differs"
+    fin = torch.isfinite(lp)
+    torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-4, atol=0)
+    note("fused_l2", lk[fin], lp[fin])
+    sk, _ = ke.eval_slot_values(g_trees, Xg[:, :1], all_ops)
+    sp, _ = ke.eval_slot_values_plain(g_trees, Xg[:, :1], all_ops)
+    fin = torch.isfinite(sp)
+    assert torch.equal(torch.isfinite(sk), fin), "44 operators, slots: finite set"
+    torch.testing.assert_close(sk[fin], sp[fin], rtol=1e-5, atol=1e-6)
+    note("slots", sk[fin], sp[fin])
+    n_grid_ok = check_instr(g_trees, Xg, all_ops, "44 operators")
+    g_cval = g_trees.cval.repeat_interleave(LS_STEPS, 0) * (
+        1 + 0.1 * torch.randn((T_GRID * LS_STEPS, 24), generator=ggen,
+                              device=dev))
+    _, n_grad, n_equal, n_over, worst = check_grad(
+        None, tb_=g_trees, Xc=Xg, yc=yg, opsc=all_ops, min_poisoned=1)
+    check_loss(None, tb_=g_trees, cv=g_cval, Xc=Xg, yc=yg, opsc=all_ops,
+               min_poisoned=1)
+    xd = torch.cat([torch.linspace(-9.75, 40, 8000, device=dev),
+                    torch.tensor([0.0, -0.0, 1e-30, 1e6, 3e38, float("inf"),
+                                  -float("inf"), float("nan"), 1.4616321],
+                                 device=dev)])
+    dk, dr = kg.digamma_on_card(xd), torch.digamma(xd)
+    assert torch.equal(torch.isnan(dk), torch.isnan(dr)), "digamma: NaN differs"
+    assert torch.equal(torch.isinf(dk), torch.isinf(dr)), "digamma: inf differs"
+    fin = torch.isfinite(dr)
+    # atol: torch's float32 digamma subtracts up to ten terms below 3, half
+    # an ulp (1.2e-7) each, so near a root only absolute digits are kept
+    torch.testing.assert_close(dk[fin], dr[fin], rtol=1e-5, atol=2e-6)
+    digamma_err = float((dk[fin] - dr[fin]).abs().max())
+    for k in grid_err:
+        grid_err[k] = err[k]
+    err.update(saved[0])
+    rel.update(saved[1])
+    torch.cuda.synchronize()
+    log(f"44 operators: {T_GRID} random trees x {ROWS} rows through every "
+        f"kernel agree with the plain versions ({n_grid_ok} not poisoned; "
+        f"B5/B6 bit-equal to the value mode; {n_grad} non-zero CONST "
+        f"gradients compared, {n_equal} bit-equal, worst excess {worst:.3g} "
+        f"of the row-sum yardstick, {n_over} whose row sum overflows); max "
+        f"abs err {grid_err}; digamma vs torch.digamma max abs err "
+        f"{digamma_err:.3g}")
+    rng_s = np.random.default_rng(1)
+    Xs = rng_s.uniform(-1.5, 1.5, (2, 400)).astype(np.float32)
+    ys = (np.arcsin(Xs[0] * 0.5) + np.arctan2(Xs[1], 1.5)).astype(np.float32)
+    tr = time.time()
+    before_opt = dict(kg.LAUNCHES)
+    res_s = equation_search(Xs, ys, binary_operators=["+", "*", "mod", "atan2"],
+                            unary_operators=["asin", "erf", "gamma"],
+                            npopulations=8, npop=60, ncycles_per_iteration=30,
+                            maxsize=12, niterations=2, seed=0, verbosity=0)
+    assert res_s.candidates and np.isfinite(res_s.best_loss().loss)
+    assert kg.LAUNCHES["loss_grad"] - before_opt["loss_grad"] == 9 * 2
+    log(f"search over asin erf gamma mod atan2 (8 x 60, 2 iterations, default "
+        f"constant optimisation): best {res_s.best_loss().equation} loss "
+        f"{res_s.best_loss().loss:.3g}, {time.time() - tr:.1f} s")
 
     # ---- 4. timing ----------------------------------------------------------
     n_op_nodes = lambda tb_: int((tb_.kind >= UNA).sum())
@@ -380,6 +518,39 @@ def main():
             f"({b_by}), share {b_ms / ms:.4f}, "
             f"{N * ROWS / (ms * 1e-3):.4g} instances*rows/s")
 
+    def instr_bound(tb_, packed):
+        """Inputs read once: X, each live instruction's tables (7 words for
+        B5; the packed word and two constants for B6), each tree's step
+        count and sort position; outputs: the (T, rows) values and the
+        poison flags. Operations: one per operator node per row."""
+        T = tb_.length.shape[0]
+        n_steps = int(torch.clamp_min((tb_.kind >= UNA).sum(-1), 1).sum())
+        bytes_in = (X.shape[0] * ROWS * 4 + n_steps * (3 if packed else 7) * 4
+                    + T * (4 + 8))
+        bytes_out = T * ROWS * 4 + T * 4
+        t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
+        t_ops = n_op_nodes(tb_) * ROWS / F32_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    for name, packed in (("instr", False), ("instr_packed", True)):
+        for tb_ in (cycle, trees):
+            T = tb_.length.shape[0]
+            prep = ki.prepare_launch(tb_, X, ops, packed)
+            ms = cuda_ms(lambda: ki.run_prepared(prep), 50)
+            wrap_ms = cuda_ms(lambda: ki.eval_trees_instr(tb_, X, ops, packed), 20)
+            plain_ms = cuda_ms(lambda: [
+                ki.eval_trees_instr_plain(tb_[i:i + 8192], X, ops, packed)
+                for i in range(0, T, 8192)], 2)
+            b_ms, b_by = instr_bound(tb_, packed)
+            timings[(name, T)] = dict(T=T, rows=ROWS, ms=ms, wrapper_ms=wrap_ms,
+                                      plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by, roofline_share=b_ms / ms)
+            log(f"timing {name} T={T}: kernel {ms:.4f} ms, with host prep "
+                f"{wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}), share {b_ms / ms:.4f}, "
+                f"{T * ROWS / (ms * 1e-3):.4g} trees*rows/s")
+    del prep
+
     # ---- 5. the main path at full width -------------------------------------
     import symbolicregression_jl_tpu_torch.api as api_mod
 
@@ -412,9 +583,13 @@ def main():
         f"{args.ncycles} cycles"
         + ("" if args.ncycles == 550 else " (cut from 550 to fit the time limit)"))
     api_mod.optimize_islands_constants = timed_optimize
-    for counts in (ke.LAUNCHES, kg.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+
+    def zero_counts():
+        for counts in (ke.LAUNCHES, kg.LAUNCHES, ki.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t_main = time.time()
     try:
@@ -426,6 +601,7 @@ def main():
     finally:
         api_mod.optimize_islands_constants = untimed_optimize
     launches = {**ke.LAUNCHES, **kg.LAUNCHES}
+    assert not any(ki.LAUNCHES.values()), ki.LAUNCHES  # postfix path only
     main_s = time.time() - t_main
     total_launches = sum(launches.values())
     peak = torch.cuda.max_memory_allocated()
@@ -448,6 +624,43 @@ def main():
     log(f"main path: best {best.equation} loss {best.loss:.6g}; "
         f"s/iteration {[round(s, 3) for s, _ in per_iter]}, optimisation pass "
         f"s/iteration {[round(s, 3) for s in opt_s]}")
+
+    # ---- 5b. the instruction programs at full width --------------------------
+    instr_runs = {}
+    for program in ("instr", "instr_packed"):
+        log(f"instr path: equation_search kernel_program={program!r} 64 x 1000, "
+            f"{ROWS} rows, maxsize 20, default constant optimisation, 1 "
+            "iteration of 550 cycles")
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t_i = time.time()
+        it_s = []
+        res_i = equation_search(
+            X_np, y_np, niterations=1, ncycles_per_iteration=550, seed=0,
+            kernel_program=program,
+            on_iteration=lambda it, c: it_s.append(time.time() - t_i), **cfg)
+        torch.cuda.synchronize()
+        run = dict(s=time.time() - t_i, s_per_iteration=it_s,
+                   launches={**ke.LAUNCHES, **kg.LAUNCHES, **ki.LAUNCHES},
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   hof=[(c.complexity, c.loss, c.equation)
+                        for c in res_i.candidates])
+        instr_runs[program] = run
+        lc = run["launches"]
+        other = "instr" if program == "instr_packed" else "instr_packed"
+        # every scoring call: 1 at init, 1 per cycle, 1 rescore
+        assert lc[program] == 1 + 550 + 1, lc
+        assert lc[other] == 0 and lc["fused_l2"] == 0 and lc["value"] == 0, lc
+        assert lc["loss_grad"] == 9 and lc["loss"] == 8, lc
+        assert res_i.candidates and np.isfinite(res_i.best_loss().loss)
+        log(f"instr path {program}: {run['s']:.1f} s (iteration ends at "
+            f"{[round(t, 2) for t in it_s]} s, init included), launches {lc}, "
+            f"peak memory {run['peak_bytes'] / 2**30:.2f} GiB; best "
+            f"{res_i.best_loss().equation} loss {res_i.best_loss().loss:.6g}")
+    assert instr_runs["instr"]["hof"] == instr_runs["instr_packed"]["hof"], (
+        "instr and instr_packed halls of fame differ")
+    log(f"instr path: the two halls of fame are bit-equal "
+        f"({len(instr_runs['instr']['hof'])} members)")
 
     # ---- 6. the cycle alone ---------------------------------------------------
     from torch.autograd import DeviceType
@@ -604,20 +817,33 @@ def main():
     replaces["loss"] = grad_src + (
         "(make_loss_kernel(with_grad=False) :290, via eval_loss_pallas :266 "
         "and models/constant_opt.py:347)")
+    instr_src = "symbolicregression_jl_tpu/ops/pallas_eval.py:"
+    replaces["instr"] = instr_src + (
+        "1510 (_make_instr_kernel(packed=False) :737 via _eval_instr :1407)")
+    replaces["instr_packed"] = instr_src + (
+        "1490 (_make_instr_kernel(packed=True) :737 via _eval_instr :1407)")
     headline = {"fused_l2": T_CYCLE, "value": T_CYCLE, "slots": T_CYCLE,
-                "loss_grad": T_OPT, "loss": T_OPT * LS_STEPS}
+                "loss_grad": T_OPT, "loss": T_OPT * LS_STEPS,
+                "instr": T_CYCLE, "instr_packed": T_CYCLE}
+    sources = dict.fromkeys(("fused_l2", "value", "slots"), "postfix_eval")
+    sources.update(loss_grad="postfix_grad", loss="postfix_grad",
+                   instr="instr_eval", instr_packed="instr_eval")
     kernels = []
-    for name in ("fused_l2", "value", "slots", "loss_grad", "loss"):
+    for name in ("fused_l2", "value", "slots", "loss_grad", "loss", "instr",
+                 "instr_packed"):
         h = timings[(name, headline[name])]
-        src = "postfix_grad" if name in ("loss_grad", "loss") else "postfix_eval"
+        src = sources[name]
+        n_launch = (instr_runs[name]["launches"][name] if name in instr_runs
+                    else launches[name])
         kernels.append({
             "name": f"{src}.{name}",
             "route": "cuda",
             "source": f"symbolicregression_jl_tpu_torch/csrc/{src}.cu",
             "replaces": replaces[name],
-            "launches": launches[name],
+            "launches": n_launch,
             "max_abs_err": err[name],
             "max_rel_err": rel[name],
+            "max_abs_err_44_operators": grid_err[name],
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": None,
@@ -629,6 +855,9 @@ def main():
                                     "optimize_s_per_iteration": opt_s,
                                     "ncycles": args.ncycles,
                                     "peak_bytes": peak},
+                      "instr_path": {k: {f: v[f] for f in ("s", "s_per_iteration",
+                                                           "launches", "peak_bytes")}
+                                     for k, v in instr_runs.items()},
                       "cycle_ms": cycle_ms, "cycle_profile": cycle_profile,
                       "optimize_pass": pass_profile}))
     print(json.dumps({"ok": True, "device": {

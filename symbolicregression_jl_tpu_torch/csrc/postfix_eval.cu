@@ -36,85 +36,21 @@
 //    each lane sums its rows in order, then a fixed butterfly of warp
 //    shuffles reduces the lanes, so the result is the same on every run
 //    (no atomics).
-// Built without --use_fast_math: cos/exp/division stay within ulps of
-// torch's, and every operator applies the NaN-domain guard of
-// symbolicregression_jl_tpu_torch/ops/operators.py.
+// The operators (opcodes, NaN-domain guards, forward functions) are the
+// shared library csrc/operators.cuh; built without --use_fast_math.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "operators.cuh"
 
 namespace {
+
+using namespace srops;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
 
-// Kernel opcodes: the wrapper maps each fused program code to one of these
-// (ops/operators.py KERNEL_UNARY_IDS / KERNEL_BINARY_IDS).
-enum : int {
-  OP_PAD = 0, OP_CONST = 1, OP_VAR = 2,
-  OP_COS = 10, OP_SIN, OP_TAN, OP_EXP, OP_LOG, OP_LOG2, OP_LOG10, OP_LOG1P,
-  OP_SQRT, OP_ABS, OP_SQUARE, OP_CUBE, OP_NEG, OP_RELU, OP_SINH, OP_COSH,
-  OP_TANH, OP_SIGMOID, OP_INV, OP_IDENTITY, OP_SIGN, OP_GAUSS,
-  OP_ADD = 40, OP_SUB, OP_MUL, OP_DIV, OP_POW, OP_MAX, OP_MIN,
-};
-
-__device__ __forceinline__ float nanf_() { return __int_as_float(0x7fc00000); }
-
-__device__ __forceinline__ float safe_pow(float x, float y) {
-  const bool bad = (x < 0.f && y != rintf(y)) || (x == 0.f && y < 0.f);
-  return bad ? nanf_() : powf(x, y);
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? nanf_() : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? nanf_() : fminf(a, b);
-}
-
-__device__ __forceinline__ float apply_unary(int code, float a) {
-  switch (code) {
-    case OP_COS: return cosf(a);
-    case OP_SIN: return sinf(a);
-    case OP_TAN: return tanf(a);
-    case OP_EXP: return expf(a);
-    case OP_LOG: return a > 0.f ? logf(a) : nanf_();
-    case OP_LOG2: return a > 0.f ? log2f(a) : nanf_();
-    case OP_LOG10: return a > 0.f ? log10f(a) : nanf_();
-    case OP_LOG1P: return a > -1.f ? log1pf(a) : nanf_();
-    case OP_SQRT: return a >= 0.f ? sqrtf(a) : nanf_();
-    case OP_ABS: return fabsf(a);
-    case OP_SQUARE: return a * a;
-    case OP_CUBE: return a * a * a;
-    case OP_NEG: return -a;
-    case OP_RELU: return a != a ? a : fmaxf(a, 0.f);
-    case OP_SINH: return sinhf(a);
-    case OP_COSH: return coshf(a);
-    case OP_TANH: return tanhf(a);
-    case OP_SIGMOID: return 1.f / (1.f + expf(-a));
-    case OP_INV: return 1.f / a;
-    case OP_IDENTITY: return a;
-    case OP_SIGN: return a > 0.f ? 1.f : (a < 0.f ? -1.f : a);
-    case OP_GAUSS: return expf(-(a * a));
-    default: return nanf_();
-  }
-}
-
-__device__ __forceinline__ float apply_binary(int code, float b, float a) {
-  // b = left operand (second stack entry), a = right operand (top)
-  switch (code) {
-    case OP_ADD: return b + a;
-    case OP_SUB: return b - a;
-    case OP_MUL: return b * a;
-    case OP_DIV: return b / a;
-    case OP_POW: return safe_pow(b, a);
-    case OP_MAX: return nan_max(b, a);
-    case OP_MIN: return nan_min(b, a);
-    default: return nanf_();
-  }
-}
-
+template <bool kAll>
 __global__ void __launch_bounds__(kThreads)
 postfix_kernel(const int* __restrict__ code, const int* __restrict__ feat,
                const int* __restrict__ lidx, const int* __restrict__ ridx,
@@ -160,9 +96,9 @@ postfix_kernel(const int* __restrict__ code, const int* __restrict__ feat,
       } else if (c <= OP_VAR) {  // VAR, and PAD which never poisons
         v = X[static_cast<long long>(s_feat[s]) * nrows + row];
       } else if (c < OP_ADD) {
-        v = apply_unary(c, vals[s_ridx[s] * kThreads + threadIdx.x]);
+        v = apply_unary<kAll>(c, vals[s_ridx[s] * kThreads + threadIdx.x]);
       } else {
-        v = apply_binary(c, vals[s_lidx[s] * kThreads + threadIdx.x],
+        v = apply_binary<kAll>(c, vals[s_lidx[s] * kThreads + threadIdx.x],
                          vals[s_ridx[s] * kThreads + threadIdx.x]);
       }
       vals[s * kThreads + threadIdx.x] = v;
@@ -193,6 +129,27 @@ postfix_kernel(const int* __restrict__ code, const int* __restrict__ feat,
   }
 }
 
+template <bool kAll>
+cudaError_t launch(const void* code, const void* feat, const void* lidx,
+                   const void* ridx, const void* cval, const void* length,
+                   const void* order, const void* X, const void* y, void* out,
+                   void* bad, int T, int L, int nrows, int mode, int smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      postfix_kernel<kAll>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (T + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  postfix_kernel<kAll><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const int*>(code), static_cast<const int*>(feat),
+      static_cast<const int*>(lidx), static_cast<const int*>(ridx),
+      static_cast<const float*>(cval),
+      static_cast<const long long*>(length),
+      static_cast<const long long*>(order), static_cast<const float*>(X),
+      static_cast<const float*>(y), static_cast<float*>(out),
+      static_cast<int*>(bad), T, L, nrows, mode);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -202,28 +159,21 @@ int postfix_eval_smem_bytes(int L) {
   return (kWarpsPerBlock * 5 * L + L * kThreads) * 4;
 }
 
+// all_ops: the batch uses an operator outside the common set, so the
+// instantiation with every operator runs (operators.cuh)
 cudaError_t postfix_eval_launch(const void* code, const void* feat,
                                 const void* lidx, const void* ridx,
                                 const void* cval, const void* length,
                                 const void* order, const void* X,
                                 const void* y, void* out, void* bad, int T,
-                                int L, int nrows, int mode, void* stream) {
+                                int L, int nrows, int mode, int all_ops,
+                                void* stream) {
   if (T <= 0) return cudaSuccess;
   const int smem = postfix_eval_smem_bytes(L);
-  cudaError_t err = cudaFuncSetAttribute(
-      postfix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (T + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  postfix_kernel<<<blocks, kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(code), static_cast<const int*>(feat),
-      static_cast<const int*>(lidx), static_cast<const int*>(ridx),
-      static_cast<const float*>(cval),
-      static_cast<const long long*>(length),
-      static_cast<const long long*>(order), static_cast<const float*>(X),
-      static_cast<const float*>(y), static_cast<float*>(out),
-      static_cast<int*>(bad), T, L, nrows, mode);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto run = all_ops ? &launch<true> : &launch<false>;
+  return run(code, feat, lidx, ridx, cval, length, order, X, y, out, bad, T, L,
+             nrows, mode, smem, s);
 }
 
 const char* postfix_eval_error_string(int err) {

@@ -50,148 +50,22 @@
 //    256-thread block at L = 24, 141 KB at L = 64. Above 48 KB it needs the
 //    dynamic-size attribute; the launcher refuses more than the 227 KB a
 //    block may use.
-// The derivative of each operator is the lax JVP rule of the JAX registry
-// function, in the forms of symbolicregression_jl_tpu_torch/ops/operators.py
-// UNARY_VJP / BINARY_VJP. Built without --use_fast_math, like postfix_eval.cu,
-// whose forward device functions this file repeats.
+// The operators and their derivatives (the lax JVP rule of each JAX
+// registry function, in the forms of symbolicregression_jl_tpu_torch/ops/
+// operators.py UNARY_VJP / BINARY_VJP) are the shared library
+// csrc/operators.cuh. Built without --use_fast_math, like postfix_eval.cu.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "operators.cuh"
 
 namespace {
+
+using namespace srops;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB, the most a block may use
-constexpr float kLn2 = 0.69314718055994530942f;
-constexpr float kInvLn10 = 0.4342944819032518f;
-
-// Kernel opcodes (ops/operators.py KERNEL_UNARY_IDS / KERNEL_BINARY_IDS).
-enum : int {
-  OP_PAD = 0, OP_CONST = 1, OP_VAR = 2,
-  OP_COS = 10, OP_SIN, OP_TAN, OP_EXP, OP_LOG, OP_LOG2, OP_LOG10, OP_LOG1P,
-  OP_SQRT, OP_ABS, OP_SQUARE, OP_CUBE, OP_NEG, OP_RELU, OP_SINH, OP_COSH,
-  OP_TANH, OP_SIGMOID, OP_INV, OP_IDENTITY, OP_SIGN, OP_GAUSS,
-  OP_ADD = 40, OP_SUB, OP_MUL, OP_DIV, OP_POW, OP_MAX, OP_MIN,
-};
-
-__device__ __forceinline__ float nanf_() { return __int_as_float(0x7fc00000); }
-
-__device__ __forceinline__ bool pow_bad(float x, float y) {
-  return (x < 0.f && y != rintf(y)) || (x == 0.f && y < 0.f);
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? nanf_() : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? nanf_() : fminf(a, b);
-}
-
-__device__ __forceinline__ float apply_unary(int code, float a) {
-  switch (code) {
-    case OP_COS: return cosf(a);
-    case OP_SIN: return sinf(a);
-    case OP_TAN: return tanf(a);
-    case OP_EXP: return expf(a);
-    case OP_LOG: return a > 0.f ? logf(a) : nanf_();
-    case OP_LOG2: return a > 0.f ? log2f(a) : nanf_();
-    case OP_LOG10: return a > 0.f ? log10f(a) : nanf_();
-    case OP_LOG1P: return a > -1.f ? log1pf(a) : nanf_();
-    case OP_SQRT: return a >= 0.f ? sqrtf(a) : nanf_();
-    case OP_ABS: return fabsf(a);
-    case OP_SQUARE: return a * a;
-    case OP_CUBE: return a * a * a;
-    case OP_NEG: return -a;
-    case OP_RELU: return a != a ? a : fmaxf(a, 0.f);
-    case OP_SINH: return sinhf(a);
-    case OP_COSH: return coshf(a);
-    case OP_TANH: return tanhf(a);
-    case OP_SIGMOID: return 1.f / (1.f + expf(-a));
-    case OP_INV: return 1.f / a;
-    case OP_IDENTITY: return a;
-    case OP_SIGN: return a > 0.f ? 1.f : (a < 0.f ? -1.f : a);
-    case OP_GAUSS: return expf(-(a * a));
-    default: return nanf_();
-  }
-}
-
-__device__ __forceinline__ float apply_binary(int code, float b, float a) {
-  // b = left operand (second stack entry), a = right operand (top)
-  switch (code) {
-    case OP_ADD: return b + a;
-    case OP_SUB: return b - a;
-    case OP_MUL: return b * a;
-    case OP_DIV: return b / a;
-    case OP_POW: return pow_bad(b, a) ? nanf_() : powf(b, a);
-    case OP_MAX: return nan_max(b, a);
-    case OP_MIN: return nan_min(b, a);
-    default: return nanf_();
-  }
-}
-
-// The share of d max(x, y) / dx (or min): 1 where x alone is the result,
-// 0.5 on a tie, 0 otherwise (NaN included).
-__device__ __forceinline__ float balanced_eq(float x, float z, float y) {
-  return x == z ? (y == z ? 0.5f : 1.f) : 0.f;
-}
-
-// dL/da of a unary slot: operand a, value v, adjoint w arriving at the slot.
-__device__ __forceinline__ float unary_vjp(int code, float a, float v,
-                                           float w) {
-  switch (code) {
-    case OP_COS: return -(w * sinf(a));
-    case OP_SIN: return w * cosf(a);
-    case OP_TAN: return w * (1.f + v * v);
-    case OP_EXP: return w * v;
-    case OP_LOG: return a > 0.f ? w / a : 0.f;
-    case OP_LOG2: return a > 0.f ? (w / kLn2) / a : 0.f;
-    case OP_LOG10: return a > 0.f ? (w * kInvLn10) / a : 0.f;
-    case OP_LOG1P: return a > -1.f ? w / (a + 1.f) : 0.f;
-    case OP_SQRT: return a >= 0.f ? w * (0.5f / v) : 0.f;
-    case OP_ABS: return a >= 0.f ? w : -w;
-    case OP_SQUARE: return 2.f * (w * a);
-    case OP_CUBE: return (a * a) * w + 2.f * ((w * a) * a);
-    case OP_NEG: return -w;
-    case OP_RELU: return w * balanced_eq(a, v, 0.f);
-    case OP_SINH: return w * coshf(a);
-    case OP_COSH: return w * sinhf(a);
-    case OP_TANH: return (w + w * v) * (1.f - v);
-    case OP_SIGMOID: return w * (v * (1.f - v));
-    case OP_INV: return -w * (1.f / (a * a));
-    case OP_IDENTITY: return w;
-    case OP_SIGN: return 0.f;
-    case OP_GAUSS: return -2.f * ((w * v) * a);
-    default: return nanf_();
-  }
-}
-
-// (dL/db, dL/da) of a binary slot: left b, right a, value v, adjoint w.
-__device__ __forceinline__ void binary_vjp(int code, float b, float a, float v,
-                                           float w, float* db, float* da) {
-  switch (code) {
-    case OP_ADD: *db = w; *da = w; return;
-    case OP_SUB: *db = w; *da = -w; return;
-    case OP_MUL: *db = w * a; *da = b * w; return;
-    case OP_DIV: *db = w / a; *da = (-w * b) * (1.f / (a * a)); return;
-    case OP_POW:
-      if (pow_bad(b, a)) {
-        *db = 0.f;
-        *da = 0.f;
-      } else {
-        *db = w * (a * powf(b, a - 1.f));
-        *da = w * (logf(b == 0.f ? 1.f : b) * v);
-      }
-      return;
-    case OP_MAX:
-    case OP_MIN:
-      *db = w * balanced_eq(b, v, a);
-      *da = w * balanced_eq(a, v, b);
-      return;
-    default: *db = nanf_(); *da = nanf_(); return;
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -200,7 +74,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <bool kWithGrad>
+template <bool kWithGrad, bool kAll>
 __global__ void __launch_bounds__(kThreads)
 postfix_grad_kernel(const int* __restrict__ code, const int* __restrict__ feat,
                     const int* __restrict__ lidx, const int* __restrict__ ridx,
@@ -255,9 +129,9 @@ postfix_grad_kernel(const int* __restrict__ code, const int* __restrict__ feat,
       } else if (c <= OP_VAR) {  // VAR, and PAD which never poisons
         v = X[static_cast<long long>(s_feat[s]) * nrows + row];
       } else if (c < OP_ADD) {
-        v = apply_unary(c, vals[s_ridx[s] * kThreads + tid]);
+        v = apply_unary<kAll>(c, vals[s_ridx[s] * kThreads + tid]);
       } else {
-        v = apply_binary(c, vals[s_lidx[s] * kThreads + tid],
+        v = apply_binary<kAll>(c, vals[s_lidx[s] * kThreads + tid],
                          vals[s_ridx[s] * kThreads + tid]);
       }
       vals[s * kThreads + tid] = v;
@@ -281,9 +155,10 @@ postfix_grad_kernel(const int* __restrict__ code, const int* __restrict__ feat,
       const float a = vals[ri * kThreads + tid];
       float da, db = 0.f;
       if (c < OP_ADD) {
-        da = unary_vjp(c, a, v, w);
+        da = unary_vjp<kAll>(c, a, v, w);
       } else {
-        binary_vjp(c, vals[s_lidx[s] * kThreads + tid], a, v, w, &db, &da);
+        binary_vjp<kAll>(c, vals[s_lidx[s] * kThreads + tid], a, v, w, &db,
+                         &da);
       }
       float* ra = &adj[ri * kThreads + tid];
       *ra = s_code[ri] == OP_CONST ? *ra + da : da;
@@ -310,7 +185,7 @@ postfix_grad_kernel(const int* __restrict__ code, const int* __restrict__ feat,
   }
 }
 
-template <bool kWithGrad>
+template <bool kWithGrad, bool kAll>
 cudaError_t launch(const void* code, const void* feat, const void* lidx,
                    const void* ridx, const void* length, const void* order,
                    const void* cval, const void* X, const void* y,
@@ -318,11 +193,11 @@ cudaError_t launch(const void* code, const void* feat, const void* lidx,
                    int n_inst, int reps, int L, int nrows, int smem,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      postfix_grad_kernel<kWithGrad>,
+      postfix_grad_kernel<kWithGrad, kAll>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n_inst + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  postfix_grad_kernel<kWithGrad><<<blocks, kThreads, smem, stream>>>(
+  postfix_grad_kernel<kWithGrad, kAll><<<blocks, kThreads, smem, stream>>>(
       static_cast<const int*>(code), static_cast<const int*>(feat),
       static_cast<const int*>(lidx), static_cast<const int*>(ridx),
       static_cast<const long long*>(length),
@@ -332,6 +207,14 @@ cudaError_t launch(const void* code, const void* feat, const void* lidx,
       static_cast<float*>(grad), static_cast<int*>(bad), n_inst, reps, L,
       nrows);
   return cudaGetLastError();
+}
+
+// digamma_f elementwise: lets a test hold the hand-written digamma against
+// torch.digamma on the card (no kernel of the search calls it)
+__global__ void digamma_kernel(const float* __restrict__ x,
+                               float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = digamma_f(x[i]);
 }
 
 }  // namespace
@@ -346,25 +229,34 @@ int postfix_grad_smem_bytes(int L, int with_grad) {
 
 int postfix_grad_max_smem_bytes() { return kMaxSmemBytes; }
 
+// all_ops: the batch uses an operator outside the common set, so the
+// instantiation with every operator runs (operators.cuh)
 cudaError_t postfix_grad_launch(const void* code, const void* feat,
                                 const void* lidx, const void* ridx,
                                 const void* length, const void* order,
                                 const void* cval, const void* X,
                                 const void* y, const void* wn, void* loss,
                                 void* grad, void* bad, int n_inst, int reps,
-                                int L, int nrows, int with_grad,
+                                int L, int nrows, int with_grad, int all_ops,
                                 void* stream) {
   if (n_inst <= 0) return cudaSuccess;
   const int smem = postfix_grad_smem_bytes(L, with_grad);
   if (smem > kMaxSmemBytes || reps <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_grad
-             ? launch<true>(code, feat, lidx, ridx, length, order, cval, X, y,
-                            wn, loss, grad, bad, n_inst, reps, L, nrows, smem,
-                            s)
-             : launch<false>(code, feat, lidx, ridx, length, order, cval, X,
-                             y, wn, loss, grad, bad, n_inst, reps, L, nrows,
-                             smem, s);
+  const auto run =
+      with_grad ? (all_ops ? &launch<true, true> : &launch<true, false>)
+                : (all_ops ? &launch<false, true> : &launch<false, false>);
+  return run(code, feat, lidx, ridx, length, order, cval, X, y, wn, loss, grad,
+             bad, n_inst, reps, L, nrows, smem, s);
+}
+
+cudaError_t postfix_grad_digamma(const void* x, void* out, int n,
+                                 void* stream) {
+  if (n <= 0) return cudaSuccess;
+  digamma_kernel<<<(n + 255) / 256, 256, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), n);
+  return cudaGetLastError();
 }
 
 const char* postfix_grad_error_string(int err) {

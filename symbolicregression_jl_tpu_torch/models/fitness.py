@@ -2,10 +2,13 @@
 (counterpart of ``symbolicregression_jl_tpu/models/fitness.py``).
 
 Routing is by device, with no work gate: the kernel wrapper runs the CUDA
-kernel for CUDA tensors and its plain version for CPU tensors. Unweighted
-L2 scoring takes the fused-loss epilogue; weighted scoring and other
-elementwise losses take value mode followed by the loss and
-``aggregate_loss``.
+kernel for CUDA tensors and its plain version for CPU tensors. The program
+is ``Options.kernel_program``: ``"auto"`` is ``"postfix"``, where
+unweighted L2 scoring takes the fused-loss epilogue and weighted scoring
+and other elementwise losses take value mode followed by the loss and
+``aggregate_loss``; ``"instr"`` / ``"instr_packed"`` always take the
+instruction program's value mode followed by the loss and
+``aggregate_loss`` (it has no fused loss).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops import kernel_eval
+from ..ops import kernel_eval, kernel_instr
 from ..ops.losses import aggregate_loss, contain_nonfinite, resolve_loss
 from ..ops.operators import OperatorSet
 from ..utils import rng
@@ -23,18 +26,29 @@ from .options import Options
 from .trees import TreeBatch
 
 
+def dispatch_eval(trees: TreeBatch, X: torch.Tensor, operators: OperatorSet,
+                  program: str = "auto"):
+    """Value mode of the chosen program: (y (..., nrows), ok (...,))."""
+    if program in ("instr", "instr_packed"):
+        return kernel_instr.eval_trees_instr(trees, X, operators,
+                                             packed=program == "instr_packed")
+    return kernel_eval.eval_trees(trees, X, operators)
+
+
 def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
                     weights: Optional[torch.Tensor], operators: OperatorSet,
-                    loss, row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    loss, row_idx: Optional[torch.Tensor] = None,
+                    program: str = "auto") -> torch.Tensor:
     """Per-tree aggregated loss over all rows (or the ``row_idx``
     minibatch); +inf where the evaluation left the finite domain."""
     if row_idx is not None:
         X = X[:, row_idx]
         y = y[row_idx]
         weights = None if weights is None else weights[row_idx]
-    if weights is None and isinstance(loss, str) and loss in kernel_eval.FUSED_LOSSES:
+    if (program in ("auto", "postfix") and weights is None
+            and isinstance(loss, str) and loss in kernel_eval.FUSED_LOSSES):
         return kernel_eval.eval_loss_trees(trees, X, y, operators)
-    y_pred, ok = kernel_eval.eval_trees(trees, X, operators)
+    y_pred, ok = dispatch_eval(trees, X, operators, program)
     elem = resolve_loss(loss)(y_pred, y)
     return contain_nonfinite(aggregate_loss(elem, weights), ok)
 
@@ -51,7 +65,7 @@ def score_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(score, loss) per tree."""
     loss = eval_loss_trees(trees, X, y, weights, options.operators,
-                           options.loss, row_idx)
+                           options.loss, row_idx, options.kernel_program)
     score = loss_to_score(loss, baseline, compute_complexity(trees, options),
                           options)
     return contain_nonfinite(score, ref=loss), loss

@@ -82,13 +82,10 @@ _UNSUPPORTED = {
     "row_shards": (1, "row sharding comes with the multi-GPU slice"),
     "tenants": (1, "tenant-batched serving comes with the serving/ slice"),
     "precision": ("float32", "bfloat16 storage and other precisions come with a later kernel slice"),
-    "kernel_program": ("auto", "the instr programs (Pallas B5/B6) are later kernel slices"),
     "loss_function": (None, "custom full-tree objectives come with a later slice"),
     "independent_island_batches": (False, "per-island minibatches come with a later slice"),
 }
-_ACCEPTED_OFF_VALUES = {
-    "kernel_program": ("auto", "postfix"),
-}
+KERNEL_PROGRAMS = ("auto", "postfix", "instr", "instr_packed")
 # TPU levers of the JAX package that the port does not carry at all
 _TPU_LEVERS = (
     "eval_backend", "kernel_leaf_skip", "eval_bucket_ladder",
@@ -190,7 +187,7 @@ class Options:
                 ))
         for name, (off, why) in _UNSUPPORTED.items():
             value = getattr(self, name)
-            if value not in _ACCEPTED_OFF_VALUES.get(name, (off,)):
+            if value != off:
                 raise NotImplementedError(
                     f"{name}={value!r} is not supported by the PyTorch port "
                     f"yet: {why}"
@@ -207,6 +204,11 @@ class Options:
             )
         if not 0 < self.tournament_selection_p <= 1:
             raise ValueError("tournament_selection_p must be in (0, 1]")
+        if self.kernel_program not in KERNEL_PROGRAMS:
+            raise ValueError(
+                "kernel_program must be one of "
+                "auto/postfix/instr/instr_packed"
+            )
         if self.tournament_selection_n > self.npop:
             raise ValueError("tournament_selection_n must be <= npop")
         object.__setattr__(self, "_operators", make_operator_set(

@@ -31,16 +31,20 @@ import torch
 
 from ..models.trees import ARITY, CONST, PAD, UNA, VAR, TreeBatch
 from .losses import contain_nonfinite
-from .operators import KERNEL_BINARY_IDS, KERNEL_UNARY_IDS, OperatorSet
+from .operators import (
+    KERNEL_BINARY_IDS, KERNEL_FULL_ONLY, KERNEL_UNARY_IDS, OperatorSet,
+)
 
 LAUNCHES = {"value": 0, "fused_l2": 0, "slots": 0}  # launches by mode
 
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "postfix_eval.cu"
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+SOURCE = CSRC / "postfix_eval.cu"
 BUILD_DIR = _REPO_ROOT / "build"
 LIBRARY = BUILD_DIR / "libpostfix_eval.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC)]
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -98,18 +102,31 @@ def operand_schedule(kind: torch.Tensor, length: torch.Tensor):
 
 
 def kernel_opcode_table(operators: OperatorSet, device) -> torch.Tensor:
-    """Fused program code -> the kernel's operator id. Raises for an
-    operator the kernel does not carry."""
+    """Fused program code -> the kernel's operator id."""
+    return torch.tensor([0, 1, 2] + kernel_operator_ids(operators),
+                        dtype=torch.int32, device=device)
+
+
+def uses_full_kernel(operators: OperatorSet) -> bool:
+    """Whether the kernels' full instantiation must run: the operator set
+    holds one of ``KERNEL_FULL_ONLY``."""
+    return not KERNEL_FULL_ONLY.isdisjoint(
+        operators.unary_names + operators.binary_names)
+
+
+def kernel_operator_ids(operators: OperatorSet) -> list:
+    """The kernels' operator id of each unary, then each binary operator.
+    Raises for a name outside the registries (an ``OperatorSet`` built by
+    hand): the kernels carry every registry operator and nothing else."""
     missing = [n for n in operators.unary_names if n not in KERNEL_UNARY_IDS]
     missing += [n for n in operators.binary_names if n not in KERNEL_BINARY_IDS]
     if missing:
         raise NotImplementedError(
-            f"the CUDA scoring kernel has no device function for {missing}; "
-            "these operators run only on the CPU path"
+            f"the CUDA kernels have no device function for {missing}; an "
+            "operator outside the registries runs only on the CPU path"
         )
-    table = [0, 1, 2] + [KERNEL_UNARY_IDS[n] for n in operators.unary_names]
-    table += [KERNEL_BINARY_IDS[n] for n in operators.binary_names]
-    return torch.tensor(table, dtype=torch.int32, device=device)
+    return ([KERNEL_UNARY_IDS[n] for n in operators.unary_names]
+            + [KERNEL_BINARY_IDS[n] for n in operators.binary_names])
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +208,7 @@ def compile_library(source: pathlib.Path, library: pathlib.Path,
                     extra_flags=()) -> str:
     """Compile one CUDA source with nvcc into a shared library with a plain
     C interface; returns nvcc's output (the -Xptxas -v lines included)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    library.parent.mkdir(parents=True, exist_ok=True)
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     if not os.path.exists(nvcc):
@@ -209,8 +226,12 @@ def compile_library(source: pathlib.Path, library: pathlib.Path,
 
 
 def is_built(source: pathlib.Path, library: pathlib.Path) -> bool:
-    return (library.exists()
-            and library.stat().st_mtime >= source.stat().st_mtime)
+    """The library exists and is newer than its source and every header of
+    csrc/ (operators.cuh), so an edited header rebuilds it too."""
+    if not library.exists():
+        return False
+    newest = max(p.stat().st_mtime for p in (source, *CSRC.glob("*.cuh")))
+    return library.stat().st_mtime >= newest
 
 
 def build_library(force: bool = False) -> pathlib.Path:
@@ -228,7 +249,7 @@ def _library():
             lib = ctypes.CDLL(str(build_library()))
             p = ctypes.c_void_p
             i = ctypes.c_int
-            lib.postfix_eval_launch.argtypes = [p] * 11 + [i] * 4 + [p]
+            lib.postfix_eval_launch.argtypes = [p] * 11 + [i] * 5 + [p]
             lib.postfix_eval_launch.restype = ctypes.c_int
             lib.postfix_eval_error_string.argtypes = [ctypes.c_int]
             lib.postfix_eval_error_string.restype = ctypes.c_char_p
@@ -283,17 +304,18 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
         out = torch.empty((T,), dtype=torch.float32, device=dev)
     bad = torch.empty((T,), dtype=torch.int32, device=dev)
     # the tensors ride along so their memory outlives every launch
-    args = (*tables, length, order, X, y, out, bad, T, L, nrows, mode)
+    args = (*tables, length, order, X, y, out, bad, T, L, nrows, mode,
+            int(uses_full_kernel(operators)))
     return PreparedLaunch(args, out, bad, length, mode)
 
 
 def run_prepared(p: PreparedLaunch) -> None:
     """Launch the kernel on the current stream and check the launch."""
     lib = _library()
-    *tensors, T, L, nrows, mode = p.args
+    *tensors, T, L, nrows, mode, full = p.args
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream(p.out.device).cuda_stream
-    rc = lib.postfix_eval_launch(*ptrs, T, L, nrows, mode, stream)
+    rc = lib.postfix_eval_launch(*ptrs, T, L, nrows, mode, full, stream)
     if rc != 0:
         raise RuntimeError("postfix_eval kernel launch failed: "
                            + lib.postfix_eval_error_string(rc).decode())

@@ -154,11 +154,13 @@ def _library():
             lib = ctypes.CDLL(str(build_library()))
             p = ctypes.c_void_p
             i = ctypes.c_int
-            lib.postfix_grad_launch.argtypes = [p] * 13 + [i] * 5 + [p]
+            lib.postfix_grad_launch.argtypes = [p] * 13 + [i] * 6 + [p]
             lib.postfix_grad_launch.restype = ctypes.c_int
             lib.postfix_grad_smem_bytes.argtypes = [i, i]
             lib.postfix_grad_smem_bytes.restype = i
             lib.postfix_grad_max_smem_bytes.restype = i
+            lib.postfix_grad_digamma.argtypes = [p, p, i, p]
+            lib.postfix_grad_digamma.restype = i
             lib.postfix_grad_error_string.argtypes = [i]
             lib.postfix_grad_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -202,6 +204,7 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
     data = (X.contiguous(), y.contiguous(), wn)
     N = T * reps
     variant = "loss_grad" if with_grad else "loss"
+    full = int(ke.uses_full_kernel(operators))
 
     def launch(cval: torch.Tensor):
         cv = cval.to(torch.float32).reshape(N, L).contiguous()
@@ -213,7 +216,7 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
         ptrs += [None if grad is None else grad.data_ptr(), bad.data_ptr()]
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.postfix_grad_launch(*ptrs, N, reps, L, nrows, int(with_grad),
-                                     stream)
+                                     full, stream)
         if rc != 0:
             raise RuntimeError("postfix_grad kernel launch failed: "
                                + lib.postfix_grad_error_string(rc).decode())
@@ -221,6 +224,23 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
         return loss, grad, bad
 
     return launch
+
+
+def digamma_on_card(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' hand-written digamma (csrc/operators.cuh, which the
+    CUDA math library lacks; gamma's derivative reads it) elementwise on
+    a CUDA float32 tensor, to hold it against ``torch.digamma``."""
+    if not x.is_cuda:
+        raise ValueError("digamma_on_card takes a CUDA tensor")
+    lib = _library()
+    x = x.to(torch.float32).contiguous()
+    out = torch.empty_like(x)
+    rc = lib.postfix_grad_digamma(x.data_ptr(), out.data_ptr(), x.numel(),
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("digamma kernel launch failed: "
+                           + lib.postfix_grad_error_string(rc).decode())
+    return out
 
 
 def make_loss_kernel(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,

@@ -1,0 +1,386 @@
+"""Instruction-program scoring: the counterpart of the instr half of
+``ops/pallas_eval.py`` (``program="instr"`` and ``"instr_packed"``).
+
+A postfix program compresses to an operator-only instruction list
+(``instruction_schedule``): one instruction per operator node, each operand
+described by its source (a previous instruction's result, a feature column
+or a constant), its index and its constant. ``pack_instr_tables`` folds the
+integer tables of a step into one int32 word over a unified operand space
+(features at ``[0, nfeat)``, results at ``nfeat + k``); ``prep_instr_tables``
+sorts trees by instruction count and pads the step axis to whole groups of
+four. These tables are exactly the JAX package's.
+
+``eval_trees_instr(trees, X, operators, packed)`` evaluates a batch by the
+program: CUDA tensors launch the hand-written kernel ``csrc/instr_eval.cu``
+(``instr_kernel<false>`` replaces the Pallas kernel B5, ``<true>`` B6) or
+raise; CPU tensors run the plain PyTorch version
+``eval_trees_instr_plain``. Both give what the postfix value mode gives:
+every operator node runs the same function on the same operands (the
+kernels share ``csrc/operators.cuh`` with ``postfix_eval.cu``), so the
+values are bit-equal to ``kernel_eval.eval_trees``. The library is compiled
+with ``nvcc`` into ``build/`` at first use; ``LAUNCHES`` counts launches
+by variant.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+import threading
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..models.trees import BIN, CONST, UNA, VAR, TreeBatch
+from . import kernel_eval as ke
+from .operators import KERNEL_UNARY_IDS, OperatorSet
+
+LAUNCHES = {"instr": 0, "instr_packed": 0}  # launches by variant
+
+SOURCE = ke.CSRC / "instr_eval.cu"
+LIBRARY = ke.BUILD_DIR / "libinstr_eval.so"
+BUILD_LOG = ""  # nvcc's output of the last build (-Xptxas -v line included)
+
+_lib = None
+_lib_lock = threading.Lock()
+
+# operand sources of the instruction program
+SRC_RES = 0  # a previous instruction's result (idx = instruction index)
+SRC_VAR = 1  # a feature column (idx = feature index)
+SRC_CONST = 2  # an inline constant (cval; idx = its postfix slot)
+SLOT_UNROLL = 4  # the step axis is padded to whole groups of this many
+# instruction opcodes: 0 DEAD (padding), 1 IDENT (a bare-leaf tree's one
+# step), then 2 + unary op, then 2 + U + binary op
+CODE_DEAD = 0
+CODE_IDENT = 1
+
+
+# ---------------------------------------------------------------------------
+# Host prep (exactly the JAX package's tables)
+# ---------------------------------------------------------------------------
+
+
+def instruction_schedule(trees: TreeBatch, operators: OperatorSet):
+    """Compress flat (T, L) postfix programs to operator-only instruction
+    tables: a dict of (T, L) int32 / float32 tables ``icode, lsrc, lidx,
+    lcval, rsrc, ridx, rcval`` and ``n_instr`` (T,) int32.
+
+    The JAX package simulates the stack slot by slot; here each operand's
+    postfix slot comes from the closed-form operand schedule, and an
+    operator slot's instruction number is the count of operator slots
+    before it, so the tables follow from a few gathers and one scatter.
+    A non-binary step's dummy left operand is the constant 0 at the trash
+    index L; a CONST operand carries its postfix slot as idx; a bare-leaf
+    tree becomes one IDENT step on its leaf."""
+    kind, op, feat, cval, length = trees
+    T, L = kind.shape
+    dev = kind.device
+    i32 = torch.int32
+    lslot, rslot = ke.operand_schedule(kind, length)
+    is_op = (kind == UNA) | (kind == BIN)
+    is_bin = kind == BIN
+    pos = torch.cumsum(is_op.to(torch.int64), dim=-1) - 1
+    slot = torch.arange(L, device=dev).expand(T, L)
+    # what each slot pushes: its result, its feature or its constant
+    d_src = torch.where(is_op, SRC_RES,
+                        torch.where(kind == VAR, SRC_VAR, SRC_CONST))
+    d_idx = torch.where(is_op, pos, torch.where(kind == VAR, feat, slot))
+    d_cval = torch.where(kind == CONST, cval.to(torch.float32), 0.0)
+
+    def operand(at):
+        return (d_src.gather(1, at), d_idx.gather(1, at), d_cval.gather(1, at))
+
+    rsrc, ridx, rcval = operand(rslot)
+    lsrc, lidx, lcval = operand(lslot)
+    lsrc = torch.where(is_bin, lsrc, SRC_CONST)
+    lidx = torch.where(is_bin, lidx, L)
+    lcval = torch.where(is_bin, lcval, 0.0)
+    U = operators.n_unary
+    icode = torch.where(is_op, torch.where(kind == UNA, 2 + op, 2 + U + op), 0)
+
+    # instruction k of each tree at column k; leaf slots land in column L,
+    # which is dropped
+    col = torch.where(is_op, pos, L)
+
+    def compact(x, fill):
+        out = torch.full((T, L + 1), fill, dtype=x.dtype, device=dev)
+        return out.scatter_(1, col, x)[:, :L]
+
+    tables = {
+        "icode": compact(icode, 0), "lsrc": compact(lsrc, SRC_CONST),
+        "lidx": compact(lidx, 0), "lcval": compact(lcval, 0.0),
+        "rsrc": compact(rsrc, SRC_CONST), "ridx": compact(ridx, 0),
+        "rcval": compact(rcval, 0.0),
+    }
+    # a bare leaf: one IDENT step whose operand is the root leaf
+    nins = is_op.sum(-1)
+    bare = ((nins == 0) & (length > 0)).unsqueeze(-1)
+    first = bare & (slot == 0)
+    root = torch.clamp_min(length - 1, 0).unsqueeze(-1)
+    r_src, r_idx, r_cval = operand(root)
+    tables["icode"] = torch.where(first, CODE_IDENT, tables["icode"])
+    tables["rsrc"] = torch.where(first, r_src, tables["rsrc"])
+    tables["ridx"] = torch.where(first, r_idx, tables["ridx"])
+    tables["rcval"] = torch.where(first, r_cval, tables["rcval"])
+    tables["lidx"] = torch.where(first, L, tables["lidx"])
+    tables = {k: v.to(torch.float32 if k.endswith("cval") else i32)
+              for k, v in tables.items()}
+    n_instr = torch.where(bare[:, 0], 1, nins).to(i32)
+    return tables, n_instr
+
+
+def pack_instr_tables(tables: Dict[str, torch.Tensor], nfeat: int,
+                      const_base: int = 0) -> torch.Tensor:
+    """One int32 word per step: ``icode[0:8] | lconst[8] | rconst[9] |
+    lidx[10:21] | ridx[21:32]``, with operand indices in the unified space
+    (a feature f at f, instruction k's result at nfeat + k; a constant's
+    index is 0, or ``const_base`` + its postfix slot when const_base > 0)."""
+    def unify(src, idx):
+        idx = idx.to(torch.int64)
+        return torch.where(src == SRC_RES, nfeat + idx,
+                           torch.where(src == SRC_VAR, idx,
+                                       (const_base + idx) if const_base
+                                       else torch.zeros_like(idx)))
+
+    lconst = (tables["lsrc"] == SRC_CONST).to(torch.int64)
+    rconst = (tables["rsrc"] == SRC_CONST).to(torch.int64)
+    word = (tables["icode"].to(torch.int64) | (lconst << 8) | (rconst << 9)
+            | (unify(tables["lsrc"], tables["lidx"]) << 10)
+            | (unify(tables["rsrc"], tables["ridx"]) << 21))
+    # int32 arithmetic: the bits above 31 drop, bit 31 is the sign
+    word = word & 0xFFFFFFFF
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
+def decode_packed_word(w: torch.Tensor):
+    """(code, lconst, rconst, lidx, ridx) of packed words."""
+    return (w & 0xFF, (w >> 8) & 1, (w >> 9) & 1, (w >> 10) & 0x7FF,
+            (w >> 21) & 0x7FF)
+
+
+class InstrTables(NamedTuple):
+    tables: Dict[str, torch.Tensor]  # (T, L) each, in sorted tree order
+    n_instr: torch.Tensor  # (T,) int32, sorted
+    flat: TreeBatch  # the trees in sorted order
+    inv_perm: Optional[torch.Tensor]  # original index -> sorted position
+    L: int  # the step axis, padded to whole groups of SLOT_UNROLL
+    perm: Optional[torch.Tensor]  # sorted position -> original index
+
+
+def prep_instr_tables(flat: TreeBatch, operators: OperatorSet,
+                      sort_trees: bool = True) -> InstrTables:
+    """The schedule, trees stably sorted by instruction count (with more
+    than one tree), the step axis padded to whole groups of SLOT_UNROLL
+    (sources with CONST, the rest with 0)."""
+    tables, n_instr = instruction_schedule(flat, operators)
+    perm = inv_perm = None
+    T = flat.length.shape[0]
+    if sort_trees and T > 1:
+        perm = torch.argsort(n_instr, stable=True)
+        inv_perm = torch.empty_like(perm)
+        inv_perm[perm] = torch.arange(T, device=perm.device)
+        tables = {k: v[perm] for k, v in tables.items()}
+        n_instr = n_instr[perm]
+        flat = flat.map(lambda x: x[perm])
+    L0 = flat.kind.shape[1]
+    L = -(-L0 // SLOT_UNROLL) * SLOT_UNROLL
+    if L != L0:
+        tables = {k: torch.nn.functional.pad(
+            v, (0, L - L0), value=SRC_CONST if k.endswith("src") else 0)
+            for k, v in tables.items()}
+    return InstrTables(tables, n_instr, flat, inv_perm, L, perm)
+
+
+def check_packed_layout(operators: OperatorSet, nfeat: int, max_len: int):
+    """The packed word has 8-bit opcodes and 11-bit operand indices: an
+    instr_packed request that does not fit raises, as in the JAX package."""
+    n_codes = 2 + operators.n_unary + operators.n_binary
+    if n_codes > 255 or nfeat + max_len + SLOT_UNROLL > 2048:
+        raise ValueError(
+            "program='instr_packed' needs <=255 opcodes and "
+            "nfeat + max_len <= ~2048 (got "
+            f"{n_codes} opcodes, nfeat={nfeat}, "
+            f"max_len={max_len}); use program='instr'"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (the program, step by step)
+# ---------------------------------------------------------------------------
+
+
+def eval_trees_instr_plain(trees: TreeBatch, X: torch.Tensor,
+                           operators: OperatorSet, packed: bool = False):
+    """Plain version of B5 (``packed=False``: each operand through the
+    source select) and B6 (``packed=True``: the packed word over the
+    unified operand space): (y (..., nrows), ok (...,)). A step poisons
+    its tree when its value or an operand is non-finite; ``ok`` is not
+    poisoned and not empty."""
+    batch_shape = trees.length.shape
+    flat = ke._flatten(trees)
+    T, L = flat.kind.shape
+    nfeat, R = X.shape
+    if packed:
+        check_packed_layout(operators, nfeat, L)
+    tables, n_instr = instruction_schedule(flat, operators)
+    ti = torch.arange(T, device=X.device)
+    if packed:
+        code, lconst, rconst, lidx, ridx = decode_packed_word(
+            pack_instr_tables(tables, nfeat))
+        space = torch.zeros((nfeat + L, T, R), dtype=torch.float32,
+                            device=X.device)
+        space[:nfeat] = X.unsqueeze(1)
+
+        def operands(k):
+            a = torch.where((rconst[:, k] == 1).unsqueeze(-1),
+                            tables["rcval"][:, k].unsqueeze(-1),
+                            space[ridx[:, k], ti])
+            b = torch.where((lconst[:, k] == 1).unsqueeze(-1),
+                            tables["lcval"][:, k].unsqueeze(-1),
+                            space[lidx[:, k], ti])
+            return a, b
+        base = nfeat
+    else:
+        code = tables["icode"]
+        space = torch.zeros((L, T, R), dtype=torch.float32, device=X.device)
+
+        def fetch(side, k):
+            src = tables[side + "src"][:, k].unsqueeze(-1)
+            idx = tables[side + "idx"][:, k]
+            return torch.where(
+                src == SRC_RES, space[torch.clamp_max(idx, L - 1), ti],
+                torch.where(src == SRC_VAR, X[torch.clamp_max(idx, nfeat - 1)],
+                            tables[side + "cval"][:, k].unsqueeze(-1)))
+
+        def operands(k):
+            return fetch("r", k), fetch("l", k)
+        base = 0
+    U = operators.n_unary
+    bad = torch.zeros(T, dtype=torch.bool, device=X.device)
+    for k in range(int(n_instr.max()) if T else 0):
+        c = code[:, k]
+        a, b = operands(k)
+        v = a  # DEAD and IDENT pass the right operand through
+        for j, fn in enumerate(operators.unary_fns):
+            v = torch.where((c == 2 + j).unsqueeze(-1), fn(a), v)
+        for j, fn in enumerate(operators.binary_fns):
+            v = torch.where((c == 2 + U + j).unsqueeze(-1), fn(b, a), v)
+        space[base + k] = v
+        fin = torch.isfinite(v) & torch.isfinite(a) & torch.isfinite(b)
+        bad |= (c != CODE_DEAD) & ~fin.all(dim=-1)
+    root = space[base + torch.clamp_min(n_instr.to(torch.int64) - 1, 0), ti]
+    root = torch.where((flat.length > 0).unsqueeze(-1), root, 0.0)
+    ok = ~bad & (flat.length > 0)
+    return root.reshape(batch_shape + (R,)), ok.reshape(batch_shape)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def build_library(force: bool = False) -> pathlib.Path:
+    """Compile csrc/instr_eval.cu with nvcc into build/ (once), with the
+    postfix scoring kernel's flags."""
+    global BUILD_LOG
+    if force or not ke.is_built(SOURCE, LIBRARY):
+        BUILD_LOG = ke.compile_library(SOURCE, LIBRARY)
+    return LIBRARY
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            p = ctypes.c_void_p
+            i = ctypes.c_int
+            lib.instr_eval_launch.argtypes = [p] * 12 + [i] * 6 + [p]
+            lib.instr_eval_launch.restype = i
+            lib.instr_eval_warps_per_block.argtypes = [i, i, i]
+            lib.instr_eval_warps_per_block.restype = i
+            lib.instr_eval_error_string.argtypes = [i]
+            lib.instr_eval_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+class PreparedLaunch(NamedTuple):
+    """Everything one kernel launch reads and writes, on the card."""
+
+    args: tuple
+    out: torch.Tensor
+    bad: torch.Tensor
+    length: torch.Tensor
+    packed: bool
+
+
+def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
+                   packed: bool) -> PreparedLaunch:
+    """Check the inputs and build the kernel's tables and outputs for a
+    flat (T, L) batch on the card: the JAX package's tables, with each
+    instruction opcode mapped to the kernels' operator id (IDENT runs the
+    identity operator)."""
+    dev = X.device
+    if X.dtype != torch.float32 or X.dim() != 2:
+        raise ValueError(f"X must be (nfeat, nrows) float32, got {X.dtype} "
+                         f"{tuple(X.shape)}")
+    if any(f.device != dev for f in flat):
+        raise ValueError("trees and X must lie on the same device")
+    nfeat, nrows = X.shape
+    if packed:
+        check_packed_layout(operators, nfeat, flat.kind.shape[1])
+    prep = prep_instr_tables(flat, operators)
+    if _library().instr_eval_warps_per_block(prep.L, nfeat, int(packed)) < 1:
+        raise ValueError(f"{nfeat} features and {prep.L} steps need more "
+                         "shared memory per warp than a block may use")
+    T = flat.length.shape[0]
+    opmap = torch.tensor([0, KERNEL_UNARY_IDS["identity"]]
+                         + ke.kernel_operator_ids(operators),
+                         dtype=torch.int32, device=dev)
+    tb = prep.tables
+    kcode = opmap[tb["icode"].to(torch.int64)]
+    if packed:
+        word = (pack_instr_tables(tb, nfeat) & ~0xFF) | kcode
+        tables = [word, None, None, tb["lcval"], None, None, tb["rcval"]]
+    else:
+        tables = [kcode, tb["lsrc"], tb["lidx"], tb["lcval"], tb["rsrc"],
+                  tb["ridx"], tb["rcval"]]
+    tables = [None if t is None else t.contiguous() for t in tables]
+    perm = (prep.perm if prep.perm is not None
+            else torch.arange(T, device=dev)).contiguous()
+    out = torch.empty((T, nrows), dtype=torch.float32, device=dev)
+    bad = torch.empty((T,), dtype=torch.int32, device=dev)
+    # the tensors ride along so their memory outlives every launch
+    args = (*tables, prep.n_instr.contiguous(), perm, X.contiguous(), out,
+            bad, T, prep.L, nfeat, nrows, int(packed),
+            int(ke.uses_full_kernel(operators)))
+    return PreparedLaunch(args, out, bad, flat.length, packed)
+
+
+def run_prepared(p: PreparedLaunch) -> None:
+    """Launch the kernel on the current stream and check the launch."""
+    lib = _library()
+    *tensors, T, L, nfeat, nrows, packed, full = p.args
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    stream = torch.cuda.current_stream(p.out.device).cuda_stream
+    rc = lib.instr_eval_launch(*ptrs, T, L, nfeat, nrows, packed, full, stream)
+    if rc != 0:
+        raise RuntimeError("instr_eval kernel launch failed: "
+                           + lib.instr_eval_error_string(rc).decode())
+    LAUNCHES["instr_packed" if packed else "instr"] += 1
+
+
+def eval_trees_instr(trees: TreeBatch, X: torch.Tensor, operators: OperatorSet,
+                     packed: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Value mode by the instruction program: (y (..., nrows) float32,
+    ok (...,)). CUDA tensors run the kernel (B6 with ``packed``, else B5);
+    CPU tensors the plain version."""
+    if not X.is_cuda:
+        return eval_trees_instr_plain(trees, X, operators, packed)
+    batch_shape = trees.length.shape
+    p = prepare_launch(ke._flatten(trees), X, operators, packed)
+    run_prepared(p)
+    ok = (p.bad == 0) & (p.length > 0)
+    return (p.out.reshape(batch_shape + (X.shape[1],)),
+            ok.reshape(batch_shape))

@@ -8,9 +8,11 @@ operator list, so encoded trees carry across packages unchanged).
 Binary operators are called ``fn(left, right)``: ``left`` is the second
 stack entry and ``right`` the top, as in the reference interpreter.
 
-The CUDA kernel (``csrc/postfix_eval.cu``) carries its own device function
-for each name in ``KERNEL_UNARY_IDS`` / ``KERNEL_BINARY_IDS`` with the same
-guards; names outside those tables run only on the plain path.
+The CUDA kernels carry one device function for every name of the two
+registries, with the same guards, in one header (``csrc/operators.cuh``),
+under the ids of ``KERNEL_UNARY_IDS`` / ``KERNEL_BINARY_IDS``; each
+operator's closed-form derivative is in ``UNARY_VJP`` / ``BINARY_VJP``
+here and in the header.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ def safe_acos(x):
 
 def atanh_clip(x):
     """atanh of x wrapped to (-1, 1)."""
-    return torch.atanh(torch.remainder(x + 1.0, 2.0) - 1.0)
+    return torch.atanh(mod_op(x + 1.0, 2.0) - 1.0)
 
 
 def gamma_op(x):
@@ -131,8 +133,42 @@ def div(x, y):
     return x / y
 
 
+def _fmod(x, y):
+    """The truncated remainder of x by y, exact as C's ``fmod``. torch's
+    vectorised CPU ``fmod`` is exact except where ``x / y`` overflows
+    float32 (it gives NaN there); those elements are first reduced by
+    ``y * 2^k`` (exact, and an integer multiple of y, so the remainder is
+    unchanged) until the quotient is finite."""
+    r = torch.fmod(x, y)
+    over = torch.isinf(x / y) & torch.isfinite(x) & (y != 0)
+    if not bool(over.any()):
+        return r
+    xr, yr = x[over], y[over]
+    while True:
+        q_over = torch.isinf(xr / yr)
+        if not bool(q_over.any()):
+            break
+        gap = torch.frexp(xr)[1] - torch.frexp(yr)[1] - 100
+        ym = (yr.double() * torch.pow(2.0, gap.double())).float()
+        xr = torch.where(q_over, torch.fmod(xr, ym), xr)
+    out = r.clone()
+    out[over] = torch.fmod(xr, yr)
+    return out
+
+
+def _mod_fix(r, y):
+    """Where ``jnp.mod`` moves the truncated remainder ``r`` by ``y``: it is
+    non-zero and its sign differs from ``y``'s."""
+    return ((r < 0) != (y < 0)) & (r != 0)
+
+
 def mod_op(x, y):
-    return torch.remainder(x, y)
+    """``jnp.mod``: the truncated remainder (exact), moved by ``y`` where
+    its sign differs from ``y``'s. ``torch.remainder`` computes
+    ``x - floor(x / y) * y`` instead, which is NaN where ``x / y``
+    overflows (``mod(3e38, 0.5)``) and inexact where it is large."""
+    r = _fmod(x, y)
+    return torch.where(_mod_fix(r, y), r + y, r)
 
 
 def identity_op(x):
@@ -201,18 +237,30 @@ BINARY_REGISTRY: Dict[str, Callable] = {
     "atan2": torch.atan2,
 }
 
-# Operators the CUDA kernel carries, by the id its switch dispatches on
-# (csrc/postfix_eval.cu keeps the same numbers). 0/1/2 are PAD/CONST/VAR.
+# Every registry operator, by the id the CUDA kernels' switches dispatch on
+# (csrc/operators.cuh keeps the same numbers). 0/1/2 are PAD/CONST/VAR;
+# unary ids lie below the first binary id.
 KERNEL_UNARY_IDS: Dict[str, int] = {
     "cos": 10, "sin": 11, "tan": 12, "exp": 13, "log": 14, "log2": 15,
     "log10": 16, "log1p": 17, "sqrt": 18, "abs": 19, "square": 20,
     "cube": 21, "neg": 22, "relu": 23, "sinh": 24, "cosh": 25, "tanh": 26,
     "sigmoid": 27, "inv": 28, "identity": 29, "sign": 30, "gauss": 31,
+    "asin": 32, "acos": 33, "atan": 34, "asinh": 35, "acosh": 36,
+    "atanh": 37, "erf": 38, "erfc": 39, "gamma": 40,
 }
 KERNEL_BINARY_IDS: Dict[str, int] = {
-    "+": 40, "-": 41, "*": 42, "/": 43, "^": 44, "pow": 44, "max": 45,
-    "min": 46,
+    "+": 50, "-": 51, "*": 52, "/": 53, "^": 54, "pow": 54, "max": 55,
+    "min": 56, "mod": 57, "atan2": 58, "greater": 59, "logical_or": 60,
+    "logical_and": 61,
 }
+
+# The operators csrc/operators.cuh compiles into each kernel's full
+# instantiation only; a batch without them runs the compact one, which
+# runs the others faster (unary ids from "asin", binary ids from "mod")
+KERNEL_FULL_ONLY = frozenset({
+    "asin", "acos", "atan", "asinh", "acosh", "atanh", "erf", "erfc",
+    "gamma", "mod", "atan2", "greater", "logical_or", "logical_and",
+})
 
 # ---------------------------------------------------------------------------
 # Closed-form derivatives of the kernel operators (the adjoint sweep of the
@@ -252,6 +300,85 @@ def _pow_vjp(b, a, v, w):
     return db, da
 
 
+_TWO_OVER_SQRT_PI_F32 = float(torch.tensor(2.0 / math.sqrt(math.pi),
+                                          dtype=torch.float32))
+_PI_F32 = float(torch.tensor(math.pi, dtype=torch.float32))
+
+
+def _clip_vjp(a, g):
+    """``jnp.clip(a, -1, 1)`` is ``minimum(1, maximum(-1, a))``: the
+    adjoint ``g`` of its value times each step's tie-splitting share (0.5
+    at a = +-1, 0 beyond)."""
+    m = torch.maximum(a, torch.full_like(a, -1.0))
+    c = torch.minimum(m, torch.ones_like(a))
+    g = g * _balanced_eq(m, c, torch.ones_like(a))
+    return g * _balanced_eq(a, m, torch.full_like(a, -1.0))
+
+
+def _asin_vjp(a, v, w, sign=1.0):
+    """safe_asin (and with ``sign`` -1 safe_acos): the guard's select, the
+    lax rule ``g * (+-rsqrt(1 - c^2))`` at the clipped operand ``c``, then
+    the clip."""
+    c = torch.clamp(a, -1.0, 1.0)
+    r = torch.rsqrt(1.0 - c * c)
+    return _clip_vjp(a, _sel(torch.abs(a) <= 1, w) * (r if sign > 0 else -r))
+
+
+def _acosh_vjp(a, v, w):
+    ok = a >= 1
+    xs = torch.where(ok, a, torch.ones_like(a))
+    return _sel(ok, _sel(ok, w) * torch.rsqrt(xs * xs - 1.0))
+
+
+def _atanh_clip_vjp(a, v, w):
+    """d mod(x + 1, 2) / dx is 1, so the lax atanh rule
+    ``(1 / (1 + u)) * (g / (1 - u))`` at the wrapped operand u."""
+    u = mod_op(a + 1.0, 2.0) - 1.0
+    return (1.0 / (1.0 + u)) * (w / (1.0 - u))
+
+
+def _gamma_vjp(a, v, w):
+    """Through both branches of gamma_op's ``where`` as ``jax.vjp`` runs
+    them: the poles and non-finite values take adjoint 0, the positive
+    branch ``exp(lgamma(x))`` the adjoint where x > 0, the reflection
+    ``pi / (sin(pi x) exp(lgamma(1 - x)))`` elsewhere; an unselected
+    branch still multiplies its 0 by its own local derivatives, so an
+    infinite one (lgamma overflowing, a zero denominator) gives NaN, as in
+    JAX (gamma'(2) is NaN there). The three contributions to x add in the
+    reverse order of the forward graph."""
+    pos_sel = a > 0
+    g = _sel(~(((a <= 0) & (a == torch.round(a))) | ~torch.isfinite(v)), w)
+    g_pos = _sel(pos_sel, g)
+    g_neg = _sel(~pos_sel, g)
+    ct_pos = (g_pos * torch.exp(torch.lgamma(a))) * torch.digamma(a)
+    u = _PI_F32 * a
+    s = torch.sin(u)
+    one_minus = 1.0 - a
+    e = torch.exp(torch.lgamma(one_minus))
+    den = s * e
+    ct_den = (-g_neg * _PI_F32) * (1.0 / (den * den))
+    ct_u = (ct_den * e) * torch.cos(u)
+    ct_v = ((s * ct_den) * e) * torch.digamma(one_minus)
+    return (-ct_v + _PI_F32 * ct_u) + ct_pos
+
+
+def _mod_vjp(b, a, v, w):
+    """``jnp.mod(b, a)``: the truncated remainder passes w to b, and
+    ``-w * trunc(b / a)`` to a, plus w where the sign fix added a."""
+    q = b / a
+    da = (-w) * (sign(q) * torch.floor(torch.abs(q)))
+    return w, _sel(_mod_fix(_fmod(b, a), a), w) + da
+
+
+def _atan2_vjp(b, a, v, w):
+    r2 = b * b + a * a
+    return w * (a / r2), w * (-b / r2)
+
+
+def _zero_vjp(b, a, v, w):
+    return torch.zeros_like(w), torch.zeros_like(w)
+
+
 UNARY_VJP: Dict[str, Callable] = {
     "cos": lambda a, v, w: -(w * torch.sin(a)),
     "sin": lambda a, v, w: w * torch.cos(a),
@@ -275,6 +402,15 @@ UNARY_VJP: Dict[str, Callable] = {
     "identity": lambda a, v, w: w,
     "sign": lambda a, v, w: torch.zeros_like(w),
     "gauss": lambda a, v, w: -2.0 * ((w * v) * a),
+    "asin": _asin_vjp,
+    "acos": lambda a, v, w: _asin_vjp(a, v, w, -1.0),
+    "atan": lambda a, v, w: w / (1.0 + a * a),
+    "asinh": lambda a, v, w: w * torch.rsqrt(a * a + 1.0),
+    "acosh": _acosh_vjp,
+    "atanh": _atanh_clip_vjp,
+    "erf": lambda a, v, w: _TWO_OVER_SQRT_PI_F32 * (w * torch.exp(-(a * a))),
+    "erfc": lambda a, v, w: -_TWO_OVER_SQRT_PI_F32 * (w * torch.exp(-(a * a))),
+    "gamma": _gamma_vjp,
 }
 
 BINARY_VJP: Dict[str, Callable] = {
@@ -286,6 +422,11 @@ BINARY_VJP: Dict[str, Callable] = {
     "pow": _pow_vjp,
     "max": lambda b, a, v, w: (w * _balanced_eq(b, v, a), w * _balanced_eq(a, v, b)),
     "min": lambda b, a, v, w: (w * _balanced_eq(b, v, a), w * _balanced_eq(a, v, b)),
+    "mod": _mod_vjp,
+    "atan2": _atan2_vjp,
+    "greater": _zero_vjp,
+    "logical_or": _zero_vjp,
+    "logical_and": _zero_vjp,
 }
 
 _ALIASES = {

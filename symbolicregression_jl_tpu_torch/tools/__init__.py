@@ -1,0 +1,1 @@
+"""Measurement tools of the port (not imported by the package)."""

@@ -1,7 +1,8 @@
-"""The PyTorch port on a CUDA card: the scoring kernel in every mode and
-the constant-gradient kernel in both variants against their plain
-versions, each operator the kernels carry (and its derivative) on the edge
-grid, and short searches. Marked ``gpu``; each skips without a card (decided in a
+"""The PyTorch port on a CUDA card: the scoring kernel in every mode, the
+constant-gradient kernel in both variants and the instruction-program
+kernels against their plain versions (the latter also bit-equal to the
+scoring kernel's value mode), each registry operator (and its derivative,
+and the hand-written digamma) on the edge grid, and short searches. Marked ``gpu``; each skips without a card (decided in a
 fixture, so every test worker collects the same tests).
 
 This file imports neither JAX nor the JAX package, because the machine
@@ -22,6 +23,7 @@ from symbolicregression_jl_tpu_torch.models.trees import (
 )
 from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
 from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
+from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 from symbolicregression_jl_tpu_torch.utils.rng import make_generator
 
@@ -228,3 +230,132 @@ def test_equation_search_with_constant_optimisation_on_card(cuda):
     assert tkg.LAUNCHES["loss_grad"] - before["loss_grad"] == 9 * 3
     assert tkg.LAUNCHES["loss"] - before["loss"] == 8 * 3
     assert res.best_loss().loss < 1e-2
+
+
+def _all_operators():
+    return tops.make_operator_set(
+        sorted(set(tops.BINARY_REGISTRY) - {"pow"}), sorted(tops.UNARY_REGISTRY))
+
+
+def _assert_bits_equal(got, ref):
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True], ids=["instr", "instr_packed"])
+@pytest.mark.parametrize("operators", ["main", "all"])
+def test_instr_kernel_matches_plain_and_value_mode_on_card(cuda, packed,
+                                                           operators):
+    """B5 / B6 on random trees (over the north star's operators, or over
+    all 44 registry operators), bare leaves and poisoning trees included:
+    ok equal to the postfix value mode's and values bit-equal to it, and
+    against the plain version at rtol 1e-5 / atol 1e-6."""
+    ops = (tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+           if operators == "main" else _all_operators())
+    gen = make_generator(2, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, 24, (900,), device=cuda, generator=gen), 3, ops,
+        L, cuda)
+    X = torch.randn(3, 333, device=cuda, generator=gen) * 1.5
+    name = "instr_packed" if packed else "instr"
+    before = tki.LAUNCHES[name]
+    yk, okk = tki.eval_trees_instr(trees, X, ops, packed)
+    assert tki.LAUNCHES[name] == before + 1
+    yv, okv = tke.eval_trees(trees, X, ops)
+    assert torch.equal(okk, okv) and 0 < int(okk.sum()) < 900
+    _assert_bits_equal(yk[okk], yv[okk])
+    yp, okp = tki.eval_trees_instr_plain(trees, X, ops, packed)
+    assert torch.equal(okk, okp)
+    torch.testing.assert_close(yk[okk], yp[okk], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted({**tops.KERNEL_UNARY_IDS,
+                                         **tops.KERNEL_BINARY_IDS}))
+def test_instr_kernel_operator_grid_on_card(cuda, name):
+    """Each operator as a one-instruction program over the edge grid
+    through B5 and B6: bit-equal to the postfix kernel's value mode."""
+    unary = name in tops.KERNEL_UNARY_IDS
+    ops = (tops.make_operator_set([], [name]) if unary
+           else tops.make_operator_set([name], []))
+    a, b = np.meshgrid(GRID, GRID, indexing="ij")
+    X = torch.tensor(np.stack([a.ravel(), b.ravel()]), device=cuda)
+    kind = [VAR, UNA] if unary else [VAR, VAR, BIN]
+    n = len(kind)
+    t = TreeBatch(
+        torch.tensor([kind + [0] * (L - n)], device=cuda),
+        torch.zeros((1, L), dtype=torch.int64, device=cuda),
+        torch.tensor([[0, 1] + [0] * (L - 2)], device=cuda),
+        torch.zeros((1, L), device=cuda),
+        torch.tensor([n], device=cuda))
+    yv, okv = tke.eval_trees(t, X, ops)
+    for packed in (False, True):
+        yk, okk = tki.eval_trees_instr(t, X, ops, packed)
+        assert torch.equal(okk, okv)
+        _assert_bits_equal(yk, yv)
+
+
+@pytest.mark.gpu
+def test_digamma_matches_torch_on_card(cuda):
+    """The kernels' digamma (CUDA's math library has none; gamma's
+    derivative reads it) against torch.digamma: the same NaN and inf
+    positions; values at rtol 1e-5 with atol 2e-6, because near a root
+    (1.4616, and one in each negative unit interval) a float32 digamma
+    keeps absolute, not relative, digits: torch's subtracts up to ten terms
+    below 3, half an ulp (1.2e-7) each."""
+    x = torch.tensor(np.concatenate([
+        GRID, np.linspace(-9.75, 40, 4000), [1.4616321, 1.4616322]]).astype(
+            np.float32), device=cuda)
+    got, ref = tkg.digamma_on_card(x), torch.digamma(x)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.isinf(got), torch.isinf(ref))
+    m = torch.isfinite(ref)
+    torch.testing.assert_close(got[m], ref[m], rtol=1e-5, atol=2e-6)
+
+
+@pytest.mark.gpu
+def test_instr_searches_on_card(cuda):
+    """kernel_program="instr" and "instr_packed" with the same seed: the
+    same hall of fame, every scoring call through B5 / B6 (1 at init, 1
+    per cycle, 1 rescore per iteration)."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-3, 3, (2, 200)).astype(np.float32)
+    y = 2.5 * np.cos(X[0]) + 0.7
+    fronts = {}
+    for program in ("instr", "instr_packed"):
+        before = tki.LAUNCHES[program]
+        res = sr.equation_search(
+            X, y, binary_operators=["+", "*"], unary_operators=["cos"],
+            npopulations=8, npop=60, ncycles_per_iteration=30, maxsize=10,
+            niterations=2, seed=0, verbosity=0, kernel_program=program)
+        assert tki.LAUNCHES[program] - before == 1 + 2 * 30 + 2
+        fronts[program] = [(c.complexity, c.loss, c.equation)
+                           for c in res.candidates]
+    assert fronts["instr"] == fronts["instr_packed"] and fronts["instr"]
+
+
+@pytest.mark.gpu
+def test_compact_and_full_instantiations_agree_on_card(cuda, monkeypatch):
+    """On operators of the common set the wrappers launch each kernel's
+    compact instantiation; the full one (forced) gives the same bits."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp", "sqrt"])
+    assert not tke.uses_full_kernel(ops)
+    assert tke.uses_full_kernel(tops.make_operator_set(["+", "mod"], []))
+    gen = make_generator(4, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, 24, (600,), device=cuda, generator=gen), 2, ops,
+        L, cuda)
+    X = torch.randn(2, 333, device=cuda, generator=gen) * 1.5
+    y = torch.randn(333, device=cuda, generator=gen)
+
+    def run_all():
+        return [tke.eval_trees(trees, X, ops)[0],
+                tke.eval_loss_trees(trees, X, y, ops),
+                *tkg.eval_loss_grad(trees, X, y, None, ops)[:2],
+                tki.eval_trees_instr(trees, X, ops, False)[0],
+                tki.eval_trees_instr(trees, X, ops, True)[0]]
+
+    compact = run_all()
+    monkeypatch.setattr(tke, "uses_full_kernel", lambda operators: True)
+    for got, ref in zip(run_all(), compact):
+        _assert_bits_equal(got.nan_to_num(), ref.nan_to_num())

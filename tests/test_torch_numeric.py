@@ -9,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.special
 import torch
 
 import symbolicregression_jl_tpu.models.trees as jtrees
@@ -42,13 +43,17 @@ def _assert_close_nan_equal(got, ref, rtol, atol):
 def test_unary_operator_grid(name):
     got = tops.UNARY_REGISTRY[name](torch.tensor(GRID)).numpy()
     ref = np.asarray(jops.UNARY_REGISTRY[name](jnp.asarray(GRID)))
-    if name in ("sinh", "cosh"):
-        # XLA's f32 sinh/cosh are 1.4e-6 off for |x| > ~10 (measured
-        # against float64); hold the port to the float64 value instead,
-        # and to JAX only on where NaN/inf land
+    if name in ("sinh", "cosh", "gamma"):
+        # XLA's f32 sinh/cosh are 1.4e-6 off for |x| > ~10, and its gamma
+        # (exp of lgamma) up to 2.8e-6 (gamma(10) = 362881 against 362880),
+        # measured against float64; torch's are within 1e-6 of it. Hold
+        # the port to the float64 value instead, and to JAX only on where
+        # NaN/inf land
         np.testing.assert_array_equal(np.isinf(got), np.isinf(ref))
-        with np.errstate(over="ignore"):
-            ref = getattr(np, name)(GRID.astype(np.float64)).astype(np.float32)
+        f64 = scipy.special.gamma if name == "gamma" else getattr(np, name)
+        with np.errstate(over="ignore", invalid="ignore"):
+            ref64 = f64(GRID.astype(np.float64)).astype(np.float32)
+        ref = np.where(np.isnan(ref), ref, ref64)
     _assert_close_nan_equal(got, ref, rtol=1e-6, atol=1e-7)
 
 
@@ -58,6 +63,22 @@ def test_binary_operator_grid(name):
     ref = jops.BINARY_REGISTRY[name](jnp.asarray(a), jnp.asarray(b))
     got = tops.BINARY_REGISTRY[name](torch.tensor(a), torch.tensor(b))
     _assert_close_nan_equal(got.numpy(), ref, rtol=1e-6, atol=1e-7)
+
+
+def test_mod_is_exact_where_the_quotient_overflows():
+    """mod(3e38, y) for the grid's small y: x / y overflows, so
+    x - floor(x / y) * y (torch.remainder) is NaN; jnp.mod's truncated
+    remainder is exact, and so is the port's (0.0 at y = 0.5, 7.0e-8 at
+    y = 1e-7): bit-equal at all 14 such grid points."""
+    a, b = np.meshgrid(GRID, GRID, indexing="ij")
+    pts = np.isfinite(a) & np.isfinite(b) & np.isnan(
+        torch.remainder(torch.tensor(a), torch.tensor(b)).numpy()) & (b != 0)
+    assert pts.sum() == 14 and (np.abs(a[pts]) == np.float32(3e38)).all()
+    ref = np.asarray(jops.mod_op(jnp.asarray(a[pts]), jnp.asarray(b[pts])))
+    got = tops.mod_op(torch.tensor(a[pts]), torch.tensor(b[pts])).numpy()
+    assert np.isfinite(ref).all()
+    np.testing.assert_array_equal(got, ref)
+    assert tops.mod_op(torch.tensor(3e38), torch.tensor(0.5)).item() == 0.0
 
 
 BINS = ["+", "-", "*", "/"]

@@ -27,6 +27,8 @@ from symbolicregression_jl_tpu_torch.models import mutate_device as tmut
 from symbolicregression_jl_tpu_torch.models import population as tpop
 from symbolicregression_jl_tpu_torch.models.trees import is_valid_postfix
 from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
+from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
+from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 from symbolicregression_jl_tpu_torch.parallel import migration as tmig
 from symbolicregression_jl_tpu_torch.utils.rng import make_generator
@@ -211,7 +213,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
     port = REPO / "symbolicregression_jl_tpu_torch"
-    assert {port / "ops" / "kernel_grad.py",
+    assert {port / "ops" / "kernel_grad.py", port / "ops" / "kernel_instr.py",
             port / "models" / "constant_opt.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -247,10 +249,48 @@ def test_unsupported_options_raise(kw):
         sr.make_options(**kw)
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as lying on the card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
-    """An operator the kernel does not carry raises on a CUDA tensor
-    instead of falling back (checked without a card: the opcode table is
-    built before any launch)."""
-    ops = tops.make_operator_set(["+"], ["erf"])
+    """On a CUDA tensor every wrapper launches its kernel or raises: with
+    the library unavailable (checked without a card, on a tensor that
+    says it lies on one) the scoring, constant-optimisation and
+    instruction-program wrappers raise instead of falling back; an
+    operator outside the registries has no kernel opcode and raises too."""
+    ops = tops.make_operator_set(["+", "*"], ["cos", "erf"])
+    trees = tmut.gen_random_tree_fixed_size(
+        make_generator(0, "cpu"), torch.full((6,), 7), 2, ops, L, "cpu")
+    X = torch.randn(2, 40).as_subclass(_OnCard)
+    y = torch.randn(40)
+
+    def no_library():
+        raise RuntimeError("kernel launch attempted")
+
+    def no_plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod in (tke, tkg, tki):
+        monkeypatch.setattr(mod, "_library", no_library)
+    for mod, name in ((tke, "eval_trees_plain"), (tke, "eval_loss_trees_plain"),
+                      (tke, "eval_slot_values_plain"),
+                      (tkg, "_plain_loss_grad"),
+                      (tki, "eval_trees_instr_plain")):
+        monkeypatch.setattr(mod, name, no_plain)
+    calls = [lambda: tke.eval_trees(trees, X, ops),
+             lambda: tke.eval_loss_trees(trees, X, y, ops),
+             lambda: tke.eval_slot_values(trees, X[:, :1], ops),
+             lambda: tkg.eval_loss_grad(trees, X, y, None, ops),
+             lambda: tkg.eval_loss(trees, X, y, None, ops),
+             lambda: tki.eval_trees_instr(trees, X, ops, packed=False),
+             lambda: tki.eval_trees_instr(trees, X, ops, packed=True)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="kernel launch attempted"):
+            call()
     with pytest.raises(NotImplementedError):
-        tke.kernel_opcode_table(ops, "cpu")
+        tke.kernel_opcode_table(tops.OperatorSet(("my_op",), ("+",)), "cpu")
