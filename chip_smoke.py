@@ -14,29 +14,39 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    path's shapes (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's
    children at 64 islands x 1000, 64,000 trees = one rescore), poisoning
    trees, bare leaves and a unary chain included: the postfix kernel in
-   every mode, and the instruction-program kernels, whose values must be
-   bit-equal to the postfix value mode's;
+   every mode (value and slot modes bit-equal to their plain versions; two
+   launches of the fused mode give the same bits), and the
+   instruction-program kernels, whose values must be bit-equal to the
+   postfix value mode's;
 3. constant-optimisation kernel vs plain version at the main path's
    shapes: the gradient variant at 26,880 instances (one BFGS step at 64
    islands x 3 starts x 140 members), the loss-only variant at 215,040
-   (its line search, 8 candidates each); unweighted and weighted with
-   zero-weight rows, poisoning trees included; then every kernel on random
+   (its line search, 8 candidates each; two launches give the same bits);
+   unweighted and weighted with zero-weight rows, poisoning trees
+   included; then every kernel on random
    trees over all 44 registry operators, the hand-written digamma against
    torch.digamma, and a short search over the operators the earlier
    slices did not carry;
-4. timing of every kernel with CUDA events, beside its plain version and
-   its bound (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s);
+4. timing of every kernel alone (its launches queued behind a spin on the
+   card, CUDA events), beside its plain version and its bound (bytes over
+   3.35 TB/s, f32 operations over 67 TFLOP/s); the launch layout of the
+   scoring and loss-only kernels (work items per tree, rows or candidates
+   per lane, warps per block, resident blocks per SM) and their ptxas
+   lines;
 5. the main path: ``equation_search`` at 64 islands x 1000, maxsize 20,
    ``+ - * /`` with ``cos exp``, L2 loss, default constant optimisation
    (BFGS), then ``predict``; the launch counts are zeroed just before and
    read just after, and each iteration's optimisation pass is timed; then
    the same search with ``kernel_program="instr"`` and ``"instr_packed"``
    (one iteration each, same seed: their halls of fame must be
-   bit-equal), the counts zeroed before and read after each;
+   bit-equal), the counts zeroed before and read after each; then a short
+   search whose every batch must hold valid programs only;
 6. the cycle alone at the same widths: milliseconds per cycle with the
    constant fold through the slot-values kernel and through its plain
    version (interleaved, twice each), and a profile of 20 cycles without
-   init, simplify or rescore (device kernels per cycle, idle share);
+   init, simplify or rescore (device kernels per cycle, idle share, host
+   synchronisations per cycle by issuing operator); the scoring wrapper
+   alone must make none;
 7. the optimisation pass alone on that 64 x 1000 state: milliseconds per
    pass, and a profile of one pass (device kernels, the kernels' share);
 8. recovery on the card: ``x0*x0 - x1*x2`` without constant optimisation,
@@ -95,7 +105,8 @@ def host_cpu():
 
 
 def cuda_ms(fn, reps):
-    """Mean milliseconds per call of fn over reps calls (CUDA events)."""
+    """Mean milliseconds per call of fn over reps calls (CUDA events): the
+    host's work and the card's, whichever is the longer."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -106,6 +117,30 @@ def cuda_ms(fn, reps):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, reps):
+    """Device milliseconds per call of fn, which must not wait for the
+    card: the calls are queued behind a spin on the card and timed by CUDA
+    events around them, so the host's cost of launching does not show. The
+    spin doubles until the card is still in it when the last call is
+    queued."""
+    fn()
+    torch.cuda.synchronize()
+    spin = 1 << 23  # clock cycles, ~4 ms
+    while True:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        queued = not e0.query()
+        torch.cuda.synchronize()
+        if queued:
+            return e0.elapsed_time(e1) / reps
+        spin *= 2
 
 
 def main():
@@ -123,7 +158,7 @@ def main():
         gen_random_tree_fixed_size,
     )
     from symbolicregression_jl_tpu_torch.models.trees import (
-        TreeBatch, UNA, encode_tree, parse_expression, stack_trees,
+        BIN, VAR, TreeBatch, UNA, encode_tree, parse_expression, stack_trees,
     )
     from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
     from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
@@ -186,16 +221,29 @@ def main():
         rel[name] = max(rel[name], float(((got - ref).abs()
                                           / ref.abs().clamp_min(1e-30)).max()))
 
+    def ulp_mismatch(got, ref):
+        """(count, max ulp distance) of the elements whose bits differ."""
+        gi, ri = got.view(torch.int32).long(), ref.view(torch.int32).long()
+        diff = gi != ri
+        n = int(diff.sum())
+        return n, int((gi - ri).abs()[diff].max()) if n else 0
+
+    def assert_bits(name, got, ref):
+        n, ulp = ulp_mismatch(got, ref)
+        assert n == 0, f"{name}: {n} values differ, max {ulp} ulp"
+
     def check_value(tb_):
         yk, okk = ke.eval_trees(tb_, X, ops)
         yp, okp = ke.eval_trees_plain(tb_, X, ops)
         assert torch.equal(okk, okp), "value mode: ok differs"
         assert int((~okk).sum()) >= 4, "poisoning trees were not poisoned"
         torch.testing.assert_close(yk[okk], yp[okk], rtol=1e-5, atol=1e-6)
+        assert_bits("value mode vs plain", yk[okk], yp[okk])
         note("value", yk[okk], yp[okk])
 
     def check_fused(tb_, chunk=8192):
         lk = ke.eval_loss_trees(tb_, X, y, ops)
+        assert_bits("fused: two launches", ke.eval_loss_trees(tb_, X, y, ops), lk)
         lp = torch.cat([ke.eval_loss_trees_plain(tb_[i:i + chunk], X, y, ops)
                         for i in range(0, tb_.length.shape[0], chunk)])
         assert torch.equal(torch.isinf(lk), torch.isinf(lp)), "fused: inf differs"
@@ -211,17 +259,11 @@ def main():
         fin = torch.isfinite(sp)
         assert torch.equal(torch.isfinite(sk), fin), "slots: finite set differs"
         torch.testing.assert_close(sk[fin], sp[fin], rtol=1e-5, atol=1e-6)
+        assert_bits("slot mode vs plain", sk[fin], sp[fin])
         note("slots", sk[fin], sp[fin])
 
     for name in ("instr", "instr_packed"):
         err[name] = rel[name] = 0.0
-
-    def ulp_mismatch(got, ref):
-        """(count, max ulp distance) of the elements whose bits differ."""
-        gi, ri = got.view(torch.int32).long(), ref.view(torch.int32).long()
-        diff = gi != ri
-        n = int(diff.sum())
-        return n, int((gi - ri).abs()[diff].max()) if n else 0
 
     def check_instr(tb_, Xc, opsc, label, chunk=8192):
         """B5 and B6: ok equal to the postfix value mode's and values
@@ -259,6 +301,41 @@ def main():
     torch.cuda.synchronize()
     log(f"kernel vs plain: agree at T={T_CYCLE} and T={T_RESCORE} x {ROWS} "
         f"rows; max abs err {err}; max rel err {rel}")
+
+    # invalid programs (stack underflow, unfinished, a length beyond L, a
+    # negative length, an operator outside the set, an unknown kind, a
+    # feature out of range): every kernel and every plain version report
+    # each one poisoned, its value and slot values 0 and its loss +inf
+    shapes_ = [([VAR, BIN], 2), ([VAR, VAR], 2), ([UNA], 1), ([VAR], 25),
+               ([VAR], -1), ([VAR, VAR, BIN], 3), ([7], 1), ([VAR], 1)]
+    kind_ = torch.tensor([r + [0] * (24 - len(r)) for r, _ in shapes_],
+                         device=dev)
+    op_, feat_ = torch.zeros_like(kind_), torch.zeros_like(kind_)
+    op_[5, 2] = ops.n_binary
+    feat_[7, 0] = X.shape[0]
+    invalid = TreeBatch(kind_, op_, feat_, torch.full(kind_.shape, 0.5,
+                                                      device=dev),
+                        torch.tensor([n for _, n in shapes_], device=dev))
+    assert bool(ke.runnable(invalid, ops, X.shape[0])[1].all())
+    for fn in (ke.eval_trees, ke.eval_trees_plain):
+        yv, okv = fn(invalid, X, ops)
+        assert not okv.any() and not yv.any(), fn.__name__
+    for fn in (ke.eval_loss_trees, ke.eval_loss_trees_plain):
+        assert bool(torch.isposinf(fn(invalid, X, y, ops)).all()), fn.__name__
+    for fn in (ke.eval_slot_values, ke.eval_slot_values_plain):
+        sv, oks = fn(invalid, X1, ops)
+        assert not oks.any() and not sv.any(), fn.__name__
+    for packed in (False, True):
+        for fn in (ki.eval_trees_instr, ki.eval_trees_instr_plain):
+            yv, okv = fn(invalid, X, ops, packed)
+            assert not okv.any() and not yv.any(), (fn.__name__, packed)
+    for Xc, yc in ((X, y), (X.cpu(), y.cpu())):
+        tb_ = invalid.map(lambda f: f.to(Xc.device))
+        _, gk, okg = kg.eval_loss_grad(tb_, Xc, yc, None, ops)
+        assert not okg.any() and not gk.any(), Xc.device
+        assert not kg.eval_loss(tb_, Xc, yc, None, ops)[1].any(), Xc.device
+    log(f"invalid programs: {len(shapes_)} poisoned by every kernel and "
+        "every plain version")
 
     # ---- 3. constant-optimisation kernel vs plain ---------------------------
     # one BFGS step's instances: the same random trees and poisoning trees;
@@ -321,6 +398,9 @@ def main():
         fn = kg.make_loss_kernel(tb_, Xc, yc, weights, opsc,
                                  with_grad=False, reps=LS_STEPS)
         lk, _, okk = fn(cv)
+        lk2, _, okk2 = fn(cv)
+        assert torch.equal(okk, okk2), "loss-only: two launches, ok differs"
+        assert_bits("loss-only: two launches", lk2, lk)
         rep = tb_.map(lambda f: f.repeat_interleave(LS_STEPS, 0))._replace(
             cval=cv.reshape(-1, cv.shape[-1]))
         outs = [kg.eval_loss_plain(rep[i:i + chunk], Xc, yc, weights, opsc)
@@ -427,8 +507,9 @@ def main():
     def bound(tb_, mode, nrows):
         T, L = tb_.kind.shape
         nfeat = X.shape[0] if mode != ke.MODE_SLOTS else 1
-        # the kernel reads the five table entries of live slots only, plus
-        # each tree's length and its place in the length sort
+        # five 4-byte entries per live slot (opcode, feature, two operand
+        # slots, constant: the compact encoding of a program), plus each
+        # tree's length and its place in the length sort
         bytes_in = (nfeat * nrows * 4 + int(tb_.length.sum()) * 5 * 4
                     + T * 8 * 2)
         if mode == ke.MODE_FUSED_L2:
@@ -458,7 +539,7 @@ def main():
             Xm = X1 if mode == ke.MODE_SLOTS else X
             ym = y if mode == ke.MODE_FUSED_L2 else None
             prep = ke.prepare_launch(tb_, Xm, ym, ops, mode)
-            ms = cuda_ms(lambda: ke.run_prepared(prep), 50)
+            ms = device_ms(lambda: ke.run_prepared(prep), 50)
             wrap = {ke.MODE_VALUE: lambda: ke.eval_trees(tb_, X, ops),
                     ke.MODE_FUSED_L2: lambda: ke.eval_loss_trees(tb_, X, y, ops),
                     ke.MODE_SLOTS: lambda: ke.eval_slot_values(tb_, X1, ops)}[mode]
@@ -468,7 +549,14 @@ def main():
             timings[(name, T)] = dict(T=T, rows=Xm.shape[1], ms=ms,
                                       wrapper_ms=wrap_ms, plain_ms=plain_ms,
                                       bound_ms=b_ms, bound_by=b_by,
-                                      roofline_share=b_ms / ms)
+                                      roofline_share=b_ms / ms,
+                                      layout=prep.plan._asdict())
+            log(f"layout {name} T={T}: {prep.plan.items} work items (row "
+                f"ranges of {prep.plan.range} rows) per tree, "
+                f"{prep.plan.rows_per_lane} rows per lane, {prep.plan.warps} "
+                f"warps per block, {prep.plan.blocks_per_sm} resident blocks "
+                f"per SM, X {'staged' if prep.plan.staged else 'from global'}, "
+                f"{prep.plan.smem} B shared memory, {prep.plan.blocks} blocks")
             log(f"timing {name} T={T}: kernel {ms:.4f} ms, with host prep "
                 f"{wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
                 f"({b_by}), share {b_ms / ms:.4f}, "
@@ -493,10 +581,19 @@ def main():
         t_ops = ops_ / F32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
+    lp = kg.loss_plan(T_OPT, LS_STEPS, 24, False)
+    log(f"layout loss N={T_OPT * LS_STEPS}: {lp.groups} warps per tree, "
+        f"{lp.candidates} candidates x {lp.rows} rows per lane, {lp.warps} "
+        f"warps per block, {lp.blocks_per_sm} resident blocks per SM, "
+        f"{lp.smem} B shared memory, {lp.blocks} blocks")
+    for name, m in (("postfix_eval", ke), ("postfix_grad", kg)):
+        for line in m.BUILD_LOG.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"ptxas {name}: {line.strip()}")
     for name, with_grad, reps, cv in (("loss_grad", True, 1, opt_trees.cval),
                                       ("loss", False, LS_STEPS, ls_cval)):
         raw = kg.stage_launch(opt_trees, X, y, None, ops, with_grad, reps)
-        ms = cuda_ms(lambda: raw(cv), 50)
+        ms = device_ms(lambda: raw(cv), 50)
         fn = kg.make_loss_kernel(opt_trees, X, y, None, ops, with_grad, reps)
         wrap_ms = cuda_ms(lambda: fn(cv), 20)
         if with_grad:
@@ -513,6 +610,8 @@ def main():
         timings[(name, N)] = dict(T=N, rows=ROWS, ms=ms, wrapper_ms=wrap_ms,
                                   plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, roofline_share=b_ms / ms)
+        if not with_grad:
+            timings[(name, N)]["layout"] = lp._asdict()
         log(f"timing {name} N={N}: kernel {ms:.4f} ms, with the wrapper's ok "
             f"mask {wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
             f"({b_by}), share {b_ms / ms:.4f}, "
@@ -536,7 +635,7 @@ def main():
         for tb_ in (cycle, trees):
             T = tb_.length.shape[0]
             prep = ki.prepare_launch(tb_, X, ops, packed)
-            ms = cuda_ms(lambda: ki.run_prepared(prep), 50)
+            ms = device_ms(lambda: ki.run_prepared(prep), 50)
             wrap_ms = cuda_ms(lambda: ki.eval_trees_instr(tb_, X, ops, packed), 20)
             plain_ms = cuda_ms(lambda: [
                 ki.eval_trees_instr_plain(tb_[i:i + 8192], X, ops, packed)
@@ -662,6 +761,41 @@ def main():
     log(f"instr path: the two halls of fame are bit-equal "
         f"({len(instr_runs['instr']['hof'])} members)")
 
+    # ---- 5c. the search builds valid programs only ----------------------------
+    # the stack-machine kernels report an invalid program poisoned and the
+    # table-driven ones run it as the empty program (ke.runnable): a short
+    # search at the same widths, every batch it scores, folds or optimises
+    # checked by the plain derivation on the card
+    n_invalid = torch.zeros((), dtype=torch.int64, device=dev)
+    n_checked = [0, 0]
+
+    def count_invalid(trees, X_, operators):
+        invalid = ke.runnable(ke._flatten(trees), operators, X_.shape[0])[1]
+        n_invalid.add_(invalid.sum())
+        n_checked[0] += 1
+        n_checked[1] += invalid.numel()
+
+    prepare, stage = ke.prepare_launch, kg.stage_launch
+
+    def prepare_checked(flat, X_, y_, operators, mode):
+        count_invalid(flat, X_, operators)
+        return prepare(flat, X_, y_, operators, mode)
+
+    def stage_checked(trees, X_, y_, weights, operators, *rest):
+        count_invalid(trees, X_, operators)
+        return stage(trees, X_, y_, weights, operators, *rest)
+
+    ke.prepare_launch, kg.stage_launch = prepare_checked, stage_checked
+    try:
+        equation_search(X_np, y_np, niterations=1, ncycles_per_iteration=30,
+                        seed=1, **cfg)
+    finally:
+        ke.prepare_launch, kg.stage_launch = prepare, stage
+    assert n_checked[0] > 60, n_checked
+    assert int(n_invalid) == 0, f"{int(n_invalid)} invalid programs"
+    log(f"valid programs: a search of 30 cycles built no invalid program "
+        f"({n_checked[0]} batches, {n_checked[1]} trees checked)")
+
     # ---- 6. the cycle alone ---------------------------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -671,6 +805,9 @@ def main():
         init_island_state, s_r_cycle_islands,
     )
     from symbolicregression_jl_tpu_torch.models.options import make_options
+    from symbolicregression_jl_tpu_torch.tools.kernel_breakdown import (
+        sync_counts,
+    )
 
     opts = make_options(**cfg)
     base = _baseline_loss(X, y, None, opts)
@@ -723,6 +860,31 @@ def main():
         f"kernels per cycle, idle share {cycle_profile['idle_share_profiled']:.3f}"
         f" under the profiler, {cycle_profile['idle_share_unprofiled']:.3f} "
         f"against the unprofiled {kernel_cycle:.2f} ms per cycle")
+    by_call, by_op = sync_counts(prof)
+    waits = sum(n for c, n in by_call.items() if "Synchronize" in c)
+    cycle_profile.update(host_waits_per_cycle=waits / prof_cycles,
+                         host_calls=dict(by_call),
+                         host_calls_by_operator=dict(by_op.most_common(20)))
+    log(f"cycle alone: {waits / prof_cycles:.1f} waits for the card per cycle; "
+        f"runtime calls and device copies in {prof_cycles} cycles "
+        f"{dict(by_call)}; by issuing operator: {dict(by_op.most_common(20))}")
+    # the scoring wrapper alone: the cycle's fused scoring and slot-values
+    # calls must not wait for the card
+    Xs1 = X[:, :1].contiguous()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ke.eval_loss_trees(cycle, X, y, ops)
+            ke.eval_slot_values(cycle, Xs1, ops)
+    wrapper_calls, wrapper_ops = sync_counts(prof)
+    cycle_profile["scoring_wrapper_host_calls"] = dict(wrapper_calls)
+    log(f"scoring wrapper alone (10 fused + 10 slot-values calls at "
+        f"{T_CYCLE} trees): {dict(wrapper_calls)}, by operator "
+        f"{dict(wrapper_ops)}")
+    # the profiler's own closing synchronize has no issuing operator
+    waits = [k for k in wrapper_ops if "Synchronize" in k and " <- None " not in k]
+    copies = [c for c in wrapper_calls if "HtoD" in c or "DtoH" in c]
+    assert not waits and not copies, f"the scoring wrapper waits: {waits} {copies}"
 
     # ---- 7. the optimisation pass alone ----------------------------------------
     from symbolicregression_jl_tpu_torch.models.evolve import (
@@ -750,7 +912,8 @@ def main():
     assert pass_ev, "the profiler recorded no device activity"
     pass_busy = sum(getattr(e, dev_attr) for e in pass_ev) / 1e3
     grad_dev = sum(getattr(e, dev_attr) for e in pass_ev
-                   if "postfix_grad" in e.key) / 1e3
+                   if "postfix_grad_kernel" in e.key
+                   or "loss_kernel" in e.key) / 1e3
     by_events = (9 * timings[("loss_grad", T_OPT)]["ms"]
                  + 8 * timings[("loss", T_OPT * LS_STEPS)]["ms"])
     pass_profile = dict(

@@ -5,175 +5,338 @@
 // `_make_kernel` / `_postfix_call` (through `eval_trees_pallas` and
 // `eval_loss_trees_pallas`): for each of T postfix programs over X
 // (nfeat, nrows) f32, run the program's slots up to its own length on every
-// row; a non-finite value stored at a non-PAD slot poisons the tree.
+// row; a non-finite value at a slot that is not PAD poisons the tree.
 //   mode 0 (value): out[t, row] = root value            -> (T, nrows) f32
 //   mode 1 (fused): out[t] = sum_rows (root - y[row])^2  -> (T,) f32
 //   mode 2 (slots): out[t, s] = value of slot s on the single row
 //                   (nrows must be 1), 0 past the length -> (T, L) f32;
 //                   constant folding reads every subtree's value from it
-// In every mode bad[t] = 1 when the tree was poisoned.
+// In every mode bad[t] = 1 when the tree was poisoned. The trees are the
+// TreeBatch fields as they are (kind, op, feat int64; cval f32; length
+// int64); a tree that is not a valid postfix program counts as poisoned.
 //
-// What bounds it on this card: neither HBM bytes nor f32 peak. Each
-// (tree, row, slot) step is one table read from shared memory (broadcast),
-// two operand reads and one write of the row's slot-value scratch in shared
-// memory, a switch on the opcode, and the operator itself; the bytes moved
-// (X once per tree, tables, one output) are tiny next to that. So the time
-// is set by the instruction count per slot and the shared-memory traffic.
+// What bounds it on this card: neither HBM bytes nor f32 peak but the
+// instructions issued per (tree, row, slot) step: the opcode read, the
+// dispatch, operand reads and writes, the finiteness test and X indexing
+// (about 60 per row-step with one row per lane and every slot's value in
+// shared memory, PERF.md), and at the cycle's 5,376 trees, filling the
+// card: one warp per tree is a single partial wave.
 //
-// What the design does about it:
-//  * One warp takes one tree and its lanes stride the rows, so a slot's
-//    opcode is uniform across the warp and the `switch` costs no
-//    divergence (the TPU kernel's branchless all-operator mux and its
-//    8-way tree interleave are not needed).
-//  * The tree's tables are staged once into shared memory; the slot loop
-//    stops at the tree's own length. The wrapper sorts trees by length so
-//    the warps of a block finish together, and passes the permutation, so
-//    results land at each tree's original index without a gather.
-//  * Slot values live in shared memory laid out [slot][thread]: dynamic
-//    operand indices never spill to local memory, and consecutive lanes
-//    hit consecutive banks.
-//  * The fused epilogue keeps the (T, nrows) matrix out of device memory:
-//    each lane sums its rows in order, then a fixed butterfly of warp
-//    shuffles reduces the lanes, so the result is the same on every run
-//    (no atomics).
-// The operators (opcodes, NaN-domain guards, forward functions) are the
-// shared library csrc/operators.cuh; built without --use_fast_math.
+// What this design does about it:
+//  * The program is the stack machine of csrc/postfix_program.cuh, derived
+//    in the prologue from the TreeBatch fields (no host tables): the top of
+//    the stack stays in registers, each lane carries kRows rows through a
+//    slot, so one opcode read, one dispatch and one address serve kRows
+//    rows, and kRows operator evaluations are independent work.
+//  * Work item = (tree, row range). The wrapper's plan splits each tree's
+//    rows into `items` ranges so that a batch gives several waves of
+//    blocks, and orders trees longest first, so the tail is short
+//    trees. A block's warps take consecutive trees over one row range, and
+//    the block stages that range of X in shared memory once with cp.async;
+//    every VAR step reads it there with 32-bit offsets (X too large for
+//    shared memory is read from global memory instead).
+//  * The fused loss: each lane sums its rows in order, a fixed butterfly of
+//    shuffles sums the lanes, and with several ranges a second pass adds
+//    each tree's partial sums in range order, so the loss is the same bits
+//    on every run (no atomics). Poison flags combine the same way.
+// The operators are the shared library csrc/operators.cuh; built without
+// --use_fast_math.
 
 #include <cuda_runtime.h>
 
-#include "operators.cuh"
+#include "postfix_program.cuh"
 
 namespace {
 
-using namespace srops;
+using namespace srprog;
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kRows = 4;  // rows per lane per pass
+constexpr int kMaxWarps = 8;
+constexpr int kMaxSmemBytes = 232448;  // 227 KB, the most a block may use
 
-template <bool kAll>
-__global__ void __launch_bounds__(kThreads)
-postfix_kernel(const int* __restrict__ code, const int* __restrict__ feat,
-               const int* __restrict__ lidx, const int* __restrict__ ridx,
-               const float* __restrict__ cval,
-               const long long* __restrict__ length,
-               const long long* __restrict__ order,
-               const float* __restrict__ X, const float* __restrict__ y,
-               float* __restrict__ out, int* __restrict__ bad,
-               int T, int L, int nrows, int mode) {
-  extern __shared__ int smem[];
+struct EvalArgs {
+  const long long* kind;
+  const long long* op;
+  const long long* feat;
+  const float* cval;
+  const long long* length;
+  const long long* order;
+  const float* X;
+  const float* y;
+  float* out;
+  int* bad;
+  float* part;    // (T, items) partial losses; out itself when items == 1
+  int* part_bad;  // (T, items) partial poison flags; bad when items == 1
+  int T, L, nfeat, nrows, items, range, cap;
+  OpMap map;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+template <int kMode, bool kAll, bool kStaged>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+postfix_kernel(const __grid_constant__ EvalArgs a) {
+  // the slot-values mode has one row: one row per lane keeps its stack small
+  constexpr int kR = kMode == 2 ? 1 : kRows;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  int* s_code = smem + warp * 4 * L;
-  int* s_feat = s_code + L;
-  int* s_lidx = s_feat + L;
-  int* s_ridx = s_lidx + L;
-  float* s_cval = reinterpret_cast<float*>(smem + kWarpsPerBlock * 4 * L) +
-                  warp * L;
-  float* vals = reinterpret_cast<float*>(smem + kWarpsPerBlock * 5 * L);
+  const int r = blockIdx.x % a.items;  // row range
+  const int row0 = r * a.range;
+  const int rows = min(a.range, a.nrows - row0);
+  float* stack = smem + warp * a.cap * Stack<kR>::kEntry +
+                 lane * Stack<kR>::kLaneWidth;
+  float* xs = smem + warps * a.cap * Stack<kR>::kEntry;
+  int* words = reinterpret_cast<int*>(xs + (kStaged ? a.nfeat * a.range : 0));
+  int* s_word = words + warp * (a.L + 1);
+  float* s_cval = reinterpret_cast<float*>(words + warps * (a.L + 1)) +
+                  warp * a.L;
 
-  const int g = blockIdx.x * kWarpsPerBlock + warp;
-  if (g >= T) return;  // whole warp leaves; the block never syncs
-  const long long t = order[g];
-  const int n = static_cast<int>(length[t]);
-  for (int s = lane; s < n; s += 32) {
-    const long long k = t * L + s;
-    s_code[s] = code[k];
-    s_feat[s] = feat[k];
-    s_lidx[s] = lidx[k];
-    s_ridx[s] = ridx[k];
-    s_cval[s] = cval[k];
+  if constexpr (kStaged) {
+    // X[:, row0 : row0 + range]; rows past the end repeat the last row, so
+    // a lane's surplus rows compute copies of a real row
+    for (int i = threadIdx.x; i < a.nfeat * a.range; i += blockDim.x) {
+      const int f = i / a.range;
+      const int row = min(row0 + i - f * a.range, a.nrows - 1);
+      cp_async4(xs + i, a.X + f * a.nrows + row);
+    }
   }
+  const int g = (blockIdx.x / a.items) * warps + warp;
+  const bool active = g < a.T;
+  long long t = 0;
+  int n = 0;
+  bool invalid = false;
+  if (active) {
+    t = a.order[g];
+    const long long len = a.length[t];
+    n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
+    // the first 32 constants load while the program is derived
+    const float c0 = lane < n ? a.cval[t * a.L + lane] : 0.f;
+    invalid = derive_program(a.kind, a.op, a.feat, t * a.L, n, a.cap, a.nfeat,
+                             a.map, s_word, lane) || n != len;
+    if (lane < n) s_cval[lane] = c0;
+    for (int s = lane + 32; s < n; s += 32) s_cval[s] = a.cval[t * a.L + s];
+  }
+  if constexpr (kStaged) {
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();  // the block's only barrier
+  }
+  if (!active) return;
   __syncwarp();
+  if (invalid) n = 0;
 
   float acc = 0.f;
-  bool poisoned = false;
-  for (int row = lane; row < nrows; row += 32) {
-    for (int s = 0; s < n; ++s) {
-      const int c = s_code[s];
-      float v;
-      if (c == OP_CONST) {
-        v = s_cval[s];
-      } else if (c <= OP_VAR) {  // VAR, and PAD which never poisons
-        v = X[static_cast<long long>(s_feat[s]) * nrows + row];
-      } else if (c < OP_ADD) {
-        v = apply_unary<kAll>(c, vals[s_ridx[s] * kThreads + threadIdx.x]);
+  float pz[kR] = {};
+  float* slots = kMode == 2 ? a.out + t * a.L : nullptr;
+  const unsigned word_a = opaque(smem_u32(s_word));
+  const unsigned stack_a = opaque(smem_u32(stack));
+  const unsigned cval_a = opaque(smem_u32(s_cval));
+  const unsigned x_lane = opaque(smem_u32(xs + lane * kR));
+  const unsigned range_b = opaque(4u * a.range);
+  for (int base = 0; base < rows; base += (32 * kR)) {
+    const int lr = base + lane * kR;  // local row of this lane's first row
+    const unsigned x_a = x_lane + 4u * base;
+    float v[kR] = {};
+    run_program<kAll, kR>(
+        word_a, n, stack_a, v, pz,
+        [&](int s, float (&x)[kR]) {
+          const float c = lds_f32(cval_a + 4u * s);
+#pragma unroll
+          for (int i = 0; i < kR; ++i) x[i] = c;
+        },
+        [&](int f, float (&x)[kR]) {
+          if constexpr (kStaged) {
+            Stack<kR>::load(x_a + f * range_b, x);
+          } else {
+            const float* xf = a.X + f * a.nrows;
+#pragma unroll
+            for (int i = 0; i < kR; ++i) {
+              x[i] = xf[min(row0 + lr + i, a.nrows - 1)];
+            }
+          }
+        },
+        [&](int s, const float (&x)[kR]) {
+          if constexpr (kMode == 2) {
+            if (lane == 0) slots[s] = x[0];
+          }
+        });
+    if constexpr (kMode == 0) {
+      float* o = a.out + t * a.nrows + row0 + lr;
+      if (a.nrows % kR == 0 && row0 + lr < a.nrows) {
+        // aligned: every row of the pass is real
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
-        v = apply_binary<kAll>(c, vals[s_lidx[s] * kThreads + threadIdx.x],
-                         vals[s_ridx[s] * kThreads + threadIdx.x]);
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          if (row0 + lr + i < a.nrows) o[i] = v[i];
+        }
       }
-      vals[s * kThreads + threadIdx.x] = v;
-      poisoned |= (c != OP_PAD) && !isfinite(v);
-    }
-    const float root = n > 0 ? vals[(n - 1) * kThreads + threadIdx.x] : 0.f;
-    if (mode == 0) {
-      out[t * nrows + row] = root;
-    } else if (mode == 1) {
-      const float d = root - y[row];
-      acc += d * d;
-    }
-  }
-  if (mode == 2 && lane == 0) {
-    for (int s = 0; s < L; ++s) {
-      out[t * L + s] = s < n ? vals[s * kThreads + threadIdx.x] : 0.f;
+    } else if constexpr (kMode == 1) {
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const int row = row0 + lr + i;
+        if (row < a.nrows) {
+          const float d = v[i] - a.y[row];
+          acc += d * d;
+        }
+      }
     }
   }
-  const bool any_bad = __any_sync(0xffffffffu, poisoned);
-  if (mode == 1) {
+  if constexpr (kMode == 2) {
+    for (int s = n + lane; s < a.L; s += 32) slots[s] = 0.f;
+  }
+  bool nonfinite = false;
+#pragma unroll
+  for (int i = 0; i < kR; ++i) nonfinite |= pz[i] != pz[i];
+  const bool any_bad = __any_sync(0xffffffffu, nonfinite) || invalid;
+  if constexpr (kMode == 1) {
     for (int off = 16; off > 0; off >>= 1) {
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
     }
   }
   if (lane == 0) {
-    if (mode == 1) out[t] = acc;
-    bad[t] = any_bad ? 1 : 0;
+    const long long p = t * a.items + r;
+    if constexpr (kMode == 1) a.part[p] = acc;
+    if constexpr (kMode == 2) {
+      a.bad[t] = any_bad ? 1 : 0;
+    } else {
+      a.part_bad[p] = any_bad ? 1 : 0;
+    }
   }
 }
 
-template <bool kAll>
-cudaError_t launch(const void* code, const void* feat, const void* lidx,
-                   const void* ridx, const void* cval, const void* length,
-                   const void* order, const void* X, const void* y, void* out,
-                   void* bad, int T, int L, int nrows, int mode, int smem,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      postfix_kernel<kAll>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (T + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  postfix_kernel<kAll><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const int*>(code), static_cast<const int*>(feat),
-      static_cast<const int*>(lidx), static_cast<const int*>(ridx),
-      static_cast<const float*>(cval),
-      static_cast<const long long*>(length),
-      static_cast<const long long*>(order), static_cast<const float*>(X),
-      static_cast<const float*>(y), static_cast<float*>(out),
-      static_cast<int*>(bad), T, L, nrows, mode);
-  return cudaGetLastError();
+// Each tree's partial sums and flags, in range order.
+__global__ void combine_kernel(const float* __restrict__ part,
+                               const int* __restrict__ part_bad,
+                               float* __restrict__ out, int* __restrict__ bad,
+                               int T, int items, int mode) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  float sum = 0.f;
+  int b = 0;
+  for (int r = 0; r < items; ++r) {
+    if (mode == 1) sum += part[static_cast<long long>(t) * items + r];
+    b |= part_bad[static_cast<long long>(t) * items + r];
+  }
+  if (mode == 1) out[t] = sum;
+  bad[t] = b;
+}
+
+using KernelFn = void (*)(EvalArgs);
+
+KernelFn kernel_for(int mode, bool all, bool staged) {
+#define SR_PICK(M)                                                           \
+  (all ? (staged ? &postfix_kernel<M, true, true>                            \
+                 : &postfix_kernel<M, true, false>)                          \
+       : (staged ? &postfix_kernel<M, false, true>                           \
+                 : &postfix_kernel<M, false, false>))
+  if (mode == 0) return SR_PICK(0);
+  if (mode == 1) return SR_PICK(1);
+#undef SR_PICK
+  return all ? &postfix_kernel<2, true, false> : &postfix_kernel<2, false, false>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the launch needs for max_len L (tables + slot scratch).
-int postfix_eval_smem_bytes(int L) {
-  return (kWarpsPerBlock * 5 * L + L * kThreads) * 4;
+// The kernel's fixed layout: cfg[0] rows per lane per pass (1 in the
+// slot-values mode), [1] most warps per block, [2] most shared memory per
+// block in bytes.
+void postfix_eval_config(int* cfg) {
+  cfg[0] = kRows;
+  cfg[1] = kMaxWarps;
+  cfg[2] = kMaxSmemBytes;
 }
 
-// all_ops: the batch uses an operator outside the common set, so the
-// instantiation with every operator runs (operators.cuh)
-cudaError_t postfix_eval_launch(const void* code, const void* feat,
-                                const void* lidx, const void* ridx,
-                                const void* cval, const void* length,
-                                const void* order, const void* X,
-                                const void* y, void* out, void* bad, int T,
-                                int L, int nrows, int mode, int all_ops,
-                                void* stream) {
+// Shared memory of one block: per warp, the stack ((L + 1) / 2 entries of
+// 32 x kRows floats, 32 in the slot-values mode), the program words (L + 1)
+// and constants (L); with X staged, X's rows of the work item (nfeat x
+// range floats).
+int postfix_eval_smem_bytes(int warps, int L, int nfeat, int range,
+                            int staged, int mode) {
+  const int entry = 32 * (mode == 2 ? 1 : kRows);
+  const long long b = 4LL * warps * ((L + 1) / 2 * entry + 2 * L + 1) +
+                      (staged ? 4LL * nfeat * range : 0);
+  return b > kMaxSmemBytes ? kMaxSmemBytes + 1 : static_cast<int>(b);
+}
+
+// Resident blocks per SM of the instantiation for (mode, all_ops, staged)
+// at warps x 32 threads and smem bytes, or -1 on an error.
+int postfix_eval_occupancy(int mode, int all_ops, int staged, int warps,
+                           int smem) {
+  const KernelFn fn = kernel_for(mode, all_ops != 0, staged != 0);
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmemBytes) != cudaSuccess) {
+    return -1;
+  }
+  int occ = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, warps * 32,
+                                                    smem) != cudaSuccess) {
+    return -1;
+  }
+  return occ;
+}
+
+// opmap: the kernel operator id of each unary, then each binary operator
+// (host memory, n_unary + n_binary entries); all_ops: the batch uses an
+// operator outside the common set, so the instantiation with every
+// operator runs (operators.cuh). The layout (items row ranges of `range`
+// rows per tree, X staged or not, warps per block, smem bytes, blocks) is
+// the wrapper's plan (ops/kernel_eval.py eval_plan). part / part_bad:
+// (T, items) scratch, or out / bad when items is 1.
+cudaError_t postfix_eval_launch(const void* kind, const void* op,
+                                const void* feat, const void* cval,
+                                const void* length, const void* order,
+                                const void* X, const void* y, void* out,
+                                void* bad, void* part, void* part_bad,
+                                const int* opmap, int n_unary, int n_binary,
+                                int T, int L, int nfeat, int nrows, int mode,
+                                int all_ops, int items, int range, int staged,
+                                int warps, int smem, int blocks, void* stream) {
   if (T <= 0) return cudaSuccess;
-  const int smem = postfix_eval_smem_bytes(L);
+  if (n_unary + n_binary > kMaxOps || mode < 0 || mode > 2 || items < 1 ||
+      range < 1 || warps < 1 || warps > kMaxWarps || L > 510 ||
+      smem != postfix_eval_smem_bytes(warps, L, nfeat, range, staged, mode) ||
+      smem > kMaxSmemBytes || blocks != (T + warps - 1) / warps * items) {
+    return cudaErrorInvalidValue;
+  }
+  EvalArgs a;
+  a.kind = static_cast<const long long*>(kind);
+  a.op = static_cast<const long long*>(op);
+  a.feat = static_cast<const long long*>(feat);
+  a.cval = static_cast<const float*>(cval);
+  a.length = static_cast<const long long*>(length);
+  a.order = static_cast<const long long*>(order);
+  a.X = static_cast<const float*>(X);
+  a.y = static_cast<const float*>(y);
+  a.out = static_cast<float*>(out);
+  a.bad = static_cast<int*>(bad);
+  a.part = static_cast<float*>(part);
+  a.part_bad = static_cast<int*>(part_bad);
+  a.T = T;
+  a.L = L;
+  a.nfeat = nfeat;
+  a.nrows = nrows;
+  a.items = items;
+  a.range = range;
+  a.cap = (L + 1) / 2;
+  a.map = make_op_map(opmap, n_unary, n_binary);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto run = all_ops ? &launch<true> : &launch<false>;
-  return run(code, feat, lidx, ridx, cval, length, order, X, y, out, bad, T, L,
-             nrows, mode, smem, s);
+  const KernelFn fn = kernel_for(mode, all_ops != 0, staged != 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  if (err != cudaSuccess) return err;
+  fn<<<blocks, warps * 32, smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || items == 1 || mode == 2) return err;
+  combine_kernel<<<(T + 255) / 256, 256, 0, s>>>(
+      a.part, a.part_bad, a.out, a.bad, T, items, mode);
+  return cudaGetLastError();
 }
 
 const char* postfix_eval_error_string(int err) {

@@ -1,0 +1,287 @@
+// The postfix program as a stack machine, shared by the scoring kernel
+// (postfix_eval.cu) and the loss-only kernel (postfix_grad.cu).
+//
+// derive_program turns one tree of the TreeBatch fields (kind, op, feat:
+// int64 (T, L)) into one 32-bit word per slot in shared memory, in the
+// kernel's prologue: the warp's lanes take one slot each and a shuffle scan
+// of the arity deltas gives every slot's stack depth, so the host prepares
+// no table. run_program then executes the words over kN values per lane
+// (rows, or the line search's candidates, or both):
+//  * the top of the stack lives in registers (the operand schedule's right
+//    operand is always the previous slot), so a unary slot reads nothing
+//    and a binary slot reads only its left operand from shared memory;
+//  * a leaf pushes the old top to the entry at its depth, a binary slot
+//    pops the entry just below the top: a valid program of L slots needs
+//    (L + 1) / 2 entries (entry 0 takes the first leaf's push of nothing);
+//  * one opcode read, one dispatch and one address serve all kN values,
+//    and the kN operator evaluations are independent work;
+//  * one switch over every opcode (leaves, unary, binary; numbered densely
+//    by dense_code); each case runs its operator from csrc/operators.cuh
+//    with a constant opcode, so the operator library's own switch folds
+//    away.
+// A non-finite value at a slot that is not PAD poisons the row: each value
+// is folded into an accumulator as fma(v, 0, acc), which turns NaN for the
+// first infinity or NaN and stays so.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "operators.cuh"
+
+namespace srprog {
+
+using namespace srops;
+
+// the TreeBatch node kinds (models/trees.py)
+enum : int { KIND_PAD = 0, KIND_CONST = 1, KIND_VAR = 2, KIND_UNA = 3,
+             KIND_BIN = 4 };
+
+constexpr int kMaxOps = 64;
+
+// The dense opcode (dense_code of the kernel operator id) of each unary,
+// then each binary operator of the set.
+struct OpMap {
+  unsigned char code[kMaxOps];
+  int n_unary;
+  int n_ops;
+};
+
+// The words number the opcodes densely (leaves 0-2, unary 3-33, binary
+// 34-45), so the slot loop's switch is over one dense range of cases; with
+// the opcodes' own numbers (leaves, 10-40, 50-61) the compiler built a
+// tree of compares and the kernels ran 2-8 % slower (PERF.md).
+__host__ __device__ constexpr int dense_code(int c) {
+  return c < OP_COS ? c : (c < OP_ADD ? c - (OP_COS - 3)
+                                      : c - (OP_ADD - (OP_GAMMA - OP_COS + 4)));
+}
+
+// The launchers' OpMap from the operator ids of the set (host memory).
+inline OpMap make_op_map(const int* ids, int n_unary, int n_binary) {
+  OpMap m;
+  for (int i = 0; i < kMaxOps; ++i) {
+    m.code[i] = i < n_unary + n_binary
+                    ? static_cast<unsigned char>(dense_code(ids[i]))
+                    : 0xff;
+  }
+  m.n_unary = n_unary;
+  m.n_ops = n_unary + n_binary;
+  return m;
+}
+
+// word = dense opcode | stack entry << 8 | feature << 16
+__device__ __forceinline__ int word_code(int w) { return w & 0xff; }
+__device__ __forceinline__ int word_entry(int w) { return (w >> 8) & 0xff; }
+__device__ __forceinline__ int word_feat(int w) {
+  return static_cast<unsigned>(w) >> 16;
+}
+
+// Shared memory through 32-bit shared-window addresses: a kernel computes
+// each base address once and hides how (opaque), so the compiler keeps it
+// in a register: with plain pointers it recomputes them from the thread
+// index and the CTA's shared window in every slot step, about 30 of a
+// step's ~60 instructions in the SASS (PERF.md). The accesses are volatile
+// asm, which the compiler keeps in program order; the stack's stores and
+// later loads of the same entry rely on that.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned opaque(unsigned x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+__device__ __forceinline__ int lds_i32(unsigned a) {
+  int v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ float lds_f32(unsigned a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// Writes the words of the program of n slots at kind/op/feat + base into
+// s_word[0, n) and 0 into s_word[n] (the slot loop reads one word ahead).
+// Returns, on every lane, whether the program is not a valid postfix
+// program of the operator set within cap stack entries and nfeat features;
+// such a program is not run and counts as poisoned.
+__device__ __forceinline__ bool derive_program(
+    const long long* __restrict__ kind, const long long* __restrict__ op,
+    const long long* __restrict__ feat, long long base, int n, int cap,
+    int nfeat, const OpMap& map, int* s_word, int lane) {
+  bool invalid = false;
+  int depth = 0;  // stack depth before the chunk
+  for (int s0 = 0; s0 < n; s0 += 32) {
+    const int s = s0 + lane;
+    const bool live = s < n;
+    // the three loads are independent, so their latencies overlap
+    const long long kl = live ? kind[base + s] : KIND_PAD;
+    const long long o = live ? op[base + s] : 0;
+    const long long fl = live ? feat[base + s] : 0;
+    const int k = kl < KIND_PAD || kl > KIND_BIN ? -1 : static_cast<int>(kl);
+    const int delta = !live ? 0 : (k == KIND_BIN ? -1 : (k == KIND_UNA ? 0 : 1));
+    int incl = delta;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    const int before = depth + incl - delta;
+    depth += __shfl_sync(0xffffffffu, incl, 31);
+    if (live) {
+      int code = k, entry = 0, f = 0;
+      if (k == KIND_UNA || k == KIND_BIN) {
+        const int lo = k == KIND_UNA ? 0 : map.n_unary;
+        const int hi = k == KIND_UNA ? map.n_unary : map.n_ops;
+        const bool known_op = o >= 0 && o < hi - lo;
+        code = known_op ? map.code[lo + o] : 0xff;
+        entry = before - 1;  // a binary slot's left operand
+        invalid |= !known_op || before < (k == KIND_UNA ? 1 : 2);
+      } else {
+        f = k == KIND_CONST ? 0 : static_cast<int>(fl);
+        entry = before;  // where the leaf pushes the old top
+        invalid |= k < 0 || before >= cap ||
+                   (k != KIND_CONST && (fl < 0 || fl >= nfeat));
+      }
+      s_word[s] = code | (entry << 8) | (f << 16);
+    }
+  }
+  if (lane == 0) s_word[n] = 0;
+  invalid |= n > 0 && depth != 1;
+  return __any_sync(0xffffffffu, invalid);
+}
+
+// A stack entry holds kN floats per lane: [32 lanes][kN] for kN <= 4, and
+// [kN / 4 planes][32 lanes][4] above, so every access is one conflict-free
+// 8- or 16-byte access per lane (per plane).
+template <int kN>
+struct Stack {
+  static constexpr int kLaneWidth = kN < 4 ? kN : 4;
+  static constexpr int kEntry = 32 * kN;  // floats per entry
+
+  __device__ static void store(unsigned e, const float (&v)[kN]) {
+    if constexpr (kN == 1) {
+      asm volatile("st.shared.f32 [%0], %1;" ::"r"(e), "f"(v[0]));
+    } else if constexpr (kN == 2) {
+      asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(e), "f"(v[0]),
+                   "f"(v[1]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kN / 4; ++j) {
+        asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
+                         e + j * 512), "f"(v[4 * j]), "f"(v[4 * j + 1]),
+                     "f"(v[4 * j + 2]), "f"(v[4 * j + 3]));
+      }
+    }
+  }
+
+  __device__ static void load(unsigned e, float (&v)[kN]) {
+    if constexpr (kN == 1) {
+      v[0] = lds_f32(e);
+    } else if constexpr (kN == 2) {
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+                   : "=f"(v[0]), "=f"(v[1]) : "r"(e));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kN / 4; ++j) {
+        asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(v[4 * j]), "=f"(v[4 * j + 1]), "=f"(v[4 * j + 2]),
+                       "=f"(v[4 * j + 3])
+                     : "r"(e + j * 512));
+      }
+    }
+  }
+};
+
+template <int kN>
+__device__ __forceinline__ void poison(const float (&v)[kN], float (&pz)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) pz[i] = __fmaf_rn(v[i], 0.f, pz[i]);
+}
+
+// The operators of the compact instantiation, then the others.
+#define SR_UNARY_COMMON(X)                                                   \
+  X(OP_COS) X(OP_SIN) X(OP_TAN) X(OP_EXP) X(OP_LOG) X(OP_LOG2) X(OP_LOG10)   \
+  X(OP_LOG1P) X(OP_SQRT) X(OP_ABS) X(OP_SQUARE) X(OP_CUBE) X(OP_NEG)         \
+  X(OP_RELU) X(OP_SINH) X(OP_COSH) X(OP_TANH) X(OP_SIGMOID) X(OP_INV)        \
+  X(OP_IDENTITY) X(OP_SIGN) X(OP_GAUSS)
+#define SR_UNARY_OTHER(X)                                                    \
+  X(OP_ASIN) X(OP_ACOS) X(OP_ATAN) X(OP_ASINH) X(OP_ACOSH) X(OP_ATANH)       \
+  X(OP_ERF) X(OP_ERFC) X(OP_GAMMA)
+#define SR_BINARY_COMMON(X)                                                  \
+  X(OP_ADD) X(OP_SUB) X(OP_MUL) X(OP_DIV) X(OP_POW) X(OP_MAX) X(OP_MIN)
+#define SR_BINARY_OTHER(X)                                                   \
+  X(OP_MOD) X(OP_ATAN2) X(OP_GREATER) X(OP_LOGICAL_OR) X(OP_LOGICAL_AND)
+
+// Runs slots [0, n) of the program in s_word on kN values per lane. v holds
+// the top of the stack: on return, the root. stack points at this lane's
+// part of entry 0. const_leaf(s, v) and var_leaf(feature, v) give a leaf's
+// values; on_step(s, v) sees every slot's values.
+template <bool kAll, int kN, class ConstLeaf, class VarLeaf, class OnStep>
+__device__ __forceinline__ void run_program(unsigned s_word, int n,
+                                            unsigned stack, float (&v)[kN],
+                                            float (&pz)[kN],
+                                            ConstLeaf const_leaf,
+                                            VarLeaf var_leaf, OnStep on_step) {
+  using St = Stack<kN>;
+  int w = lds_i32(s_word);
+  for (int s = 0; s < n; ++s) {
+    const int next = lds_i32(s_word + 4 * (s + 1));
+    const unsigned e = stack + word_entry(w) * (St::kEntry * 4);
+    float l[kN];
+#define SR_UNARY_CASE(OPC)                                                   \
+  case dense_code(OPC):                                                      \
+    _Pragma("unroll") for (int i = 0; i < kN; ++i) v[i] =                    \
+        apply_unary<kAll>(OPC, v[i]);                                        \
+    poison(v, pz);                                                           \
+    break;
+#define SR_BINARY_CASE(OPC)                                                  \
+  case dense_code(OPC):                                                      \
+    St::load(e, l);                                                          \
+    _Pragma("unroll") for (int i = 0; i < kN; ++i) v[i] =                    \
+        apply_binary<kAll>(OPC, l[i], v[i]);                                 \
+    poison(v, pz);                                                           \
+    break;
+    switch (word_code(w)) {
+      case OP_PAD:  // reads its feature like VAR and never poisons
+        St::store(e, v);
+        var_leaf(word_feat(w), v);
+        break;
+      case OP_CONST:
+        St::store(e, v);
+        const_leaf(s, v);
+        poison(v, pz);
+        break;
+      case OP_VAR:
+        St::store(e, v);
+        var_leaf(word_feat(w), v);
+        poison(v, pz);
+        break;
+      SR_UNARY_COMMON(SR_UNARY_CASE)
+      SR_BINARY_COMMON(SR_BINARY_CASE)
+      default:
+        if constexpr (kAll) {
+          switch (word_code(w)) {
+            SR_UNARY_OTHER(SR_UNARY_CASE)
+            SR_BINARY_OTHER(SR_BINARY_CASE)
+            default:
+#pragma unroll
+              for (int i = 0; i < kN; ++i) v[i] = nanf_();
+              poison(v, pz);
+              break;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kN; ++i) v[i] = nanf_();
+          poison(v, pz);
+        }
+        break;
+    }
+#undef SR_UNARY_CASE
+#undef SR_BINARY_CASE
+    on_step(s, v);
+    w = next;
+  }
+}
+
+}  // namespace srprog

@@ -7,11 +7,16 @@ tensors and run the kernel's plain PyTorch version (the ``*_plain``
 functions) for CPU tensors. There is no fallback: on a CUDA tensor the
 wrapper launches the kernel or raises.
 
-Host prep mirrors the Pallas wrapper: ``fuse_opcodes`` (one program code
-per slot), ``operand_schedule`` (where each slot's operands live), a
-length sort so the warps of a block finish together. The sort's
-permutation is handed to the kernel, which writes each result at the
-tree's original index.
+The kernel derives each tree's program from the ``TreeBatch`` fields in
+its prologue (``program_words`` is that derivation's plain version), so
+the host prepares no table: the wrapper passes the fields as they are,
+the operator set's kernel ids (cached per operator set) and a longest-first
+order of the trees, and allocates the outputs and, when ``eval_plan``
+splits each tree's rows into several work items, the partial sums that the
+kernel's second pass adds in range order. Nothing in the wrapper waits for
+the card. The kernel reports a program that is not valid postfix poisoned;
+the plain versions run it as the empty program (``runnable``), which is
+poisoned too.
 
 The kernel library is compiled with ``nvcc`` into ``build/`` at first use
 and loaded with ctypes. ``LAUNCHES`` counts the kernel's launches by mode;
@@ -21,6 +26,7 @@ their sum is the total.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import pathlib
 import subprocess
@@ -29,7 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..models.trees import ARITY, CONST, PAD, UNA, VAR, TreeBatch
+from ..models.trees import ARITY, BIN, CONST, PAD, UNA, VAR, TreeBatch
 from .losses import contain_nonfinite
 from .operators import (
     KERNEL_BINARY_IDS, KERNEL_FULL_ONLY, KERNEL_UNARY_IDS, OperatorSet,
@@ -50,6 +56,8 @@ _lib = None
 _lib_lock = threading.Lock()
 BUILD_LOG = ""  # nvcc's output of the last build (-Xptxas -v line included)
 
+MAX_OPERATORS = 64  # csrc/postfix_program.cuh kMaxOps
+MAX_LEN = 510  # a stack entry index fits 8 bits of the program word
 MODE_VALUE = 0
 MODE_FUSED_L2 = 1
 MODE_SLOTS = 2
@@ -102,9 +110,27 @@ def operand_schedule(kind: torch.Tensor, length: torch.Tensor):
 
 
 def kernel_opcode_table(operators: OperatorSet, device) -> torch.Tensor:
-    """Fused program code -> the kernel's operator id."""
+    """Fused program code -> the kernel's operator id, built once per
+    (operator set, device): copying a Python list to the card waits for
+    the card, so a wrapper that built it on every call synchronised."""
+    return _opcode_table(operators, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _opcode_table(operators: OperatorSet, device: torch.device) -> torch.Tensor:
     return torch.tensor([0, 1, 2] + kernel_operator_ids(operators),
                         dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def host_operator_ids(operators: OperatorSet):
+    """``kernel_operator_ids`` as a ctypes int array in host memory, built
+    once per operator set: the launchers copy it into the kernel's
+    arguments."""
+    ids = kernel_operator_ids(operators)
+    if len(ids) > MAX_OPERATORS:
+        raise ValueError(f"the kernels take at most {MAX_OPERATORS} operators")
+    return (ctypes.c_int * max(len(ids), 1))(*ids)
 
 
 def uses_full_kernel(operators: OperatorSet) -> bool:
@@ -136,7 +162,7 @@ def kernel_operator_ids(operators: OperatorSet) -> list:
 
 def _plain_forward(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet):
     """(root (T, R), bad (T,), vals (L, T, R)) through the operand
-    schedule."""
+    schedule, for a batch of valid programs (``runnable``)."""
     T, L = flat.kind.shape
     R = X.shape[1]
     code = fuse_opcodes(flat, operators)
@@ -168,23 +194,38 @@ def eval_trees_plain(trees: TreeBatch, X: torch.Tensor,
                      operators: OperatorSet):
     """Plain version of the value mode: (y (..., nrows), ok (...,))."""
     batch_shape = trees.length.shape
-    flat = _flatten(trees)
+    flat, _ = runnable(_flatten(trees), operators, X.shape[0])
     root, bad, _ = _plain_forward(flat, X, operators)
     ok = ~bad & (flat.length > 0)
     return (root.reshape(batch_shape + (X.shape[1],)),
             ok.reshape(batch_shape))
 
 
+def split_rows(nrows: int, items: int, rows_per_pass: int) -> Tuple[int, int]:
+    """(work items, rows per item) when each tree's rows are cut into about
+    ``items`` ranges of whole passes (the kernel's ``rows_per_pass`` =
+    32 lanes x rows per lane); every range holds at least one row."""
+    per = -(-nrows // items)
+    rng = -(-per // rows_per_pass) * rows_per_pass
+    return -(-nrows // rng), rng
+
+
 def eval_loss_trees_plain(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
-                          operators: OperatorSet) -> torch.Tensor:
+                          operators: OperatorSet, items: int = 1,
+                          rows_per_pass: int = 1) -> torch.Tensor:
     """Plain version of the fused L2 epilogue: per-tree mean loss, +inf
-    for poisoned or empty trees."""
+    for poisoned or empty trees. With ``items`` > 1, the kernel's work-item
+    split: each range of ``split_rows`` gives a partial sum, and the
+    partial sums are added in range order."""
     batch_shape = trees.length.shape
-    flat = _flatten(trees)
+    flat, _ = runnable(_flatten(trees), operators, X.shape[0])
     root, bad, _ = _plain_forward(flat, X, operators)
-    d = root - y
-    loss = torch.sum(d * d, dim=-1) / X.shape[1]
-    loss = contain_nonfinite(loss, ~bad & (flat.length > 0))
+    d2 = (root - y) ** 2
+    n_items, rng = split_rows(X.shape[1], items, rows_per_pass)
+    loss = d2[:, :rng].sum(-1)
+    for r in range(1, n_items):
+        loss = loss + d2[:, r * rng:(r + 1) * rng].sum(-1)
+    loss = contain_nonfinite(loss / X.shape[1], ~bad & (flat.length > 0))
     return loss.reshape(batch_shape)
 
 
@@ -192,11 +233,140 @@ def eval_slot_values_plain(trees: TreeBatch, X: torch.Tensor,
                           operators: OperatorSet):
     """Plain version of the slot-values mode: X has one row; returns
     (vals (T, L) — every slot's value, 0 past the length — and ok (T,))."""
+    trees, _ = runnable(trees, operators, X.shape[0])
     root, bad, vals = _plain_forward(trees, X, operators)
     vals = vals[..., 0].T
     L = trees.max_len
     live = torch.arange(L, device=X.device) < trees.length.unsqueeze(-1)
     return torch.where(live, vals, 0.0), ~bad & (trees.length > 0)
+
+
+def dense_code(code: torch.Tensor) -> torch.Tensor:
+    """The kernels' dense numbering of their opcodes (csrc/
+    postfix_program.cuh ``dense_code``): leaves 0-2, unary 3-33, binary
+    34-45."""
+    first_u = min(KERNEL_UNARY_IDS.values())
+    first_b = min(KERNEL_BINARY_IDS.values())
+    n_u = max(KERNEL_UNARY_IDS.values()) - first_u + 1
+    return torch.where(code < first_u, code,
+                       torch.where(code < first_b, code - (first_u - 3),
+                                   code - (first_b - (n_u + 3))))
+
+
+def program_words(flat: TreeBatch, operators: OperatorSet, nfeat: int):
+    """Plain version of the kernels' prologue (csrc/postfix_program.cuh
+    ``derive_program``): (words (T, L) int64, invalid (T,)). A slot's word
+    is its dense opcode | stack entry << 8 | feature << 16, where a leaf
+    pushes the old top of the stack to the entry at its depth and a binary
+    slot reads its left operand from the entry just below the top. A
+    program that is not a valid postfix program of the operator set within
+    (L + 1) // 2 entries and ``nfeat`` features is invalid (the kernels
+    poison it)."""
+    live, before, op_in, invalid = _stack_walk(flat, operators, nfeat)
+    kind = flat.kind
+    ids = _table(tuple(kernel_operator_ids(operators)) + (0xFF,), kind.device)
+    U, n_ops = operators.n_unary, operators.n_unary + operators.n_binary
+    una, binary = kind == UNA, kind == BIN
+    leaf = ~una & ~binary
+    pos = torch.where(una, flat.op, U + flat.op)
+    code = torch.where(una | binary,
+                       torch.where(op_in, dense_code(ids[pos.clamp(0, n_ops)]),
+                                   0xFF), kind)
+    entry = torch.where(leaf, before, before - 1)
+    feat = torch.where(leaf & (kind != CONST), flat.feat, 0)
+    words = torch.where(live, code | (entry.clamp_min(0) << 8) | (feat << 16), 0)
+    return words, invalid
+
+
+def _stack_walk(flat: TreeBatch, operators: OperatorSet, nfeat: int):
+    """(live (T, L), stack depth before each slot (T, L), whether an
+    operator slot's op is in the set (T, L), invalid (T,)) of
+    ``program_words``; the operator set gives only its operators' count."""
+    kind, L = flat.kind, flat.kind.shape[-1]
+    length = flat.length.unsqueeze(-1)
+    live = torch.arange(L, device=kind.device) < length
+    known = (kind >= PAD) & (kind <= BIN)
+    ar = _table(tuple(ARITY.tolist()), kind.device)[kind.clamp(PAD, BIN)]
+    delta = torch.where(live, 1 - ar, 0)
+    depth = torch.cumsum(delta, -1)
+    before = depth - delta
+    U, n_ops = operators.n_unary, operators.n_unary + operators.n_binary
+    una, binary = kind == UNA, kind == BIN
+    leaf = ~una & ~binary
+    var = leaf & (kind != CONST)
+    op_in = torch.where(una, (flat.op >= 0) & (flat.op < U),
+                        (flat.op >= 0) & (flat.op < n_ops - U))
+    bad_slot = ~known | (leaf & (before >= (L + 1) // 2)) \
+        | (una & (before < 1)) | (binary & (before < 2)) \
+        | ((una | binary) & ~op_in) | (var & ((flat.feat < 0) | (flat.feat >= nfeat)))
+    final = torch.gather(depth, -1, (length - 1).clamp(0, L - 1)).squeeze(-1)
+    n = flat.length
+    invalid = (live & bad_slot).any(-1) | ((n > 0) & (final != 1)) \
+        | (n < 0) | (n > L)
+    return live, before, op_in, invalid
+
+
+@functools.lru_cache(maxsize=None)
+def _table(values: tuple, device: torch.device) -> torch.Tensor:
+    """``values`` as an int64 tensor on ``device``, built once: copying a
+    host list to the card waits for the card."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
+def runnable(flat: TreeBatch, operators: OperatorSet, nfeat: int):
+    """(``flat`` with each program that ``program_words`` finds invalid
+    replaced by the empty program, invalid (T,)). The stack-machine
+    kernels report an invalid program poisoned without running it; the
+    plain versions and the kernels that read host tables run the empty
+    program instead, which is poisoned too (length 0), so every path
+    computes the same function. The search builds no invalid program."""
+    invalid = _stack_walk(flat, operators, nfeat)[3]
+    inv = invalid.unsqueeze(-1)
+    return flat._replace(kind=torch.where(inv, PAD, flat.kind),
+                         op=torch.where(inv, 0, flat.op),
+                         feat=torch.where(inv, 0, flat.feat),
+                         length=torch.where(invalid, 0, flat.length)), invalid
+
+
+def eval_program_plain(flat: TreeBatch, X: torch.Tensor,
+                       operators: OperatorSet):
+    """Plain version of the kernels' stack machine (csrc/
+    postfix_program.cuh ``run_program``) over ``program_words``: (root
+    (T, nrows), bad (T,)). The top of the stack is a register, a leaf
+    pushes it to its entry, a binary slot reads its left operand from its
+    entry; a non-finite value at a slot that is not PAD poisons the tree,
+    and an invalid program is poisoned without being run."""
+    T, L = flat.kind.shape
+    nfeat, R = X.shape
+    words, invalid = program_words(flat, operators, nfeat)
+    ti = torch.arange(T, device=X.device)
+    stack = torch.zeros(((L + 1) // 2, T, R), dtype=torch.float32,
+                        device=X.device)
+    top = torch.zeros((T, R), dtype=torch.float32, device=X.device)
+    bad = invalid.clone()
+    ids = dense_code(torch.tensor(kernel_operator_ids(operators),
+                                  dtype=torch.int64)).tolist()
+    fns = {c: (1 if j < operators.n_unary else 2, f) for j, (c, f) in
+           enumerate(zip(ids, operators.unary_fns + operators.binary_fns))}
+    for s in range(L):
+        live = (s < flat.length) & ~invalid
+        code = words[:, s] & 0xFF
+        entry = ((words[:, s] >> 8) & 0xFF).clamp(max=stack.shape[0] - 1)
+        feat = words[:, s] >> 16
+        leaf = live & (code <= 2)
+        left = stack[entry, ti]
+        new = torch.where((code == 1).unsqueeze(-1),
+                          flat.cval[:, s].to(torch.float32).unsqueeze(-1),
+                          X[feat.clamp(0, nfeat - 1)])
+        new = torch.where(leaf.unsqueeze(-1), new, float("nan"))
+        for c, (arity, f) in fns.items():
+            v = f(top) if arity == 1 else f(left, top)
+            new = torch.where((code == c).unsqueeze(-1), v, new)
+        stack[entry, ti] = torch.where(leaf.unsqueeze(-1), top, left)
+        top = torch.where(live.unsqueeze(-1), new, top)
+        bad |= live & (code != 0) & ~torch.isfinite(new).all(-1)
+    top = torch.where(invalid.unsqueeze(-1), 0.0, top)
+    return top, bad
 
 
 # ---------------------------------------------------------------------------
@@ -249,12 +419,102 @@ def _library():
             lib = ctypes.CDLL(str(build_library()))
             p = ctypes.c_void_p
             i = ctypes.c_int
-            lib.postfix_eval_launch.argtypes = [p] * 11 + [i] * 5 + [p]
-            lib.postfix_eval_launch.restype = ctypes.c_int
-            lib.postfix_eval_error_string.argtypes = [ctypes.c_int]
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.postfix_eval_launch.argtypes = [p] * 12 + [ip] + [i] * 14 + [p]
+            lib.postfix_eval_launch.restype = i
+            lib.postfix_eval_config.argtypes = [ip]
+            lib.postfix_eval_config.restype = None
+            lib.postfix_eval_smem_bytes.argtypes = [i] * 6
+            lib.postfix_eval_smem_bytes.restype = i
+            lib.postfix_eval_occupancy.argtypes = [i] * 5
+            lib.postfix_eval_occupancy.restype = i
+            lib.postfix_eval_error_string.argtypes = [i]
             lib.postfix_eval_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+WAVES = 4  # a batch's blocks, in waves of resident blocks, at least
+
+
+class EvalPlan(NamedTuple):
+    """One launch's layout: ``items`` row ranges of ``range`` rows per tree
+    (work items), ``rows_per_lane`` rows per lane per pass, ``warps`` per
+    block, ``blocks_per_sm`` resident, X ``staged`` in shared memory or
+    read from global memory, ``smem`` bytes per block, ``blocks``."""
+
+    items: int
+    rows_per_lane: int
+    warps: int
+    blocks_per_sm: int
+    staged: bool
+    range: int
+    smem: int
+    blocks: int
+
+
+def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
+              rows_per_lane: int, max_warps: int, max_smem: int,
+              smem_bytes, occupancy, sms: int) -> EvalPlan:
+    """The work-item split: the most warps per block (up to ``max_warps``)
+    whose stacks fit, then the fewest row ranges per tree (1, 2, 4, ...,
+    at most one per pass) whose blocks make ``WAVES`` waves of resident
+    blocks, with each range's X staged when it fits. ``smem_bytes(warps,
+    range, staged)`` and ``occupancy(staged, warps, smem)`` are the
+    kernel's (its library's) answers. The slot-values mode takes one range
+    and reads X from global memory."""
+    warps = max_warps
+    while warps > 1 and smem_bytes(warps, 1, False) > max_smem:
+        warps //= 2
+    if smem_bytes(warps, 1, False) > max_smem:
+        raise ValueError(f"max_len {L} needs more shared memory per warp "
+                         "than a block may use")
+    per_pass = 32 * rows_per_lane
+    max_items = 1 if mode == MODE_SLOTS else -(-nrows // per_pass)
+    groups = -(-T // warps)
+    chosen, want = None, 1
+    while True:
+        items, rng = split_rows(nrows, min(want, max_items), per_pass)
+        staged = (mode != MODE_SLOTS
+                  and smem_bytes(warps, rng, True) <= max_smem)
+        smem = smem_bytes(warps, rng, staged)
+        occ = occupancy(staged, warps, smem)
+        if occ > 0:
+            chosen = EvalPlan(items, rows_per_lane, warps, occ, staged, rng,
+                              smem, groups * items)
+            if groups * items >= WAVES * occ * sms:
+                break
+        if want >= max_items:
+            break
+        want *= 2
+    if chosen is None:
+        raise ValueError("no layout of the scoring kernel fits this card")
+    return chosen
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
+                full: bool, device: int) -> EvalPlan:
+    """``eval_plan`` with the kernel library's layout and occupancy on
+    card ``device``."""
+    lib = _library()
+    cfg = (ctypes.c_int * 3)()
+    lib.postfix_eval_config(cfg)
+
+    def occupancy(staged, warps, smem):
+        occ = lib.postfix_eval_occupancy(mode, int(full), int(staged), warps,
+                                         smem)
+        if occ < 0:
+            raise RuntimeError("postfix_eval occupancy query failed")
+        return occ
+
+    return eval_plan(
+        T, L, nfeat, nrows, mode, 1 if mode == MODE_SLOTS else cfg[0], cfg[1],
+        cfg[2],
+        lambda warps, rng, staged: lib.postfix_eval_smem_bytes(
+            warps, L, nfeat, rng, int(staged), mode),
+        occupancy,
+        torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 class PreparedLaunch(NamedTuple):
@@ -265,12 +525,14 @@ class PreparedLaunch(NamedTuple):
     bad: torch.Tensor
     length: torch.Tensor
     mode: int
+    plan: EvalPlan
 
 
 def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
                    operators: OperatorSet, mode: int) -> PreparedLaunch:
-    """Check the inputs and build the kernel's tables and outputs for a
-    flat (T, L) batch on the card."""
+    """Check the inputs and allocate the kernel's outputs for a flat (T, L)
+    batch on the card; the trees go to the kernel as they are, in
+    longest-first order."""
     dev = X.device
     if X.dtype != torch.float32 or X.dim() != 2:
         raise ValueError(f"X must be (nfeat, nrows) float32, got {X.dtype} "
@@ -282,44 +544,52 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
         if f.device != dev:
             raise ValueError("trees and X must lie on the same device")
     T, L = flat.kind.shape
-    nrows = X.shape[1]
-    table = kernel_opcode_table(operators, dev)
-    code = table[fuse_opcodes(flat, operators)].contiguous()
-    lidx, ridx = operand_schedule(flat.kind, flat.length)
-    tables = [code, flat.feat.to(torch.int32).contiguous(),
-              lidx.to(torch.int32).contiguous(),
-              ridx.to(torch.int32).contiguous(),
-              flat.cval.to(torch.float32).contiguous()]
+    nfeat, nrows = X.shape
+    if L > MAX_LEN or nfeat >= 1 << 16 or X.numel() >= 1 << 31:
+        raise ValueError(f"the scoring kernel takes max_len <= {MAX_LEN}, "
+                         "fewer than 65536 features and X of fewer than "
+                         f"2^31 elements; got {L}, {tuple(X.shape)}")
+    if mode == MODE_SLOTS and nrows != 1:
+        raise ValueError("the slot-values mode takes X with one row")
+    full = uses_full_kernel(operators)
+    ids = host_operator_ids(operators)
+    plan = launch_plan(T, L, nfeat, nrows, mode, full, dev.index or 0)
+    fields = [f.to(torch.int64).contiguous()
+              for f in (flat.kind, flat.op, flat.feat)]
+    cval = flat.cval.to(torch.float32).contiguous()
     length = flat.length.to(torch.int64).contiguous()
-    order = torch.argsort(length, stable=True)
-    X = X.contiguous()
-    y = None if y is None else y.contiguous()
+    order = torch.argsort(length, descending=True, stable=True)
     if mode == MODE_VALUE:
         out = torch.empty((T, nrows), dtype=torch.float32, device=dev)
     elif mode == MODE_SLOTS:
-        if nrows != 1:
-            raise ValueError("the slot-values mode takes X with one row")
         out = torch.empty((T, L), dtype=torch.float32, device=dev)
     else:
         out = torch.empty((T,), dtype=torch.float32, device=dev)
     bad = torch.empty((T,), dtype=torch.int32, device=dev)
+    part, part_bad = out, bad
+    if plan.items > 1:
+        part = torch.empty((T, plan.items), dtype=torch.float32, device=dev)
+        part_bad = torch.empty((T, plan.items), dtype=torch.int32, device=dev)
     # the tensors ride along so their memory outlives every launch
-    args = (*tables, length, order, X, y, out, bad, T, L, nrows, mode,
-            int(uses_full_kernel(operators)))
-    return PreparedLaunch(args, out, bad, length, mode)
+    args = (*fields, cval, length, order, X.contiguous(),
+            None if y is None else y.contiguous(), out, bad, part, part_bad,
+            ids, operators.n_unary, operators.n_binary, T, L, nfeat, nrows,
+            mode, int(full), plan.items, plan.range, int(plan.staged),
+            plan.warps, plan.smem, plan.blocks)
+    return PreparedLaunch(args, out, bad, length, mode, plan)
 
 
 def run_prepared(p: PreparedLaunch) -> None:
     """Launch the kernel on the current stream and check the launch."""
     lib = _library()
-    *tensors, T, L, nrows, mode, full = p.args
+    tensors, rest = p.args[:12], p.args[12:]
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream(p.out.device).cuda_stream
-    rc = lib.postfix_eval_launch(*ptrs, T, L, nrows, mode, full, stream)
+    rc = lib.postfix_eval_launch(*ptrs, *rest, stream)
     if rc != 0:
         raise RuntimeError("postfix_eval kernel launch failed: "
                            + lib.postfix_eval_error_string(rc).decode())
-    LAUNCHES[MODE_NAMES[mode]] += 1
+    LAUNCHES[MODE_NAMES[p.mode]] += 1
 
 
 def _launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],

@@ -11,21 +11,24 @@ and the poison flag. The loss is not contained: callers apply
 serves ``reps`` consecutive constant vectors (the line search's
 candidates, the JAX package's ``jnp.repeat`` of the trees).
 
-CUDA tensors launch the hand-written kernel ``csrc/postfix_grad.cu``
-(gradient variant B3, loss-only variant B4) or raise; CPU tensors run the
-plain PyTorch versions ``eval_loss_grad_plain`` / ``eval_loss_plain``,
+CUDA tensors launch the hand-written kernels of ``csrc/postfix_grad.cu``
+(the gradient kernel B3, the loss-only kernel B4) or raise; CPU tensors run
+the plain PyTorch versions ``eval_loss_grad_plain`` / ``eval_loss_plain``,
 which do the forward and adjoint sweeps slot by slot with the derivative
-table of ``ops/operators.py``. ``LAUNCHES`` counts the kernel's launches
-by variant. Only L2 (``L2DistLoss``/``mse``) is carried, as by the fused
-scoring epilogue.
+table of ``ops/operators.py``. The loss-only kernel runs a tree's
+candidates together, ``candidate_groups`` of them per warp, and derives
+the program from the ``TreeBatch`` fields itself. ``LAUNCHES`` counts the
+launches by variant. Only L2 (``L2DistLoss``/``mse``) is carried, as by
+the fused scoring epilogue.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 import threading
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -64,9 +67,10 @@ def normalized_weights(weights: Optional[torch.Tensor], nrows: int,
 
 def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
                      with_grad: bool, scale: bool = False):
-    """(loss (T,), grad (T, L) or None, ok (T,)) of a flat batch; with
-    ``scale`` also each CONST slot's sum over rows of |row term|, which
-    bounds the rounding of its row sum (a comparison's yardstick)."""
+    """(loss (T,), grad (T, L) or None, ok (T,)) of a flat batch of valid
+    programs (``ke.runnable``); with ``scale`` also each CONST slot's sum
+    over rows of |row term|, which bounds the rounding of its row sum (a
+    comparison's yardstick)."""
     root, bad, vals = ke._plain_forward(flat, X, operators)
     ok = ~bad & (flat.length > 0)
     d = root - y
@@ -117,7 +121,7 @@ def eval_loss_grad_plain(trees: TreeBatch, X, y, weights,
     """Plain version of the gradient variant: (loss (...,), grad (..., L),
     ok (...,)) at the trees' own constants, and with ``scale`` the sum
     over rows of each gradient term's magnitude (..., L)."""
-    flat = ke._flatten(trees)
+    flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
     wn = normalized_weights(weights, X.shape[1], X.device)
     out = _plain_loss_grad(flat, X, y, wn, operators, True, scale)
     shapes = (trees.length.shape, trees.kind.shape, trees.length.shape,
@@ -127,7 +131,7 @@ def eval_loss_grad_plain(trees: TreeBatch, X, y, weights,
 
 def eval_loss_plain(trees: TreeBatch, X, y, weights, operators: OperatorSet):
     """Plain version of the loss-only variant: (loss (...,), ok (...,))."""
-    flat = ke._flatten(trees)
+    flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
     wn = normalized_weights(weights, X.shape[1], X.device)
     loss, _, ok = _plain_loss_grad(flat, X, y, wn, operators, False)
     shape = trees.length.shape
@@ -154,11 +158,18 @@ def _library():
             lib = ctypes.CDLL(str(build_library()))
             p = ctypes.c_void_p
             i = ctypes.c_int
-            lib.postfix_grad_launch.argtypes = [p] * 13 + [i] * 6 + [p]
-            lib.postfix_grad_launch.restype = ctypes.c_int
-            lib.postfix_grad_smem_bytes.argtypes = [i, i]
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.postfix_grad_launch.argtypes = [p] * 13 + [i] * 5 + [p]
+            lib.postfix_grad_launch.restype = i
+            lib.postfix_grad_smem_bytes.argtypes = [i]
             lib.postfix_grad_smem_bytes.restype = i
             lib.postfix_grad_max_smem_bytes.restype = i
+            lib.postfix_loss_candidates.restype = i
+            lib.postfix_loss_plan.argtypes = [i] * 5 + [ip]
+            lib.postfix_loss_plan.restype = i
+            lib.postfix_loss_launch.argtypes = ([p] * 11 + [ip] + [i] * 9
+                                                + [ip, p])
+            lib.postfix_loss_launch.restype = i
             lib.postfix_grad_digamma.argtypes = [p, p, i, p]
             lib.postfix_grad_digamma.restype = i
             lib.postfix_grad_error_string.argtypes = [i]
@@ -167,12 +178,40 @@ def _library():
     return _lib
 
 
-def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
-                 with_grad: bool, reps: int = 1) -> Callable:
-    """Check the inputs, build the structure tables on the card once, and
-    return ``launch(cval (T * reps, L)) -> (loss, grad | None, bad)``: one
-    kernel launch each, nothing else on the stream."""
-    flat = ke._flatten(trees)
+def candidate_groups(reps: int, per_lane: int) -> int:
+    """Candidates per lane of the loss-only kernel: ``per_lane`` (the line
+    search's layout) when it divides ``reps``, else 1. Warp ``w`` of tree
+    ``t`` runs instances ``t * reps + w * cand + c`` for ``c < cand``."""
+    return per_lane if reps % per_lane == 0 else 1
+
+
+class LossPlan(NamedTuple):
+    """The loss-only kernel's layout: ``groups`` warps per tree,
+    ``candidates`` and ``rows`` per lane, ``warps`` per block,
+    ``blocks_per_sm`` resident, ``smem`` bytes per block, ``blocks``."""
+
+    groups: int
+    candidates: int
+    rows: int
+    warps: int
+    blocks_per_sm: int
+    smem: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=64)
+def loss_plan(T: int, reps: int, L: int, full: bool) -> LossPlan:
+    lib = _library()
+    cand = candidate_groups(reps, lib.postfix_loss_candidates())
+    plan = (ctypes.c_int * 7)()
+    rc = lib.postfix_loss_plan(T, reps, cand, L, int(full), plan)
+    if rc != 0:
+        raise ValueError(f"no layout of the loss-only kernel for max_len {L}: "
+                         + lib.postfix_grad_error_string(rc).decode())
+    return LossPlan(*plan)
+
+
+def _check_inputs(flat: TreeBatch, X, y, weights):
     dev = X.device
     if X.dtype != torch.float32 or X.dim() != 2:
         raise ValueError(f"X must be (nfeat, nrows) float32, got {X.dtype} "
@@ -185,45 +224,89 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
         raise ValueError("weights must be (nrows,) on X's device")
     if any(f.device != dev for f in flat):
         raise ValueError("trees and X must lie on the same device")
+
+
+def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
+                 with_grad: bool, reps: int = 1) -> Callable:
+    """Check the inputs, stage the structure on the card once, and return
+    ``launch(cval (T * reps, L)) -> (loss, grad | None, bad)``: one kernel
+    launch each. The gradient kernel reads the fused opcodes and the
+    operand schedule of the ``ke.runnable`` batch, and its launch ORs the
+    invalid programs' flags into ``bad``; the loss-only kernel reads the
+    tree fields as they are, trees longest first, and flags an invalid
+    program itself."""
+    flat = ke._flatten(trees)
+    _check_inputs(flat, X, y, weights)
+    dev = X.device
+    nfeat, nrows = X.shape
     wn = normalized_weights(weights, nrows, dev)
     T, L = flat.kind.shape
     lib = _library()
-    smem = lib.postfix_grad_smem_bytes(L, int(with_grad))
-    if smem > lib.postfix_grad_max_smem_bytes():
-        raise ValueError(f"max_len {L} needs {smem} bytes of shared memory "
-                         "per block, more than a block may use")
-    code = ke.kernel_opcode_table(operators, dev)[
-        ke.fuse_opcodes(flat, operators)].contiguous()
-    lidx, ridx = ke.operand_schedule(flat.kind, flat.length)
+    full = ke.uses_full_kernel(operators)
     length = flat.length.to(torch.int64).contiguous()
-    # the tensors ride in the closure so their memory outlives every launch
-    tables = (code, flat.feat.to(torch.int32).contiguous(),
-              lidx.to(torch.int32).contiguous(),
-              ridx.to(torch.int32).contiguous(), length,
-              torch.argsort(length, stable=True))
     data = (X.contiguous(), y.contiguous(), wn)
     N = T * reps
-    variant = "loss_grad" if with_grad else "loss"
-    full = int(ke.uses_full_kernel(operators))
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
 
-    def launch(cval: torch.Tensor):
-        cv = cval.to(torch.float32).reshape(N, L).contiguous()
-        loss = torch.empty((N,), dtype=torch.float32, device=dev)
-        grad = (torch.empty((N, L), dtype=torch.float32, device=dev)
-                if with_grad else None)
-        bad = torch.empty((N,), dtype=torch.int32, device=dev)
-        ptrs = [t.data_ptr() for t in (*tables, cv, *data, loss)]
-        ptrs += [None if grad is None else grad.data_ptr(), bad.data_ptr()]
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.postfix_grad_launch(*ptrs, N, reps, L, nrows, int(with_grad),
-                                     full, stream)
+    def check(rc, variant):
         if rc != 0:
             raise RuntimeError("postfix_grad kernel launch failed: "
                                + lib.postfix_grad_error_string(rc).decode())
         LAUNCHES[variant] += 1
-        return loss, grad, bad
 
-    return launch
+    if not with_grad:
+        if L > ke.MAX_LEN or nfeat >= 1 << 16 or X.numel() >= 1 << 31:
+            raise ValueError(f"the loss-only kernel takes max_len <= "
+                             f"{ke.MAX_LEN}, fewer than 65536 features and X "
+                             "of fewer than 2^31 elements")
+        ids = ke.host_operator_ids(operators)
+        plan = loss_plan(T, reps, L, full)
+        c_plan = (ctypes.c_int * 7)(*plan)
+        # the tensors ride in the closure so their memory outlives every launch
+        fields = [f.to(torch.int64).contiguous()
+                  for f in (flat.kind, flat.op, flat.feat)]
+        order = torch.argsort(length, descending=True, stable=True)
+
+        def launch_loss(cval: torch.Tensor):
+            cv = cval.to(torch.float32).reshape(N, L).contiguous()
+            loss = torch.empty((N,), dtype=torch.float32, device=dev)
+            bad = torch.empty((N,), dtype=torch.int32, device=dev)
+            ptrs = [t.data_ptr() for t in (*fields, length, order, cv, *data,
+                                           loss, bad)]
+            check(lib.postfix_loss_launch(
+                *ptrs, ids, operators.n_unary, operators.n_binary, T, reps,
+                plan.candidates, L, nfeat, nrows, int(full), c_plan,
+                stream()), "loss")
+            return loss, None, bad
+
+        return launch_loss
+
+    smem = lib.postfix_grad_smem_bytes(L)
+    if smem > lib.postfix_grad_max_smem_bytes():
+        raise ValueError(f"max_len {L} needs {smem} bytes of shared memory "
+                         "per block, more than a block may use")
+    flat, invalid = ke.runnable(flat, operators, nfeat)
+    invalid = invalid.to(torch.int32).repeat_interleave(reps)
+    length = flat.length.to(torch.int64).contiguous()
+    code = ke.kernel_opcode_table(operators, dev)[
+        ke.fuse_opcodes(flat, operators)].contiguous()
+    lidx, ridx = ke.operand_schedule(flat.kind, flat.length)
+    tables = (code, flat.feat.to(torch.int32).contiguous(),
+              lidx.to(torch.int32).contiguous(),
+              ridx.to(torch.int32).contiguous(), length,
+              torch.argsort(length, stable=True))
+
+    def launch_grad(cval: torch.Tensor):
+        cv = cval.to(torch.float32).reshape(N, L).contiguous()
+        loss = torch.empty((N,), dtype=torch.float32, device=dev)
+        grad = torch.empty((N, L), dtype=torch.float32, device=dev)
+        bad = torch.empty((N,), dtype=torch.int32, device=dev)
+        ptrs = [t.data_ptr() for t in (*tables, cv, *data, loss, grad, bad)]
+        check(lib.postfix_grad_launch(*ptrs, N, reps, L, nrows, int(full),
+                                      stream()), "loss_grad")
+        return loss, grad, bad.bitwise_or_(invalid)
+
+    return launch_grad
 
 
 def digamma_on_card(x: torch.Tensor) -> torch.Tensor:
@@ -262,6 +345,7 @@ def make_loss_kernel(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
             return loss, grad, (bad == 0) & live
     else:
         wn = normalized_weights(weights, X.shape[1], X.device)
+        flat, _ = ke.runnable(flat, operators, X.shape[0])
         rep = flat if reps == 1 else flat.map(
             lambda f: f.repeat_interleave(reps, dim=0))
 

@@ -25,6 +25,7 @@ by variant.
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -215,9 +216,10 @@ def eval_trees_instr_plain(trees: TreeBatch, X: torch.Tensor,
     source select) and B6 (``packed=True``: the packed word over the
     unified operand space): (y (..., nrows), ok (...,)). A step poisons
     its tree when its value or an operand is non-finite; ``ok`` is not
-    poisoned and not empty."""
+    poisoned and not empty; an invalid program is empty
+    (``ke.runnable``)."""
     batch_shape = trees.length.shape
-    flat = ke._flatten(trees)
+    flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
     T, L = flat.kind.shape
     nfeat, R = X.shape
     if packed:
@@ -335,9 +337,7 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
         raise ValueError(f"{nfeat} features and {prep.L} steps need more "
                          "shared memory per warp than a block may use")
     T = flat.length.shape[0]
-    opmap = torch.tensor([0, KERNEL_UNARY_IDS["identity"]]
-                         + ke.kernel_operator_ids(operators),
-                         dtype=torch.int32, device=dev)
+    opmap = _opcode_map(operators, dev)
     tb = prep.tables
     kcode = opmap[tb["icode"].to(torch.int64)]
     if packed:
@@ -358,6 +358,16 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
     return PreparedLaunch(args, out, bad, flat.length, packed)
 
 
+@functools.lru_cache(maxsize=None)
+def _opcode_map(operators: OperatorSet, device: torch.device) -> torch.Tensor:
+    """Instruction opcode -> the kernels' operator id, built once per
+    (operator set, device): copying a Python list to the card waits for
+    the card."""
+    return torch.tensor([0, KERNEL_UNARY_IDS["identity"]]
+                        + ke.kernel_operator_ids(operators),
+                        dtype=torch.int32, device=device)
+
+
 def run_prepared(p: PreparedLaunch) -> None:
     """Launch the kernel on the current stream and check the launch."""
     lib = _library()
@@ -375,11 +385,13 @@ def eval_trees_instr(trees: TreeBatch, X: torch.Tensor, operators: OperatorSet,
                      packed: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value mode by the instruction program: (y (..., nrows) float32,
     ok (...,)). CUDA tensors run the kernel (B6 with ``packed``, else B5);
-    CPU tensors the plain version."""
+    CPU tensors the plain version. An invalid program runs as the empty
+    program (``ke.runnable``), so it is poisoned as in the value mode."""
     if not X.is_cuda:
         return eval_trees_instr_plain(trees, X, operators, packed)
     batch_shape = trees.length.shape
-    p = prepare_launch(ke._flatten(trees), X, operators, packed)
+    flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
+    p = prepare_launch(flat, X, operators, packed)
     run_prepared(p)
     ok = (p.bad == 0) & (p.length > 0)
     return (p.out.reshape(batch_shape + (X.shape[1],)),

@@ -1,32 +1,47 @@
-"""A/B of the port's CUDA kernels built from two (or more) source trees, in
-one process on one card.
+"""A/B of the port's scoring and constant-optimisation kernels in two (or
+more) versions of the package, on one card.
 
     python3 -m symbolicregression_jl_tpu_torch.tools.kernel_ab \\
-        parent=<dir> current=symbolicregression_jl_tpu_torch/csrc
+        parent=<package root> current=. [--capture]
 
-Each ``name=dir`` holds ``postfix_eval.cu`` and ``postfix_grad.cu`` (and,
-where it has them, ``instr_eval.cu``), for example an earlier commit's
-``csrc/`` unpacked with ``git archive`` into a directory that ``.gitignore``
-lists. Every tree is built with the flags the package uses, one nvcc
-process each, into ``build/kernel_ab/``; then each kernel is timed at the
-north star's shapes (Feynman-I.6.2a, 2,048 rows; scoring at 5,376 and
-64,000 trees, the gradient variant at 26,880 instances, the loss-only
-variant at 215,040) with CUDA events over 50 launches (20 for the
-loss-only variant), the trees in the order given, then the reverse (for
-two trees: A B B A). A tree whose launchers take the full-instantiation
-flag is timed twice, as the wrappers launch it (the compact instantiation,
-for these operators) and with the full one forced (keys ``full:...``). A
-tree's opcodes are read from its source (the first binary id, ``OP_ADD``),
-so trees that number the operators differently time the same programs.
-The value mode's output is checked bit-equal across trees first.
+Each ``name=root`` is a directory that holds the package
+``symbolicregression_jl_tpu_torch`` (for example an earlier commit unpacked
+with ``git archive`` into a directory that ``.gitignore`` lists). Each root
+builds its own kernels from its own sources (one process per root, all at
+once), then each root is timed in a process of its own that imports that
+root's package and drives its own wrappers (``prepare_launch`` /
+``run_prepared`` of the scoring kernel, ``stage_launch`` of the
+constant-optimisation kernels), so a change to a launcher's signature needs
+no change here. The roots run in the order given, then in reverse (for two
+roots: A B B A).
+
+A timing process times each kernel alone (``device_ms``: the launches
+queued behind a spin on the card, CUDA events around them) at the north
+star's shapes (Feynman-I.6.2a, 2,048 rows): the value mode (B1) and the
+fused L2 mode (B2) at 5,376 and 64,000 trees, the slot-values mode at 5,376
+and 64,000 trees on one row, the gradient kernel (B3) at 26,880 instances
+and the loss-only kernel (B4) at 215,040 (26,880 trees x 8 candidates);
+50 launches each (20 for B4); the compact instantiation (these operators)
+and the full one forced (``full:`` keys). Then the wrappers, host prep
+included: ``eval_loss_trees`` at 5,376 and 64,000 trees,
+``eval_slot_values`` and ``eval_trees_instr`` at 5,376. The value mode's
+output and B4's losses and poison flags are compared bit for bit with the
+first root's.
+
+``--capture`` adds one batch from the main path's own search, the
+children of the first cycle of iteration 2 of ``equation_search`` at 64
+islands x 1000 (saved to ``build/kernel_ab/captured.pt`` and reused), timed
+in the fused mode (``fused_l2@captured``).
+
+The imports are absolute, so that this file, run by path in a root's
+process, drives that root's package.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
+import os
 import pathlib
-import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -34,87 +49,23 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..models.mutate_device import gen_random_tree_fixed_size
-from ..ops import kernel_eval as ke
-from ..ops import kernel_grad as kg
-from ..ops import kernel_instr as ki
-from ..ops.operators import KERNEL_BINARY_IDS, make_operator_set
-from ..utils.rng import make_generator
+from symbolicregression_jl_tpu_torch.models.mutate_device import (
+    gen_random_tree_fixed_size,
+)
+from symbolicregression_jl_tpu_torch.models.trees import TreeBatch
+from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
+from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
+from symbolicregression_jl_tpu_torch.ops import kernel_instr as ki
+from symbolicregression_jl_tpu_torch.ops.operators import make_operator_set
+from symbolicregression_jl_tpu_torch.utils.rng import make_generator
 
-SOURCES = ("postfix_eval", "postfix_grad", "instr_eval")
-
-
-def takes_full_flag(src_dir: pathlib.Path) -> bool:
-    """The tree's launchers take the full-instantiation flag (all_ops)."""
-    return "all_ops" in (src_dir / "postfix_eval.cu").read_text()
-
-
-class _WithoutFullFlag:
-    """A tree's postfix_grad library whose launcher has no all_ops
-    argument, behind the current interface."""
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-    def postfix_grad_launch(self, *args):
-        return self._lib.postfix_grad_launch(*args[:-2], args[-1])
-
-
-def first_binary_id(src_dir: pathlib.Path) -> int:
-    """OP_ADD as the tree's sources define it."""
-    for path in sorted(src_dir.glob("*.cu*")):
-        m = re.search(r"OP_ADD\s*=\s*(\d+)", path.read_text())
-        if m:
-            return int(m.group(1))
-    raise ValueError(f"no OP_ADD in {src_dir}")
-
-
-def build(trees: dict) -> dict:
-    """{(tree, source): library} for every source each tree has."""
-    out_dir = ke.BUILD_DIR / "kernel_ab"
-    jobs = {}
-    with ThreadPoolExecutor(len(trees) * len(SOURCES)) as pool:
-        for name, src_dir in trees.items():
-            for src in SOURCES:
-                if (src_dir / f"{src}.cu").exists():
-                    extra = kg.NVCC_EXTRA_FLAGS if src == "postfix_grad" else ()
-                    lib = out_dir / f"lib{src}_{name}.so"
-                    jobs[name, src] = (lib, pool.submit(
-                        ke.compile_library, src_dir / f"{src}.cu", lib, extra))
-        libs = {}
-        for key, (lib, fut) in jobs.items():
-            for line in fut.result().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(*key, line.strip())
-            libs[key] = ctypes.CDLL(str(lib))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for (name, src), lib in libs.items():
-        flag = int(takes_full_flag(trees[name]))
-        if src == "postfix_eval":
-            lib.postfix_eval_launch.argtypes = [p] * 11 + [i] * (4 + flag) + [p]
-            lib.postfix_eval_launch.restype = i
-        elif src == "postfix_grad":
-            lib.postfix_grad_launch.argtypes = [p] * 13 + [i] * (5 + flag) + [p]
-            lib.postfix_grad_launch.restype = i
-            lib.postfix_grad_smem_bytes.argtypes = [i, i]
-            lib.postfix_grad_smem_bytes.restype = i
-            lib.postfix_grad_max_smem_bytes.restype = i
-            lib.postfix_grad_error_string.argtypes = [i]
-            lib.postfix_grad_error_string.restype = ctypes.c_char_p
-        else:
-            lib.instr_eval_launch.argtypes = [p] * 12 + [i] * 6 + [p]
-            lib.instr_eval_launch.restype = i
-            lib.instr_eval_warps_per_block.argtypes = [i, i, i]
-            lib.instr_eval_warps_per_block.restype = i
-            lib.instr_eval_error_string.argtypes = [i]
-            lib.instr_eval_error_string.restype = ctypes.c_char_p
-    return libs
+OUT_DIR = ke.BUILD_DIR / "kernel_ab"
+CAPTURED = OUT_DIR / "captured.pt"
 
 
 def cuda_ms(fn, reps):
+    """Milliseconds per call of fn over reps calls (CUDA events): the
+    host's work and the card's, whichever is the longer."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -127,113 +78,241 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def main(argv) -> int:
-    if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA device is available")
-        return 2
-    trees_dirs = dict(a.split("=", 1) for a in argv)
-    trees_dirs = {k: pathlib.Path(v) for k, v in trees_dirs.items()}
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(card)
-    libs = build(trees_dirs)
-    shift = {k: first_binary_id(d) - min(KERNEL_BINARY_IDS.values())
-             for k, d in trees_dirs.items()}
-    dev = torch.device("cuda")
-    ops = make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+def device_ms(fn, reps):
+    """Device milliseconds per call of fn, which must not wait for the
+    card: the calls are queued behind a spin on the card and timed by CUDA
+    events around them, so the host's cost of launching does not show. The
+    spin doubles until the card is still in it when the last call is
+    queued."""
+    fn()
+    torch.cuda.synchronize()
+    spin = 1 << 23  # clock cycles, ~4 ms
+    while True:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        queued = not e0.query()
+        torch.cuda.synchronize()
+        if queued:
+            return e0.elapsed_time(e1) / reps
+        spin *= 2
+
+
+def north_star_data(dev):
     rng = np.random.default_rng(0)
     X = torch.tensor(rng.uniform(1.0, 3.0, 2048).astype(np.float32),
                      device=dev)[None]
-    y = torch.exp(-X[0] ** 2 / 2) / np.sqrt(2 * np.pi)
+    return X, torch.exp(-X[0] ** 2 / 2) / np.sqrt(2 * np.pi)
+
+
+def north_star_trees(ops, dev):
     gen = make_generator(1, dev)
     trees = gen_random_tree_fixed_size(
         gen, torch.randint(3, 21, (64000,), generator=gen, device=dev), 1, ops,
         24, dev)
-    cycle, opt = trees[64000 - 5376:], trees[:26880]
-    cv8 = opt.cval.repeat_interleave(8, 0) * (
+    cv8 = trees[:26880].cval.repeat_interleave(8, 0) * (
         1 + 0.1 * torch.randn((26880 * 8, 24), generator=gen, device=dev))
-    stream = torch.cuda.current_stream().cuda_stream
-    binary_base = min(KERNEL_BINARY_IDS.values())
+    return trees, cv8
 
-    def eval_launch(name, tb, mode, force_full=False):
-        prep = ke.prepare_launch(tb, X, y if mode == ke.MODE_FUSED_L2 else None,
-                                 ops, mode)
-        *tensors, T, L, nrows, m, full = prep.args
-        code = tensors[0]
-        tensors[0] = torch.where(code >= binary_base, code + shift[name],
-                                 code).contiguous()
-        ptrs = [None if t is None else t.data_ptr() for t in tensors]
-        ints = (T, L, nrows, m, int(full or force_full))[
-            :4 + takes_full_flag(trees_dirs[name])]
-        lib = libs[name, "postfix_eval"]
 
-        def run():
-            if lib.postfix_eval_launch(*ptrs, *ints, stream):
-                raise RuntimeError(f"{name}: postfix_eval launch failed")
+class _Captured(Exception):
+    pass
 
-        return run, prep.out, tensors
 
-    def grad_launch(name, with_grad, force_full=False):
-        lib = libs[name, "postfix_grad"]
-        kg._lib = (lib if takes_full_flag(trees_dirs[name])
-                   else _WithoutFullFlag(lib))
-        saved = dict(KERNEL_BINARY_IDS), ke.uses_full_kernel
-        KERNEL_BINARY_IDS.update({k: v + shift[name] for k, v in saved[0].items()})
-        if force_full:
-            ke.uses_full_kernel = lambda operators: True
-        try:
-            raw = kg.stage_launch(opt, X, y, None, ops, with_grad,
-                                  1 if with_grad else 8)
-        finally:
-            KERNEL_BINARY_IDS.update(saved[0])
-            ke.uses_full_kernel = saved[1]
-        cv = opt.cval if with_grad else cv8
-        return lambda: raw(cv)
+def capture_children(ops) -> TreeBatch:
+    """The children scored by the first cycle of iteration 2 of the main
+    path's search (64 islands x 1000, 2,048 rows, maxsize 20)."""
+    if CAPTURED.exists():
+        return TreeBatch(*torch.load(CAPTURED, map_location="cuda"))
+    from symbolicregression_jl_tpu_torch import equation_search
 
-    def instr_launch(name, tb, packed, force_full=False):
-        ki._lib = libs[name, "instr_eval"]
-        prep = ki.prepare_launch(tb, X, ops, packed)
-        if force_full:
-            prep = prep._replace(args=prep.args[:-1] + (1,))
-        return lambda: ki.run_prepared(prep)
+    rng = np.random.default_rng(0)
+    theta = rng.uniform(1.0, 3.0, 2048).astype(np.float32)
+    y = (np.exp(-theta ** 2 / 2) / np.sqrt(2 * np.pi)).astype(np.float32)
+    seen = {"iterations": 0, "batch": None}
+    scoring = ke.eval_loss_trees
 
-    ref = None
-    for name in trees_dirs:
-        run, out, _ = eval_launch(name, cycle, ke.MODE_VALUE)
-        run()
-        torch.cuda.synchronize()
-        out = out.nan_to_num()
-        if ref is not None and not torch.equal(out, ref):
-            raise AssertionError(f"{name}: value mode differs from the first tree")
-        ref = out
-    order = list(trees_dirs) + list(reversed(trees_dirs))
-    rows = []
-    for name in order:
-        row = {"tree": name}
-        for full in (False, True)[:1 + takes_full_flag(trees_dirs[name])]:
+    def spy(trees, X, y_, operators):
+        if seen["iterations"] == 1 and trees.length.numel() == 64 * 84:
+            seen["batch"] = ke._flatten(trees).map(torch.clone)
+            raise _Captured
+        return scoring(trees, X, y_, operators)
+
+    ke.eval_loss_trees = spy
+    try:
+        equation_search(theta[None], y, binary_operators=["+", "-", "*", "/"],
+                        unary_operators=["cos", "exp"], npopulations=64,
+                        npop=1000, maxsize=20, loss="L2DistLoss",
+                        niterations=2, ncycles_per_iteration=550, seed=0,
+                        verbosity=0, on_iteration=lambda it, c: seen.update(
+                            iterations=it + 1))
+    except _Captured:
+        pass
+    finally:
+        ke.eval_loss_trees = scoring
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(tuple(seen["batch"]), CAPTURED)
+    return seen["batch"]
+
+
+# ---------------------------------------------------------------------------
+# One root's process
+# ---------------------------------------------------------------------------
+
+
+def build_here() -> None:
+    """Build this root's kernel libraries, one thread (nvcc) each, and
+    print ptxas's register and spill lines."""
+    mods = (ke, kg, ki)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        for _ in pool.map(lambda m: m.build_library(force=True), mods):
+            pass
+    for m in mods:
+        for line in m.BUILD_LOG.splitlines():
+            if "registers" in line or "spill" in line:
+                print(m.__name__.rsplit(".", 1)[-1], line.strip())
+
+
+def time_here(captured_path, bits_path) -> dict:
+    """Every kernel and wrapper of this root's package, as the module
+    docstring lists; the value mode's output and B4's loss bits and poison
+    flags go to ``bits_path``."""
+    dev = torch.device("cuda")
+    ops = make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    X, y = north_star_data(dev)
+    X1 = X[:, :1].contiguous()
+    trees, cv8 = north_star_trees(ops, dev)
+    cycle, opt = trees[64000 - 5376:], trees[:26880]
+    shapes = [(f"{label}@{tb.length.shape[0]}", tb, mode)
+              for label, mode in (("value", ke.MODE_VALUE),
+                                  ("fused_l2", ke.MODE_FUSED_L2),
+                                  ("slots", ke.MODE_SLOTS))
+              for tb in (cycle, trees)]
+    if captured_path:
+        captured = TreeBatch(*torch.load(captured_path, map_location="cuda"))
+        shapes.append(("fused_l2@captured", captured, ke.MODE_FUSED_L2))
+    uses_full = ke.uses_full_kernel
+    row = {}
+    try:
+        for full in (False, True):
+            ke.uses_full_kernel = lambda operators: full
             pre = "full:" if full else ""
-            for label, tb, mode in (("value", cycle, ke.MODE_VALUE),
-                                    ("value", trees, ke.MODE_VALUE),
-                                    ("fused_l2", cycle, ke.MODE_FUSED_L2),
-                                    ("fused_l2", trees, ke.MODE_FUSED_L2)):
-                run, _, keep = eval_launch(name, tb, mode, full)
-                row[f"{pre}{label}@{tb.length.shape[0]}"] = cuda_ms(run, 50)
-                del keep
-            row[f"{pre}loss_grad@26880"] = cuda_ms(grad_launch(name, True, full), 50)
-            row[f"{pre}loss@215040"] = cuda_ms(grad_launch(name, False, full), 20)
-            if (name, "instr_eval") in libs:
-                for packed in (False, True):
-                    for tb in (cycle, trees):
-                        key = (f"{pre}{'instr_packed' if packed else 'instr'}"
-                               f"@{tb.length.shape[0]}")
-                        row[key] = cuda_ms(instr_launch(name, tb, packed, full),
-                                           50)
+            for label, tb, mode in shapes:
+                p = ke.prepare_launch(
+                    tb, X1 if mode == ke.MODE_SLOTS else X,
+                    y if mode == ke.MODE_FUSED_L2 else None, ops, mode)
+                row[pre + label] = device_ms(lambda: ke.run_prepared(p), 50)
+                if not full and label == "value@5376":
+                    value = p.out.nan_to_num().clone()
+                del p
+            grad = kg.stage_launch(opt, X, y, None, ops, True, 1)
+            row[f"{pre}loss_grad@26880"] = device_ms(lambda: grad(opt.cval), 50)
+            loss = kg.stage_launch(opt, X, y, None, ops, False, 8)
+            row[f"{pre}loss@215040"] = device_ms(lambda: loss(cv8), 20)
+            if not full:
+                lo, _, bad = loss(cv8)
+                torch.cuda.synchronize()
+                torch.save({"value": value.cpu(),
+                            "loss_bits": lo.view(torch.int32).cpu(),
+                            "bad": bad.cpu()}, bits_path)
+    finally:
+        ke.uses_full_kernel = uses_full
+    for T in (5376, 64000):
+        tb = trees[64000 - T:]
+        row[f"wrapper_fused_l2@{T}"] = cuda_ms(
+            lambda: ke.eval_loss_trees(tb, X, y, ops), 20)
+    row["wrapper_slots@5376"] = cuda_ms(
+        lambda: ke.eval_slot_values(cycle, X1, ops), 20)
+    row["wrapper_instr@5376"] = cuda_ms(
+        lambda: ki.eval_trees_instr(cycle, X, ops, False), 20)
+    return row
+
+
+def worker(argv) -> int:
+    """``--worker root build`` or ``--worker root time bits [captured]``:
+    check that the package imported is the root's, then do the one job."""
+    root, job = pathlib.Path(argv[0]).resolve(), argv[1]
+    if root not in pathlib.Path(ke.__file__).resolve().parents:
+        raise RuntimeError(f"imported {ke.__file__}, not the package of {root}")
+    if job == "build":
+        build_here()
+        return 0
+    row = time_here(argv[3] if len(argv) > 3 else None, argv[2])
+    print(json.dumps(row))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# The comparison
+# ---------------------------------------------------------------------------
+
+
+def run_in(root: pathlib.Path, *args) -> str:
+    """This file, by path, in a process whose package is ``root``'s."""
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, __file__, "--worker", str(root),
+                           *args], cwd=root, env=env, capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{root}: {' '.join(args)} failed\n{proc.stdout}"
+                           f"\n{proc.stderr}")
+    return proc.stdout
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device is available")
+        return 2
+    capture = "--capture" in argv
+    roots = {n: pathlib.Path(r).resolve() for n, r in
+             (a.split("=", 1) for a in argv if a != "--capture")}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    captured = []
+    if capture:
+        capture_children(make_operator_set(["+", "-", "*", "/"], ["cos", "exp"]))
+        captured = [str(CAPTURED)]
+    with ThreadPoolExecutor(len(roots)) as pool:
+        logs = dict(zip(roots, pool.map(lambda r: run_in(r, "build"),
+                                        roots.values())))
+    for name, log in logs.items():
+        for line in log.splitlines():
+            print(name, line)
+    rows, bits = [], {}
+    for name in list(roots) + list(reversed(roots)):
+        path = OUT_DIR / f"bits_{name}.pt"
+        row = {"tree": name, **json.loads(run_in(
+            roots[name], "time", str(path), *captured).splitlines()[-1])}
+        bits.setdefault(name, torch.load(path))
         print(json.dumps(row), flush=True)
         rows.append(row)
-    print(json.dumps({"card": card, "rows": rows}))
+    ref = bits[next(iter(roots))]
+    checks = {}
+    for name, b in bits.items():
+        if not torch.equal(b["value"], ref["value"]):
+            raise AssertionError(f"{name}: value mode differs from the first root")
+        checks[name] = dict(
+            loss_bits_differ=int((b["loss_bits"] != ref["loss_bits"]).sum()),
+            poison_differs=int((b["bad"] != ref["bad"]).sum()))
+        print(f"{name}: B4 against the first root {checks[name]}", flush=True)
+    record = {"card": card, "rows": rows, "loss_bits": checks}
+    if capture:
+        lengths = capture_children(None).length.float()
+        record["captured"] = {"trees": int(lengths.numel()),
+                              "mean_length": float(lengths.mean()),
+                              "max_length": int(lengths.max())}
+    print(json.dumps(record))
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

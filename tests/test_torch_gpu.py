@@ -2,8 +2,12 @@
 constant-gradient kernel in both variants and the instruction-program
 kernels against their plain versions (the latter also bit-equal to the
 scoring kernel's value mode), each registry operator (and its derivative,
-and the hand-written digamma) on the edge grid, and short searches. Marked ``gpu``; each skips without a card (decided in a
-fixture, so every test worker collects the same tests).
+and the hand-written digamma) on the edge grid, and short searches; the
+redesigned scoring kernel below and above one wave of blocks, with ragged
+row counts, wide X and long or invalid programs, the loss-only kernel's
+candidate groups, and two launches giving the same bits. Marked ``gpu``;
+each skips without a card (decided in a fixture, so every test worker
+collects the same tests).
 
 This file imports neither JAX nor the JAX package, because the machine
 with the card has no JAX; ``tests/conftest.py`` imports JAX, so run it
@@ -359,3 +363,166 @@ def test_compact_and_full_instantiations_agree_on_card(cuda, monkeypatch):
     monkeypatch.setattr(tke, "uses_full_kernel", lambda operators: True)
     for got, ref in zip(run_all(), compact):
         _assert_bits_equal(got.nan_to_num(), ref.nan_to_num())
+
+
+def _length_sweep(ops, nfeat, max_len, per_length, device, seed=0):
+    """per_length random valid programs of every length 1..max_len."""
+    from symbolicregression_jl_tpu_torch.tools.kernel_breakdown import (
+        fixed_length_trees,
+    )
+
+    rng = np.random.default_rng(seed)
+    parts = [fixed_length_trees(rng, per_length, n, nfeat, ops, max_len, device)
+             for n in range(1, max_len + 1)]
+    return TreeBatch(*(torch.cat(z) for z in zip(*parts)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T, nrows", [(37, 333), (3000, 2048), (30000, 2049),
+                                      (5376, 100)],
+                         ids=["below-one-wave", "cycle-like", "above-waves-ragged",
+                              "short-rows"])
+def test_scoring_kernel_work_items_on_card(cuda, T, nrows):
+    """The redesigned scoring kernel below and above one wave of blocks,
+    with row counts that are not a multiple of a pass (32 lanes x 4 rows):
+    value and slot modes bit-equal to the plain versions, the fused loss
+    within rtol 1e-4 of the plain version (rows summed in another order)
+    and the same bits on a second launch; trees of every length, bare
+    leaves and poisoning trees included."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp", "log"])
+    trees = _length_sweep(ops, 2, L, -(-T // L), cuda)[:T]
+    X = torch.randn(2, nrows, device=cuda) * 2
+    y = torch.randn(nrows, device=cuda)
+    plan = tke.launch_plan(T, L, 2, nrows, tke.MODE_FUSED_L2, False, 0)
+    assert plan.blocks == -(-T // plan.warps) * plan.items
+    yk, okk = tke.eval_trees(trees, X, ops)
+    yp, okp = tke.eval_trees_plain(trees, X, ops)
+    assert torch.equal(okk, okp) and 0 < int(okk.sum()) < T
+    _assert_bits_equal(yk[okk], yp[okk])
+    lk = tke.eval_loss_trees(trees, X, y, ops)
+    _assert_bits_equal(tke.eval_loss_trees(trees, X, y, ops), lk)
+    lp = tke.eval_loss_trees_plain(trees, X, y, ops)
+    assert torch.equal(torch.isinf(lk), torch.isinf(lp))
+    fin = torch.isfinite(lp)
+    torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-4, atol=0)
+    sk, _ = tke.eval_slot_values(trees, X[:, :1], ops)
+    sp, _ = tke.eval_slot_values_plain(trees, X[:, :1], ops)
+    f = torch.isfinite(sp)
+    assert torch.equal(torch.isfinite(sk), f)
+    _assert_bits_equal(sk[f], sp[f])
+
+
+@pytest.mark.gpu
+def test_scoring_kernel_reads_wide_X_from_global_memory_on_card(cuda):
+    """1,000 features: X's rows of a work item do not fit in shared memory,
+    so the kernel reads X from global memory; values bit-equal to plain,
+    the stack-machine plain version bit-equal to the kernel."""
+    ops = tops.make_operator_set(["+", "*"], ["cos"])
+    trees = _length_sweep(ops, 1000, L, 20, cuda)
+    X = torch.randn(1000, 300, device=cuda)
+    assert not tke.launch_plan(trees.length.shape[0], L, 1000, 300,
+                               tke.MODE_VALUE, False, 0).staged
+    yk, okk = tke.eval_trees(trees, X, ops)
+    yp, okp = tke.eval_trees_plain(trees, X, ops)
+    assert torch.equal(okk, okp)
+    _assert_bits_equal(yk[okk], yp[okk])
+    ys, bad = tke.eval_program_plain(trees, X, ops)
+    assert torch.equal(~bad, okk)
+    _assert_bits_equal(yk[okk], ys[okk])
+
+
+@pytest.mark.gpu
+def test_long_programs_and_invalid_programs_on_card(cuda):
+    """max_len 64 (a 32-entry stack) through both redesigned kernels, and
+    programs that are not valid postfix programs reported poisoned."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    trees = _length_sweep(ops, 2, 64, 8, cuda)
+    X = torch.randn(2, 500, device=cuda)
+    y = torch.randn(500, device=cuda)
+    yk, okk = tke.eval_trees(trees, X, ops)
+    yp, okp = tke.eval_trees_plain(trees, X, ops)
+    assert torch.equal(okk, okp)
+    _assert_bits_equal(yk[okk], yp[okk])
+    lk, _, ok = tkg.make_loss_kernel(trees, X, y, None, ops, False, 1)(trees.cval)
+    lp, okp2 = tkg.eval_loss_plain(trees, X, y, None, ops)
+    assert torch.equal(ok, okp2)
+    torch.testing.assert_close(lk[ok], lp[ok], rtol=1e-5, atol=0)
+    kind = torch.zeros((3, L), dtype=torch.int64, device=cuda)
+    kind[0, :2] = torch.tensor([VAR, BIN])  # stack underflow
+    kind[1, :2] = torch.tensor([VAR, VAR])  # two roots
+    kind[2, :1] = VAR
+    bad = TreeBatch(kind, torch.zeros_like(kind), torch.zeros_like(kind),
+                    torch.zeros((3, L), device=cuda),
+                    torch.tensor([2, 2, 1], device=cuda))
+    assert tke.eval_trees(bad, X, ops)[1].tolist() == [False, False, True]
+    assert tke.eval_loss_trees(bad, X, y, ops)[:2].isinf().all()
+
+
+@pytest.mark.gpu
+def test_invalid_programs_match_the_plain_versions_on_card(cuda):
+    """Every kernel and its plain version compute the same function on
+    programs that are not valid (each kind that ``program_words`` flags):
+    ok False, the value and every slot value 0, the fused loss +inf, the
+    gradient 0; the valid trees beside them are unchanged."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    rows = [([VAR, BIN], 2), ([VAR, VAR], 2), ([UNA], 1), ([VAR], L + 1),
+            ([VAR], -1), ([VAR, VAR, BIN], 3), ([7], 1), ([VAR], 1)]
+    kind = torch.tensor([r + [0] * (L - len(r)) for r, _ in rows], device=cuda)
+    op, feat = torch.zeros_like(kind), torch.zeros_like(kind)
+    op[5, 2] = ops.n_binary
+    feat[7, 0] = 2
+    bad = TreeBatch(kind, op, feat, torch.full(kind.shape, 0.5, device=cuda),
+                    torch.tensor([n for _, n in rows], device=cuda))
+    good = _length_sweep(ops, 1, L, 2, cuda)
+    trees = TreeBatch(*(torch.cat(z) for z in zip(good, bad)))
+    ng = good.length.shape[0]
+    X = torch.randn(2, 300, device=cuda)
+    y = torch.randn(300, device=cuda)
+    cpu = trees.map(lambda f: f.cpu())
+    Xc, yc = X.cpu(), y.cpu()
+    for card, plain in (
+            (tke.eval_trees(trees, X, ops), tke.eval_trees_plain(cpu, Xc, ops)),
+            (tke.eval_slot_values(trees, X[:, :1], ops),
+             tke.eval_slot_values_plain(cpu, Xc[:, :1], ops)),
+            (tki.eval_trees_instr(trees, X, ops, False),
+             tki.eval_trees_instr_plain(cpu, Xc, ops, False))):
+        assert torch.equal(card[1].cpu(), plain[1])
+        assert not card[1][ng:].any() and not card[0][ng:].any()
+    lk = tke.eval_loss_trees(trees, X, y, ops).cpu()
+    lp = tke.eval_loss_trees_plain(cpu, Xc, yc, ops)
+    assert torch.equal(lk.isinf(), lp.isinf()) and lk[ng:].isposinf().all()
+    _, gk, okg = tkg.eval_loss_grad(trees, X, y, None, ops)
+    _, gp, okp = tkg.eval_loss_grad_plain(cpu, Xc, yc, None, ops)
+    assert torch.equal(okg.cpu(), okp) and not gk[ng:].any()
+    _, okl = tkg.eval_loss(trees, X, y, None, ops)
+    assert torch.equal(okl.cpu(), tkg.eval_loss_plain(cpu, Xc, yc, None, ops)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reps", [1, 3, 8])
+def test_loss_kernel_candidate_groups_on_card(cuda, reps):
+    """The loss-only kernel with reps candidates per tree (8: two warps of
+    4 candidates x 2 rows per lane; 1 and 3: one candidate x 4 rows), zero
+    weight rows included: against the plain version within rtol 1e-5 (the
+    same row-order sum per lane, other reductions), ok equal, and the same
+    bits on a second launch."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp", "log"])
+    trees = _length_sweep(ops, 2, L, 30, cuda)
+    T = trees.length.shape[0]
+    X = torch.randn(2, 700, device=cuda) * 2
+    y = torch.randn(700, device=cuda)
+    w = torch.rand(700, device=cuda) + 0.5
+    w[:40] = 0.0
+    cv = trees.cval.unsqueeze(1) * (1 + 0.1 * torch.randn(T, reps, L, device=cuda))
+    before = tkg.LAUNCHES["loss"]
+    fn = tkg.make_loss_kernel(trees, X, y, w, ops, with_grad=False, reps=reps)
+    lk, _, okk = fn(cv)
+    lk2, _, okk2 = fn(cv)
+    assert tkg.LAUNCHES["loss"] == before + 2
+    assert torch.equal(okk, okk2)
+    _assert_bits_equal(lk2, lk)
+    rep = trees.map(lambda f: f.repeat_interleave(reps, 0))._replace(
+        cval=cv.reshape(-1, L))
+    lp, okp = tkg.eval_loss_plain(rep, X, y, w, ops)
+    assert torch.equal(okk.reshape(-1), okp) and 0 < int(okp.sum()) < okp.numel()
+    torch.testing.assert_close(lk.reshape(-1)[okp], lp[okp], rtol=1e-5, atol=0)
