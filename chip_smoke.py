@@ -20,19 +20,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    postfix value mode's;
 3. constant-optimisation kernel vs plain version at the main path's
    shapes: the gradient variant at 26,880 instances (one BFGS step at 64
-   islands x 3 starts x 140 members), the loss-only variant at 215,040
-   (its line search, 8 candidates each; two launches give the same bits);
-   unweighted and weighted with zero-weight rows, poisoning trees
-   included; then every kernel on random
-   trees over all 44 registry operators, the hand-written digamma against
-   torch.digamma, and a short search over the operators the earlier
-   slices did not carry;
+   islands x 3 starts x 140 members; its loss, gradients and flags
+   bit-equal to the plain mirror of its sweeps and sums, and over two
+   launches; its loss bit-equal to the loss-only variant's for the same
+   constants, in both of that kernel's layouts), the loss-only variant at
+   215,040 (its line search, 8 candidates each; two launches give the
+   same bits); unweighted and weighted with zero-weight rows, poisoning
+   trees included; both variants at max_len 128 on programs of up to 109
+   slots; then every kernel on random trees over all 44 registry
+   operators, the hand-written digamma against torch.digamma, a short
+   search over the operators the earlier slices did not carry, and a
+   short search at maxsize 110 (max_len 112) with the default BFGS;
 4. timing of every kernel alone (its launches queued behind a spin on the
    card, CUDA events), beside its plain version and its bound (bytes over
    3.35 TB/s, f32 operations over 67 TFLOP/s); the launch layout of the
-   scoring and loss-only kernels (work items per tree, rows or candidates
-   per lane, warps per block, resident blocks per SM) and their ptxas
-   lines;
+   scoring, gradient and loss-only kernels (work items per tree, rows or
+   candidates per lane, warps per block, resident blocks per SM) and
+   their ptxas lines;
 5. the main path: ``equation_search`` at 64 islands x 1000, maxsize 20,
    ``+ - * /`` with ``cos exp``, L2 loss, default constant optimisation
    (BFGS), then ``predict``; the launch counts are zeroed just before and
@@ -361,8 +365,12 @@ def main():
         note(name, lk[fin], lp[fin])
 
     def check_grad(weights, chunk=4096, tb_=opt_trees, Xc=X, yc=y, opsc=ops,
-                   min_poisoned=4):
-        """Gradients, against the sum over rows of the terms' magnitudes
+                   min_poisoned=4, mirror=False):
+        """Two launches give the same bits, and the loss is the loss-only
+        kernel's in every bit; with ``mirror`` the loss, gradients and
+        flags are the plain mirror's (``eval_loss_grad_program_plain``:
+        the same operations, the same order of the sums) in every bit.
+        Gradients, against the sum over rows of the terms' magnitudes
         (``scale``, float32): where a term is NaN both are NaN; where
         ``scale`` is finite no partial sum in any order overflows, so both
         are finite and agree within rtol 1e-4 plus 1e-5 of ``scale`` (both
@@ -370,10 +378,33 @@ def main():
         signs cancel); where ``scale`` overflowed the result depends on
         the order of the sum and is only counted."""
         lk, gk, okk = kg.eval_loss_grad(tb_, Xc, yc, weights, opsc)
+        lk2, gk2, okk2 = kg.eval_loss_grad(tb_, Xc, yc, weights, opsc)
+        assert torch.equal(okk, okk2), "gradient: two launches, ok differs"
+        assert_bits("gradient: two launches, loss", lk2, lk)
+        assert_bits("gradient: two launches, gradient", gk2, gk)
+        # the loss-only kernel's loss for the same constants, in its
+        # one-candidate layout and in the line search's (8 per tree)
+        for reps in (1, LS_STEPS):
+            fn = kg.make_loss_kernel(tb_, Xc, yc, weights, opsc,
+                                     with_grad=False, reps=reps)
+            l4, _, ok4 = fn(tb_.cval.repeat_interleave(reps, 0))
+            assert torch.equal(ok4.reshape(-1, reps),
+                               okk.unsqueeze(-1).expand(-1, reps)), reps
+            assert_bits(f"gradient vs loss-only kernel (reps {reps}), loss",
+                        l4.reshape(-1, reps),
+                        lk.unsqueeze(-1).expand(-1, reps).contiguous())
         outs = [kg.eval_loss_grad_plain(tb_[i:i + chunk], Xc, yc, weights,
                                         opsc, scale=True)
                 for i in range(0, tb_.length.shape[0], chunk)]
         lp, gp, okp, scale = (torch.cat(z) for z in zip(*outs))
+        if mirror:
+            outs = [kg.eval_loss_grad_program_plain(tb_[i:i + chunk], Xc, yc,
+                                                    weights, opsc)
+                    for i in range(0, tb_.length.shape[0], chunk)]
+            lm, gm, okm = (torch.cat(z) for z in zip(*outs))
+            assert torch.equal(okk, okm), "gradient vs mirror: ok differs"
+            assert_bits("gradient vs mirror, loss", lk[okk], lm[okk])
+            assert_bits("gradient vs mirror, gradient", gk[okk], gm[okk])
         check_losses("loss_grad", lk, okk, lp, okp, min_poisoned)
         gk, gp, scale = gk[okp], gp[okp], scale[okp]
         nan_term = torch.isnan(scale)
@@ -409,15 +440,38 @@ def main():
         check_losses("loss", lk, okk, lp, okp, min_poisoned)
 
     for weights, label in ((None, "unweighted"), (w_zero, "weighted, 64 zero-weight rows")):
-        n_ok, n_grad, n_equal, n_over, worst = check_grad(weights)
+        n_ok, n_grad, n_equal, n_over, worst = check_grad(weights, mirror=True)
         check_loss(weights)
         torch.cuda.synchronize()
         log(f"constant-opt kernel vs plain ({label}): agree at {T_OPT} instances "
             f"(gradient; {n_ok} not poisoned, {n_grad} non-zero CONST "
             f"gradients compared, {n_equal} of them bit-equal, worst excess "
             f"{worst:.3g} of the row-sum "
-            f"yardstick, {n_over} whose row sum overflows) and "
-            f"{T_OPT * LS_STEPS} (loss only) x {ROWS} rows")
+            f"yardstick, {n_over} whose row sum overflows; bit-equal to the "
+            f"plain mirror, over two launches and to the loss-only kernel's "
+            f"loss) and {T_OPT * LS_STEPS} (loss only) x {ROWS} rows")
+    # programs of up to 109 slots at max_len 128 (a search at maxsize 110
+    # or more), which the gradient kernel of earlier versions refused
+    L_LONG, T_LONG = 128, 4096
+    long_trees = gen_random_tree_fixed_size(
+        gen, torch.randint(3, 110, (T_LONG,), generator=gen, device=dev), 1,
+        ops, L_LONG, dev)
+    long_trees = TreeBatch(*(torch.cat([a[: T_LONG - 4], b]) for a, b in zip(
+        long_trees, stack_trees([encode_tree(e, L_LONG, device=dev)
+                                 for e in poison]))))
+    long_cval = long_trees.cval.repeat_interleave(LS_STEPS, 0) * (
+        1 + 0.1 * torch.randn((T_LONG * LS_STEPS, L_LONG), generator=gen,
+                              device=dev))
+    n_ok, n_grad, n_equal, n_over, worst = check_grad(
+        w_zero, chunk=512, tb_=long_trees, mirror=True)
+    check_loss(w_zero, chunk=2048, tb_=long_trees, cv=long_cval)
+    torch.cuda.synchronize()
+    log(f"constant-opt kernel vs plain at max_len {L_LONG} (weighted): agree "
+        f"at {T_LONG} instances (gradient; {n_ok} not poisoned, {n_grad} "
+        f"non-zero CONST gradients compared, {n_equal} bit-equal, worst "
+        f"excess {worst:.3g}, {n_over} whose row sum overflows; bit-equal to "
+        f"the plain mirror) and {T_LONG * LS_STEPS} (loss only); layout "
+        f"{kg.grad_plan(T_LONG, 1, L_LONG, False)}")
     log(f"constant-opt kernel: max abs err loss_grad {err['loss_grad']:.3g}, "
         f"loss {err['loss']:.3g}; max rel err loss_grad {rel['loss_grad']:.3g}, "
         f"loss {rel['loss']:.3g}")
@@ -500,6 +554,21 @@ def main():
     log(f"search over asin erf gamma mod atan2 (8 x 60, 2 iterations, default "
         f"constant optimisation): best {res_s.best_loss().equation} loss "
         f"{res_s.best_loss().loss:.3g}, {time.time() - tr:.1f} s")
+    # maxsize 110: max_len 112, above the 104 that the gradient kernel of
+    # earlier versions took
+    tr = time.time()
+    before_opt = dict(kg.LAUNCHES)
+    res_l = equation_search(Xs, ys, binary_operators=["+", "-", "*", "/"],
+                            unary_operators=["cos", "exp"], npopulations=8,
+                            npop=60, ncycles_per_iteration=30, maxsize=110,
+                            niterations=2, seed=0, verbosity=0)
+    assert res_l.options.max_len == 112, res_l.options.max_len
+    assert res_l.candidates and np.isfinite(res_l.best_loss().loss)
+    assert kg.LAUNCHES["loss_grad"] - before_opt["loss_grad"] == 9 * 2
+    assert kg.LAUNCHES["loss"] - before_opt["loss"] == 8 * 2
+    log(f"search at maxsize 110 (max_len 112; 8 x 60, 2 iterations, default "
+        f"constant optimisation): best {res_l.best_loss().equation} loss "
+        f"{res_l.best_loss().loss:.3g}, {time.time() - tr:.1f} s")
 
     # ---- 4. timing ----------------------------------------------------------
     n_op_nodes = lambda tb_: int((tb_.kind >= UNA).sum())
@@ -563,16 +632,17 @@ def main():
                 f"{T * Xm.shape[1] / (ms * 1e-3):.4g} trees*rows/s")
 
     def grad_bound(tb_, reps, with_grad):
-        """Inputs read once: X, y and wn, the four tables of live slots,
-        each tree's length and sort position, the constants of live slots;
-        outputs: loss and poison flag per instance, and the gradient row.
+        """Inputs read once: X, y and wn, the three int64 tree fields of
+        live slots (kind, op, feature), each tree's length and sort
+        position, the constants of live slots; outputs: loss and poison
+        flag per instance, and the gradient row.
         Operations per row: each operator node forward (and backward with
         the gradient), 4 for the weighted squared error (2 more for the
         seed)."""
         T, L = tb_.kind.shape
         N = T * reps
         live = int(tb_.length.sum())
-        bytes_in = (X.shape[0] * ROWS * 4 + 2 * ROWS * 4 + live * 4 * 4
+        bytes_in = (X.shape[0] * ROWS * 4 + 2 * ROWS * 4 + live * 3 * 8
                     + T * 8 * 2 + reps * live * 4)
         bytes_out = N * 4 * 2 + (N * L * 4 if with_grad else 0)
         ops_ = (reps * n_op_nodes(tb_) * ROWS * (2 if with_grad else 1)
@@ -581,6 +651,10 @@ def main():
         t_ops = ops_ / F32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
+    gp_ = kg.grad_plan(T_OPT, 1, 24, False)
+    log(f"layout loss_grad N={T_OPT}: {gp_.rows} rows per lane, {gp_.warps} "
+        f"warps per block, {gp_.blocks_per_sm} resident blocks per SM, "
+        f"{gp_.smem} B shared memory, {gp_.blocks} blocks")
     lp = kg.loss_plan(T_OPT, LS_STEPS, 24, False)
     log(f"layout loss N={T_OPT * LS_STEPS}: {lp.groups} warps per tree, "
         f"{lp.candidates} candidates x {lp.rows} rows per lane, {lp.warps} "
@@ -610,8 +684,7 @@ def main():
         timings[(name, N)] = dict(T=N, rows=ROWS, ms=ms, wrapper_ms=wrap_ms,
                                   plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, roofline_share=b_ms / ms)
-        if not with_grad:
-            timings[(name, N)]["layout"] = lp._asdict()
+        timings[(name, N)]["layout"] = (lp if not with_grad else gp_)._asdict()
         log(f"timing {name} N={N}: kernel {ms:.4f} ms, with the wrapper's ok "
             f"mask {wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
             f"({b_by}), share {b_ms / ms:.4f}, "

@@ -16,52 +16,65 @@
 // The loss is returned without containment; the caller applies it with ok.
 // Instance i runs the structure (opcodes, operands, length) of tree
 // i / reps with its own constants cval[i]: the line search evaluates reps
-// candidate constant vectors of one tree.
+// candidate constant vectors of one tree. A tree that is not a valid
+// postfix program is not run: bad 1, loss and gradient 0.
 //
 // What bounds them on this card: neither HBM bytes nor f32 peak. Per
 // (instance, row, slot) the forward sweep reads an opcode, dispatches, reads
 // operands and runs the operator; the adjoint sweep repeats that with the
-// derivative. The bytes moved (X, the tables, one loss and L gradient words
-// per instance) are tiny beside it, so the time is set by instructions and
-// shared-memory traffic per slot.
+// derivative. The bytes moved (X, the tree fields, one loss and L gradient
+// words per instance) are tiny beside it, so the time is set by
+// instructions and shared-memory traffic per slot, and by how many rows a
+// block's shared memory lets be in flight.
+//
+// Both kernels run the stack machine of csrc/postfix_program.cuh, derived
+// in the prologue from the TreeBatch fields (no host tables): the top of
+// the stack in registers, several values per lane, so one opcode read, one
+// dispatch and one address serve them all. Trees run longest first (the
+// wrapper's order), so the warps of a block finish together; results land
+// at each instance's own index.
 //
 // The gradient kernel, from what B3 computes rather than from the TPU
 // kernel's blocks (its instruction compression, packed word and tree
 // interleave answer the TPU's scalar unit and are not carried over):
-//  * One warp per instance, lanes stride the rows, so each slot's opcode is
-//    uniform across the warp and the switches cost no divergence. Instances
-//    are ordered by their tree's length (the wrapper's sort), so the warps of
-//    a block finish together; results land at each instance's own index.
-//  * The postfix operand schedule gives every slot its operand slots, and
-//    the gradient is wanted per postfix slot, so the postfix program runs as
-//    it is: forward values in shared memory [slot][thread]; then the seed
-//    wn * 2 (root - y) at the root (0 on zero-weight rows, whose 0 * inf
-//    local derivatives still reach the gradient as NaN, as jax.grad gives);
-//    then the adjoint sweep in descending slot order. Every node has one
-//    consumer, so an operator slot's adjoint is written once per row before
-//    it is read; a unary slot pushes to its right operand only (its left
-//    index names a real sibling slot, whose adjoint must not be
-//    overwritten).
-//  * A CONST slot's adjoint array entry is its lane's accumulator over rows.
-//    At the end each CONST slot is reduced over the warp by a fixed
-//    butterfly of shuffles, as is the loss: no atomics, the same bits on
-//    every run.
-//  * Shared memory is 5 L words of tables per warp plus 2 L words per thread
-//    of values and adjoints: 53 KB per 256-thread block at L = 24. Above 48
-//    KB it needs the dynamic-size attribute; the launcher refuses more than
-//    the 227 KB a block may use.
+//  * One warp per instance; a lane carries kGradRows rows (pass p's rows
+//    p * 64 + j * 32 + lane). The forward sweep stores every slot's
+//    values, one vector store per slot, into [slot][lane] storage, and
+//    reads a binary slot's left operand there, so it needs no stack; the
+//    loss and its seed wn * 2 (root - y) follow (0 on zero-weight rows,
+//    whose 0 * inf local derivatives still reach the gradient as NaN, as
+//    jax.grad gives); then run_adjoint walks the slots in descending order
+//    with the adjoint in registers: an operator slot's adjoint is written
+//    once, by its one consumer, and a binary slot's left operand's adjoint
+//    waits in the values of a slot that no later step reads. The prologue
+//    writes each binary slot's left operand and each CONST slot's rank
+//    into the words (derive_adjoint_words).
+//  * A CONST slot's adjoint is its lane's accumulator over rows, in row
+//    order; at the end each CONST slot is reduced over the warp by a fixed
+//    butterfly of shuffles, as is the loss, and the gradient row goes out
+//    as one coalesced store per 32 slots: no atomics, the same bits on
+//    every run. Each row's adjoints take the same operations as in a
+//    slot-indexed sweep, and the rows of a lane are summed in the same
+//    order, so the bits are those of one row per lane.
+//  * Shared memory per warp is L slots of kGradRows floats per lane,
+//    (L + 1) / 2 CONST accumulators per lane (a valid program has at most
+//    that many leaves), the words and the constants: the resident warps,
+//    and so the rows in flight, bound the kernel. 2 rows per lane ran
+//    faster than 4 (fewer warps) and 1 (less work per dispatch) (PERF.md),
+//    and one warp fits up to max_len 708, so every max_len up to 510 runs
+//    (165 KB at L = 504); the plan takes the warps per block that keep the
+//    most warps resident.
 // The loss-only kernel runs a tree's candidates together: the line search's
 // 8 candidates share the tree and differ only in their constants, so each
 // lane carries kCand candidates x kRows rows (4 x 2 by default, two warps
-// per tree: measured against 8 x 1 and 4 x 1 in PERF.md) through the stack
-// machine of csrc/postfix_program.cuh, derived in the prologue from the
-// TreeBatch fields. The opcode read, the dispatch, the operand address and
-// every X read are paid once for kCand candidates and every constant read
-// once for kRows rows. Each candidate's loss is its lane's sum over rows
-// in row order (the rows of a lane are lane, lane + 32, ...), then the
-// gradient kernel's butterfly, and each row's term keeps its order of
-// operations, so the loss is the bits of a one-warp-per-instance sum over
-// the same rows. Trees run longest first.
+// per tree: measured against 8 x 1 and 4 x 1 in PERF.md). The opcode read,
+// the dispatch, the operand address and every X read are paid once for
+// kCand candidates and every constant read once for kRows rows. Each
+// candidate's loss is its lane's sum over rows in row order (the rows of a
+// lane are lane, lane + 32, ...), then the gradient kernel's butterfly,
+// and each row's term keeps its order of operations, so the loss is the
+// bits of the gradient kernel's loss for the same constants (BFGS compares
+// the two).
 // The operators and their derivatives (the lax JVP rule of each JAX
 // registry function, in the forms of symbolicregression_jl_tpu_torch/ops/
 // operators.py UNARY_VJP / BINARY_VJP) are the shared library
@@ -76,8 +89,6 @@ namespace {
 using namespace srops;
 using srprog::OpMap;
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB, the most a block may use
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -87,110 +98,168 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <bool kAll>
-__global__ void __launch_bounds__(kThreads)
-postfix_grad_kernel(const int* __restrict__ code, const int* __restrict__ feat,
-                    const int* __restrict__ lidx, const int* __restrict__ ridx,
-                    const long long* __restrict__ length,
-                    const long long* __restrict__ order,
-                    const float* __restrict__ cval,
-                    const float* __restrict__ X, const float* __restrict__ y,
-                    const float* __restrict__ wn, float* __restrict__ loss,
-                    float* __restrict__ grad, int* __restrict__ bad,
-                    int n_inst, int reps, int L, int nrows) {
-  extern __shared__ int smem[];
+// ---------------------------------------------------------------------------
+// The gradient kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kGradMaxWarps = 8;
+constexpr int kGradRows = 2;  // rows per lane
+
+struct GradArgs {
+  const long long* kind;
+  const long long* op;
+  const long long* feat;
+  const long long* length;
+  const long long* order;
+  const float* cval;  // (T * reps, L)
+  const float* X;
+  const float* y;
+  const float* wn;
+  float* loss;
+  float* grad;
+  int* bad;
+  int T, reps, L, nfeat, nrows, cap;
+  OpMap map;
+};
+
+// Floats of shared memory per warp: slot values of rows floats per lane,
+// the CONST accumulators [rank][lane], then the words (L + 1) and the
+// constants (L), rounded to 16 bytes.
+__host__ __device__ constexpr int grad_warp_floats(int L, int rows) {
+  return L * 32 * rows + 32 * ((L + 1) / 2) + ((2 * L + 1 + 3) & ~3);
+}
+
+template <bool kAll, int kN>
+__global__ void __launch_bounds__(kGradMaxWarps * 32)
+postfix_grad_kernel(const __grid_constant__ GradArgs a) {
+  using St = srprog::Stack<kN>;
+  constexpr unsigned kEntryBytes = St::kEntry * 4;
+  extern __shared__ __align__(16) float grad_smem[];
+  const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int tid = threadIdx.x;
-  int* s_code = smem + warp * 4 * L;
-  int* s_feat = s_code + L;
-  int* s_lidx = s_feat + L;
-  int* s_ridx = s_lidx + L;
-  float* s_cval = reinterpret_cast<float*>(smem + kWarpsPerBlock * 4 * L) +
-                  warp * L;
-  float* vals = reinterpret_cast<float*>(smem + kWarpsPerBlock * 5 * L);
-  float* adj = vals + L * kThreads;
+  float* vals = grad_smem + warp * grad_warp_floats(a.L, kN);
+  float* cacc = vals + a.L * St::kEntry;
+  int* s_word = reinterpret_cast<int*>(cacc + 32 * a.cap);
+  float* s_cval = reinterpret_cast<float*>(s_word + a.L + 1);
 
-  const int g = blockIdx.x * kWarpsPerBlock + warp;
-  if (g >= n_inst) return;  // whole warp leaves; the block never syncs
-  const long long tree = order[g / reps];
-  const long long inst = tree * reps + g % reps;
-  const int n = static_cast<int>(length[tree]);
-  for (int s = lane; s < n; s += 32) {
-    const long long k = tree * L + s;
-    s_code[s] = code[k];
-    s_feat[s] = feat[k];
-    s_lidx[s] = lidx[k];
-    s_ridx[s] = ridx[k];
-    s_cval[s] = cval[inst * L + s];
-  }
-  // CONST entries accumulate over rows; every other entry is written by its
-  // consumer before it is read
-  for (int s = 0; s < n; ++s) adj[s * kThreads + tid] = 0.f;
+  const long long g = static_cast<long long>(blockIdx.x) * warps + warp;
+  if (g >= static_cast<long long>(a.T) * a.reps) return;  // whole warp
+  const long long tree = a.order[g / a.reps];
+  const long long inst = tree * a.reps + g % a.reps;
+  const long long len = a.length[tree];
+  int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
+  // the first 32 constants load while the program is derived
+  const float c0 = lane < n ? a.cval[inst * a.L + lane] : 0.f;
+  const bool invalid =
+      srprog::derive_program(a.kind, a.op, a.feat, tree * a.L, n, a.cap,
+                             a.nfeat, a.map, s_word, lane) || n != len;
+  if (lane < n) s_cval[lane] = c0;
+  for (int s = lane + 32; s < n; s += 32) s_cval[s] = a.cval[inst * a.L + s];
   __syncwarp();
+  if (invalid) {
+    n = 0;
+  } else {  // s_last in the accumulators' place, zeroed below
+    srprog::derive_adjoint_words(s_word, n, reinterpret_cast<int*>(cacc),
+                                 lane);
+  }
 
   float acc = 0.f;
-  bool poisoned = false;
-  for (int row = lane; row < nrows; row += 32) {
-    for (int s = 0; s < n; ++s) {
-      const int c = s_code[s];
-      float v;
-      if (c == OP_CONST) {
-        v = s_cval[s];
-      } else if (c <= OP_VAR) {  // VAR, and PAD which never poisons
-        v = X[static_cast<long long>(s_feat[s]) * nrows + row];
-      } else if (c < OP_ADD) {
-        v = apply_unary<kAll>(c, vals[s_ridx[s] * kThreads + tid]);
-      } else {
-        v = apply_binary<kAll>(c, vals[s_lidx[s] * kThreads + tid],
-                               vals[s_ridx[s] * kThreads + tid]);
-      }
-      vals[s * kThreads + tid] = v;
-      poisoned |= (c != OP_PAD) && !isfinite(v);
+  float pz[kN] = {};
+  const unsigned word_a = srprog::opaque(srprog::smem_u32(s_word));
+  const unsigned vals_a =
+      srprog::opaque(srprog::smem_u32(vals + lane * St::kLaneWidth));
+  const unsigned cacc_a = srprog::opaque(srprog::smem_u32(cacc + lane));
+  const unsigned cval_a = srprog::opaque(srprog::smem_u32(s_cval));
+  for (int k = 0; k < a.cap; ++k) srprog::sts_f32(cacc_a + 128u * k, 0.f);
+  for (int base = 0; n > 0 && base < a.nrows; base += 32 * kN) {
+    // this pass's rows, the last row repeated past the end; X has fewer
+    // than 2^31 elements, so a VAR step's offsets are 32-bit
+    unsigned xrow[kN];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      xrow[j] = min(base + j * 32 + lane, a.nrows - 1);
     }
-    if (n == 0) continue;
-    const float d = vals[(n - 1) * kThreads + tid] - y[row];
-    const float wr = wn[row];
-    if (wr != 0.f) acc += (d * d) * wr;
-
-    const float seed = wr != 0.f ? (2.f * d) * wr : 0.f;
-    float* root_adj = &adj[(n - 1) * kThreads + tid];
-    *root_adj = s_code[n - 1] == OP_CONST ? *root_adj + seed : seed;
-    for (int s = n - 1; s >= 0; --s) {
-      const int c = s_code[s];
-      if (c < OP_COS) continue;  // a leaf: CONST keeps its sum, VAR drops it
-      const float w = adj[s * kThreads + tid];
-      const float v = vals[s * kThreads + tid];
-      const int ri = s_ridx[s];
-      const float a = vals[ri * kThreads + tid];
-      float da, db = 0.f;
-      if (c < OP_ADD) {
-        da = unary_vjp<kAll>(c, a, v, w);
-      } else {
-        binary_vjp<kAll>(c, vals[s_lidx[s] * kThreads + tid], a, v, w, &db,
-                         &da);
-      }
-      float* ra = &adj[ri * kThreads + tid];
-      *ra = s_code[ri] == OP_CONST ? *ra + da : da;
-      if (c >= OP_ADD) {
-        const int li = s_lidx[s];
-        float* la = &adj[li * kThreads + tid];
-        *la = s_code[li] == OP_CONST ? *la + db : db;
+    float v[kN] = {};
+    srprog::run_program<kAll, kN, true>(
+        word_a, n, vals_a, v, pz,
+        [&](int s, float (&x)[kN]) {
+          const float c = srprog::lds_f32(cval_a + 4u * s);
+#pragma unroll
+          for (int i = 0; i < kN; ++i) x[i] = c;
+        },
+        [&](int f, float (&x)[kN]) {
+          const unsigned xf = static_cast<unsigned>(f) * a.nrows;
+#pragma unroll
+          for (int j = 0; j < kN; ++j) x[j] = a.X[xf + xrow[j]];
+        },
+        [&](int s, const float (&x)[kN]) {
+          St::store(vals_a + s * kEntryBytes, x);
+        });
+    float w[kN];
+    unsigned real = 0;  // the rows of this pass that exist
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const int row = base + j * 32 + lane;
+      w[j] = 0.f;
+      if (row < a.nrows) {
+        real |= 1u << j;
+        const float wr = a.wn[row];
+        const float d = v[j] - a.y[row];
+        if (wr != 0.f) {
+          acc += (d * d) * wr;
+          w[j] = (2.f * d) * wr;
+        }
       }
     }
+    srprog::run_adjoint<kAll, kN>(
+        word_a, n, vals_a, w, [&](int rank, const float (&ws)[kN]) {
+          const unsigned c = cacc_a + 128u * rank;
+          float sum = srprog::lds_f32(c);
+#pragma unroll
+          for (int j = 0; j < kN; ++j) {
+            if (real >> j & 1u) sum += ws[j];
+          }
+          srprog::sts_f32(c, sum);
+        });
   }
 
-  const bool any_bad = __any_sync(0xffffffffu, poisoned);
+  bool nonfinite = false;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) nonfinite |= pz[i] != pz[i];
+  const bool any_bad = __any_sync(0xffffffffu, nonfinite) || invalid;
   acc = warp_sum(acc);
   if (lane == 0) {
-    loss[inst] = acc;
-    bad[inst] = any_bad ? 1 : 0;
+    a.loss[inst] = acc;
+    a.bad[inst] = any_bad ? 1 : 0;
   }
-  for (int s = 0; s < L; ++s) {
+  // the butterfly leaves every lane the same bits; lane s % 32 keeps slot s's
+  for (int s0 = 0; s0 < a.L; s0 += 32) {
+    const int s = s0 + lane;
+    const int word = s < n ? s_word[s] : 0;
+    unsigned consts = __ballot_sync(0xffffffffu,
+                                    srprog::word_code(word) == OP_CONST);
     float gs = 0.f;
-    if (s < n && s_code[s] == OP_CONST) gs = warp_sum(adj[s * kThreads + tid]);
-    if (lane == 0) grad[inst * L + s] = gs;
+    while (consts) {
+      const int b = __ffs(consts) - 1;
+      consts &= consts - 1;
+      const int rank = srprog::word_feat(__shfl_sync(0xffffffffu, word, b));
+      const float t = warp_sum(srprog::lds_f32(cacc_a + 128u * rank));
+      if (lane == b) gs = t;
+    }
+    if (s < a.L) a.grad[inst * a.L + s] = gs;
   }
+}
+
+using GradFn = void (*)(GradArgs);
+
+GradFn grad_kernel_for(bool all) {
+  return all ? &postfix_grad_kernel<true, kGradRows>
+             : &postfix_grad_kernel<false, kGradRows>;
+}
+
+int grad_smem_bytes(int warps, int L) {
+  return 4 * warps * grad_warp_floats(L, kGradRows);
 }
 
 // ---------------------------------------------------------------------------
@@ -336,30 +405,6 @@ int loss_smem_bytes(int warps, int L, int cand) {
   return 4 * warps * (cap * 32 * loss_values_per_lane(cand) + L + 1 + L * cand);
 }
 
-template <bool kAll>
-cudaError_t launch(const void* code, const void* feat, const void* lidx,
-                   const void* ridx, const void* length, const void* order,
-                   const void* cval, const void* X, const void* y,
-                   const void* wn, void* loss, void* grad, void* bad,
-                   int n_inst, int reps, int L, int nrows, int smem,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      postfix_grad_kernel<kAll>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (n_inst + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  postfix_grad_kernel<kAll><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const int*>(code), static_cast<const int*>(feat),
-      static_cast<const int*>(lidx), static_cast<const int*>(ridx),
-      static_cast<const long long*>(length),
-      static_cast<const long long*>(order), static_cast<const float*>(cval),
-      static_cast<const float*>(X), static_cast<const float*>(y),
-      static_cast<const float*>(wn), static_cast<float*>(loss),
-      static_cast<float*>(grad), static_cast<int*>(bad), n_inst, reps, L,
-      nrows);
-  return cudaGetLastError();
-}
-
 // digamma_f elementwise: lets a test hold the hand-written digamma against
 // torch.digamma on the card (no kernel of the search calls it)
 __global__ void digamma_kernel(const float* __restrict__ x,
@@ -372,32 +417,88 @@ __global__ void digamma_kernel(const float* __restrict__ x,
 
 extern "C" {
 
-// Shared memory one block of the gradient kernel needs for max_len L:
-// tables, slot values and adjoints.
-int postfix_grad_smem_bytes(int L) {
-  return (kWarpsPerBlock * 5 * L + 2 * L * kThreads) * 4;
+// The launch layout of the gradient kernel for T trees x reps instances:
+// plan[0] rows per lane, [1] warps per block, [2] resident blocks per SM,
+// [3] shared memory per block in bytes, [4] blocks. The warps per block
+// are those that keep the most warps resident.
+int postfix_grad_plan(int T, int reps, int L, int all_ops, int* plan) {
+  if (T < 0 || reps <= 0 || L <= 0 || L > 510 ||
+      grad_smem_bytes(1, L) > kMaxSmemBytes) {
+    return cudaErrorInvalidValue;
+  }
+  const GradFn fn = grad_kernel_for(all_ops != 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  if (err != cudaSuccess) return err;
+  int best_warps = 0, best_occ = 0;
+  for (int warps = kGradMaxWarps; warps >= 1; warps >>= 1) {
+    const int smem = grad_smem_bytes(warps, L);
+    if (smem > kMaxSmemBytes) continue;
+    int occ = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, warps * 32,
+                                                        smem);
+    if (err != cudaSuccess) return err;
+    if (occ * warps > best_occ * best_warps) {
+      best_warps = warps;
+      best_occ = occ;
+    }
+  }
+  if (best_warps == 0) return cudaErrorInvalidValue;
+  const long long items = static_cast<long long>(T) * reps;
+  const int p[5] = {kGradRows, best_warps, best_occ,
+                    grad_smem_bytes(best_warps, L),
+                    static_cast<int>((items + best_warps - 1) / best_warps)};
+  for (int i = 0; i < 5; ++i) plan[i] = p[i];
+  return cudaSuccess;
 }
 
-int postfix_grad_max_smem_bytes() { return kMaxSmemBytes; }
-
-// The gradient kernel (B3): reps instances per tree, trees in the order
-// `order`;
-// all_ops: the batch uses an operator outside the common set, so the
-// instantiation with every operator runs (operators.cuh)
-cudaError_t postfix_grad_launch(const void* code, const void* feat,
-                                const void* lidx, const void* ridx,
-                                const void* length, const void* order,
-                                const void* cval, const void* X,
-                                const void* y, const void* wn, void* loss,
-                                void* grad, void* bad, int n_inst, int reps,
-                                int L, int nrows, int all_ops, void* stream) {
-  if (n_inst <= 0) return cudaSuccess;
-  const int smem = postfix_grad_smem_bytes(L);
-  if (smem > kMaxSmemBytes || reps <= 0) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto run = all_ops ? &launch<true> : &launch<false>;
-  return run(code, feat, lidx, ridx, length, order, cval, X, y, wn, loss, grad,
-             bad, n_inst, reps, L, nrows, smem, s);
+// The gradient kernel (B3): reps instances per tree (cval rows t * reps
+// ...) of the TreeBatch fields kind / op / feat / length, trees in the
+// order `order`; opmap as postfix_eval_launch's; plan from postfix_grad_plan
+// for the same arguments. all_ops: the batch uses an operator outside the
+// common set, so the instantiation with every operator runs (operators.cuh).
+cudaError_t postfix_grad_launch(const void* kind, const void* op,
+                                const void* feat, const void* length,
+                                const void* order, const void* cval,
+                                const void* X, const void* y, const void* wn,
+                                void* loss, void* grad, void* bad,
+                                const int* opmap, int n_unary, int n_binary,
+                                int T, int reps, int L, int nfeat, int nrows,
+                                int all_ops, const int* plan, void* stream) {
+  if (T <= 0) return cudaSuccess;
+  if (n_unary + n_binary > srprog::kMaxOps || reps <= 0 ||
+      plan[0] != kGradRows || plan[3] != grad_smem_bytes(plan[1], L) ||
+      plan[3] > kMaxSmemBytes ||
+      static_cast<long long>(plan[4]) * plan[1] <
+          static_cast<long long>(T) * reps) {
+    return cudaErrorInvalidValue;
+  }
+  GradArgs a;
+  a.kind = static_cast<const long long*>(kind);
+  a.op = static_cast<const long long*>(op);
+  a.feat = static_cast<const long long*>(feat);
+  a.length = static_cast<const long long*>(length);
+  a.order = static_cast<const long long*>(order);
+  a.cval = static_cast<const float*>(cval);
+  a.X = static_cast<const float*>(X);
+  a.y = static_cast<const float*>(y);
+  a.wn = static_cast<const float*>(wn);
+  a.loss = static_cast<float*>(loss);
+  a.grad = static_cast<float*>(grad);
+  a.bad = static_cast<int*>(bad);
+  a.T = T;
+  a.reps = reps;
+  a.L = L;
+  a.nfeat = nfeat;
+  a.nrows = nrows;
+  a.cap = (L + 1) / 2;
+  a.map = srprog::make_op_map(opmap, n_unary, n_binary);
+  const GradFn fn = grad_kernel_for(all_ops != 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  if (err != cudaSuccess) return err;
+  fn<<<plan[4], plan[1] * 32, plan[3], static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }
 
 // Candidates per lane of the loss-only kernel's line-search layout.
@@ -405,7 +506,8 @@ int postfix_loss_candidates() { return kCandidates; }
 
 // The launch layout of the loss-only kernel for reps candidates per tree,
 // cand of them per lane (postfix_loss_candidates(), which must divide
-// reps, or 1): plan[0] warps (candidate groups) per tree, [1] candidates
+// reps, or 1; 1 where one warp's stack would not fit): plan[0] warps
+// (candidate groups) per tree, [1] candidates
 // per lane, [2] rows per lane, [3] warps per block, [4] resident blocks per
 // SM, [5] shared memory per block in bytes, [6] blocks.
 int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
@@ -414,6 +516,10 @@ int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
       !(cand == 1 || (cand == kCandidates && reps % cand == 0))) {
     return cudaErrorInvalidValue;
   }
+  // the line-search layout's stack holds kCandidates x kCandRows values
+  // per lane: above max_len 436 one warp's does not fit, one candidate per
+  // lane does (the same sums in the same order)
+  if (loss_smem_bytes(1, L, cand) > kMaxSmemBytes) cand = 1;
   int warps = kLossMaxWarps;
   while (warps > 1 && loss_smem_bytes(warps, L, cand) > kMaxSmemBytes) {
     warps >>= 1;

@@ -1,5 +1,5 @@
 // The postfix program as a stack machine, shared by the scoring kernel
-// (postfix_eval.cu) and the loss-only kernel (postfix_grad.cu).
+// (postfix_eval.cu) and the constant-optimisation kernels (postfix_grad.cu).
 //
 // derive_program turns one tree of the TreeBatch fields (kind, op, feat:
 // int64 (T, L)) into one 32-bit word per slot in shared memory, in the
@@ -22,6 +22,8 @@
 // A non-finite value at a slot that is not PAD poisons the row: each value
 // is folded into an accumulator as fma(v, 0, acc), which turns NaN for the
 // first infinity or NaN and stays so.
+// run_adjoint walks the same words backwards for the gradient kernel, the
+// adjoint in registers as the top of the stack was.
 
 #pragma once
 
@@ -100,6 +102,9 @@ __device__ __forceinline__ float lds_f32(unsigned a) {
   asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
   return v;
 }
+__device__ __forceinline__ void sts_f32(unsigned a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v));
+}
 
 // Writes the words of the program of n slots at kind/op/feat + base into
 // s_word[0, n) and 0 into s_word[n] (the slot loop reads one word ahead).
@@ -149,6 +154,48 @@ __device__ __forceinline__ bool derive_program(
   if (lane == 0) s_word[n] = 0;
   invalid |= n > 0 && depth != 1;
   return __any_sync(0xffffffffu, invalid);
+}
+
+// What the gradient kernel's sweeps need beside the words of a valid
+// program of n slots (derive_program), written into the feature field,
+// which both kinds leave 0:
+//  * a binary slot's left operand, whose values the sweeps read from the
+//    slot values (the forward sweep never names it: it is the old top that
+//    the last leaf before the binary slot at the same stack entry pushed
+//    there, so the slot just before that leaf);
+//  * a CONST slot's rank among the CONST slots, the index of its
+//    accumulator.
+// The warp takes 32 slots at a time: __match_any_sync groups the lanes by
+// entry, and s_last (one int per stack entry) carries each entry's last
+// push into the next 32 slots.
+__device__ __forceinline__ void derive_adjoint_words(int* s_word, int n,
+                                                     int* s_last, int lane) {
+  int consts_before = 0;
+  for (int s0 = 0; s0 < n; s0 += 32) {
+    const int s = s0 + lane;
+    const int w = s < n ? s_word[s] : 0;
+    const int code = word_code(w);
+    const bool leaf = s < n && code <= OP_VAR;
+    const bool bin = s < n && code >= dense_code(OP_ADD);
+    const bool cst = s < n && code == OP_CONST;
+    const int e = word_entry(w);
+    const unsigned below = (1u << lane) - 1u;
+    const unsigned same =
+        __match_any_sync(0xffffffffu, leaf || bin ? e : 256 + lane);
+    const unsigned leaves = __ballot_sync(0xffffffffu, leaf) & same;
+    const unsigned consts = __ballot_sync(0xffffffffu, cst);
+    // the leaf at bit b of `pushed` is slot s0 + b; its old top, s0 + b - 1
+    const unsigned pushed = leaves & below;
+    const int left =
+        !bin ? 0 : (pushed ? s0 + 30 - __clz(pushed) : s_last[e]);
+    __syncwarp();
+    if (leaf && ((leaves >> lane) >> 1) == 0) s_last[e] = s - 1;
+    if (bin) s_word[s] = (w & 0xffff) | (left << 16);
+    const int rank = consts_before + __popc(consts & below);
+    if (cst) s_word[s] = (w & 0xffff) | (rank << 16);
+    consts_before += __popc(consts);
+    __syncwarp();
+  }
 }
 
 // A stack entry holds kN floats per lane: [32 lanes][kN] for kN <= 4, and
@@ -216,8 +263,12 @@ __device__ __forceinline__ void poison(const float (&v)[kN], float (&pz)[kN]) {
 // Runs slots [0, n) of the program in s_word on kN values per lane. v holds
 // the top of the stack: on return, the root. stack points at this lane's
 // part of entry 0. const_leaf(s, v) and var_leaf(feature, v) give a leaf's
-// values; on_step(s, v) sees every slot's values.
-template <bool kAll, int kN, class ConstLeaf, class VarLeaf, class OnStep>
+// values; on_step(s, v) sees every slot's values. kFromSlots (the gradient
+// kernel, whose on_step stores every slot's values at stack + slot, and
+// whose words name each binary slot's left operand, derive_adjoint_words):
+// a binary slot reads its left operand there, and a leaf pushes nothing.
+template <bool kAll, int kN, bool kFromSlots = false, class ConstLeaf,
+          class VarLeaf, class OnStep>
 __device__ __forceinline__ void run_program(unsigned s_word, int n,
                                             unsigned stack, float (&v)[kN],
                                             float (&pz)[kN],
@@ -227,7 +278,8 @@ __device__ __forceinline__ void run_program(unsigned s_word, int n,
   int w = lds_i32(s_word);
   for (int s = 0; s < n; ++s) {
     const int next = lds_i32(s_word + 4 * (s + 1));
-    const unsigned e = stack + word_entry(w) * (St::kEntry * 4);
+    const unsigned e =
+        stack + (kFromSlots ? word_feat(w) : word_entry(w)) * (St::kEntry * 4);
     float l[kN];
 #define SR_UNARY_CASE(OPC)                                                   \
   case dense_code(OPC):                                                      \
@@ -244,16 +296,16 @@ __device__ __forceinline__ void run_program(unsigned s_word, int n,
     break;
     switch (word_code(w)) {
       case OP_PAD:  // reads its feature like VAR and never poisons
-        St::store(e, v);
+        if constexpr (!kFromSlots) St::store(e, v);
         var_leaf(word_feat(w), v);
         break;
       case OP_CONST:
-        St::store(e, v);
+        if constexpr (!kFromSlots) St::store(e, v);
         const_leaf(s, v);
         poison(v, pz);
         break;
       case OP_VAR:
-        St::store(e, v);
+        if constexpr (!kFromSlots) St::store(e, v);
         var_leaf(word_feat(w), v);
         poison(v, pz);
         break;
@@ -282,6 +334,93 @@ __device__ __forceinline__ void run_program(unsigned s_word, int n,
     on_step(s, v);
     w = next;
   }
+}
+
+// The adjoint sweep of the program in s_word (derive_adjoint_words) over kN
+// values per lane, slots n - 1 down to 0. vals points at this lane's part
+// of slot 0's values (one Stack entry per slot, as the forward sweep's
+// on_step stored them); w holds the root's adjoint. Reverse postfix order
+// visits a slot, then its right operand's subtree, then its left's, so:
+//  * an operator slot's adjoint arrives in w from its one consumer, and
+//    its right operand is the slot just below, whose adjoint it leaves in
+//    w;
+//  * a binary slot's left operand's adjoint waits until the right subtree
+//    is done, when the leaf that pushed that operand in the forward sweep
+//    (the right subtree's first slot, at the binary slot's stack entry e)
+//    takes it back into w. It waits in the values of slot n - e: a slot at
+//    or above the binary slot, whose values no later step reads (the
+//    stack holds e + 1 entries there and must reduce to one, so at least
+//    e - 1 binary slots follow), and a different slot for every waiting
+//    adjoint;
+//  * a leaf ends its path: const_leaf(rank, w) takes a CONST slot's
+//    adjoint, a VAR's is dropped.
+// The operand values are loaded a step ahead: slot s - 1's values are the
+// right operand at slot s and the own values at slot s - 1. Slot 0, a leaf,
+// is the last step, out of the loop: nothing waits for it.
+template <bool kAll, int kN, class ConstLeaf>
+__device__ __forceinline__ void run_adjoint(unsigned s_word, int n,
+                                            unsigned vals, float (&w)[kN],
+                                            ConstLeaf const_leaf) {
+  using St = Stack<kN>;
+  constexpr unsigned kEntryBytes = St::kEntry * 4;
+  float v[kN];
+  St::load(vals + (n - 1) * kEntryBytes, v);
+  int word = lds_i32(s_word + 4 * (n - 1));
+  for (int s = n - 1; s > 0; --s) {
+    const int next = lds_i32(s_word + 4 * (s - 1));
+    float a[kN];
+    St::load(vals + (s - 1) * kEntryBytes, a);
+    // where the adjoint of the operand at the word's stack entry waits
+    const unsigned e = vals + (n - word_entry(word)) * kEntryBytes;
+#define SR_UNARY_ADJ(OPC)                                                    \
+  case dense_code(OPC):                                                      \
+    _Pragma("unroll") for (int i = 0; i < kN; ++i) w[i] =                    \
+        unary_vjp<kAll>(OPC, a[i], v[i], w[i]);                              \
+    break;
+#define SR_BINARY_ADJ(OPC)                                                   \
+  case dense_code(OPC): {                                                    \
+    float l[kN], dl[kN];                                                     \
+    St::load(vals + word_feat(word) * kEntryBytes, l);                       \
+    _Pragma("unroll") for (int i = 0; i < kN; ++i)                           \
+        binary_vjp<kAll>(OPC, l[i], a[i], v[i], w[i], &dl[i], &w[i]);       \
+    St::store(e, dl);                                                        \
+    break;                                                                   \
+  }
+    switch (word_code(word)) {
+      case OP_PAD:
+      case OP_VAR:  // the left sibling's adjoint, which its consumer stored
+        St::load(e, w);
+        break;
+      case OP_CONST:
+        const_leaf(word_feat(word), w);
+        St::load(e, w);
+        break;
+      SR_UNARY_COMMON(SR_UNARY_ADJ)
+      SR_BINARY_COMMON(SR_BINARY_ADJ)
+      default:
+        if constexpr (kAll) {
+          switch (word_code(word)) {
+            SR_UNARY_OTHER(SR_UNARY_ADJ)
+            SR_BINARY_OTHER(SR_BINARY_ADJ)
+            default:
+#pragma unroll
+              for (int i = 0; i < kN; ++i) w[i] = nanf_();
+              break;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kN; ++i) w[i] = nanf_();
+        }
+        break;
+    }
+#undef SR_UNARY_ADJ
+#undef SR_BINARY_ADJ
+#pragma unroll
+    for (int i = 0; i < kN; ++i) v[i] = a[i];
+    word = next;
+  }
+  // slot 0 of a valid program is its first leaf, whose path ends there
+  if (word_code(word) == OP_CONST) const_leaf(word_feat(word), w);
 }
 
 }  // namespace srprog

@@ -109,19 +109,6 @@ def operand_schedule(kind: torch.Tensor, length: torch.Tensor):
     return torch.where(valid, lidx, last), torch.where(valid, ridx, last)
 
 
-def kernel_opcode_table(operators: OperatorSet, device) -> torch.Tensor:
-    """Fused program code -> the kernel's operator id, built once per
-    (operator set, device): copying a Python list to the card waits for
-    the card, so a wrapper that built it on every call synchronised."""
-    return _opcode_table(operators, torch.device(device))
-
-
-@functools.lru_cache(maxsize=None)
-def _opcode_table(operators: OperatorSet, device: torch.device) -> torch.Tensor:
-    return torch.tensor([0, 1, 2] + kernel_operator_ids(operators),
-                        dtype=torch.int32, device=device)
-
-
 @functools.lru_cache(maxsize=None)
 def host_operator_ids(operators: OperatorSet):
     """``kernel_operator_ids`` as a ctypes int array in host memory, built

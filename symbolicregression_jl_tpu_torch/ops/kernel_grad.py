@@ -1,8 +1,8 @@
 """Constant-optimisation kernel wrapper: the counterpart of
 ``ops/pallas_grad.py``.
 
-``make_loss_kernel`` stages a batch's structure once (fused opcodes, the
-operand schedule, the length sort, the normalised row weights) and returns
+``make_loss_kernel`` stages a batch's structure once (the tree fields, the
+length sort, the normalised row weights) and returns
 ``fn(cval) -> (loss, grad | None, ok)``: per instance the weighted L2 loss
 ``sum_rows wn * (f(x) - y)^2`` with ``wn = w / sum(w)`` (``1/nrows``
 unweighted), its gradient with respect to every CONST slot (0 elsewhere)
@@ -15,11 +15,14 @@ CUDA tensors launch the hand-written kernels of ``csrc/postfix_grad.cu``
 (the gradient kernel B3, the loss-only kernel B4) or raise; CPU tensors run
 the plain PyTorch versions ``eval_loss_grad_plain`` / ``eval_loss_plain``,
 which do the forward and adjoint sweeps slot by slot with the derivative
-table of ``ops/operators.py``. The loss-only kernel runs a tree's
-candidates together, ``candidate_groups`` of them per warp, and derives
-the program from the ``TreeBatch`` fields itself. ``LAUNCHES`` counts the
-launches by variant. Only L2 (``L2DistLoss``/``mse``) is carried, as by
-the fused scoring epilogue.
+table of ``ops/operators.py``. Both kernels derive the program from the
+``TreeBatch`` fields themselves (the stack machine of
+``csrc/postfix_program.cuh``), so the wrapper passes the fields as they
+are, with a longest-first order; ``eval_loss_grad_program_plain`` is the
+plain version of the gradient kernel's sweeps and sums, and the loss-only
+kernel runs a tree's candidates together, ``candidate_groups`` of them per
+warp. ``LAUNCHES`` counts the launches by variant. Only L2
+(``L2DistLoss``/``mse``) is carried, as by the fused scoring epilogue.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 from ..models.trees import CONST, TreeBatch
 from . import kernel_eval as ke
 from .losses import l2_dist_loss_grad
-from .operators import BINARY_VJP, UNARY_VJP, OperatorSet
+from .operators import BINARY_VJP, KERNEL_BINARY_IDS, UNARY_VJP, OperatorSet
 
 LAUNCHES = {"loss_grad": 0, "loss": 0}  # launches by variant
 
@@ -138,6 +141,129 @@ def eval_loss_plain(trees: TreeBatch, X, y, weights, operators: OperatorSet):
     return loss.reshape(shape), ok.reshape(shape)
 
 
+def adjoint_words(words: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gradient kernel's ``derive_adjoint_words``: the
+    words of valid programs (``ke.program_words``) with, in the feature
+    field, each binary slot's left operand (the slot just before the last
+    leaf that pushed to the binary slot's stack entry) and each CONST
+    slot's rank among the CONST slots."""
+    T, L = words.shape
+    code, entry = words & 0xFF, (words >> 8) & 0xFF
+    live = torch.arange(L, device=words.device) < length.unsqueeze(-1)
+    leaf = live & (code <= 2)
+    const = live & (code == 1)
+    binary = live & (code >= int(ke.dense_code(
+        torch.tensor(min(KERNEL_BINARY_IDS.values())))))
+    last = torch.zeros((T, 256), dtype=torch.int64, device=words.device)
+    left = torch.zeros_like(words)
+    ti = torch.arange(T, device=words.device)
+    for s in range(L):
+        left[:, s] = last[ti, entry[:, s]]
+        last[ti, entry[:, s]] = torch.where(leaf[:, s], s - 1,
+                                            last[ti, entry[:, s]])
+    rank = torch.cumsum(const.long(), -1) - 1
+    feat = torch.where(binary, left, torch.where(const, rank, 0))
+    return torch.where(binary | const, (words & 0xFFFF) | (feat << 16), words)
+
+
+def _lane_sum(terms: torch.Tensor) -> torch.Tensor:
+    """The kernels' sum over rows (last dim): each of 32 lanes adds its rows
+    lane, lane + 32, ... in order, then the butterfly of shuffles (xor 16,
+    8, 4, 2, 1) adds the lanes; lane 0's bits."""
+    R = terms.shape[-1]
+    lanes = torch.zeros(terms.shape[:-1] + (32,), dtype=terms.dtype,
+                        device=terms.device)
+    for r0 in range(0, R, 32):
+        chunk = terms[..., r0:r0 + 32]
+        lanes[..., :chunk.shape[-1]] = lanes[..., :chunk.shape[-1]] + chunk
+    idx = torch.arange(32, device=terms.device)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ off]
+    return lanes[..., 0]
+
+
+def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
+                                 operators: OperatorSet):
+    """Plain version of the gradient kernel as it runs (csrc/
+    postfix_grad.cu): (loss (...,), grad (..., L), ok (...,)). The forward
+    sweep is the stack machine over ``ke.program_words`` and keeps every
+    slot's values; the adjoint sweep walks the slots in descending order
+    with the adjoint in hand, a binary slot's left operand's adjoint
+    waiting on a stack, at the binary slot's entry, for the leaf that
+    pushed that operand (the kernel keeps that stack in the values of
+    slots no later step reads); losses and CONST adjoints are summed over
+    rows as the kernel sums them (``_lane_sum``). An invalid program is
+    poisoned, its loss and gradient 0."""
+    flat = ke._flatten(trees)
+    T, L = flat.kind.shape
+    nfeat, R = X.shape
+    wn = normalized_weights(weights, R, X.device)
+    words, invalid = ke.program_words(flat, operators, nfeat)
+    n = torch.where(invalid, 0, flat.length)
+    words = adjoint_words(words, n)
+    code, entry = words & 0xFF, (words >> 8) & 0xFF
+    left = torch.where(code >= 3, words >> 16, 0)
+    feat = (words >> 16).clamp(0, nfeat - 1)
+    ti = torch.arange(T, device=X.device)
+    cap = (L + 1) // 2
+    ids = ke.dense_code(torch.tensor(ke.kernel_operator_ids(operators))).tolist()
+    U = operators.n_unary
+    fns = list(zip(ids, operators.unary_fns + operators.binary_fns,
+                   operators.unary_names + operators.binary_names))
+    vals = torch.zeros((L, T, R), dtype=torch.float32, device=X.device)
+    stack = torch.zeros((cap, T, R), dtype=torch.float32, device=X.device)
+    top = torch.zeros((T, R), dtype=torch.float32, device=X.device)
+    bad = invalid.clone()
+    for s in range(L):
+        live = s < n
+        c = code[:, s]
+        e = entry[:, s].clamp(max=cap - 1)
+        leaf = live & (c <= 2)
+        lv = stack[e, ti]
+        new = torch.where((c == 1).unsqueeze(-1),
+                          flat.cval[:, s].to(torch.float32).unsqueeze(-1),
+                          X[feat[:, s]])
+        new = torch.where(leaf.unsqueeze(-1), new, float("nan"))
+        for j, (cj, f, _) in enumerate(fns):
+            out = f(top) if j < U else f(lv, top)
+            new = torch.where((c == cj).unsqueeze(-1), out, new)
+        stack[e, ti] = torch.where(leaf.unsqueeze(-1), top, lv)
+        top = torch.where(live.unsqueeze(-1), new, top)
+        vals[s] = top
+        bad |= live & (c != 0) & ~torch.isfinite(new).all(-1)
+    d = top - y
+    zero_w = wn == 0
+    loss = torch.where(zero_w | (n == 0).unsqueeze(-1), 0.0, d * d * wn)
+    w = torch.where(zero_w, 0.0, (2.0 * d) * wn)
+    cacc = torch.zeros((L, T, R), dtype=torch.float32, device=X.device)
+    for s in range(L - 1, -1, -1):
+        live = (s < n).unsqueeze(-1)
+        c = code[:, s]
+        e = entry[:, s].clamp(max=cap - 1)
+        v, a = vals[s], vals[max(s - 1, 0)]
+        lv = vals[left[:, s], ti]
+        popped = stack[e, ti]
+        is_const = (c == 1).unsqueeze(-1) & live
+        cacc[s] = torch.where(is_const, w, 0.0)
+        new_w = torch.where(live & (c <= 2).unsqueeze(-1), popped, w)
+        for j, (cj, _, name) in enumerate(fns):
+            sel = live & (c == cj).unsqueeze(-1)
+            if j < U:
+                new_w = torch.where(sel, UNARY_VJP[name](a, v, w), new_w)
+            else:
+                dl, da = BINARY_VJP[name](lv, a, v, w)
+                new_w = torch.where(sel, da, new_w)
+                stack[e, ti] = torch.where(sel, dl, stack[e, ti])
+        w = new_w
+    const = (flat.kind == CONST) & (torch.arange(L, device=X.device)
+                                    < n.unsqueeze(-1))
+    grad = torch.where(const, _lane_sum(cacc).T, 0.0)
+    ok = ~bad & (n > 0)
+    shape = trees.length.shape
+    return (_lane_sum(loss).reshape(shape), grad.reshape(trees.kind.shape),
+            ok.reshape(shape))
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
@@ -159,11 +285,11 @@ def _library():
             p = ctypes.c_void_p
             i = ctypes.c_int
             ip = ctypes.POINTER(ctypes.c_int)
-            lib.postfix_grad_launch.argtypes = [p] * 13 + [i] * 5 + [p]
+            lib.postfix_grad_plan.argtypes = [i] * 4 + [ip]
+            lib.postfix_grad_plan.restype = i
+            lib.postfix_grad_launch.argtypes = ([p] * 12 + [ip] + [i] * 8
+                                                + [ip, p])
             lib.postfix_grad_launch.restype = i
-            lib.postfix_grad_smem_bytes.argtypes = [i]
-            lib.postfix_grad_smem_bytes.restype = i
-            lib.postfix_grad_max_smem_bytes.restype = i
             lib.postfix_loss_candidates.restype = i
             lib.postfix_loss_plan.argtypes = [i] * 5 + [ip]
             lib.postfix_loss_plan.restype = i
@@ -199,6 +325,28 @@ class LossPlan(NamedTuple):
     blocks: int
 
 
+class GradPlan(NamedTuple):
+    """The gradient kernel's layout: ``rows`` per lane, ``warps`` per
+    block, ``blocks_per_sm`` resident, ``smem`` bytes per block,
+    ``blocks``."""
+
+    rows: int
+    warps: int
+    blocks_per_sm: int
+    smem: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=64)
+def grad_plan(T: int, reps: int, L: int, full: bool) -> GradPlan:
+    plan = (ctypes.c_int * 5)()
+    rc = _library().postfix_grad_plan(T, reps, L, int(full), plan)
+    if rc != 0:
+        raise ValueError(f"no layout of the gradient kernel for max_len {L}: "
+                         + _library().postfix_grad_error_string(rc).decode())
+    return GradPlan(*plan)
+
+
 @functools.lru_cache(maxsize=64)
 def loss_plan(T: int, reps: int, L: int, full: bool) -> LossPlan:
     lib = _library()
@@ -230,20 +378,28 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
                  with_grad: bool, reps: int = 1) -> Callable:
     """Check the inputs, stage the structure on the card once, and return
     ``launch(cval (T * reps, L)) -> (loss, grad | None, bad)``: one kernel
-    launch each. The gradient kernel reads the fused opcodes and the
-    operand schedule of the ``ke.runnable`` batch, and its launch ORs the
-    invalid programs' flags into ``bad``; the loss-only kernel reads the
-    tree fields as they are, trees longest first, and flags an invalid
-    program itself."""
+    launch each. Both kernels read the tree fields as they are, trees
+    longest first, and flag an invalid program themselves."""
     flat = ke._flatten(trees)
     _check_inputs(flat, X, y, weights)
     dev = X.device
     nfeat, nrows = X.shape
     wn = normalized_weights(weights, nrows, dev)
     T, L = flat.kind.shape
+    if L > ke.MAX_LEN or nfeat >= 1 << 16 or X.numel() >= 1 << 31:
+        raise ValueError(f"the constant-optimisation kernels take max_len <= "
+                         f"{ke.MAX_LEN}, fewer than 65536 features and X of "
+                         "fewer than 2^31 elements")
     lib = _library()
     full = ke.uses_full_kernel(operators)
+    ids = ke.host_operator_ids(operators)
+    plan = grad_plan(T, reps, L, full) if with_grad else loss_plan(T, reps, L, full)
+    c_plan = (ctypes.c_int * len(plan))(*plan)
+    # the tensors ride in the closure so their memory outlives every launch
+    fields = [f.to(torch.int64).contiguous()
+              for f in (flat.kind, flat.op, flat.feat)]
     length = flat.length.to(torch.int64).contiguous()
+    order = torch.argsort(length, descending=True, stable=True)
     data = (X.contiguous(), y.contiguous(), wn)
     N = T * reps
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
@@ -254,59 +410,24 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
                                + lib.postfix_grad_error_string(rc).decode())
         LAUNCHES[variant] += 1
 
-    if not with_grad:
-        if L > ke.MAX_LEN or nfeat >= 1 << 16 or X.numel() >= 1 << 31:
-            raise ValueError(f"the loss-only kernel takes max_len <= "
-                             f"{ke.MAX_LEN}, fewer than 65536 features and X "
-                             "of fewer than 2^31 elements")
-        ids = ke.host_operator_ids(operators)
-        plan = loss_plan(T, reps, L, full)
-        c_plan = (ctypes.c_int * 7)(*plan)
-        # the tensors ride in the closure so their memory outlives every launch
-        fields = [f.to(torch.int64).contiguous()
-                  for f in (flat.kind, flat.op, flat.feat)]
-        order = torch.argsort(length, descending=True, stable=True)
-
-        def launch_loss(cval: torch.Tensor):
-            cv = cval.to(torch.float32).reshape(N, L).contiguous()
-            loss = torch.empty((N,), dtype=torch.float32, device=dev)
-            bad = torch.empty((N,), dtype=torch.int32, device=dev)
-            ptrs = [t.data_ptr() for t in (*fields, length, order, cv, *data,
-                                           loss, bad)]
-            check(lib.postfix_loss_launch(
-                *ptrs, ids, operators.n_unary, operators.n_binary, T, reps,
-                plan.candidates, L, nfeat, nrows, int(full), c_plan,
-                stream()), "loss")
-            return loss, None, bad
-
-        return launch_loss
-
-    smem = lib.postfix_grad_smem_bytes(L)
-    if smem > lib.postfix_grad_max_smem_bytes():
-        raise ValueError(f"max_len {L} needs {smem} bytes of shared memory "
-                         "per block, more than a block may use")
-    flat, invalid = ke.runnable(flat, operators, nfeat)
-    invalid = invalid.to(torch.int32).repeat_interleave(reps)
-    length = flat.length.to(torch.int64).contiguous()
-    code = ke.kernel_opcode_table(operators, dev)[
-        ke.fuse_opcodes(flat, operators)].contiguous()
-    lidx, ridx = ke.operand_schedule(flat.kind, flat.length)
-    tables = (code, flat.feat.to(torch.int32).contiguous(),
-              lidx.to(torch.int32).contiguous(),
-              ridx.to(torch.int32).contiguous(), length,
-              torch.argsort(length, stable=True))
-
-    def launch_grad(cval: torch.Tensor):
+    def launch(cval: torch.Tensor):
         cv = cval.to(torch.float32).reshape(N, L).contiguous()
         loss = torch.empty((N,), dtype=torch.float32, device=dev)
-        grad = torch.empty((N, L), dtype=torch.float32, device=dev)
         bad = torch.empty((N,), dtype=torch.int32, device=dev)
-        ptrs = [t.data_ptr() for t in (*tables, cv, *data, loss, grad, bad)]
-        check(lib.postfix_grad_launch(*ptrs, N, reps, L, nrows, int(full),
-                                      stream()), "loss_grad")
-        return loss, grad, bad.bitwise_or_(invalid)
+        head = [t.data_ptr() for t in (*fields, length, order, cv, *data, loss)]
+        tail = (ids, operators.n_unary, operators.n_binary, T, reps)
+        if not with_grad:
+            check(lib.postfix_loss_launch(
+                *head, bad.data_ptr(), *tail, plan.candidates, L, nfeat,
+                nrows, int(full), c_plan, stream()), "loss")
+            return loss, None, bad
+        grad = torch.empty((N, L), dtype=torch.float32, device=dev)
+        check(lib.postfix_grad_launch(
+            *head, grad.data_ptr(), bad.data_ptr(), *tail, L, nfeat, nrows,
+            int(full), c_plan, stream()), "loss_grad")
+        return loss, grad, bad
 
-    return launch_grad
+    return launch
 
 
 def digamma_on_card(x: torch.Tensor) -> torch.Tensor:

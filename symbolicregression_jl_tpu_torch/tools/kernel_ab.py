@@ -20,13 +20,15 @@ queued behind a spin on the card, CUDA events around them) at the north
 star's shapes (Feynman-I.6.2a, 2,048 rows): the value mode (B1) and the
 fused L2 mode (B2) at 5,376 and 64,000 trees, the slot-values mode at 5,376
 and 64,000 trees on one row, the gradient kernel (B3) at 26,880 instances
-and the loss-only kernel (B4) at 215,040 (26,880 trees x 8 candidates);
-50 launches each (20 for B4); the compact instantiation (these operators)
-and the full one forced (``full:`` keys). Then the wrappers, host prep
+at max_len 24 and at max_len 128 (trees of 3-109 slots; ``null`` where the
+root's wrapper refuses that max_len) and the loss-only kernel (B4) at
+215,040 (26,880 trees x 8 candidates); 50 launches each (20 for B4, 10
+for B3 at max_len 128); the compact instantiation (these operators) and
+the full one forced (``full:`` keys). Then the wrappers, host prep
 included: ``eval_loss_trees`` at 5,376 and 64,000 trees,
 ``eval_slot_values`` and ``eval_trees_instr`` at 5,376. The value mode's
-output and B4's losses and poison flags are compared bit for bit with the
-first root's.
+output, B3's losses, gradients and poison flags at max_len 24 and B4's
+losses and poison flags are compared bit for bit with the first root's.
 
 ``--capture`` adds one batch from the main path's own search, the
 children of the first cycle of iteration 2 of ``equation_search`` at 64
@@ -119,6 +121,15 @@ def north_star_trees(ops, dev):
     return trees, cv8
 
 
+def long_trees(ops, dev):
+    """26,880 trees of 3-109 slots at max_len 128 (a search at maxsize
+    110 or more)."""
+    gen = make_generator(4, dev)
+    return gen_random_tree_fixed_size(
+        gen, torch.randint(3, 110, (26880,), generator=gen, device=dev), 1,
+        ops, 128, dev)
+
+
 class _Captured(Exception):
     pass
 
@@ -187,6 +198,7 @@ def time_here(captured_path, bits_path) -> dict:
     X1 = X[:, :1].contiguous()
     trees, cv8 = north_star_trees(ops, dev)
     cycle, opt = trees[64000 - 5376:], trees[:26880]
+    long = long_trees(ops, dev)
     shapes = [(f"{label}@{tb.length.shape[0]}", tb, mode)
               for label, mode in (("value", ke.MODE_VALUE),
                                   ("fused_l2", ke.MODE_FUSED_L2),
@@ -211,14 +223,26 @@ def time_here(captured_path, bits_path) -> dict:
                 del p
             grad = kg.stage_launch(opt, X, y, None, ops, True, 1)
             row[f"{pre}loss_grad@26880"] = device_ms(lambda: grad(opt.cval), 50)
+            try:
+                grad_long = kg.stage_launch(long, X, y, None, ops, True, 1)
+            except ValueError:  # a version that refuses max_len 128
+                row[f"{pre}loss_grad@26880/L128"] = None
+            else:
+                row[f"{pre}loss_grad@26880/L128"] = device_ms(
+                    lambda: grad_long(long.cval), 10)
+                del grad_long
             loss = kg.stage_launch(opt, X, y, None, ops, False, 8)
             row[f"{pre}loss@215040"] = device_ms(lambda: loss(cv8), 20)
             if not full:
                 lo, _, bad = loss(cv8)
+                glo, gr, gbad = grad(opt.cval)
                 torch.cuda.synchronize()
                 torch.save({"value": value.cpu(),
                             "loss_bits": lo.view(torch.int32).cpu(),
-                            "bad": bad.cpu()}, bits_path)
+                            "bad": bad.cpu(),
+                            "grad_loss_bits": glo.view(torch.int32).cpu(),
+                            "grad_bits": gr.view(torch.int32).cpu(),
+                            "grad_bad": gbad.cpu()}, bits_path)
     finally:
         ke.uses_full_kernel = uses_full
     for T in (5376, 64000):
@@ -300,8 +324,13 @@ def main(argv) -> int:
             raise AssertionError(f"{name}: value mode differs from the first root")
         checks[name] = dict(
             loss_bits_differ=int((b["loss_bits"] != ref["loss_bits"]).sum()),
-            poison_differs=int((b["bad"] != ref["bad"]).sum()))
-        print(f"{name}: B4 against the first root {checks[name]}", flush=True)
+            poison_differs=int((b["bad"] != ref["bad"]).sum()),
+            b3_loss_bits_differ=int(
+                (b["grad_loss_bits"] != ref["grad_loss_bits"]).sum()),
+            b3_grad_bits_differ=int((b["grad_bits"] != ref["grad_bits"]).sum()),
+            b3_poison_differs=int((b["grad_bad"] != ref["grad_bad"]).sum()))
+        print(f"{name}: B3 and B4 against the first root {checks[name]}",
+              flush=True)
     record = {"card": card, "rows": rows, "loss_bits": checks}
     if capture:
         lengths = capture_children(None).length.float()

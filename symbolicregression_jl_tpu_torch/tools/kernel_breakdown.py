@@ -8,11 +8,12 @@ Three readings that stand in for a profiler of the kernels:
 1. the SASS of ``build/libpostfix_eval.so`` and ``build/libpostfix_grad.so``
    (``cuobjdump -sass``), written to ``<out>/sass_<library>.txt``, with
    each kernel's instruction count printed;
-2. B2 (the fused L2 scoring mode) at 5,376 trees and B4 (the loss-only
-   kernel) at 26,880 trees x 8 candidates, each on batches whose trees all
-   have one length (3, 7, 11, 15, 19 and 23 slots), x 2,048 rows, with CUDA
-   events; a least-squares line ms = fixed + per_slot * length separates
-   the cost of a slot step from the cost that does not grow with it;
+2. B2 (the fused L2 scoring mode) at 5,376 trees, B3 (the gradient
+   kernel) at 26,880 instances and B4 (the loss-only kernel) at 26,880
+   trees x 8 candidates, each on batches whose trees all have one length
+   (3, 7, 11, 15, 19 and 23 slots), x 2,048 rows, with CUDA events; a
+   least-squares line ms = fixed + per_slot * length separates the cost of
+   a slot step from the cost that does not grow with it;
 3. host synchronisations per evolution cycle at the north star's widths
    (64 islands x 1000): the profiler's CUDA runtime events of 10 cycles
    (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
@@ -197,7 +198,7 @@ def main(argv=None) -> int:
     theta = rng.uniform(1.0, 3.0, ROWS).astype(np.float32)
     X = torch.tensor(theta[None], device=dev)
     y = torch.exp(-X[0] ** 2 / 2) / np.sqrt(2 * np.pi)
-    b2, b4 = {}, {}
+    b2, b3, b4 = {}, {}, {}
     for n in LENGTHS:
         tb = fixed_length_trees(rng, 5376, n, 1, ops, 24, dev)
         prep = ke.prepare_launch(tb, X, y, ops, ke.MODE_FUSED_L2)
@@ -207,9 +208,13 @@ def main(argv=None) -> int:
             1 + 0.1 * torch.randn((26880 * 8, 24), device=dev))
         raw = kg.stage_launch(opt, X, y, None, ops, False, 8)
         b4[n] = device_ms(lambda: raw(cv), 10)
-        print(f"length {n}: B2 (5,376 trees) {b2[n]:.4f} ms, B4 (215,040 "
-              f"instances) {b4[n]:.4f} ms", flush=True)
-    for name, ms, work in (("B2", b2, 5376 * ROWS), ("B4", b4, 26880 * 8 * ROWS)):
+        grad = kg.stage_launch(opt, X, y, None, ops, True, 1)
+        b3[n] = device_ms(lambda: grad(opt.cval), 20)
+        print(f"length {n}: B2 (5,376 trees) {b2[n]:.4f} ms, B3 (26,880 "
+              f"instances) {b3[n]:.4f} ms, B4 (215,040 instances) "
+              f"{b4[n]:.4f} ms", flush=True)
+    for name, ms, work in (("B2", b2, 5376 * ROWS), ("B3", b3, 26880 * ROWS),
+                           ("B4", b4, 26880 * 8 * ROWS)):
         fixed, per = fit_line(list(ms), list(ms.values()))
         record[name] = dict(ms_by_length=ms, fixed_ms=fixed, ms_per_slot=per,
                             ns_per_step_per_1k_rows=per * 1e6 / (work / 1e3))

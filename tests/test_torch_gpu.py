@@ -526,3 +526,120 @@ def test_loss_kernel_candidate_groups_on_card(cuda, reps):
     lp, okp = tkg.eval_loss_plain(rep, X, y, w, ops)
     assert torch.equal(okk.reshape(-1), okp) and 0 < int(okp.sum()) < okp.numel()
     torch.testing.assert_close(lk.reshape(-1)[okp], lp[okp], rtol=1e-5, atol=0)
+
+
+def _grad_case(cuda, max_len, T, seed=0):
+    """T random programs of up to max_len - 3 slots plus the poisoning
+    trees at max_len, 2 features, 600 rows (not a multiple of a pass),
+    weights with zero-weight rows."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp", "sqrt", "log"])
+    gen = make_generator(seed, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, max_len - 2, (T,), generator=gen, device=cuda), 2,
+        ops, max_len, cuda)
+    edge = stack_trees([encode_tree(parse_expression(e, ops), max_len,
+                                    device=cuda)
+                        for e in ("x0 / (x1 - x1)", "exp(exp(exp(x1 * 1.5)))",
+                                  "0.7 + cos(x0 * 1.3)", "sqrt(1.2 * x0)")])
+    trees = TreeBatch(*(torch.cat([a, b]) for a, b in zip(trees, edge)))
+    X = torch.randn(2, 600, generator=gen, device=cuda) * 2
+    X[0] = X[0].abs()
+    X[0, :4] = 0.0
+    y = torch.randn(600, generator=gen, device=cuda)
+    w = torch.rand(600, generator=gen, device=cuda) + 0.5
+    w[:4] = 0.0
+    return ops, trees, X, y, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_len", [128, 504])
+def test_grad_kernel_long_programs_on_card(cuda, max_len):
+    """The gradient kernel at max_len 128 and 504 (above the 104 that
+    earlier versions took; at 504 one warp's slot values take 165 KB of a
+    block's 227), and the loss-only kernel in the line search's layout
+    there (one candidate per lane at 504): against the plain versions, ok
+    equal, the gradient within the tolerances of
+    _assert_grad_outputs_close."""
+    ops, trees, X, y, w = _grad_case(cuda, max_len, 300 if max_len > 200 else 1000)
+    plan = tkg.grad_plan(trees.length.shape[0], 1, max_len, False)
+    assert plan.smem <= 232448 and plan.blocks_per_sm >= 1, plan
+    got = tkg.eval_loss_grad(trees, X, y, w, ops)
+    *ref, scale = tkg.eval_loss_grad_plain(trees, X, y, w, ops, scale=True)
+    assert 0 < int(got[2].sum()) < trees.length.shape[0]
+    _assert_grad_outputs_close(got, ref, scale)
+    cv = trees.cval.repeat_interleave(8, 0)
+    lk, _, okk = tkg.make_loss_kernel(trees, X, y, w, ops, False, reps=8)(cv)
+    _assert_grad_outputs_close((lk.reshape(-1, 8)[:, 0], None,
+                                okk.reshape(-1, 8)[:, 0]),
+                               (ref[0], None, ref[2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_len", [24, 128])
+def test_grad_kernel_loss_equals_loss_kernel_bits_on_card(cuda, max_len):
+    """BFGS compares the gradient kernel's loss with the line search's, so
+    the two kernels are one function: for the same constants the losses
+    and poison flags are equal in every bit, in both of the loss-only
+    kernel's layouts (one candidate per lane; 4 candidates x 2 rows)."""
+    ops, trees, X, y, w = _grad_case(cuda, max_len, 2000, seed=1)
+    for weights in (None, w):
+        lg, _, okg = tkg.eval_loss_grad(trees, X, y, weights, ops)
+        for reps in (1, 8):
+            fn = tkg.make_loss_kernel(trees, X, y, weights, ops, False, reps)
+            lk, _, okk = fn(trees.cval.repeat_interleave(reps, 0))
+            assert torch.equal(okk.reshape(-1, reps),
+                               okg.unsqueeze(-1).expand(-1, reps))
+            _assert_bits_equal(lk.reshape(-1, reps),
+                               lg.unsqueeze(-1).expand(-1, reps).contiguous())
+
+
+@pytest.mark.gpu
+def test_grad_kernel_two_launches_and_its_mirror_on_card(cuda):
+    """Two launches of the gradient kernel give the same bits, and so does
+    its plain mirror (the same operations per row, each lane's rows in
+    order, the same butterfly) on the operators whose torch and CUDA
+    library functions agree (+ - * /, cos, exp)."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    gen = make_generator(2, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, 23, (3000,), generator=gen, device=cuda), 1,
+        ops, L, cuda)
+    X = torch.rand(1, 2048, generator=gen, device=cuda) * 2 + 1
+    y = torch.exp(-X[0] ** 2 / 2)
+    fn = tkg.make_loss_kernel(trees, X, y, None, ops, True)
+    (l1, g1, ok1), (l2, g2, ok2) = fn(trees.cval), fn(trees.cval)
+    assert torch.equal(ok1, ok2)
+    _assert_bits_equal(l2, l1)
+    _assert_bits_equal(g2, g1)
+    lm, gm, okm = tkg.eval_loss_grad_program_plain(trees, X, y, None, ops)
+    assert torch.equal(ok1, okm) and int(ok1.sum()) > 2000
+    _assert_bits_equal(l1[ok1], lm[ok1])
+    _assert_bits_equal(g1[ok1], gm[ok1])
+
+
+@pytest.mark.gpu
+def test_grad_kernel_poisons_invalid_programs_with_zero_gradient_on_card(cuda):
+    """Programs that are not valid postfix (underflow, unfinished, a length
+    beyond L, a negative length, an operator outside the set, an unknown
+    kind, a feature out of range) are reported poisoned by the kernel
+    itself, loss and gradient 0, at max_len 24 and 128; the valid program
+    beside them is not."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    X = torch.randn(2, 300, device=cuda)
+    y = torch.randn(300, device=cuda)
+    for max_len in (L, 128):
+        rows = [([VAR, BIN], 2), ([VAR, VAR], 2), ([VAR], max_len + 1),
+                ([VAR], -1), ([VAR, VAR, BIN], 3), ([7], 1), ([VAR], 1),
+                ([CONST, VAR, BIN], 3)]
+        kind = torch.tensor([r + [0] * (max_len - len(r)) for r, _ in rows],
+                            device=cuda)
+        op, feat = torch.zeros_like(kind), torch.zeros_like(kind)
+        op[4, 2] = ops.n_binary
+        feat[6, 0] = 2
+        trees = TreeBatch(kind, op, feat,
+                          torch.full(kind.shape, 0.5, device=cuda),
+                          torch.tensor([n for _, n in rows], device=cuda))
+        loss, grad, ok = tkg.eval_loss_grad(trees, X, y, None, ops)
+        assert ok.tolist() == [False] * 7 + [True]
+        assert not loss[:7].any() and not grad[:7].any()
+        assert grad[7, 0] != 0 and not grad[7, 1:].any()

@@ -218,6 +218,24 @@ def test_plain_loss_grad_matches_pallas(case, pallas, weighted):
 
 
 @pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_program_mirror_matches_pallas(case, pallas, weighted):
+    """The plain mirror of the gradient kernel as it runs on the card
+    (stack machine, adjoints on the stack, lane-ordered row sums) against
+    the Pallas kernel: the tolerances of test_plain_loss_grad_matches_pallas,
+    for the same reasons."""
+    jt, X, y, w = case
+    w = w if weighted else None
+    loss_r, grad_r, ok_r = pallas(weighted, True)
+    loss, grad, ok = tkg.eval_loss_grad_program_plain(
+        port_trees(jt), torch.tensor(X), torch.tensor(y),
+        None if w is None else torch.tensor(w), TOPS)
+    ok = ok.numpy()
+    np.testing.assert_array_equal(ok, ok_r)
+    np.testing.assert_allclose(loss.numpy()[ok], loss_r[ok], rtol=1e-5)
+    _assert_grad_close(grad.numpy(), grad_r, ok)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
 def test_plain_loss_only_matches_pallas(case, pallas, weighted):
     jt, X, y, w = case
     w = w if weighted else None

@@ -309,15 +309,14 @@ def test_eval_plan_refuses_programs_too_long_for_a_block():
 
 
 def test_opcode_tables_are_cached_and_follow_the_jax_operator_order():
-    """The table is built once per (operator set, device) and maps fused
-    code 3 + j to the kernel id of the JAX package's j-th operator."""
-    table = tke.kernel_opcode_table(TOPS, "cpu")
-    assert tke.kernel_opcode_table(TOPS, torch.device("cpu")) is table
+    """The kernels' operator ids are built once per operator set, follow
+    the JAX package's operator order, and the words number fused code
+    3 + j as the dense code of the j-th operator's id."""
     ids = ([tops.KERNEL_UNARY_IDS[n] for n in JOPS.unary_names]
            + [tops.KERNEL_BINARY_IDS[n] for n in JOPS.binary_names])
-    assert table.tolist() == [0, 1, 2] + ids
     assert list(tke.host_operator_ids(TOPS)) == ids
     assert tke.host_operator_ids(TOPS) is tke.host_operator_ids(TOPS)
+    table = torch.tensor([0, 1, 2] + list(tke.host_operator_ids(TOPS)))
     code = tke.fuse_opcodes(port_trees(jtrees.stack_trees(
         [jtrees.encode_tree(e, L) for e in _edge_exprs()])), TOPS)
     words, _ = tke.program_words(port_trees(jtrees.stack_trees(

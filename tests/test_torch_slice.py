@@ -293,4 +293,4 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         with pytest.raises(RuntimeError, match="kernel launch attempted"):
             call()
     with pytest.raises(NotImplementedError):
-        tke.kernel_opcode_table(tops.OperatorSet(("my_op",), ("+",)), "cpu")
+        tke.host_operator_ids(tops.OperatorSet(("my_op",), ("+",)))
