@@ -31,12 +31,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    operators, the hand-written digamma against torch.digamma, a short
    search over the operators the earlier slices did not carry, and a
    short search at maxsize 110 (max_len 112) with the default BFGS;
+3c. every kernel at max_len 512, 1,024 and 2,048 (the narrow routes,
+   their stacks, slot values or results in shared or global memory) on
+   2,048 rows, random and deep programs, poisoning and invalid programs:
+   B1 and the slot mode bit-equal to their plain versions, B2 within rtol
+   1e-4, B3 bit-equal to its plain mirror with its loss bit-equal to B4's,
+   B5 / B6 bit-equal to B1 (B6 where its packed word takes the width), two
+   launches the same bits; then a short search at maxsize 509 (max_len
+   512) with the default BFGS;
 4. timing of every kernel alone (its launches queued behind a spin on the
    card, CUDA events), beside its plain version and its bound (bytes over
    3.35 TB/s, f32 operations over 67 TFLOP/s); the launch layout of the
-   scoring, gradient and loss-only kernels (work items per tree, rows or
-   candidates per lane, warps per block, resident blocks per SM) and
-   their ptxas lines;
+   scoring, gradient, loss-only and instruction-program kernels (work
+   items per tree, rows or candidates per lane, warps per block, resident
+   blocks per SM) and their ptxas lines; the instruction-program wrappers'
+   host milliseconds per call;
 5. the main path: ``equation_search`` at 64 islands x 1000, maxsize 20,
    ``+ - * /`` with ``cos exp``, L2 loss, default constant optimisation
    (BFGS), then ``predict``; the launch counts are zeroed just before and
@@ -50,7 +59,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    version (interleaved, twice each), and a profile of 20 cycles without
    init, simplify or rescore (device kernels per cycle, idle share, host
    synchronisations per cycle by issuing operator); the scoring wrapper
-   alone must make none;
+   alone, and the instruction programs' scoring call, must make none;
 7. the optimisation pass alone on that 64 x 1000 state: milliseconds per
    pass, and a profile of one pass (device kernels, the kernels' share);
 8. recovery on the card: ``x0*x0 - x1*x2`` without constant optimisation,
@@ -162,7 +171,7 @@ def main():
         gen_random_tree_fixed_size,
     )
     from symbolicregression_jl_tpu_torch.models.trees import (
-        BIN, VAR, TreeBatch, UNA, encode_tree, parse_expression, stack_trees,
+        BIN, CONST, VAR, TreeBatch, UNA, encode_tree, parse_expression, stack_trees,
     )
     from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
     from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
@@ -570,6 +579,133 @@ def main():
         f"constant optimisation): best {res_l.best_loss().equation} loss "
         f"{res_l.best_loss().loss:.3g}, {time.time() - tr:.1f} s")
 
+    # ---- 3c. every kernel at max_len 512, 1,024 and 2,048 --------------------
+    def deep_programs(max_len):
+        """x0 c x0 c ... (k leaves) then k - 1 slots of + and -, a stack of
+        k = min(300, (max_len + 1) // 2 - 1) entries; and a chain of
+        max_len - 1 cos."""
+        k = min(300, (max_len + 1) // 2 - 1)
+        kind = torch.zeros((2, max_len), dtype=torch.int64, device=dev)
+        op = torch.zeros_like(kind)
+        cval = torch.zeros((2, max_len), device=dev)
+        i = torch.arange(k, device=dev)
+        kind[0, :k] = torch.where(i % 2 == 0, VAR, CONST)
+        cval[0, :k] = torch.where(i % 2 == 0, 0.0, 0.25 + 0.001 * i)
+        kind[0, k:2 * k - 1] = BIN
+        op[0, k:2 * k - 1] = torch.arange(k - 1, device=dev) % 2
+        kind[1, 0], kind[1, 1:] = VAR, UNA
+        return TreeBatch(kind, op, torch.zeros_like(kind), cval,
+                         torch.tensor([2 * k - 1, max_len], device=dev))
+
+    long_report = {}
+    for L_big, T_big in ((512, 600), (1024, 200), (2048, 60)):
+        tl = time.time()
+        big = gen_random_tree_fixed_size(
+            gen, torch.randint(1, L_big - 2, (T_big,), generator=gen,
+                               device=dev), 1, ops, L_big, dev)
+        kind_b = torch.zeros((len(shapes_), L_big), dtype=torch.int64,
+                             device=dev)
+        kind_b[:, :24] = kind_
+        bad_b = TreeBatch(kind_b, torch.nn.functional.pad(op_, (0, L_big - 24)),
+                          torch.nn.functional.pad(feat_, (0, L_big - 24)),
+                          torch.full(kind_b.shape, 0.5, device=dev),
+                          invalid.length.clone())
+        bad_b.length[3] = L_big + 1  # a length beyond max_len
+        big = TreeBatch(*(torch.cat(z) for z in zip(
+            big, deep_programs(L_big),
+            stack_trees([encode_tree(e, L_big, device=dev) for e in poison]),
+            bad_b)))
+        nb = len(shapes_)
+        assert bool(ke.runnable(bad_b, ops, X.shape[0])[1].all())
+        yk, okk = ke.eval_trees(big, X, ops)
+        assert_bits(f"max_len {L_big}, value mode: two launches",
+                    ke.eval_trees(big, X, ops)[0], yk)
+        y_stack, bad_s = ke.eval_program_plain(big, X, ops)
+        assert torch.equal(okk, ~bad_s & (big.length > 0)), L_big
+        assert int((~okk[:-nb]).sum()) >= 4 and not okk[-nb:].any(), L_big
+        assert_bits(f"max_len {L_big}, value mode vs plain", yk[okk],
+                    y_stack[okk])
+        assert not yk[-nb:].any()
+        lk = ke.eval_loss_trees(big, X, y, ops)
+        assert_bits(f"max_len {L_big}, fused: two launches",
+                    ke.eval_loss_trees(big, X, y, ops), lk)
+        lp = ke.eval_loss_trees_plain(big, X, y, ops)
+        assert torch.equal(torch.isinf(lk), torch.isinf(lp)), L_big
+        assert bool(lk[-nb:].isposinf().all())
+        fin = torch.isfinite(lp)
+        torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-4, atol=0)
+        sk, oks = ke.eval_slot_values(big, X1, ops)
+        sp, _ = ke.eval_slot_values_plain(big, X1, ops)
+        fin = torch.isfinite(sp)
+        assert torch.equal(torch.isfinite(sk), fin) and not oks[-nb:].any()
+        assert_bits(f"max_len {L_big}, slot mode vs plain", sk[fin], sp[fin])
+        lg, gg, okg = kg.eval_loss_grad(big, X, y, w_zero, ops)
+        lg2, gg2, _ = kg.eval_loss_grad(big, X, y, w_zero, ops)
+        assert_bits(f"max_len {L_big}, gradient: two launches", gg2, gg)
+        assert_bits(f"max_len {L_big}, gradient loss: two launches", lg2, lg)
+        lm, gm, okm = kg.eval_loss_grad_program_plain(big, X, y, w_zero, ops)
+        assert torch.equal(okg, okm) and not okg[-nb:].any(), L_big
+        assert_bits(f"max_len {L_big}, gradient vs mirror, loss", lg[okg], lm[okg])
+        assert_bits(f"max_len {L_big}, gradient vs mirror", gg[okg], gm[okg])
+        assert not gg[-nb:].any()
+        for reps in (1, LS_STEPS):
+            fn = kg.make_loss_kernel(big, X, y, w_zero, ops, with_grad=False,
+                                     reps=reps)
+            l4, _, ok4 = fn(big.cval.repeat_interleave(reps, 0))
+            assert torch.equal(ok4.reshape(-1, reps),
+                               okg.unsqueeze(-1).expand(-1, reps)), reps
+            assert_bits(f"max_len {L_big}, gradient vs loss-only (reps {reps})",
+                        l4.reshape(-1, reps),
+                        lg.unsqueeze(-1).expand(-1, reps).contiguous())
+        instr_checked = []
+        for name, packed in (("instr", False), ("instr_packed", True)):
+            if packed and X.shape[0] + L_big + 4 > 2048:
+                continue
+            yi, oki = ki.eval_trees_instr(big, X, ops, packed)
+            assert torch.equal(oki, okk), (name, L_big)
+            assert_bits(f"max_len {L_big}, {name} vs value mode", yi[okk], yk[okk])
+            instr_checked.append(name)
+        torch.cuda.synchronize()
+        T_all = big.length.shape[0]
+        layouts = dict(
+            value=ke.launch_plan(T_all, L_big, 1, ROWS, ke.MODE_VALUE, False, 0),
+            loss_grad=kg.grad_plan(T_all, 1, L_big, False),
+            loss=kg.loss_plan(T_all, LS_STEPS, L_big, False),
+            instr=ki.launch_plan(T_all, L_big, 1, ROWS, False, False, 0))
+        long_report[L_big] = {k: v._asdict() for k, v in layouts.items()}
+        log(f"max_len {L_big}: {T_all} trees ({int(okk.sum())} not poisoned, "
+            f"{nb} invalid) x {ROWS} rows: value and slot modes bit-equal to "
+            f"the plain versions, fused within rtol 1e-4, gradient bit-equal "
+            f"to its mirror and its loss to the loss-only kernel's, "
+            f"{' and '.join(instr_checked)} bit-equal to the value mode, two "
+            f"launches the same bits; {time.time() - tl:.1f} s; layouts "
+            + "; ".join(f"{k} {'narrow' if v.narrow else 'wide'} {v.warps} "
+                        f"warps/block {v.blocks_per_sm} blocks/SM "
+                        f"scratch {v.scratch_bytes} B"
+                        for k, v in layouts.items()))
+    # maxsize 509: max_len 512, which every kernel of earlier versions refused
+    tr = time.time()
+    before_all = {**ke.LAUNCHES, **kg.LAUNCHES}
+    res_509 = equation_search(Xs, ys, binary_operators=["+", "-", "*", "/"],
+                              unary_operators=["cos", "exp"], npopulations=8,
+                              npop=60, ncycles_per_iteration=30, maxsize=509,
+                              niterations=2, seed=0, verbosity=0)
+    after_all = {**ke.LAUNCHES, **kg.LAUNCHES}
+    assert res_509.options.max_len == 512, res_509.options.max_len
+    assert res_509.candidates and np.isfinite(res_509.best_loss().loss)
+    assert after_all["loss_grad"] - before_all["loss_grad"] == 9 * 2
+    assert after_all["loss"] - before_all["loss"] == 8 * 2
+    assert after_all["fused_l2"] - before_all["fused_l2"] >= 2 * 30
+    assert after_all["slots"] - before_all["slots"] >= 2 * 30
+    long_report["search_509"] = dict(
+        s=time.time() - tr, best=res_509.best_loss().loss,
+        max_len=res_509.options.max_len,
+        launches={k: after_all[k] - before_all[k] for k in after_all})
+    log(f"search at maxsize 509 (max_len 512; 8 x 60, 2 iterations, default "
+        f"constant optimisation): best {res_509.best_loss().equation} loss "
+        f"{res_509.best_loss().loss:.3g}, launches "
+        f"{long_report['search_509']['launches']}, {time.time() - tr:.1f} s")
+
     # ---- 4. timing ----------------------------------------------------------
     n_op_nodes = lambda tb_: int((tb_.kind >= UNA).sum())
 
@@ -690,37 +826,51 @@ def main():
             f"({b_by}), share {b_ms / ms:.4f}, "
             f"{N * ROWS / (ms * 1e-3):.4g} instances*rows/s")
 
-    def instr_bound(tb_, packed):
-        """Inputs read once: X, each live instruction's tables (7 words for
-        B5; the packed word and two constants for B6), each tree's step
-        count and sort position; outputs: the (T, rows) values and the
-        poison flags. Operations: one per operator node per row."""
-        T = tb_.length.shape[0]
-        n_steps = int(torch.clamp_min((tb_.kind >= UNA).sum(-1), 1).sum())
-        bytes_in = (X.shape[0] * ROWS * 4 + n_steps * (3 if packed else 7) * 4
-                    + T * (4 + 8))
-        bytes_out = T * ROWS * 4 + T * 4
-        t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
-        t_ops = n_op_nodes(tb_) * ROWS / F32_OPS_PER_S * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    def host_ms(fn, reps=20):
+        """Host milliseconds per call of fn, which must not wait for the
+        card: the calls are queued behind a spin on the card, so the host
+        clock around them reads the wrapper's own cost."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 26)  # ~30 ms of spin
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        elapsed = (time.perf_counter() - t) * 1e3 / reps
+        torch.cuda.synchronize()
+        return elapsed
 
     for name, packed in (("instr", False), ("instr_packed", True)):
         for tb_ in (cycle, trees):
             T = tb_.length.shape[0]
             prep = ki.prepare_launch(tb_, X, ops, packed)
             ms = device_ms(lambda: ki.run_prepared(prep), 50)
-            wrap_ms = cuda_ms(lambda: ki.eval_trees_instr(tb_, X, ops, packed), 20)
+            wrap = lambda: ki.eval_trees_instr(tb_, X, ops, packed)
+            wrap_ms = cuda_ms(wrap, 20)
+            wrap_host_ms = host_ms(wrap)
             plain_ms = cuda_ms(lambda: [
                 ki.eval_trees_instr_plain(tb_[i:i + 8192], X, ops, packed)
                 for i in range(0, T, 8192)], 2)
-            b_ms, b_by = instr_bound(tb_, packed)
+            # the kernels read the tree fields as the value mode does
+            b_ms, b_by = bound(tb_, ke.MODE_VALUE, ROWS)
             timings[(name, T)] = dict(T=T, rows=ROWS, ms=ms, wrapper_ms=wrap_ms,
+                                      wrapper_host_ms=wrap_host_ms,
                                       plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=b_by, roofline_share=b_ms / ms)
+                                      bound_by=b_by, roofline_share=b_ms / ms,
+                                      layout=prep.plan._asdict())
+            log(f"layout {name} T={T}: {prep.plan.items} work items (row "
+                f"ranges of {prep.plan.range} rows) per tree, "
+                f"{prep.plan.rows_per_lane} rows per lane, {prep.plan.warps} "
+                f"warps per block, {prep.plan.blocks_per_sm} resident blocks "
+                f"per SM, X {'staged' if prep.plan.staged else 'from global'}, "
+                f"{prep.plan.smem} B shared memory, {prep.plan.blocks} blocks")
             log(f"timing {name} T={T}: kernel {ms:.4f} ms, with host prep "
-                f"{wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
-                f"({b_by}), share {b_ms / ms:.4f}, "
-                f"{T * ROWS / (ms * 1e-3):.4g} trees*rows/s")
+                f"{wrap_ms:.4f} ms (host {wrap_host_ms:.4f} ms), plain "
+                f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}), share "
+                f"{b_ms / ms:.4f}, {T * ROWS / (ms * 1e-3):.4g} trees*rows/s")
+    for line in ki.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"ptxas instr_eval: {line.strip()}")
     del prep
 
     # ---- 5. the main path at full width -------------------------------------
@@ -835,10 +985,10 @@ def main():
         f"({len(instr_runs['instr']['hof'])} members)")
 
     # ---- 5c. the search builds valid programs only ----------------------------
-    # the stack-machine kernels report an invalid program poisoned and the
-    # table-driven ones run it as the empty program (ke.runnable): a short
-    # search at the same widths, every batch it scores, folds or optimises
-    # checked by the plain derivation on the card
+    # the kernels report an invalid program poisoned and the plain versions
+    # run it as the empty program (ke.runnable): a short search at the same
+    # widths, every batch it scores, folds or optimises checked by the plain
+    # derivation on the card
     n_invalid = torch.zeros((), dtype=torch.int64, device=dev)
     n_checked = [0, 0]
 
@@ -958,6 +1108,26 @@ def main():
     waits = [k for k in wrapper_ops if "Synchronize" in k and " <- None " not in k]
     copies = [c for c in wrapper_calls if "HtoD" in c or "DtoH" in c]
     assert not waits and not copies, f"the scoring wrapper waits: {waits} {copies}"
+    # the instruction programs' scoring call (B5 / B6, then the loss in
+    # PyTorch), as the instr path's cycle makes it
+    from symbolicregression_jl_tpu_torch.models.fitness import (
+        eval_loss_trees as fitness_loss,
+    )
+
+    for program in ("instr", "instr_packed"):
+        fitness_loss(cycle, X, y, None, ops, "L2DistLoss", program=program)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fitness_loss(cycle, X, y, None, ops, "L2DistLoss", program=program)
+        i_calls, i_ops = sync_counts(prof)
+        i_waits = [k for k in i_ops if "Synchronize" in k and " <- None " not in k]
+        i_copies = [c for c in i_calls if "HtoD" in c or "DtoH" in c]
+        cycle_profile[f"{program}_scoring_host_calls"] = dict(i_calls)
+        log(f"{program} scoring call alone (10 calls at {T_CYCLE} trees): "
+            f"{dict(i_calls)}, by operator {dict(i_ops)}")
+        assert not i_waits and not i_copies, (
+            f"the {program} scoring call waits: {i_waits} {i_copies}")
 
     # ---- 7. the optimisation pass alone ----------------------------------------
     from symbolicregression_jl_tpu_torch.models.evolve import (
@@ -1095,7 +1265,8 @@ def main():
                                                            "launches", "peak_bytes")}
                                      for k, v in instr_runs.items()},
                       "cycle_ms": cycle_ms, "cycle_profile": cycle_profile,
-                      "optimize_pass": pass_profile}))
+                      "optimize_pass": pass_profile,
+                      "long_programs": long_report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

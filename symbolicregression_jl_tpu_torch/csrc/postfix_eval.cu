@@ -39,6 +39,12 @@
 //    shuffles sums the lanes, and with several ranges a second pass adds
 //    each tree's partial sums in range order, so the loss is the same bits
 //    on every run (no atomics). Poison flags combine the same way.
+//  * Long programs: a stack of (L + 1) / 2 entries of kRows values per lane
+//    leaves no room for a warp above max_len ~900. There the plan takes the
+//    narrow route, postfix_narrow_kernel: one row per lane, one range per
+//    tree, X read from global memory, and the stack in shared memory when
+//    one warp's fits, else in global memory, one region per resident warp
+//    (srprog::narrow_plan), the warps looping over the trees.
 // The operators are the shared library csrc/operators.cuh; built without
 // --use_fast_math.
 
@@ -67,6 +73,7 @@ struct EvalArgs {
   int* bad;
   float* part;    // (T, items) partial losses; out itself when items == 1
   int* part_bad;  // (T, items) partial poison flags; bad when items == 1
+  float* scratch;  // the narrow route's stacks in global memory, or null
   int T, L, nfeat, nrows, items, range, cap;
   OpMap map;
 };
@@ -91,8 +98,8 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
   float* stack = smem + warp * a.cap * Stack<kR>::kEntry +
                  lane * Stack<kR>::kLaneWidth;
   float* xs = smem + warps * a.cap * Stack<kR>::kEntry;
-  int* words = reinterpret_cast<int*>(xs + (kStaged ? a.nfeat * a.range : 0));
-  int* s_word = words + warp * (a.L + 1);
+  int2* words = reinterpret_cast<int2*>(xs + (kStaged ? a.nfeat * a.range : 0));
+  int2* s_word = words + warp * (a.L + 1);
   float* s_cval = reinterpret_cast<float*>(words + warps * (a.L + 1)) +
                   warp * a.L;
 
@@ -209,6 +216,85 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
   }
 }
 
+// The narrow route (long programs): one row per lane, each tree's rows in
+// one range, X from global memory; the stack at a.scratch (one region of
+// (L + 1) / 2 entries per resident warp) or, with a.scratch null, in shared
+// memory after the words and constants. The warps loop over the trees.
+template <int kMode, bool kAll>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
+  using St = Stack<1, true>;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int2* s_word = reinterpret_cast<int2*>(smem) + warp * (a.L + 1);
+  float* s_cval =
+      reinterpret_cast<float*>(reinterpret_cast<int2*>(smem) + warps * (a.L + 1));
+  float* stacks = s_cval + warps * a.L;
+  s_cval += warp * a.L;
+  const long long gw = static_cast<long long>(blockIdx.x) * warps + warp;
+  float* stack = a.scratch ? a.scratch + gw * a.cap * St::kEntry
+                           : stacks + warp * a.cap * St::kEntry;
+  const unsigned word_a = opaque(smem_u32(s_word));
+  const unsigned cval_a = opaque(smem_u32(s_cval));
+  const unsigned long long stack_a = gen_u64(stack + lane);
+  for (long long g = gw; g < a.T; g += static_cast<long long>(gridDim.x) * warps) {
+    const long long t = a.order[g];
+    const long long len = a.length[t];
+    int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
+    __syncwarp();  // the last tree's words are read
+    const float c0 = lane < n ? a.cval[t * a.L + lane] : 0.f;
+    const bool invalid = derive_program(a.kind, a.op, a.feat, t * a.L, n,
+                                        a.cap, a.nfeat, a.map, s_word, lane) ||
+                         n != len;
+    if (lane < n) s_cval[lane] = c0;
+    for (int s = lane + 32; s < n; s += 32) s_cval[s] = a.cval[t * a.L + s];
+    __syncwarp();
+    if (invalid) n = 0;
+    float acc = 0.f;
+    float pz[1] = {};
+    float* slots = kMode == 2 ? a.out + t * a.L : nullptr;
+    for (int base = 0; base < a.nrows; base += 32) {
+      const int row = base + lane;
+      const unsigned xr = min(row, a.nrows - 1);
+      float v[1] = {};
+      run_program<kAll, 1, false, true>(
+          word_a, n, stack_a, v, pz,
+          [&](int s, float (&x)[1]) { x[0] = lds_f32(cval_a + 4u * s); },
+          [&](int f, float (&x)[1]) {
+            x[0] = a.X[static_cast<unsigned>(f) * a.nrows + xr];
+          },
+          [&](int s, const float (&x)[1]) {
+            if constexpr (kMode == 2) {
+              if (lane == 0) slots[s] = x[0];
+            }
+          });
+      if constexpr (kMode == 0) {
+        if (row < a.nrows) a.out[t * a.nrows + row] = v[0];
+      } else if constexpr (kMode == 1) {
+        if (row < a.nrows) {
+          const float d = v[0] - a.y[row];
+          acc += d * d;
+        }
+      }
+    }
+    if constexpr (kMode == 2) {
+      for (int s = n + lane; s < a.L; s += 32) slots[s] = 0.f;
+    }
+    const bool any_bad = __any_sync(0xffffffffu, pz[0] != pz[0]) || invalid;
+    if constexpr (kMode == 1) {
+      for (int off = 16; off > 0; off >>= 1) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      }
+    }
+    if (lane == 0) {
+      if constexpr (kMode == 1) a.out[t] = acc;
+      a.bad[t] = any_bad ? 1 : 0;
+    }
+  }
+}
+
 // Each tree's partial sums and flags, in range order.
 __global__ void combine_kernel(const float* __restrict__ part,
                                const int* __restrict__ part_bad,
@@ -227,6 +313,21 @@ __global__ void combine_kernel(const float* __restrict__ part,
 }
 
 using KernelFn = void (*)(EvalArgs);
+
+KernelFn narrow_kernel_for(int mode, bool all) {
+  if (mode == 0) {
+    return all ? &postfix_narrow_kernel<0, true> : &postfix_narrow_kernel<0, false>;
+  }
+  if (mode == 1) {
+    return all ? &postfix_narrow_kernel<1, true> : &postfix_narrow_kernel<1, false>;
+  }
+  return all ? &postfix_narrow_kernel<2, true> : &postfix_narrow_kernel<2, false>;
+}
+
+// Shared memory per warp of the narrow route: the words and constants,
+// and the stack ((L + 1) / 2 entries of one float per lane).
+long long narrow_fixed_bytes(int L) { return 4LL * (3LL * L + 2); }
+long long narrow_stack_bytes(int L) { return 4LL * 32 * ((L + 1) / 2); }
 
 KernelFn kernel_for(int mode, bool all, bool staged) {
 #define SR_PICK(M)                                                           \
@@ -254,13 +355,14 @@ void postfix_eval_config(int* cfg) {
 }
 
 // Shared memory of one block: per warp, the stack ((L + 1) / 2 entries of
-// 32 x kRows floats, 32 in the slot-values mode), the program words (L + 1)
-// and constants (L); with X staged, X's rows of the work item (nfeat x
-// range floats).
+// 32 x kRows floats, 32 in the slot-values mode), the program words (L + 1,
+// 8 bytes each) and constants (L); with X staged, X's rows of the work item
+// (nfeat x range floats).
 int postfix_eval_smem_bytes(int warps, int L, int nfeat, int range,
                             int staged, int mode) {
   const int entry = 32 * (mode == 2 ? 1 : kRows);
-  const long long b = 4LL * warps * ((L + 1) / 2 * entry + 2 * L + 1) +
+  const long long b = 4LL * warps * ((L + 1) / 2 * static_cast<long long>(entry) +
+                                     3LL * L + 2) +
                       (staged ? 4LL * nfeat * range : 0);
   return b > kMaxSmemBytes ? kMaxSmemBytes + 1 : static_cast<int>(b);
 }
@@ -282,27 +384,60 @@ int postfix_eval_occupancy(int mode, int all_ops, int staged, int warps,
   return occ;
 }
 
+// The narrow route's layout for T trees (srprog::narrow_plan): plan[0]
+// warps per block, [1] resident blocks per SM, [2] shared memory per block
+// in bytes, [3] blocks, [4] 1 when the stacks are in shared memory, [5]
+// bytes of global memory for the stacks (0 in shared memory).
+int postfix_eval_narrow_plan(int T, int L, int mode, int all_ops,
+                             long long* plan) {
+  if (T < 0 || L <= 0 || L >= (1 << 24) || mode < 0 || mode > 2) {
+    return cudaErrorInvalidValue;
+  }
+  NarrowPlan np;
+  const cudaError_t err = narrow_plan(
+      narrow_kernel_for(mode, all_ops != 0), T, narrow_fixed_bytes(L),
+      narrow_stack_bytes(L), kMaxWarps, kMaxSmemBytes, &np);
+  if (err != cudaSuccess) return err;
+  const long long p[6] = {np.warps, np.blocks_per_sm, np.smem, np.blocks,
+                          np.in_shared, np.scratch_bytes};
+  for (int i = 0; i < 6; ++i) plan[i] = p[i];
+  return cudaSuccess;
+}
+
 // opmap: the kernel operator id of each unary, then each binary operator
 // (host memory, n_unary + n_binary entries); all_ops: the batch uses an
 // operator outside the common set, so the instantiation with every
 // operator runs (operators.cuh). The layout (items row ranges of `range`
 // rows per tree, X staged or not, warps per block, smem bytes, blocks) is
 // the wrapper's plan (ops/kernel_eval.py eval_plan). part / part_bad:
-// (T, items) scratch, or out / bad when items is 1.
+// (T, items) scratch, or out / bad when items is 1. narrow: the narrow
+// route (postfix_eval_narrow_plan's layout; items 1, X not staged), its
+// stacks in `scratch` (global memory of the plan's size) or, when scratch
+// is null, in shared memory.
 cudaError_t postfix_eval_launch(const void* kind, const void* op,
                                 const void* feat, const void* cval,
                                 const void* length, const void* order,
                                 const void* X, const void* y, void* out,
                                 void* bad, void* part, void* part_bad,
-                                const int* opmap, int n_unary, int n_binary,
-                                int T, int L, int nfeat, int nrows, int mode,
-                                int all_ops, int items, int range, int staged,
-                                int warps, int smem, int blocks, void* stream) {
+                                void* scratch, const int* opmap, int n_unary,
+                                int n_binary, int T, int L, int nfeat,
+                                int nrows, int mode, int all_ops, int items,
+                                int range, int staged, int warps, int smem,
+                                int blocks, int narrow, void* stream) {
   if (T <= 0) return cudaSuccess;
   if (n_unary + n_binary > kMaxOps || mode < 0 || mode > 2 || items < 1 ||
-      range < 1 || warps < 1 || warps > kMaxWarps || L > 510 ||
-      smem != postfix_eval_smem_bytes(warps, L, nfeat, range, staged, mode) ||
-      smem > kMaxSmemBytes || blocks != (T + warps - 1) / warps * items) {
+      range < 1 || warps < 1 || warps > kMaxWarps || L <= 0 ||
+      L >= (1 << 24) || smem > kMaxSmemBytes || blocks < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (narrow ? (items != 1 || staged ||
+                smem != warps * (narrow_fixed_bytes(L) +
+                                 (scratch ? 0 : narrow_stack_bytes(L))) ||
+                static_cast<long long>(blocks) * warps <
+                    (scratch ? 1 : T))
+             : (smem != postfix_eval_smem_bytes(warps, L, nfeat, range, staged,
+                                                mode) ||
+                blocks != (T + warps - 1) / warps * items)) {
     return cudaErrorInvalidValue;
   }
   EvalArgs a;
@@ -318,6 +453,7 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
   a.bad = static_cast<int*>(bad);
   a.part = static_cast<float*>(part);
   a.part_bad = static_cast<int*>(part_bad);
+  a.scratch = static_cast<float*>(scratch);
   a.T = T;
   a.L = L;
   a.nfeat = nfeat;
@@ -327,7 +463,8 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
   a.cap = (L + 1) / 2;
   a.map = make_op_map(opmap, n_unary, n_binary);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const KernelFn fn = kernel_for(mode, all_ops != 0, staged != 0);
+  const KernelFn fn = narrow ? narrow_kernel_for(mode, all_ops != 0)
+                            : kernel_for(mode, all_ops != 0, staged != 0);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;

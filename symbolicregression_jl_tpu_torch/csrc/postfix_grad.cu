@@ -61,9 +61,13 @@
 //    that many leaves), the words and the constants: the resident warps,
 //    and so the rows in flight, bound the kernel. 2 rows per lane ran
 //    faster than 4 (fewer warps) and 1 (less work per dispatch) (PERF.md),
-//    and one warp fits up to max_len 708, so every max_len up to 510 runs
-//    (165 KB at L = 504); the plan takes the warps per block that keep the
-//    most warps resident.
+//    and one warp fits up to max_len ~700 (165 KB at L = 504); the plan
+//    takes the warps per block that keep the most warps resident. Above
+//    that, the narrow route (kNarrow): one row per lane, the slot values
+//    and accumulators in shared memory when one warp's fit, else in global
+//    memory, one region per resident warp (srprog::narrow_plan), the warps
+//    looping over the instances; the words and constants stay in shared
+//    memory. The same row order, so the same bits.
 // The loss-only kernel runs a tree's candidates together: the line search's
 // 8 candidates share the tree and differ only in their constants, so each
 // lane carries kCand candidates x kRows rows (4 x 2 by default, two warps
@@ -118,148 +122,193 @@ struct GradArgs {
   float* loss;
   float* grad;
   int* bad;
+  float* scratch;  // the narrow route's slot values in global memory, or null
   int T, reps, L, nfeat, nrows, cap;
   OpMap map;
 };
 
 // Floats of shared memory per warp: slot values of rows floats per lane,
-// the CONST accumulators [rank][lane], then the words (L + 1) and the
-// constants (L), rounded to 16 bytes.
-__host__ __device__ constexpr int grad_warp_floats(int L, int rows) {
-  return L * 32 * rows + 32 * ((L + 1) / 2) + ((2 * L + 1 + 3) & ~3);
+// the CONST accumulators [rank][lane], then the words (L + 1, two floats
+// each) and the constants (L), rounded to 16 bytes.
+__host__ __device__ constexpr long long grad_warp_floats(int L, int rows) {
+  return static_cast<long long>(L) * 32 * rows + 32LL * ((L + 1) / 2) +
+         ((3LL * L + 2 + 3) & ~3LL);
 }
 
-template <bool kAll, int kN>
+// The narrow route's parts per warp: the words and constants (shared
+// memory) and the slot values and accumulators of one row per lane
+// (shared or global memory), in bytes.
+long long grad_narrow_fixed_bytes(int L) { return 4LL * (3LL * L + 2); }
+long long grad_narrow_scratch_bytes(int L) {
+  return 4LL * 32 * (L + (L + 1) / 2);
+}
+
+// One warp per instance. kNarrow: the narrow route (kN is 1), the warps
+// looping over the instances.
+template <bool kAll, int kN, bool kNarrow>
 __global__ void __launch_bounds__(kGradMaxWarps * 32)
 postfix_grad_kernel(const __grid_constant__ GradArgs a) {
-  using St = srprog::Stack<kN>;
-  constexpr unsigned kEntryBytes = St::kEntry * 4;
+  using St = srprog::Stack<kN, kNarrow>;
+  using Addr = typename St::Addr;
+  using M = typename St::M;
+  constexpr unsigned kEntryBytes = St::kEntryBytes;
   extern __shared__ __align__(16) float grad_smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* vals = grad_smem + warp * grad_warp_floats(a.L, kN);
-  float* cacc = vals + a.L * St::kEntry;
-  int* s_word = reinterpret_cast<int*>(cacc + 32 * a.cap);
-  float* s_cval = reinterpret_cast<float*>(s_word + a.L + 1);
-
-  const long long g = static_cast<long long>(blockIdx.x) * warps + warp;
-  if (g >= static_cast<long long>(a.T) * a.reps) return;  // whole warp
-  const long long tree = a.order[g / a.reps];
-  const long long inst = tree * a.reps + g % a.reps;
-  const long long len = a.length[tree];
-  int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
-  // the first 32 constants load while the program is derived
-  const float c0 = lane < n ? a.cval[inst * a.L + lane] : 0.f;
-  const bool invalid =
-      srprog::derive_program(a.kind, a.op, a.feat, tree * a.L, n, a.cap,
-                             a.nfeat, a.map, s_word, lane) || n != len;
-  if (lane < n) s_cval[lane] = c0;
-  for (int s = lane + 32; s < n; s += 32) s_cval[s] = a.cval[inst * a.L + s];
-  __syncwarp();
-  if (invalid) {
-    n = 0;
-  } else {  // s_last in the accumulators' place, zeroed below
-    srprog::derive_adjoint_words(s_word, n, reinterpret_cast<int*>(cacc),
-                                 lane);
+  const long long gw = static_cast<long long>(blockIdx.x) * warps + warp;
+  float* vals;
+  int2* s_word;
+  float* s_cval;
+  if constexpr (kNarrow) {
+    s_word = reinterpret_cast<int2*>(grad_smem) + warp * (a.L + 1);
+    float* cvals = reinterpret_cast<float*>(reinterpret_cast<int2*>(grad_smem) +
+                                            warps * (a.L + 1));
+    s_cval = cvals + warp * a.L;
+    const long long per = 32LL * (a.L + a.cap);
+    vals = a.scratch ? a.scratch + gw * per : cvals + warps * a.L + warp * per;
+  } else {
+    vals = grad_smem + warp * grad_warp_floats(a.L, kN);
+    s_word = reinterpret_cast<int2*>(vals + a.L * St::kEntry + 32 * a.cap);
+    s_cval = reinterpret_cast<float*>(s_word + a.L + 1);
   }
-
-  float acc = 0.f;
-  float pz[kN] = {};
+  float* cacc = vals + a.L * St::kEntry;
+  const long long total = static_cast<long long>(a.T) * a.reps;
   const unsigned word_a = srprog::opaque(srprog::smem_u32(s_word));
-  const unsigned vals_a =
-      srprog::opaque(srprog::smem_u32(vals + lane * St::kLaneWidth));
-  const unsigned cacc_a = srprog::opaque(srprog::smem_u32(cacc + lane));
   const unsigned cval_a = srprog::opaque(srprog::smem_u32(s_cval));
-  for (int k = 0; k < a.cap; ++k) srprog::sts_f32(cacc_a + 128u * k, 0.f);
-  for (int base = 0; n > 0 && base < a.nrows; base += 32 * kN) {
-    // this pass's rows, the last row repeated past the end; X has fewer
-    // than 2^31 elements, so a VAR step's offsets are 32-bit
-    unsigned xrow[kN];
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      xrow[j] = min(base + j * 32 + lane, a.nrows - 1);
+  Addr vals_a, cacc_a;
+  if constexpr (kNarrow) {
+    vals_a = srprog::gen_u64(vals + lane * St::kLaneWidth);
+    cacc_a = srprog::gen_u64(cacc + lane);
+  } else {
+    vals_a = srprog::opaque(srprog::smem_u32(vals + lane * St::kLaneWidth));
+    cacc_a = srprog::opaque(srprog::smem_u32(cacc + lane));
+  }
+  const auto instance = [&](long long g) {
+    const long long tree = a.order[g / a.reps];
+    const long long inst = tree * a.reps + g % a.reps;
+    const long long len = a.length[tree];
+    int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
+    // the first 32 constants load while the program is derived
+    const float c0 = lane < n ? a.cval[inst * a.L + lane] : 0.f;
+    const bool invalid =
+        srprog::derive_program(a.kind, a.op, a.feat, tree * a.L, n, a.cap,
+                               a.nfeat, a.map, s_word, lane) || n != len;
+    if (lane < n) s_cval[lane] = c0;
+    for (int s = lane + 32; s < n; s += 32) s_cval[s] = a.cval[inst * a.L + s];
+    __syncwarp();
+    if (invalid) {
+      n = 0;
+    } else {  // s_last in the accumulators' place, zeroed below
+      srprog::derive_adjoint_words(s_word, n, reinterpret_cast<int*>(cacc),
+                                   lane);
     }
-    float v[kN] = {};
-    srprog::run_program<kAll, kN, true>(
-        word_a, n, vals_a, v, pz,
-        [&](int s, float (&x)[kN]) {
-          const float c = srprog::lds_f32(cval_a + 4u * s);
+
+    float acc = 0.f;
+    float pz[kN] = {};
+    for (int k = 0; k < a.cap; ++k) M::st1(cacc_a + 128u * k, 0.f);
+    for (int base = 0; n > 0 && base < a.nrows; base += 32 * kN) {
+      // this pass's rows, the last row repeated past the end; X has fewer
+      // than 2^31 elements, so a VAR step's offsets are 32-bit
+      unsigned xrow[kN];
 #pragma unroll
-          for (int i = 0; i < kN; ++i) x[i] = c;
-        },
-        [&](int f, float (&x)[kN]) {
-          const unsigned xf = static_cast<unsigned>(f) * a.nrows;
+      for (int j = 0; j < kN; ++j) {
+        xrow[j] = min(base + j * 32 + lane, a.nrows - 1);
+      }
+      float v[kN] = {};
+      srprog::run_program<kAll, kN, true, kNarrow>(
+          word_a, n, vals_a, v, pz,
+          [&](int s, float (&x)[kN]) {
+            const float c = srprog::lds_f32(cval_a + 4u * s);
 #pragma unroll
-          for (int j = 0; j < kN; ++j) x[j] = a.X[xf + xrow[j]];
-        },
-        [&](int s, const float (&x)[kN]) {
-          St::store(vals_a + s * kEntryBytes, x);
-        });
-    float w[kN];
-    unsigned real = 0;  // the rows of this pass that exist
+            for (int i = 0; i < kN; ++i) x[i] = c;
+          },
+          [&](int f, float (&x)[kN]) {
+            const unsigned xf = static_cast<unsigned>(f) * a.nrows;
 #pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      const int row = base + j * 32 + lane;
-      w[j] = 0.f;
-      if (row < a.nrows) {
-        real |= 1u << j;
-        const float wr = a.wn[row];
-        const float d = v[j] - a.y[row];
-        if (wr != 0.f) {
-          acc += (d * d) * wr;
-          w[j] = (2.f * d) * wr;
+            for (int j = 0; j < kN; ++j) x[j] = a.X[xf + xrow[j]];
+          },
+          [&](int s, const float (&x)[kN]) {
+            St::store(vals_a + s * kEntryBytes, x);
+          });
+      float w[kN];
+      unsigned real = 0;  // the rows of this pass that exist
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const int row = base + j * 32 + lane;
+        w[j] = 0.f;
+        if (row < a.nrows) {
+          real |= 1u << j;
+          const float wr = a.wn[row];
+          const float d = v[j] - a.y[row];
+          if (wr != 0.f) {
+            acc += (d * d) * wr;
+            w[j] = (2.f * d) * wr;
+          }
         }
       }
-    }
-    srprog::run_adjoint<kAll, kN>(
-        word_a, n, vals_a, w, [&](int rank, const float (&ws)[kN]) {
-          const unsigned c = cacc_a + 128u * rank;
-          float sum = srprog::lds_f32(c);
+      srprog::run_adjoint<kAll, kN, kNarrow>(
+          word_a, n, vals_a, w, [&](int rank, const float (&ws)[kN]) {
+            const Addr c = cacc_a + 128u * rank;
+            float sum = M::ld1(c);
 #pragma unroll
-          for (int j = 0; j < kN; ++j) {
-            if (real >> j & 1u) sum += ws[j];
-          }
-          srprog::sts_f32(c, sum);
-        });
-  }
+            for (int j = 0; j < kN; ++j) {
+              if (real >> j & 1u) sum += ws[j];
+            }
+            M::st1(c, sum);
+          });
+    }
 
-  bool nonfinite = false;
+    bool nonfinite = false;
 #pragma unroll
-  for (int i = 0; i < kN; ++i) nonfinite |= pz[i] != pz[i];
-  const bool any_bad = __any_sync(0xffffffffu, nonfinite) || invalid;
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    a.loss[inst] = acc;
-    a.bad[inst] = any_bad ? 1 : 0;
-  }
-  // the butterfly leaves every lane the same bits; lane s % 32 keeps slot s's
-  for (int s0 = 0; s0 < a.L; s0 += 32) {
-    const int s = s0 + lane;
-    const int word = s < n ? s_word[s] : 0;
-    unsigned consts = __ballot_sync(0xffffffffu,
-                                    srprog::word_code(word) == OP_CONST);
-    float gs = 0.f;
-    while (consts) {
-      const int b = __ffs(consts) - 1;
-      consts &= consts - 1;
-      const int rank = srprog::word_feat(__shfl_sync(0xffffffffu, word, b));
-      const float t = warp_sum(srprog::lds_f32(cacc_a + 128u * rank));
-      if (lane == b) gs = t;
+    for (int i = 0; i < kN; ++i) nonfinite |= pz[i] != pz[i];
+    const bool any_bad = __any_sync(0xffffffffu, nonfinite) || invalid;
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      a.loss[inst] = acc;
+      a.bad[inst] = any_bad ? 1 : 0;
     }
-    if (s < a.L) a.grad[inst * a.L + s] = gs;
+    // the butterfly leaves every lane the same bits; lane s % 32 keeps slot s's
+    for (int s0 = 0; s0 < a.L; s0 += 32) {
+      const int s = s0 + lane;
+      const int2 word = s < n ? s_word[s] : make_int2(0, 0);
+      unsigned consts = __ballot_sync(0xffffffffu,
+                                      srprog::word_code(word) == OP_CONST);
+      float gs = 0.f;
+      while (consts) {
+        const int b = __ffs(consts) - 1;
+        consts &= consts - 1;
+        const int rank = __shfl_sync(0xffffffffu, srprog::word_feat(word), b);
+        const float t = warp_sum(M::ld1(cacc_a + 128u * rank));
+        if (lane == b) gs = t;
+      }
+      if (s < a.L) a.grad[inst * a.L + s] = gs;
+    }
+  };
+  if constexpr (kNarrow) {
+    for (long long g = gw; g < total;
+         g += static_cast<long long>(gridDim.x) * warps) {
+      __syncwarp();  // the last instance's words and accumulators are read
+      instance(g);
+    }
+  } else if (gw < total) {  // else the whole warp leaves
+    instance(gw);
   }
 }
 
 using GradFn = void (*)(GradArgs);
 
-GradFn grad_kernel_for(bool all) {
-  return all ? &postfix_grad_kernel<true, kGradRows>
-             : &postfix_grad_kernel<false, kGradRows>;
+GradFn grad_kernel_for(bool all, bool narrow) {
+  if (narrow) {
+    return all ? &postfix_grad_kernel<true, 1, true>
+               : &postfix_grad_kernel<false, 1, true>;
+  }
+  return all ? &postfix_grad_kernel<true, kGradRows, false>
+             : &postfix_grad_kernel<false, kGradRows, false>;
 }
 
-int grad_smem_bytes(int warps, int L) {
-  return 4 * warps * grad_warp_floats(L, kGradRows);
+long long grad_smem_bytes(int warps, int L) {
+  return 4LL * warps * grad_warp_floats(L, kGradRows);
 }
 
 // ---------------------------------------------------------------------------
@@ -280,107 +329,140 @@ struct LossArgs {
   const float* wn;
   float* loss;
   int* bad;
+  float* scratch;  // the narrow route's stacks in global memory, or null
   int T, reps, groups, L, nfeat, nrows, cap;
   OpMap map;
 };
 
 // One warp per (tree, group of kCand candidates); each lane carries kCand
 // candidates x kRows rows (rows p * 32 kRows + j * 32 + lane of pass p).
-template <bool kAll, int kCand, int kRows>
+// kNarrow: the narrow route (one candidate x one row), the stack in
+// a.scratch or after the words and constants, the warps looping.
+template <bool kAll, int kCand, int kRows, bool kNarrow = false>
 __global__ void __launch_bounds__(kLossMaxWarps * 32)
 loss_kernel(const __grid_constant__ LossArgs a) {
   constexpr int kN = kCand * kRows;  // values per lane: [candidate][row]
-  using St = srprog::Stack<kN>;
+  using St = srprog::Stack<kN, kNarrow>;
   extern __shared__ __align__(16) float loss_smem[];
   float* smem = loss_smem;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* stack = smem + warp * a.cap * St::kEntry + lane * St::kLaneWidth;
-  int* s_word = reinterpret_cast<int*>(smem + warps * a.cap * St::kEntry) +
-                warp * (a.L + 1);
-  float* s_cval = reinterpret_cast<float*>(
-                      reinterpret_cast<int*>(smem + warps * a.cap * St::kEntry) +
-                      warps * (a.L + 1)) +
-                  warp * a.L * kCand;  // [slot][candidate]
-
-  const int g = blockIdx.x * warps + warp;
-  if (g >= a.T * a.groups) return;  // whole warp leaves; the block never syncs
-  const long long tree = a.order[g / a.groups];
-  const long long inst0 = tree * a.reps + (g % a.groups) * kCand;
-  const long long len = a.length[tree];
-  int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
-  const bool invalid =
-      srprog::derive_program(a.kind, a.op, a.feat, tree * a.L, n, a.cap,
-                             a.nfeat, a.map, s_word, lane) || n != len;
-  for (int i = lane; i < n * kCand; i += 32) {
-    const int s = i / kCand, c = i - s * kCand;
-    s_cval[i] = a.cval[(inst0 + c) * a.L + s];
+  const long long gw = static_cast<long long>(blockIdx.x) * warps + warp;
+  float* stack;
+  int2* s_word;
+  float* s_cval;
+  if constexpr (kNarrow) {
+    s_word = reinterpret_cast<int2*>(smem) + warp * (a.L + 1);
+    float* cvals =
+        reinterpret_cast<float*>(reinterpret_cast<int2*>(smem) + warps * (a.L + 1));
+    s_cval = cvals + warp * a.L * kCand;
+    const long long per = static_cast<long long>(a.cap) * St::kEntry;
+    stack = (a.scratch ? a.scratch + gw * per
+                       : cvals + warps * a.L * kCand + warp * per) +
+            lane * St::kLaneWidth;
+  } else {
+    stack = smem + warp * a.cap * St::kEntry + lane * St::kLaneWidth;
+    s_word = reinterpret_cast<int2*>(smem + warps * a.cap * St::kEntry) +
+             warp * (a.L + 1);
+    s_cval = reinterpret_cast<float*>(
+                 reinterpret_cast<int2*>(smem + warps * a.cap * St::kEntry) +
+                 warps * (a.L + 1)) +
+             warp * a.L * kCand;  // [slot][candidate]
   }
-  __syncwarp();
-  if (invalid) n = 0;
+  const long long total = static_cast<long long>(a.T) * a.groups;
+  const auto group = [&](long long g) {
+    const long long tree = a.order[g / a.groups];
+    const long long inst0 = tree * a.reps + (g % a.groups) * kCand;
+    const long long len = a.length[tree];
+    int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
+    const bool invalid =
+        srprog::derive_program(a.kind, a.op, a.feat, tree * a.L, n, a.cap,
+                               a.nfeat, a.map, s_word, lane) || n != len;
+    for (int i = lane; i < n * kCand; i += 32) {
+      const int s = i / kCand, c = i - s * kCand;
+      s_cval[i] = a.cval[(inst0 + c) * a.L + s];
+    }
+    __syncwarp();
+    if (invalid) n = 0;
 
-  float acc[kCand] = {};
-  float pz[kN] = {};
-  const unsigned word_a = srprog::opaque(srprog::smem_u32(s_word));
-  const unsigned stack_a = srprog::opaque(srprog::smem_u32(stack));
-  const unsigned cval_a = srprog::opaque(srprog::smem_u32(s_cval));
-  for (int base = 0; n > 0 && base < a.nrows; base += 32 * kRows) {
-    float v[kN] = {};
-    srprog::run_program<kAll, kN>(
-        word_a, n, stack_a, v, pz,
-        [&](int s, float (&x)[kN]) {
-          float cv[kCand];
+    float acc[kCand] = {};
+    float pz[kN] = {};
+    const unsigned word_a = srprog::opaque(srprog::smem_u32(s_word));
+    typename St::Addr stack_a;
+    if constexpr (kNarrow) {
+      stack_a = srprog::gen_u64(stack);
+    } else {
+      stack_a = srprog::opaque(srprog::smem_u32(stack));
+    }
+    const unsigned cval_a = srprog::opaque(srprog::smem_u32(s_cval));
+    for (int base = 0; n > 0 && base < a.nrows; base += 32 * kRows) {
+      float v[kN] = {};
+      srprog::run_program<kAll, kN, false, kNarrow>(
+          word_a, n, stack_a, v, pz,
+          [&](int s, float (&x)[kN]) {
+            float cv[kCand];
+#pragma unroll
+            for (int c = 0; c < kCand; ++c) {
+              cv[c] = srprog::lds_f32(cval_a + 4u * (s * kCand + c));
+            }
+#pragma unroll
+            for (int i = 0; i < kN; ++i) x[i] = cv[i / kRows];
+          },
+          [&](int f, float (&x)[kN]) {
+            const float* xf = a.X + f * a.nrows;
+            float xr[kRows];
+#pragma unroll
+            for (int j = 0; j < kRows; ++j) {
+              xr[j] = xf[min(base + j * 32 + lane, a.nrows - 1)];
+            }
+#pragma unroll
+            for (int i = 0; i < kN; ++i) x[i] = xr[i % kRows];
+          },
+          [](int, const float (&)[kN]) {});
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const int row = base + j * 32 + lane;
+        if (row < a.nrows) {
+          const float yr = a.y[row];
+          const float wr = a.wn[row];
 #pragma unroll
           for (int c = 0; c < kCand; ++c) {
-            cv[c] = srprog::lds_f32(cval_a + 4u * (s * kCand + c));
+            const float d = v[c * kRows + j] - yr;
+            if (wr != 0.f) acc[c] += (d * d) * wr;
           }
-#pragma unroll
-          for (int i = 0; i < kN; ++i) x[i] = cv[i / kRows];
-        },
-        [&](int f, float (&x)[kN]) {
-          const float* xf = a.X + f * a.nrows;
-          float xr[kRows];
-#pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-            xr[j] = xf[min(base + j * 32 + lane, a.nrows - 1)];
-          }
-#pragma unroll
-          for (int i = 0; i < kN; ++i) x[i] = xr[i % kRows];
-        },
-        [](int, const float (&)[kN]) {});
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int row = base + j * 32 + lane;
-      if (row < a.nrows) {
-        const float yr = a.y[row];
-        const float wr = a.wn[row];
-#pragma unroll
-        for (int c = 0; c < kCand; ++c) {
-          const float d = v[c * kRows + j] - yr;
-          if (wr != 0.f) acc[c] += (d * d) * wr;
         }
       }
     }
-  }
 #pragma unroll
-  for (int c = 0; c < kCand; ++c) {
-    bool nonfinite = false;
+    for (int c = 0; c < kCand; ++c) {
+      bool nonfinite = false;
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      nonfinite |= pz[c * kRows + j] != pz[c * kRows + j];
+      for (int j = 0; j < kRows; ++j) {
+        nonfinite |= pz[c * kRows + j] != pz[c * kRows + j];
+      }
+      const bool any_bad = __any_sync(0xffffffffu, nonfinite) || invalid;
+      const float sum = warp_sum(acc[c]);
+      if (lane == 0) {
+        a.loss[inst0 + c] = sum;
+        a.bad[inst0 + c] = any_bad ? 1 : 0;
+      }
     }
-    const bool any_bad = __any_sync(0xffffffffu, nonfinite) || invalid;
-    const float sum = warp_sum(acc[c]);
-    if (lane == 0) {
-      a.loss[inst0 + c] = sum;
-      a.bad[inst0 + c] = any_bad ? 1 : 0;
+  };
+  if constexpr (kNarrow) {
+    for (long long g = gw; g < total;
+         g += static_cast<long long>(gridDim.x) * warps) {
+      __syncwarp();  // the last tree's words are read
+      group(g);
     }
+  } else if (gw < total) {  // else the whole warp leaves; the block never syncs
+    group(gw);
   }
 }
 
 // The two layouts: kCandidates candidates x kCandRows rows per lane (the
-// line search), or one candidate x kSingleRows rows (any other reps).
+// line search), or one candidate x kSingleRows rows (any other reps); and
+// the narrow route (one x one).
 constexpr int kCandidates = 4;
 constexpr int kCandRows = 2;
 constexpr int kSingleRows = 4;
@@ -391,7 +473,10 @@ int loss_values_per_lane(int cand) {
 
 using LossFn = void (*)(LossArgs);
 
-LossFn loss_kernel_for(bool all, int cand) {
+LossFn loss_kernel_for(bool all, int cand, bool narrow = false) {
+  if (narrow) {
+    return all ? &loss_kernel<true, 1, 1, true> : &loss_kernel<false, 1, 1, true>;
+  }
   if (cand == 1) {
     return all ? &loss_kernel<true, 1, kSingleRows>
                : &loss_kernel<false, 1, kSingleRows>;
@@ -400,9 +485,10 @@ LossFn loss_kernel_for(bool all, int cand) {
              : &loss_kernel<false, kCandidates, kCandRows>;
 }
 
-int loss_smem_bytes(int warps, int L, int cand) {
-  const int cap = (L + 1) / 2;
-  return 4 * warps * (cap * 32 * loss_values_per_lane(cand) + L + 1 + L * cand);
+long long loss_smem_bytes(int warps, int L, int cand) {
+  const long long cap = (L + 1) / 2;
+  return 4LL * warps *
+         (cap * 32 * loss_values_per_lane(cand) + 2LL * (L + 1) + 1LL * L * cand);
 }
 
 // digamma_f elementwise: lets a test hold the hand-written digamma against
@@ -419,24 +505,38 @@ extern "C" {
 
 // The launch layout of the gradient kernel for T trees x reps instances:
 // plan[0] rows per lane, [1] warps per block, [2] resident blocks per SM,
-// [3] shared memory per block in bytes, [4] blocks. The warps per block
-// are those that keep the most warps resident.
-int postfix_grad_plan(int T, int reps, int L, int all_ops, int* plan) {
-  if (T < 0 || reps <= 0 || L <= 0 || L > 510 ||
-      grad_smem_bytes(1, L) > kMaxSmemBytes) {
+// [3] shared memory per block in bytes, [4] blocks, [5] 1 for the narrow
+// route, [6] bytes of global memory for its slot values (0 when they are in
+// shared memory). The warps per block are those that keep the most warps
+// resident; the narrow route where one warp of kGradRows rows per lane does
+// not fit.
+int postfix_grad_plan(int T, int reps, int L, int all_ops, long long* plan) {
+  if (T < 0 || reps <= 0 || L <= 0 || L >= (1 << 24)) {
     return cudaErrorInvalidValue;
   }
-  const GradFn fn = grad_kernel_for(all_ops != 0);
+  if (grad_smem_bytes(1, L) > kMaxSmemBytes) {
+    srprog::NarrowPlan np;
+    const cudaError_t err = srprog::narrow_plan(
+        grad_kernel_for(all_ops != 0, true), static_cast<long long>(T) * reps,
+        grad_narrow_fixed_bytes(L), grad_narrow_scratch_bytes(L),
+        kGradMaxWarps, kMaxSmemBytes, &np);
+    if (err != cudaSuccess) return err;
+    const long long p[7] = {1, np.warps, np.blocks_per_sm, np.smem, np.blocks,
+                            1, np.scratch_bytes};
+    for (int i = 0; i < 7; ++i) plan[i] = p[i];
+    return cudaSuccess;
+  }
+  const GradFn fn = grad_kernel_for(all_ops != 0, false);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
   int best_warps = 0, best_occ = 0;
   for (int warps = kGradMaxWarps; warps >= 1; warps >>= 1) {
-    const int smem = grad_smem_bytes(warps, L);
+    const long long smem = grad_smem_bytes(warps, L);
     if (smem > kMaxSmemBytes) continue;
     int occ = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, warps * 32,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, fn, warps * 32, static_cast<size_t>(smem));
     if (err != cudaSuccess) return err;
     if (occ * warps > best_occ * best_warps) {
       best_warps = warps;
@@ -445,32 +545,41 @@ int postfix_grad_plan(int T, int reps, int L, int all_ops, int* plan) {
   }
   if (best_warps == 0) return cudaErrorInvalidValue;
   const long long items = static_cast<long long>(T) * reps;
-  const int p[5] = {kGradRows, best_warps, best_occ,
-                    grad_smem_bytes(best_warps, L),
-                    static_cast<int>((items + best_warps - 1) / best_warps)};
-  for (int i = 0; i < 5; ++i) plan[i] = p[i];
+  const long long p[7] = {kGradRows, best_warps, best_occ,
+                          grad_smem_bytes(best_warps, L),
+                          (items + best_warps - 1) / best_warps, 0, 0};
+  for (int i = 0; i < 7; ++i) plan[i] = p[i];
   return cudaSuccess;
 }
 
 // The gradient kernel (B3): reps instances per tree (cval rows t * reps
 // ...) of the TreeBatch fields kind / op / feat / length, trees in the
 // order `order`; opmap as postfix_eval_launch's; plan from postfix_grad_plan
-// for the same arguments. all_ops: the batch uses an operator outside the
-// common set, so the instantiation with every operator runs (operators.cuh).
+// for the same arguments, and for the narrow route with its slot values in
+// global memory, `scratch` of plan[6] bytes. all_ops: the batch uses an
+// operator outside the common set, so the instantiation with every operator
+// runs (operators.cuh).
 cudaError_t postfix_grad_launch(const void* kind, const void* op,
                                 const void* feat, const void* length,
                                 const void* order, const void* cval,
                                 const void* X, const void* y, const void* wn,
                                 void* loss, void* grad, void* bad,
-                                const int* opmap, int n_unary, int n_binary,
-                                int T, int reps, int L, int nfeat, int nrows,
-                                int all_ops, const int* plan, void* stream) {
+                                void* scratch, const int* opmap, int n_unary,
+                                int n_binary, int T, int reps, int L,
+                                int nfeat, int nrows, int all_ops,
+                                const long long* plan, void* stream) {
   if (T <= 0) return cudaSuccess;
-  if (n_unary + n_binary > srprog::kMaxOps || reps <= 0 ||
-      plan[0] != kGradRows || plan[3] != grad_smem_bytes(plan[1], L) ||
-      plan[3] > kMaxSmemBytes ||
-      static_cast<long long>(plan[4]) * plan[1] <
-          static_cast<long long>(T) * reps) {
+  const bool narrow = plan[5] != 0;
+  const long long smem =
+      narrow ? plan[1] * (grad_narrow_fixed_bytes(L) +
+                          (plan[6] ? 0 : grad_narrow_scratch_bytes(L)))
+             : grad_smem_bytes(static_cast<int>(plan[1]), L);
+  if (n_unary + n_binary > srprog::kMaxOps || reps <= 0 || L <= 0 ||
+      L >= (1 << 24) || plan[0] != (narrow ? 1 : kGradRows) ||
+      plan[1] < 1 || plan[1] > kGradMaxWarps || plan[3] != smem ||
+      plan[3] > kMaxSmemBytes || (plan[6] != 0) != (scratch != nullptr) ||
+      plan[4] < 1 ||
+      (!plan[6] && plan[4] * plan[1] < static_cast<long long>(T) * reps)) {
     return cudaErrorInvalidValue;
   }
   GradArgs a;
@@ -486,6 +595,7 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
   a.loss = static_cast<float*>(loss);
   a.grad = static_cast<float*>(grad);
   a.bad = static_cast<int*>(bad);
+  a.scratch = static_cast<float*>(scratch);
   a.T = T;
   a.reps = reps;
   a.L = L;
@@ -493,11 +603,12 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
   a.nrows = nrows;
   a.cap = (L + 1) / 2;
   a.map = srprog::make_op_map(opmap, n_unary, n_binary);
-  const GradFn fn = grad_kernel_for(all_ops != 0);
+  const GradFn fn = grad_kernel_for(all_ops != 0, narrow);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
-  fn<<<plan[4], plan[1] * 32, plan[3], static_cast<cudaStream_t>(stream)>>>(a);
+  fn<<<static_cast<unsigned>(plan[4]), static_cast<unsigned>(plan[1]) * 32,
+       static_cast<size_t>(plan[3]), static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 
@@ -509,23 +620,37 @@ int postfix_loss_candidates() { return kCandidates; }
 // reps, or 1; 1 where one warp's stack would not fit): plan[0] warps
 // (candidate groups) per tree, [1] candidates
 // per lane, [2] rows per lane, [3] warps per block, [4] resident blocks per
-// SM, [5] shared memory per block in bytes, [6] blocks.
+// SM, [5] shared memory per block in bytes, [6] blocks, [7] 1 for the
+// narrow route (one candidate x one row, where one candidate x kSingleRows
+// does not fit either), [8] bytes of global memory for its stacks (0 when
+// they are in shared memory).
 int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
-                      int* plan) {
-  if (T < 0 || reps <= 0 || L <= 0 || L > 510 ||
+                      long long* plan) {
+  if (T < 0 || reps <= 0 || L <= 0 || L >= (1 << 24) ||
       !(cand == 1 || (cand == kCandidates && reps % cand == 0))) {
     return cudaErrorInvalidValue;
   }
   // the line-search layout's stack holds kCandidates x kCandRows values
-  // per lane: above max_len 436 one warp's does not fit, one candidate per
-  // lane does (the same sums in the same order)
+  // per lane: above max_len ~440 one warp's does not fit, one candidate
+  // per lane does (the same sums in the same order)
   if (loss_smem_bytes(1, L, cand) > kMaxSmemBytes) cand = 1;
+  if (loss_smem_bytes(1, L, 1) > kMaxSmemBytes) {
+    srprog::NarrowPlan np;
+    const cudaError_t err = srprog::narrow_plan(
+        loss_kernel_for(all_ops != 0, 1, true), static_cast<long long>(T) * reps,
+        grad_narrow_fixed_bytes(L), 4LL * 32 * ((L + 1) / 2), kLossMaxWarps,
+        kMaxSmemBytes, &np);
+    if (err != cudaSuccess) return err;
+    const long long p[9] = {reps, 1, 1, np.warps, np.blocks_per_sm, np.smem,
+                            np.blocks, 1, np.scratch_bytes};
+    for (int i = 0; i < 9; ++i) plan[i] = p[i];
+    return cudaSuccess;
+  }
   int warps = kLossMaxWarps;
   while (warps > 1 && loss_smem_bytes(warps, L, cand) > kMaxSmemBytes) {
     warps >>= 1;
   }
-  const int smem = loss_smem_bytes(warps, L, cand);
-  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(loss_smem_bytes(warps, L, cand));
   const LossFn fn = loss_kernel_for(all_ops != 0, cand);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
@@ -535,31 +660,39 @@ int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
                                                       smem);
   if (err != cudaSuccess) return err;
   const long long items = static_cast<long long>(T) * (reps / cand);
-  const int p[7] = {reps / cand, cand, cand == 1 ? kSingleRows : kCandRows,
-                    warps, occ, smem,
-                    static_cast<int>((items + warps - 1) / warps)};
-  for (int i = 0; i < 7; ++i) plan[i] = p[i];
+  const long long p[9] = {reps / cand, cand,
+                          cand == 1 ? kSingleRows : kCandRows, warps, occ,
+                          smem, (items + warps - 1) / warps, 0, 0};
+  for (int i = 0; i < 9; ++i) plan[i] = p[i];
   return cudaSuccess;
 }
 
 // The loss-only kernel (B4): reps candidate constant vectors (cval rows
 // t * reps ...) per tree of the TreeBatch fields kind / op / feat / length,
 // trees in the order `order`, cand per lane; opmap as postfix_eval_launch's;
-// plan from postfix_loss_plan for the same arguments.
+// plan from postfix_loss_plan for the same arguments, and for the narrow
+// route with its stacks in global memory, `scratch` of plan[8] bytes.
 cudaError_t postfix_loss_launch(const void* kind, const void* op,
                                 const void* feat, const void* length,
                                 const void* order, const void* cval,
                                 const void* X, const void* y, const void* wn,
-                                void* loss, void* bad, const int* opmap,
-                                int n_unary, int n_binary, int T, int reps,
-                                int cand, int L, int nfeat, int nrows,
-                                int all_ops, const int* plan, void* stream) {
+                                void* loss, void* bad, void* scratch,
+                                const int* opmap, int n_unary, int n_binary,
+                                int T, int reps, int cand, int L, int nfeat,
+                                int nrows, int all_ops, const long long* plan,
+                                void* stream) {
   if (T <= 0) return cudaSuccess;
+  const bool narrow = plan[7] != 0;
+  const long long smem =
+      narrow ? plan[3] * (grad_narrow_fixed_bytes(L) +
+                          (plan[8] ? 0 : 4LL * 32 * ((L + 1) / 2)))
+             : loss_smem_bytes(static_cast<int>(plan[3]), L, cand);
   if (n_unary + n_binary > srprog::kMaxOps || plan[1] != cand ||
-      plan[0] * cand != reps ||
-      plan[5] != loss_smem_bytes(plan[3], L, cand) ||
-      static_cast<long long>(plan[6]) * plan[3] <
-          static_cast<long long>(T) * plan[0]) {
+      plan[0] * cand != reps || L <= 0 || L >= (1 << 24) || plan[3] < 1 ||
+      plan[3] > kLossMaxWarps || plan[5] != smem || smem > kMaxSmemBytes ||
+      (narrow && cand != 1) || (plan[8] != 0) != (scratch != nullptr) ||
+      plan[6] < 1 ||
+      (!plan[8] && plan[6] * plan[3] < static_cast<long long>(T) * plan[0])) {
     return cudaErrorInvalidValue;
   }
   LossArgs a;
@@ -574,19 +707,21 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
   a.wn = static_cast<const float*>(wn);
   a.loss = static_cast<float*>(loss);
   a.bad = static_cast<int*>(bad);
+  a.scratch = static_cast<float*>(scratch);
   a.T = T;
   a.reps = reps;
-  a.groups = plan[0];
+  a.groups = static_cast<int>(plan[0]);
   a.L = L;
   a.nfeat = nfeat;
   a.nrows = nrows;
   a.cap = (L + 1) / 2;
   a.map = srprog::make_op_map(opmap, n_unary, n_binary);
-  const LossFn fn = loss_kernel_for(all_ops != 0, plan[1]);
+  const LossFn fn = loss_kernel_for(all_ops != 0, cand, narrow);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
-  fn<<<plan[6], plan[3] * 32, plan[5], static_cast<cudaStream_t>(stream)>>>(a);
+  fn<<<static_cast<unsigned>(plan[6]), static_cast<unsigned>(plan[3]) * 32,
+       static_cast<size_t>(plan[5]), static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 

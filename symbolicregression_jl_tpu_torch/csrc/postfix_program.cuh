@@ -2,7 +2,7 @@
 // (postfix_eval.cu) and the constant-optimisation kernels (postfix_grad.cu).
 //
 // derive_program turns one tree of the TreeBatch fields (kind, op, feat:
-// int64 (T, L)) into one 32-bit word per slot in shared memory, in the
+// int64 (T, L)) into one 64-bit word per slot in shared memory, in the
 // kernel's prologue: the warp's lanes take one slot each and a shuffle scan
 // of the arity deltas gives every slot's stack depth, so the host prepares
 // no table. run_program then executes the words over kN values per lane
@@ -71,12 +71,16 @@ inline OpMap make_op_map(const int* ids, int n_unary, int n_binary) {
   return m;
 }
 
-// word = dense opcode | stack entry << 8 | feature << 16
-__device__ __forceinline__ int word_code(int w) { return w & 0xff; }
-__device__ __forceinline__ int word_entry(int w) { return (w >> 8) & 0xff; }
-__device__ __forceinline__ int word_feat(int w) {
-  return static_cast<unsigned>(w) >> 16;
+// A slot's word: x = dense opcode | stack entry << 8, y = feature (the
+// gradient kernel's words put a binary slot's left operand or a CONST
+// slot's rank there). A 24-bit entry and a 32-bit feature field: every
+// max_len below 2^25 and every feature count fit (the launchers take
+// max_len below 2^24).
+__device__ __forceinline__ int word_code(int2 w) { return w.x & 0xff; }
+__device__ __forceinline__ int word_entry(int2 w) {
+  return static_cast<unsigned>(w.x) >> 8;
 }
+__device__ __forceinline__ int word_feat(int2 w) { return w.y; }
 
 // Shared memory through 32-bit shared-window addresses: a kernel computes
 // each base address once and hides how (opaque), so the compiler keeps it
@@ -92,18 +96,16 @@ __device__ __forceinline__ unsigned opaque(unsigned x) {
   asm volatile("" : "+r"(x));
   return x;
 }
-__device__ __forceinline__ int lds_i32(unsigned a) {
-  int v;
-  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(a));
-  return v;
+__device__ __forceinline__ int2 lds_word(unsigned a) {
+  int2 w;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];" : "=r"(w.x), "=r"(w.y)
+               : "r"(a));
+  return w;
 }
 __device__ __forceinline__ float lds_f32(unsigned a) {
   float v;
   asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
   return v;
-}
-__device__ __forceinline__ void sts_f32(unsigned a, float v) {
-  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v));
 }
 
 // Writes the words of the program of n slots at kind/op/feat + base into
@@ -114,7 +116,7 @@ __device__ __forceinline__ void sts_f32(unsigned a, float v) {
 __device__ __forceinline__ bool derive_program(
     const long long* __restrict__ kind, const long long* __restrict__ op,
     const long long* __restrict__ feat, long long base, int n, int cap,
-    int nfeat, const OpMap& map, int* s_word, int lane) {
+    int nfeat, const OpMap& map, int2* s_word, int lane) {
   bool invalid = false;
   int depth = 0;  // stack depth before the chunk
   for (int s0 = 0; s0 < n; s0 += 32) {
@@ -148,10 +150,10 @@ __device__ __forceinline__ bool derive_program(
         invalid |= k < 0 || before >= cap ||
                    (k != KIND_CONST && (fl < 0 || fl >= nfeat));
       }
-      s_word[s] = code | (entry << 8) | (f << 16);
+      s_word[s] = make_int2(code | (entry << 8), f);
     }
   }
-  if (lane == 0) s_word[n] = 0;
+  if (lane == 0) s_word[n] = make_int2(0, 0);
   invalid |= n > 0 && depth != 1;
   return __any_sync(0xffffffffu, invalid);
 }
@@ -168,20 +170,21 @@ __device__ __forceinline__ bool derive_program(
 // The warp takes 32 slots at a time: __match_any_sync groups the lanes by
 // entry, and s_last (one int per stack entry) carries each entry's last
 // push into the next 32 slots.
-__device__ __forceinline__ void derive_adjoint_words(int* s_word, int n,
+__device__ __forceinline__ void derive_adjoint_words(int2* s_word, int n,
                                                      int* s_last, int lane) {
   int consts_before = 0;
   for (int s0 = 0; s0 < n; s0 += 32) {
     const int s = s0 + lane;
-    const int w = s < n ? s_word[s] : 0;
+    const int2 w = s < n ? s_word[s] : make_int2(0, 0);
     const int code = word_code(w);
     const bool leaf = s < n && code <= OP_VAR;
     const bool bin = s < n && code >= dense_code(OP_ADD);
     const bool cst = s < n && code == OP_CONST;
     const int e = word_entry(w);
     const unsigned below = (1u << lane) - 1u;
+    // lanes that are neither leaf nor binary each take a key of their own
     const unsigned same =
-        __match_any_sync(0xffffffffu, leaf || bin ? e : 256 + lane);
+        __match_any_sync(0xffffffffu, leaf || bin ? e : -1 - lane);
     const unsigned leaves = __ballot_sync(0xffffffffu, leaf) & same;
     const unsigned consts = __ballot_sync(0xffffffffu, cst);
     // the leaf at bit b of `pushed` is slot s0 + b; its old top, s0 + b - 1
@@ -190,52 +193,92 @@ __device__ __forceinline__ void derive_adjoint_words(int* s_word, int n,
         !bin ? 0 : (pushed ? s0 + 30 - __clz(pushed) : s_last[e]);
     __syncwarp();
     if (leaf && ((leaves >> lane) >> 1) == 0) s_last[e] = s - 1;
-    if (bin) s_word[s] = (w & 0xffff) | (left << 16);
+    if (bin) s_word[s].y = left;
     const int rank = consts_before + __popc(consts & below);
-    if (cst) s_word[s] = (w & 0xffff) | (rank << 16);
+    if (cst) s_word[s].y = rank;
     consts_before += __popc(consts);
     __syncwarp();
   }
 }
 
+// Loads and stores of 1, 2 or 4 floats through a shared-window address
+// (Mem<false>: 32-bit, ld/st.shared) or a generic address (Mem<true>:
+// 64-bit, ld/st; a stack or slot values in global memory, or in shared
+// memory reached generically). Volatile, so they stay in program order.
+template <bool kGeneric>
+struct Mem;
+
+#define SR_MEM(GENERIC, ADDR, SPACE, C)                                      \
+  template <>                                                                \
+  struct Mem<GENERIC> {                                                      \
+    using Addr = ADDR;                                                       \
+    __device__ __forceinline__ static float ld1(Addr a) {                    \
+      float v;                                                               \
+      asm volatile("ld" SPACE ".f32 %0, [%1];" : "=f"(v) : C(a));            \
+      return v;                                                              \
+    }                                                                        \
+    __device__ __forceinline__ static void st1(Addr a, float v) {            \
+      asm volatile("st" SPACE ".f32 [%0], %1;" ::C(a), "f"(v));              \
+    }                                                                        \
+    __device__ __forceinline__ static void ld2(Addr a, float* v) {           \
+      asm volatile("ld" SPACE ".v2.f32 {%0, %1}, [%2];"                      \
+                   : "=f"(v[0]), "=f"(v[1]) : C(a));                         \
+    }                                                                        \
+    __device__ __forceinline__ static void st2(Addr a, const float* v) {     \
+      asm volatile("st" SPACE ".v2.f32 [%0], {%1, %2};" ::C(a), "f"(v[0]),   \
+                   "f"(v[1]));                                               \
+    }                                                                        \
+    __device__ __forceinline__ static void ld4(Addr a, float* v) {           \
+      asm volatile("ld" SPACE ".v4.f32 {%0, %1, %2, %3}, [%4];"              \
+                   : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])          \
+                   : C(a));                                                  \
+    }                                                                        \
+    __device__ __forceinline__ static void st4(Addr a, const float* v) {     \
+      asm volatile("st" SPACE ".v4.f32 [%0], {%1, %2, %3, %4};" ::C(a),      \
+                   "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]));              \
+    }                                                                        \
+  };
+SR_MEM(false, unsigned, ".shared", "r")
+SR_MEM(true, unsigned long long, "", "l")
+#undef SR_MEM
+
+// The generic address of p.
+__device__ __forceinline__ unsigned long long gen_u64(const void* p) {
+  return reinterpret_cast<unsigned long long>(p);
+}
+
 // A stack entry holds kN floats per lane: [32 lanes][kN] for kN <= 4, and
 // [kN / 4 planes][32 lanes][4] above, so every access is one conflict-free
-// 8- or 16-byte access per lane (per plane).
-template <int kN>
+// 8- or 16-byte access per lane (per plane). kGeneric: the entries are
+// reached by generic addresses (the kernels' routes whose stack or slot
+// values live in global memory).
+template <int kN, bool kGeneric = false>
 struct Stack {
+  using M = Mem<kGeneric>;
+  using Addr = typename M::Addr;
   static constexpr int kLaneWidth = kN < 4 ? kN : 4;
   static constexpr int kEntry = 32 * kN;  // floats per entry
+  static constexpr unsigned kEntryBytes = 4u * kEntry;
 
-  __device__ static void store(unsigned e, const float (&v)[kN]) {
+  __device__ __forceinline__ static void store(Addr e, const float (&v)[kN]) {
     if constexpr (kN == 1) {
-      asm volatile("st.shared.f32 [%0], %1;" ::"r"(e), "f"(v[0]));
+      M::st1(e, v[0]);
     } else if constexpr (kN == 2) {
-      asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(e), "f"(v[0]),
-                   "f"(v[1]));
+      M::st2(e, v);
     } else {
 #pragma unroll
-      for (int j = 0; j < kN / 4; ++j) {
-        asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
-                         e + j * 512), "f"(v[4 * j]), "f"(v[4 * j + 1]),
-                     "f"(v[4 * j + 2]), "f"(v[4 * j + 3]));
-      }
+      for (int j = 0; j < kN / 4; ++j) M::st4(e + j * 512, v + 4 * j);
     }
   }
 
-  __device__ static void load(unsigned e, float (&v)[kN]) {
+  __device__ __forceinline__ static void load(Addr e, float (&v)[kN]) {
     if constexpr (kN == 1) {
-      v[0] = lds_f32(e);
+      v[0] = M::ld1(e);
     } else if constexpr (kN == 2) {
-      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
-                   : "=f"(v[0]), "=f"(v[1]) : "r"(e));
+      M::ld2(e, v);
     } else {
 #pragma unroll
-      for (int j = 0; j < kN / 4; ++j) {
-        asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
-                     : "=f"(v[4 * j]), "=f"(v[4 * j + 1]), "=f"(v[4 * j + 2]),
-                       "=f"(v[4 * j + 3])
-                     : "r"(e + j * 512));
-      }
+      for (int j = 0; j < kN / 4; ++j) M::ld4(e + j * 512, v + 4 * j);
     }
   }
 };
@@ -267,19 +310,20 @@ __device__ __forceinline__ void poison(const float (&v)[kN], float (&pz)[kN]) {
 // kernel, whose on_step stores every slot's values at stack + slot, and
 // whose words name each binary slot's left operand, derive_adjoint_words):
 // a binary slot reads its left operand there, and a leaf pushes nothing.
-template <bool kAll, int kN, bool kFromSlots = false, class ConstLeaf,
-          class VarLeaf, class OnStep>
-__device__ __forceinline__ void run_program(unsigned s_word, int n,
-                                            unsigned stack, float (&v)[kN],
-                                            float (&pz)[kN],
-                                            ConstLeaf const_leaf,
-                                            VarLeaf var_leaf, OnStep on_step) {
-  using St = Stack<kN>;
-  int w = lds_i32(s_word);
+template <bool kAll, int kN, bool kFromSlots = false, bool kGeneric = false,
+          class ConstLeaf, class VarLeaf, class OnStep>
+__device__ __forceinline__ void run_program(
+    unsigned s_word, int n, typename Stack<kN, kGeneric>::Addr stack,
+    float (&v)[kN], float (&pz)[kN], ConstLeaf const_leaf, VarLeaf var_leaf,
+    OnStep on_step) {
+  using St = Stack<kN, kGeneric>;
+  using Addr = typename St::Addr;
+  int2 w = lds_word(s_word);
   for (int s = 0; s < n; ++s) {
-    const int next = lds_i32(s_word + 4 * (s + 1));
-    const unsigned e =
-        stack + (kFromSlots ? word_feat(w) : word_entry(w)) * (St::kEntry * 4);
+    const int2 next = lds_word(s_word + 8 * (s + 1));
+    const Addr e = stack + static_cast<Addr>(kFromSlots ? word_feat(w)
+                                                        : word_entry(w)) *
+                               St::kEntryBytes;
     float l[kN];
 #define SR_UNARY_CASE(OPC)                                                   \
   case dense_code(OPC):                                                      \
@@ -357,21 +401,23 @@ __device__ __forceinline__ void run_program(unsigned s_word, int n,
 // The operand values are loaded a step ahead: slot s - 1's values are the
 // right operand at slot s and the own values at slot s - 1. Slot 0, a leaf,
 // is the last step, out of the loop: nothing waits for it.
-template <bool kAll, int kN, class ConstLeaf>
-__device__ __forceinline__ void run_adjoint(unsigned s_word, int n,
-                                            unsigned vals, float (&w)[kN],
-                                            ConstLeaf const_leaf) {
-  using St = Stack<kN>;
-  constexpr unsigned kEntryBytes = St::kEntry * 4;
+template <bool kAll, int kN, bool kGeneric = false, class ConstLeaf>
+__device__ __forceinline__ void run_adjoint(
+    unsigned s_word, int n, typename Stack<kN, kGeneric>::Addr vals,
+    float (&w)[kN], ConstLeaf const_leaf) {
+  using St = Stack<kN, kGeneric>;
+  using Addr = typename St::Addr;
+  constexpr unsigned kEntryBytes = St::kEntryBytes;
   float v[kN];
-  St::load(vals + (n - 1) * kEntryBytes, v);
-  int word = lds_i32(s_word + 4 * (n - 1));
+  St::load(vals + static_cast<Addr>(n - 1) * kEntryBytes, v);
+  int2 word = lds_word(s_word + 8 * (n - 1));
   for (int s = n - 1; s > 0; --s) {
-    const int next = lds_i32(s_word + 4 * (s - 1));
+    const int2 next = lds_word(s_word + 8 * (s - 1));
     float a[kN];
-    St::load(vals + (s - 1) * kEntryBytes, a);
+    St::load(vals + static_cast<Addr>(s - 1) * kEntryBytes, a);
     // where the adjoint of the operand at the word's stack entry waits
-    const unsigned e = vals + (n - word_entry(word)) * kEntryBytes;
+    const Addr e =
+        vals + static_cast<Addr>(n - word_entry(word)) * kEntryBytes;
 #define SR_UNARY_ADJ(OPC)                                                    \
   case dense_code(OPC):                                                      \
     _Pragma("unroll") for (int i = 0; i < kN; ++i) w[i] =                    \
@@ -380,7 +426,7 @@ __device__ __forceinline__ void run_adjoint(unsigned s_word, int n,
 #define SR_BINARY_ADJ(OPC)                                                   \
   case dense_code(OPC): {                                                    \
     float l[kN], dl[kN];                                                     \
-    St::load(vals + word_feat(word) * kEntryBytes, l);                       \
+    St::load(vals + static_cast<Addr>(word_feat(word)) * kEntryBytes, l);  \
     _Pragma("unroll") for (int i = 0; i < kN; ++i)                           \
         binary_vjp<kAll>(OPC, l[i], a[i], v[i], w[i], &dl[i], &w[i]);       \
     St::store(e, dl);                                                        \
@@ -421,6 +467,56 @@ __device__ __forceinline__ void run_adjoint(unsigned s_word, int n,
   }
   // slot 0 of a valid program is its first leaf, whose path ends there
   if (word_code(word) == OP_CONST) const_leaf(word_feat(word), w);
+}
+
+// The launch layout of a kernel's narrow route: one value per lane, so the
+// least shared memory per warp. Each warp's fixed part (its words and
+// constants, fixed_bytes) stays in shared memory; its stack or slot values
+// (scratch_bytes) too when one warp's both fit in a block's max_smem, else
+// they go to global memory, one region per resident warp: the warps loop
+// over the work, and the grid holds at most the warps whose scratch fits in
+// kScratchBudget bytes (the L2 cache), but at least one warp per SM.
+constexpr long long kScratchBudget = 32ll << 20;
+
+struct NarrowPlan {
+  long long warps, blocks_per_sm, smem, blocks, in_shared, scratch_bytes;
+};
+
+template <class Fn>
+inline cudaError_t narrow_plan(Fn fn, long long work, long long fixed_bytes,
+                               long long scratch_bytes, int max_warps,
+                               long long max_smem, NarrowPlan* out) {
+  const bool in_shared = fixed_bytes + scratch_bytes <= max_smem;
+  const long long per_warp = fixed_bytes + (in_shared ? scratch_bytes : 0);
+  if (per_warp > max_smem) return cudaErrorInvalidValue;
+  int warps = max_warps;
+  while (warps > 1 && per_warp * warps > max_smem) warps >>= 1;
+  const int smem = static_cast<int>(per_warp * warps);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(max_smem));
+  if (err != cudaSuccess) return err;
+  int occ = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, warps * 32, smem);
+  if (err != cudaSuccess) return err;
+  if (occ < 1) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  long long blocks = (work + warps - 1) / warps;
+  if (!in_shared) {
+    long long most = kScratchBudget / scratch_bytes;
+    if (most < sms) most = sms;
+    const long long resident = static_cast<long long>(occ) * warps * sms;
+    if (most > resident) most = resident;
+    const long long cap = (most + warps - 1) / warps;
+    if (blocks > cap) blocks = cap;
+  }
+  *out = NarrowPlan{warps, occ, smem, blocks, in_shared ? 1 : 0,
+                    in_shared ? 0 : blocks * warps * scratch_bytes};
+  return cudaSuccess;
 }
 
 }  // namespace srprog

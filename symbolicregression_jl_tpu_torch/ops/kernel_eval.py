@@ -57,7 +57,6 @@ _lib_lock = threading.Lock()
 BUILD_LOG = ""  # nvcc's output of the last build (-Xptxas -v line included)
 
 MAX_OPERATORS = 64  # csrc/postfix_program.cuh kMaxOps
-MAX_LEN = 510  # a stack entry index fits 8 bits of the program word
 MODE_VALUE = 0
 MODE_FUSED_L2 = 1
 MODE_SLOTS = 2
@@ -243,12 +242,12 @@ def dense_code(code: torch.Tensor) -> torch.Tensor:
 def program_words(flat: TreeBatch, operators: OperatorSet, nfeat: int):
     """Plain version of the kernels' prologue (csrc/postfix_program.cuh
     ``derive_program``): (words (T, L) int64, invalid (T,)). A slot's word
-    is its dense opcode | stack entry << 8 | feature << 16, where a leaf
-    pushes the old top of the stack to the entry at its depth and a binary
-    slot reads its left operand from the entry just below the top. A
-    program that is not a valid postfix program of the operator set within
-    (L + 1) // 2 entries and ``nfeat`` features is invalid (the kernels
-    poison it)."""
+    is its dense opcode | stack entry << 8 | feature << 32 (the kernels'
+    64-bit word: a 24-bit entry, a 32-bit feature), where a leaf pushes the
+    old top of the stack to the entry at its depth and a binary slot reads
+    its left operand from the entry just below the top. A program that is
+    not a valid postfix program of the operator set within (L + 1) // 2
+    entries and ``nfeat`` features is invalid (the kernels poison it)."""
     live, before, op_in, invalid = _stack_walk(flat, operators, nfeat)
     kind = flat.kind
     ids = _table(tuple(kernel_operator_ids(operators)) + (0xFF,), kind.device)
@@ -261,8 +260,14 @@ def program_words(flat: TreeBatch, operators: OperatorSet, nfeat: int):
                                    0xFF), kind)
     entry = torch.where(leaf, before, before - 1)
     feat = torch.where(leaf & (kind != CONST), flat.feat, 0)
-    words = torch.where(live, code | (entry.clamp_min(0) << 8) | (feat << 16), 0)
+    words = torch.where(live, code | (entry.clamp_min(0) << 8) | (feat << 32), 0)
     return words, invalid
+
+
+def word_fields(words: torch.Tensor):
+    """(dense opcode, stack entry, feature field) of ``program_words``'
+    words."""
+    return words & 0xFF, (words >> 8) & 0xFFFFFF, words >> 32
 
 
 def _stack_walk(flat: TreeBatch, operators: OperatorSet, nfeat: int):
@@ -335,11 +340,12 @@ def eval_program_plain(flat: TreeBatch, X: torch.Tensor,
                                   dtype=torch.int64)).tolist()
     fns = {c: (1 if j < operators.n_unary else 2, f) for j, (c, f) in
            enumerate(zip(ids, operators.unary_fns + operators.binary_fns))}
+    codes, entries, feats = word_fields(words)
     for s in range(L):
         live = (s < flat.length) & ~invalid
-        code = words[:, s] & 0xFF
-        entry = ((words[:, s] >> 8) & 0xFF).clamp(max=stack.shape[0] - 1)
-        feat = words[:, s] >> 16
+        code = codes[:, s]
+        entry = entries[:, s].clamp(max=stack.shape[0] - 1)
+        feat = feats[:, s]
         leaf = live & (code <= 2)
         left = stack[entry, ti]
         new = torch.where((code == 1).unsqueeze(-1),
@@ -407,8 +413,11 @@ def _library():
             p = ctypes.c_void_p
             i = ctypes.c_int
             ip = ctypes.POINTER(ctypes.c_int)
-            lib.postfix_eval_launch.argtypes = [p] * 12 + [ip] + [i] * 14 + [p]
+            lib.postfix_eval_launch.argtypes = [p] * 13 + [ip] + [i] * 15 + [p]
             lib.postfix_eval_launch.restype = i
+            lib.postfix_eval_narrow_plan.argtypes = [i] * 4 + [
+                ctypes.POINTER(ctypes.c_longlong)]
+            lib.postfix_eval_narrow_plan.restype = i
             lib.postfix_eval_config.argtypes = [ip]
             lib.postfix_eval_config.restype = None
             lib.postfix_eval_smem_bytes.argtypes = [i] * 6
@@ -428,7 +437,11 @@ class EvalPlan(NamedTuple):
     """One launch's layout: ``items`` row ranges of ``range`` rows per tree
     (work items), ``rows_per_lane`` rows per lane per pass, ``warps`` per
     block, ``blocks_per_sm`` resident, X ``staged`` in shared memory or
-    read from global memory, ``smem`` bytes per block, ``blocks``."""
+    read from global memory, ``smem`` bytes per block, ``blocks``. A
+    ``narrow`` plan (``narrow_plan``) is the kernel's narrow route: one row
+    per lane, one range per tree, its stacks in shared memory or, with
+    ``scratch_bytes`` > 0, in that much global memory, the warps of
+    ``blocks`` looping over the trees."""
 
     items: int
     rows_per_lane: int
@@ -438,15 +451,33 @@ class EvalPlan(NamedTuple):
     range: int
     smem: int
     blocks: int
+    narrow: bool = False
+    scratch_bytes: int = 0
+
+
+def narrow_plan(plan_fn, nrows: int) -> EvalPlan:
+    """The narrow route's layout from a library's ``*_narrow_plan``
+    function, called as ``plan_fn(out)`` with a ctypes array of six
+    int64 (csrc/postfix_program.cuh ``narrow_plan``): raises when it
+    refuses."""
+    out = (ctypes.c_longlong * 6)()
+    rc = plan_fn(out)
+    if rc != 0:
+        raise ValueError("no layout of the kernel's narrow route fits this "
+                         f"card (error {rc})")
+    warps, occ, smem, blocks, _in_shared, scratch = (int(v) for v in out)
+    return EvalPlan(1, 1, warps, occ, False, nrows, smem, blocks, True,
+                    scratch)
 
 
 def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
               rows_per_lane: int, max_warps: int, max_smem: int,
-              smem_bytes, occupancy, sms: int) -> EvalPlan:
+              smem_bytes, occupancy, sms: int, stage: bool = True) -> EvalPlan:
     """The work-item split: the most warps per block (up to ``max_warps``)
     whose stacks fit, then the fewest row ranges per tree (1, 2, 4, ...,
     at most one per pass) whose blocks make ``WAVES`` waves of resident
-    blocks, with each range's X staged when it fits. ``smem_bytes(warps,
+    blocks, with each range's X staged when it fits (and ``stage``: the
+    instruction-program kernel B6 never stages). ``smem_bytes(warps,
     range, staged)`` and ``occupancy(staged, warps, smem)`` are the
     kernel's (its library's) answers. The slot-values mode takes one range
     and reads X from global memory."""
@@ -462,7 +493,7 @@ def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
     chosen, want = None, 1
     while True:
         items, rng = split_rows(nrows, min(want, max_items), per_pass)
-        staged = (mode != MODE_SLOTS
+        staged = (stage and mode != MODE_SLOTS
                   and smem_bytes(warps, rng, True) <= max_smem)
         smem = smem_bytes(warps, rng, staged)
         occ = occupancy(staged, warps, smem)
@@ -483,10 +514,14 @@ def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
 def launch_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
                 full: bool, device: int) -> EvalPlan:
     """``eval_plan`` with the kernel library's layout and occupancy on
-    card ``device``."""
+    card ``device``; the narrow route's layout where one warp's stack of
+    the usual rows per lane does not fit in a block."""
     lib = _library()
     cfg = (ctypes.c_int * 3)()
     lib.postfix_eval_config(cfg)
+    if lib.postfix_eval_smem_bytes(1, L, nfeat, 1, 0, mode) > cfg[2]:
+        return narrow_plan(lambda out: lib.postfix_eval_narrow_plan(
+            T, L, mode, int(full), out), nrows)
 
     def occupancy(staged, warps, smem):
         occ = lib.postfix_eval_occupancy(mode, int(full), int(staged), warps,
@@ -532,10 +567,10 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
             raise ValueError("trees and X must lie on the same device")
     T, L = flat.kind.shape
     nfeat, nrows = X.shape
-    if L > MAX_LEN or nfeat >= 1 << 16 or X.numel() >= 1 << 31:
-        raise ValueError(f"the scoring kernel takes max_len <= {MAX_LEN}, "
-                         "fewer than 65536 features and X of fewer than "
-                         f"2^31 elements; got {L}, {tuple(X.shape)}")
+    if nfeat >= 1 << 16 or X.numel() >= 1 << 31:
+        raise ValueError("the scoring kernel takes fewer than 65536 features "
+                         f"and X of fewer than 2^31 elements; got "
+                         f"{tuple(X.shape)}")
     if mode == MODE_SLOTS and nrows != 1:
         raise ValueError("the slot-values mode takes X with one row")
     full = uses_full_kernel(operators)
@@ -557,19 +592,21 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
     if plan.items > 1:
         part = torch.empty((T, plan.items), dtype=torch.float32, device=dev)
         part_bad = torch.empty((T, plan.items), dtype=torch.int32, device=dev)
+    scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                           device=dev) if plan.scratch_bytes else None)
     # the tensors ride along so their memory outlives every launch
     args = (*fields, cval, length, order, X.contiguous(),
             None if y is None else y.contiguous(), out, bad, part, part_bad,
-            ids, operators.n_unary, operators.n_binary, T, L, nfeat, nrows,
-            mode, int(full), plan.items, plan.range, int(plan.staged),
-            plan.warps, plan.smem, plan.blocks)
+            scratch, ids, operators.n_unary, operators.n_binary, T, L, nfeat,
+            nrows, mode, int(full), plan.items, plan.range, int(plan.staged),
+            plan.warps, plan.smem, plan.blocks, int(plan.narrow))
     return PreparedLaunch(args, out, bad, length, mode, plan)
 
 
 def run_prepared(p: PreparedLaunch) -> None:
     """Launch the kernel on the current stream and check the launch."""
     lib = _library()
-    tensors, rest = p.args[:12], p.args[12:]
+    tensors, rest = p.args[:13], p.args[13:]
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream(p.out.device).cuda_stream
     rc = lib.postfix_eval_launch(*ptrs, *rest, stream)

@@ -148,13 +148,17 @@ def adjoint_words(words: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     leaf that pushed to the binary slot's stack entry) and each CONST
     slot's rank among the CONST slots."""
     T, L = words.shape
-    code, entry = words & 0xFF, (words >> 8) & 0xFF
+    code, entry, _ = ke.word_fields(words)
+    # a valid program's entries are below (L + 1) // 2; the clamp keeps the
+    # dead slots of an invalid one (length 0 here) in range
+    entry = entry.clamp(max=(L + 1) // 2 - 1)
     live = torch.arange(L, device=words.device) < length.unsqueeze(-1)
     leaf = live & (code <= 2)
     const = live & (code == 1)
     binary = live & (code >= int(ke.dense_code(
         torch.tensor(min(KERNEL_BINARY_IDS.values())))))
-    last = torch.zeros((T, 256), dtype=torch.int64, device=words.device)
+    last = torch.zeros((T, (L + 1) // 2), dtype=torch.int64,
+                       device=words.device)
     left = torch.zeros_like(words)
     ti = torch.arange(T, device=words.device)
     for s in range(L):
@@ -163,7 +167,8 @@ def adjoint_words(words: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
                                             last[ti, entry[:, s]])
     rank = torch.cumsum(const.long(), -1) - 1
     feat = torch.where(binary, left, torch.where(const, rank, 0))
-    return torch.where(binary | const, (words & 0xFFFF) | (feat << 16), words)
+    return torch.where(binary | const, (words & 0xFFFFFFFF) | (feat << 32),
+                       words)
 
 
 def _lane_sum(terms: torch.Tensor) -> torch.Tensor:
@@ -201,9 +206,9 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
     words, invalid = ke.program_words(flat, operators, nfeat)
     n = torch.where(invalid, 0, flat.length)
     words = adjoint_words(words, n)
-    code, entry = words & 0xFF, (words >> 8) & 0xFF
-    left = torch.where(code >= 3, words >> 16, 0)
-    feat = (words >> 16).clamp(0, nfeat - 1)
+    code, entry, field = ke.word_fields(words)
+    left = torch.where(code >= 3, field, 0)
+    feat = field.clamp(0, nfeat - 1)
     ti = torch.arange(T, device=X.device)
     cap = (L + 1) // 2
     ids = ke.dense_code(torch.tensor(ke.kernel_operator_ids(operators))).tolist()
@@ -285,16 +290,17 @@ def _library():
             p = ctypes.c_void_p
             i = ctypes.c_int
             ip = ctypes.POINTER(ctypes.c_int)
-            lib.postfix_grad_plan.argtypes = [i] * 4 + [ip]
+            lp = ctypes.POINTER(ctypes.c_longlong)
+            lib.postfix_grad_plan.argtypes = [i] * 4 + [lp]
             lib.postfix_grad_plan.restype = i
-            lib.postfix_grad_launch.argtypes = ([p] * 12 + [ip] + [i] * 8
-                                                + [ip, p])
+            lib.postfix_grad_launch.argtypes = ([p] * 13 + [ip] + [i] * 8
+                                                + [lp, p])
             lib.postfix_grad_launch.restype = i
             lib.postfix_loss_candidates.restype = i
-            lib.postfix_loss_plan.argtypes = [i] * 5 + [ip]
+            lib.postfix_loss_plan.argtypes = [i] * 5 + [lp]
             lib.postfix_loss_plan.restype = i
-            lib.postfix_loss_launch.argtypes = ([p] * 11 + [ip] + [i] * 9
-                                                + [ip, p])
+            lib.postfix_loss_launch.argtypes = ([p] * 12 + [ip] + [i] * 9
+                                                + [lp, p])
             lib.postfix_loss_launch.restype = i
             lib.postfix_grad_digamma.argtypes = [p, p, i, p]
             lib.postfix_grad_digamma.restype = i
@@ -314,7 +320,9 @@ def candidate_groups(reps: int, per_lane: int) -> int:
 class LossPlan(NamedTuple):
     """The loss-only kernel's layout: ``groups`` warps per tree,
     ``candidates`` and ``rows`` per lane, ``warps`` per block,
-    ``blocks_per_sm`` resident, ``smem`` bytes per block, ``blocks``."""
+    ``blocks_per_sm`` resident, ``smem`` bytes per block, ``blocks``;
+    ``narrow``: the narrow route (one candidate x one row), its stacks in
+    shared memory or, with ``scratch_bytes`` > 0, in global memory."""
 
     groups: int
     candidates: int
@@ -323,23 +331,29 @@ class LossPlan(NamedTuple):
     blocks_per_sm: int
     smem: int
     blocks: int
+    narrow: int
+    scratch_bytes: int
 
 
 class GradPlan(NamedTuple):
     """The gradient kernel's layout: ``rows`` per lane, ``warps`` per
     block, ``blocks_per_sm`` resident, ``smem`` bytes per block,
-    ``blocks``."""
+    ``blocks``; ``narrow``: the narrow route (one row per lane), its slot
+    values in shared memory or, with ``scratch_bytes`` > 0, in global
+    memory."""
 
     rows: int
     warps: int
     blocks_per_sm: int
     smem: int
     blocks: int
+    narrow: int
+    scratch_bytes: int
 
 
 @functools.lru_cache(maxsize=64)
 def grad_plan(T: int, reps: int, L: int, full: bool) -> GradPlan:
-    plan = (ctypes.c_int * 5)()
+    plan = (ctypes.c_longlong * 7)()
     rc = _library().postfix_grad_plan(T, reps, L, int(full), plan)
     if rc != 0:
         raise ValueError(f"no layout of the gradient kernel for max_len {L}: "
@@ -351,7 +365,7 @@ def grad_plan(T: int, reps: int, L: int, full: bool) -> GradPlan:
 def loss_plan(T: int, reps: int, L: int, full: bool) -> LossPlan:
     lib = _library()
     cand = candidate_groups(reps, lib.postfix_loss_candidates())
-    plan = (ctypes.c_int * 7)()
+    plan = (ctypes.c_longlong * 9)()
     rc = lib.postfix_loss_plan(T, reps, cand, L, int(full), plan)
     if rc != 0:
         raise ValueError(f"no layout of the loss-only kernel for max_len {L}: "
@@ -386,15 +400,16 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
     nfeat, nrows = X.shape
     wn = normalized_weights(weights, nrows, dev)
     T, L = flat.kind.shape
-    if L > ke.MAX_LEN or nfeat >= 1 << 16 or X.numel() >= 1 << 31:
-        raise ValueError(f"the constant-optimisation kernels take max_len <= "
-                         f"{ke.MAX_LEN}, fewer than 65536 features and X of "
-                         "fewer than 2^31 elements")
+    if nfeat >= 1 << 16 or X.numel() >= 1 << 31:
+        raise ValueError("the constant-optimisation kernels take fewer than "
+                         "65536 features and X of fewer than 2^31 elements")
     lib = _library()
     full = ke.uses_full_kernel(operators)
     ids = ke.host_operator_ids(operators)
     plan = grad_plan(T, reps, L, full) if with_grad else loss_plan(T, reps, L, full)
-    c_plan = (ctypes.c_int * len(plan))(*plan)
+    c_plan = (ctypes.c_longlong * len(plan))(*plan)
+    scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                           device=dev) if plan.scratch_bytes else None)
     # the tensors ride in the closure so their memory outlives every launch
     fields = [f.to(torch.int64).contiguous()
               for f in (flat.kind, flat.op, flat.feat)]
@@ -415,7 +430,8 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
         loss = torch.empty((N,), dtype=torch.float32, device=dev)
         bad = torch.empty((N,), dtype=torch.int32, device=dev)
         head = [t.data_ptr() for t in (*fields, length, order, cv, *data, loss)]
-        tail = (ids, operators.n_unary, operators.n_binary, T, reps)
+        tail = (None if scratch is None else scratch.data_ptr(), ids,
+                operators.n_unary, operators.n_binary, T, reps)
         if not with_grad:
             check(lib.postfix_loss_launch(
                 *head, bad.data_ptr(), *tail, plan.candidates, L, nfeat,

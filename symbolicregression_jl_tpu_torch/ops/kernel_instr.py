@@ -11,15 +11,20 @@ sorts trees by instruction count and pads the step axis to whole groups of
 four. These tables are exactly the JAX package's.
 
 ``eval_trees_instr(trees, X, operators, packed)`` evaluates a batch by the
-program: CUDA tensors launch the hand-written kernel ``csrc/instr_eval.cu``
-(``instr_kernel<false>`` replaces the Pallas kernel B5, ``<true>`` B6) or
-raise; CPU tensors run the plain PyTorch version
-``eval_trees_instr_plain``. Both give what the postfix value mode gives:
-every operator node runs the same function on the same operands (the
-kernels share ``csrc/operators.cuh`` with ``postfix_eval.cu``), so the
-values are bit-equal to ``kernel_eval.eval_trees``. The library is compiled
-with ``nvcc`` into ``build/`` at first use; ``LAUNCHES`` counts launches
-by variant.
+program: CUDA tensors launch the hand-written kernels of
+``csrc/instr_eval.cu`` (B5, and B6 with ``packed``) or raise; CPU tensors
+run the plain PyTorch version ``eval_trees_instr_plain``. Both give what
+the postfix value mode gives: every operator node runs the same function
+on the same operands (the kernels share ``csrc/operators.cuh`` with
+``postfix_eval.cu``), so the values are bit-equal to
+``kernel_eval.eval_trees``. The kernels derive each tree's instruction
+program on the card from the ``TreeBatch`` fields (``derive_instr_tables``
+is that derivation's plain version, exact against
+``instruction_schedule``), so the wrapper builds no table and never waits
+for the card: it passes the fields, a longest-first order and the launch
+plan of the postfix kernel's kind (``kernel_eval.eval_plan``). The library
+is compiled with ``nvcc`` into ``build/`` at first use; ``LAUNCHES``
+counts launches by variant.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import torch
 
 from ..models.trees import BIN, CONST, UNA, VAR, TreeBatch
 from . import kernel_eval as ke
-from .operators import KERNEL_UNARY_IDS, OperatorSet
+from .kernel_grad import adjoint_words
+from .operators import KERNEL_BINARY_IDS, OperatorSet
 
 LAUNCHES = {"instr": 0, "instr_packed": 0}  # launches by variant
 
@@ -192,6 +198,66 @@ def prep_instr_tables(flat: TreeBatch, operators: OperatorSet,
     return InstrTables(tables, n_instr, flat, inv_perm, L, perm)
 
 
+def derive_instr_tables(flat: TreeBatch, operators: OperatorSet, nfeat: int):
+    """Plain version of the instruction-program kernels' prologue
+    (csrc/instr_eval.cu ``prologue`` / ``derive_instructions``): (tables,
+    n_instr, invalid) in ``instruction_schedule``'s terms, derived as the
+    kernels derive them, from the stack machine's words: each slot pushes
+    its operator's result (its instruction number), its feature or its
+    constant (a PAD slot the constant 0); an operator slot's right operand
+    is the slot before it, a binary one's left the slot its stack entry
+    holds (``kernel_grad.adjoint_words``); a program of one leaf is one
+    IDENT step. An invalid program (``program_words``) has no step."""
+    T, L = flat.kind.shape
+    dev = flat.kind.device
+    words, invalid = ke.program_words(flat, operators, nfeat)
+    n = torch.where(invalid, 0, flat.length)
+    code, _, field = ke.word_fields(adjoint_words(words, n))
+    slot = torch.arange(L, device=dev).expand(T, L)
+    live = slot < n.unsqueeze(-1)
+    is_op = live & (code > 2)
+    binary = is_op & (code >= int(ke.dense_code(
+        torch.tensor(min(KERNEL_BINARY_IDS.values())))))
+    pos = torch.cumsum(is_op.to(torch.int64), -1) - 1
+    var = live & (code == 2)
+    d_src = torch.where(is_op, SRC_RES, torch.where(var, SRC_VAR, SRC_CONST))
+    d_idx = torch.where(is_op, pos, torch.where(var, field, slot))
+    d_cval = torch.where(live & (code == 1), flat.cval.to(torch.float32), 0.0)
+
+    def operand(at):
+        return (d_src.gather(1, at), d_idx.gather(1, at), d_cval.gather(1, at))
+
+    rsrc, ridx, rcval = operand((slot - 1).clamp_min(0))
+    lsrc, lidx, lcval = operand(torch.where(binary, field, 0))
+    lsrc = torch.where(binary, lsrc, SRC_CONST)
+    lidx = torch.where(binary, lidx, L)
+    lcval = torch.where(binary, lcval, 0.0)
+    U = operators.n_unary
+    icode = torch.where(flat.kind == UNA, 2 + flat.op, 2 + U + flat.op)
+    col = torch.where(is_op, pos, L)
+
+    def compact(x, fill):
+        out = torch.full((T, L + 1), fill, dtype=x.dtype, device=dev)
+        return out.scatter_(1, col, torch.where(is_op, x, fill))[:, :L]
+
+    tables = {
+        "icode": compact(icode, 0), "lsrc": compact(lsrc, SRC_CONST),
+        "lidx": compact(lidx, 0), "lcval": compact(lcval, 0.0),
+        "rsrc": compact(rsrc, SRC_CONST), "ridx": compact(ridx, 0),
+        "rcval": compact(rcval, 0.0),
+    }
+    bare = (n > 0) & ~is_op.any(-1)
+    first = bare.unsqueeze(-1) & (slot == 0)
+    for key, val in (("icode", CODE_IDENT), ("rsrc", d_src[:, :1]),
+                     ("ridx", d_idx[:, :1]), ("rcval", d_cval[:, :1]),
+                     ("lidx", L)):
+        tables[key] = torch.where(first, val, tables[key])
+    tables = {k: v.to(torch.float32 if k.endswith("cval") else torch.int32)
+              for k, v in tables.items()}
+    n_instr = torch.where(bare, 1, is_op.sum(-1)).to(torch.int32)
+    return tables, n_instr, invalid
+
+
 def check_packed_layout(operators: OperatorSet, nfeat: int, max_len: int):
     """The packed word has 8-bit opcodes and 11-bit operand indices: an
     instr_packed request that does not fit raises, as in the JAX package."""
@@ -297,14 +363,52 @@ def _library():
             lib = ctypes.CDLL(str(build_library()))
             p = ctypes.c_void_p
             i = ctypes.c_int
-            lib.instr_eval_launch.argtypes = [p] * 12 + [i] * 6 + [p]
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.instr_eval_launch.argtypes = [p] * 11 + [ip] + [i] * 15 + [p]
             lib.instr_eval_launch.restype = i
-            lib.instr_eval_warps_per_block.argtypes = [i, i, i]
-            lib.instr_eval_warps_per_block.restype = i
+            lib.instr_eval_config.argtypes = [ip]
+            lib.instr_eval_config.restype = None
+            lib.instr_eval_smem_bytes.argtypes = [i] * 6
+            lib.instr_eval_smem_bytes.restype = i
+            lib.instr_eval_occupancy.argtypes = [i] * 5
+            lib.instr_eval_occupancy.restype = i
+            lib.instr_eval_narrow_plan.argtypes = [i] * 5 + [
+                ctypes.POINTER(ctypes.c_longlong)]
+            lib.instr_eval_narrow_plan.restype = i
             lib.instr_eval_error_string.argtypes = [i]
             lib.instr_eval_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(T: int, L: int, nfeat: int, nrows: int, packed: bool,
+                full: bool, device: int) -> ke.EvalPlan:
+    """The postfix kernel's plan (``kernel_eval.eval_plan``: work items,
+    warps, X staged or not; B6 never stages X) with this library's layout
+    and occupancy on card ``device``; the narrow route's layout where one
+    warp's results of the usual rows per lane do not fit in a block."""
+    lib = _library()
+    cfg = (ctypes.c_int * 3)()
+    lib.instr_eval_config(cfg)
+    if lib.instr_eval_smem_bytes(int(packed), 1, L, nfeat, 1, 0) > cfg[2]:
+        return ke.narrow_plan(lambda out: lib.instr_eval_narrow_plan(
+            T, L, nfeat, int(packed), int(full), out), nrows)
+
+    def occupancy(staged, warps, smem):
+        occ = lib.instr_eval_occupancy(int(packed), int(full), int(staged),
+                                       warps, smem)
+        if occ < 0:
+            raise RuntimeError("instr_eval occupancy query failed")
+        return occ
+
+    return ke.eval_plan(
+        T, L, nfeat, nrows, ke.MODE_VALUE, cfg[0], cfg[1], cfg[2],
+        lambda warps, rng, staged: lib.instr_eval_smem_bytes(
+            int(packed), warps, L, nfeat, rng, int(staged)),
+        occupancy,
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        stage=not packed)
 
 
 class PreparedLaunch(NamedTuple):
@@ -315,83 +419,76 @@ class PreparedLaunch(NamedTuple):
     bad: torch.Tensor
     length: torch.Tensor
     packed: bool
+    plan: ke.EvalPlan
 
 
 def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
                    packed: bool) -> PreparedLaunch:
-    """Check the inputs and build the kernel's tables and outputs for a
-    flat (T, L) batch on the card: the JAX package's tables, with each
-    instruction opcode mapped to the kernels' operator id (IDENT runs the
-    identity operator)."""
+    """Check the inputs and allocate the kernel's outputs for a flat (T, L)
+    batch on the card; the trees go to the kernel as they are, in
+    longest-first order (the kernels derive the program themselves)."""
     dev = X.device
     if X.dtype != torch.float32 or X.dim() != 2:
         raise ValueError(f"X must be (nfeat, nrows) float32, got {X.dtype} "
                          f"{tuple(X.shape)}")
     if any(f.device != dev for f in flat):
         raise ValueError("trees and X must lie on the same device")
+    T, L = flat.kind.shape
     nfeat, nrows = X.shape
     if packed:
-        check_packed_layout(operators, nfeat, flat.kind.shape[1])
-    prep = prep_instr_tables(flat, operators)
-    if _library().instr_eval_warps_per_block(prep.L, nfeat, int(packed)) < 1:
-        raise ValueError(f"{nfeat} features and {prep.L} steps need more "
-                         "shared memory per warp than a block may use")
-    T = flat.length.shape[0]
-    opmap = _opcode_map(operators, dev)
-    tb = prep.tables
-    kcode = opmap[tb["icode"].to(torch.int64)]
-    if packed:
-        word = (pack_instr_tables(tb, nfeat) & ~0xFF) | kcode
-        tables = [word, None, None, tb["lcval"], None, None, tb["rcval"]]
-    else:
-        tables = [kcode, tb["lsrc"], tb["lidx"], tb["lcval"], tb["rsrc"],
-                  tb["ridx"], tb["rcval"]]
-    tables = [None if t is None else t.contiguous() for t in tables]
-    perm = (prep.perm if prep.perm is not None
-            else torch.arange(T, device=dev)).contiguous()
+        check_packed_layout(operators, nfeat, L)
+    if nfeat >= 1 << 16 or X.numel() >= 1 << 31:
+        raise ValueError("the instruction-program kernels take fewer than "
+                         "65536 features and X of fewer than 2^31 elements; "
+                         f"got {tuple(X.shape)}")
+    full = ke.uses_full_kernel(operators)
+    ids = ke.host_operator_ids(operators)
+    plan = launch_plan(T, L, nfeat, nrows, packed, full, dev.index or 0)
+    fields = [f.to(torch.int64).contiguous()
+              for f in (flat.kind, flat.op, flat.feat)]
+    cval = flat.cval.to(torch.float32).contiguous()
+    length = flat.length.to(torch.int64).contiguous()
+    order = torch.argsort(length, descending=True, stable=True)
     out = torch.empty((T, nrows), dtype=torch.float32, device=dev)
     bad = torch.empty((T,), dtype=torch.int32, device=dev)
+    part_bad = bad
+    if plan.items > 1:
+        part_bad = torch.empty((T, plan.items), dtype=torch.int32, device=dev)
+    scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                           device=dev) if plan.scratch_bytes else None)
     # the tensors ride along so their memory outlives every launch
-    args = (*tables, prep.n_instr.contiguous(), perm, X.contiguous(), out,
-            bad, T, prep.L, nfeat, nrows, int(packed),
-            int(ke.uses_full_kernel(operators)))
-    return PreparedLaunch(args, out, bad, flat.length, packed)
-
-
-@functools.lru_cache(maxsize=None)
-def _opcode_map(operators: OperatorSet, device: torch.device) -> torch.Tensor:
-    """Instruction opcode -> the kernels' operator id, built once per
-    (operator set, device): copying a Python list to the card waits for
-    the card."""
-    return torch.tensor([0, KERNEL_UNARY_IDS["identity"]]
-                        + ke.kernel_operator_ids(operators),
-                        dtype=torch.int32, device=device)
+    args = (*fields, cval, length, order, X.contiguous(), out, bad, part_bad,
+            scratch, ids, operators.n_unary, operators.n_binary, T, L, nfeat,
+            nrows, int(packed), int(full), plan.items, plan.range,
+            int(plan.staged), plan.warps, plan.smem, plan.blocks,
+            int(plan.narrow))
+    return PreparedLaunch(args, out, bad, length, packed, plan)
 
 
 def run_prepared(p: PreparedLaunch) -> None:
     """Launch the kernel on the current stream and check the launch."""
     lib = _library()
-    *tensors, T, L, nfeat, nrows, packed, full = p.args
+    tensors, rest = p.args[:11], p.args[11:]
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream(p.out.device).cuda_stream
-    rc = lib.instr_eval_launch(*ptrs, T, L, nfeat, nrows, packed, full, stream)
+    rc = lib.instr_eval_launch(*ptrs, *rest, stream)
     if rc != 0:
         raise RuntimeError("instr_eval kernel launch failed: "
                            + lib.instr_eval_error_string(rc).decode())
-    LAUNCHES["instr_packed" if packed else "instr"] += 1
+    LAUNCHES["instr_packed" if p.packed else "instr"] += 1
 
 
 def eval_trees_instr(trees: TreeBatch, X: torch.Tensor, operators: OperatorSet,
                      packed: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value mode by the instruction program: (y (..., nrows) float32,
-    ok (...,)). CUDA tensors run the kernel (B6 with ``packed``, else B5);
-    CPU tensors the plain version. An invalid program runs as the empty
-    program (``ke.runnable``), so it is poisoned as in the value mode."""
+    ok (...,)). CUDA tensors run the kernel (B6 with ``packed``, else B5),
+    which reports an invalid program poisoned; CPU tensors the plain
+    version, which runs it as the empty program (``ke.runnable``), poisoned
+    too."""
     if not X.is_cuda:
         return eval_trees_instr_plain(trees, X, operators, packed)
     batch_shape = trees.length.shape
-    flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
-    p = prepare_launch(flat, X, operators, packed)
+    p = prepare_launch(ke._flatten(trees), X, operators, packed)
     run_prepared(p)
     ok = (p.bad == 0) & (p.length > 0)
     return (p.out.reshape(batch_shape + (X.shape[1],)),

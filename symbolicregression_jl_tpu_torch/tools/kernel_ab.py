@@ -22,13 +22,17 @@ fused L2 mode (B2) at 5,376 and 64,000 trees, the slot-values mode at 5,376
 and 64,000 trees on one row, the gradient kernel (B3) at 26,880 instances
 at max_len 24 and at max_len 128 (trees of 3-109 slots; ``null`` where the
 root's wrapper refuses that max_len) and the loss-only kernel (B4) at
-215,040 (26,880 trees x 8 candidates); 50 launches each (20 for B4, 10
-for B3 at max_len 128); the compact instantiation (these operators) and
+215,040 (26,880 trees x 8 candidates), and the instruction-program
+kernels B5 / B6 at 5,376 and 64,000 trees; 50 launches each (20 for B4,
+10 for B3 at max_len 128); the compact instantiation (these operators) and
 the full one forced (``full:`` keys). Then the wrappers, host prep
 included: ``eval_loss_trees`` at 5,376 and 64,000 trees,
-``eval_slot_values`` and ``eval_trees_instr`` at 5,376. The value mode's
-output, B3's losses, gradients and poison flags at max_len 24 and B4's
-losses and poison flags are compared bit for bit with the first root's.
+``eval_slot_values`` at 5,376 and ``eval_trees_instr`` (both programs) at
+5,376 and 64,000. The outputs at 5,376 trees (value mode, fused losses,
+slot values, B5's and B6's values and poison flags), B3's losses,
+gradients and poison flags at max_len 24 and B4's losses and poison flags
+are compared bit for bit with the first root's, and B5's and B6's values
+with the root's own value mode.
 
 ``--capture`` adds one batch from the main path's own search, the
 children of the first cycle of iteration 2 of ``equation_search`` at 64
@@ -190,8 +194,8 @@ def build_here() -> None:
 
 def time_here(captured_path, bits_path) -> dict:
     """Every kernel and wrapper of this root's package, as the module
-    docstring lists; the value mode's output and B4's loss bits and poison
-    flags go to ``bits_path``."""
+    docstring lists; the outputs the module docstring compares go to
+    ``bits_path``."""
     dev = torch.device("cuda")
     ops = make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
     X, y = north_star_data(dev)
@@ -208,7 +212,7 @@ def time_here(captured_path, bits_path) -> dict:
         captured = TreeBatch(*torch.load(captured_path, map_location="cuda"))
         shapes.append(("fused_l2@captured", captured, ke.MODE_FUSED_L2))
     uses_full = ke.uses_full_kernel
-    row = {}
+    row, outs = {}, {}
     try:
         for full in (False, True):
             ke.uses_full_kernel = lambda operators: full
@@ -218,9 +222,19 @@ def time_here(captured_path, bits_path) -> dict:
                     tb, X1 if mode == ke.MODE_SLOTS else X,
                     y if mode == ke.MODE_FUSED_L2 else None, ops, mode)
                 row[pre + label] = device_ms(lambda: ke.run_prepared(p), 50)
-                if not full and label == "value@5376":
-                    value = p.out.nan_to_num().clone()
+                if not full and label.endswith("@5376"):
+                    outs[label] = p.out.nan_to_num().view(torch.int32).cpu()
                 del p
+            for name, packed in (("instr", False), ("instr_packed", True)):
+                for tb in (cycle, trees):
+                    T = tb.length.shape[0]
+                    p = ki.prepare_launch(tb, X, ops, packed)
+                    row[f"{pre}{name}@{T}"] = device_ms(
+                        lambda: ki.run_prepared(p), 50)
+                    if not full and T == 5376:
+                        outs[name] = p.out.nan_to_num().view(torch.int32).cpu()
+                        outs[name + "_bad"] = p.bad.cpu()
+                    del p
             grad = kg.stage_launch(opt, X, y, None, ops, True, 1)
             row[f"{pre}loss_grad@26880"] = device_ms(lambda: grad(opt.cval), 50)
             try:
@@ -237,7 +251,7 @@ def time_here(captured_path, bits_path) -> dict:
                 lo, _, bad = loss(cv8)
                 glo, gr, gbad = grad(opt.cval)
                 torch.cuda.synchronize()
-                torch.save({"value": value.cpu(),
+                torch.save({**outs,
                             "loss_bits": lo.view(torch.int32).cpu(),
                             "bad": bad.cpu(),
                             "grad_loss_bits": glo.view(torch.int32).cpu(),
@@ -251,8 +265,11 @@ def time_here(captured_path, bits_path) -> dict:
             lambda: ke.eval_loss_trees(tb, X, y, ops), 20)
     row["wrapper_slots@5376"] = cuda_ms(
         lambda: ke.eval_slot_values(cycle, X1, ops), 20)
-    row["wrapper_instr@5376"] = cuda_ms(
-        lambda: ki.eval_trees_instr(cycle, X, ops, False), 20)
+    for name, packed in (("instr", False), ("instr_packed", True)):
+        for T in (5376, 64000):
+            tb = trees[64000 - T:]
+            row[f"wrapper_{name}@{T}"] = cuda_ms(
+                lambda: ki.eval_trees_instr(tb, X, ops, packed), 20)
     return row
 
 
@@ -319,17 +336,23 @@ def main(argv) -> int:
         rows.append(row)
     ref = bits[next(iter(roots))]
     checks = {}
+    outputs = ("value@5376", "fused_l2@5376", "slots@5376", "instr",
+               "instr_bad", "instr_packed", "instr_packed_bad")
     for name, b in bits.items():
-        if not torch.equal(b["value"], ref["value"]):
+        if not torch.equal(b["value@5376"], ref["value@5376"]):
             raise AssertionError(f"{name}: value mode differs from the first root")
         checks[name] = dict(
+            {f"{k}_differ": int((b[k] != ref[k]).sum()) for k in outputs},
+            instr_vs_value_differ=int((b["instr"] != b["value@5376"]).sum()),
+            instr_packed_vs_value_differ=int(
+                (b["instr_packed"] != b["value@5376"]).sum()),
             loss_bits_differ=int((b["loss_bits"] != ref["loss_bits"]).sum()),
             poison_differs=int((b["bad"] != ref["bad"]).sum()),
             b3_loss_bits_differ=int(
                 (b["grad_loss_bits"] != ref["grad_loss_bits"]).sum()),
             b3_grad_bits_differ=int((b["grad_bits"] != ref["grad_bits"]).sum()),
             b3_poison_differs=int((b["grad_bad"] != ref["grad_bad"]).sum()))
-        print(f"{name}: B3 and B4 against the first root {checks[name]}",
+        print(f"{name}: outputs against the first root {checks[name]}",
               flush=True)
     record = {"card": card, "rows": rows, "loss_bits": checks}
     if capture:

@@ -1,19 +1,23 @@
-"""Where the scoring and loss-only kernels spend their time, on one card.
+"""Where the scoring, constant-optimisation and instruction-program kernels
+spend their time, on one card.
 
     python3 -m symbolicregression_jl_tpu_torch.tools.kernel_breakdown \\
         [--out chiprun_out/breakdown] [--skip-cycle]
 
 Three readings that stand in for a profiler of the kernels:
 
-1. the SASS of ``build/libpostfix_eval.so`` and ``build/libpostfix_grad.so``
-   (``cuobjdump -sass``), written to ``<out>/sass_<library>.txt``, with
-   each kernel's instruction count printed;
+1. the SASS of ``build/libpostfix_eval.so``, ``build/libpostfix_grad.so``
+   and ``build/libinstr_eval.so`` (``cuobjdump -sass``), written to
+   ``<out>/sass_<library>.txt``, with each kernel's instruction count
+   printed;
 2. B2 (the fused L2 scoring mode) at 5,376 trees, B3 (the gradient
-   kernel) at 26,880 instances and B4 (the loss-only kernel) at 26,880
-   trees x 8 candidates, each on batches whose trees all have one length
-   (3, 7, 11, 15, 19 and 23 slots), x 2,048 rows, with CUDA events; a
+   kernel) at 26,880 instances, B4 (the loss-only kernel) at 26,880
+   trees x 8 candidates and B5 / B6 (the instruction-program kernels) at
+   5,376 trees, each on batches whose trees all have one length (3, 7,
+   11, 15, 19 and 23 slots), x 2,048 rows, with CUDA events; a
    least-squares line ms = fixed + per_slot * length separates the cost of
-   a slot step from the cost that does not grow with it;
+   a slot step from the cost that does not grow with it (for B5 / B6 also
+   against the batch's mean number of instructions, ``per_step``);
 3. host synchronisations per evolution cycle at the north star's widths
    (64 islands x 1000): the profiler's CUDA runtime events of 10 cycles
    (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
@@ -40,6 +44,7 @@ import torch
 from ..models.trees import BIN, CONST, UNA, VAR, TreeBatch
 from ..ops import kernel_eval as ke
 from ..ops import kernel_grad as kg
+from ..ops import kernel_instr as ki
 from ..ops.operators import OperatorSet, make_operator_set
 from .kernel_ab import device_ms
 
@@ -99,7 +104,7 @@ def sass(out_dir: pathlib.Path) -> dict:
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     counts = {}
-    for lib in (ke.LIBRARY, kg.LIBRARY):
+    for lib in (ke.LIBRARY, kg.LIBRARY, ki.LIBRARY):
         text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                               text=True, check=True).stdout
         (out_dir / f"sass_{lib.stem}.txt").write_text(text)
@@ -183,9 +188,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    ke.build_library(force=True)
-    kg.build_library(force=True)
-    for log in (ke.BUILD_LOG, kg.BUILD_LOG):
+    for m in (ke, kg, ki):
+        m.build_library(force=True)
+    for log in (ke.BUILD_LOG, kg.BUILD_LOG, ki.BUILD_LOG):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("ptxas", line.strip())
@@ -198,11 +203,15 @@ def main(argv=None) -> int:
     theta = rng.uniform(1.0, 3.0, ROWS).astype(np.float32)
     X = torch.tensor(theta[None], device=dev)
     y = torch.exp(-X[0] ** 2 / 2) / np.sqrt(2 * np.pi)
-    b2, b3, b4 = {}, {}, {}
+    b2, b3, b4, b5, b6, steps = {}, {}, {}, {}, {}, {}
     for n in LENGTHS:
         tb = fixed_length_trees(rng, 5376, n, 1, ops, 24, dev)
         prep = ke.prepare_launch(tb, X, y, ops, ke.MODE_FUSED_L2)
         b2[n] = device_ms(lambda: ke.run_prepared(prep), 50)
+        steps[n] = float((tb.kind >= UNA).sum(-1).clamp_min(1).float().mean())
+        for b, packed in ((b5, False), (b6, True)):
+            ip = ki.prepare_launch(tb, X, ops, packed)
+            b[n] = device_ms(lambda: ki.run_prepared(ip), 50)
         opt = fixed_length_trees(rng, 26880, n, 1, ops, 24, dev)
         cv = opt.cval.repeat_interleave(8, 0) * (
             1 + 0.1 * torch.randn((26880 * 8, 24), device=dev))
@@ -212,12 +221,19 @@ def main(argv=None) -> int:
         b3[n] = device_ms(lambda: grad(opt.cval), 20)
         print(f"length {n}: B2 (5,376 trees) {b2[n]:.4f} ms, B3 (26,880 "
               f"instances) {b3[n]:.4f} ms, B4 (215,040 instances) "
-              f"{b4[n]:.4f} ms", flush=True)
+              f"{b4[n]:.4f} ms, B5 / B6 (5,376 trees, {steps[n]:.2f} "
+              f"instructions per tree) {b5[n]:.4f} / {b6[n]:.4f} ms",
+              flush=True)
     for name, ms, work in (("B2", b2, 5376 * ROWS), ("B3", b3, 26880 * ROWS),
-                           ("B4", b4, 26880 * 8 * ROWS)):
+                           ("B4", b4, 26880 * 8 * ROWS),
+                           ("B5", b5, 5376 * ROWS), ("B6", b6, 5376 * ROWS)):
         fixed, per = fit_line(list(ms), list(ms.values()))
         record[name] = dict(ms_by_length=ms, fixed_ms=fixed, ms_per_slot=per,
                             ns_per_step_per_1k_rows=per * 1e6 / (work / 1e3))
+        if name in ("B5", "B6"):
+            fixed_s, per_s = fit_line([steps[n] for n in ms], list(ms.values()))
+            record[name].update(instructions_by_length=steps,
+                                fixed_ms_by_step=fixed_s, ms_per_step=per_s)
         print(f"{name}: fixed {fixed:.4f} ms + {per:.5f} ms per slot "
               f"({work * 1e-3 / per:.4g} steps*rows/s per slot step)", flush=True)
     if not args.skip_cycle:

@@ -5,13 +5,17 @@ scoring kernel's value mode), each registry operator (and its derivative,
 and the hand-written digamma) on the edge grid, and short searches; the
 redesigned scoring kernel below and above one wave of blocks, with ragged
 row counts, wide X and long or invalid programs, the loss-only kernel's
-candidate groups, and two launches giving the same bits. Marked ``gpu``;
+candidate groups, and two launches giving the same bits; every kernel at
+max_len 512, 1,024 and 2,048 (the narrow routes, with their stacks, slot
+values or results in shared or global memory), B5 / B6 at their longest
+and the instruction-program scoring call without a host wait. Marked ``gpu``;
 each skips without a card (decided in a fixture, so every test worker
 collects the same tests).
 
-This file imports neither JAX nor the JAX package, because the machine
-with the card has no JAX; ``tests/conftest.py`` imports JAX, so run it
-there without the conftest:
+This file imports neither JAX nor the JAX package (nor does the part of
+``torch_port_helpers`` it uses), because the machine with the card has no
+JAX; ``tests/conftest.py`` imports JAX, so run it there without the
+conftest:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 """
@@ -30,6 +34,8 @@ from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
 from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+
+from torch_port_helpers import deep_trees
 
 L = 24
 # the operator grid of test_torch_numeric.py: guard edges, then a sweep
@@ -643,3 +649,165 @@ def test_grad_kernel_poisons_invalid_programs_with_zero_gradient_on_card(cuda):
         assert ok.tolist() == [False] * 7 + [True]
         assert not loss[:7].any() and not grad[:7].any()
         assert grad[7, 0] != 0 and not grad[7, 1:].any()
+
+
+def _invalid(max_len, nfeat, n_binary, device):
+    """One program of each kind that ``program_words`` flags."""
+    rows = [([VAR, BIN], 2), ([VAR, VAR], 2), ([UNA], 1), ([VAR], max_len + 1),
+            ([VAR], -1), ([VAR, VAR, BIN], 3), ([7], 1), ([VAR], 1)]
+    kind = torch.tensor([r + [0] * (max_len - len(r)) for r, _ in rows],
+                        device=device)
+    op, feat = torch.zeros_like(kind), torch.zeros_like(kind)
+    op[5, 2] = n_binary
+    feat[7, 0] = nfeat
+    return TreeBatch(kind, op, feat, torch.full(kind.shape, 0.5, device=device),
+                     torch.tensor([n for _, n in rows], device=device))
+
+
+def _long_batch(cuda, max_len, nfeat=3, T=60, seed=0):
+    """T random programs of up to max_len - 3 slots, the deep programs,
+    the poisoning trees and (last) the invalid programs, at max_len; X of
+    300 rows, y, weights with zero-weight rows."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    gen = make_generator(seed, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, max_len - 2, (T,), generator=gen, device=cuda),
+        nfeat, ops, max_len, cuda)
+    edge = stack_trees([encode_tree(parse_expression(e, ops), max_len,
+                                    device=cuda)
+                        for e in ("x0 / (x1 - x1)", "exp(exp(exp(x1 * 1.5)))",
+                                  "0.7 + cos(x0 * 1.3)")])
+    bad = _invalid(max_len, nfeat, ops.n_binary, cuda)
+    trees = TreeBatch(*(torch.cat(z) for z in zip(
+        trees, deep_trees(max_len, nfeat, device=cuda), edge, bad)))
+    X = torch.randn(nfeat, 300, generator=gen, device=cuda) * 1.5
+    y = torch.randn(300, generator=gen, device=cuda)
+    w = torch.rand(300, generator=gen, device=cuda) + 0.5
+    w[:5] = 0.0
+    return ops, trees, X, y, w, len(bad.length)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_len", [512, 1024, 2048])
+def test_every_kernel_at_long_max_len_on_card(cuda, max_len):
+    """max_len 512, 1,024 and 2,048 (the kernels refused 512 and above
+    before): B1 and the slot mode bit-equal to their plain versions, B2
+    within rtol 1e-4 (rows summed in another order) with the same +inf,
+    B3 bit-equal to its plain mirror, its loss bit-equal to B4's in both
+    of B4's layouts, B5 (and B6 where its packed word takes the width)
+    bit-equal to B1; two launches of each give the same bits; every
+    invalid program poisoned, its value and slot values 0, its loss +inf
+    and its gradient 0, as at max_len 24."""
+    ops, trees, X, y, w, n_bad = _long_batch(cuda, max_len)
+    T = trees.length.shape[0]
+    good = slice(0, T - n_bad)
+    yk, okk = tke.eval_trees(trees, X, ops)
+    _assert_bits_equal(tke.eval_trees(trees, X, ops)[0], yk)
+    ys, bad = tke.eval_program_plain(trees, X, ops)
+    assert torch.equal(okk, ~bad & (trees.length > 0))
+    assert 0 < int(okk.sum()) < T - n_bad and not okk[-n_bad:].any()
+    _assert_bits_equal(yk[okk], ys[okk])
+    assert not yk[-n_bad:].any()
+    lk = tke.eval_loss_trees(trees, X, y, ops)
+    _assert_bits_equal(tke.eval_loss_trees(trees, X, y, ops), lk)
+    lp = tke.eval_loss_trees_plain(trees, X, y, ops)
+    assert torch.equal(torch.isinf(lk), torch.isinf(lp))
+    assert lk[-n_bad:].isposinf().all()
+    fin = torch.isfinite(lp)
+    torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-4, atol=0)
+    sk, oks = tke.eval_slot_values(trees, X[:, :1], ops)
+    sp, _ = tke.eval_slot_values_plain(trees, X[:, :1], ops)
+    f = torch.isfinite(sp)
+    assert torch.equal(torch.isfinite(sk), f) and not oks[-n_bad:].any()
+    _assert_bits_equal(sk[f], sp[f])
+    assert not sk[-n_bad:].any()
+    lg, gg, okg = tkg.eval_loss_grad(trees, X, y, w, ops)
+    lg2, gg2, _ = tkg.eval_loss_grad(trees, X, y, w, ops)
+    _assert_bits_equal(lg2, lg)
+    _assert_bits_equal(gg2, gg)
+    lm, gm, okm = tkg.eval_loss_grad_program_plain(trees, X, y, w, ops)
+    assert torch.equal(okg, okm) and not okg[-n_bad:].any()
+    _assert_bits_equal(lg[okg], lm[okg])
+    _assert_bits_equal(gg[okg], gm[okg])
+    assert not gg[-n_bad:].any()
+    for reps in (1, 8):
+        fn = tkg.make_loss_kernel(trees, X, y, w, ops, False, reps)
+        l4, _, ok4 = fn(trees.cval.repeat_interleave(reps, 0))
+        assert torch.equal(ok4.reshape(-1, reps),
+                           okg.unsqueeze(-1).expand(-1, reps))
+        _assert_bits_equal(l4.reshape(-1, reps),
+                           lg.unsqueeze(-1).expand(-1, reps).contiguous())
+    for packed in (False, True):
+        if packed and X.shape[0] + max_len + 4 > 2048:
+            with pytest.raises(ValueError, match="instr_packed"):
+                tki.eval_trees_instr(trees, X, ops, packed)
+            continue
+        yi, oki = tki.eval_trees_instr(trees, X, ops, packed)
+        assert torch.equal(oki, okk)
+        _assert_bits_equal(yi[okk], yk[okk])
+        assert not yi[-n_bad:].any()
+    plan = tke.launch_plan(T, max_len, 3, 300, tke.MODE_VALUE, False, 0)
+    assert plan.narrow == (max_len > 512), plan
+    assert tkg.grad_plan(T, 1, max_len, False).narrow == (max_len > 512)
+    assert okk[good].any()
+
+
+@pytest.mark.gpu
+def test_instr_kernels_at_their_longest_on_card(cuda):
+    """5 features: B5 at max_len 2,048 (the narrow route, its results in
+    shared memory) and 3,072 (in global memory), and B6 at 2,039, the
+    longest its 11-bit operand indices take (5 + 2,039 + 4 = 2,048; in
+    global memory), each bit-equal to B1 with the same poisoned trees; B6
+    raises one slot beyond, as the JAX package does."""
+    for max_len, packed, in_global in ((2048, False, False),
+                                       (3072, False, True), (2039, True, True)):
+        ops, trees, X, _, _, n_bad = _long_batch(cuda, max_len, nfeat=5,
+                                                 T=30, seed=max_len)
+        T = trees.length.shape[0]
+        plan = tki.launch_plan(T, max_len, 5, 300, packed, False, 0)
+        assert plan.narrow and (plan.scratch_bytes > 0) == in_global, plan
+        yk, okk = tke.eval_trees(trees, X, ops)
+        yi, oki = tki.eval_trees_instr(trees, X, ops, packed)
+        assert torch.equal(oki, okk) and 0 < int(okk.sum()) < T - n_bad
+        _assert_bits_equal(yi[okk], yk[okk])
+    ops, trees, X, _, _, _ = _long_batch(cuda, 2040, nfeat=5, T=4)
+    with pytest.raises(ValueError, match="instr_packed"):
+        tki.eval_trees_instr(trees, X, ops, True)
+
+
+@pytest.mark.gpu
+def test_instr_scoring_call_makes_no_host_wait_on_card(cuda):
+    """The instruction programs' scoring call (the kernel's wrapper, then
+    the loss and its containment in PyTorch) at the cycle's 5,376 trees
+    neither waits for the card nor copies between host and card: the
+    kernels derive the program themselves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from symbolicregression_jl_tpu_torch.models import fitness as tfit
+    from symbolicregression_jl_tpu_torch.tools.kernel_breakdown import (
+        sync_counts,
+    )
+
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    gen = make_generator(7, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, 21, (5376,), generator=gen, device=cuda), 1, ops,
+        L, cuda)
+    X = torch.rand(1, 2048, generator=gen, device=cuda) * 2 + 1
+    y = torch.exp(-X[0] ** 2 / 2)
+    for program in ("instr", "instr_packed"):
+        call = lambda: tfit.eval_loss_trees(trees, X, y, None, ops,
+                                            "L2DistLoss", program=program)
+        call()
+        torch.cuda.synchronize()
+        before = tki.LAUNCHES[program]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+        assert tki.LAUNCHES[program] == before + 5
+        by_call, by_op = sync_counts(prof)
+        # the profiler's own closing synchronize has no issuing operator
+        waits = [k for k in by_op if "Synchronize" in k and " <- None " not in k]
+        copies = [c for c in by_call if "HtoD" in c or "DtoH" in c]
+        assert not waits and not copies, (program, waits, copies)

@@ -6,8 +6,9 @@ held against the slot-indexed plain version ``_plain_loss_grad`` and the
 JAX package's jnp reference (``eval_grad_constants``, forward-mode
 derivatives of the jnp interpreter) on programs of every length 1..L at
 max_len 24 and 128, with poisoning trees, zero-weight rows, invalid
-programs and a unary slot whose left sibling is a constant; then a CPU
-search at maxsize 110 runs its default BFGS to its end. The mirror against
+programs and a unary slot whose left sibling is a constant, and on deep
+programs at max_len 512 and 1,024; then a CPU search at maxsize 110 runs
+its default BFGS to its end. The mirror against
 the Pallas kernel in interpret mode is in ``test_torch_grad.py``, which
 computes that kernel's outputs once."""
 
@@ -25,7 +26,7 @@ from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
 from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 
-from torch_port_helpers import port_trees
+from torch_port_helpers import deep_trees, port_trees
 
 BINS = ["+", "-", "*", "/"]
 UNAS = ["cos", "exp", "sqrt", "log"]
@@ -127,9 +128,9 @@ def test_adjoint_words_name_left_operands_and_constant_ranks(case):
     const = (tt.kind == CONST) & live
     lidx, _ = tke.operand_schedule(tt.kind, tt.length)
     assert int(binary.sum()) > L and int(const.sum()) > L
-    assert torch.equal(got[binary] >> 16, lidx[binary])
-    assert torch.equal(got[const] >> 16, (torch.cumsum(const.long(), -1) - 1)[const])
-    assert torch.equal(got & 0xFFFF, words & 0xFFFF)
+    assert torch.equal(got[binary] >> 32, lidx[binary])
+    assert torch.equal(got[const] >> 32, (torch.cumsum(const.long(), -1) - 1)[const])
+    assert torch.equal(got & 0xFFFFFFFF, words & 0xFFFFFFFF)
     assert torch.equal(got[~binary & ~const], words[~binary & ~const])
 
 
@@ -174,6 +175,48 @@ def test_program_mirror_matches_the_jnp_reference(case, jnp_values, weighted):
     assert fin.sum() > 0.9 * ok.sum()
     _assert_grad_close(grad.numpy()[ok][fin], grad_r[ok][fin],
                        scale.numpy()[ok][fin])
+
+
+@pytest.mark.parametrize("max_len", [512, 1024])
+def test_long_programs_adjoint_words_and_mirror(max_len):
+    """max_len 512 and 1,024 (stacks past 255 entries at 1,024): the
+    adjoint words name each binary slot's left operand exactly, and the
+    mirror matches the slot-indexed plain version (ok equal, losses at
+    rtol 1e-5, gradients as _assert_grad_close says) on deep sums, a sum
+    with a cos after every +/-, a chain of max_len - 1 cos, random programs
+    of 40-60 slots and the poisoning trees; zero-weight rows. (The jnp
+    reference's forward-mode derivatives, one per constant slot, take
+    minutes at this max_len; the mirror is held against it at 24 and 128
+    above.)"""
+    rng = np.random.default_rng(max_len)
+    p = lambda e: jtrees.parse_expression(e, JOPS)
+    exprs = [random_expr_fixed_size(rng, JOPS, NFEAT, int(n))
+             for n in rng.integers(40, 61, 4)]
+    exprs += [p("x0 / (x1 - x1)"), p("0.7 + cos(x0 * 1.3)")]
+    jt = jtrees.stack_trees([jtrees.encode_tree(e, max_len) for e in exprs])
+    tt = TreeBatch(*(torch.cat(z) for z in zip(deep_trees(max_len, NFEAT),
+                                               port_trees(jt))))
+    X = (rng.standard_normal((NFEAT, 40)) * 1.5).astype(np.float32)
+    y = rng.standard_normal(40).astype(np.float32)
+    w = rng.uniform(0.2, 2.0, 40).astype(np.float32)
+    w[[3, 17]] = 0.0
+    words, invalid = tke.program_words(tt, TOPS, NFEAT)
+    assert not invalid.any()
+    got = tkg.adjoint_words(words, tt.length)
+    live = torch.arange(max_len) < tt.length.unsqueeze(-1)
+    binary = (tt.kind == BIN) & live
+    lidx, _ = tke.operand_schedule(tt.kind, tt.length)
+    assert torch.equal(got[binary] >> 32, lidx[binary])
+    assert int(tke.word_fields(words)[1].max()) >= (
+        256 if max_len > 512 else 200)
+    args = (torch.tensor(X), torch.tensor(y), torch.tensor(w), TOPS)
+    loss, grad, ok = tkg.eval_loss_grad_program_plain(tt, *args)
+    loss_p, grad_p, ok_p, scale = tkg.eval_loss_grad_plain(tt, *args,
+                                                           scale=True)
+    assert torch.equal(ok, ok_p) and 0 < int(ok.sum()) < len(ok)
+    torch.testing.assert_close(loss[ok], loss_p[ok], rtol=1e-5, atol=0)
+    _assert_grad_close(grad[ok].numpy(), grad_p[ok].numpy(),
+                       scale[ok].numpy())
 
 
 def test_program_mirror_sums_rows_as_the_kernel():

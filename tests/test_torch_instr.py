@@ -4,9 +4,11 @@ the host prep (``instruction_schedule``, ``pack_instr_tables``,
 ``decode_packed_word``, ``prep_instr_tables``) bit-equal to the JAX
 package's; the plain versions of B5/B6 against the Pallas kernels in
 interpret mode and the jnp interpreter, and bit-equal to the postfix value
-mode's plain version; the packed layout's bounds; Options; and searches
-through the instr path. Trees include poisoning ones, bare leaves, a cos^9
-chain and a unary step whose left sibling is a constant."""
+mode's plain version; the plain version of the kernels' own derivation of
+the program on the card, exact against the host tables at max_len 24 and
+512; the packed layout's bounds; Options; and searches through the instr
+path. Trees include poisoning ones, bare leaves, a cos^9 chain and a unary
+step whose left sibling is a constant."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,11 @@ from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 from symbolicregression_jl_tpu_torch.utils.rng import make_generator
 
-from torch_port_helpers import jax_trees, port_trees
+from symbolicregression_jl_tpu_torch.models.trees import (
+    BIN, TreeBatch, UNA, VAR,
+)
+
+from torch_port_helpers import deep_trees, jax_batch, jax_trees, port_trees
 
 E = jtrees.Expr
 BINS = ["+", "-", "*", "/"]
@@ -137,6 +143,62 @@ def test_prep_instr_tables_matches_jax(trees, max_len):
     np.testing.assert_array_equal(p.flat.kind.numpy(), np.asarray(j_flat.kind))
     np.testing.assert_array_equal(p.perm[p.inv_perm].numpy(),
                                   np.arange(len(p.perm)))
+
+
+def _invalid_programs(max_len):
+    """One program of each kind that ``program_words`` flags: stack
+    underflow, two roots, a unary slot on nothing, a length past max_len,
+    a negative length, an operator outside the set, an unknown kind, a
+    feature out of range."""
+    rows = [([VAR, BIN], 2), ([VAR, VAR], 2), ([UNA], 1), ([VAR], max_len + 1),
+            ([VAR], -1), ([VAR, VAR, BIN], 3), ([7], 1), ([VAR], 1)]
+    kind = torch.tensor([r + [0] * (max_len - len(r)) for r, _ in rows])
+    op, feat = torch.zeros_like(kind), torch.zeros_like(kind)
+    op[5, 2] = len(BINS)
+    feat[7, 0] = NFEAT
+    return TreeBatch(kind, op, feat, torch.full(kind.shape, 0.5),
+                     torch.tensor([n for _, n in rows]))
+
+
+@pytest.mark.parametrize("max_len", [24, 512])
+def test_derived_program_matches_the_host_tables(trees, max_len):
+    """The kernels derive each tree's instruction program on the card from
+    the stack machine's words (each operator slot's number by a scan,
+    a binary slot's left operand from its stack entry): the plain version
+    of that derivation gives instruction_schedule's tables and step counts
+    exactly, and so the JAX package's, and their packed words the JAX
+    package's, on random trees, the poisoning trees, bare leaves, the cos^9
+    chain and a unary step with a constant sibling; at max_len 512 on deep
+    sums, a sum with a cos after every +/-, a chain of 511 cos and random
+    trees re-encoded there. Every invalid program has no step and is
+    flagged as ``runnable`` flags it."""
+    jt = trees if max_len == 24 else jax_batch(TreeBatch(*(torch.cat(z) for z in zip(
+        deep_trees(max_len, NFEAT),
+        port_trees(jtrees.stack_trees([jtrees.encode_tree(e, max_len)
+                                       for e in _edge_exprs()]))))))
+    tt = port_trees(jt)
+    tables, n_instr, invalid = tki.derive_instr_tables(tt, TOPS, NFEAT)
+    assert not invalid.any()
+    j_tables, j_n = jpe.instruction_schedule(jt, JOPS)
+    for k in j_tables:
+        np.testing.assert_array_equal(tables[k].numpy(), np.asarray(j_tables[k]),
+                                      err_msg=k)
+    np.testing.assert_array_equal(n_instr.numpy(), np.asarray(j_n))
+    jw = np.asarray(jpe.pack_instr_tables(j_tables, NFEAT))
+    np.testing.assert_array_equal(tki.pack_instr_tables(tables, NFEAT).numpy(), jw)
+    if max_len == 24:
+        assert n_instr[-5] == n_instr[-4] == 1 and n_instr[-1] == 9
+    else:
+        assert int(n_instr.max()) == max_len - 1
+    bad = _invalid_programs(max_len)
+    both = TreeBatch(*(torch.cat(z) for z in zip(tt, bad)))
+    tables, n_instr, invalid = tki.derive_instr_tables(both, TOPS, NFEAT)
+    ref, n_ref = tki.instruction_schedule(tke.runnable(both, TOPS, NFEAT)[0], TOPS)
+    for k in ref:
+        assert torch.equal(tables[k], ref[k]), k
+    assert torch.equal(n_instr, n_ref)
+    assert torch.equal(invalid, tke.runnable(both, TOPS, NFEAT)[1])
+    assert invalid.sum() == len(bad.length) and not n_instr[invalid].any()
 
 
 # ---------------------------------------------------------------------------

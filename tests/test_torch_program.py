@@ -34,7 +34,7 @@ from symbolicregression_jl_tpu_torch.tools.kernel_breakdown import (
     fixed_length_trees,
 )
 
-from torch_port_helpers import L, port_trees, to_numpy
+from torch_port_helpers import L, deep_trees, jax_batch, port_trees, to_numpy
 
 BINS, UNAS = ["+", "-", "*", "/"], ["cos", "exp", "log"]
 JOPS = jops.make_operator_set(BINS, UNAS)
@@ -142,6 +142,62 @@ def test_program_words_and_invalid_programs():
     odd.op[0, 2], odd.op[1, 1] = len(BINS), -1
     assert tke.program_words(odd, TOPS, NFEAT)[1].tolist() == [True] * 4
     assert tke.runnable(odd, TOPS, NFEAT)[1].tolist() == [True] * 4
+
+
+@pytest.mark.parametrize("max_len", [512, 1024])
+def test_long_programs_match_the_jax_interpreter(max_len):
+    """max_len 512 and 1,024: the words name each leaf's stack entry (its
+    depth; past 255 at 1,024) and each VAR's feature in their own fields;
+    the stack machine over them gives the slot-indexed plain version's
+    values bit for bit, and the JAX interpreter's within rtol 1e-4 / atol
+    1e-6 with the same poisoned trees (deep sums, a sum with a cos after
+    every +/-, a chain of max_len - 1 cos, random programs of max_len - 1
+    slots, the poisoning trees)."""
+    rng = np.random.default_rng(max_len)
+    edge = port_trees(jtrees.stack_trees([jtrees.encode_tree(e, max_len)
+                                          for e in _edge_exprs()]))
+    parts = [deep_trees(max_len, NFEAT),
+             fixed_length_trees(rng, 3, max_len - 1, NFEAT, TOPS, max_len,
+                                "cpu"), edge]
+    tt = TreeBatch(*(torch.cat(z) for z in zip(*parts)))
+    X = torch.tensor((rng.standard_normal((NFEAT, 48)) * 2).astype(np.float32))
+    words, invalid = tke.program_words(tt, TOPS, NFEAT)
+    assert not invalid.any()
+    _, before, _, _ = tke._stack_walk(tt, TOPS, NFEAT)
+    code, entry, feat = tke.word_fields(words)
+    live = torch.arange(max_len) < tt.length.unsqueeze(-1)
+    leaf = live & (tt.kind <= VAR)
+    assert torch.equal(entry[leaf], before[leaf])
+    assert torch.equal(feat[leaf & (tt.kind == VAR)],
+                       tt.feat[leaf & (tt.kind == VAR)])
+    assert int(entry.max()) >= (256 if max_len > 512 else 200)
+    root, bad = tke.eval_program_plain(tt, X, TOPS)
+    ok = (~bad & (tt.length > 0)).numpy()
+    y_in, ok_in = jinterp.eval_trees(jax_batch(tt), jnp.asarray(X.numpy()), JOPS)
+    np.testing.assert_array_equal(ok, np.asarray(ok_in))
+    assert 0 < ok.sum() < len(ok)
+    np.testing.assert_allclose(root.numpy()[ok], np.asarray(y_in)[ok],
+                               rtol=1e-4, atol=1e-6)
+    y_slot, ok_slot = tke.eval_trees_plain(tt, X, TOPS)
+    assert torch.equal(torch.tensor(ok), ok_slot)
+    assert torch.equal(root[ok_slot], y_slot[ok_slot])
+
+
+def test_equation_search_at_maxsize_509_runs_on_cpu():
+    """maxsize 509 gives max_len 512, which the kernels of earlier
+    versions refused; a short search with the default BFGS runs its
+    scoring, folding and constant optimisation (their plain versions on
+    the CPU) to its end."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, (2, 32)).astype(np.float32)
+    y = (1.7 * X[0] * X[1] + np.cos(X[1])).astype(np.float32)
+    res = sr.equation_search(
+        X, y, device="cpu", binary_operators=["+", "*"],
+        unary_operators=["cos"], npopulations=1, npop=12,
+        tournament_selection_n=4, ncycles_per_iteration=2, maxsize=509,
+        niterations=1, seed=0, verbosity=0)
+    assert res.options.max_len == 512 and res.options.should_optimize_constants
+    assert res.candidates and np.isfinite(res.best_loss().loss)
 
 
 def _valid_then_invalid():

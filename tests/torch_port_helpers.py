@@ -1,12 +1,15 @@
 """Shared fixtures for the PyTorch-port parity tests: the same numpy inputs,
-made from a seed, go to the JAX package and to the port."""
+made from a seed, go to the JAX package and to the port. The JAX package
+is imported only by the functions that build or read its trees, so the
+card-only tests, on a machine without JAX, can use the rest."""
 
 import numpy as np
 import torch
 
-import symbolicregression_jl_tpu.models.trees as jtrees
-from symbolicregression_jl_tpu.utils.random_exprs import random_expr_fixed_size
 from symbolicregression_jl_tpu_torch import convert
+from symbolicregression_jl_tpu_torch.models.trees import (
+    BIN, CONST, UNA, VAR, TreeBatch,
+)
 
 # one thread per test process: the suite runs several worker processes side by side
 torch.set_num_threads(1)
@@ -16,6 +19,11 @@ L = 24
 
 def jax_trees(rng, ops, n, nfeat, max_size=22, min_size=1, exprs=()):
     """A JAX TreeBatch of n random trees (plus any extra Exprs)."""
+    import symbolicregression_jl_tpu.models.trees as jtrees
+    from symbolicregression_jl_tpu.utils.random_exprs import (
+        random_expr_fixed_size,
+    )
+
     es = [random_expr_fixed_size(rng, ops, nfeat,
                                  int(rng.integers(min_size, max_size + 1)))
           for _ in range(n)]
@@ -35,3 +43,56 @@ def assert_trees_equal(jt, tt):
     for f in jt._fields:
         np.testing.assert_array_equal(np.asarray(getattr(jt, f)),
                                       getattr(tt, f).cpu().numpy(), err_msg=f)
+
+
+def deep_trees(max_len, nfeat, binary_ops=(0, 1), unary_op=0, device="cpu"):
+    """Port trees at ``max_len`` whose stacks run deep: x0 c x1 c ... (k
+    leaves, k = (max_len + 1) // 2 - 1 or 300, whichever is less) then k - 1
+    binary slots cycling through ``binary_ops`` (a stack of k entries);
+    the same sum cut to stack 260 with a unary slot after every binary
+    one; and a chain of max_len - 1 unary slots on x0 (one instruction per
+    slot)."""
+    L = max_len
+
+    def tree(kinds):
+        kind = np.zeros(L, np.int64)
+        op = np.zeros(L, np.int64)
+        feat = np.zeros(L, np.int64)
+        cval = np.zeros(L, np.float32)
+        leaves = 0
+        for i, (k, o) in enumerate(kinds):
+            kind[i], op[i] = k, o
+            if k in (VAR, CONST):
+                feat[i] = leaves % nfeat if k == VAR else 0
+                cval[i] = 0.25 + 0.001 * leaves if k == CONST else 0.0
+                leaves += 1
+        return kind, op, feat, cval, len(kinds)
+
+    def leaves(k):
+        return [(VAR if i % 2 == 0 else CONST, 0) for i in range(k)]
+
+    k = min(300, (L + 1) // 2 - 1)
+    k2 = min(260, (L + 2) // 3)
+    rows = [
+        tree(leaves(k) + [(BIN, binary_ops[j % len(binary_ops)])
+                          for j in range(k - 1)]),
+        tree(leaves(k2) + [s for j in range(k2 - 1)
+                           for s in ((BIN, binary_ops[j % len(binary_ops)]),
+                                     (UNA, unary_op))]),
+        tree([(VAR, 0)] + [(UNA, unary_op)] * (L - 1)),
+    ]
+    as_t = lambda i, dt: torch.tensor(np.stack([r[i] for r in rows]), dtype=dt,
+                                      device=device)
+    return TreeBatch(as_t(0, torch.int64), as_t(1, torch.int64),
+                     as_t(2, torch.int64), as_t(3, torch.float32),
+                     torch.tensor([r[4] for r in rows], dtype=torch.int64,
+                                  device=device))
+
+
+def jax_batch(tt):
+    """The port's TreeBatch as the JAX package's."""
+    import jax.numpy as jnp
+    import symbolicregression_jl_tpu.models.trees as jtrees
+
+    return jtrees.TreeBatch(**{f: jnp.asarray(getattr(tt, f).numpy())
+                               for f in tt._fields})
