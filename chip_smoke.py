@@ -39,13 +39,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    B5 / B6 bit-equal to B1 (B6 where its packed word takes the width), two
    launches the same bits; then a short search at maxsize 509 (max_len
    512) with the default BFGS;
+3d. every elementwise loss of the registry (csrc/losses.cuh) in B2 at
+   5,376 and 64,000 trees, B3 at 26,880 instances and B4 at 215,040 x
+   2,048 rows: two launches the same bits, B3's loss bit-equal to B4's,
+   against the plain mirrors (B2's sums under its launch plan, B3 on the
+   first 4,096 instances) bit for bit for the losses without a
+   transcendental function, within rtol 1e-5 (and the row-sum yardstick
+   for gradients) for the rest;
 4. timing of every kernel alone (its launches queued behind a spin on the
    card, CUDA events), beside its plain version and its bound (bytes over
    3.35 TB/s, f32 operations over 67 TFLOP/s); the launch layout of the
    scoring, gradient, loss-only and instruction-program kernels (work
    items per tree, rows or candidates per lane, warps per block, resident
    blocks per SM) and their ptxas lines; the instruction-program wrappers'
-   host milliseconds per call;
+   host milliseconds per call; B2, B3 and B4 under L1, Huber and LogCosh
+   beside L2, and the fused scoring route against the value route (B1,
+   the loss in PyTorch, ``aggregate_loss``) at 5,376 and 64,000 trees;
 5. the main path: ``equation_search`` at 64 islands x 1000, maxsize 20,
    ``+ - * /`` with ``cos exp``, L2 loss, default constant optimisation
    (BFGS), then ``predict``; the launch counts are zeroed just before and
@@ -53,7 +62,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the same search with ``kernel_program="instr"`` and ``"instr_packed"``
    (one iteration each, same seed: their halls of fame must be
    bit-equal), the counts zeroed before and read after each; then a short
-   search whose every batch must hold valid programs only;
+   search whose every batch must hold valid programs only; then the
+   search at the same widths under ``loss="HuberLoss"`` (1 iteration of
+   100 cycles, default BFGS): every scoring call through the fused mode's
+   any-loss instantiation, B3 and B4 under Huber, no value-mode call;
 6. the cycle alone at the same widths: milliseconds per cycle with the
    constant fold through the slot-values kernel and through its plain
    version (interleaved, twice each), and a profile of 20 cycles without
@@ -63,7 +75,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 7. the optimisation pass alone on that 64 x 1000 state: milliseconds per
    pass, and a profile of one pass (device kernels, the kernels' share);
 8. recovery on the card: ``x0*x0 - x1*x2`` without constant optimisation,
-   ``2*cos(x4) + x1^2 - 2`` with it.
+   ``2*cos(x4) + x1^2 - 2`` with it, under L2 and under ``L1DistLoss``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -176,6 +188,7 @@ def main():
     from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
     from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
     from symbolicregression_jl_tpu_torch.ops import kernel_instr as ki
+    from symbolicregression_jl_tpu_torch.ops import losses as tlosses
     from symbolicregression_jl_tpu_torch.ops.operators import (
         BINARY_REGISTRY, UNARY_REGISTRY, make_operator_set,
     )
@@ -224,7 +237,7 @@ def main():
     trees = TreeBatch(*(torch.cat([a[: T_RESCORE - 7], e, b]) for a, e, b in
                         zip(trees, edge, pt)))
     cycle = trees[T_RESCORE - T_CYCLE:]  # includes the poisoning trees
-    err = {"value": 0.0, "fused_l2": 0.0, "slots": 0.0}
+    err = {"value": 0.0, "fused": 0.0, "slots": 0.0}
     rel = dict(err)
 
     def note(name, got, ref):
@@ -262,7 +275,7 @@ def main():
         assert torch.equal(torch.isinf(lk), torch.isinf(lp)), "fused: inf differs"
         fin = torch.isfinite(lp)
         torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-4, atol=0)
-        note("fused_l2", lk[fin], lp[fin])
+        note("fused", lk[fin], lp[fin])
 
     X1 = torch.zeros((1, 1), device=dev)
 
@@ -495,7 +508,7 @@ def main():
         all_ops, 24, dev)
     Xg = torch.randn((3, ROWS), generator=ggen, device=dev) * 1.5
     yg = torch.randn(ROWS, generator=ggen, device=dev)
-    grid_err = dict.fromkeys(("value", "fused_l2", "slots", "loss_grad", "loss",
+    grid_err = dict.fromkeys(("value", "fused", "slots", "loss_grad", "loss",
                               "instr", "instr_packed"), 0.0)
     saved = dict(err), dict(rel)
     for k in grid_err:
@@ -510,7 +523,7 @@ def main():
     assert torch.equal(torch.isinf(lk), torch.isinf(lp)), "44 operators: inf differs"
     fin = torch.isfinite(lp)
     torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-4, atol=0)
-    note("fused_l2", lk[fin], lp[fin])
+    note("fused", lk[fin], lp[fin])
     sk, _ = ke.eval_slot_values(g_trees, Xg[:, :1], all_ops)
     sp, _ = ke.eval_slot_values_plain(g_trees, Xg[:, :1], all_ops)
     fin = torch.isfinite(sp)
@@ -695,7 +708,7 @@ def main():
     assert res_509.candidates and np.isfinite(res_509.best_loss().loss)
     assert after_all["loss_grad"] - before_all["loss_grad"] == 9 * 2
     assert after_all["loss"] - before_all["loss"] == 8 * 2
-    assert after_all["fused_l2"] - before_all["fused_l2"] >= 2 * 30
+    assert after_all["fused"] - before_all["fused"] >= 2 * 30
     assert after_all["slots"] - before_all["slots"] >= 2 * 30
     long_report["search_509"] = dict(
         s=time.time() - tr, best=res_509.best_loss().loss,
@@ -706,10 +719,101 @@ def main():
         f"{res_509.best_loss().loss:.3g}, launches "
         f"{long_report['search_509']['launches']}, {time.time() - tr:.1f} s")
 
+    # ---- 3d. every loss at the main path's shapes -----------------------------
+    tloss = time.time()
+    every_loss = list(dict.fromkeys(tlosses.LOSS_REGISTRY.values()))
+    # the stack machine's roots, once (the loss comes after the last slot)
+    outs = [ke.eval_program_plain(ke._flatten(trees[i:i + 8192]), X, ops)
+            for i in range(0, T_RESCORE, 8192)]
+    root_all = torch.cat([o[0] for o in outs])
+    ok_all = ~torch.cat([o[1] for o in outs]) & (trees.length > 0)
+    del outs
+    opt_sub = opt_trees[:4096]
+    loss_err = {}
+
+    def max_err(got, ref):
+        return float((got - ref).abs().max()) if got.numel() else 0.0
+
+    for loss in every_loss:
+        exact = loss.kind not in tlosses.TRANSCENDENTAL
+        any_loss = loss.kind != tlosses.L2
+        le = loss_err[loss.name] = {}
+        for tb_, root_, ok_ in ((cycle, root_all[-T_CYCLE:], ok_all[-T_CYCLE:]),
+                                (trees, root_all, ok_all)):
+            T = tb_.length.shape[0]
+            lk = ke.eval_loss_trees(tb_, X, y, ops, loss)
+            assert_bits(f"{loss.name}, fused: two launches",
+                        ke.eval_loss_trees(tb_, X, y, ops, loss), lk)
+            plan = ke.launch_plan(T, 24, X.shape[0], ROWS, ke.MODE_FUSED,
+                                  False, 0, any_loss)
+            lm = tlosses.contain_nonfinite(
+                ke.fused_sums_plain(root_, y, loss, plan) / ROWS, ok_)
+            assert torch.equal(torch.isinf(lk), torch.isinf(lm)), loss.name
+            fin = torch.isfinite(lm)
+            if exact and any_loss:
+                assert_bits(f"{loss.name}, fused vs mirror", lk[fin], lm[fin])
+            else:
+                torch.testing.assert_close(lk[fin], lm[fin], atol=0,
+                                           rtol=1e-5 if any_loss else 1e-6)
+            le[f"fused@{T}"] = max_err(lk[fin], lm[fin])
+        fn3 = kg.make_loss_kernel(opt_trees, X, y, None, ops, True, loss=loss)
+        l3, g3, ok3 = fn3(opt_trees.cval)
+        l3b, g3b, _ = fn3(opt_trees.cval)
+        assert_bits(f"{loss.name}, gradient: two launches, loss", l3b, l3)
+        assert_bits(f"{loss.name}, gradient: two launches", g3b, g3)
+        fn4 = kg.make_loss_kernel(opt_trees, X, y, None, ops, False, LS_STEPS,
+                                  loss=loss)
+        l4, _, ok4 = fn4(opt_trees.cval.repeat_interleave(LS_STEPS, 0))
+        assert torch.equal(ok4.reshape(-1, LS_STEPS),
+                           ok3.unsqueeze(-1).expand(-1, LS_STEPS))
+        assert_bits(f"{loss.name}, gradient vs loss-only kernel",
+                    l4.reshape(-1, LS_STEPS),
+                    l3.unsqueeze(-1).expand(-1, LS_STEPS).contiguous())
+        assert_bits(f"{loss.name}, loss-only: two launches", fn4(ls_cval)[0],
+                    fn4(ls_cval)[0])
+        lm, gm, okm = kg.eval_loss_grad_program_plain(opt_sub, X, y, None, ops,
+                                                      loss=loss)
+        n = 4096
+        assert torch.equal(ok3[:n], okm), loss.name
+        k3, kg3, km, kgm = l3[:n][okm], g3[:n][okm], lm[okm], gm[okm]
+        if exact:
+            assert_bits(f"{loss.name}, gradient vs mirror, loss", k3, km)
+            assert_bits(f"{loss.name}, gradient vs mirror", kg3, kgm)
+        else:
+            fin = torch.isfinite(km)
+            assert torch.equal(torch.isfinite(k3), fin), loss.name
+            torch.testing.assert_close(k3[fin], km[fin], rtol=1e-5, atol=0)
+            scale = kg.eval_loss_grad_plain(opt_sub, X, y, None, ops,
+                                            scale=True, loss=loss)[3][okm]
+            m = torch.isfinite(scale)
+            assert bool(torch.isnan(kg3[torch.isnan(scale)]).all()), loss.name
+            tol = 1e-4 * kgm.abs() + 1e-5 * scale
+            assert bool(((kg3 - kgm).abs() <= tol)[m].all()), loss.name
+        fin = torch.isfinite(km)
+        le["loss_grad"] = max_err(k3[fin], km[fin])
+        both = torch.isfinite(kg3) & torch.isfinite(kgm)
+        le["gradient"] = max_err(kg3[both], kgm[both])
+    del root_all, ok_all, root_, ok_  # 0.5 GB that the main path's peak reads
+    n_exact = sum(x.kind not in tlosses.TRANSCENDENTAL for x in every_loss)
+    torch.cuda.synchronize()
+    log(f"every loss ({len(every_loss)}): B2 at {T_CYCLE} and {T_RESCORE} "
+        f"trees, B3 at {T_OPT} and B4 at {T_OPT * LS_STEPS} instances x "
+        f"{ROWS} rows: two launches the same bits, B3's loss B4's in every "
+        f"bit, against the mirrors bit for bit without a transcendental "
+        f"function ({n_exact} losses; L2's B2 within rtol 1e-6), the rest "
+        f"within rtol 1e-5; "
+        f"{time.time() - tloss:.1f} s; max abs err against the mirrors "
+        f"{loss_err}")
+
     # ---- 4. timing ----------------------------------------------------------
     n_op_nodes = lambda tb_: int((tb_.kind >= UNA).sum())
 
-    def bound(tb_, mode, nrows):
+    # operations per row of each timed loss: (its elementwise loss, its
+    # seed), from csrc/losses.cuh, a transcendental function counted as one
+    loss_ops = {"L2DistLoss": (2, 2), "L1DistLoss": (2, 2),
+                "HuberLoss": (5, 7), "LogCoshLoss": (7, 10)}
+
+    def bound(tb_, mode, nrows, loss_name="L2DistLoss"):
         T, L = tb_.kind.shape
         nfeat = X.shape[0] if mode != ke.MODE_SLOTS else 1
         # five 4-byte entries per live slot (opcode, feature, two operand
@@ -717,13 +821,14 @@ def main():
         # tree's length and its place in the length sort
         bytes_in = (nfeat * nrows * 4 + int(tb_.length.sum()) * 5 * 4
                     + T * 8 * 2)
-        if mode == ke.MODE_FUSED_L2:
+        if mode == ke.MODE_FUSED:
             bytes_in += nrows * 4
         bytes_out = T * 4 + {ke.MODE_VALUE: T * nrows * 4,
-                             ke.MODE_FUSED_L2: T * 4,
+                             ke.MODE_FUSED: T * 4,
                              ke.MODE_SLOTS: T * L * 4}[mode]
-        ops_ = n_op_nodes(tb_) * nrows + (3 * T * nrows
-                                          if mode == ke.MODE_FUSED_L2 else 0)
+        ops_ = n_op_nodes(tb_) * nrows + ((loss_ops[loss_name][0] + 1) * T
+                                          * nrows if mode == ke.MODE_FUSED
+                                          else 0)
         t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
         t_ops = ops_ / F32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -731,22 +836,22 @@ def main():
     plain_fn = {
         ke.MODE_VALUE: lambda tb_: [ke.eval_trees_plain(tb_[i:i + 8192], X, ops)
                                     for i in range(0, tb_.length.shape[0], 8192)],
-        ke.MODE_FUSED_L2: lambda tb_: [ke.eval_loss_trees_plain(tb_[i:i + 8192], X, y, ops)
+        ke.MODE_FUSED: lambda tb_: [ke.eval_loss_trees_plain(tb_[i:i + 8192], X, y, ops)
                                        for i in range(0, tb_.length.shape[0], 8192)],
         ke.MODE_SLOTS: lambda tb_: [ke.eval_slot_values_plain(tb_[i:i + 8192], X1, ops)
                                     for i in range(0, tb_.length.shape[0], 8192)],
     }
     timings = {}
-    for mode in (ke.MODE_FUSED_L2, ke.MODE_VALUE, ke.MODE_SLOTS):
+    for mode in (ke.MODE_FUSED, ke.MODE_VALUE, ke.MODE_SLOTS):
         name = ke.MODE_NAMES[mode]
         for tb_ in (cycle, trees):
             T = tb_.length.shape[0]
             Xm = X1 if mode == ke.MODE_SLOTS else X
-            ym = y if mode == ke.MODE_FUSED_L2 else None
+            ym = y if mode == ke.MODE_FUSED else None
             prep = ke.prepare_launch(tb_, Xm, ym, ops, mode)
             ms = device_ms(lambda: ke.run_prepared(prep), 50)
             wrap = {ke.MODE_VALUE: lambda: ke.eval_trees(tb_, X, ops),
-                    ke.MODE_FUSED_L2: lambda: ke.eval_loss_trees(tb_, X, y, ops),
+                    ke.MODE_FUSED: lambda: ke.eval_loss_trees(tb_, X, y, ops),
                     ke.MODE_SLOTS: lambda: ke.eval_slot_values(tb_, X1, ops)}[mode]
             wrap_ms = cuda_ms(wrap, 20)
             plain_ms = cuda_ms(lambda: plain_fn[mode](tb_), 2)
@@ -767,14 +872,15 @@ def main():
                 f"({b_by}), share {b_ms / ms:.4f}, "
                 f"{T * Xm.shape[1] / (ms * 1e-3):.4g} trees*rows/s")
 
-    def grad_bound(tb_, reps, with_grad):
+    def grad_bound(tb_, reps, with_grad, loss_name="L2DistLoss"):
         """Inputs read once: X, y and wn, the three int64 tree fields of
         live slots (kind, op, feature), each tree's length and sort
         position, the constants of live slots; outputs: loss and poison
         flag per instance, and the gradient row.
         Operations per row: each operator node forward (and backward with
-        the gradient), 4 for the weighted squared error (2 more for the
-        seed)."""
+        the gradient), the elementwise loss and 2 to weigh and add it (the
+        seed and 1 to weigh it): 4 (6) for L2."""
+        elem_ops, seed_ops = loss_ops[loss_name]
         T, L = tb_.kind.shape
         N = T * reps
         live = int(tb_.length.sum())
@@ -782,7 +888,7 @@ def main():
                     + T * 8 * 2 + reps * live * 4)
         bytes_out = N * 4 * 2 + (N * L * 4 if with_grad else 0)
         ops_ = (reps * n_op_nodes(tb_) * ROWS * (2 if with_grad else 1)
-                + N * ROWS * (6 if with_grad else 4))
+                + N * ROWS * (elem_ops + 2 + (seed_ops + 1 if with_grad else 0)))
         t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
         t_ops = ops_ / F32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -825,6 +931,52 @@ def main():
             f"mask {wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
             f"({b_by}), share {b_ms / ms:.4f}, "
             f"{N * ROWS / (ms * 1e-3):.4g} instances*rows/s")
+
+    # B2, B3 and B4 under other losses beside L2, and the fused scoring
+    # route (the wrapper: kernel, division, containment) against the value
+    # route (B1, the loss in PyTorch, aggregate_loss, containment)
+    loss_timing = {}
+    for name in loss_ops:
+        loss = tlosses.LOSS_REGISTRY[name]
+        row = loss_timing[name] = {}
+        for tb_ in (cycle, trees):
+            T = tb_.length.shape[0]
+            prep = ke.prepare_launch(tb_, X, y, ops, ke.MODE_FUSED, loss)
+            row[f"B2@{T}"] = device_ms(lambda: ke.run_prepared(prep), 50)
+            row[f"fused_route@{T}"] = device_ms(
+                lambda: ke.eval_loss_trees(tb_, X, y, ops, loss), 20)
+
+            def value_route():
+                yv, okv = ke.eval_trees(tb_, X, ops)
+                return tlosses.contain_nonfinite(
+                    tlosses.aggregate_loss(loss(yv, y)), okv)
+
+            row[f"value_route@{T}"] = device_ms(value_route, 20)
+            row[f"B2_bound@{T}"] = bound(tb_, ke.MODE_FUSED, ROWS, name)[0]
+            del prep
+        for variant, with_grad, reps, cv in (
+                ("B3", True, 1, opt_trees.cval), ("B4", False, LS_STEPS, ls_cval)):
+            raw = kg.stage_launch(opt_trees, X, y, None, ops, with_grad, reps,
+                                  loss)
+            row[f"{variant}@{T_OPT * reps}"] = device_ms(
+                lambda: raw(cv), 20 if with_grad else 10)
+            row[f"{variant}_bound@{T_OPT * reps}"] = grad_bound(
+                opt_trees, reps, with_grad, name)[0]
+        log(f"timing under {name}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in row.items()))
+    # the plain versions under Huber (the any-loss kernels' record)
+    huber = tlosses.LOSS_REGISTRY["HuberLoss"]
+    huber_plain = dict(
+        fused=cuda_ms(lambda: [ke.eval_loss_trees_plain(cycle[i:i + 8192], X, y,
+                                                        ops, huber)
+                               for i in range(0, T_CYCLE, 8192)], 2),
+        loss_grad=cuda_ms(lambda: [kg.eval_loss_grad_plain(
+            opt_trees[i:i + 4096], X, y, None, ops, loss=huber)
+            for i in range(0, T_OPT, 4096)], 1),
+        loss=cuda_ms(lambda: [kg.eval_loss_plain(
+            ls_trees[i:i + 16384], X, y, None, ops, huber)
+            for i in range(0, T_OPT * LS_STEPS, 16384)], 1))
+    log(f"plain versions under HuberLoss: {huber_plain} ms")
 
     def host_ms(fn, reps=20):
         """Host milliseconds per call of fn, which must not wait for the
@@ -910,6 +1062,8 @@ def main():
         for counts in (ke.LAUNCHES, kg.LAUNCHES, ki.LAUNCHES):
             for k in counts:
                 counts[k] = 0
+        ke.LOSS_LAUNCHES.clear()
+        kg.LOSS_LAUNCHES.clear()
 
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -923,7 +1077,10 @@ def main():
     finally:
         api_mod.optimize_islands_constants = untimed_optimize
     launches = {**ke.LAUNCHES, **kg.LAUNCHES}
+    main_by_loss = {**ke.LOSS_LAUNCHES, **kg.LOSS_LAUNCHES}
     assert not any(ki.LAUNCHES.values()), ki.LAUNCHES  # postfix path only
+    assert set(main_by_loss) == {"fused:L2DistLoss", "loss_grad:L2DistLoss",
+                                 "loss:L2DistLoss"}, main_by_loss
     main_s = time.time() - t_main
     total_launches = sum(launches.values())
     peak = torch.cuda.max_memory_allocated()
@@ -934,7 +1091,7 @@ def main():
     assert len(per_iter) == args.niterations
     assert all(np.isfinite(b) for _, b in per_iter), per_iter
     assert per_iter[-1][1] <= per_iter[0][1], per_iter
-    assert launches["fused_l2"] >= args.niterations * args.ncycles, launches
+    assert launches["fused"] >= args.niterations * args.ncycles, launches
     # one BFGS pass per iteration: the start and 8 steps (gradient), 8 line
     # searches (loss only)
     assert launches["loss_grad"] == 9 * args.niterations, launches
@@ -972,7 +1129,7 @@ def main():
         other = "instr" if program == "instr_packed" else "instr_packed"
         # every scoring call: 1 at init, 1 per cycle, 1 rescore
         assert lc[program] == 1 + 550 + 1, lc
-        assert lc[other] == 0 and lc["fused_l2"] == 0 and lc["value"] == 0, lc
+        assert lc[other] == 0 and lc["fused"] == 0 and lc["value"] == 0, lc
         assert lc["loss_grad"] == 9 and lc["loss"] == 8, lc
         assert res_i.candidates and np.isfinite(res_i.best_loss().loss)
         log(f"instr path {program}: {run['s']:.1f} s (iteration ends at "
@@ -1000,9 +1157,9 @@ def main():
 
     prepare, stage = ke.prepare_launch, kg.stage_launch
 
-    def prepare_checked(flat, X_, y_, operators, mode):
+    def prepare_checked(flat, X_, y_, operators, mode, *loss):
         count_invalid(flat, X_, operators)
-        return prepare(flat, X_, y_, operators, mode)
+        return prepare(flat, X_, y_, operators, mode, *loss)
 
     def stage_checked(trees, X_, y_, weights, operators, *rest):
         count_invalid(trees, X_, operators)
@@ -1018,6 +1175,34 @@ def main():
     assert int(n_invalid) == 0, f"{int(n_invalid)} invalid programs"
     log(f"valid programs: a search of 30 cycles built no invalid program "
         f"({n_checked[0]} batches, {n_checked[1]} trees checked)")
+
+    # ---- 5d. a search under HuberLoss at full width ----------------------------
+    huber_cycles = 100
+    log(f"Huber path: equation_search loss=\"HuberLoss\" 64 x 1000, {ROWS} "
+        f"rows, maxsize 20, default constant optimisation, 1 iteration of "
+        f"{huber_cycles} cycles")
+    zero_counts()
+    t_h = time.time()
+    res_h = equation_search(X_np, y_np, niterations=1,
+                            ncycles_per_iteration=huber_cycles, seed=0,
+                            **{**cfg, "loss": "HuberLoss"})
+    torch.cuda.synchronize()
+    huber_run = dict(s=time.time() - t_h,
+                     launches={**ke.LAUNCHES, **kg.LAUNCHES},
+                     by_loss={**ke.LOSS_LAUNCHES, **kg.LOSS_LAUNCHES},
+                     best=res_h.best_loss().loss)
+    # every scoring call (init, each cycle, the rescore) fused under Huber,
+    # one BFGS pass under Huber, no value-mode call
+    assert huber_run["by_loss"] == {"fused:HuberLoss": 1 + huber_cycles + 1,
+                                    "loss_grad:HuberLoss": 9,
+                                    "loss:HuberLoss": 8}, huber_run
+    assert huber_run["launches"]["value"] == 0, huber_run
+    assert huber_run["launches"]["slots"] > 0, huber_run
+    assert not any(ki.LAUNCHES.values()), ki.LAUNCHES
+    assert res_h.candidates and np.isfinite(res_h.best_loss().loss)
+    log(f"Huber path: {huber_run['s']:.1f} s, launches {huber_run['launches']}, "
+        f"by loss {huber_run['by_loss']}; best {res_h.best_loss().equation} "
+        f"loss {res_h.best_loss().loss:.6g}")
 
     # ---- 6. the cycle alone ---------------------------------------------------
     from torch.autograd import DeviceType
@@ -1206,10 +1391,25 @@ def main():
         f"{rec2.iterations} iterations, {time.time() - tr:.1f} s")
     assert kg.LAUNCHES["loss_grad"] - before["loss_grad"] == 9 * rec2.iterations
     assert rb2.loss < 1e-2, rec2
+    # the same under L1 (mean absolute error), constants fitted by BFGS
+    # through the any-loss kernels
+    tr = time.time()
+    key = "loss_grad:L1DistLoss"
+    before = kg.LOSS_LAUNCHES.get(key, 0)
+    rec3 = equation_search(Xc, yc, binary_operators=["+", "-", "*", "/"],
+                           unary_operators=["cos", "exp"], npopulations=16,
+                           npop=100, ncycles_per_iteration=40, maxsize=18,
+                           niterations=30, seed=0, early_stop_condition=1e-3,
+                           loss="L1DistLoss", verbosity=0)
+    rb3 = rec3.best_loss()
+    log(f"recovery under L1DistLoss: {rb3.equation} loss {rb3.loss:.3g} after "
+        f"{rec3.iterations} iterations, {time.time() - tr:.1f} s")
+    assert kg.LOSS_LAUNCHES.get(key, 0) - before == 9 * rec3.iterations
+    assert rb3.loss < 1e-2, rec3
 
     # ---- the record -----------------------------------------------------------
     replaces = {
-        "fused_l2": "symbolicregression_jl_tpu/ops/pallas_eval.py:1014 "
+        "fused": "symbolicregression_jl_tpu/ops/pallas_eval.py:1014 "
                     "(_postfix_call via eval_loss_trees_pallas :1257)",
         "value": "symbolicregression_jl_tpu/ops/pallas_eval.py:1014 "
                  "(_postfix_call via eval_trees_pallas :1059)",
@@ -1228,14 +1428,14 @@ def main():
         "1510 (_make_instr_kernel(packed=False) :737 via _eval_instr :1407)")
     replaces["instr_packed"] = instr_src + (
         "1490 (_make_instr_kernel(packed=True) :737 via _eval_instr :1407)")
-    headline = {"fused_l2": T_CYCLE, "value": T_CYCLE, "slots": T_CYCLE,
+    headline = {"fused": T_CYCLE, "value": T_CYCLE, "slots": T_CYCLE,
                 "loss_grad": T_OPT, "loss": T_OPT * LS_STEPS,
                 "instr": T_CYCLE, "instr_packed": T_CYCLE}
-    sources = dict.fromkeys(("fused_l2", "value", "slots"), "postfix_eval")
+    sources = dict.fromkeys(("fused", "value", "slots"), "postfix_eval")
     sources.update(loss_grad="postfix_grad", loss="postfix_grad",
                    instr="instr_eval", instr_packed="instr_eval")
     kernels = []
-    for name in ("fused_l2", "value", "slots", "loss_grad", "loss", "instr",
+    for name in ("fused", "value", "slots", "loss_grad", "loss", "instr",
                  "instr_packed"):
         h = timings[(name, headline[name])]
         src = sources[name]
@@ -1255,6 +1455,28 @@ def main():
             "library_ms": None,
             "shapes": [v for (n, _), v in timings.items() if n == name],
         })
+    for name, src, shape_key, (b_ms, b_by) in (
+            ("fused", "postfix_eval", f"B2@{T_CYCLE}",
+             bound(cycle, ke.MODE_FUSED, ROWS, "HuberLoss")),
+            ("loss_grad", "postfix_grad", f"B3@{T_OPT}",
+             grad_bound(opt_trees, 1, True, "HuberLoss")),
+            ("loss", "postfix_grad", f"B4@{T_OPT * LS_STEPS}",
+             grad_bound(opt_trees, LS_STEPS, False, "HuberLoss"))):
+        err_key = {"fused": f"fused@{T_CYCLE}", "loss_grad": "gradient",
+                   "loss": "loss_grad"}[name]
+        kernels.append({
+            "name": f"{src}.{name}@HuberLoss",
+            "route": "cuda",
+            "source": f"symbolicregression_jl_tpu_torch/csrc/{src}.cu",
+            "includes": "symbolicregression_jl_tpu_torch/csrc/losses.cuh",
+            "replaces": replaces[name] + ", loss_fn=huber_loss",
+            "launches": huber_run["by_loss"][f"{name}:HuberLoss"],
+            "max_abs_err": loss_err["HuberLoss"][err_key],
+            "ms": loss_timing["HuberLoss"][shape_key],
+            "plain_ms": huber_plain[name],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card, "host": cpu,
                       "main_path": {"s_per_iteration": [s for s, _ in per_iter],
@@ -1264,6 +1486,9 @@ def main():
                       "instr_path": {k: {f: v[f] for f in ("s", "s_per_iteration",
                                                            "launches", "peak_bytes")}
                                      for k, v in instr_runs.items()},
+                      "main_path_by_loss": main_by_loss,
+                      "huber_path": huber_run, "loss_timing": loss_timing,
+                      "loss_err": loss_err, "huber_plain_ms": huber_plain,
                       "cycle_ms": cycle_ms, "cycle_profile": cycle_profile,
                       "optimize_pass": pass_profile,
                       "long_programs": long_report}))

@@ -1,4 +1,4 @@
-// Postfix-program scoring kernel for Hopper (sm_90a): value mode, fused-L2-loss
+// Postfix-program scoring kernel for Hopper (sm_90a): value mode, fused-loss
 // mode and per-slot values.
 //
 // Replaces the Pallas TPU kernel symbolicregression_jl_tpu/ops/pallas_eval.py
@@ -7,7 +7,8 @@
 // (nfeat, nrows) f32, run the program's slots up to its own length on every
 // row; a non-finite value at a slot that is not PAD poisons the tree.
 //   mode 0 (value): out[t, row] = root value            -> (T, nrows) f32
-//   mode 1 (fused): out[t] = sum_rows (root - y[row])^2  -> (T,) f32
+//   mode 1 (fused): out[t] = sum_rows loss(root, y[row])  -> (T,) f32, for
+//                   any elementwise loss of the registry (csrc/losses.cuh)
 //   mode 2 (slots): out[t, s] = value of slot s on the single row
 //                   (nrows must be 1), 0 past the length -> (T, L) f32;
 //                   constant folding reads every subtree's value from it
@@ -38,7 +39,13 @@
 //  * The fused loss: each lane sums its rows in order, a fixed butterfly of
 //    shuffles sums the lanes, and with several ranges a second pass adds
 //    each tree's partial sums in range order, so the loss is the same bits
-//    on every run (no atomics). Poison flags combine the same way.
+//    on every run (no atomics). Poison flags combine the same way. L2 has
+//    its own instantiation, (root - y)^2 inline as before; every other
+//    loss runs the kAnyLoss instantiation, whose epilogue switches on the
+//    loss id (a kernel argument, uniform over the warp) after the
+//    program's last slot, so the slot loop is the same code. Its rows
+//    are summed in the same order, so ops/kernel_eval.py
+//    eval_loss_trees_program_plain gives its bits.
 //  * Long programs: a stack of (L + 1) / 2 entries of kRows values per lane
 //    leaves no room for a warp above max_len ~900. There the plan takes the
 //    narrow route, postfix_narrow_kernel: one row per lane, one range per
@@ -50,6 +57,7 @@
 
 #include <cuda_runtime.h>
 
+#include "losses.cuh"
 #include "postfix_program.cuh"
 
 namespace {
@@ -76,6 +84,7 @@ struct EvalArgs {
   float* scratch;  // the narrow route's stacks in global memory, or null
   int T, L, nfeat, nrows, items, range, cap;
   OpMap map;
+  srloss::Loss loss_fn;  // the fused mode's loss (the kAnyLoss instantiations)
 };
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -83,7 +92,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
-template <int kMode, bool kAll, bool kStaged>
+template <int kMode, bool kAll, bool kStaged, bool kAnyLoss = false>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 postfix_kernel(const __grid_constant__ EvalArgs a) {
   // the slot-values mode has one row: one row per lane keeps its stack small
@@ -182,6 +191,15 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
           if (row0 + lr + i < a.nrows) o[i] = v[i];
         }
       }
+    } else if constexpr (kMode == 1 && kAnyLoss) {
+      srloss::with_loss(a.loss_fn.kind, [&](auto k) {
+        constexpr int K = decltype(k)::value;
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          const int row = row0 + lr + i;
+          if (row < a.nrows) acc += srloss::elem<K>(a.loss_fn, v[i], a.y[row]);
+        }
+      });
     } else if constexpr (kMode == 1) {
 #pragma unroll
       for (int i = 0; i < kR; ++i) {
@@ -220,7 +238,7 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
 // one range, X from global memory; the stack at a.scratch (one region of
 // (L + 1) / 2 entries per resident warp) or, with a.scratch null, in shared
 // memory after the words and constants. The warps loop over the trees.
-template <int kMode, bool kAll>
+template <int kMode, bool kAll, bool kAnyLoss = false>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
   using St = Stack<1, true>;
@@ -272,6 +290,13 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
           });
       if constexpr (kMode == 0) {
         if (row < a.nrows) a.out[t * a.nrows + row] = v[0];
+      } else if constexpr (kMode == 1 && kAnyLoss) {
+        if (row < a.nrows) {
+          srloss::with_loss(a.loss_fn.kind, [&](auto k) {
+            constexpr int K = decltype(k)::value;
+            acc += srloss::elem<K>(a.loss_fn, v[0], a.y[row]);
+          });
+        }
       } else if constexpr (kMode == 1) {
         if (row < a.nrows) {
           const float d = v[0] - a.y[row];
@@ -314,9 +339,14 @@ __global__ void combine_kernel(const float* __restrict__ part,
 
 using KernelFn = void (*)(EvalArgs);
 
-KernelFn narrow_kernel_for(int mode, bool all) {
+// any_loss: the fused mode under a loss other than L2
+KernelFn narrow_kernel_for(int mode, bool all, bool any_loss) {
   if (mode == 0) {
     return all ? &postfix_narrow_kernel<0, true> : &postfix_narrow_kernel<0, false>;
+  }
+  if (mode == 1 && any_loss) {
+    return all ? &postfix_narrow_kernel<1, true, true>
+               : &postfix_narrow_kernel<1, false, true>;
   }
   if (mode == 1) {
     return all ? &postfix_narrow_kernel<1, true> : &postfix_narrow_kernel<1, false>;
@@ -329,14 +359,14 @@ KernelFn narrow_kernel_for(int mode, bool all) {
 long long narrow_fixed_bytes(int L) { return 4LL * (3LL * L + 2); }
 long long narrow_stack_bytes(int L) { return 4LL * 32 * ((L + 1) / 2); }
 
-KernelFn kernel_for(int mode, bool all, bool staged) {
-#define SR_PICK(M)                                                           \
-  (all ? (staged ? &postfix_kernel<M, true, true>                            \
-                 : &postfix_kernel<M, true, false>)                          \
-       : (staged ? &postfix_kernel<M, false, true>                           \
-                 : &postfix_kernel<M, false, false>))
-  if (mode == 0) return SR_PICK(0);
-  if (mode == 1) return SR_PICK(1);
+KernelFn kernel_for(int mode, bool all, bool staged, bool any_loss) {
+#define SR_PICK(M, ANY)                                                      \
+  (all ? (staged ? &postfix_kernel<M, true, true, ANY>                       \
+                 : &postfix_kernel<M, true, false, ANY>)                     \
+       : (staged ? &postfix_kernel<M, false, true, ANY>                      \
+                 : &postfix_kernel<M, false, false, ANY>))
+  if (mode == 0) return SR_PICK(0, false);
+  if (mode == 1) return any_loss ? SR_PICK(1, true) : SR_PICK(1, false);
 #undef SR_PICK
   return all ? &postfix_kernel<2, true, false> : &postfix_kernel<2, false, false>;
 }
@@ -367,11 +397,12 @@ int postfix_eval_smem_bytes(int warps, int L, int nfeat, int range,
   return b > kMaxSmemBytes ? kMaxSmemBytes + 1 : static_cast<int>(b);
 }
 
-// Resident blocks per SM of the instantiation for (mode, all_ops, staged)
-// at warps x 32 threads and smem bytes, or -1 on an error.
-int postfix_eval_occupancy(int mode, int all_ops, int staged, int warps,
-                           int smem) {
-  const KernelFn fn = kernel_for(mode, all_ops != 0, staged != 0);
+// Resident blocks per SM of the instantiation for (mode, all_ops, staged,
+// any_loss) at warps x 32 threads and smem bytes, or -1 on an error.
+int postfix_eval_occupancy(int mode, int all_ops, int staged, int any_loss,
+                           int warps, int smem) {
+  const KernelFn fn =
+      kernel_for(mode, all_ops != 0, staged != 0, mode == 1 && any_loss != 0);
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kMaxSmemBytes) != cudaSuccess) {
     return -1;
@@ -389,13 +420,14 @@ int postfix_eval_occupancy(int mode, int all_ops, int staged, int warps,
 // in bytes, [3] blocks, [4] 1 when the stacks are in shared memory, [5]
 // bytes of global memory for the stacks (0 in shared memory).
 int postfix_eval_narrow_plan(int T, int L, int mode, int all_ops,
-                             long long* plan) {
+                             int any_loss, long long* plan) {
   if (T < 0 || L <= 0 || L >= (1 << 24) || mode < 0 || mode > 2) {
     return cudaErrorInvalidValue;
   }
   NarrowPlan np;
   const cudaError_t err = narrow_plan(
-      narrow_kernel_for(mode, all_ops != 0), T, narrow_fixed_bytes(L),
+      narrow_kernel_for(mode, all_ops != 0, mode == 1 && any_loss != 0), T,
+      narrow_fixed_bytes(L),
       narrow_stack_bytes(L), kMaxWarps, kMaxSmemBytes, &np);
   if (err != cudaSuccess) return err;
   const long long p[6] = {np.warps, np.blocks_per_sm, np.smem, np.blocks,
@@ -413,7 +445,9 @@ int postfix_eval_narrow_plan(int T, int L, int mode, int all_ops,
 // (T, items) scratch, or out / bad when items is 1. narrow: the narrow
 // route (postfix_eval_narrow_plan's layout; items 1, X not staged), its
 // stacks in `scratch` (global memory of the plan's size) or, when scratch
-// is null, in shared memory.
+// is null, in shared memory. loss_kind, c0-c2: the fused mode's loss
+// (csrc/losses.cuh; ops/losses.py ElementwiseLoss.kind / constants); L2
+// runs its own instantiation.
 cudaError_t postfix_eval_launch(const void* kind, const void* op,
                                 const void* feat, const void* cval,
                                 const void* length, const void* order,
@@ -423,9 +457,11 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
                                 int n_binary, int T, int L, int nfeat,
                                 int nrows, int mode, int all_ops, int items,
                                 int range, int staged, int warps, int smem,
-                                int blocks, int narrow, void* stream) {
+                                int blocks, int narrow, int loss_kind,
+                                float c0, float c1, float c2, void* stream) {
   if (T <= 0) return cudaSuccess;
   if (n_unary + n_binary > kMaxOps || mode < 0 || mode > 2 || items < 1 ||
+      loss_kind < 0 || loss_kind >= srloss::kNumLosses ||
       range < 1 || warps < 1 || warps > kMaxWarps || L <= 0 ||
       L >= (1 << 24) || smem > kMaxSmemBytes || blocks < 1) {
     return cudaErrorInvalidValue;
@@ -462,9 +498,12 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
   a.range = range;
   a.cap = (L + 1) / 2;
   a.map = make_op_map(opmap, n_unary, n_binary);
+  a.loss_fn = srloss::Loss{loss_kind, c0, c1, c2};
+  const bool any_loss = mode == 1 && loss_kind != srloss::kL2;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const KernelFn fn = narrow ? narrow_kernel_for(mode, all_ops != 0)
-                            : kernel_for(mode, all_ops != 0, staged != 0);
+  const KernelFn fn = narrow ? narrow_kernel_for(mode, all_ops != 0, any_loss)
+                            : kernel_for(mode, all_ops != 0, staged != 0,
+                                         any_loss);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;

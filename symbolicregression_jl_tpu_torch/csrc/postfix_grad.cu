@@ -1,6 +1,7 @@
 // Constant-optimisation kernels for Hopper (sm_90a): per instance, the
-// weighted L2 loss of a postfix program and, in the gradient kernel, its
-// derivative with respect to every constant slot.
+// weighted elementwise loss of a postfix program (any loss of the registry,
+// csrc/losses.cuh) and, in the gradient kernel, its derivative with respect
+// to every constant slot.
 //
 // Replace the Pallas TPU kernel symbolicregression_jl_tpu/ops/pallas_grad.py
 // `_make_grad_kernel` / `make_loss_kernel`: with_grad=True (B3, through
@@ -8,7 +9,7 @@
 // line-search evaluator, through `eval_loss_pallas`: loss_kernel). For
 // instance i over X (nfeat, nrows) f32 with normalised row weights wn
 // (w / sum w, or 1/nrows):
-//   loss[i]    = sum_rows [wn != 0] wn * (root - y)^2          -> (N,) f32
+//   loss[i]    = sum_rows [wn != 0] loss(root, y) * wn         -> (N,) f32
 //   grad[i, s] = d loss[i] / d cval[i, s] for CONST slots s, else 0
 //                                              (gradient kernel) -> (N, L) f32
 //   bad[i]     = 1 when a value at a live slot is non-finite on any row,
@@ -41,10 +42,10 @@
 //    p * 64 + j * 32 + lane). The forward sweep stores every slot's
 //    values, one vector store per slot, into [slot][lane] storage, and
 //    reads a binary slot's left operand there, so it needs no stack; the
-//    loss and its seed wn * 2 (root - y) follow (0 on zero-weight rows,
-//    whose 0 * inf local derivatives still reach the gradient as NaN, as
-//    jax.grad gives); then run_adjoint walks the slots in descending order
-//    with the adjoint in registers: an operator slot's adjoint is written
+//    loss and its seed loss_seed(root, y) * wn follow (0 on zero-weight
+//    rows, whose 0 * inf local derivatives still reach the gradient as
+//    NaN, as jax.grad gives); then run_adjoint walks the slots in
+//    descending order with the adjoint in registers: an operator slot's adjoint is written
 //    once, by its one consumer, and a binary slot's left operand's adjoint
 //    waits in the values of a slot that no later step reads. The prologue
 //    writes each binary slot's left operand and each CONST slot's rank
@@ -79,6 +80,13 @@
 // and each row's term keeps its order of operations, so the loss is the
 // bits of the gradient kernel's loss for the same constants (BFGS compares
 // the two).
+// The loss: L2 runs its own instantiations, (d * d) * wn and (2 d) * wn
+// inline; every other loss the kAnyLoss instantiations, whose epilogue
+// switches on the loss id (a kernel argument, uniform over the warp) after
+// the program's last slot: loss_elem(root, y) * wn and loss_seed(root, y) *
+// wn (csrc/losses.cuh, the forms of ops/losses.py LOSS_ELEM / LOSS_VJP).
+// Both kernels call the same function in the same order, so B3's loss is
+// B4's in every bit for every loss.
 // The operators and their derivatives (the lax JVP rule of each JAX
 // registry function, in the forms of symbolicregression_jl_tpu_torch/ops/
 // operators.py UNARY_VJP / BINARY_VJP) are the shared library
@@ -86,6 +94,7 @@
 
 #include <cuda_runtime.h>
 
+#include "losses.cuh"
 #include "postfix_program.cuh"
 
 namespace {
@@ -125,6 +134,7 @@ struct GradArgs {
   float* scratch;  // the narrow route's slot values in global memory, or null
   int T, reps, L, nfeat, nrows, cap;
   OpMap map;
+  srloss::Loss loss_fn;  // the kAnyLoss instantiations' loss
 };
 
 // Floats of shared memory per warp: slot values of rows floats per lane,
@@ -144,8 +154,8 @@ long long grad_narrow_scratch_bytes(int L) {
 }
 
 // One warp per instance. kNarrow: the narrow route (kN is 1), the warps
-// looping over the instances.
-template <bool kAll, int kN, bool kNarrow>
+// looping over the instances. kAnyLoss: a loss other than L2 (a.loss_fn).
+template <bool kAll, int kN, bool kNarrow, bool kAnyLoss = false>
 __global__ void __launch_bounds__(kGradMaxWarps * 32)
 postfix_grad_kernel(const __grid_constant__ GradArgs a) {
   using St = srprog::Stack<kN, kNarrow>;
@@ -233,17 +243,37 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
           });
       float w[kN];
       unsigned real = 0;  // the rows of this pass that exist
+      if constexpr (kAnyLoss) {
+        srloss::with_loss(a.loss_fn.kind, [&](auto k) {
+          constexpr int K = decltype(k)::value;
 #pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        const int row = base + j * 32 + lane;
-        w[j] = 0.f;
-        if (row < a.nrows) {
-          real |= 1u << j;
-          const float wr = a.wn[row];
-          const float d = v[j] - a.y[row];
-          if (wr != 0.f) {
-            acc += (d * d) * wr;
-            w[j] = (2.f * d) * wr;
+          for (int j = 0; j < kN; ++j) {
+            const int row = base + j * 32 + lane;
+            w[j] = 0.f;
+            if (row < a.nrows) {
+              real |= 1u << j;
+              const float wr = a.wn[row];
+              if (wr != 0.f) {
+                const float yr = a.y[row];
+                acc += srloss::elem<K>(a.loss_fn, v[j], yr) * wr;
+                w[j] = srloss::seed<K>(a.loss_fn, v[j], yr) * wr;
+              }
+            }
+          }
+        });
+      } else {
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          const int row = base + j * 32 + lane;
+          w[j] = 0.f;
+          if (row < a.nrows) {
+            real |= 1u << j;
+            const float wr = a.wn[row];
+            const float d = v[j] - a.y[row];
+            if (wr != 0.f) {
+              acc += (d * d) * wr;
+              w[j] = (2.f * d) * wr;
+            }
           }
         }
       }
@@ -298,13 +328,14 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
 
 using GradFn = void (*)(GradArgs);
 
-GradFn grad_kernel_for(bool all, bool narrow) {
-  if (narrow) {
-    return all ? &postfix_grad_kernel<true, 1, true>
-               : &postfix_grad_kernel<false, 1, true>;
-  }
-  return all ? &postfix_grad_kernel<true, kGradRows, false>
-             : &postfix_grad_kernel<false, kGradRows, false>;
+GradFn grad_kernel_for(bool all, bool narrow, bool any_loss) {
+#define SR_PICK(N, NARROW)                                               \
+  (any_loss ? (all ? &postfix_grad_kernel<true, N, NARROW, true>         \
+                   : &postfix_grad_kernel<false, N, NARROW, true>)       \
+            : (all ? &postfix_grad_kernel<true, N, NARROW, false>        \
+                   : &postfix_grad_kernel<false, N, NARROW, false>))
+  return narrow ? SR_PICK(1, true) : SR_PICK(kGradRows, false);
+#undef SR_PICK
 }
 
 long long grad_smem_bytes(int warps, int L) {
@@ -332,13 +363,16 @@ struct LossArgs {
   float* scratch;  // the narrow route's stacks in global memory, or null
   int T, reps, groups, L, nfeat, nrows, cap;
   OpMap map;
+  srloss::Loss loss_fn;  // the kAnyLoss instantiations' loss
 };
 
 // One warp per (tree, group of kCand candidates); each lane carries kCand
 // candidates x kRows rows (rows p * 32 kRows + j * 32 + lane of pass p).
 // kNarrow: the narrow route (one candidate x one row), the stack in
 // a.scratch or after the words and constants, the warps looping.
-template <bool kAll, int kCand, int kRows, bool kNarrow = false>
+// kAnyLoss: a loss other than L2 (a.loss_fn).
+template <bool kAll, int kCand, int kRows, bool kNarrow = false,
+          bool kAnyLoss = false>
 __global__ void __launch_bounds__(kLossMaxWarps * 32)
 loss_kernel(const __grid_constant__ LossArgs a) {
   constexpr int kN = kCand * kRows;  // values per lane: [candidate][row]
@@ -420,16 +454,35 @@ loss_kernel(const __grid_constant__ LossArgs a) {
             for (int i = 0; i < kN; ++i) x[i] = xr[i % kRows];
           },
           [](int, const float (&)[kN]) {});
+      if constexpr (kAnyLoss) {
+        srloss::with_loss(a.loss_fn.kind, [&](auto k) {
+          constexpr int K = decltype(k)::value;
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const int row = base + j * 32 + lane;
-        if (row < a.nrows) {
-          const float yr = a.y[row];
-          const float wr = a.wn[row];
+          for (int j = 0; j < kRows; ++j) {
+            const int row = base + j * 32 + lane;
+            if (row < a.nrows) {
+              const float yr = a.y[row];
+              const float wr = a.wn[row];
 #pragma unroll
-          for (int c = 0; c < kCand; ++c) {
-            const float d = v[c * kRows + j] - yr;
-            if (wr != 0.f) acc[c] += (d * d) * wr;
+              for (int c = 0; c < kCand; ++c) {
+                const float p = v[c * kRows + j];
+                if (wr != 0.f) acc[c] += srloss::elem<K>(a.loss_fn, p, yr) * wr;
+              }
+            }
+          }
+        });
+      } else {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          const int row = base + j * 32 + lane;
+          if (row < a.nrows) {
+            const float yr = a.y[row];
+            const float wr = a.wn[row];
+#pragma unroll
+            for (int c = 0; c < kCand; ++c) {
+              const float d = v[c * kRows + j] - yr;
+              if (wr != 0.f) acc[c] += (d * d) * wr;
+            }
           }
         }
       }
@@ -473,16 +526,16 @@ int loss_values_per_lane(int cand) {
 
 using LossFn = void (*)(LossArgs);
 
-LossFn loss_kernel_for(bool all, int cand, bool narrow = false) {
-  if (narrow) {
-    return all ? &loss_kernel<true, 1, 1, true> : &loss_kernel<false, 1, 1, true>;
-  }
-  if (cand == 1) {
-    return all ? &loss_kernel<true, 1, kSingleRows>
-               : &loss_kernel<false, 1, kSingleRows>;
-  }
-  return all ? &loss_kernel<true, kCandidates, kCandRows>
-             : &loss_kernel<false, kCandidates, kCandRows>;
+LossFn loss_kernel_for(bool all, int cand, bool narrow, bool any_loss) {
+#define SR_PICK(C, R, NARROW)                                            \
+  (any_loss ? (all ? &loss_kernel<true, C, R, NARROW, true>              \
+                   : &loss_kernel<false, C, R, NARROW, true>)            \
+            : (all ? &loss_kernel<true, C, R, NARROW, false>             \
+                   : &loss_kernel<false, C, R, NARROW, false>))
+  if (narrow) return SR_PICK(1, 1, true);
+  if (cand == 1) return SR_PICK(1, kSingleRows, false);
+  return SR_PICK(kCandidates, kCandRows, false);
+#undef SR_PICK
 }
 
 long long loss_smem_bytes(int warps, int L, int cand) {
@@ -509,15 +562,17 @@ extern "C" {
 // route, [6] bytes of global memory for its slot values (0 when they are in
 // shared memory). The warps per block are those that keep the most warps
 // resident; the narrow route where one warp of kGradRows rows per lane does
-// not fit.
-int postfix_grad_plan(int T, int reps, int L, int all_ops, long long* plan) {
+// not fit. any_loss: the instantiation for a loss other than L2.
+int postfix_grad_plan(int T, int reps, int L, int all_ops, int any_loss,
+                      long long* plan) {
   if (T < 0 || reps <= 0 || L <= 0 || L >= (1 << 24)) {
     return cudaErrorInvalidValue;
   }
   if (grad_smem_bytes(1, L) > kMaxSmemBytes) {
     srprog::NarrowPlan np;
     const cudaError_t err = srprog::narrow_plan(
-        grad_kernel_for(all_ops != 0, true), static_cast<long long>(T) * reps,
+        grad_kernel_for(all_ops != 0, true, any_loss != 0),
+        static_cast<long long>(T) * reps,
         grad_narrow_fixed_bytes(L), grad_narrow_scratch_bytes(L),
         kGradMaxWarps, kMaxSmemBytes, &np);
     if (err != cudaSuccess) return err;
@@ -526,7 +581,7 @@ int postfix_grad_plan(int T, int reps, int L, int all_ops, long long* plan) {
     for (int i = 0; i < 7; ++i) plan[i] = p[i];
     return cudaSuccess;
   }
-  const GradFn fn = grad_kernel_for(all_ops != 0, false);
+  const GradFn fn = grad_kernel_for(all_ops != 0, false, any_loss != 0);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
@@ -558,7 +613,9 @@ int postfix_grad_plan(int T, int reps, int L, int all_ops, long long* plan) {
 // for the same arguments, and for the narrow route with its slot values in
 // global memory, `scratch` of plan[6] bytes. all_ops: the batch uses an
 // operator outside the common set, so the instantiation with every operator
-// runs (operators.cuh).
+// runs (operators.cuh). loss_kind, c0-c2: the loss (csrc/losses.cuh; ops/
+// losses.py ElementwiseLoss.kind / constants); the plan's any_loss is
+// loss_kind != L2.
 cudaError_t postfix_grad_launch(const void* kind, const void* op,
                                 const void* feat, const void* length,
                                 const void* order, const void* cval,
@@ -567,6 +624,7 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
                                 void* scratch, const int* opmap, int n_unary,
                                 int n_binary, int T, int reps, int L,
                                 int nfeat, int nrows, int all_ops,
+                                int loss_kind, float c0, float c1, float c2,
                                 const long long* plan, void* stream) {
   if (T <= 0) return cudaSuccess;
   const bool narrow = plan[5] != 0;
@@ -575,6 +633,7 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
                           (plan[6] ? 0 : grad_narrow_scratch_bytes(L)))
              : grad_smem_bytes(static_cast<int>(plan[1]), L);
   if (n_unary + n_binary > srprog::kMaxOps || reps <= 0 || L <= 0 ||
+      loss_kind < 0 || loss_kind >= srloss::kNumLosses ||
       L >= (1 << 24) || plan[0] != (narrow ? 1 : kGradRows) ||
       plan[1] < 1 || plan[1] > kGradMaxWarps || plan[3] != smem ||
       plan[3] > kMaxSmemBytes || (plan[6] != 0) != (scratch != nullptr) ||
@@ -603,7 +662,9 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
   a.nrows = nrows;
   a.cap = (L + 1) / 2;
   a.map = srprog::make_op_map(opmap, n_unary, n_binary);
-  const GradFn fn = grad_kernel_for(all_ops != 0, narrow);
+  a.loss_fn = srloss::Loss{loss_kind, c0, c1, c2};
+  const GradFn fn =
+      grad_kernel_for(all_ops != 0, narrow, loss_kind != srloss::kL2);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
@@ -623,9 +684,10 @@ int postfix_loss_candidates() { return kCandidates; }
 // SM, [5] shared memory per block in bytes, [6] blocks, [7] 1 for the
 // narrow route (one candidate x one row, where one candidate x kSingleRows
 // does not fit either), [8] bytes of global memory for its stacks (0 when
-// they are in shared memory).
+// they are in shared memory). any_loss: the instantiation for a loss other
+// than L2.
 int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
-                      long long* plan) {
+                      int any_loss, long long* plan) {
   if (T < 0 || reps <= 0 || L <= 0 || L >= (1 << 24) ||
       !(cand == 1 || (cand == kCandidates && reps % cand == 0))) {
     return cudaErrorInvalidValue;
@@ -637,7 +699,8 @@ int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
   if (loss_smem_bytes(1, L, 1) > kMaxSmemBytes) {
     srprog::NarrowPlan np;
     const cudaError_t err = srprog::narrow_plan(
-        loss_kernel_for(all_ops != 0, 1, true), static_cast<long long>(T) * reps,
+        loss_kernel_for(all_ops != 0, 1, true, any_loss != 0),
+        static_cast<long long>(T) * reps,
         grad_narrow_fixed_bytes(L), 4LL * 32 * ((L + 1) / 2), kLossMaxWarps,
         kMaxSmemBytes, &np);
     if (err != cudaSuccess) return err;
@@ -651,7 +714,7 @@ int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
     warps >>= 1;
   }
   const int smem = static_cast<int>(loss_smem_bytes(warps, L, cand));
-  const LossFn fn = loss_kernel_for(all_ops != 0, cand);
+  const LossFn fn = loss_kernel_for(all_ops != 0, cand, false, any_loss != 0);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
@@ -671,7 +734,8 @@ int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
 // t * reps ...) per tree of the TreeBatch fields kind / op / feat / length,
 // trees in the order `order`, cand per lane; opmap as postfix_eval_launch's;
 // plan from postfix_loss_plan for the same arguments, and for the narrow
-// route with its stacks in global memory, `scratch` of plan[8] bytes.
+// route with its stacks in global memory, `scratch` of plan[8] bytes;
+// loss_kind, c0-c2 as postfix_grad_launch's.
 cudaError_t postfix_loss_launch(const void* kind, const void* op,
                                 const void* feat, const void* length,
                                 const void* order, const void* cval,
@@ -679,8 +743,9 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
                                 void* loss, void* bad, void* scratch,
                                 const int* opmap, int n_unary, int n_binary,
                                 int T, int reps, int cand, int L, int nfeat,
-                                int nrows, int all_ops, const long long* plan,
-                                void* stream) {
+                                int nrows, int all_ops, int loss_kind,
+                                float c0, float c1, float c2,
+                                const long long* plan, void* stream) {
   if (T <= 0) return cudaSuccess;
   const bool narrow = plan[7] != 0;
   const long long smem =
@@ -688,6 +753,7 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
                           (plan[8] ? 0 : 4LL * 32 * ((L + 1) / 2)))
              : loss_smem_bytes(static_cast<int>(plan[3]), L, cand);
   if (n_unary + n_binary > srprog::kMaxOps || plan[1] != cand ||
+      loss_kind < 0 || loss_kind >= srloss::kNumLosses ||
       plan[0] * cand != reps || L <= 0 || L >= (1 << 24) || plan[3] < 1 ||
       plan[3] > kLossMaxWarps || plan[5] != smem || smem > kMaxSmemBytes ||
       (narrow && cand != 1) || (plan[8] != 0) != (scratch != nullptr) ||
@@ -716,7 +782,9 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
   a.nrows = nrows;
   a.cap = (L + 1) / 2;
   a.map = srprog::make_op_map(opmap, n_unary, n_binary);
-  const LossFn fn = loss_kernel_for(all_ops != 0, cand, narrow);
+  a.loss_fn = srloss::Loss{loss_kind, c0, c1, c2};
+  const LossFn fn =
+      loss_kernel_for(all_ops != 0, cand, narrow, loss_kind != srloss::kL2);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.kernel_grad import make_loss_kernel
-from ..ops.losses import contain_nonfinite
+from ..ops.losses import contain_nonfinite, resolve_loss
 from ..utils import rng
 from .complexity import compute_complexity
 from .fitness import loss_to_score
@@ -55,9 +55,11 @@ def _bfgs_batched(trees_flat: TreeBatch, x0: torch.Tensor, cmask: torch.Tensor,
     PyTorch keeps TF32 off for matrix products by default."""
     M, L = x0.shape
     ops = options.operators
-    grad_fn = make_loss_kernel(trees_flat, X, y, weights, ops, with_grad=True)
+    loss = resolve_loss(options.loss)
+    grad_fn = make_loss_kernel(trees_flat, X, y, weights, ops, with_grad=True,
+                               loss=loss)
     ls_fn = make_loss_kernel(trees_flat, X, y, weights, ops, with_grad=False,
-                             reps=_LS_STEPS)
+                             reps=_LS_STEPS, loss=loss)
 
     def loss_grad(x):
         loss, grad, ok = grad_fn(x)

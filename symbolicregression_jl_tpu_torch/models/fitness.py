@@ -4,10 +4,11 @@
 Routing is by device, with no work gate: the kernel wrapper runs the CUDA
 kernel for CUDA tensors and its plain version for CPU tensors. The program
 is ``Options.kernel_program``: ``"auto"`` is ``"postfix"``, where
-unweighted L2 scoring takes the fused-loss epilogue and weighted scoring
-and other elementwise losses take value mode followed by the loss and
-``aggregate_loss``; ``"instr"`` / ``"instr_packed"`` always take the
-instruction program's value mode followed by the loss and
+unweighted scoring under any loss of the registry (an ``ElementwiseLoss``)
+takes the fused-loss epilogue, and weighted scoring and a user's own
+callable take value mode followed by the loss and ``aggregate_loss``, as
+the JAX package routes them; ``"instr"`` / ``"instr_packed"`` always take
+the instruction program's value mode followed by the loss and
 ``aggregate_loss`` (it has no fused loss).
 """
 
@@ -18,7 +19,9 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import kernel_eval, kernel_instr
-from ..ops.losses import aggregate_loss, contain_nonfinite, resolve_loss
+from ..ops.losses import (
+    ElementwiseLoss, aggregate_loss, contain_nonfinite, resolve_loss,
+)
 from ..ops.operators import OperatorSet
 from ..utils import rng
 from .complexity import compute_complexity
@@ -45,11 +48,12 @@ def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
         X = X[:, row_idx]
         y = y[row_idx]
         weights = None if weights is None else weights[row_idx]
+    loss_fn = resolve_loss(loss)
     if (program in ("auto", "postfix") and weights is None
-            and isinstance(loss, str) and loss in kernel_eval.FUSED_LOSSES):
-        return kernel_eval.eval_loss_trees(trees, X, y, operators)
+            and isinstance(loss_fn, ElementwiseLoss)):
+        return kernel_eval.eval_loss_trees(trees, X, y, operators, loss_fn)
     y_pred, ok = dispatch_eval(trees, X, operators, program)
-    elem = resolve_loss(loss)(y_pred, y)
+    elem = loss_fn(y_pred, y)
     return contain_nonfinite(aggregate_loss(elem, weights), ok)
 
 

@@ -16,8 +16,7 @@ from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
 
-from ..ops.kernel_eval import FUSED_LOSSES
-from ..ops.losses import resolve_loss
+from ..ops.losses import ElementwiseLoss, resolve_loss
 from ..ops.operators import OperatorSet, canonical_name, make_operator_set
 
 # Mutation kind indices (MutationWeights order)
@@ -127,7 +126,7 @@ class Options:
     hof_migration: bool = True
     fraction_replaced: float = 0.00036
     fraction_replaced_hof: float = 0.035
-    # --- constant optimisation (BFGS, L2 loss) ---
+    # --- constant optimisation (BFGS, any loss of the registry) ---
     should_optimize_constants: bool = True
     optimizer_algorithm: str = "BFGS"
     optimizer_probability: float = 0.14
@@ -195,12 +194,16 @@ class Options:
         optimizes = ((self.should_optimize_constants
                       and self.optimizer_probability > 0)
                      or self.mutation_weights.optimize > 0)
-        if optimizes and self.loss not in FUSED_LOSSES:
+        if optimizes and not isinstance(resolve_loss(self.loss),
+                                        ElementwiseLoss):
             raise NotImplementedError(
-                f"constant optimisation with loss={self.loss!r}: the gradient "
-                "kernel carries L2 only; other elementwise losses come with a "
-                "later slice of the port (pass should_optimize_constants="
-                "False to search without it)"
+                f"constant optimisation with loss={self.loss!r}: the "
+                "constant-optimisation kernels compute the registry's losses "
+                "(a name of LOSS_REGISTRY or an ElementwiseLoss); a callable "
+                "of your own needs its CUDA source spliced into the kernels, "
+                "which comes with custom operators and objectives (ROADMAP.md "
+                "section A.6). Pass should_optimize_constants=False (and no "
+                "optimize mutation) to search without it"
             )
         if not 0 < self.tournament_selection_p <= 1:
             raise ValueError("tournament_selection_p must be in (0, 1]")

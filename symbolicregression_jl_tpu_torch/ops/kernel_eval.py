@@ -1,6 +1,7 @@
 """Scoring kernel wrapper: the counterpart of ``ops/pallas_eval.py``.
 
-``eval_trees`` (value mode), ``eval_loss_trees`` (fused L2 loss) and
+``eval_trees`` (value mode), ``eval_loss_trees`` (fused loss, any
+elementwise loss of the registry: an ``ElementwiseLoss``) and
 ``eval_slot_values`` (every slot's value on one row, for constant folding)
 launch the hand-written CUDA kernel ``csrc/postfix_eval.cu`` for CUDA
 tensors and run the kernel's plain PyTorch version (the ``*_plain``
@@ -20,7 +21,8 @@ poisoned too.
 
 The kernel library is compiled with ``nvcc`` into ``build/`` at first use
 and loaded with ctypes. ``LAUNCHES`` counts the kernel's launches by mode;
-their sum is the total.
+their sum is the total. ``LOSS_LAUNCHES`` counts the fused mode's launches
+by loss name (``fused:HuberLoss``).
 """
 
 from __future__ import annotations
@@ -36,12 +38,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..models.trees import ARITY, BIN, CONST, PAD, UNA, VAR, TreeBatch
-from .losses import contain_nonfinite
+from .losses import L2, ElementwiseLoss, contain_nonfinite, l2_dist_loss
 from .operators import (
     KERNEL_BINARY_IDS, KERNEL_FULL_ONLY, KERNEL_UNARY_IDS, OperatorSet,
 )
 
-LAUNCHES = {"value": 0, "fused_l2": 0, "slots": 0}  # launches by mode
+LAUNCHES = {"value": 0, "fused": 0, "slots": 0}  # launches by mode
+LOSS_LAUNCHES = {}  # the fused mode's launches by "fused:<loss name>"
 
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -58,10 +61,9 @@ BUILD_LOG = ""  # nvcc's output of the last build (-Xptxas -v line included)
 
 MAX_OPERATORS = 64  # csrc/postfix_program.cuh kMaxOps
 MODE_VALUE = 0
-MODE_FUSED_L2 = 1
+MODE_FUSED = 1
 MODE_SLOTS = 2
-MODE_NAMES = {MODE_VALUE: "value", MODE_FUSED_L2: "fused_l2", MODE_SLOTS: "slots"}
-FUSED_LOSSES = ("L2DistLoss", "mse")
+MODE_NAMES = {MODE_VALUE: "value", MODE_FUSED: "fused", MODE_SLOTS: "slots"}
 
 
 # ---------------------------------------------------------------------------
@@ -197,22 +199,77 @@ def split_rows(nrows: int, items: int, rows_per_pass: int) -> Tuple[int, int]:
 
 
 def eval_loss_trees_plain(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
-                          operators: OperatorSet, items: int = 1,
+                          operators: OperatorSet,
+                          loss: ElementwiseLoss = l2_dist_loss, items: int = 1,
                           rows_per_pass: int = 1) -> torch.Tensor:
-    """Plain version of the fused L2 epilogue: per-tree mean loss, +inf
-    for poisoned or empty trees. With ``items`` > 1, the kernel's work-item
-    split: each range of ``split_rows`` gives a partial sum, and the
-    partial sums are added in range order."""
+    """Plain version of the fused epilogue: per-tree mean of ``loss(f(x),
+    y)`` over rows, +inf for poisoned or empty trees. With ``items`` > 1,
+    the kernel's work-item split: each range of ``split_rows`` gives a
+    partial sum, and the partial sums are added in range order."""
     batch_shape = trees.length.shape
     flat, _ = runnable(_flatten(trees), operators, X.shape[0])
     root, bad, _ = _plain_forward(flat, X, operators)
-    d2 = (root - y) ** 2
+    elem = loss(root, y)
     n_items, rng = split_rows(X.shape[1], items, rows_per_pass)
-    loss = d2[:, :rng].sum(-1)
+    total = elem[:, :rng].sum(-1)
     for r in range(1, n_items):
-        loss = loss + d2[:, r * rng:(r + 1) * rng].sum(-1)
-    loss = contain_nonfinite(loss / X.shape[1], ~bad & (flat.length > 0))
-    return loss.reshape(batch_shape)
+        total = total + elem[:, r * rng:(r + 1) * rng].sum(-1)
+    total = contain_nonfinite(total / X.shape[1], ~bad & (flat.length > 0))
+    return total.reshape(batch_shape)
+
+
+def lane_sum(terms: torch.Tensor, rows_per_lane: int = 1) -> torch.Tensor:
+    """The kernels' sum over rows (last dim): in each pass of 32 x
+    ``rows_per_lane`` rows lane ``l`` takes rows ``l * rows_per_lane``,
+    ... of the pass, and each lane adds its rows in order, pass after
+    pass; then the butterfly of shuffles (xor 16, 8, 4, 2, 1) adds the
+    lanes; lane 0's bits."""
+    R = terms.shape[-1]
+    per_pass = 32 * rows_per_lane
+    pad = -R % per_pass
+    if pad:  # + 0 changes no sum
+        terms = torch.nn.functional.pad(terms, (0, pad))
+    passes = terms.reshape(terms.shape[:-1] + (-1, 32, rows_per_lane))
+    lanes = torch.zeros(terms.shape[:-1] + (32,), dtype=terms.dtype,
+                        device=terms.device)
+    for p in range(passes.shape[-3]):
+        for i in range(rows_per_lane):
+            lanes = lanes + passes[..., p, :, i]
+    idx = torch.arange(32, device=terms.device)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ off]
+    return lanes[..., 0]
+
+
+def fused_sums_plain(root: torch.Tensor, y: torch.Tensor,
+                     loss: ElementwiseLoss, plan: EvalPlan) -> torch.Tensor:
+    """The fused mode's per-tree sums from the roots (T, nrows) as the
+    kernel adds them under ``plan`` (``launch_plan``): the loss of each
+    row, each row range's ``lane_sum`` at the plan's rows per lane, the
+    ranges added in order."""
+    elem = loss(root, y)
+    R = root.shape[-1]
+    total = None
+    for r in range(plan.items):
+        part = lane_sum(elem[:, r * plan.range:min((r + 1) * plan.range, R)],
+                        plan.rows_per_lane)
+        total = part if total is None else total + part
+    return total
+
+
+def eval_loss_trees_program_plain(trees: TreeBatch, X: torch.Tensor,
+                                  y: torch.Tensor, operators: OperatorSet,
+                                  loss: ElementwiseLoss, plan: EvalPlan):
+    """Plain version of the fused mode as it runs under ``plan``: the
+    stack machine's roots (``eval_program_plain``) through
+    ``fused_sums_plain``; (sum (...,), ok (...,)) before the division by
+    nrows and the containment. For every loss but L2 (whose instantiation
+    contracts ``acc + d * d`` into one multiply-add) the kernel's bits."""
+    flat = _flatten(trees)
+    root, bad = eval_program_plain(flat, X, operators)
+    shape = trees.length.shape
+    return (fused_sums_plain(root, y, loss, plan).reshape(shape),
+            (~bad & (flat.length > 0)).reshape(shape))
 
 
 def eval_slot_values_plain(trees: TreeBatch, X: torch.Tensor,
@@ -413,16 +470,18 @@ def _library():
             p = ctypes.c_void_p
             i = ctypes.c_int
             ip = ctypes.POINTER(ctypes.c_int)
-            lib.postfix_eval_launch.argtypes = [p] * 13 + [ip] + [i] * 15 + [p]
+            f = ctypes.c_float
+            lib.postfix_eval_launch.argtypes = ([p] * 13 + [ip] + [i] * 16
+                                                + [f] * 3 + [p])
             lib.postfix_eval_launch.restype = i
-            lib.postfix_eval_narrow_plan.argtypes = [i] * 4 + [
+            lib.postfix_eval_narrow_plan.argtypes = [i] * 5 + [
                 ctypes.POINTER(ctypes.c_longlong)]
             lib.postfix_eval_narrow_plan.restype = i
             lib.postfix_eval_config.argtypes = [ip]
             lib.postfix_eval_config.restype = None
             lib.postfix_eval_smem_bytes.argtypes = [i] * 6
             lib.postfix_eval_smem_bytes.restype = i
-            lib.postfix_eval_occupancy.argtypes = [i] * 5
+            lib.postfix_eval_occupancy.argtypes = [i] * 6
             lib.postfix_eval_occupancy.restype = i
             lib.postfix_eval_error_string.argtypes = [i]
             lib.postfix_eval_error_string.restype = ctypes.c_char_p
@@ -512,20 +571,21 @@ def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
-                full: bool, device: int) -> EvalPlan:
+                full: bool, device: int, any_loss: bool = False) -> EvalPlan:
     """``eval_plan`` with the kernel library's layout and occupancy on
     card ``device``; the narrow route's layout where one warp's stack of
-    the usual rows per lane does not fit in a block."""
+    the usual rows per lane does not fit in a block. ``any_loss``: the
+    fused mode's instantiation for a loss other than L2."""
     lib = _library()
     cfg = (ctypes.c_int * 3)()
     lib.postfix_eval_config(cfg)
     if lib.postfix_eval_smem_bytes(1, L, nfeat, 1, 0, mode) > cfg[2]:
         return narrow_plan(lambda out: lib.postfix_eval_narrow_plan(
-            T, L, mode, int(full), out), nrows)
+            T, L, mode, int(full), int(any_loss), out), nrows)
 
     def occupancy(staged, warps, smem):
-        occ = lib.postfix_eval_occupancy(mode, int(full), int(staged), warps,
-                                         smem)
+        occ = lib.postfix_eval_occupancy(mode, int(full), int(staged),
+                                         int(any_loss), warps, smem)
         if occ < 0:
             raise RuntimeError("postfix_eval occupancy query failed")
         return occ
@@ -548,13 +608,15 @@ class PreparedLaunch(NamedTuple):
     length: torch.Tensor
     mode: int
     plan: EvalPlan
+    loss: ElementwiseLoss = l2_dist_loss
 
 
 def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
-                   operators: OperatorSet, mode: int) -> PreparedLaunch:
+                   operators: OperatorSet, mode: int,
+                   loss: ElementwiseLoss = l2_dist_loss) -> PreparedLaunch:
     """Check the inputs and allocate the kernel's outputs for a flat (T, L)
     batch on the card; the trees go to the kernel as they are, in
-    longest-first order."""
+    longest-first order. ``loss``: the fused mode's loss."""
     dev = X.device
     if X.dtype != torch.float32 or X.dim() != 2:
         raise ValueError(f"X must be (nfeat, nrows) float32, got {X.dtype} "
@@ -573,9 +635,15 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
                          f"{tuple(X.shape)}")
     if mode == MODE_SLOTS and nrows != 1:
         raise ValueError("the slot-values mode takes X with one row")
+    if not isinstance(loss, ElementwiseLoss):
+        raise NotImplementedError(
+            f"the fused kernel computes the registry's losses; {loss!r} runs "
+            "in value mode followed by the loss")
     full = uses_full_kernel(operators)
     ids = host_operator_ids(operators)
-    plan = launch_plan(T, L, nfeat, nrows, mode, full, dev.index or 0)
+    any_loss = mode == MODE_FUSED and loss.kind != L2
+    plan = launch_plan(T, L, nfeat, nrows, mode, full, dev.index or 0,
+                       any_loss)
     fields = [f.to(torch.int64).contiguous()
               for f in (flat.kind, flat.op, flat.feat)]
     cval = flat.cval.to(torch.float32).contiguous()
@@ -599,8 +667,9 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
             None if y is None else y.contiguous(), out, bad, part, part_bad,
             scratch, ids, operators.n_unary, operators.n_binary, T, L, nfeat,
             nrows, mode, int(full), plan.items, plan.range, int(plan.staged),
-            plan.warps, plan.smem, plan.blocks, int(plan.narrow))
-    return PreparedLaunch(args, out, bad, length, mode, plan)
+            plan.warps, plan.smem, plan.blocks, int(plan.narrow), loss.kind,
+            *loss.constants)
+    return PreparedLaunch(args, out, bad, length, mode, plan, loss)
 
 
 def run_prepared(p: PreparedLaunch) -> None:
@@ -614,12 +683,16 @@ def run_prepared(p: PreparedLaunch) -> None:
         raise RuntimeError("postfix_eval kernel launch failed: "
                            + lib.postfix_eval_error_string(rc).decode())
     LAUNCHES[MODE_NAMES[p.mode]] += 1
+    if p.mode == MODE_FUSED:
+        key = f"fused:{p.loss.name}"
+        LOSS_LAUNCHES[key] = LOSS_LAUNCHES.get(key, 0) + 1
 
 
 def _launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
-            operators: OperatorSet, mode: int):
+            operators: OperatorSet, mode: int,
+            loss: ElementwiseLoss = l2_dist_loss):
     """One kernel launch over a flat (T, L) batch on the card."""
-    p = prepare_launch(flat, X, y, operators, mode)
+    p = prepare_launch(flat, X, y, operators, mode, loss)
     run_prepared(p)
     return p.out, (p.bad == 0) & (p.length > 0)
 
@@ -642,16 +715,16 @@ def eval_trees(trees: TreeBatch, X: torch.Tensor,
 
 
 def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
-                    operators: OperatorSet) -> torch.Tensor:
-    """Fused L2 loss: per-tree ``sum_rows (f(x) - y)^2 / nrows``, +inf for
+                    operators: OperatorSet,
+                    loss: ElementwiseLoss = l2_dist_loss) -> torch.Tensor:
+    """Fused loss: per-tree ``sum_rows loss(f(x), y) / nrows``, +inf for
     poisoned or empty trees; the (trees, rows) matrix never reaches device
     memory on the card."""
     if not X.is_cuda:
-        return eval_loss_trees_plain(trees, X, y, operators)
+        return eval_loss_trees_plain(trees, X, y, operators, loss)
     batch_shape = trees.length.shape
-    out, ok = _launch(_flatten(trees), X, y, operators, MODE_FUSED_L2)
-    loss = contain_nonfinite(out / X.shape[1], ok)
-    return loss.reshape(batch_shape)
+    out, ok = _launch(_flatten(trees), X, y, operators, MODE_FUSED, loss)
+    return contain_nonfinite(out / X.shape[1], ok).reshape(batch_shape)
 
 
 def eval_slot_values(trees: TreeBatch, X: torch.Tensor,

@@ -3,10 +3,12 @@
 
 ``make_loss_kernel`` stages a batch's structure once (the tree fields, the
 length sort, the normalised row weights) and returns
-``fn(cval) -> (loss, grad | None, ok)``: per instance the weighted L2 loss
-``sum_rows wn * (f(x) - y)^2`` with ``wn = w / sum(w)`` (``1/nrows``
-unweighted), its gradient with respect to every CONST slot (0 elsewhere)
-and the poison flag. The loss is not contained: callers apply
+``fn(cval) -> (loss, grad | None, ok)``: per instance the weighted loss
+``sum_rows wn * loss(f(x), y)`` with ``wn = w / sum(w)`` (``1/nrows``
+unweighted), for any elementwise loss of the registry (an
+``ElementwiseLoss``, L2 by default), its gradient with respect to every
+CONST slot (0 elsewhere), seeded with ``LOSS_VJP``, and the poison
+flag. The loss is not contained: callers apply
 ``contain_nonfinite(loss, ok)``. With ``reps > 1`` each tree's structure
 serves ``reps`` consecutive constant vectors (the line search's
 candidates, the JAX package's ``jnp.repeat`` of the trees).
@@ -21,8 +23,8 @@ table of ``ops/operators.py``. Both kernels derive the program from the
 are, with a longest-first order; ``eval_loss_grad_program_plain`` is the
 plain version of the gradient kernel's sweeps and sums, and the loss-only
 kernel runs a tree's candidates together, ``candidate_groups`` of them per
-warp. ``LAUNCHES`` counts the launches by variant. Only L2
-(``L2DistLoss``/``mse``) is carried, as by the fused scoring epilogue.
+warp. ``LAUNCHES`` counts the launches by variant, ``LOSS_LAUNCHES`` by
+variant and loss name (``loss_grad:HuberLoss``).
 """
 
 from __future__ import annotations
@@ -37,10 +39,11 @@ import torch
 
 from ..models.trees import CONST, TreeBatch
 from . import kernel_eval as ke
-from .losses import l2_dist_loss_grad
+from .losses import L2, ElementwiseLoss, l2_dist_loss
 from .operators import BINARY_VJP, KERNEL_BINARY_IDS, UNARY_VJP, OperatorSet
 
 LAUNCHES = {"loss_grad": 0, "loss": 0}  # launches by variant
+LOSS_LAUNCHES = {}  # launches by "<variant>:<loss name>"
 
 SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "postfix_grad.cu"
 LIBRARY = ke.BUILD_DIR / "libpostfix_grad.so"
@@ -69,16 +72,16 @@ def normalized_weights(weights: Optional[torch.Tensor], nrows: int,
 
 
 def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
-                     with_grad: bool, scale: bool = False):
+                     with_grad: bool, scale: bool = False,
+                     loss_fn: ElementwiseLoss = l2_dist_loss):
     """(loss (T,), grad (T, L) or None, ok (T,)) of a flat batch of valid
-    programs (``ke.runnable``); with ``scale`` also each CONST slot's sum
-    over rows of |row term|, which bounds the rounding of its row sum (a
-    comparison's yardstick)."""
+    programs (``ke.runnable``) under ``loss_fn``; with ``scale`` also each
+    CONST slot's sum over rows of |row term|, which bounds the rounding of
+    its row sum (a comparison's yardstick)."""
     root, bad, vals = ke._plain_forward(flat, X, operators)
     ok = ~bad & (flat.length > 0)
-    d = root - y
     zero_w = wn == 0
-    loss = torch.where(zero_w, 0.0, d * d * wn).sum(-1)
+    loss = torch.where(zero_w, 0.0, loss_fn(root, y) * wn).sum(-1)
     if not with_grad:
         return loss, None, ok
     T, L = flat.kind.shape
@@ -88,7 +91,7 @@ def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
     U = operators.n_unary
     adj = torch.zeros_like(vals)
     adj[torch.clamp_min(flat.length - 1, 0), ti] = torch.where(
-        zero_w, 0.0, l2_dist_loss_grad(root, y) * wn)
+        zero_w, 0.0, loss_fn.seed(root, y) * wn)
     for s in range(L - 1, -1, -1):
         c = code[:, s]
         live = s < flat.length
@@ -120,25 +123,28 @@ def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
 
 
 def eval_loss_grad_plain(trees: TreeBatch, X, y, weights,
-                         operators: OperatorSet, scale: bool = False):
+                         operators: OperatorSet, scale: bool = False,
+                         loss: ElementwiseLoss = l2_dist_loss):
     """Plain version of the gradient variant: (loss (...,), grad (..., L),
     ok (...,)) at the trees' own constants, and with ``scale`` the sum
     over rows of each gradient term's magnitude (..., L)."""
     flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
     wn = normalized_weights(weights, X.shape[1], X.device)
-    out = _plain_loss_grad(flat, X, y, wn, operators, True, scale)
+    out = _plain_loss_grad(flat, X, y, wn, operators, True, scale, loss)
     shapes = (trees.length.shape, trees.kind.shape, trees.length.shape,
               trees.kind.shape)
     return tuple(o.reshape(sh) for o, sh in zip(out, shapes))
 
 
-def eval_loss_plain(trees: TreeBatch, X, y, weights, operators: OperatorSet):
+def eval_loss_plain(trees: TreeBatch, X, y, weights, operators: OperatorSet,
+                    loss: ElementwiseLoss = l2_dist_loss):
     """Plain version of the loss-only variant: (loss (...,), ok (...,))."""
     flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
     wn = normalized_weights(weights, X.shape[1], X.device)
-    loss, _, ok = _plain_loss_grad(flat, X, y, wn, operators, False)
+    total, _, ok = _plain_loss_grad(flat, X, y, wn, operators, False,
+                                    loss_fn=loss)
     shape = trees.length.shape
-    return loss.reshape(shape), ok.reshape(shape)
+    return total.reshape(shape), ok.reshape(shape)
 
 
 def adjoint_words(words: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
@@ -171,24 +177,9 @@ def adjoint_words(words: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
                        words)
 
 
-def _lane_sum(terms: torch.Tensor) -> torch.Tensor:
-    """The kernels' sum over rows (last dim): each of 32 lanes adds its rows
-    lane, lane + 32, ... in order, then the butterfly of shuffles (xor 16,
-    8, 4, 2, 1) adds the lanes; lane 0's bits."""
-    R = terms.shape[-1]
-    lanes = torch.zeros(terms.shape[:-1] + (32,), dtype=terms.dtype,
-                        device=terms.device)
-    for r0 in range(0, R, 32):
-        chunk = terms[..., r0:r0 + 32]
-        lanes[..., :chunk.shape[-1]] = lanes[..., :chunk.shape[-1]] + chunk
-    idx = torch.arange(32, device=terms.device)
-    for off in (16, 8, 4, 2, 1):
-        lanes = lanes + lanes[..., idx ^ off]
-    return lanes[..., 0]
-
-
 def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
-                                 operators: OperatorSet):
+                                 operators: OperatorSet,
+                                 loss: ElementwiseLoss = l2_dist_loss):
     """Plain version of the gradient kernel as it runs (csrc/
     postfix_grad.cu): (loss (...,), grad (..., L), ok (...,)). The forward
     sweep is the stack machine over ``ke.program_words`` and keeps every
@@ -197,8 +188,9 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
     waiting on a stack, at the binary slot's entry, for the leaf that
     pushed that operand (the kernel keeps that stack in the values of
     slots no later step reads); losses and CONST adjoints are summed over
-    rows as the kernel sums them (``_lane_sum``). An invalid program is
-    poisoned, its loss and gradient 0."""
+    rows as the kernel sums them (``ke.lane_sum``, rows lane, lane + 32,
+    ...), and the root's seed is ``loss.seed(root, y) * wn``. An invalid
+    program is poisoned, its loss and gradient 0."""
     flat = ke._flatten(trees)
     T, L = flat.kind.shape
     nfeat, R = X.shape
@@ -236,10 +228,10 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
         top = torch.where(live.unsqueeze(-1), new, top)
         vals[s] = top
         bad |= live & (c != 0) & ~torch.isfinite(new).all(-1)
-    d = top - y
     zero_w = wn == 0
-    loss = torch.where(zero_w | (n == 0).unsqueeze(-1), 0.0, d * d * wn)
-    w = torch.where(zero_w, 0.0, (2.0 * d) * wn)
+    terms = torch.where(zero_w | (n == 0).unsqueeze(-1), 0.0,
+                        loss(top, y) * wn)
+    w = torch.where(zero_w, 0.0, loss.seed(top, y) * wn)
     cacc = torch.zeros((L, T, R), dtype=torch.float32, device=X.device)
     for s in range(L - 1, -1, -1):
         live = (s < n).unsqueeze(-1)
@@ -262,10 +254,10 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
         w = new_w
     const = (flat.kind == CONST) & (torch.arange(L, device=X.device)
                                     < n.unsqueeze(-1))
-    grad = torch.where(const, _lane_sum(cacc).T, 0.0)
+    grad = torch.where(const, ke.lane_sum(cacc).T, 0.0)
     ok = ~bad & (n > 0)
     shape = trees.length.shape
-    return (_lane_sum(loss).reshape(shape), grad.reshape(trees.kind.shape),
+    return (ke.lane_sum(terms).reshape(shape), grad.reshape(trees.kind.shape),
             ok.reshape(shape))
 
 
@@ -291,16 +283,17 @@ def _library():
             i = ctypes.c_int
             ip = ctypes.POINTER(ctypes.c_int)
             lp = ctypes.POINTER(ctypes.c_longlong)
-            lib.postfix_grad_plan.argtypes = [i] * 4 + [lp]
+            f = ctypes.c_float
+            lib.postfix_grad_plan.argtypes = [i] * 5 + [lp]
             lib.postfix_grad_plan.restype = i
-            lib.postfix_grad_launch.argtypes = ([p] * 13 + [ip] + [i] * 8
-                                                + [lp, p])
+            lib.postfix_grad_launch.argtypes = ([p] * 13 + [ip] + [i] * 9
+                                                + [f] * 3 + [lp, p])
             lib.postfix_grad_launch.restype = i
             lib.postfix_loss_candidates.restype = i
-            lib.postfix_loss_plan.argtypes = [i] * 5 + [lp]
+            lib.postfix_loss_plan.argtypes = [i] * 6 + [lp]
             lib.postfix_loss_plan.restype = i
-            lib.postfix_loss_launch.argtypes = ([p] * 12 + [ip] + [i] * 9
-                                                + [lp, p])
+            lib.postfix_loss_launch.argtypes = ([p] * 12 + [ip] + [i] * 10
+                                                + [f] * 3 + [lp, p])
             lib.postfix_loss_launch.restype = i
             lib.postfix_grad_digamma.argtypes = [p, p, i, p]
             lib.postfix_grad_digamma.restype = i
@@ -352,9 +345,13 @@ class GradPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def grad_plan(T: int, reps: int, L: int, full: bool) -> GradPlan:
+def grad_plan(T: int, reps: int, L: int, full: bool,
+              any_loss: bool = False) -> GradPlan:
+    """The gradient kernel's layout; ``any_loss``: its instantiation for a
+    loss other than L2."""
     plan = (ctypes.c_longlong * 7)()
-    rc = _library().postfix_grad_plan(T, reps, L, int(full), plan)
+    rc = _library().postfix_grad_plan(T, reps, L, int(full), int(any_loss),
+                                      plan)
     if rc != 0:
         raise ValueError(f"no layout of the gradient kernel for max_len {L}: "
                          + _library().postfix_grad_error_string(rc).decode())
@@ -362,11 +359,14 @@ def grad_plan(T: int, reps: int, L: int, full: bool) -> GradPlan:
 
 
 @functools.lru_cache(maxsize=64)
-def loss_plan(T: int, reps: int, L: int, full: bool) -> LossPlan:
+def loss_plan(T: int, reps: int, L: int, full: bool,
+              any_loss: bool = False) -> LossPlan:
+    """The loss-only kernel's layout; ``any_loss`` as ``grad_plan``'s."""
     lib = _library()
     cand = candidate_groups(reps, lib.postfix_loss_candidates())
     plan = (ctypes.c_longlong * 9)()
-    rc = lib.postfix_loss_plan(T, reps, cand, L, int(full), plan)
+    rc = lib.postfix_loss_plan(T, reps, cand, L, int(full), int(any_loss),
+                               plan)
     if rc != 0:
         raise ValueError(f"no layout of the loss-only kernel for max_len {L}: "
                          + lib.postfix_grad_error_string(rc).decode())
@@ -389,7 +389,8 @@ def _check_inputs(flat: TreeBatch, X, y, weights):
 
 
 def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
-                 with_grad: bool, reps: int = 1) -> Callable:
+                 with_grad: bool, reps: int = 1,
+                 loss: ElementwiseLoss = l2_dist_loss) -> Callable:
     """Check the inputs, stage the structure on the card once, and return
     ``launch(cval (T * reps, L)) -> (loss, grad | None, bad)``: one kernel
     launch each. Both kernels read the tree fields as they are, trees
@@ -406,7 +407,9 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
     lib = _library()
     full = ke.uses_full_kernel(operators)
     ids = ke.host_operator_ids(operators)
-    plan = grad_plan(T, reps, L, full) if with_grad else loss_plan(T, reps, L, full)
+    any_loss = loss.kind != L2
+    plan = (grad_plan(T, reps, L, full, any_loss) if with_grad
+            else loss_plan(T, reps, L, full, any_loss))
     c_plan = (ctypes.c_longlong * len(plan))(*plan)
     scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
                            device=dev) if plan.scratch_bytes else None)
@@ -424,24 +427,28 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
             raise RuntimeError("postfix_grad kernel launch failed: "
                                + lib.postfix_grad_error_string(rc).decode())
         LAUNCHES[variant] += 1
+        key = f"{variant}:{loss.name}"
+        LOSS_LAUNCHES[key] = LOSS_LAUNCHES.get(key, 0) + 1
+
+    loss_args = (loss.kind, *loss.constants)
 
     def launch(cval: torch.Tensor):
         cv = cval.to(torch.float32).reshape(N, L).contiguous()
-        loss = torch.empty((N,), dtype=torch.float32, device=dev)
+        out = torch.empty((N,), dtype=torch.float32, device=dev)
         bad = torch.empty((N,), dtype=torch.int32, device=dev)
-        head = [t.data_ptr() for t in (*fields, length, order, cv, *data, loss)]
+        head = [t.data_ptr() for t in (*fields, length, order, cv, *data, out)]
         tail = (None if scratch is None else scratch.data_ptr(), ids,
                 operators.n_unary, operators.n_binary, T, reps)
         if not with_grad:
             check(lib.postfix_loss_launch(
                 *head, bad.data_ptr(), *tail, plan.candidates, L, nfeat,
-                nrows, int(full), c_plan, stream()), "loss")
-            return loss, None, bad
+                nrows, int(full), *loss_args, c_plan, stream()), "loss")
+            return out, None, bad
         grad = torch.empty((N, L), dtype=torch.float32, device=dev)
         check(lib.postfix_grad_launch(
             *head, grad.data_ptr(), bad.data_ptr(), *tail, L, nfeat, nrows,
-            int(full), c_plan, stream()), "loss_grad")
-        return loss, grad, bad
+            int(full), *loss_args, c_plan, stream()), "loss_grad")
+        return out, grad, bad
 
     return launch
 
@@ -465,16 +472,22 @@ def digamma_on_card(x: torch.Tensor) -> torch.Tensor:
 
 def make_loss_kernel(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
                      weights: Optional[torch.Tensor], operators: OperatorSet,
-                     with_grad: bool = True, reps: int = 1) -> Callable:
+                     with_grad: bool = True, reps: int = 1,
+                     loss: ElementwiseLoss = l2_dist_loss) -> Callable:
     """Stage the structure of ``trees`` once; return ``fn(cval)`` ->
-    ``(loss, grad | None, ok)`` with ``cval`` of shape (..., L) holding
-    ``reps`` constant vectors per tree, in tree order; the outputs take
-    ``cval``'s leading shape. CUDA tensors run the kernel, CPU tensors the
-    plain version."""
+    ``(loss, grad | None, ok)`` under ``loss`` with ``cval`` of shape (...,
+    L) holding ``reps`` constant vectors per tree, in tree order; the
+    outputs take ``cval``'s leading shape. CUDA tensors run the kernel, CPU
+    tensors the plain version."""
+    if not isinstance(loss, ElementwiseLoss):
+        raise NotImplementedError(
+            f"the constant-optimisation kernels compute the registry's losses "
+            f"and their seeds; {loss!r} is not one of them")
     flat = ke._flatten(trees)
     T, L = flat.kind.shape
     if X.is_cuda:
-        raw = stage_launch(flat, X, y, weights, operators, with_grad, reps)
+        raw = stage_launch(flat, X, y, weights, operators, with_grad, reps,
+                           loss)
         live = (flat.length > 0).repeat_interleave(reps)
 
         def launch(cval):
@@ -489,29 +502,32 @@ def make_loss_kernel(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
         def launch(cval):
             cv = cval.to(torch.float32).reshape(T * reps, L)
             return _plain_loss_grad(rep._replace(cval=cv), X, y, wn,
-                                    operators, with_grad)
+                                    operators, with_grad, loss_fn=loss)
 
     def fn(cval: torch.Tensor):
         lead = cval.shape[:-1]
-        loss, grad, ok = launch(cval)
-        return (loss.reshape(lead),
+        total, grad, ok = launch(cval)
+        return (total.reshape(lead),
                 None if grad is None else grad.reshape(cval.shape),
                 ok.reshape(lead))
 
     return fn
 
 
-def eval_loss_grad(trees: TreeBatch, X, y, weights, operators: OperatorSet):
+def eval_loss_grad(trees: TreeBatch, X, y, weights, operators: OperatorSet,
+                   loss: ElementwiseLoss = l2_dist_loss):
     """(loss, grad, ok) at the trees' own constants: the gradient variant
     (B3) on the card, its plain version on the CPU."""
-    return make_loss_kernel(trees, X, y, weights, operators, True)(trees.cval)
+    return make_loss_kernel(trees, X, y, weights, operators, True,
+                            loss=loss)(trees.cval)
 
 
-def eval_loss(trees: TreeBatch, X, y, weights, operators: OperatorSet):
+def eval_loss(trees: TreeBatch, X, y, weights, operators: OperatorSet,
+              loss: ElementwiseLoss = l2_dist_loss):
     """(loss, ok) at the trees' own constants: the loss-only variant (B4)."""
-    loss, _, ok = make_loss_kernel(trees, X, y, weights, operators,
-                                   False)(trees.cval)
-    return loss, ok
+    total, _, ok = make_loss_kernel(trees, X, y, weights, operators, False,
+                                    loss=loss)(trees.cval)
+    return total, ok
 
 
 class ConstantLoss(torch.autograd.Function):

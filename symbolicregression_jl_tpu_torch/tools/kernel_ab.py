@@ -66,6 +66,9 @@ from symbolicregression_jl_tpu_torch.ops.operators import make_operator_set
 from symbolicregression_jl_tpu_torch.utils.rng import make_generator
 
 OUT_DIR = ke.BUILD_DIR / "kernel_ab"
+# the scoring kernel's fused mode (MODE_FUSED_L2 in the versions that fused
+# L2 alone); timed here under L2, which every version computes
+MODE_FUSED = getattr(ke, "MODE_FUSED", None) or ke.MODE_FUSED_L2
 CAPTURED = OUT_DIR / "captured.pt"
 
 
@@ -151,11 +154,11 @@ def capture_children(ops) -> TreeBatch:
     seen = {"iterations": 0, "batch": None}
     scoring = ke.eval_loss_trees
 
-    def spy(trees, X, y_, operators):
+    def spy(trees, X, y_, operators, *loss):
         if seen["iterations"] == 1 and trees.length.numel() == 64 * 84:
             seen["batch"] = ke._flatten(trees).map(torch.clone)
             raise _Captured
-        return scoring(trees, X, y_, operators)
+        return scoring(trees, X, y_, operators, *loss)
 
     ke.eval_loss_trees = spy
     try:
@@ -205,12 +208,12 @@ def time_here(captured_path, bits_path) -> dict:
     long = long_trees(ops, dev)
     shapes = [(f"{label}@{tb.length.shape[0]}", tb, mode)
               for label, mode in (("value", ke.MODE_VALUE),
-                                  ("fused_l2", ke.MODE_FUSED_L2),
+                                  ("fused_l2", MODE_FUSED),
                                   ("slots", ke.MODE_SLOTS))
               for tb in (cycle, trees)]
     if captured_path:
         captured = TreeBatch(*torch.load(captured_path, map_location="cuda"))
-        shapes.append(("fused_l2@captured", captured, ke.MODE_FUSED_L2))
+        shapes.append(("fused_l2@captured", captured, MODE_FUSED))
     uses_full = ke.uses_full_kernel
     row, outs = {}, {}
     try:
@@ -220,7 +223,7 @@ def time_here(captured_path, bits_path) -> dict:
             for label, tb, mode in shapes:
                 p = ke.prepare_launch(
                     tb, X1 if mode == ke.MODE_SLOTS else X,
-                    y if mode == ke.MODE_FUSED_L2 else None, ops, mode)
+                    y if mode == MODE_FUSED else None, ops, mode)
                 row[pre + label] = device_ms(lambda: ke.run_prepared(p), 50)
                 if not full and label.endswith("@5376"):
                     outs[label] = p.out.nan_to_num().view(torch.int32).cpu()

@@ -206,7 +206,7 @@ def main(argv=None) -> int:
     b2, b3, b4, b5, b6, steps = {}, {}, {}, {}, {}, {}
     for n in LENGTHS:
         tb = fixed_length_trees(rng, 5376, n, 1, ops, 24, dev)
-        prep = ke.prepare_launch(tb, X, y, ops, ke.MODE_FUSED_L2)
+        prep = ke.prepare_launch(tb, X, y, ops, ke.MODE_FUSED)
         b2[n] = device_ms(lambda: ke.run_prepared(prep), 50)
         steps[n] = float((tb.kind >= UNA).sum(-1).clamp_min(1).float().mean())
         for b, packed in ((b5, False), (b6, True)):

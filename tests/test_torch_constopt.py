@@ -234,6 +234,8 @@ def test_select_and_starts_invariants(carried, seed):
     dict(mutation_weights=dict(optimize=0.5)),
     dict(optimizer_algorithm="BFGS", optimizer_backend="auto", loss="mse"),
     dict(should_optimize_constants=False, loss="L1DistLoss"),
+    dict(loss="L1DistLoss"), dict(loss="HuberLoss", should_optimize_constants=False,
+                                  mutation_weights=dict(optimize=0.1)),
 ])
 def test_constant_optimisation_options_accepted(kw):
     o = sr.make_options(**kw)
@@ -246,9 +248,11 @@ def test_constant_optimisation_options_accepted(kw):
 
 @pytest.mark.parametrize("kw", [
     dict(optimizer_algorithm="NelderMead"), dict(optimizer_algorithm="Newton"),
-    dict(loss="L1DistLoss"), dict(loss="HuberLoss", should_optimize_constants=False,
-                                  mutation_weights=dict(optimize=0.1)),
     dict(optimizer_backend="jnp"), dict(optimizer_backend="pallas"),
+    # a callable of the user's own has no seed in the kernels
+    dict(loss=lambda p, t: (p - t) * (p - t)),
+    dict(loss=lambda p, t: abs(p - t), should_optimize_constants=False,
+         mutation_weights=dict(optimize=0.1)),
 ])
 def test_constant_optimisation_options_refused(kw):
     with pytest.raises(NotImplementedError):

@@ -32,6 +32,7 @@ from symbolicregression_jl_tpu_torch.models.trees import (
 from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
 from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
 from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
+from symbolicregression_jl_tpu_torch.ops import losses as tlosses
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 from symbolicregression_jl_tpu_torch.utils.rng import make_generator
 
@@ -111,13 +112,13 @@ def test_equation_search_on_card(cuda):
     rng = np.random.default_rng(0)
     X = rng.integers(-3, 4, size=(5, 100)).astype(np.float32)
     y = X[0] * X[0] - X[1] * X[2]
-    before = tke.LAUNCHES["fused_l2"]
+    before = tke.LAUNCHES["fused"]
     res = sr.equation_search(
         X, y, binary_operators=["+", "-", "*"], should_optimize_constants=False,
         npopulations=16, npop=100, tournament_selection_n=6,
         ncycles_per_iteration=40, maxsize=12, niterations=2, seed=0,
         verbosity=0)
-    assert tke.LAUNCHES["fused_l2"] - before >= 2 * 40
+    assert tke.LAUNCHES["fused"] - before >= 2 * 40
     assert res.candidates and np.isfinite(res.best_loss().loss)
 
 
@@ -399,7 +400,7 @@ def test_scoring_kernel_work_items_on_card(cuda, T, nrows):
     trees = _length_sweep(ops, 2, L, -(-T // L), cuda)[:T]
     X = torch.randn(2, nrows, device=cuda) * 2
     y = torch.randn(nrows, device=cuda)
-    plan = tke.launch_plan(T, L, 2, nrows, tke.MODE_FUSED_L2, False, 0)
+    plan = tke.launch_plan(T, L, 2, nrows, tke.MODE_FUSED, False, 0)
     assert plan.blocks == -(-T // plan.warps) * plan.items
     yk, okk = tke.eval_trees(trees, X, ops)
     yp, okp = tke.eval_trees_plain(trees, X, ops)
@@ -811,3 +812,166 @@ def test_instr_scoring_call_makes_no_host_wait_on_card(cuda):
         waits = [k for k in by_op if "Synchronize" in k and " <- None " not in k]
         copies = [c for c in by_call if "HtoD" in c or "DtoH" in c]
         assert not waits and not copies, (program, waits, copies)
+
+
+def _every_loss():
+    """Each loss of the registry once, then the parameterised factories at
+    parameters other than their defaults."""
+    losses = []
+    for v in tlosses.LOSS_REGISTRY.values():
+        if v not in losses:
+            losses.append(v)
+    return losses + [tlosses.huber_loss(2.0), tlosses.quantile_loss(0.3),
+                     tlosses.lp_dist_loss(3.0), tlosses.dwd_margin_loss(2.0),
+                     tlosses.smoothed_l1_hinge_loss(0.5),
+                     tlosses.periodic_loss(3.0),
+                     tlosses.l1_epsilon_ins_loss(0.3)]
+
+
+def _loss_case(cuda, max_len):
+    """Over + - * / cos exp (whose torch and CUDA library functions agree,
+    so the mirrors can give the kernels' bits): at max_len 24, 2,000 random
+    programs and the poisoning trees on 600 rows; longer, ``_long_batch``
+    (300 rows, its invalid programs last)."""
+    if max_len != L:
+        return _long_batch(cuda, max_len)
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    gen = make_generator(5, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, L - 2, (2000,), generator=gen, device=cuda), 2,
+        ops, L, cuda)
+    edge = stack_trees([encode_tree(parse_expression(e, ops), L, device=cuda)
+                        for e in ("x0 / (x1 - x1)", "exp(exp(exp(x1 * 1.5)))",
+                                  "0.7 + cos(x0 * 1.3)")])
+    trees = TreeBatch(*(torch.cat([a, b]) for a, b in zip(trees, edge)))
+    X = torch.randn(2, 600, generator=gen, device=cuda) * 2
+    y = torch.randn(600, generator=gen, device=cuda)
+    w = torch.rand(600, generator=gen, device=cuda) + 0.5
+    w[:4] = 0.0
+    return ops, trees, X, y, w, 0
+
+
+@pytest.mark.gpu
+def test_loss_library_grid_on_card(cuda):
+    """csrc/losses.cuh elementwise: programs that are a single constant,
+    one row (X's value unused) and target t, so B2's fused sum is
+    loss_elem(c, t) and B3's loss and gradient are loss_elem(c, t) and
+    loss_seed(c, t) (the weight is 1); against the plain ``loss`` and
+    ``loss.seed`` on the card over a grid of finite predictions (a
+    non-finite constant poisons its program) and targets: bit for bit for
+    the losses without a transcendental function, rtol 1e-6 (atol 1e-36
+    for subnormal results) for the rest."""
+    ops = tops.make_operator_set(["+", "*"], [])
+    base = [0.0, -0.0, 1e-30, -1e-30, 0.3, -0.3, 0.5, -0.5, 1.0, -1.0, 1.5,
+            2.0, -2.0, 3.7, -3.7, 20.0, -20.0, 87.0, 89.0, 100.0, -100.0, 1e4,
+            -1e4, 1e20, -1e20, 3e38]
+    for loss in _every_loss():
+        grid = torch.tensor(base + [v for c in loss.constants if c
+                                    for v in (c, -c, 1 - c, 1 + c)],
+                            device=cuda)
+        n = grid.shape[0]
+        kind = torch.zeros((n, L), dtype=torch.int64, device=cuda)
+        kind[:, 0] = 1  # CONST
+        cval = torch.zeros((n, L), device=cuda)
+        cval[:, 0] = grid
+        trees = TreeBatch(kind, torch.zeros_like(kind), torch.zeros_like(kind),
+                          cval, torch.ones(n, dtype=torch.int64, device=cuda))
+        X = torch.zeros((1, 1), device=cuda)
+        for t in (0.0, 1.0, -1.0, 0.5, 2.0, -3.0):
+            y = torch.tensor([t], device=cuda)
+            # the kernels add each value to a zero sum: -0 comes out +0
+            ref = loss(grid, y.expand(n)) + 0.0
+            seed = loss.seed(grid, y.expand(n)) + 0.0
+            fused = tke.eval_loss_trees(trees, X, y, ops, loss)
+            l3, g3, ok3 = tkg.eval_loss_grad(trees, X, y, None, ops, loss=loss)
+            assert bool(ok3.all())
+            for name, got, want in (("elem (B2)", fused, ref),
+                                    ("elem (B3)", l3, ref),
+                                    ("seed (B3)", g3[:, 0], seed)):
+                if name == "elem (B2)":  # contained to +inf
+                    want = torch.where(torch.isfinite(want), want, float("inf"))
+                if loss.kind in tlosses.TRANSCENDENTAL:
+                    torch.testing.assert_close(
+                        got, want, rtol=1e-6, atol=1e-36, equal_nan=True,
+                        msg=lambda m: f"{loss} {name} t={t}: {m}")
+                else:
+                    diff = got.view(torch.int32) != want.view(torch.int32)
+                    diff &= ~(torch.isnan(got) & torch.isnan(want))
+                    assert not bool(diff.any()), (
+                        loss, name, t, grid[diff].tolist(), got[diff].tolist(),
+                        want[diff].tolist())
+
+
+# the losses whose mirrors run at the long max_len (each mirror sweeps
+# every slot in PyTorch): one with abs, one with a where, one with exp and
+# log1p, one margin loss
+LONG_MIRRORED = ("L1DistLoss", "HuberLoss", "LogCoshLoss", "L2HingeLoss")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_len", [24, 512, 1024])
+def test_every_loss_through_the_kernels_on_card(cuda, max_len):
+    """Every loss of the registry through B2 (unweighted), B3 and B4
+    (weighted, zero-weight rows included), at max_len 24, 512 and 1,024
+    (B2's and B3's narrow routes at 1,024): two launches the same bits;
+    B3's loss bit-equal to B4's in both of B4's layouts; against the plain
+    mirrors (``eval_loss_trees_program_plain`` under B2's plan,
+    ``eval_loss_grad_program_plain``), bit for bit for the losses without
+    a transcendental function (L2's B2 instantiation contracts acc + d * d
+    into one multiply-add, so its sums at rtol 1e-6) and for the rest
+    within rtol 1e-5 (losses) and the row-sum yardstick of
+    ``_assert_grad_outputs_close`` (gradients); at the long max_len the
+    mirrors run for ``LONG_MIRRORED``. B2 also against its plain version
+    within rtol 1e-4 (rows summed in another order)."""
+    ops, trees, X, y, w, nb = _loss_case(cuda, max_len)
+    T, nrows = trees.length.shape[0], X.shape[1]
+    full = tke.uses_full_kernel(ops)
+    for loss in _every_loss():
+        exact = loss.kind not in tlosses.TRANSCENDENTAL
+        any_loss = loss.kind != tlosses.L2
+        lk = tke.eval_loss_trees(trees, X, y, ops, loss)
+        _assert_bits_equal(tke.eval_loss_trees(trees, X, y, ops, loss), lk)
+        plan = tke.launch_plan(T, max_len, X.shape[0], nrows, tke.MODE_FUSED,
+                               full, 0, any_loss)
+        assert plan.narrow == (max_len > 512), (loss, plan)
+        sums, okm = tke.eval_loss_trees_program_plain(trees, X, y, ops, loss,
+                                                      plan)
+        lm = tlosses.contain_nonfinite(sums / nrows, okm)
+        assert torch.equal(torch.isinf(lk), torch.isinf(lm)), loss
+        fin = torch.isfinite(lm)
+        if exact and any_loss:
+            _assert_bits_equal(lk[fin], lm[fin])
+        else:
+            torch.testing.assert_close(
+                lk[fin], lm[fin], rtol=1e-5 if any_loss else 1e-6, atol=0,
+                msg=lambda m: f"{loss}: {m}")
+        lp = tke.eval_loss_trees_plain(trees, X, y, ops, loss)
+        assert torch.equal(torch.isinf(lk), torch.isinf(lp)), loss
+        torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-4, atol=0)
+        if nb:
+            assert bool(lk[-nb:].isposinf().all())
+        l3, g3, ok3 = tkg.eval_loss_grad(trees, X, y, w, ops, loss=loss)
+        l3b, g3b, ok3b = tkg.eval_loss_grad(trees, X, y, w, ops, loss=loss)
+        assert torch.equal(ok3, ok3b)
+        _assert_bits_equal(l3b, l3)
+        _assert_bits_equal(g3b, g3)
+        for reps in (1, 8):
+            fn = tkg.make_loss_kernel(trees, X, y, w, ops, False, reps,
+                                      loss=loss)
+            l4, _, ok4 = fn(trees.cval.repeat_interleave(reps, 0))
+            assert torch.equal(ok4.reshape(-1, reps),
+                               ok3.unsqueeze(-1).expand(-1, reps))
+            _assert_bits_equal(l4.reshape(-1, reps),
+                               l3.unsqueeze(-1).expand(-1, reps).contiguous())
+        if max_len != L and loss.name not in LONG_MIRRORED:
+            continue
+        lm, gm, okm = tkg.eval_loss_grad_program_plain(trees, X, y, w, ops,
+                                                       loss=loss)
+        assert torch.equal(ok3, okm), loss
+        if exact:
+            _assert_bits_equal(l3[ok3], lm[ok3])
+            _assert_bits_equal(g3[ok3], gm[ok3])
+        else:
+            *_, scale = tkg.eval_loss_grad_plain(trees, X, y, w, ops,
+                                                 scale=True, loss=loss)
+            _assert_grad_outputs_close((l3, g3, ok3), (lm, gm, okm), scale)

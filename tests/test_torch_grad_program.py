@@ -220,7 +220,7 @@ def test_long_programs_adjoint_words_and_mirror(max_len):
 
 
 def test_program_mirror_sums_rows_as_the_kernel():
-    """_lane_sum is the kernels' order: lane l adds rows l, l + 32, ... in
+    """lane_sum is the kernels' order: lane l adds rows l, l + 32, ... in
     order, then lanes l and l ^ 16, ^ 8, ^ 4, ^ 2, ^ 1 are added; lane 0's
     bits, checked against the same sums written out in numpy float32 on a
     ragged row count."""
@@ -232,7 +232,7 @@ def test_program_mirror_sums_rows_as_the_kernel():
         lanes[:, r % 32] += terms[:, r]
     for off in (16, 8, 4, 2, 1):
         lanes = lanes + lanes[:, np.arange(32) ^ off]
-    got = tkg._lane_sum(torch.tensor(terms)).numpy()
+    got = tke.lane_sum(torch.tensor(terms)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), lanes[:, 0].view(np.int32))
 
 

@@ -322,7 +322,7 @@ def test_work_item_split_matches_pallas_fused_loss(trees, data, pallas_ref,
     X, y = data
     _, _, ref = pallas_ref
     args = (port_trees(trees), torch.tensor(X), torch.tensor(y), TOPS)
-    got = tke.eval_loss_trees_plain(*args, items, 32)
+    got = tke.eval_loss_trees_plain(*args, items=items, rows_per_pass=32)
     one = tke.eval_loss_trees_plain(*args)
     np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(ref))
     fin = np.isfinite(ref)
@@ -337,12 +337,12 @@ def _smem(per_warp, x_per_row):
 
 @pytest.mark.parametrize("case", [
     # (T, L, nfeat, nrows, mode, per-warp bytes, X bytes per row) -> plan
-    ((5376, 24, 1, 2048, tke.MODE_FUSED_L2, 6340, 4), (4, 8, True, 512)),
-    ((64000, 24, 1, 2048, tke.MODE_FUSED_L2, 6340, 4), (1, 8, True, 2048)),
+    ((5376, 24, 1, 2048, tke.MODE_FUSED, 6340, 4), (4, 8, True, 512)),
+    ((64000, 24, 1, 2048, tke.MODE_FUSED, 6340, 4), (1, 8, True, 2048)),
     ((37, 24, 1, 2048, tke.MODE_VALUE, 6340, 4), (16, 8, True, 128)),
     ((5376, 24, 1, 1, tke.MODE_SLOTS, 1732, 4), (1, 8, False, 32)),
-    ((5376, 24, 1000, 2048, tke.MODE_FUSED_L2, 6340, 4000), (4, 8, False, 512)),
-    ((5376, 200, 1, 2048, tke.MODE_FUSED_L2, 52000, 4), (1, 4, True, 2048)),
+    ((5376, 24, 1000, 2048, tke.MODE_FUSED, 6340, 4000), (4, 8, False, 512)),
+    ((5376, 200, 1, 2048, tke.MODE_FUSED, 52000, 4), (1, 4, True, 2048)),
 ], ids=["cycle", "rescore", "few-trees", "slots", "wide-X", "long-programs"])
 def test_eval_plan(case):
     """The fewest row ranges that give 4 waves of blocks (132 SMs), X

@@ -29,6 +29,7 @@ from symbolicregression_jl_tpu_torch.models.trees import is_valid_postfix
 from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
 from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
 from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
+from symbolicregression_jl_tpu_torch.ops import losses as tlosses
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 from symbolicregression_jl_tpu_torch.parallel import migration as tmig
 from symbolicregression_jl_tpu_torch.utils.rng import make_generator
@@ -261,8 +262,11 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """On a CUDA tensor every wrapper launches its kernel or raises: with
     the library unavailable (checked without a card, on a tensor that
     says it lies on one) the scoring, constant-optimisation and
-    instruction-program wrappers raise instead of falling back; an
-    operator outside the registries has no kernel opcode and raises too."""
+    instruction-program wrappers raise instead of falling back, under L2
+    and under every other loss of the registry (the fused scoring mode,
+    the gradient and loss-only kernels, and the scoring route of
+    ``fitness``); an operator outside the registries has no kernel opcode
+    and raises too."""
     ops = tops.make_operator_set(["+", "*"], ["cos", "erf"])
     trees = tmut.gen_random_tree_fixed_size(
         make_generator(0, "cpu"), torch.full((6,), 7), 2, ops, L, "cpu")
@@ -289,6 +293,15 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
              lambda: tkg.eval_loss(trees, X, y, None, ops),
              lambda: tki.eval_trees_instr(trees, X, ops, packed=False),
              lambda: tki.eval_trees_instr(trees, X, ops, packed=True)]
+    for loss in (tlosses.huber_loss(1.0), tlosses.LOSS_REGISTRY["LogCoshLoss"],
+                 tlosses.quantile_loss(0.3)):
+        calls += [
+            lambda loss=loss: tke.eval_loss_trees(trees, X, y, ops, loss),
+            lambda loss=loss: tkg.eval_loss_grad(trees, X, y, None, ops,
+                                                 loss=loss),
+            lambda loss=loss: tkg.eval_loss(trees, X, y, None, ops, loss=loss),
+            lambda loss=loss: tfit.eval_loss_trees(trees, X, y, None, ops,
+                                                   loss)]
     for call in calls:
         with pytest.raises(RuntimeError, match="kernel launch attempted"):
             call()

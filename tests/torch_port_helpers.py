@@ -96,3 +96,29 @@ def jax_batch(tt):
 
     return jtrees.TreeBatch(**{f: jnp.asarray(getattr(tt, f).numpy())
                                for f in tt._fields})
+
+
+# every name of the loss registry, then each parameterised factory at a
+# parameter other than its default: the labels of the loss tests
+LOSS_FACTORIES = (("lp_dist_loss", 3.0), ("huber_loss", 2.0),
+                  ("l1_epsilon_ins_loss", 0.3), ("l2_epsilon_ins_loss", 0.3),
+                  ("periodic_loss", 3.0), ("quantile_loss", 0.3),
+                  ("smoothed_l1_hinge_loss", 0.5), ("dwd_margin_loss", 2.0))
+
+
+def loss_labels():
+    from symbolicregression_jl_tpu_torch.ops.losses import LOSS_REGISTRY
+
+    return sorted(LOSS_REGISTRY) + [f"{f}({p})" for f, p in LOSS_FACTORIES]
+
+
+def loss_pair(label):
+    """(the JAX package's loss, the port's ``ElementwiseLoss``) of a label
+    of ``loss_labels``."""
+    from symbolicregression_jl_tpu.ops import losses as jlosses
+    from symbolicregression_jl_tpu_torch.ops import losses as tlosses
+
+    if label in tlosses.LOSS_REGISTRY:
+        return jlosses.LOSS_REGISTRY[label], tlosses.LOSS_REGISTRY[label]
+    name, p = label[:-1].split("(")
+    return getattr(jlosses, name)(float(p)), getattr(tlosses, name)(float(p))
