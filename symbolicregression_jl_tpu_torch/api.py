@@ -72,7 +72,10 @@ class EquationSearchResult:
 
     def predict(self, X, complexity: Optional[int] = None) -> np.ndarray:
         """Evaluate the selected equation on X (nfeatures, n) through the
-        kernel's value mode on the search's device."""
+        kernel's value mode on the search's device, at the search's working
+        dtype (``Options.dtype``). The values come back as float16 numpy at
+        float16 and as float32 numpy at float32 and at bfloat16, which
+        numpy has no type for (float32 holds every bfloat16 value)."""
         if complexity is None:
             cand = self.best()
         else:
@@ -84,9 +87,11 @@ class EquationSearchResult:
         n_used = int(torch.where(cand.tree.kind == VAR, cand.tree.feat, -1).max()) + 1
         if X.ndim != 2 or X.shape[0] < n_used:
             raise ValueError(f"X must be (nfeatures >= {n_used}, n), got {X.shape}")
-        Xt = torch.as_tensor(X, device=self.device)
+        Xt = torch.as_tensor(X, device=self.device).to(self.options.dtype)
         tree = cand.tree.map(lambda x: x.to(self.device).unsqueeze(0))
         y, ok = kernel_eval.eval_trees(tree, Xt, self.options.operators)
+        if y.dtype == torch.bfloat16:
+            y = y.to(torch.float32)
         if not bool(ok[0]):
             import warnings
 
@@ -109,8 +114,8 @@ def _curmaxsize(options: Options, iteration: int, niterations: int) -> int:
 
 
 def _baseline_loss(X: torch.Tensor, y: torch.Tensor, weights, options) -> float:
-    """Loss of the constant predictor mean(y); 1.0 if not finite and
-    positive."""
+    """Loss of the constant predictor mean(y), computed in y's dtype (the
+    working dtype); 1.0 if not finite and positive."""
     loss_fn = resolve_loss(options.loss)
     avg = y.mean() if weights is None else (y * weights).sum() / weights.sum()
     elem = loss_fn(torch.full_like(y, float(avg)), y)
@@ -130,7 +135,9 @@ def equation_search(X, y, *, weights=None,
     the Options. ``on_iteration(iteration, candidates)`` is called after
     every iteration. The search runs on ``device`` (default the CUDA card;
     raises when there is none) — pass ``device="cpu"`` for the plain
-    PyTorch path."""
+    PyTorch path. The data is checked in float32, then held on the device
+    in the working dtype (``Options.precision``: float32, bfloat16 or
+    float16), as the JAX package's ``make_dataset`` holds it."""
     dev = resolve_device(device)
     if options is None:
         options = make_options(**option_kwargs)
@@ -148,10 +155,18 @@ def equation_search(X, y, *, weights=None,
     if not (np.isfinite(X).all() and np.isfinite(y).all()):
         raise ValueError("X and y must be finite (the data_policy front door "
                          "is not ported yet)")
-    Xt = torch.as_tensor(X, device=dev)
-    yt = torch.as_tensor(y, device=dev)
+    dtype = options.dtype
+    Xt = torch.as_tensor(X, device=dev).to(dtype)
+    yt = torch.as_tensor(y, device=dev).to(dtype)
     wt = None if weights is None else torch.as_tensor(
-        np.asarray(weights, np.float32), device=dev)
+        np.asarray(weights, np.float32), device=dev).to(dtype)
+    over = 0 if dtype == torch.float32 else int(
+        (~torch.isfinite(Xt)).sum() + (~torch.isfinite(yt)).sum())
+    if over:
+        raise ValueError(
+            f"{over} finite value(s) overflowed the precision="
+            f"'{options.precision}' cast (|value| beyond the working dtype's "
+            "range): rescale the data or use a wider precision")
     baseline = _baseline_loss(Xt, yt, wt, options)
     nfeatures = X.shape[0]
     I = options.npopulations

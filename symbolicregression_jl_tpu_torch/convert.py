@@ -5,7 +5,10 @@ state)._asdict()`` for an ``IslandState`` — as nested mappings or
 attribute-bearing tuples; nothing of the JAX package is imported. Node
 codes and operator numbering are the same in both packages, so trees
 carry across unchanged. The JAX ``key`` field is dropped: this package
-draws from a ``torch.Generator`` held by the caller.
+draws from a ``torch.Generator`` held by the caller. Constants, losses and
+scores keep their working dtype (float32, bfloat16 or float16) bit for
+bit; the search statistics and evaluation counts are float32 in both
+packages.
 """
 
 from __future__ import annotations
@@ -30,10 +33,24 @@ def _tensor(x, dtype, device):
     return torch.as_tensor(np.array(x), device=device).to(dtype)
 
 
+def _working(x, device):
+    """A floating array of the working dtype, bit for bit: JAX hands
+    bfloat16 over as an ``ml_dtypes`` array, which torch cannot read, so it
+    crosses as its 16-bit pattern; float16 crosses as it is, anything else
+    as float32."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.uint16).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    if a.dtype == np.float16:
+        return torch.from_numpy(a).to(device)
+    return _tensor(a, torch.float32, device)
+
+
 def trees_from_numpy(t, device="cuda") -> TreeBatch:
     dev = resolve_device(device)
     ints = [_tensor(_field(t, f), torch.int64, dev) for f in ("kind", "op", "feat")]
-    return TreeBatch(*ints, _tensor(_field(t, "cval"), torch.float32, dev),
+    return TreeBatch(*ints, _working(_field(t, "cval"), dev),
                      _tensor(_field(t, "length"), torch.int64, dev))
 
 
@@ -41,8 +58,8 @@ def population_from_numpy(p, device="cuda") -> Population:
     dev = resolve_device(device)
     return Population(
         trees=trees_from_numpy(_field(p, "trees"), dev),
-        scores=_tensor(_field(p, "scores"), torch.float32, dev),
-        losses=_tensor(_field(p, "losses"), torch.float32, dev),
+        scores=_working(_field(p, "scores"), dev),
+        losses=_working(_field(p, "losses"), dev),
         birth=_tensor(_field(p, "birth"), torch.int64, dev),
     )
 
@@ -51,8 +68,8 @@ def hall_of_fame_from_numpy(h, device="cuda") -> HallOfFame:
     dev = resolve_device(device)
     return HallOfFame(
         trees=trees_from_numpy(_field(h, "trees"), dev),
-        scores=_tensor(_field(h, "scores"), torch.float32, dev),
-        losses=_tensor(_field(h, "losses"), torch.float32, dev),
+        scores=_working(_field(h, "scores"), dev),
+        losses=_working(_field(h, "losses"), dev),
         exists=_tensor(_field(h, "exists"), torch.bool, dev),
     )
 

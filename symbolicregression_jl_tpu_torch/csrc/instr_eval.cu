@@ -53,6 +53,12 @@
 //    lane, one range per tree, results in shared memory or in global memory
 //    (one region per resident warp, srprog::narrow_plan), the warps looping
 //    over the trees.
+// The bfloat16 and float16 builds (SR_STORAGE, csrc/postfix_program.cuh)
+// are `_make_instr_kernel`'s compute_dtype="bfloat16" variant
+// (pallas_eval.py:778-788), float16 the same rule: X, the constants and
+// the output in the storage type, each step's value computed in f32 and
+// rounded to the storage type (poison on the rounded value), the operand
+// finiteness test kept; they give B1's bits at the same storage type.
 // Built without --use_fast_math and, unlike the constant-optimisation
 // kernels, without -fmad=false: the flags of postfix_eval.cu, whose bits
 // these values must be.
@@ -77,11 +83,11 @@ struct InstrArgs {
   const long long* kind;
   const long long* op;
   const long long* feat;
-  const float* cval;
+  const Storage* cval;
   const long long* length;
   const long long* order;
-  const float* X;
-  float* out;
+  const Storage* X;
+  Storage* out;
   int* bad;
   int* part_bad;   // (T, items) poison flags; bad itself when items == 1
   float* scratch;  // the narrow route's results in global memory, or null
@@ -296,17 +302,14 @@ __device__ __forceinline__ void run_instr(unsigned rec_a, int ni,
       }
     }
     apply_step<kAll, kN>(code, a, b, v);
+#pragma unroll
+    for (int i = 0; i < kN; ++i) v[i] = round_s(v[i]);
     poison(v, pz);
     const unsigned at = kPacked ? k : static_cast<unsigned>(q.x) >> 12;
     St::store(out0 + static_cast<Addr>(at) * kEntryBytes, v);
 #pragma unroll
     for (int i = 0; i < kN; ++i) r[i] = v[i];
   }
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
 // Result (operand space) entries per warp: B5 one per stack entry, B6 one
@@ -338,14 +341,14 @@ __device__ __forceinline__ int prologue(const InstrArgs& a, long long t,
   int* s_desc = s_last + a.cap;
   float* cv = kPacked ? reinterpret_cast<float*>(s_desc + a.L) : s_cval;
   // the first 32 constants load while the program is derived
-  const float c0 = lane < n ? a.cval[t * a.L + lane] : 0.f;
+  const float c0 = lane < n ? to_f32(a.cval[t * a.L + lane]) : 0.f;
   *invalid = derive_program(a.kind, a.op, a.feat, t * a.L, n, a.cap, a.nfeat,
                             a.map, s_word, lane) ||
              n != len;
   __syncwarp();
   if (*invalid) n = 0;
   for (int s = lane; s < n; s += 32) {
-    const float c = s < 32 ? c0 : a.cval[t * a.L + s];
+    const float c = s < 32 ? c0 : to_f32(a.cval[t * a.L + s]);
     cv[s] = word_code(s_word[s]) == OP_CONST ? c : 0.f;  // PAD gives 0
   }
   if (n > 0) derive_adjoint_words(s_word, n, s_last, lane);
@@ -382,7 +385,7 @@ instr_kernel(const __grid_constant__ InstrArgs a) {
     for (int i = threadIdx.x; i < a.nfeat * a.range; i += blockDim.x) {
       const int f = i / a.range;
       const int row = min(row0 + i - f * a.range, a.nrows - 1);
-      cp_async4(xs + i, a.X + f * a.nrows + row);
+      stage_x(xs + i, a.X + f * a.nrows + row);
     }
   }
   const int g = (blockIdx.x / a.items) * warps + warp;
@@ -413,9 +416,11 @@ instr_kernel(const __grid_constant__ InstrArgs a) {
       // this lane's rows of every feature, in front of the results
       for (int f = 0; f < a.nfeat; ++f) {
         float x[kR];
-        const float* xf = a.X + f * a.nrows;
+        const Storage* xf = a.X + f * a.nrows;
 #pragma unroll
-        for (int i = 0; i < kR; ++i) x[i] = xf[min(row0 + lr + i, a.nrows - 1)];
+        for (int i = 0; i < kR; ++i) {
+          x[i] = to_f32(xf[min(row0 + lr + i, a.nrows - 1)]);
+        }
         St::store(res_a + f * St::kEntryBytes, x);
       }
     }
@@ -424,23 +429,17 @@ instr_kernel(const __grid_constant__ InstrArgs a) {
           if constexpr (kStaged) {
             St::load(x_lane + 4u * base + f * range_b, x);
           } else {
-            const float* xf = a.X + f * a.nrows;
+            const Storage* xf = a.X + f * a.nrows;
 #pragma unroll
             for (int i = 0; i < kR; ++i) {
-              x[i] = xf[min(row0 + lr + i, a.nrows - 1)];
+              x[i] = to_f32(xf[min(row0 + lr + i, a.nrows - 1)]);
             }
           }
         });
-    float* o = a.out + t * a.nrows + row0 + lr;
-    if (a.nrows % kR == 0 && row0 + lr < a.nrows) {
-      // aligned: every row of the pass is real
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kR; ++i) {
-        if (row0 + lr + i < a.nrows) o[i] = v[i];
-      }
-    }
+    // aligned: every row of the pass is real
+    store_rows<kR>(a.out + t * a.nrows + row0 + lr, v,
+                   a.nrows % kR == 0 && row0 + lr < a.nrows,
+                   a.nrows - (row0 + lr));
   }
   bool nonfinite = false;
 #pragma unroll
@@ -484,16 +483,17 @@ instr_narrow_kernel(const __grid_constant__ InstrArgs a) {
       float v[1] = {};
       if constexpr (kPacked) {
         for (int f = 0; f < a.nfeat; ++f) {
-          const float x[1] = {a.X[static_cast<unsigned>(f) * a.nrows + xr]};
+          const float x[1] = {
+              to_f32(a.X[static_cast<unsigned>(f) * a.nrows + xr])};
           St::store(res_a + static_cast<unsigned long long>(f) * St::kEntryBytes,
                     x);
         }
       }
       run_instr<kPacked, kAll, 1, true>(
           rec_a, ni, cval_a, res_a, a.nfeat, v, pz, [&](int f, float (&x)[1]) {
-            x[0] = a.X[static_cast<unsigned>(f) * a.nrows + xr];
+            x[0] = to_f32(a.X[static_cast<unsigned>(f) * a.nrows + xr]);
           });
-      if (row < a.nrows) a.out[t * a.nrows + row] = v[0];
+      if (row < a.nrows) a.out[t * a.nrows + row] = from_f32(v[0]);
     }
     const bool any_bad = __any_sync(0xffffffffu, pz[0] != pz[0]) || invalid;
     if (lane == 0) a.bad[t] = any_bad ? 1 : 0;
@@ -552,6 +552,10 @@ long long narrow_space_bytes(bool packed, int L, int nfeat) {
 
 extern "C" {
 
+// The build's storage type (SR_STORAGE: 0 float, 1 bfloat16, 2 float16),
+// the type of X, cval and out.
+int instr_eval_storage() { return SR_STORAGE; }
+
 // The wide routes' fixed layout: cfg[0] rows per lane per pass, [1] most
 // warps per block, [2] most shared memory per block in bytes.
 void instr_eval_config(int* cfg) {
@@ -604,7 +608,8 @@ int instr_eval_narrow_plan(int T, int L, int nfeat, int packed, int all_ops,
 }
 
 // B5 (packed 0) or B6 (packed 1) over the TreeBatch fields kind / op / feat
-// (int64 (T, L)), cval (f32 (T, L)) and length (int64 (T,)), trees in the
+// (int64 (T, L)), cval ((T, L), like X and out of the build's storage
+// type, instr_eval_storage) and length (int64 (T,)), trees in the
 // order `order`; opmap as postfix_eval_launch's; all_ops: the batch uses an
 // operator outside the common set, so the instantiation with every operator
 // runs (operators.cuh). The layout is the wrapper's plan
@@ -644,11 +649,11 @@ cudaError_t instr_eval_launch(const void* kind, const void* op,
   a.kind = static_cast<const long long*>(kind);
   a.op = static_cast<const long long*>(op);
   a.feat = static_cast<const long long*>(feat);
-  a.cval = static_cast<const float*>(cval);
+  a.cval = static_cast<const Storage*>(cval);
   a.length = static_cast<const long long*>(length);
   a.order = static_cast<const long long*>(order);
-  a.X = static_cast<const float*>(X);
-  a.out = static_cast<float*>(out);
+  a.X = static_cast<const Storage*>(X);
+  a.out = static_cast<Storage*>(out);
   a.bad = static_cast<int*>(bad);
   a.part_bad = static_cast<int*>(part_bad);
   a.scratch = static_cast<float*>(scratch);

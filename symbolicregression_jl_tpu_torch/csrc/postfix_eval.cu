@@ -15,6 +15,16 @@
 // In every mode bad[t] = 1 when the tree was poisoned. The trees are the
 // TreeBatch fields as they are (kind, op, feat int64; cval f32; length
 // int64); a tree that is not a valid postfix program counts as poisoned.
+// The bfloat16 and float16 builds (SR_STORAGE, csrc/postfix_program.cuh)
+// are the kernel's compute_dtype="bfloat16" variant (`_make_kernel` with
+// cdt bf16, pallas_eval.py:497-500 and :578-582), float16 the same rule
+// for the reference's jnp interpreter at float16: X, cval and the value
+// and slot outputs in the storage type, each slot's value computed in f32
+// and rounded to the storage type where it is produced, poison judged on
+// the rounded value. They carry modes 0 and 2 only (the reference fuses
+// the loss at float32 alone, fitness.py:331-335). X is staged in shared
+// memory as float (converted on the way in, so a 2-byte X of any row
+// count needs no alignment rule), and the outputs take half the bytes.
 //
 // What bounds it on this card: neither HBM bytes nor f32 peak but the
 // instructions issued per (tree, row, slot) step: the opcode read, the
@@ -72,25 +82,20 @@ struct EvalArgs {
   const long long* kind;
   const long long* op;
   const long long* feat;
-  const float* cval;
+  const Storage* cval;
   const long long* length;
   const long long* order;
-  const float* X;
-  const float* y;
-  float* out;
+  const Storage* X;
+  const float* y;   // the fused mode's (float build only)
+  Storage* out;
   int* bad;
-  float* part;    // (T, items) partial losses; out itself when items == 1
+  float* part;    // (T, items) partial losses; the fused mode's out when items == 1
   int* part_bad;  // (T, items) partial poison flags; bad when items == 1
   float* scratch;  // the narrow route's stacks in global memory, or null
   int T, L, nfeat, nrows, items, range, cap;
   OpMap map;
   srloss::Loss loss_fn;  // the fused mode's loss (the kAnyLoss instantiations)
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
 
 template <int kMode, bool kAll, bool kStaged, bool kAnyLoss = false>
 __global__ void __launch_bounds__(kMaxWarps * 32)
@@ -118,7 +123,7 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
     for (int i = threadIdx.x; i < a.nfeat * a.range; i += blockDim.x) {
       const int f = i / a.range;
       const int row = min(row0 + i - f * a.range, a.nrows - 1);
-      cp_async4(xs + i, a.X + f * a.nrows + row);
+      stage_x(xs + i, a.X + f * a.nrows + row);
     }
   }
   const int g = (blockIdx.x / a.items) * warps + warp;
@@ -131,11 +136,13 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
     const long long len = a.length[t];
     n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     // the first 32 constants load while the program is derived
-    const float c0 = lane < n ? a.cval[t * a.L + lane] : 0.f;
+    const float c0 = lane < n ? to_f32(a.cval[t * a.L + lane]) : 0.f;
     invalid = derive_program(a.kind, a.op, a.feat, t * a.L, n, a.cap, a.nfeat,
                              a.map, s_word, lane) || n != len;
     if (lane < n) s_cval[lane] = c0;
-    for (int s = lane + 32; s < n; s += 32) s_cval[s] = a.cval[t * a.L + s];
+    for (int s = lane + 32; s < n; s += 32) {
+      s_cval[s] = to_f32(a.cval[t * a.L + s]);
+    }
   }
   if constexpr (kStaged) {
     asm volatile("cp.async.wait_all;\n" ::);
@@ -147,7 +154,7 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
 
   float acc = 0.f;
   float pz[kR] = {};
-  float* slots = kMode == 2 ? a.out + t * a.L : nullptr;
+  Storage* slots = kMode == 2 ? a.out + t * a.L : nullptr;
   const unsigned word_a = opaque(smem_u32(s_word));
   const unsigned stack_a = opaque(smem_u32(stack));
   const unsigned cval_a = opaque(smem_u32(s_cval));
@@ -168,29 +175,23 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
           if constexpr (kStaged) {
             Stack<kR>::load(x_a + f * range_b, x);
           } else {
-            const float* xf = a.X + f * a.nrows;
+            const Storage* xf = a.X + f * a.nrows;
 #pragma unroll
             for (int i = 0; i < kR; ++i) {
-              x[i] = xf[min(row0 + lr + i, a.nrows - 1)];
+              x[i] = to_f32(xf[min(row0 + lr + i, a.nrows - 1)]);
             }
           }
         },
         [&](int s, const float (&x)[kR]) {
           if constexpr (kMode == 2) {
-            if (lane == 0) slots[s] = x[0];
+            if (lane == 0) slots[s] = from_f32(x[0]);
           }
         });
     if constexpr (kMode == 0) {
-      float* o = a.out + t * a.nrows + row0 + lr;
-      if (a.nrows % kR == 0 && row0 + lr < a.nrows) {
-        // aligned: every row of the pass is real
-        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kR; ++i) {
-          if (row0 + lr + i < a.nrows) o[i] = v[i];
-        }
-      }
+      // aligned: every row of the pass is real
+      store_rows<kR>(a.out + t * a.nrows + row0 + lr, v,
+                     a.nrows % kR == 0 && row0 + lr < a.nrows,
+                     a.nrows - (row0 + lr));
     } else if constexpr (kMode == 1 && kAnyLoss) {
       srloss::with_loss(a.loss_fn.kind, [&](auto k) {
         constexpr int K = decltype(k)::value;
@@ -212,7 +213,7 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
     }
   }
   if constexpr (kMode == 2) {
-    for (int s = n + lane; s < a.L; s += 32) slots[s] = 0.f;
+    for (int s = n + lane; s < a.L; s += 32) slots[s] = from_f32(0.f);
   }
   bool nonfinite = false;
 #pragma unroll
@@ -262,17 +263,19 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
     const long long len = a.length[t];
     int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     __syncwarp();  // the last tree's words are read
-    const float c0 = lane < n ? a.cval[t * a.L + lane] : 0.f;
+    const float c0 = lane < n ? to_f32(a.cval[t * a.L + lane]) : 0.f;
     const bool invalid = derive_program(a.kind, a.op, a.feat, t * a.L, n,
                                         a.cap, a.nfeat, a.map, s_word, lane) ||
                          n != len;
     if (lane < n) s_cval[lane] = c0;
-    for (int s = lane + 32; s < n; s += 32) s_cval[s] = a.cval[t * a.L + s];
+    for (int s = lane + 32; s < n; s += 32) {
+      s_cval[s] = to_f32(a.cval[t * a.L + s]);
+    }
     __syncwarp();
     if (invalid) n = 0;
     float acc = 0.f;
     float pz[1] = {};
-    float* slots = kMode == 2 ? a.out + t * a.L : nullptr;
+    Storage* slots = kMode == 2 ? a.out + t * a.L : nullptr;
     for (int base = 0; base < a.nrows; base += 32) {
       const int row = base + lane;
       const unsigned xr = min(row, a.nrows - 1);
@@ -281,15 +284,15 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
           word_a, n, stack_a, v, pz,
           [&](int s, float (&x)[1]) { x[0] = lds_f32(cval_a + 4u * s); },
           [&](int f, float (&x)[1]) {
-            x[0] = a.X[static_cast<unsigned>(f) * a.nrows + xr];
+            x[0] = to_f32(a.X[static_cast<unsigned>(f) * a.nrows + xr]);
           },
           [&](int s, const float (&x)[1]) {
             if constexpr (kMode == 2) {
-              if (lane == 0) slots[s] = x[0];
+              if (lane == 0) slots[s] = from_f32(x[0]);
             }
           });
       if constexpr (kMode == 0) {
-        if (row < a.nrows) a.out[t * a.nrows + row] = v[0];
+        if (row < a.nrows) a.out[t * a.nrows + row] = from_f32(v[0]);
       } else if constexpr (kMode == 1 && kAnyLoss) {
         if (row < a.nrows) {
           srloss::with_loss(a.loss_fn.kind, [&](auto k) {
@@ -305,7 +308,7 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
       }
     }
     if constexpr (kMode == 2) {
-      for (int s = n + lane; s < a.L; s += 32) slots[s] = 0.f;
+      for (int s = n + lane; s < a.L; s += 32) slots[s] = from_f32(0.f);
     }
     const bool any_bad = __any_sync(0xffffffffu, pz[0] != pz[0]) || invalid;
     if constexpr (kMode == 1) {
@@ -314,7 +317,7 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
       }
     }
     if (lane == 0) {
-      if constexpr (kMode == 1) a.out[t] = acc;
+      if constexpr (kMode == 1) a.part[t] = acc;
       a.bad[t] = any_bad ? 1 : 0;
     }
   }
@@ -339,11 +342,13 @@ __global__ void combine_kernel(const float* __restrict__ part,
 
 using KernelFn = void (*)(EvalArgs);
 
-// any_loss: the fused mode under a loss other than L2
+// any_loss: the fused mode under a loss other than L2. The 2-byte builds
+// have no fused mode: null.
 KernelFn narrow_kernel_for(int mode, bool all, bool any_loss) {
   if (mode == 0) {
     return all ? &postfix_narrow_kernel<0, true> : &postfix_narrow_kernel<0, false>;
   }
+#if SR_STORAGE == 0
   if (mode == 1 && any_loss) {
     return all ? &postfix_narrow_kernel<1, true, true>
                : &postfix_narrow_kernel<1, false, true>;
@@ -351,6 +356,9 @@ KernelFn narrow_kernel_for(int mode, bool all, bool any_loss) {
   if (mode == 1) {
     return all ? &postfix_narrow_kernel<1, true> : &postfix_narrow_kernel<1, false>;
   }
+#else
+  if (mode == 1) return nullptr;
+#endif
   return all ? &postfix_narrow_kernel<2, true> : &postfix_narrow_kernel<2, false>;
 }
 
@@ -366,7 +374,11 @@ KernelFn kernel_for(int mode, bool all, bool staged, bool any_loss) {
        : (staged ? &postfix_kernel<M, false, true, ANY>                      \
                  : &postfix_kernel<M, false, false, ANY>))
   if (mode == 0) return SR_PICK(0, false);
+#if SR_STORAGE == 0
   if (mode == 1) return any_loss ? SR_PICK(1, true) : SR_PICK(1, false);
+#else
+  if (mode == 1) return nullptr;
+#endif
 #undef SR_PICK
   return all ? &postfix_kernel<2, true, false> : &postfix_kernel<2, false, false>;
 }
@@ -374,6 +386,10 @@ KernelFn kernel_for(int mode, bool all, bool staged, bool any_loss) {
 }  // namespace
 
 extern "C" {
+
+// The build's storage type (SR_STORAGE: 0 float, 1 bfloat16, 2 float16),
+// the type of X, cval and the value and slot outputs.
+int postfix_eval_storage() { return SR_STORAGE; }
 
 // The kernel's fixed layout: cfg[0] rows per lane per pass (1 in the
 // slot-values mode), [1] most warps per block, [2] most shared memory per
@@ -403,6 +419,7 @@ int postfix_eval_occupancy(int mode, int all_ops, int staged, int any_loss,
                            int warps, int smem) {
   const KernelFn fn =
       kernel_for(mode, all_ops != 0, staged != 0, mode == 1 && any_loss != 0);
+  if (fn == nullptr) return -1;
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kMaxSmemBytes) != cudaSuccess) {
     return -1;
@@ -424,11 +441,13 @@ int postfix_eval_narrow_plan(int T, int L, int mode, int all_ops,
   if (T < 0 || L <= 0 || L >= (1 << 24) || mode < 0 || mode > 2) {
     return cudaErrorInvalidValue;
   }
+  const KernelFn fn =
+      narrow_kernel_for(mode, all_ops != 0, mode == 1 && any_loss != 0);
+  if (fn == nullptr) return cudaErrorInvalidValue;
   NarrowPlan np;
-  const cudaError_t err = narrow_plan(
-      narrow_kernel_for(mode, all_ops != 0, mode == 1 && any_loss != 0), T,
-      narrow_fixed_bytes(L),
-      narrow_stack_bytes(L), kMaxWarps, kMaxSmemBytes, &np);
+  const cudaError_t err =
+      narrow_plan(fn, T, narrow_fixed_bytes(L), narrow_stack_bytes(L),
+                  kMaxWarps, kMaxSmemBytes, &np);
   if (err != cudaSuccess) return err;
   const long long p[6] = {np.warps, np.blocks_per_sm, np.smem, np.blocks,
                           np.in_shared, np.scratch_bytes};
@@ -436,6 +455,9 @@ int postfix_eval_narrow_plan(int T, int L, int mode, int all_ops,
   return cudaSuccess;
 }
 
+// X, cval and out are of the build's storage type (postfix_eval_storage;
+// the 2-byte builds take modes 0 and 2 only); y, part and the fused
+// mode's out are float.
 // opmap: the kernel operator id of each unary, then each binary operator
 // (host memory, n_unary + n_binary entries); all_ops: the batch uses an
 // operator outside the common set, so the instantiation with every
@@ -480,12 +502,12 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
   a.kind = static_cast<const long long*>(kind);
   a.op = static_cast<const long long*>(op);
   a.feat = static_cast<const long long*>(feat);
-  a.cval = static_cast<const float*>(cval);
+  a.cval = static_cast<const Storage*>(cval);
   a.length = static_cast<const long long*>(length);
   a.order = static_cast<const long long*>(order);
-  a.X = static_cast<const float*>(X);
+  a.X = static_cast<const Storage*>(X);
   a.y = static_cast<const float*>(y);
-  a.out = static_cast<float*>(out);
+  a.out = static_cast<Storage*>(out);
   a.bad = static_cast<int*>(bad);
   a.part = static_cast<float*>(part);
   a.part_bad = static_cast<int*>(part_bad);
@@ -504,6 +526,7 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
   const KernelFn fn = narrow ? narrow_kernel_for(mode, all_ops != 0, any_loss)
                             : kernel_for(mode, all_ops != 0, staged != 0,
                                          any_loss);
+  if (fn == nullptr) return cudaErrorInvalidValue;  // no fused mode here
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
@@ -511,7 +534,7 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
   err = cudaGetLastError();
   if (err != cudaSuccess || items == 1 || mode == 2) return err;
   combine_kernel<<<(T + 255) / 256, 256, 0, s>>>(
-      a.part, a.part_bad, a.out, a.bad, T, items, mode);
+      a.part, a.part_bad, static_cast<float*>(out), a.bad, T, items, mode);
   return cudaGetLastError();
 }
 

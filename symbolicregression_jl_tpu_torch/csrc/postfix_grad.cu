@@ -87,6 +87,15 @@
 // wn (csrc/losses.cuh, the forms of ops/losses.py LOSS_ELEM / LOSS_VJP).
 // Both kernels call the same function in the same order, so B3's loss is
 // B4's in every bit for every loss.
+// The bfloat16 and float16 builds (SR_STORAGE, csrc/postfix_program.cuh)
+// are the card's route for the reference's constant optimisation at those
+// precisions (`_bfgs_single` through jax.grad of the interpreter,
+// constant_opt.py:83-140, which the fused kernels never run below
+// float32): X, y and the constants in the storage type, the forward sweep
+// rounding every slot's value to it as the scoring kernel does, so BFGS
+// fits the values that scoring sees; the loss, its seed, the adjoint sweep
+// and the row sums stay in float32, and B3's loss is still B4's in every
+// bit.
 // The operators and their derivatives (the lax JVP rule of each JAX
 // registry function, in the forms of symbolicregression_jl_tpu_torch/ops/
 // operators.py UNARY_VJP / BINARY_VJP) are the shared library
@@ -124,9 +133,9 @@ struct GradArgs {
   const long long* feat;
   const long long* length;
   const long long* order;
-  const float* cval;  // (T * reps, L)
-  const float* X;
-  const float* y;
+  const srprog::Storage* cval;  // (T * reps, L)
+  const srprog::Storage* X;
+  const srprog::Storage* y;
   const float* wn;
   float* loss;
   float* grad;
@@ -200,12 +209,15 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
     const long long len = a.length[tree];
     int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     // the first 32 constants load while the program is derived
-    const float c0 = lane < n ? a.cval[inst * a.L + lane] : 0.f;
+    const float c0 =
+        lane < n ? srprog::to_f32(a.cval[inst * a.L + lane]) : 0.f;
     const bool invalid =
         srprog::derive_program(a.kind, a.op, a.feat, tree * a.L, n, a.cap,
                                a.nfeat, a.map, s_word, lane) || n != len;
     if (lane < n) s_cval[lane] = c0;
-    for (int s = lane + 32; s < n; s += 32) s_cval[s] = a.cval[inst * a.L + s];
+    for (int s = lane + 32; s < n; s += 32) {
+      s_cval[s] = srprog::to_f32(a.cval[inst * a.L + s]);
+    }
     __syncwarp();
     if (invalid) {
       n = 0;
@@ -236,7 +248,9 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
           [&](int f, float (&x)[kN]) {
             const unsigned xf = static_cast<unsigned>(f) * a.nrows;
 #pragma unroll
-            for (int j = 0; j < kN; ++j) x[j] = a.X[xf + xrow[j]];
+            for (int j = 0; j < kN; ++j) {
+              x[j] = srprog::to_f32(a.X[xf + xrow[j]]);
+            }
           },
           [&](int s, const float (&x)[kN]) {
             St::store(vals_a + s * kEntryBytes, x);
@@ -254,7 +268,7 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
               real |= 1u << j;
               const float wr = a.wn[row];
               if (wr != 0.f) {
-                const float yr = a.y[row];
+                const float yr = srprog::to_f32(a.y[row]);
                 acc += srloss::elem<K>(a.loss_fn, v[j], yr) * wr;
                 w[j] = srloss::seed<K>(a.loss_fn, v[j], yr) * wr;
               }
@@ -269,7 +283,7 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
           if (row < a.nrows) {
             real |= 1u << j;
             const float wr = a.wn[row];
-            const float d = v[j] - a.y[row];
+            const float d = v[j] - srprog::to_f32(a.y[row]);
             if (wr != 0.f) {
               acc += (d * d) * wr;
               w[j] = (2.f * d) * wr;
@@ -354,9 +368,9 @@ struct LossArgs {
   const long long* feat;
   const long long* length;
   const long long* order;
-  const float* cval;  // (T * reps, L)
-  const float* X;
-  const float* y;
+  const srprog::Storage* cval;  // (T * reps, L)
+  const srprog::Storage* X;
+  const srprog::Storage* y;
   const float* wn;
   float* loss;
   int* bad;
@@ -415,7 +429,7 @@ loss_kernel(const __grid_constant__ LossArgs a) {
                                a.nfeat, a.map, s_word, lane) || n != len;
     for (int i = lane; i < n * kCand; i += 32) {
       const int s = i / kCand, c = i - s * kCand;
-      s_cval[i] = a.cval[(inst0 + c) * a.L + s];
+      s_cval[i] = srprog::to_f32(a.cval[(inst0 + c) * a.L + s]);
     }
     __syncwarp();
     if (invalid) n = 0;
@@ -444,11 +458,11 @@ loss_kernel(const __grid_constant__ LossArgs a) {
             for (int i = 0; i < kN; ++i) x[i] = cv[i / kRows];
           },
           [&](int f, float (&x)[kN]) {
-            const float* xf = a.X + f * a.nrows;
+            const srprog::Storage* xf = a.X + f * a.nrows;
             float xr[kRows];
 #pragma unroll
             for (int j = 0; j < kRows; ++j) {
-              xr[j] = xf[min(base + j * 32 + lane, a.nrows - 1)];
+              xr[j] = srprog::to_f32(xf[min(base + j * 32 + lane, a.nrows - 1)]);
             }
 #pragma unroll
             for (int i = 0; i < kN; ++i) x[i] = xr[i % kRows];
@@ -461,7 +475,7 @@ loss_kernel(const __grid_constant__ LossArgs a) {
           for (int j = 0; j < kRows; ++j) {
             const int row = base + j * 32 + lane;
             if (row < a.nrows) {
-              const float yr = a.y[row];
+              const float yr = srprog::to_f32(a.y[row]);
               const float wr = a.wn[row];
 #pragma unroll
               for (int c = 0; c < kCand; ++c) {
@@ -476,7 +490,7 @@ loss_kernel(const __grid_constant__ LossArgs a) {
         for (int j = 0; j < kRows; ++j) {
           const int row = base + j * 32 + lane;
           if (row < a.nrows) {
-            const float yr = a.y[row];
+            const float yr = srprog::to_f32(a.y[row]);
             const float wr = a.wn[row];
 #pragma unroll
             for (int c = 0; c < kCand; ++c) {
@@ -556,6 +570,10 @@ __global__ void digamma_kernel(const float* __restrict__ x,
 
 extern "C" {
 
+// The build's storage type (SR_STORAGE: 0 float, 1 bfloat16, 2 float16),
+// the type of X, y and cval.
+int postfix_grad_storage() { return SR_STORAGE; }
+
 // The launch layout of the gradient kernel for T trees x reps instances:
 // plan[0] rows per lane, [1] warps per block, [2] resident blocks per SM,
 // [3] shared memory per block in bytes, [4] blocks, [5] 1 for the narrow
@@ -615,7 +633,8 @@ int postfix_grad_plan(int T, int reps, int L, int all_ops, int any_loss,
 // operator outside the common set, so the instantiation with every operator
 // runs (operators.cuh). loss_kind, c0-c2: the loss (csrc/losses.cuh; ops/
 // losses.py ElementwiseLoss.kind / constants); the plan's any_loss is
-// loss_kind != L2.
+// loss_kind != L2. X, y and cval are of the build's storage type
+// (postfix_grad_storage); wn, loss and grad are float.
 cudaError_t postfix_grad_launch(const void* kind, const void* op,
                                 const void* feat, const void* length,
                                 const void* order, const void* cval,
@@ -647,9 +666,9 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
   a.feat = static_cast<const long long*>(feat);
   a.length = static_cast<const long long*>(length);
   a.order = static_cast<const long long*>(order);
-  a.cval = static_cast<const float*>(cval);
-  a.X = static_cast<const float*>(X);
-  a.y = static_cast<const float*>(y);
+  a.cval = static_cast<const srprog::Storage*>(cval);
+  a.X = static_cast<const srprog::Storage*>(X);
+  a.y = static_cast<const srprog::Storage*>(y);
   a.wn = static_cast<const float*>(wn);
   a.loss = static_cast<float*>(loss);
   a.grad = static_cast<float*>(grad);
@@ -767,9 +786,9 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
   a.feat = static_cast<const long long*>(feat);
   a.length = static_cast<const long long*>(length);
   a.order = static_cast<const long long*>(order);
-  a.cval = static_cast<const float*>(cval);
-  a.X = static_cast<const float*>(X);
-  a.y = static_cast<const float*>(y);
+  a.cval = static_cast<const srprog::Storage*>(cval);
+  a.X = static_cast<const srprog::Storage*>(X);
+  a.y = static_cast<const srprog::Storage*>(y);
   a.wn = static_cast<const float*>(wn);
   a.loss = static_cast<float*>(loss);
   a.bad = static_cast<int*>(bad);

@@ -24,16 +24,109 @@
 // first infinity or NaN and stays so.
 // run_adjoint walks the same words backwards for the gradient kernel, the
 // adjoint in registers as the top of the stack was.
+//
+// The storage type (SR_STORAGE, one per build: 0 float, 1 bfloat16, 2
+// float16; the -D flag of ops/kernel_eval.py compile_library) is the type
+// of X, y, the constants and the value outputs in device memory: a
+// search's working dtype (Options.precision). Every operator runs in
+// float32, and its result is rounded to the storage type where it is
+// produced (round_s: round to nearest even, then back to float), so a
+// value consumed straight from a register is already rounded; the
+// poison test then sees the rounded value (f32 -> bf16 overflows near
+// f32max, f32 -> f16 above 65,504). Leaves read values that the storage
+// type holds exactly. What the kernels keep in shared or global scratch
+// (stacks, slot values, results) stays float: it holds values of the
+// storage type. In the float build Storage is float and round_s is the
+// identity, so that build is the code it was.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#ifndef SR_STORAGE
+#define SR_STORAGE 0
+#endif
+#if SR_STORAGE == 1
+#include <cuda_bf16.h>
+#elif SR_STORAGE == 2
+#include <cuda_fp16.h>
+#elif SR_STORAGE != 0
+#error "SR_STORAGE must be 0 (float), 1 (bfloat16) or 2 (float16)"
+#endif
 
 #include "operators.cuh"
 
 namespace srprog {
 
 using namespace srops;
+
+#if SR_STORAGE == 1
+using Storage = __nv_bfloat16;
+__device__ __forceinline__ float to_f32(Storage x) { return __bfloat162float(x); }
+__device__ __forceinline__ Storage from_f32(float x) {
+  return __float2bfloat16_rn(x);
+}
+#elif SR_STORAGE == 2
+using Storage = __half;
+__device__ __forceinline__ float to_f32(Storage x) { return __half2float(x); }
+__device__ __forceinline__ Storage from_f32(float x) { return __float2half_rn(x); }
+#else
+using Storage = float;
+__device__ __forceinline__ float to_f32(Storage x) { return x; }
+__device__ __forceinline__ Storage from_f32(float x) { return x; }
+#endif
+constexpr bool kFloatStorage = SR_STORAGE == 0;
+
+// A value produced in float32, as the storage type holds it.
+__device__ __forceinline__ float round_s(float x) {
+  if constexpr (kFloatStorage) {
+    return x;
+  } else {
+    return to_f32(from_f32(x));
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+// One element of X into a block's staged float copy of X: cp.async in the
+// float build, a load and a conversion in the 2-byte builds (so a 2-byte
+// X of any row count needs no alignment rule).
+__device__ __forceinline__ void stage_x(float* dst, const Storage* src) {
+#if SR_STORAGE == 0
+  cp_async4(dst, src);
+#else
+  *dst = to_f32(*src);
+#endif
+}
+
+// Writes kN values of one lane's consecutive rows at o (value outputs).
+// With `aligned` every row is real and o is 4-element aligned: the float
+// build writes one float4, the 2-byte builds one 8-byte word per 4 rows.
+template <int kN>
+__device__ __forceinline__ void store_rows(Storage* o, const float (&v)[kN],
+                                           bool aligned, int real) {
+  if constexpr (kN == 4 && kFloatStorage) {
+    if (aligned) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      return;
+    }
+  } else if constexpr (kN == 4) {
+    if (aligned) {
+      alignas(8) Storage s[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] = from_f32(v[i]);
+      *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(s);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    if (i < real) o[i] = from_f32(v[i]);
+  }
+}
 
 // the TreeBatch node kinds (models/trees.py)
 enum : int { KIND_PAD = 0, KIND_CONST = 1, KIND_VAR = 2, KIND_UNA = 3,
@@ -328,14 +421,14 @@ __device__ __forceinline__ void run_program(
 #define SR_UNARY_CASE(OPC)                                                   \
   case dense_code(OPC):                                                      \
     _Pragma("unroll") for (int i = 0; i < kN; ++i) v[i] =                    \
-        apply_unary<kAll>(OPC, v[i]);                                        \
+        round_s(apply_unary<kAll>(OPC, v[i]));                               \
     poison(v, pz);                                                           \
     break;
 #define SR_BINARY_CASE(OPC)                                                  \
   case dense_code(OPC):                                                      \
     St::load(e, l);                                                          \
     _Pragma("unroll") for (int i = 0; i < kN; ++i) v[i] =                    \
-        apply_binary<kAll>(OPC, l[i], v[i]);                                 \
+        round_s(apply_binary<kAll>(OPC, l[i], v[i]));                        \
     poison(v, pz);                                                           \
     break;
     switch (word_code(w)) {

@@ -50,9 +50,13 @@ def _bfgs_batched(trees_flat: TreeBatch, x0: torch.Tensor, cmask: torch.Tensor,
     non-finite steps rejected. Returns (x (M, L), f (M,)); an instance that
     never reached a finite objective hands back its start.
 
-    The ``V H V^T`` update is a batched matrix product left to PyTorch (as
-    the JAX package leaves it to XLA); it runs in full float32 because
-    PyTorch keeps TF32 off for matrix products by default."""
+    Everything runs in the working dtype, x0's (X's): the constants, the
+    inverse Hessian H, the step sizes and the update, as the JAX package's
+    ``_bfgs_single`` runs at bfloat16 and float16; the kernels hand back
+    loss and gradient in it. The ``V H V^T`` update is a batched matrix
+    product left to PyTorch (as the JAX package leaves it to XLA); at
+    float32 it runs in full float32 because PyTorch keeps TF32 off for
+    matrix products by default."""
     M, L = x0.shape
     ops = options.operators
     loss = resolve_loss(options.loss)
@@ -133,10 +137,10 @@ def _select_and_starts(gen, pops: Population, K: int, n_starts: int):
     has_consts = _const_slots(pops.trees).any(-1)
     priority = rng.uniform(gen, (I, npop), dev) + has_consts.float()
     sel_idx = torch.topk(priority, K, dim=-1).indices
-    eps = rng.normal(gen, (I, n_starts, K, L), dev)
-    scale = torch.full((n_starts, 1, 1), 0.5, device=dev)
-    scale[0] = 0.0
     cval = gather_trees(pops.trees, sel_idx).cval
+    eps = rng.normal(gen, (I, n_starts, K, L), dev).to(cval.dtype)
+    scale = torch.full((n_starts, 1, 1), 0.5, dtype=cval.dtype, device=dev)
+    scale[0] = 0.0
     return sel_idx, cval.unsqueeze(1) * (1.0 + scale * eps)
 
 

@@ -172,7 +172,7 @@ def _mutate_members(gen, trees: TreeBatch, temperature, curmaxsize,
         SIMPLIFY: (simp.map(lambda x: x.repeat_interleave(N_RETRIES, dim=0)),
                    true_),
         RANDOMIZE: (gen_random_tree_fixed_size(gen, size, nfeatures, ops, L,
-                                               dev), true_),
+                                               dev, trees.cval.dtype), true_),
     }
     kind_r = kind.repeat_interleave(N_RETRIES)
     cand, ok = rep, true_

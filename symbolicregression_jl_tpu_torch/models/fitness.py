@@ -9,7 +9,10 @@ takes the fused-loss epilogue, and weighted scoring and a user's own
 callable take value mode followed by the loss and ``aggregate_loss``, as
 the JAX package routes them; ``"instr"`` / ``"instr_packed"`` always take
 the instruction program's value mode followed by the loss and
-``aggregate_loss`` (it has no fused loss).
+``aggregate_loss`` (it has no fused loss). The working dtype is X's: the
+fused epilogue runs at float32 only, as in the JAX package; at bfloat16
+and float16 scoring takes the value mode of that dtype's build, then the
+loss and ``aggregate_loss`` in the working dtype.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
         weights = None if weights is None else weights[row_idx]
     loss_fn = resolve_loss(loss)
     if (program in ("auto", "postfix") and weights is None
+            and X.dtype == torch.float32
             and isinstance(loss_fn, ElementwiseLoss)):
         return kernel_eval.eval_loss_trees(trees, X, y, operators, loss_fn)
     y_pred, ok = dispatch_eval(trees, X, operators, program)
@@ -59,8 +63,10 @@ def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
 
 def loss_to_score(loss: torch.Tensor, baseline: float,
                   complexity: torch.Tensor, options: Options) -> torch.Tensor:
-    """score = loss/baseline + complexity*parsimony."""
-    return loss / baseline + complexity.to(loss.dtype) * options.parsimony
+    """score = loss/baseline + complexity*parsimony, in the loss's dtype:
+    parsimony is first rounded to it, as the JAX package casts it."""
+    parsimony = float(torch.tensor(options.parsimony).to(loss.dtype))
+    return loss / baseline + complexity.to(loss.dtype) * parsimony
 
 
 def score_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,

@@ -45,12 +45,14 @@ def _is_op(tree: TreeBatch) -> torch.Tensor:
     return ((tree.kind == UNA) | (tree.kind == BIN)) & valid_mask(tree)
 
 
-def make_random_leaf(gen, n: int, nfeatures: int, device):
-    """50/50 constant (standard normal) / feature leaf, for n trees.
-    Returns (kind, op, feat, cval), each (n,)."""
+def make_random_leaf(gen, n: int, nfeatures: int, device,
+                     dtype: torch.dtype = torch.float32):
+    """50/50 constant (standard normal, drawn in float32 and cast to
+    ``dtype``) / feature leaf, for n trees. Returns (kind, op, feat, cval),
+    each (n,)."""
     is_const = rng.bernoulli(gen, 0.5, (n,), device)
     feat = rng.randint(gen, (n,), 0, nfeatures, device)
-    cval = rng.normal(gen, (n,), device)
+    cval = rng.normal(gen, (n,), device).to(dtype)
     kind = torch.where(is_const, CONST, VAR)
     return kind, torch.zeros_like(kind), torch.where(is_const, 0, feat), cval
 
@@ -115,7 +117,8 @@ def mutate_constant(gen, tree: TreeBatch, temperature, perturbation_factor,
     factor = torch.where(bigger, factor, 1.0 / factor)
     negate = rng.bernoulli(gen, probability_negate, (N,), dev)
     new_val = _take(tree.cval, idx) * factor * torch.where(negate, -1.0, 1.0)
-    new_cval = tree.cval.scatter(-1, idx.unsqueeze(-1), new_val.unsqueeze(-1))
+    new_cval = tree.cval.scatter(-1, idx.unsqueeze(-1),
+                                 new_val.to(tree.cval.dtype).unsqueeze(-1))
     return tree._replace(cval=torch.where(ok.unsqueeze(-1), new_cval,
                                           tree.cval)), ok
 
@@ -144,13 +147,15 @@ def _choose_unary(gen, n: int, operators: OperatorSet, device):
     return rng.bernoulli(gen, 0.5, (n,), device)
 
 
-def _random_op_donor(gen, use_unary, nfeatures: int, operators: OperatorSet):
+def _random_op_donor(gen, use_unary, nfeatures: int, operators: OperatorSet,
+                     dtype: torch.dtype):
     """Donor [leaf, OP] (unary, d_len=2) or [leaf, leaf, OP] (binary,
-    d_len=3) with fresh random leaves; fields (N, 4)."""
+    d_len=3) with fresh random leaves, constants in ``dtype``; fields
+    (N, 4)."""
     N = use_unary.shape[0]
     dev = use_unary.device
-    lk1, _, lf1, lc1 = make_random_leaf(gen, N, nfeatures, dev)
-    lk2, _, lf2, lc2 = make_random_leaf(gen, N, nfeatures, dev)
+    lk1, _, lf1, lc1 = make_random_leaf(gen, N, nfeatures, dev, dtype)
+    lk2, _, lf2, lc2 = make_random_leaf(gen, N, nfeatures, dev, dtype)
     op_u = rng.randint(gen, (N,), 0, max(operators.n_unary, 1), dev)
     op_b = rng.randint(gen, (N,), 0, max(operators.n_binary, 1), dev)
     z = torch.zeros_like(lk1)
@@ -176,7 +181,7 @@ def append_random_op(gen, tree: TreeBatch, nfeatures: int,
     any_leaf = mask.any(dim=-1)
     use_unary = _choose_unary(gen, N, operators, tree.kind.device)
     dk, do, df, dc, d_len = _random_op_donor(gen, use_unary, nfeatures,
-                                             operators)
+                                             operators, tree.cval.dtype)
     new, fit = splice(tree, idx, idx + 1, dk, do, df, dc, 0, d_len)
     ok = any_leaf & fit
     return where_trees(ok, new, tree), ok
@@ -201,7 +206,7 @@ def insert_random_op(gen, tree: TreeBatch, nfeatures: int,
     as_left = rng.bernoulli(gen, 0.5, (N,), dev)
     op_u = rng.randint(gen, (N,), 0, max(operators.n_unary, 1), dev)
     op_b = rng.randint(gen, (N,), 0, max(operators.n_binary, 1), dev)
-    lk, _, lf, lc = make_random_leaf(gen, N, nfeatures, dev)
+    lk, _, lf, lc = make_random_leaf(gen, N, nfeatures, dev, tree.cval.dtype)
     z = torch.zeros_like(lk)
     zf = torch.zeros_like(lc)
     op_kind = torch.where(use_unary, UNA, BIN)
@@ -251,7 +256,7 @@ def delete_random_op(gen, tree: TreeBatch, nfeatures: int,
                       c_start, c_end - c_start)
     ok = any_op & fit
 
-    lk, _, lf, lc = make_random_leaf(gen, N, nfeatures, dev)
+    lk, _, lf, lc = make_random_leaf(gen, N, nfeatures, dev, tree.cval.dtype)
     first = (torch.arange(tree.max_len, device=dev) == 0).unsqueeze(0)
     leaf_tree = TreeBatch(
         torch.where(first, lk.unsqueeze(-1), 0),
@@ -267,12 +272,13 @@ def delete_random_op(gen, tree: TreeBatch, nfeatures: int,
 
 def gen_random_tree_fixed_size(gen, target_size, nfeatures: int,
                                operators: OperatorSet, max_len: int,
-                               device) -> TreeBatch:
+                               device, dtype: torch.dtype = torch.float32
+                               ) -> TreeBatch:
     """Grow random trees to ~target_size nodes (one per element of the
     (N,) tensor ``target_size``) by repeatedly replacing a random leaf
-    with a random operator over fresh leaves."""
+    with a random operator over fresh leaves; constants in ``dtype``."""
     N = target_size.shape[0]
-    lk, _, lf, lc = make_random_leaf(gen, N, nfeatures, device)
+    lk, _, lf, lc = make_random_leaf(gen, N, nfeatures, device, dtype)
     first = (torch.arange(max_len, device=device) == 0).unsqueeze(0)
     tree = TreeBatch(
         torch.where(first, lk.unsqueeze(-1), 0),
@@ -291,7 +297,7 @@ def gen_random_tree_fixed_size(gen, target_size, nfeatures: int,
         mask = _is_leaf(tree)
         idx = rng.choice_mask(gen, mask)
         dk, do, df, dc, d_len = _random_op_donor(gen, use_unary, nfeatures,
-                                                 operators)
+                                                 operators, dtype)
         new, fit = splice(tree, idx, idx + 1, dk, do, df, dc, 0, d_len)
         grow = (tree.length < target) & mask.any(dim=-1) & fit
         tree = where_trees(grow, new, tree)
@@ -324,12 +330,14 @@ def _const_fold(tree: TreeBatch, operators: OperatorSet):
     constant when its subtree holds no variable and every value in it is
     finite; values come from one evaluation of every slot (the kernel's
     slot-values mode on the card) with variables read as 0, which cannot
-    matter because a subtree with a variable is never folded."""
+    matter because a subtree with a variable is never folded. The values
+    are computed at the constants' dtype (that dtype's build of the
+    kernel), as the JAX package folds."""
     from ..ops.kernel_eval import eval_slot_values
 
     L = tree.max_len
     dev = tree.kind.device
-    zero_x = torch.zeros((1, 1), dtype=torch.float32, device=dev)
+    zero_x = torch.zeros((1, 1), dtype=tree.cval.dtype, device=dev)
     vals, _ = eval_slot_values(tree._replace(feat=torch.zeros_like(tree.feat)),
                                zero_x, operators)
     vals = vals.to(tree.cval.dtype)

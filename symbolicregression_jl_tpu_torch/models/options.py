@@ -15,6 +15,7 @@ import dataclasses
 from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..ops.losses import ElementwiseLoss, resolve_loss
 from ..ops.operators import OperatorSet, canonical_name, make_operator_set
@@ -80,11 +81,13 @@ _UNSUPPORTED = {
     "snapshot_every_dispatches": (0, "snapshots come with the resilience slice"),
     "row_shards": (1, "row sharding comes with the multi-GPU slice"),
     "tenants": (1, "tenant-batched serving comes with the serving/ slice"),
-    "precision": ("float32", "bfloat16 storage and other precisions come with a later kernel slice"),
     "loss_function": (None, "custom full-tree objectives come with a later slice"),
     "independent_island_batches": (False, "per-island minibatches come with a later slice"),
 }
 KERNEL_PROGRAMS = ("auto", "postfix", "instr", "instr_packed")
+# the working dtype of each precision the port runs
+PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
 # TPU levers of the JAX package that the port does not carry at all
 _TPU_LEVERS = (
     "eval_backend", "kernel_leaf_skip", "eval_bucket_ladder",
@@ -184,6 +187,15 @@ class Options:
                     (k, tuple(sorted(val.items())) if isinstance(val, dict) else val)
                     for k, val in sorted(v.items())
                 ))
+        if self.precision == "float64":
+            raise NotImplementedError(
+                "precision='float64' is not supported by the PyTorch port "
+                "yet: it needs double-precision builds of the operator and "
+                "loss libraries (csrc/operators.cuh, csrc/losses.cuh), which "
+                "come with the float64 kernel slice (ROADMAP.md)")
+        if self.precision not in PRECISIONS:
+            raise ValueError(
+                "precision must be one of float32/float64/bfloat16/float16")
         for name, (off, why) in _UNSUPPORTED.items():
             value = getattr(self, name)
             if value != off:
@@ -221,6 +233,11 @@ class Options:
     @property
     def operators(self) -> OperatorSet:
         return self._operators  # type: ignore[attr-defined]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The working dtype of X, y, the constants, losses and scores."""
+        return PRECISIONS[self.precision]
 
     @property
     def elementwise_loss(self) -> Callable:

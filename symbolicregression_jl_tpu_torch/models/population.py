@@ -55,11 +55,13 @@ def gather_trees(trees: TreeBatch, idx: torch.Tensor) -> TreeBatch:
 
 
 def init_hall_of_fame(options: Options, batch_shape=(), device="cuda") -> HallOfFame:
+    """Empty halls of fame, losses, scores and constants in the working
+    dtype."""
     S = options.actual_maxsize
     shape = tuple(batch_shape) + (S,)
-    inf = torch.full(shape, float("inf"), device=device)
+    inf = torch.full(shape, float("inf"), dtype=options.dtype, device=device)
     return HallOfFame(
-        trees=empty_trees(shape, options.max_len, device),
+        trees=empty_trees(shape, options.max_len, device, options.dtype),
         scores=inf, losses=inf.clone(),
         exists=torch.zeros(shape, dtype=torch.bool, device=device),
     )
@@ -69,12 +71,13 @@ def init_population(gen, options: Options, nfeatures: int, X, y, weights,
                     baseline: float, n_islands: int, nlength: int = 3
                     ) -> Population:
     """Random initial populations of small trees for n_islands islands,
-    scored in one call."""
+    scored in one call; constants, losses and scores in the working
+    dtype."""
     dev = X.device
     n = n_islands * options.npop
     trees = gen_random_tree_fixed_size(
         gen, torch.full((n,), nlength, dtype=torch.int64, device=dev),
-        nfeatures, options.operators, options.max_len, dev)
+        nfeatures, options.operators, options.max_len, dev, options.dtype)
     scores, losses = score_trees(trees, X, y, weights, baseline, options)
     shape = (n_islands, options.npop)
     return Population(

@@ -6,7 +6,8 @@ span ``[i - size(i) + 1, i]``. The node codes ``PAD/CONST/VAR/UNA/BIN`` and
 the operator numbering are the JAX package's, so trees carry across the two
 packages unchanged.
 
-Integer fields are int64 (torch's index type); ``cval`` is float32. The
+Integer fields are int64 (torch's index type); ``cval`` is in the
+working dtype (``Options.dtype``: float32, bfloat16 or float16). The
 device-side queries (``subtree_sizes``, ``node_depths``) are written as
 whole-tensor comparisons over the (slot, slot) square instead of a scan
 over slots, so each is a handful of launches for any batch size.
@@ -35,7 +36,7 @@ ARITY = np.array([0, 0, 0, 1, 2], dtype=np.int64)  # indexed by kind
 
 class TreeBatch(NamedTuple):
     """A batch of postfix trees. kind/op/feat: (..., L) int64; cval:
-    (..., L) float32; length: (...,) int64."""
+    (..., L) in the working dtype; length: (...,) int64."""
 
     kind: torch.Tensor
     op: torch.Tensor
@@ -67,12 +68,13 @@ def where_trees(cond: torch.Tensor, a: TreeBatch, b: TreeBatch) -> TreeBatch:
 
 
 def empty_trees(batch_shape: Tuple[int, ...], max_len: int,
-                device="cuda") -> TreeBatch:
+                device="cuda", dtype: torch.dtype = torch.float32) -> TreeBatch:
+    """Empty trees, constants in ``dtype``."""
     dev = resolve_device(device)
     shape = tuple(batch_shape) + (max_len,)
     z = torch.zeros(shape, dtype=torch.int64, device=dev)
     return TreeBatch(z, z.clone(), z.clone(),
-                     torch.zeros(shape, dtype=torch.float32, device=dev),
+                     torch.zeros(shape, dtype=dtype, device=dev),
                      torch.zeros(tuple(batch_shape), dtype=torch.int64,
                                  device=dev))
 
@@ -144,7 +146,8 @@ def encode_tree(expr: Expr, max_len: int, device="cuda") -> TreeBatch:
 def decode_tree(tree: TreeBatch) -> Expr:
     """Single postfix TreeBatch (batch shape ()) -> Expr. Validates arity."""
     kind, op, feat, cval = (np.asarray(torch.as_tensor(f).cpu())
-                            for f in (tree.kind, tree.op, tree.feat, tree.cval))
+                            for f in (tree.kind, tree.op, tree.feat,
+                                      torch.as_tensor(tree.cval).float()))
     n = int(tree.length)
     stack: List[Expr] = []
     for i in range(n):

@@ -19,9 +19,21 @@ the card. The kernel reports a program that is not valid postfix poisoned;
 the plain versions run it as the empty program (``runnable``), which is
 poisoned too.
 
+The working dtype (a search's ``Options.precision``) is X's: float32,
+bfloat16 or float16. Each is its own build of the kernel (``SR_STORAGE``,
+csrc/postfix_program.cuh): X, the constants and the outputs in that dtype,
+every slot's value computed in float32 and rounded to it where it is
+produced, poison judged on the rounded value (the JAX package's
+``compute_dtype="bfloat16"`` variant, and its float16 interpreter). The
+2-byte builds carry the value and slot-values modes; the fused mode runs
+at float32 alone, as the JAX package routes it. The plain versions round
+at the same places (``storage_round``).
+
 The kernel library is compiled with ``nvcc`` into ``build/`` at first use
-and loaded with ctypes. ``LAUNCHES`` counts the kernel's launches by mode;
-their sum is the total. ``LOSS_LAUNCHES`` counts the fused mode's launches
+(one library per working dtype) and loaded with ctypes. ``LAUNCHES``
+counts the float32 build's launches by mode; their sum is the total.
+``STORAGE_LAUNCHES`` counts the 2-byte builds' (``value_bf16``,
+``slots_f16``, ...). ``LOSS_LAUNCHES`` counts the fused mode's launches
 by loss name (``fused:HuberLoss``).
 """
 
@@ -33,6 +45,7 @@ import os
 import pathlib
 import subprocess
 import threading
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -46,6 +59,15 @@ from .operators import (
 LAUNCHES = {"value": 0, "fused": 0, "slots": 0}  # launches by mode
 LOSS_LAUNCHES = {}  # the fused mode's launches by "fused:<loss name>"
 
+# The working dtypes the kernels are built for: each one's SR_STORAGE code
+# and the suffix of its library's name and of its launch counts.
+STORAGE = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16"),
+           torch.float16: (2, "_f16")}
+NARROW_STORAGE = (torch.bfloat16, torch.float16)
+# launches of the 2-byte builds by mode and dtype ("value_bf16", ...)
+STORAGE_LAUNCHES = {f"{m}{STORAGE[d][1]}": 0 for d in NARROW_STORAGE
+                    for m in ("value", "slots")}
+
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCE = CSRC / "postfix_eval.cu"
@@ -55,15 +77,86 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-I", str(CSRC)]
 
-_lib = None
+_libs = {}  # the loaded build of each working dtype
 _lib_lock = threading.Lock()
-BUILD_LOG = ""  # nvcc's output of the last build (-Xptxas -v line included)
+BUILD_LOGS = {}  # nvcc's output (-Xptxas -v lines) of each dtype's last build
+BUILD_SECONDS = {}  # nvcc's seconds for the last build of each dtype
 
 MAX_OPERATORS = 64  # csrc/postfix_program.cuh kMaxOps
 MODE_VALUE = 0
 MODE_FUSED = 1
 MODE_SLOTS = 2
 MODE_NAMES = {MODE_VALUE: "value", MODE_FUSED: "fused", MODE_SLOTS: "slots"}
+
+
+# ---------------------------------------------------------------------------
+# The working dtype
+# ---------------------------------------------------------------------------
+
+
+def check_storage(dtype: torch.dtype) -> None:
+    """Raise unless the kernels are built for ``dtype``."""
+    if dtype not in STORAGE:
+        raise ValueError(f"the kernels take float32, bfloat16 or float16 "
+                         f"data, got {dtype}")
+
+
+def storage_round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 values as the working dtype holds them (round to nearest
+    even, then back to float32): the kernels' rounding of every value
+    where it is produced. The identity at float32."""
+    if dtype == torch.float32:
+        return v
+    return v.to(dtype).to(torch.float32)
+
+
+def count_launch(counts: dict, storage_counts: dict, name: str,
+                 dtype: torch.dtype) -> None:
+    """One launch of variant ``name`` of ``dtype``'s build. The float32
+    builds count apart from the 2-byte ones, so that a sum over
+    ``LAUNCHES`` is the float32 path's launches, as it always was."""
+    if dtype == torch.float32:
+        counts[name] += 1
+    else:
+        storage_counts[name + STORAGE[dtype][1]] += 1
+
+
+def build_storage(source: pathlib.Path, library: pathlib.Path,
+                  dtype: torch.dtype, extra_flags, force: bool, logs: dict,
+                  seconds: dict) -> pathlib.Path:
+    """Compile ``source`` for ``dtype`` into its library (``libx.so``,
+    ``libx_bf16.so``, ``libx_f16.so``) once, or again with ``force`` or an
+    edited source. ``logs`` and ``seconds`` take nvcc's output and seconds
+    by dtype. The float32 build gets no ``SR_STORAGE`` flag, so it is the
+    build it always was."""
+    code, suffix = STORAGE[dtype]
+    lib = library.with_name(library.stem + suffix + library.suffix)
+    if not force and is_built(source, lib):
+        return lib
+    t = time.time()
+    flags = (*extra_flags, *((f"-DSR_STORAGE={code}",) if code else ()))
+    logs[dtype] = compile_library(source, lib, flags)
+    seconds[dtype] = time.time() - t
+    return lib
+
+
+def load_storage(build, declare, storage_fn: str, dtype: torch.dtype,
+                 cache: dict):
+    """The build of the working dtype ``dtype`` from ``build(force,
+    dtype)``, its functions declared by ``declare(lib)``; checks that the
+    library reports ``dtype``'s storage code through ``storage_fn``.
+    Cached in ``cache``."""
+    check_storage(dtype)
+    lib = cache.get(dtype)
+    if lib is None:
+        path = build(False, dtype)
+        lib = declare(ctypes.CDLL(str(path)))
+        fn = getattr(lib, storage_fn)
+        fn.restype = ctypes.c_int
+        if fn() != STORAGE[dtype][0]:
+            raise RuntimeError(f"{path} is not the {dtype} build")
+        cache[dtype] = lib
+    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -150,9 +243,13 @@ def kernel_operator_ids(operators: OperatorSet) -> list:
 
 def _plain_forward(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet):
     """(root (T, R), bad (T,), vals (L, T, R)) through the operand
-    schedule, for a batch of valid programs (``runnable``)."""
+    schedule, for a batch of valid programs (``runnable``); float32 values,
+    each as X's dtype holds it (``storage_round``)."""
     T, L = flat.kind.shape
     R = X.shape[1]
+    S = X.dtype
+    X = X.to(torch.float32)
+    cval = flat.cval.to(S).to(torch.float32)
     code = fuse_opcodes(flat, operators)
     lidx, ridx = operand_schedule(flat.kind, flat.length)
     U = operators.n_unary
@@ -164,13 +261,13 @@ def _plain_forward(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet):
         active = s < flat.length
         a = vals[ridx[:, s], ti]
         b = vals[lidx[:, s], ti]
-        v = torch.where((c == 1).unsqueeze(-1),
-                        flat.cval[:, s].to(torch.float32).unsqueeze(-1),
+        v = torch.where((c == 1).unsqueeze(-1), cval[:, s].unsqueeze(-1),
                         X[flat.feat[:, s]])
         for j, fn in enumerate(operators.unary_fns):
             v = torch.where((c == 3 + j).unsqueeze(-1), fn(a), v)
         for j, fn in enumerate(operators.binary_fns):
             v = torch.where((c == 3 + U + j).unsqueeze(-1), fn(b, a), v)
+        v = storage_round(v, S)
         vals[s] = v
         bad |= active & (c != 0) & ~torch.isfinite(v).all(dim=-1)
     root = vals[torch.clamp_min(flat.length - 1, 0), ti]
@@ -180,12 +277,13 @@ def _plain_forward(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet):
 
 def eval_trees_plain(trees: TreeBatch, X: torch.Tensor,
                      operators: OperatorSet):
-    """Plain version of the value mode: (y (..., nrows), ok (...,))."""
+    """Plain version of the value mode: (y (..., nrows) in X's dtype, ok
+    (...,))."""
     batch_shape = trees.length.shape
     flat, _ = runnable(_flatten(trees), operators, X.shape[0])
     root, bad, _ = _plain_forward(flat, X, operators)
     ok = ~bad & (flat.length > 0)
-    return (root.reshape(batch_shape + (X.shape[1],)),
+    return (root.to(X.dtype).reshape(batch_shape + (X.shape[1],)),
             ok.reshape(batch_shape))
 
 
@@ -275,13 +373,15 @@ def eval_loss_trees_program_plain(trees: TreeBatch, X: torch.Tensor,
 def eval_slot_values_plain(trees: TreeBatch, X: torch.Tensor,
                           operators: OperatorSet):
     """Plain version of the slot-values mode: X has one row; returns
-    (vals (T, L) — every slot's value, 0 past the length — and ok (T,))."""
+    (vals (T, L) in X's dtype — every slot's value, 0 past the length — and
+    ok (T,))."""
     trees, _ = runnable(trees, operators, X.shape[0])
     root, bad, vals = _plain_forward(trees, X, operators)
     vals = vals[..., 0].T
     L = trees.max_len
     live = torch.arange(L, device=X.device) < trees.length.unsqueeze(-1)
-    return torch.where(live, vals, 0.0), ~bad & (trees.length > 0)
+    return (torch.where(live, vals, 0.0).to(X.dtype),
+            ~bad & (trees.length > 0))
 
 
 def dense_code(code: torch.Tensor) -> torch.Tensor:
@@ -384,9 +484,14 @@ def eval_program_plain(flat: TreeBatch, X: torch.Tensor,
     (T, nrows), bad (T,)). The top of the stack is a register, a leaf
     pushes it to its entry, a binary slot reads its left operand from its
     entry; a non-finite value at a slot that is not PAD poisons the tree,
-    and an invalid program is poisoned without being run."""
+    and an invalid program is poisoned without being run. Every value is
+    rounded to X's dtype where it is produced; the root comes in X's
+    dtype."""
     T, L = flat.kind.shape
     nfeat, R = X.shape
+    S = X.dtype
+    X = X.to(torch.float32)
+    cval = flat.cval.to(S).to(torch.float32)
     words, invalid = program_words(flat, operators, nfeat)
     ti = torch.arange(T, device=X.device)
     stack = torch.zeros(((L + 1) // 2, T, R), dtype=torch.float32,
@@ -405,18 +510,18 @@ def eval_program_plain(flat: TreeBatch, X: torch.Tensor,
         feat = feats[:, s]
         leaf = live & (code <= 2)
         left = stack[entry, ti]
-        new = torch.where((code == 1).unsqueeze(-1),
-                          flat.cval[:, s].to(torch.float32).unsqueeze(-1),
+        new = torch.where((code == 1).unsqueeze(-1), cval[:, s].unsqueeze(-1),
                           X[feat.clamp(0, nfeat - 1)])
         new = torch.where(leaf.unsqueeze(-1), new, float("nan"))
         for c, (arity, f) in fns.items():
             v = f(top) if arity == 1 else f(left, top)
             new = torch.where((code == c).unsqueeze(-1), v, new)
+        new = storage_round(new, S)
         stack[entry, ti] = torch.where(leaf.unsqueeze(-1), top, left)
         top = torch.where(live.unsqueeze(-1), new, top)
         bad |= live & (code != 0) & ~torch.isfinite(new).all(-1)
     top = torch.where(invalid.unsqueeze(-1), 0.0, top)
-    return top, bad
+    return top.to(S), bad
 
 
 # ---------------------------------------------------------------------------
@@ -454,39 +559,42 @@ def is_built(source: pathlib.Path, library: pathlib.Path) -> bool:
     return library.stat().st_mtime >= newest
 
 
-def build_library(force: bool = False) -> pathlib.Path:
-    """Compile csrc/postfix_eval.cu with nvcc into build/ (once)."""
-    global BUILD_LOG
-    if force or not is_built(SOURCE, LIBRARY):
-        BUILD_LOG = compile_library(SOURCE, LIBRARY)
-    return LIBRARY
+def build_library(force: bool = False,
+                  dtype: torch.dtype = torch.float32) -> pathlib.Path:
+    """Compile csrc/postfix_eval.cu with nvcc into build/ (once) for the
+    working dtype ``dtype``."""
+    return build_storage(SOURCE, LIBRARY, dtype, (), force, BUILD_LOGS,
+                         BUILD_SECONDS)
 
 
-def _library():
-    global _lib
+def _declare(lib):
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    f = ctypes.c_float
+    lib.postfix_eval_launch.argtypes = ([p] * 13 + [ip] + [i] * 16
+                                        + [f] * 3 + [p])
+    lib.postfix_eval_launch.restype = i
+    lib.postfix_eval_narrow_plan.argtypes = [i] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.postfix_eval_narrow_plan.restype = i
+    lib.postfix_eval_config.argtypes = [ip]
+    lib.postfix_eval_config.restype = None
+    lib.postfix_eval_smem_bytes.argtypes = [i] * 6
+    lib.postfix_eval_smem_bytes.restype = i
+    lib.postfix_eval_occupancy.argtypes = [i] * 6
+    lib.postfix_eval_occupancy.restype = i
+    lib.postfix_eval_error_string.argtypes = [i]
+    lib.postfix_eval_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _library(dtype: torch.dtype = torch.float32):
+    """The build of the working dtype ``dtype``, built and loaded at first
+    use."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p = ctypes.c_void_p
-            i = ctypes.c_int
-            ip = ctypes.POINTER(ctypes.c_int)
-            f = ctypes.c_float
-            lib.postfix_eval_launch.argtypes = ([p] * 13 + [ip] + [i] * 16
-                                                + [f] * 3 + [p])
-            lib.postfix_eval_launch.restype = i
-            lib.postfix_eval_narrow_plan.argtypes = [i] * 5 + [
-                ctypes.POINTER(ctypes.c_longlong)]
-            lib.postfix_eval_narrow_plan.restype = i
-            lib.postfix_eval_config.argtypes = [ip]
-            lib.postfix_eval_config.restype = None
-            lib.postfix_eval_smem_bytes.argtypes = [i] * 6
-            lib.postfix_eval_smem_bytes.restype = i
-            lib.postfix_eval_occupancy.argtypes = [i] * 6
-            lib.postfix_eval_occupancy.restype = i
-            lib.postfix_eval_error_string.argtypes = [i]
-            lib.postfix_eval_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+        return load_storage(build_library, _declare, "postfix_eval_storage",
+                            dtype, _libs)
 
 
 WAVES = 4  # a batch's blocks, in waves of resident blocks, at least
@@ -571,12 +679,13 @@ def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
-                full: bool, device: int, any_loss: bool = False) -> EvalPlan:
-    """``eval_plan`` with the kernel library's layout and occupancy on
+                full: bool, device: int, any_loss: bool = False,
+                dtype: torch.dtype = torch.float32) -> EvalPlan:
+    """``eval_plan`` with the layout and occupancy of ``dtype``'s build on
     card ``device``; the narrow route's layout where one warp's stack of
     the usual rows per lane does not fit in a block. ``any_loss``: the
     fused mode's instantiation for a loss other than L2."""
-    lib = _library()
+    lib = _library(dtype)
     cfg = (ctypes.c_int * 3)()
     lib.postfix_eval_config(cfg)
     if lib.postfix_eval_smem_bytes(1, L, nfeat, 1, 0, mode) > cfg[2]:
@@ -609,6 +718,7 @@ class PreparedLaunch(NamedTuple):
     mode: int
     plan: EvalPlan
     loss: ElementwiseLoss = l2_dist_loss
+    dtype: torch.dtype = torch.float32  # the working dtype's build
 
 
 def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
@@ -616,11 +726,18 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
                    loss: ElementwiseLoss = l2_dist_loss) -> PreparedLaunch:
     """Check the inputs and allocate the kernel's outputs for a flat (T, L)
     batch on the card; the trees go to the kernel as they are, in
-    longest-first order. ``loss``: the fused mode's loss."""
+    longest-first order. ``loss``: the fused mode's loss. X's dtype picks
+    the build (float32, bfloat16 or float16; the fused mode float32
+    only); the constants go to the kernel in that dtype and the value or
+    slot outputs come in it."""
     dev = X.device
-    if X.dtype != torch.float32 or X.dim() != 2:
-        raise ValueError(f"X must be (nfeat, nrows) float32, got {X.dtype} "
-                         f"{tuple(X.shape)}")
+    dtype = X.dtype
+    if dtype not in STORAGE or X.dim() != 2:
+        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16 or "
+                         f"float16, got {dtype} {tuple(X.shape)}")
+    if mode == MODE_FUSED and dtype != torch.float32:
+        raise ValueError("the fused mode runs at float32; at bfloat16 and "
+                         "float16 the loss follows the value mode")
     if y is not None and (y.dtype != torch.float32 or y.device != dev
                           or y.shape != (X.shape[1],)):
         raise ValueError("y must be float32 (nrows,) on X's device")
@@ -643,16 +760,16 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
     ids = host_operator_ids(operators)
     any_loss = mode == MODE_FUSED and loss.kind != L2
     plan = launch_plan(T, L, nfeat, nrows, mode, full, dev.index or 0,
-                       any_loss)
+                       any_loss, dtype)
     fields = [f.to(torch.int64).contiguous()
               for f in (flat.kind, flat.op, flat.feat)]
-    cval = flat.cval.to(torch.float32).contiguous()
+    cval = flat.cval.to(dtype).contiguous()
     length = flat.length.to(torch.int64).contiguous()
     order = torch.argsort(length, descending=True, stable=True)
     if mode == MODE_VALUE:
-        out = torch.empty((T, nrows), dtype=torch.float32, device=dev)
+        out = torch.empty((T, nrows), dtype=dtype, device=dev)
     elif mode == MODE_SLOTS:
-        out = torch.empty((T, L), dtype=torch.float32, device=dev)
+        out = torch.empty((T, L), dtype=dtype, device=dev)
     else:
         out = torch.empty((T,), dtype=torch.float32, device=dev)
     bad = torch.empty((T,), dtype=torch.int32, device=dev)
@@ -669,12 +786,12 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
             nrows, mode, int(full), plan.items, plan.range, int(plan.staged),
             plan.warps, plan.smem, plan.blocks, int(plan.narrow), loss.kind,
             *loss.constants)
-    return PreparedLaunch(args, out, bad, length, mode, plan, loss)
+    return PreparedLaunch(args, out, bad, length, mode, plan, loss, dtype)
 
 
 def run_prepared(p: PreparedLaunch) -> None:
     """Launch the kernel on the current stream and check the launch."""
-    lib = _library()
+    lib = _library(p.dtype)
     tensors, rest = p.args[:13], p.args[13:]
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream(p.out.device).cuda_stream
@@ -682,7 +799,7 @@ def run_prepared(p: PreparedLaunch) -> None:
     if rc != 0:
         raise RuntimeError("postfix_eval kernel launch failed: "
                            + lib.postfix_eval_error_string(rc).decode())
-    LAUNCHES[MODE_NAMES[p.mode]] += 1
+    count_launch(LAUNCHES, STORAGE_LAUNCHES, MODE_NAMES[p.mode], p.dtype)
     if p.mode == MODE_FUSED:
         key = f"fused:{p.loss.name}"
         LOSS_LAUNCHES[key] = LOSS_LAUNCHES.get(key, 0) + 1
@@ -704,8 +821,8 @@ def _flatten(trees: TreeBatch) -> TreeBatch:
 
 def eval_trees(trees: TreeBatch, X: torch.Tensor,
                operators: OperatorSet) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Value mode: (y (..., nrows) float32, ok (...,)). CUDA tensors run
-    the kernel; CPU tensors the plain version."""
+    """Value mode: (y (..., nrows) in X's dtype, ok (...,)). CUDA tensors
+    run the kernel (X's dtype's build); CPU tensors the plain version."""
     if not X.is_cuda:
         return eval_trees_plain(trees, X, operators)
     batch_shape = trees.length.shape
@@ -729,9 +846,9 @@ def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
 
 def eval_slot_values(trees: TreeBatch, X: torch.Tensor,
                      operators: OperatorSet):
-    """Every slot's value on the single row of X (nfeat, 1): (vals (T, L),
-    ok (T,)) for a flat (T, L) batch; 0 past each tree's length. Constant
-    folding reads subtree values from it."""
+    """Every slot's value on the single row of X (nfeat, 1): (vals (T, L)
+    in X's dtype, ok (T,)) for a flat (T, L) batch; 0 past each tree's
+    length. Constant folding reads subtree values from it."""
     if not X.is_cuda:
         return eval_slot_values_plain(trees, X, operators)
     return _launch(trees, X, None, operators, MODE_SLOTS)

@@ -23,7 +23,13 @@ table of ``ops/operators.py``. Both kernels derive the program from the
 are, with a longest-first order; ``eval_loss_grad_program_plain`` is the
 plain version of the gradient kernel's sweeps and sums, and the loss-only
 kernel runs a tree's candidates together, ``candidate_groups`` of them per
-warp. ``LAUNCHES`` counts the launches by variant, ``LOSS_LAUNCHES`` by
+warp. X's dtype (float32, bfloat16 or float16; y and the constants take
+it too) is the working dtype and picks the build, as in ``kernel_eval``:
+the forward sweep rounds every slot's value to it, while the loss, its
+seed, the adjoint sweep and the row sums stay in float32; ``fn`` hands
+back loss and gradient in the working dtype. ``LAUNCHES`` counts the
+float32 build's launches by variant, ``STORAGE_LAUNCHES`` the 2-byte
+builds' (``loss_grad_bf16``, ...), ``LOSS_LAUNCHES`` every build's by
 variant and loss name (``loss_grad:HuberLoss``).
 """
 
@@ -43,6 +49,8 @@ from .losses import L2, ElementwiseLoss, l2_dist_loss
 from .operators import BINARY_VJP, KERNEL_BINARY_IDS, UNARY_VJP, OperatorSet
 
 LAUNCHES = {"loss_grad": 0, "loss": 0}  # launches by variant
+STORAGE_LAUNCHES = {f"{v}{ke.STORAGE[d][1]}": 0 for d in ke.NARROW_STORAGE
+                    for v in LAUNCHES}
 LOSS_LAUNCHES = {}  # launches by "<variant>:<loss name>"
 
 SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "postfix_grad.cu"
@@ -50,9 +58,10 @@ LIBRARY = ke.BUILD_DIR / "libpostfix_grad.so"
 # no multiply-add contraction: each product and sum rounds as the plain
 # version's separate PyTorch operations do
 NVCC_EXTRA_FLAGS = ("-fmad=false",)
-BUILD_LOG = ""  # nvcc's output of the last build (-Xptxas -v line included)
+BUILD_LOGS = {}  # nvcc's output (-Xptxas -v lines) of each dtype's last build
+BUILD_SECONDS = {}  # nvcc's seconds for the last build of each dtype
 
-_lib = None
+_libs = {}  # the loaded build of each working dtype
 _lib_lock = threading.Lock()
 
 
@@ -77,8 +86,10 @@ def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
     """(loss (T,), grad (T, L) or None, ok (T,)) of a flat batch of valid
     programs (``ke.runnable``) under ``loss_fn``; with ``scale`` also each
     CONST slot's sum over rows of |row term|, which bounds the rounding of
-    its row sum (a comparison's yardstick)."""
+    its row sum (a comparison's yardstick). The forward values are rounded
+    to X's dtype; the rest is float32 and so are the outputs."""
     root, bad, vals = ke._plain_forward(flat, X, operators)
+    y = y.to(torch.float32)
     ok = ~bad & (flat.length > 0)
     zero_w = wn == 0
     loss = torch.where(zero_w, 0.0, loss_fn(root, y) * wn).sum(-1)
@@ -190,10 +201,15 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
     slots no later step reads); losses and CONST adjoints are summed over
     rows as the kernel sums them (``ke.lane_sum``, rows lane, lane + 32,
     ...), and the root's seed is ``loss.seed(root, y) * wn``. An invalid
-    program is poisoned, its loss and gradient 0."""
+    program is poisoned, its loss and gradient 0. The forward sweep rounds
+    every value to X's dtype as the kernel does; the rest is float32, the
+    kernel's outputs."""
     flat = ke._flatten(trees)
     T, L = flat.kind.shape
     nfeat, R = X.shape
+    S = X.dtype
+    X, y = X.to(torch.float32), y.to(torch.float32)
+    cval = flat.cval.to(S).to(torch.float32)
     wn = normalized_weights(weights, R, X.device)
     words, invalid = ke.program_words(flat, operators, nfeat)
     n = torch.where(invalid, 0, flat.length)
@@ -217,13 +233,13 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
         e = entry[:, s].clamp(max=cap - 1)
         leaf = live & (c <= 2)
         lv = stack[e, ti]
-        new = torch.where((c == 1).unsqueeze(-1),
-                          flat.cval[:, s].to(torch.float32).unsqueeze(-1),
+        new = torch.where((c == 1).unsqueeze(-1), cval[:, s].unsqueeze(-1),
                           X[feat[:, s]])
         new = torch.where(leaf.unsqueeze(-1), new, float("nan"))
         for j, (cj, f, _) in enumerate(fns):
             out = f(top) if j < U else f(lv, top)
             new = torch.where((c == cj).unsqueeze(-1), out, new)
+        new = ke.storage_round(new, S)
         stack[e, ti] = torch.where(leaf.unsqueeze(-1), top, lv)
         top = torch.where(live.unsqueeze(-1), new, top)
         vals[s] = top
@@ -266,41 +282,44 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
 # ---------------------------------------------------------------------------
 
 
-def build_library(force: bool = False) -> pathlib.Path:
-    """Compile csrc/postfix_grad.cu with nvcc into build/ (once)."""
-    global BUILD_LOG
-    if force or not ke.is_built(SOURCE, LIBRARY):
-        BUILD_LOG = ke.compile_library(SOURCE, LIBRARY, NVCC_EXTRA_FLAGS)
-    return LIBRARY
+def build_library(force: bool = False,
+                  dtype: torch.dtype = torch.float32) -> pathlib.Path:
+    """Compile csrc/postfix_grad.cu with nvcc into build/ (once) for the
+    working dtype ``dtype``."""
+    return ke.build_storage(SOURCE, LIBRARY, dtype, NVCC_EXTRA_FLAGS, force,
+                            BUILD_LOGS, BUILD_SECONDS)
 
 
-def _library():
-    global _lib
+def _declare(lib):
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lp = ctypes.POINTER(ctypes.c_longlong)
+    f = ctypes.c_float
+    lib.postfix_grad_plan.argtypes = [i] * 5 + [lp]
+    lib.postfix_grad_plan.restype = i
+    lib.postfix_grad_launch.argtypes = ([p] * 13 + [ip] + [i] * 9
+                                        + [f] * 3 + [lp, p])
+    lib.postfix_grad_launch.restype = i
+    lib.postfix_loss_candidates.restype = i
+    lib.postfix_loss_plan.argtypes = [i] * 6 + [lp]
+    lib.postfix_loss_plan.restype = i
+    lib.postfix_loss_launch.argtypes = ([p] * 12 + [ip] + [i] * 10
+                                        + [f] * 3 + [lp, p])
+    lib.postfix_loss_launch.restype = i
+    lib.postfix_grad_digamma.argtypes = [p, p, i, p]
+    lib.postfix_grad_digamma.restype = i
+    lib.postfix_grad_error_string.argtypes = [i]
+    lib.postfix_grad_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _library(dtype: torch.dtype = torch.float32):
+    """The build of the working dtype ``dtype``, built and loaded at first
+    use."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p = ctypes.c_void_p
-            i = ctypes.c_int
-            ip = ctypes.POINTER(ctypes.c_int)
-            lp = ctypes.POINTER(ctypes.c_longlong)
-            f = ctypes.c_float
-            lib.postfix_grad_plan.argtypes = [i] * 5 + [lp]
-            lib.postfix_grad_plan.restype = i
-            lib.postfix_grad_launch.argtypes = ([p] * 13 + [ip] + [i] * 9
-                                                + [f] * 3 + [lp, p])
-            lib.postfix_grad_launch.restype = i
-            lib.postfix_loss_candidates.restype = i
-            lib.postfix_loss_plan.argtypes = [i] * 6 + [lp]
-            lib.postfix_loss_plan.restype = i
-            lib.postfix_loss_launch.argtypes = ([p] * 12 + [ip] + [i] * 10
-                                                + [f] * 3 + [lp, p])
-            lib.postfix_loss_launch.restype = i
-            lib.postfix_grad_digamma.argtypes = [p, p, i, p]
-            lib.postfix_grad_digamma.restype = i
-            lib.postfix_grad_error_string.argtypes = [i]
-            lib.postfix_grad_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+        return ke.load_storage(build_library, _declare, "postfix_grad_storage",
+                               dtype, _libs)
 
 
 def candidate_groups(reps: int, per_lane: int) -> int:
@@ -346,23 +365,26 @@ class GradPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=64)
 def grad_plan(T: int, reps: int, L: int, full: bool,
-              any_loss: bool = False) -> GradPlan:
-    """The gradient kernel's layout; ``any_loss``: its instantiation for a
-    loss other than L2."""
+              any_loss: bool = False,
+              dtype: torch.dtype = torch.float32) -> GradPlan:
+    """The gradient kernel's layout in ``dtype``'s build; ``any_loss``:
+    its instantiation for a loss other than L2."""
+    lib = _library(dtype)
     plan = (ctypes.c_longlong * 7)()
-    rc = _library().postfix_grad_plan(T, reps, L, int(full), int(any_loss),
-                                      plan)
+    rc = lib.postfix_grad_plan(T, reps, L, int(full), int(any_loss), plan)
     if rc != 0:
         raise ValueError(f"no layout of the gradient kernel for max_len {L}: "
-                         + _library().postfix_grad_error_string(rc).decode())
+                         + lib.postfix_grad_error_string(rc).decode())
     return GradPlan(*plan)
 
 
 @functools.lru_cache(maxsize=64)
 def loss_plan(T: int, reps: int, L: int, full: bool,
-              any_loss: bool = False) -> LossPlan:
-    """The loss-only kernel's layout; ``any_loss`` as ``grad_plan``'s."""
-    lib = _library()
+              any_loss: bool = False,
+              dtype: torch.dtype = torch.float32) -> LossPlan:
+    """The loss-only kernel's layout in ``dtype``'s build; ``any_loss`` as
+    ``grad_plan``'s."""
+    lib = _library(dtype)
     cand = candidate_groups(reps, lib.postfix_loss_candidates())
     plan = (ctypes.c_longlong * 9)()
     rc = lib.postfix_loss_plan(T, reps, cand, L, int(full), int(any_loss),
@@ -375,12 +397,12 @@ def loss_plan(T: int, reps: int, L: int, full: bool,
 
 def _check_inputs(flat: TreeBatch, X, y, weights):
     dev = X.device
-    if X.dtype != torch.float32 or X.dim() != 2:
-        raise ValueError(f"X must be (nfeat, nrows) float32, got {X.dtype} "
-                         f"{tuple(X.shape)}")
+    if X.dtype not in ke.STORAGE or X.dim() != 2:
+        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16 or "
+                         f"float16, got {X.dtype} {tuple(X.shape)}")
     nrows = X.shape[1]
-    if y.dtype != torch.float32 or y.device != dev or y.shape != (nrows,):
-        raise ValueError("y must be float32 (nrows,) on X's device")
+    if y.dtype != X.dtype or y.device != dev or y.shape != (nrows,):
+        raise ValueError("y must be (nrows,) of X's dtype on X's device")
     if weights is not None and (weights.device != dev
                                 or weights.shape != (nrows,)):
         raise ValueError("weights must be (nrows,) on X's device")
@@ -393,23 +415,26 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
                  loss: ElementwiseLoss = l2_dist_loss) -> Callable:
     """Check the inputs, stage the structure on the card once, and return
     ``launch(cval (T * reps, L)) -> (loss, grad | None, bad)``: one kernel
-    launch each. Both kernels read the tree fields as they are, trees
-    longest first, and flag an invalid program themselves."""
+    launch each, of X's dtype's build (the constants go in that dtype;
+    loss and gradient come in float32). Both kernels read the tree fields
+    as they are, trees longest first, and flag an invalid program
+    themselves."""
     flat = ke._flatten(trees)
     _check_inputs(flat, X, y, weights)
     dev = X.device
+    dtype = X.dtype
     nfeat, nrows = X.shape
     wn = normalized_weights(weights, nrows, dev)
     T, L = flat.kind.shape
     if nfeat >= 1 << 16 or X.numel() >= 1 << 31:
         raise ValueError("the constant-optimisation kernels take fewer than "
                          "65536 features and X of fewer than 2^31 elements")
-    lib = _library()
+    lib = _library(dtype)
     full = ke.uses_full_kernel(operators)
     ids = ke.host_operator_ids(operators)
     any_loss = loss.kind != L2
-    plan = (grad_plan(T, reps, L, full, any_loss) if with_grad
-            else loss_plan(T, reps, L, full, any_loss))
+    plan = (grad_plan(T, reps, L, full, any_loss, dtype) if with_grad
+            else loss_plan(T, reps, L, full, any_loss, dtype))
     c_plan = (ctypes.c_longlong * len(plan))(*plan)
     scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
                            device=dev) if plan.scratch_bytes else None)
@@ -426,14 +451,14 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
         if rc != 0:
             raise RuntimeError("postfix_grad kernel launch failed: "
                                + lib.postfix_grad_error_string(rc).decode())
-        LAUNCHES[variant] += 1
+        ke.count_launch(LAUNCHES, STORAGE_LAUNCHES, variant, dtype)
         key = f"{variant}:{loss.name}"
         LOSS_LAUNCHES[key] = LOSS_LAUNCHES.get(key, 0) + 1
 
     loss_args = (loss.kind, *loss.constants)
 
     def launch(cval: torch.Tensor):
-        cv = cval.to(torch.float32).reshape(N, L).contiguous()
+        cv = cval.to(dtype).reshape(N, L).contiguous()
         out = torch.empty((N,), dtype=torch.float32, device=dev)
         bad = torch.empty((N,), dtype=torch.int32, device=dev)
         head = [t.data_ptr() for t in (*fields, length, order, cv, *data, out)]
@@ -477,8 +502,9 @@ def make_loss_kernel(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
     """Stage the structure of ``trees`` once; return ``fn(cval)`` ->
     ``(loss, grad | None, ok)`` under ``loss`` with ``cval`` of shape (...,
     L) holding ``reps`` constant vectors per tree, in tree order; the
-    outputs take ``cval``'s leading shape. CUDA tensors run the kernel, CPU
-    tensors the plain version."""
+    outputs take ``cval``'s leading shape, loss and gradient X's dtype (the
+    working dtype). CUDA tensors run the kernel, CPU tensors the plain
+    version."""
     if not isinstance(loss, ElementwiseLoss):
         raise NotImplementedError(
             f"the constant-optimisation kernels compute the registry's losses "
@@ -494,21 +520,22 @@ def make_loss_kernel(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
             loss, grad, bad = raw(cval)
             return loss, grad, (bad == 0) & live
     else:
+        _check_inputs(flat, X, y, weights)
         wn = normalized_weights(weights, X.shape[1], X.device)
         flat, _ = ke.runnable(flat, operators, X.shape[0])
         rep = flat if reps == 1 else flat.map(
             lambda f: f.repeat_interleave(reps, dim=0))
 
         def launch(cval):
-            cv = cval.to(torch.float32).reshape(T * reps, L)
+            cv = cval.to(X.dtype).reshape(T * reps, L)
             return _plain_loss_grad(rep._replace(cval=cv), X, y, wn,
                                     operators, with_grad, loss_fn=loss)
 
     def fn(cval: torch.Tensor):
         lead = cval.shape[:-1]
         total, grad, ok = launch(cval)
-        return (total.reshape(lead),
-                None if grad is None else grad.reshape(cval.shape),
+        return (total.to(X.dtype).reshape(lead),
+                None if grad is None else grad.to(X.dtype).reshape(cval.shape),
                 ok.reshape(lead))
 
     return fn

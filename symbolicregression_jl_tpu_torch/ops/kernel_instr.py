@@ -22,9 +22,13 @@ program on the card from the ``TreeBatch`` fields (``derive_instr_tables``
 is that derivation's plain version, exact against
 ``instruction_schedule``), so the wrapper builds no table and never waits
 for the card: it passes the fields, a longest-first order and the launch
-plan of the postfix kernel's kind (``kernel_eval.eval_plan``). The library
-is compiled with ``nvcc`` into ``build/`` at first use; ``LAUNCHES``
-counts launches by variant.
+plan of the postfix kernel's kind (``kernel_eval.eval_plan``). X's dtype
+(float32, bfloat16 or float16) is the working dtype and picks the build,
+as in ``kernel_eval``: each step's value is rounded to it where it is
+produced, and the output comes in it. The library is compiled with
+``nvcc`` into ``build/`` at first use (one per working dtype);
+``LAUNCHES`` counts the float32 build's launches by variant,
+``STORAGE_LAUNCHES`` the 2-byte builds' (``instr_bf16``, ...).
 """
 
 from __future__ import annotations
@@ -43,12 +47,15 @@ from .kernel_grad import adjoint_words
 from .operators import KERNEL_BINARY_IDS, OperatorSet
 
 LAUNCHES = {"instr": 0, "instr_packed": 0}  # launches by variant
+STORAGE_LAUNCHES = {f"{v}{ke.STORAGE[d][1]}": 0 for d in ke.NARROW_STORAGE
+                    for v in LAUNCHES}
 
 SOURCE = ke.CSRC / "instr_eval.cu"
 LIBRARY = ke.BUILD_DIR / "libinstr_eval.so"
-BUILD_LOG = ""  # nvcc's output of the last build (-Xptxas -v line included)
+BUILD_LOGS = {}  # nvcc's output (-Xptxas -v lines) of each dtype's last build
+BUILD_SECONDS = {}  # nvcc's seconds for the last build of each dtype
 
-_lib = None
+_libs = {}  # the loaded build of each working dtype
 _lib_lock = threading.Lock()
 
 # operand sources of the instruction program
@@ -280,17 +287,21 @@ def eval_trees_instr_plain(trees: TreeBatch, X: torch.Tensor,
                            operators: OperatorSet, packed: bool = False):
     """Plain version of B5 (``packed=False``: each operand through the
     source select) and B6 (``packed=True``: the packed word over the
-    unified operand space): (y (..., nrows), ok (...,)). A step poisons
-    its tree when its value or an operand is non-finite; ``ok`` is not
-    poisoned and not empty; an invalid program is empty
-    (``ke.runnable``)."""
+    unified operand space): (y (..., nrows) in X's dtype, ok (...,)). A
+    step poisons its tree when its value or an operand is non-finite;
+    ``ok`` is not poisoned and not empty; an invalid program is empty
+    (``ke.runnable``). The constants and every step's value are rounded
+    to X's dtype (``ke.storage_round``)."""
     batch_shape = trees.length.shape
     flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
     T, L = flat.kind.shape
     nfeat, R = X.shape
+    S = X.dtype
+    X = X.to(torch.float32)
     if packed:
         check_packed_layout(operators, nfeat, L)
-    tables, n_instr = instruction_schedule(flat, operators)
+    tables, n_instr = instruction_schedule(flat._replace(
+        cval=flat.cval.to(S)), operators)
     ti = torch.arange(T, device=X.device)
     if packed:
         code, lconst, rconst, lidx, ridx = decode_packed_word(
@@ -333,13 +344,14 @@ def eval_trees_instr_plain(trees: TreeBatch, X: torch.Tensor,
             v = torch.where((c == 2 + j).unsqueeze(-1), fn(a), v)
         for j, fn in enumerate(operators.binary_fns):
             v = torch.where((c == 2 + U + j).unsqueeze(-1), fn(b, a), v)
+        v = ke.storage_round(v, S)
         space[base + k] = v
         fin = torch.isfinite(v) & torch.isfinite(a) & torch.isfinite(b)
         bad |= (c != CODE_DEAD) & ~fin.all(dim=-1)
     root = space[base + torch.clamp_min(n_instr.to(torch.int64) - 1, 0), ti]
     root = torch.where((flat.length > 0).unsqueeze(-1), root, 0.0)
     ok = ~bad & (flat.length > 0)
-    return root.reshape(batch_shape + (R,)), ok.reshape(batch_shape)
+    return root.to(S).reshape(batch_shape + (R,)), ok.reshape(batch_shape)
 
 
 # ---------------------------------------------------------------------------
@@ -347,48 +359,52 @@ def eval_trees_instr_plain(trees: TreeBatch, X: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def build_library(force: bool = False) -> pathlib.Path:
-    """Compile csrc/instr_eval.cu with nvcc into build/ (once), with the
-    postfix scoring kernel's flags."""
-    global BUILD_LOG
-    if force or not ke.is_built(SOURCE, LIBRARY):
-        BUILD_LOG = ke.compile_library(SOURCE, LIBRARY)
-    return LIBRARY
+def build_library(force: bool = False,
+                  dtype: torch.dtype = torch.float32) -> pathlib.Path:
+    """Compile csrc/instr_eval.cu with nvcc into build/ (once) for the
+    working dtype ``dtype``, with the postfix scoring kernel's flags."""
+    return ke.build_storage(SOURCE, LIBRARY, dtype, (), force,
+                            BUILD_LOGS, BUILD_SECONDS)
 
 
-def _library():
-    global _lib
+def _declare(lib):
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.instr_eval_launch.argtypes = [p] * 11 + [ip] + [i] * 15 + [p]
+    lib.instr_eval_launch.restype = i
+    lib.instr_eval_config.argtypes = [ip]
+    lib.instr_eval_config.restype = None
+    lib.instr_eval_smem_bytes.argtypes = [i] * 6
+    lib.instr_eval_smem_bytes.restype = i
+    lib.instr_eval_occupancy.argtypes = [i] * 5
+    lib.instr_eval_occupancy.restype = i
+    lib.instr_eval_narrow_plan.argtypes = [i] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.instr_eval_narrow_plan.restype = i
+    lib.instr_eval_error_string.argtypes = [i]
+    lib.instr_eval_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _library(dtype: torch.dtype = torch.float32):
+    """The build of the working dtype ``dtype``, built and loaded at first
+    use."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p = ctypes.c_void_p
-            i = ctypes.c_int
-            ip = ctypes.POINTER(ctypes.c_int)
-            lib.instr_eval_launch.argtypes = [p] * 11 + [ip] + [i] * 15 + [p]
-            lib.instr_eval_launch.restype = i
-            lib.instr_eval_config.argtypes = [ip]
-            lib.instr_eval_config.restype = None
-            lib.instr_eval_smem_bytes.argtypes = [i] * 6
-            lib.instr_eval_smem_bytes.restype = i
-            lib.instr_eval_occupancy.argtypes = [i] * 5
-            lib.instr_eval_occupancy.restype = i
-            lib.instr_eval_narrow_plan.argtypes = [i] * 5 + [
-                ctypes.POINTER(ctypes.c_longlong)]
-            lib.instr_eval_narrow_plan.restype = i
-            lib.instr_eval_error_string.argtypes = [i]
-            lib.instr_eval_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+        return ke.load_storage(build_library, _declare, "instr_eval_storage",
+                               dtype, _libs)
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(T: int, L: int, nfeat: int, nrows: int, packed: bool,
-                full: bool, device: int) -> ke.EvalPlan:
+                full: bool, device: int,
+                dtype: torch.dtype = torch.float32) -> ke.EvalPlan:
     """The postfix kernel's plan (``kernel_eval.eval_plan``: work items,
-    warps, X staged or not; B6 never stages X) with this library's layout
-    and occupancy on card ``device``; the narrow route's layout where one
-    warp's results of the usual rows per lane do not fit in a block."""
-    lib = _library()
+    warps, X staged or not; B6 never stages X) with the layout and
+    occupancy of ``dtype``'s build on card ``device``; the narrow route's
+    layout where one warp's results of the usual rows per lane do not fit
+    in a block."""
+    lib = _library(dtype)
     cfg = (ctypes.c_int * 3)()
     lib.instr_eval_config(cfg)
     if lib.instr_eval_smem_bytes(int(packed), 1, L, nfeat, 1, 0) > cfg[2]:
@@ -420,17 +436,21 @@ class PreparedLaunch(NamedTuple):
     length: torch.Tensor
     packed: bool
     plan: ke.EvalPlan
+    dtype: torch.dtype = torch.float32  # the working dtype's build
 
 
 def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
                    packed: bool) -> PreparedLaunch:
     """Check the inputs and allocate the kernel's outputs for a flat (T, L)
     batch on the card; the trees go to the kernel as they are, in
-    longest-first order (the kernels derive the program themselves)."""
+    longest-first order (the kernels derive the program themselves). X's
+    dtype picks the build; the constants go in it and the output comes in
+    it."""
     dev = X.device
-    if X.dtype != torch.float32 or X.dim() != 2:
-        raise ValueError(f"X must be (nfeat, nrows) float32, got {X.dtype} "
-                         f"{tuple(X.shape)}")
+    dtype = X.dtype
+    if dtype not in ke.STORAGE or X.dim() != 2:
+        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16 or "
+                         f"float16, got {dtype} {tuple(X.shape)}")
     if any(f.device != dev for f in flat):
         raise ValueError("trees and X must lie on the same device")
     T, L = flat.kind.shape
@@ -443,13 +463,14 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
                          f"got {tuple(X.shape)}")
     full = ke.uses_full_kernel(operators)
     ids = ke.host_operator_ids(operators)
-    plan = launch_plan(T, L, nfeat, nrows, packed, full, dev.index or 0)
+    plan = launch_plan(T, L, nfeat, nrows, packed, full, dev.index or 0,
+                       dtype)
     fields = [f.to(torch.int64).contiguous()
               for f in (flat.kind, flat.op, flat.feat)]
-    cval = flat.cval.to(torch.float32).contiguous()
+    cval = flat.cval.to(dtype).contiguous()
     length = flat.length.to(torch.int64).contiguous()
     order = torch.argsort(length, descending=True, stable=True)
-    out = torch.empty((T, nrows), dtype=torch.float32, device=dev)
+    out = torch.empty((T, nrows), dtype=dtype, device=dev)
     bad = torch.empty((T,), dtype=torch.int32, device=dev)
     part_bad = bad
     if plan.items > 1:
@@ -462,12 +483,12 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
             nrows, int(packed), int(full), plan.items, plan.range,
             int(plan.staged), plan.warps, plan.smem, plan.blocks,
             int(plan.narrow))
-    return PreparedLaunch(args, out, bad, length, packed, plan)
+    return PreparedLaunch(args, out, bad, length, packed, plan, dtype)
 
 
 def run_prepared(p: PreparedLaunch) -> None:
     """Launch the kernel on the current stream and check the launch."""
-    lib = _library()
+    lib = _library(p.dtype)
     tensors, rest = p.args[:11], p.args[11:]
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream(p.out.device).cuda_stream
@@ -475,13 +496,14 @@ def run_prepared(p: PreparedLaunch) -> None:
     if rc != 0:
         raise RuntimeError("instr_eval kernel launch failed: "
                            + lib.instr_eval_error_string(rc).decode())
-    LAUNCHES["instr_packed" if p.packed else "instr"] += 1
+    ke.count_launch(LAUNCHES, STORAGE_LAUNCHES,
+                    "instr_packed" if p.packed else "instr", p.dtype)
 
 
 def eval_trees_instr(trees: TreeBatch, X: torch.Tensor, operators: OperatorSet,
                      packed: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Value mode by the instruction program: (y (..., nrows) float32,
-    ok (...,)). CUDA tensors run the kernel (B6 with ``packed``, else B5),
+    """Value mode by the instruction program: (y (..., nrows) in X's
+    dtype, ok (...,)). CUDA tensors run the kernel (B6 with ``packed``, else B5),
     which reports an invalid program poisoned; CPU tensors the plain
     version, which runs it as the empty program (``ke.runnable``), poisoned
     too."""

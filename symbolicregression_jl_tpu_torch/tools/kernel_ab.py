@@ -190,7 +190,10 @@ def build_here() -> None:
         for _ in pool.map(lambda m: m.build_library(force=True), mods):
             pass
     for m in mods:
-        for line in m.BUILD_LOG.splitlines():
+        # a root older than the bfloat16 / float16 builds keeps BUILD_LOG
+        log = (m.BUILD_LOGS[torch.float32] if hasattr(m, "BUILD_LOGS")
+               else m.BUILD_LOG)
+        for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(m.__name__.rsplit(".", 1)[-1], line.strip())
 

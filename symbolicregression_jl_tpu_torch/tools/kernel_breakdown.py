@@ -190,7 +190,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
     for m in (ke, kg, ki):
         m.build_library(force=True)
-    for log in (ke.BUILD_LOG, kg.BUILD_LOG, ki.BUILD_LOG):
+    for log in (m.BUILD_LOGS[torch.float32] for m in (ke, kg, ki)):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("ptxas", line.strip())

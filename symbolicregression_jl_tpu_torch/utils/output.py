@@ -7,6 +7,7 @@ import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..models.options import Options
 from ..models.population import HallOfFame, calculate_pareto_frontier
@@ -35,7 +36,9 @@ def hof_to_candidates(hof: HallOfFame, options: Options,
     Pareto score column. One device->host copy of the (small) table."""
     front = calculate_pareto_frontier(hof).cpu().numpy()
     exists = hof.exists.cpu().numpy()
-    losses = hof.losses.cpu().numpy()
+    # the working dtype's losses, as float32 (which holds every bfloat16 and
+    # float16 value; numpy has no bfloat16)
+    losses = hof.losses.cpu().to(torch.float32).numpy()
     trees = hof.trees.map(lambda x: x.cpu())
     pick = front if pareto_only else exists
     out: List[Candidate] = []

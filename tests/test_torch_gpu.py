@@ -975,3 +975,109 @@ def test_every_loss_through_the_kernels_on_card(cuda, max_len):
             *_, scale = tkg.eval_loss_grad_plain(trees, X, y, w, ops,
                                                  scale=True, loss=loss)
             _assert_grad_outputs_close((l3, g3, ok3), (lm, gm, okm), scale)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_len", [24, 512, 1024])
+@pytest.mark.parametrize("precision", ["bfloat16", "float16"])
+def test_precision_builds_bit_equal_to_plain_on_card(cuda, precision, max_len):
+    """The bfloat16 / float16 builds of B1, the slot mode, B5, B6, B3 and
+    B4 against their plain versions (which round every value to the
+    dtype, as the kernels do) bit for bit, B5/B6 against B1 and B3's loss
+    against B4's, two launches the same bits; a product that overflows
+    only at the storage rounding and an invalid program poisoned. At
+    max_len 1,024 every kernel takes its narrow route."""
+    dt = getattr(torch, precision)
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    gen = make_generator(3, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, min(max_len, 24) - 1, (500,), device=cuda), 2,
+        ops, max_len, cuda)
+    over = stack_trees([encode_tree(parse_expression(e, ops), max_len,
+                                    device=cuda)
+                        for e in (f"(x0 * 0.0 + 1.1171875) * {229 * 2.0 ** 120!r}",
+                                  "exp(x1 * 0.0 + 11.2)", "x0 / (x1 - x1)")])
+    bad = over[2:3]._replace(length=over.length[2:3] + max_len)  # invalid
+    trees = TreeBatch(*(torch.cat(z) for z in zip(over, bad, trees)))
+    if max_len > 24:
+        deep = deep_trees(max_len, 2, device=cuda)
+        trees = TreeBatch(*(torch.cat(z) for z in zip(trees, deep)))
+    X = (torch.rand(2, 777, device=cuda) * 4 - 2).to(dt)
+    y = (torch.rand(777, device=cuda) * 2).to(dt)
+    w = torch.rand(777, device=cuda) + 0.5
+    w[:40] = 0.0
+    before = dict(tke.STORAGE_LAUNCHES)
+    yk, okk = tke.eval_trees(trees, X, ops)
+    assert yk.dtype == dt
+    assert torch.equal(_bits(tke.eval_trees(trees, X, ops)[0]), _bits(yk))
+    ym, badm = tke.eval_program_plain(trees, X, ops)
+    assert torch.equal(okk, ~badm & (trees.length > 0))
+    assert not okk[[0 if dt == torch.bfloat16 else 1, 2, 3]].any()
+    assert torch.equal(_bits(yk[okk]), _bits(ym[okk]))
+    sfx = tke.STORAGE[dt][1]
+    assert tke.STORAGE_LAUNCHES[f"value{sfx}"] == before[f"value{sfx}"] + 2
+    X1 = X[:, :1]
+    sk, oks = tke.eval_slot_values(trees, X1, ops)
+    sp, okp = tke.eval_slot_values_plain(trees, X1, ops)
+    fin = torch.isfinite(sp)
+    assert torch.equal(torch.isfinite(sk), fin) and torch.equal(oks, okp)
+    assert torch.equal(_bits(sk[fin]), _bits(sp[fin]))
+    for packed in (False, True):
+        yi, oki = tki.eval_trees_instr(trees, X, ops, packed)
+        assert torch.equal(oki, okk)
+        assert torch.equal(_bits(yi[okk]), _bits(yk[okk]))
+    for weights in (None, w):
+        raw = tkg.stage_launch(trees, X, y, weights, ops, True, 1)
+        l3, g3, b3 = raw(trees.cval)
+        l3b, g3b, _ = raw(trees.cval)
+        assert torch.equal(_bits(l3b), _bits(l3))
+        assert torch.equal(_bits(g3b), _bits(g3))
+        lm, gm, okm = tkg.eval_loss_grad_program_plain(trees, X, y, weights, ops)
+        assert torch.equal((b3 == 0) & (trees.length > 0), okm)
+        assert torch.equal(_bits(l3[okm]), _bits(lm[okm]))
+        assert torch.equal(_bits(g3[okm]), _bits(gm[okm]))
+        for reps in (1, 8):
+            fn = tkg.stage_launch(trees, X, y, weights, ops, False, reps)
+            l4 = fn(trees.cval.repeat_interleave(reps, 0))[0]
+            assert torch.equal(_bits(l4.reshape(-1, reps)),
+                               _bits(l3.unsqueeze(-1).expand(-1, reps)))
+    fn = tkg.make_loss_kernel(trees, X, y, None, ops)
+    total, grad, _ = fn(trees.cval)
+    assert total.dtype == grad.dtype == dt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["bfloat16", "float16"])
+def test_precision_search_routes_on_card(cuda, precision):
+    """A search at bfloat16 / float16 launches that dtype's builds only:
+    the value mode for every scoring call (never the fused mode, which is
+    float32 only), the slot mode for the fold, B3 / B4 for BFGS, and no
+    float32 build; its state is in the working dtype."""
+    dt = getattr(torch, precision)
+    sfx = tke.STORAGE[dt][1]
+    for counts in (tke.LAUNCHES, tkg.LAUNCHES, tki.LAUNCHES,
+                   tke.STORAGE_LAUNCHES, tkg.STORAGE_LAUNCHES,
+                   tki.STORAGE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    rng = np.random.default_rng(0)
+    X = (rng.standard_normal((2, 60)) * 2).astype("f4")
+    res = sr.equation_search(X, 2.5 * np.cos(X[0]) + X[1], niterations=2,
+                             binary_operators=["+", "*"],
+                             unary_operators=["cos"], npop=30, npopulations=4,
+                             ncycles_per_iteration=15, maxsize=10,
+                             precision=precision, verbosity=0, seed=0)
+    assert not any({**tke.LAUNCHES, **tkg.LAUNCHES, **tki.LAUNCHES}.values())
+    assert tke.STORAGE_LAUNCHES[f"value{sfx}"] == 2 * (15 + 1) + 1
+    assert tke.STORAGE_LAUNCHES[f"slots{sfx}"] >= 2 * 15
+    assert tkg.STORAGE_LAUNCHES[f"loss_grad{sfx}"] == 2 * 9
+    assert tkg.STORAGE_LAUNCHES[f"loss{sfx}"] == 2 * 8
+    assert res.state.island_states.pop.losses.dtype == dt
+    assert res.state.island_states.pop.trees.cval.dtype == dt
+    assert np.isfinite(res.best_loss().loss)
+    assert res.predict(X).shape == (60,)

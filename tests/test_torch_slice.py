@@ -273,7 +273,7 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     X = torch.randn(2, 40).as_subclass(_OnCard)
     y = torch.randn(40)
 
-    def no_library():
+    def no_library(dtype=torch.float32):
         raise RuntimeError("kernel launch attempted")
 
     def no_plain(*a, **k):
