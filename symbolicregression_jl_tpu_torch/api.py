@@ -2,7 +2,9 @@
 ``symbolicregression_jl_tpu/api.py`` for one output).
 
 One iteration = the cycle loop on every island (each cycle scores all
-islands' children in one kernel call), simplify + full-data rescore,
+islands' children in one kernel call; on the card each cycle is one
+replay of a captured CUDA graph, ``models/cycle_graph.py``, on the CPU
+the same step runs eagerly), simplify + full-data rescore,
 constant optimisation (the ``should_optimize_constants`` pass, then the
 ``optimize``-mutation pass), hall-of-fame merge across islands,
 migration. Between iterations the host reads the merged hall of fame
@@ -18,12 +20,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .models.cycle_graph import s_r_cycle_islands_graph
 from .models.evolve import (
     IslandState,
     expected_optimize_count,
     init_island_state,
     optimize_islands_constants,
-    s_r_cycle_islands,
     simplify_population_islands,
 )
 from .models.options import Options, make_options
@@ -183,8 +185,8 @@ def equation_search(X, y, *, weights=None,
     it = -1
     for it in range(niterations):
         cm = _curmaxsize(options, it, niterations)
-        states = s_r_cycle_islands(gen, states, cm, Xt, yt, wt, baseline,
-                                   options)
+        states = s_r_cycle_islands_graph(gen, states, cm, Xt, yt, wt,
+                                         baseline, options)
         states = simplify_population_islands(states, cm, Xt, yt, wt,
                                              baseline, options)
         if options.should_optimize_constants and options.optimizer_probability > 0:

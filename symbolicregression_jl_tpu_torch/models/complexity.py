@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import table
 from .options import Options
 from .trees import CONST, UNA, VAR, TreeBatch, valid_mask
 
@@ -15,8 +16,8 @@ def compute_complexity(trees: TreeBatch, options: Options) -> torch.Tensor:
     if not use:
         return trees.length
     dev = trees.kind.device
-    bin_t = torch.as_tensor(bin_c if len(bin_c) else [1], device=dev)
-    una_t = torch.as_tensor(una_c if len(una_c) else [1], device=dev)
+    bin_t = table(tuple(bin_c.tolist()) or (1,), dev)
+    una_t = table(tuple(una_c.tolist()) or (1,), dev)
     per_node = torch.where(
         trees.kind == CONST, const_c,
         torch.where(

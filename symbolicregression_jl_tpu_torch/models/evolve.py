@@ -8,17 +8,24 @@ kernel call, applies annealing / adaptive-parsimony acceptance, and
 replaces the B oldest members of each island. The island axis is the
 leading dimension of every tensor (the JAX package's vmap over islands).
 
-The cycle loop is a Python loop of tensor ops that never synchronises with
-the host: every decision that depends on data is a ``torch.where``.
+The cycle step is tensor ops that never synchronise with the host: every
+decision that depends on data is a ``torch.where``, every table is built
+once per device, and the temperature, ``curmaxsize``, the baseline and the
+Options' traced scalars are device scalars. So one step can be captured as
+a CUDA graph and replayed (``models/cycle_graph.py``, the counterpart of
+the JAX package's ``lax.scan`` over the schedule); ``s_r_cycle_islands``
+runs the same step eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..utils import rng
+from ..utils.device import table
 from .complexity import compute_complexity
 from .constant_opt import optimize_constants_islands
 from .constraints import check_constraints
@@ -45,7 +52,9 @@ from .options import (
     OPTIMIZE,
     RANDOMIZE,
     SIMPLIFY,
+    TRACED_SCALAR_FIELDS,
     Options,
+    scalar_tensor,
 )
 from .parsimony import (
     RunningSearchStatistics,
@@ -114,8 +123,8 @@ def _adjusted_mutation_logits(trees: TreeBatch, curmaxsize,
     min(8, #constants)/8, mutate_operator impossible without operators,
     add/insert impossible at the size or depth cap."""
     dev = trees.kind.device
-    w = torch.tensor(options.mutation_weights.as_tuple(), dtype=torch.float32,
-                     device=dev).expand(trees.kind.shape[0], N_MUTATIONS)
+    w = table(options.mutation_weights.as_tuple(), dev, torch.float32
+              ).expand(trees.kind.shape[0], N_MUTATIONS)
     idx = torch.arange(trees.max_len, device=dev)
     n_const = count_constants(trees)
     n_ops = ((trees.kind >= 3) & (idx < trees.length.unsqueeze(-1))).sum(-1)
@@ -157,8 +166,8 @@ def _mutate_members(gen, trees: TreeBatch, temperature, curmaxsize,
     NR = N * N_RETRIES
     true_ = torch.ones(NR, dtype=torch.bool, device=dev)
     simp, _ = simplify_tree(trees, ops)  # deterministic: once per member
-    hi = min(max(int(curmaxsize), 1), L) + 1
-    size = rng.randint(gen, (NR,), 1, hi, dev)
+    hi = torch.clamp(scalar_tensor(curmaxsize, dev, torch.int64), 1, L) + 1
+    size = rng.randint_below(gen, (NR,), 1, hi, dev)
     branches = {
         MUTATE_CONSTANT: mutate_constant(
             gen, rep, temperature, options.perturbation_factor,
@@ -260,7 +269,8 @@ def _accept_mutation(gen, prop: _Proposed, child_scores, temperature,
     prob = torch.ones_like(child_scores)
     if options.annealing:
         delta = child_scores - prop.parent_scores
-        prob = prob * torch.exp(-delta / (options.alpha * max(temperature, 1e-6)))
+        temp = torch.clamp_min(scalar_tensor(temperature, dev), 1e-6)
+        prob = prob * torch.exp(-delta / (options.alpha * temp))
     if options.use_frequency:
         S = frequencies.shape[-1]
         norm = normalize(frequencies)
@@ -334,7 +344,7 @@ def _integrate_children(gen, states: IslandState, prop: _Proposed,
 
 
 def reg_evol_cycle_islands(gen, states: IslandState, temperature, curmaxsize,
-                           X, y, weights, baseline: float, options: Options,
+                           X, y, weights, baseline, options: Options,
                            row_idx: Optional[torch.Tensor] = None) -> IslandState:
     """One cycle on every island; all islands' children are scored in ONE
     flat call (full data, or the shared ``row_idx`` minibatch)."""
@@ -349,24 +359,55 @@ def reg_evol_cycle_islands(gen, states: IslandState, temperature, curmaxsize,
                                options)
 
 
+def cycle_step(gen, states: IslandState, temperature, curmaxsize, X, y,
+               weights, baseline, options: Options) -> IslandState:
+    """One step of the cycle loop: with batching, a fresh minibatch shared
+    by all islands, then ``reg_evol_cycle_islands``. The step that
+    ``s_r_cycle_islands`` runs eagerly and ``cycle_graph`` captures."""
+    row_idx = (sample_batch_idx(gen, X.shape[1], options.batch_size, X.device)
+               if options.batching else None)
+    return reg_evol_cycle_islands(gen, states, temperature, curmaxsize, X, y,
+                                  weights, baseline, options, row_idx)
+
+
+@functools.lru_cache(maxsize=64)
+def temperature_schedule(ncycles: int, annealing: bool,
+                         device: torch.device) -> torch.Tensor:
+    """The annealing schedule LinRange(1, 0, ncycles) as float32 on the
+    device, built once (the JAX package's ``jnp.linspace(1, 0, n,
+    float32)``); all ones without annealing or with one cycle."""
+    if annealing and ncycles > 1:
+        return torch.linspace(1.0, 0.0, ncycles, dtype=torch.float32,
+                              device=device)
+    return torch.ones(ncycles, dtype=torch.float32, device=device)
+
+
+def bind_device_scalars(options: Options, device) -> Options:
+    """``options`` with its traced scalars as float32 device scalars (each
+    a fill, no copy from the host); unchanged when they already are."""
+    if all(isinstance(getattr(options, f), torch.Tensor)
+           for f in TRACED_SCALAR_FIELDS):
+        return options
+    return options.bind_scalars(options.traced_scalars(device))
+
+
 def s_r_cycle_islands(gen, states: IslandState, curmaxsize, X, y, weights,
-                      baseline: float, options: Options,
+                      baseline, options: Options,
                       ncycles: Optional[int] = None) -> IslandState:
     """ncycles evolution cycles over the annealing schedule LinRange(1, 0),
-    then the once-per-iteration adaptive-parsimony window decay. With
-    batching, each cycle draws one fresh minibatch shared by all islands."""
+    then the once-per-iteration adaptive-parsimony window decay, run
+    eagerly. The temperature, ``curmaxsize``, ``baseline`` and the traced
+    scalars go to every step as device scalars, as ``cycle_graph`` gives
+    them to its captured step, so both compute the same bits."""
     ncycles = ncycles or options.ncycles_per_iteration
-    if options.annealing and ncycles > 1:
-        temps = [1.0 - c / (ncycles - 1) for c in range(ncycles)]
-    else:
-        temps = [1.0] * ncycles
-    n_rows = X.shape[1]
-    for temperature in temps:
-        row_idx = (sample_batch_idx(gen, n_rows, options.batch_size, X.device)
-                   if options.batching else None)
-        states = reg_evol_cycle_islands(gen, states, temperature, curmaxsize,
-                                        X, y, weights, baseline, options,
-                                        row_idx)
+    dev = X.device
+    temps = temperature_schedule(ncycles, options.annealing, dev)
+    options = bind_device_scalars(options, dev)
+    cm = scalar_tensor(curmaxsize, dev, torch.int64)
+    base = scalar_tensor(baseline, dev)
+    for c in range(ncycles):
+        states = cycle_step(gen, states, temps[c], cm, X, y, weights, base,
+                            options)
     return states._replace(stats=move_window(states.stats))
 
 

@@ -28,7 +28,7 @@ from ..ops.losses import (
 from ..ops.operators import OperatorSet
 from ..utils import rng
 from .complexity import compute_complexity
-from .options import Options
+from .options import Options, scalar_tensor
 from .trees import TreeBatch
 
 
@@ -61,16 +61,21 @@ def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
     return contain_nonfinite(aggregate_loss(elem, weights), ok)
 
 
-def loss_to_score(loss: torch.Tensor, baseline: float,
+def loss_to_score(loss: torch.Tensor, baseline,
                   complexity: torch.Tensor, options: Options) -> torch.Tensor:
     """score = loss/baseline + complexity*parsimony, in the loss's dtype:
-    parsimony is first rounded to it, as the JAX package casts it."""
-    parsimony = float(torch.tensor(options.parsimony).to(loss.dtype))
-    return loss / baseline + complexity.to(loss.dtype) * parsimony
+    parsimony is a float32 scalar (a Python number is filled in) cast to
+    it on the device, as the JAX package casts its traced parsimony.
+    ``baseline`` is a Python number or a 0-dim device tensor."""
+    parsimony = scalar_tensor(options.parsimony, loss.device).to(loss.dtype)
+    # the quotient in float32, rounded once to the loss's dtype, whether
+    # the baseline is a Python number or a float32 device scalar
+    normalized = (loss.to(torch.float32) / baseline).to(loss.dtype)
+    return normalized + complexity.to(loss.dtype) * parsimony
 
 
 def score_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
-                weights: Optional[torch.Tensor], baseline: float,
+                weights: Optional[torch.Tensor], baseline,
                 options: Options, row_idx: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(score, loss) per tree."""

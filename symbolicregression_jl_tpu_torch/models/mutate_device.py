@@ -68,7 +68,7 @@ def splice(tree: TreeBatch, start, end, dk, do, df, dc, d_start, d_len):
     ok=False (tree unchanged) where the result would not fit."""
     N, L = tree.kind.shape
     dev = tree.kind.device
-    col = lambda v: torch.as_tensor(v, device=dev).reshape(-1, 1)
+    col = lambda v: v.reshape(-1, 1) if isinstance(v, torch.Tensor) else v
     start, end, d_start, d_len = col(start), col(end), col(d_start), col(d_len)
     DL = dk.shape[-1]
     new_len = tree.length.unsqueeze(-1) - (end - start) + d_len
@@ -105,7 +105,9 @@ def _node_span(idx, sizes):
 
 def mutate_constant(gen, tree: TreeBatch, temperature, perturbation_factor,
                     probability_negate):
-    """Multiplicative perturbation + occasional negation of one constant."""
+    """Multiplicative perturbation + occasional negation of one constant.
+    ``temperature`` and the two Options scalars are Python numbers or
+    0-dim device tensors (a captured cycle reads them from the card)."""
     N = tree.kind.shape[0]
     dev = tree.kind.device
     mask = (tree.kind == CONST) & valid_mask(tree)
@@ -197,7 +199,8 @@ def insert_random_op(gen, tree: TreeBatch, nfeatures: int,
     dev = tree.kind.device
     sizes = subtree_sizes(tree.kind, tree.length)
     vmask = valid_mask(tree)
-    at_root = torch.as_tensor(at_root, device=dev).expand(N)
+    at_root = (at_root.expand(N) if isinstance(at_root, torch.Tensor)
+               else torch.full((N,), bool(at_root), device=dev))
     idx = torch.where(at_root, torch.clamp_min(tree.length - 1, 0),
                       rng.choice_mask(gen, vmask))
     any_node = torch.where(at_root, tree.length > 0, vmask.any(dim=-1))

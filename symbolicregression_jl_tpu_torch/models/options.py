@@ -11,8 +11,9 @@ here at all.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -96,7 +97,125 @@ _TPU_LEVERS = (
 )
 
 
-@dataclasses.dataclass(frozen=True)
+# --- the compile-identity contract (the JAX package's options.py) -------
+# Every Options field is in exactly one of the three classes below, the
+# class it has in the JAX package.
+#
+#   GRAPH_FIELDS          baked into a captured cycle graph (shapes, branch
+#                         structure, kernel arguments passed by value): part
+#                         of _graph_key and of hash / eq, so changing one
+#                         captures a new graph (models/cycle_graph.py).
+#   TRACED_SCALAR_FIELDS  read by the graph from device scalars
+#                         (traced_scalars / bind_scalars): absent from the
+#                         key, so a sweep over them replays one graph. Every
+#                         use site is tensor math, never Python control flow
+#                         (fitness.loss_to_score, evolve._accept_mutation,
+#                         mutate_device.mutate_constant,
+#                         population.tournament_winner, migration.migrate).
+#   ORCHESTRATION_FIELDS  read on the host between iterations only: absent
+#                         from the key.
+TRACED_SCALAR_FIELDS = (
+    "parsimony",
+    "alpha",
+    "perturbation_factor",
+    "probability_negate_constant",
+    "adaptive_parsimony_scaling",
+    "tournament_selection_p",
+    "fraction_replaced",
+    "fraction_replaced_hof",
+)
+
+GRAPH_FIELDS = (
+    "binary_operators",
+    "unary_operators",
+    "npopulations",
+    "npop",
+    "ncycles_per_iteration",
+    "tournament_selection_n",
+    "topn",
+    "maxsize",
+    "maxdepth",
+    "max_len",
+    "loss",
+    "loss_function",
+    "annealing",
+    "use_frequency",
+    "use_frequency_in_tournament",
+    "mutation_weights",
+    "crossover_probability",
+    "migration",
+    "hof_migration",
+    "should_optimize_constants",
+    "optimizer_algorithm",
+    "optimizer_probability",
+    "optimizer_nrestarts",
+    "optimizer_iterations",
+    "optimizer_backend",
+    "batching",
+    "batch_size",
+    "independent_island_batches",
+    "constraints",
+    "nested_constraints",
+    "complexity_of_operators",
+    "complexity_of_constants",
+    "complexity_of_variables",
+    "recorder",
+    "cache_fitness",
+    "n_parallel_tournaments",
+    "kernel_program",
+    "row_shards",
+    "precision",
+    "tenants",
+)
+
+ORCHESTRATION_FIELDS = (
+    "warmup_maxsize_by",
+    "early_stop_condition",
+    "timeout_in_seconds",
+    "max_evals",
+    "seed",
+    "verbosity",
+    "telemetry",
+    "telemetry_dir",
+    "snapshot_path",
+    "snapshot_every_dispatches",
+)
+
+# Process-lifetime identity tokens for callable config values: an id() is
+# reused once its object is collected, so the registry pins each callable
+# and hands it a token that no other callable gets in this process.
+_CALLABLE_TOKENS: Dict[int, int] = {}
+_CALLABLE_REFS: list = []
+
+
+def callable_token(fn: Callable) -> int:
+    """A token for ``fn`` that no other callable gets in this process."""
+    tok = _CALLABLE_TOKENS.get(id(fn))
+    if tok is None:
+        tok = len(_CALLABLE_REFS)
+        _CALLABLE_TOKENS[id(fn)] = tok
+        _CALLABLE_REFS.append(fn)
+    return tok
+
+
+def _key_of(value):
+    """A hashable key of a config value: a callable that is not a
+    registry loss is keyed by its token."""
+    if value is None or isinstance(value, (str, ElementwiseLoss)):
+        return value
+    return callable_token(value) if callable(value) else value
+
+
+def scalar_tensor(value, device, dtype: torch.dtype = torch.float32):
+    """``value`` as a 0-dim tensor on ``device``: a tensor is moved and
+    cast, a Python number is filled in (a fill kernel, no copy from host
+    memory, so no wait for the card)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype)
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class Options:
     # --- operators ---
     binary_operators: Tuple[str, ...] = ("+", "-", "*", "/")
@@ -267,6 +386,38 @@ class Options:
             return cond
         thresh = float(cond)
         return lambda loss, complexity: loss < thresh
+
+    def _graph_key(self) -> tuple:
+        """The GRAPH_FIELDS' values: what a captured cycle graph bakes in.
+        Hash and eq use only these, so Options that differ in a traced
+        scalar or an orchestration field share a captured graph; the
+        traced scalars reach the graph through ``bind_scalars``, never
+        through the cached graph's own Options."""
+        return tuple(
+            self.mutation_weights.as_tuple() if f == "mutation_weights"
+            else _key_of(getattr(self, f)) for f in GRAPH_FIELDS)
+
+    def traced_scalars(self, device) -> Tuple[torch.Tensor, ...]:
+        """The TRACED_SCALAR_FIELDS as float32 0-dim tensors on
+        ``device``, in that order."""
+        return tuple(scalar_tensor(getattr(self, f), device)
+                     for f in TRACED_SCALAR_FIELDS)
+
+    def bind_scalars(self, scalars) -> "Options":
+        """Shallow copy whose TRACED_SCALAR_FIELDS read ``scalars``
+        (typically device tensors); every use site is tensor math."""
+        new = copy.copy(self)
+        for f, v in zip(TRACED_SCALAR_FIELDS, scalars):
+            object.__setattr__(new, f, v)
+        return new
+
+    def __hash__(self):
+        return hash(self._graph_key())
+
+    def __eq__(self, other):
+        if not isinstance(other, Options):
+            return NotImplemented
+        return self._graph_key() == other._graph_key()
 
 
 def make_options(**kwargs) -> Options:

@@ -8,7 +8,6 @@ leading (island) dims, which replaces the JAX package's vmap.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -17,7 +16,7 @@ from ..utils import rng
 from .complexity import compute_complexity
 from .fitness import score_trees
 from .mutate_device import gen_random_tree_fixed_size
-from .options import Options
+from .options import Options, scalar_tensor
 from .parsimony import normalize
 from .trees import TreeBatch, empty_trees, where_trees
 
@@ -112,9 +111,11 @@ def tournament_winner(gen, pop: Population, stats_frequencies: torch.Tensor,
         freq = torch.where(in_range, freq, 0.0)
         scores = scores * torch.exp(options.adaptive_parsimony_scaling * freq)
     order = torch.argsort(scores, dim=-1, stable=True)
-    p = min(options.tournament_selection_p, 1 - 1e-6)
+    # a traced scalar: float32 tensor math on the card, as in the JAX package
+    p = torch.clamp_max(scalar_tensor(options.tournament_selection_p, dev),
+                        1 - 1e-6)
     ranks = torch.arange(n, device=dev, dtype=torch.float32)
-    logits = ranks * math.log1p(-p) + math.log(p)
+    logits = ranks * torch.log1p(-p) + torch.log(p)
     pick = rng.categorical(gen, logits.expand(I, n_tournaments, n))
     winner_pos = torch.gather(order, -1, pick.unsqueeze(-1))
     return torch.gather(idx, -1, winner_pos).squeeze(-1)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.operators import INFIX, OperatorSet
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, table
 
 PAD = 0
 CONST = 1
@@ -310,7 +310,7 @@ def parse_expression(s: str, operators: OperatorSet,
 
 
 def _arity(kind: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(ARITY, device=kind.device)[kind]
+    return table(tuple(ARITY.tolist()), kind.device)[kind]
 
 
 def subtree_starts(kind: torch.Tensor, length: torch.Tensor) -> torch.Tensor:

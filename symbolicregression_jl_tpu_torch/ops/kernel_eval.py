@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..models.trees import ARITY, BIN, CONST, PAD, UNA, VAR, TreeBatch
+from ..utils.device import table
 from .losses import L2, ElementwiseLoss, contain_nonfinite, l2_dist_loss
 from .operators import (
     KERNEL_BINARY_IDS, KERNEL_FULL_ONLY, KERNEL_UNARY_IDS, OperatorSet,
@@ -192,7 +193,7 @@ def operand_schedule(kind: torch.Tensor, length: torch.Tensor):
     n = length.unsqueeze(-1)
     valid = idx < n
     sizes = subtree_sizes(kind, length)
-    ar = torch.as_tensor(ARITY, device=kind.device)[kind]
+    ar = table(tuple(ARITY.tolist()), kind.device)[kind]
     delta = torch.where(valid, 1 - ar, 0)
     sp = torch.cumsum(delta, dim=-1) - delta  # stack depth before slot
     prev = torch.clamp_min(idx - 1, 0).expand_as(kind)
@@ -407,7 +408,7 @@ def program_words(flat: TreeBatch, operators: OperatorSet, nfeat: int):
     entries and ``nfeat`` features is invalid (the kernels poison it)."""
     live, before, op_in, invalid = _stack_walk(flat, operators, nfeat)
     kind = flat.kind
-    ids = _table(tuple(kernel_operator_ids(operators)) + (0xFF,), kind.device)
+    ids = table(tuple(kernel_operator_ids(operators)) + (0xFF,), kind.device)
     U, n_ops = operators.n_unary, operators.n_unary + operators.n_binary
     una, binary = kind == UNA, kind == BIN
     leaf = ~una & ~binary
@@ -435,7 +436,7 @@ def _stack_walk(flat: TreeBatch, operators: OperatorSet, nfeat: int):
     length = flat.length.unsqueeze(-1)
     live = torch.arange(L, device=kind.device) < length
     known = (kind >= PAD) & (kind <= BIN)
-    ar = _table(tuple(ARITY.tolist()), kind.device)[kind.clamp(PAD, BIN)]
+    ar = table(tuple(ARITY.tolist()), kind.device)[kind.clamp(PAD, BIN)]
     delta = torch.where(live, 1 - ar, 0)
     depth = torch.cumsum(delta, -1)
     before = depth - delta
@@ -453,13 +454,6 @@ def _stack_walk(flat: TreeBatch, operators: OperatorSet, nfeat: int):
     invalid = (live & bad_slot).any(-1) | ((n > 0) & (final != 1)) \
         | (n < 0) | (n > L)
     return live, before, op_in, invalid
-
-
-@functools.lru_cache(maxsize=None)
-def _table(values: tuple, device: torch.device) -> torch.Tensor:
-    """``values`` as an int64 tensor on ``device``, built once: copying a
-    host list to the card waits for the card."""
-    return torch.tensor(values, dtype=torch.int64, device=device)
 
 
 def runnable(flat: TreeBatch, operators: OperatorSet, nfeat: int):

@@ -153,6 +153,13 @@ def capture_children(ops) -> TreeBatch:
     y = (np.exp(-theta ** 2 / 2) / np.sqrt(2 * np.pi)).astype(np.float32)
     seen = {"iterations": 0, "batch": None}
     scoring = ke.eval_loss_trees
+    # the eager cycle loop, whose every scoring call runs Python (a replay
+    # of the captured cycle does not); it scores the same children
+    import symbolicregression_jl_tpu_torch.api as api
+    from symbolicregression_jl_tpu_torch.models.evolve import s_r_cycle_islands
+
+    graph_cycles = api.s_r_cycle_islands_graph
+    api.s_r_cycle_islands_graph = s_r_cycle_islands
 
     def spy(trees, X, y_, operators, *loss):
         if seen["iterations"] == 1 and trees.length.numel() == 64 * 84:
@@ -172,6 +179,7 @@ def capture_children(ops) -> TreeBatch:
         pass
     finally:
         ke.eval_loss_trees = scoring
+        api.s_r_cycle_islands_graph = graph_cycles
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     torch.save(tuple(seen["batch"]), CAPTURED)
     return seen["batch"]

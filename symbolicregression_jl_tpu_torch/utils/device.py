@@ -7,6 +7,8 @@ CPU; the CPU path is taken only when the caller asks for it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -18,3 +20,13 @@ def resolve_device(device) -> torch.device:
             "is available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def table(values: tuple, device: torch.device,
+          dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, built once per (values,
+    device, dtype): copying a host list to the card waits for the card,
+    and a captured graph may not copy from host memory at all. Callers
+    never write into the tensor."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -37,6 +37,18 @@ def randint(gen: torch.Generator, shape, low: int, high: int,
                          device=device)
 
 
+def randint_below(gen: torch.Generator, shape, low: int, high: torch.Tensor,
+                  device) -> torch.Tensor:
+    """Integers in [low, high) where ``high`` (> low) is a 0-dim int64
+    tensor on the device: the card reads the bound, the host never does,
+    so a captured graph replays with whatever bound the tensor holds. A
+    24-bit draw reduced modulo the span (a bias below span / 2^24); it
+    takes from the generator what ``randint`` with a small range takes, so
+    the draws after it are those of ``randint(gen, shape, low, high)``."""
+    draw = torch.randint(0, 1 << 24, shape, generator=gen, device=device)
+    return low + torch.remainder(draw, high - low)
+
+
 def bernoulli(gen: torch.Generator, p, shape, device) -> torch.Tensor:
     """Bool draws with probability ``p`` (a float or a tensor)."""
     return uniform(gen, shape, device) < p

@@ -8,7 +8,10 @@ row counts, wide X and long or invalid programs, the loss-only kernel's
 candidate groups, and two launches giving the same bits; every kernel at
 max_len 512, 1,024 and 2,048 (the narrow routes, with their stacks, slot
 values or results in shared or global memory), B5 / B6 at their longest
-and the instruction-program scoring call without a host wait. Marked ``gpu``;
+and the instruction-program scoring call without a host wait; the cycle
+captured as a CUDA graph, bit-equal to the eager loop with the same launch
+counts, reused by a second search, and raising when it cannot be
+captured. Marked ``gpu``;
 each skips without a card (decided in a fixture, so every test worker
 collects the same tests).
 
@@ -25,6 +28,8 @@ import pytest
 import torch
 
 import symbolicregression_jl_tpu_torch as sr
+from symbolicregression_jl_tpu_torch.models import cycle_graph as cg
+from symbolicregression_jl_tpu_torch.models import evolve as tevolve
 from symbolicregression_jl_tpu_torch.models import mutate_device as tmut
 from symbolicregression_jl_tpu_torch.models.trees import (
     BIN, CONST, UNA, VAR, TreeBatch, encode_tree, parse_expression, stack_trees,
@@ -1081,3 +1086,110 @@ def test_precision_search_routes_on_card(cuda, precision):
     assert res.state.island_states.pop.trees.cval.dtype == dt
     assert np.isfinite(res.best_loss().loss)
     assert res.predict(X).shape == (60,)
+
+
+# ---------------------------------------------------------------------------
+# The cycle captured as a CUDA graph (models/cycle_graph.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_CFG = dict(binary_operators=["+", "-", "*", "/"],
+                 unary_operators=["cos", "exp"], npop=50, npopulations=4,
+                 tournament_selection_n=6, maxsize=12, verbosity=0)
+
+
+def _zero_counts():
+    for counts in cg.LAUNCH_COUNTERS:
+        for k in list(counts):
+            counts[k] = 0
+
+
+def _graph_case(cuda, kw):
+    o = sr.make_options(**GRAPH_CFG, **kw)
+    rng = np.random.default_rng(0)
+    X = torch.tensor((rng.standard_normal((2, 200)) * 2).astype("f4"),
+                     device=cuda).to(o.dtype)
+    y = (X[0] * X[0] - torch.cos(X[1])).to(o.dtype)
+    st = tevolve.init_island_state(make_generator(0, cuda), o, 2, X, y, None,
+                                   1.5, 4)
+    return o, X, y, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(annealing=True),
+    dict(batching=True, batch_size=40, warmup_maxsize_by=0.5),
+    dict(precision="bfloat16", kernel_program="instr"),
+], ids=["annealing", "batching", "bf16-instr"])
+def test_captured_cycle_bit_equal_to_eager_on_card(cuda, kw):
+    """Two iterations of 10 cycles (curmaxsize 5, then 12) replayed from
+    one capture give the eager loop's state bit for bit, every
+    ``IslandState`` field and the generator, with the same launch
+    counts."""
+    cg.clear_cache()
+    o, X, y, st = _graph_case(cuda, kw)
+    ga, gb = make_generator(7, cuda), make_generator(7, cuda)
+    a = b = st
+    for cm in (5, 12):
+        _zero_counts()
+        a = tevolve.s_r_cycle_islands(ga, a, cm, X, y, None, 1.5, o,
+                                      ncycles=10)
+        eager = [dict(c) for c in cg.LAUNCH_COUNTERS]
+        _zero_counts()
+        b = cg.s_r_cycle_islands_graph(gb, b, cm, X, y, None, 1.5, o,
+                                       ncycles=10)
+        captured = [dict(c) for c in cg.LAUNCH_COUNTERS]
+        assert captured == eager
+        assert sum(sum(c.values()) for c in eager) > 0
+        for fa, fb in zip(cg._leaves(a), cg._leaves(b), strict=True):
+            assert torch.equal(fa, fb)
+        assert torch.equal(ga.get_state(), gb.get_state())
+    (g,) = cg._CACHE.values()
+    assert g.captures == 1 and g.replays == 20
+
+
+@pytest.mark.gpu
+def test_second_search_replays_the_first_capture_on_card(cuda):
+    """A second search at the same widths, with other data and another
+    alpha, replays the first search's graph (no new capture), and its hall
+    of fame equals that search run alone with a cleared cache."""
+    kw = dict(GRAPH_CFG, niterations=2, ncycles_per_iteration=15, seed=2,
+              annealing=True)
+    rng = np.random.default_rng(1)
+    X1 = (rng.standard_normal((2, 100)) * 2).astype("f4")
+    X2 = (rng.standard_normal((2, 100)) * 2).astype("f4")
+    cg.clear_cache()
+    sr.equation_search(X1, X1[0] * X1[1], **kw)
+    (g,) = cg._CACHE.values()
+    assert g.captures == 1 and g.replays == 2 * 15
+    r2 = sr.equation_search(X2, np.cos(X2[0]) + X2[1], alpha=0.5, **kw)
+    assert list(cg._CACHE.values()) == [g]
+    assert g.captures == 1 and g.replays == 4 * 15
+    cg.clear_cache()
+    r3 = sr.equation_search(X2, np.cos(X2[0]) + X2[1], alpha=0.5, **kw)
+    assert [(c.complexity, c.loss, c.equation) for c in r2.candidates] == [
+        (c.complexity, c.loss, c.equation) for c in r3.candidates]
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_on_card(cuda, monkeypatch):
+    """A step that reads the card from the host cannot be captured: the
+    search raises and does not fall back to the eager loop."""
+    real = cg.cycle_step
+
+    def host_read(*a, **k):
+        out = real(*a, **k)
+        if bool(out.num_evals.sum() < 0):  # a wait for the card
+            raise AssertionError("unreachable")
+        return out
+
+    monkeypatch.setattr(cg, "cycle_step", host_read)
+    cg.clear_cache()
+    rng = np.random.default_rng(0)
+    X = (rng.standard_normal((2, 50)) * 2).astype("f4")
+    with pytest.raises(RuntimeError):
+        sr.equation_search(X, X[0] * X[0], niterations=1,
+                           ncycles_per_iteration=3, **GRAPH_CFG)
+    (g,) = cg._CACHE.values()
+    assert g.graph is None and g.replays == 0
+    cg.clear_cache()
+    torch.cuda.synchronize()
