@@ -85,6 +85,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    instruction program): every launch of that dtype's builds (the value
    mode, B5 or B6 for every scoring call, the slot mode, B3 and B4), no
    fused-mode launch and no float32 build launched;
+5f. the solo front door at the same widths, 1 iteration of 100 cycles
+   per output: ``y`` of two outputs (Feynman I.6.2a and ``2 cos(theta) -
+   1``) on one captured cycle (one capture, replays for both), output 1
+   bit-equal to the solo search at seed 7919; ``data_policy="mask"`` with
+   5 % of y's rows NaN (a second capture for the weighted key, every
+   scoring call on B1's value mode, BFGS on weighted B3 / B4, no plain
+   version reached); the CSV checkpoint (its round trip exact on equations
+   and complexities) and a warm start from it; a resume of both outputs
+   from ``return_state`` (the saved state unchanged);
 6. the cycle alone at the same widths: milliseconds per eager cycle with
    the constant fold through the slot-values kernel and through its plain
    version (interleaved, twice each), and a profile of 20 eager cycles
@@ -101,6 +110,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    pass, and a profile of one pass (device kernels, the kernels' share);
 8. recovery on the card: ``x0*x0 - x1*x2`` without constant optimisation,
    ``2*cos(x4) + x1^2 - 2`` with it, under L2 and under ``L1DistLoss``;
+   the reference's ``test_multi_output`` on that fixture (``x0*x0 -
+   x1*x2`` and ``2*cos(x4) + x1^2 - 2`` as two outputs, each to its
+   threshold), and ``to_callable`` on B1 bit-equal to ``predict`` and to
+   B1's plain version;
    the reference's precision sweep (``tests/test_precision.py``
    ``_tiny_search``) at float32 over seeds 0-15, its count of recovered
    seeds beside the reference's (at least the reference's less 2), then
@@ -117,6 +130,7 @@ import os
 import platform
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -610,7 +624,7 @@ def main():
                             unary_operators=["asin", "erf", "gamma"],
                             npopulations=8, npop=60, ncycles_per_iteration=30,
                             maxsize=12, niterations=2, seed=0, verbosity=0)
-    assert res_s.candidates and np.isfinite(res_s.best_loss().loss)
+    assert res_s.frontier() and np.isfinite(res_s.best_loss().loss)
     assert kg.LAUNCHES["loss_grad"] - before_opt["loss_grad"] == 9 * 2
     log(f"search over asin erf gamma mod atan2 (8 x 60, 2 iterations, default "
         f"constant optimisation): best {res_s.best_loss().equation} loss "
@@ -624,7 +638,7 @@ def main():
                             npop=60, ncycles_per_iteration=30, maxsize=110,
                             niterations=2, seed=0, verbosity=0)
     assert res_l.options.max_len == 112, res_l.options.max_len
-    assert res_l.candidates and np.isfinite(res_l.best_loss().loss)
+    assert res_l.frontier() and np.isfinite(res_l.best_loss().loss)
     assert kg.LAUNCHES["loss_grad"] - before_opt["loss_grad"] == 9 * 2
     assert kg.LAUNCHES["loss"] - before_opt["loss"] == 8 * 2
     log(f"search at maxsize 110 (max_len 112; 8 x 60, 2 iterations, default "
@@ -744,7 +758,7 @@ def main():
                               niterations=2, seed=0, verbosity=0)
     after_all = {**ke.LAUNCHES, **kg.LAUNCHES}
     assert res_509.options.max_len == 512, res_509.options.max_len
-    assert res_509.candidates and np.isfinite(res_509.best_loss().loss)
+    assert res_509.frontier() and np.isfinite(res_509.best_loss().loss)
     assert after_all["loss_grad"] - before_all["loss_grad"] == 9 * 2
     assert after_all["loss"] - before_all["loss"] == 8 * 2
     assert after_all["fused"] - before_all["fused"] >= 2 * 30
@@ -1362,7 +1376,7 @@ def main():
         opt_s.append(time.time() - t)
         return out
 
-    def on_iteration(it, cands):
+    def on_iteration(j, it, cands):
         best = min(c.loss for c in cands)
         per_iter.append((time.time() - t_it[0], best))
         log(f"main path: iteration {it + 1}: {per_iter[-1][0]:.2f} s, of which "
@@ -1426,7 +1440,7 @@ def main():
         f"{main_graph.replays} replays, its pool "
         f"{main_graph.pool_bytes / 2**30:.3f} GiB of device memory")
     log(res)
-    assert res.candidates, "empty hall of fame"
+    assert res.frontier(), "empty hall of fame"
     assert len(per_iter) == args.niterations
     assert all(np.isfinite(b) for _, b in per_iter), per_iter
     assert per_iter[-1][1] <= per_iter[0][1], per_iter
@@ -1456,13 +1470,14 @@ def main():
         res_i = equation_search(
             X_np, y_np, niterations=1, ncycles_per_iteration=550, seed=0,
             kernel_program=program,
-            on_iteration=lambda it, c: it_s.append(time.time() - t_i), **cfg)
+            on_iteration=lambda j, it, c: it_s.append(time.time() - t_i),
+            **cfg)
         torch.cuda.synchronize()
         run = dict(s=time.time() - t_i, s_per_iteration=it_s,
                    launches={**ke.LAUNCHES, **kg.LAUNCHES, **ki.LAUNCHES},
                    peak_bytes=torch.cuda.max_memory_allocated(),
                    hof=[(c.complexity, c.loss, c.equation)
-                        for c in res_i.candidates])
+                        for c in res_i.frontier()])
         instr_runs[program] = run
         lc = run["launches"]
         other = "instr" if program == "instr_packed" else "instr_packed"
@@ -1470,7 +1485,7 @@ def main():
         assert lc[program] == 1 + 550 + 1, lc
         assert lc[other] == 0 and lc["fused"] == 0 and lc["value"] == 0, lc
         assert lc["loss_grad"] == 9 and lc["loss"] == 8, lc
-        assert res_i.candidates and np.isfinite(res_i.best_loss().loss)
+        assert res_i.frontier() and np.isfinite(res_i.best_loss().loss)
         log(f"instr path {program}: {run['s']:.1f} s (iteration ends at "
             f"{[round(t, 2) for t in it_s]} s, init included), launches {lc}, "
             f"peak memory {run['peak_bytes'] / 2**30:.2f} GiB; best "
@@ -1543,7 +1558,7 @@ def main():
     assert huber_run["launches"]["value"] == 0, huber_run
     assert huber_run["launches"]["slots"] > 0, huber_run
     assert not any(ki.LAUNCHES.values()), ki.LAUNCHES
-    assert res_h.candidates and np.isfinite(res_h.best_loss().loss)
+    assert res_h.frontier() and np.isfinite(res_h.best_loss().loss)
     log(f"Huber path: {huber_run['s']:.1f} s, launches {huber_run['launches']}, "
         f"by loss {huber_run['by_loss']}; best {res_h.best_loss().equation} "
         f"loss {res_h.best_loss().loss:.6g}")
@@ -1565,7 +1580,7 @@ def main():
             res_s = equation_search(X_np, y_np, niterations=1,
                                     ncycles_per_iteration=n_cyc, seed=0,
                                     precision=precision, kernel_program=program,
-                                    **cfg)
+                                    return_state=True, **cfg)
             torch.cuda.synchronize()
             run = dict(s=time.time() - t_s, cycles=n_cyc,
                        float32={**ke.LAUNCHES, **kg.LAUNCHES, **ki.LAUNCHES},
@@ -1585,19 +1600,199 @@ def main():
                     assert v >= n_cyc + 1, run
                 else:
                     assert v == 0, (k, run)
-            assert res_s.candidates and np.isfinite(res_s.best_loss().loss)
-            assert res_s.state.global_hof.losses.dtype == {
+            assert res_s.frontier() and np.isfinite(res_s.best_loss().loss)
+            assert res_s.state[0].global_hof.losses.dtype == {
                 "bfloat16": torch.bfloat16, "float16": torch.float16}[precision]
             log(f"{precision} path ({program}): {run['s']:.1f} s for 1 iteration "
                 f"of {n_cyc} cycles, storage launches "
                 f"{ {k: v for k, v in run['storage'].items() if v} }, no "
                 f"float32 launch; best {run['equation']} loss {run['best']:.6g}")
 
+    # ---- 5f. the solo front door at full width ---------------------------------
+    # the north star's widths, 1 iteration of 100 cycles per output: y of two
+    # outputs (Feynman I.6.2a and 2 cos(theta) - 1) on one captured cycle;
+    # output 1 against the solo search at its seed; data_policy="mask" with
+    # 5 % of y's rows NaN (a weighted search: B1 for every scoring call,
+    # weighted B3 / B4, no plain version reached); the CSV checkpoint and a
+    # warm start from it; a resume from return_state
+    from symbolicregression_jl_tpu_torch.utils.output import load_hof_csv
+
+    door_cycles = 100
+    door = {}
+    frontier_bits = lambda cands: [(c.complexity, c.loss, c.equation)
+                                   for c in cands]
+    Y2 = np.stack([y_np, (2 * np.cos(X_np[0]) - 1).astype(np.float32)])
+    out_s = []
+
+    def note_output(j, it, cands):
+        out_s.append((j, time.time()))
+
+    def checksum(state):
+        return [float(t.double().sum()) for t in cg._leaves(state.island_states)]
+
+    log(f"front door: equation_search with 2 outputs 64 x 1000, {ROWS} rows, "
+        f"maxsize 20, default constant optimisation, 1 iteration of "
+        f"{door_cycles} cycles per output")
+    zero_counts()
+    cg.clear_cache()
+    t_d = time.time()
+    out_s.append((None, t_d))
+    res_2 = equation_search(X_np, Y2, niterations=1,
+                            ncycles_per_iteration=door_cycles, seed=0,
+                            return_state=True, on_iteration=note_output, **cfg)
+    torch.cuda.synchronize()
+    (g2,) = cg._CACHE.values()
+    door["two_outputs"] = dict(
+        s=time.time() - t_d,
+        s_per_output_iteration=[b[1] - a[1] for a, b in zip(out_s, out_s[1:])],
+        launches={**ke.LAUNCHES, **kg.LAUNCHES},
+        captures=g2.captures, replays=g2.replays,
+        best=[res_2.best_loss(j).loss for j in range(2)],
+        equations=[res_2.best_loss(j).equation for j in range(2)])
+    run = door["two_outputs"]
+    # one capture serves both outputs; every scoring call fused (init, each
+    # cycle, the rescore), one BFGS pass per output
+    assert g2.captures == 1 and g2.replays == 2 * door_cycles, run
+    assert run["launches"]["fused"] == 2 * (1 + door_cycles + 1), run
+    assert run["launches"]["loss_grad"] == 2 * 9, run
+    assert run["launches"]["loss"] == 2 * 8, run
+    assert run["launches"]["value"] == 0, run
+    for j in range(2):
+        assert res_2.frontier(j), j
+        assert all(np.isfinite(c.loss) for c in res_2.frontier(j)), j
+    log(f"front door, 2 outputs: {run['s']:.1f} s, {run['captures']} capture, "
+        f"{run['replays']} replays, s per output iteration "
+        f"{[round(s, 3) for s in run['s_per_output_iteration']]}, launches "
+        f"{run['launches']}; best {run['equations']} loss {run['best']}")
+    zero_counts()
+    solo_1 = equation_search(X_np, Y2[1], niterations=1,
+                             ncycles_per_iteration=door_cycles, seed=7919,
+                             **cfg)
+    assert list(cg._CACHE.values()) == [g2] and g2.captures == 1
+    assert frontier_bits(solo_1.frontier()) == frontier_bits(
+        res_2.frontier(1)), "output 1 differs from its solo search"
+    log("front door: output 1 is bit-equal to the solo search at seed 7919 "
+        f"({len(solo_1.frontier())} members), no new capture")
+
+    # data_policy="mask": 5 % of y's rows NaN
+    y_bad = y_np.copy()
+    bad_rows = np.random.default_rng(5).choice(ROWS, ROWS * 5 // 100,
+                                               replace=False)
+    y_bad[bad_rows] = np.nan
+    plain_calls = []
+
+    def no_plain(name):
+        def refuse(*a, **k):
+            plain_calls.append(name)
+            raise AssertionError(f"a CUDA tensor reached {name}")
+        return refuse
+
+    weighted_stages = []
+    stage_unspied = kg.stage_launch
+
+    def stage_spy(trees, X_, y_, weights, *rest, **kw):
+        weighted_stages.append(weights is not None)
+        return stage_unspied(trees, X_, y_, weights, *rest, **kw)
+
+    plains = [(ke, "eval_trees_plain"), (ke, "eval_loss_trees_plain"),
+              (ke, "eval_slot_values_plain"), (kg, "_plain_loss_grad"),
+              (ki, "eval_trees_instr_plain")]
+    saved = [getattr(m, n) for m, n in plains]
+    for m, n in plains:
+        setattr(m, n, no_plain(n))
+    kg.stage_launch = stage_spy
+    zero_counts()
+    t_d = time.time()
+    try:
+        res_m = equation_search(X_np, y_bad, niterations=1,
+                                ncycles_per_iteration=door_cycles, seed=0,
+                                data_policy="mask", **cfg)
+        torch.cuda.synchronize()
+    finally:
+        for (m, n), f in zip(plains, saved):
+            setattr(m, n, f)
+        kg.stage_launch = stage_unspied
+    graphs = list(cg._CACHE.values())
+    gm = [g for g in graphs if g is not g2]
+    door["mask"] = dict(
+        s=time.time() - t_d, launches={**ke.LAUNCHES, **kg.LAUNCHES},
+        by_loss={**ke.LOSS_LAUNCHES, **kg.LOSS_LAUNCHES},
+        masked_rows=res_m.dataset_diagnostics["masked_rows"],
+        captures=[g.captures for g in graphs],
+        weighted_stages=len(weighted_stages),
+        best=res_m.best_loss().loss, equation=res_m.best_loss().equation)
+    run = door["mask"]
+    assert run["masked_rows"] == len(bad_rows), run
+    assert not plain_calls, plain_calls
+    # the weighted cells have their own graph key: one more capture
+    assert len(gm) == 1 and gm[0].captures == 1, run
+    assert gm[0].weights is not None and g2.captures == 1, run
+    assert run["launches"]["value"] == 1 + door_cycles + 1, run
+    assert run["launches"]["fused"] == 0, run
+    assert run["launches"]["loss_grad"] == 9 and run["launches"]["loss"] == 8
+    assert weighted_stages and all(weighted_stages), weighted_stages
+    assert all(np.isfinite(c.loss) for c in res_m.frontier()), res_m
+    log(f"front door, mask: {run['s']:.1f} s, {run['masked_rows']} rows "
+        f"masked, captures per graph {run['captures']}, launches "
+        f"{run['launches']}, {run['weighted_stages']} BFGS stagings all "
+        f"weighted, no plain-version call; best {run['equation']} loss "
+        f"{run['best']:.6g}")
+
+    # the CSV checkpoint, its round trip, and a warm start from it
+    csv_dir = tempfile.TemporaryDirectory()
+    csv = os.path.join(csv_dir.name, "hof.csv")
+    t_d = time.time()
+    res_c = equation_search(X_np, y_np, niterations=1,
+                            ncycles_per_iteration=door_cycles, seed=3,
+                            output_file=csv, **cfg)
+    back = load_hof_csv(csv, res_c.options)
+    assert [(c.complexity, c.equation) for c in back] == [
+        (c.complexity, c.equation) for c in res_c.frontier()], "CSV round trip"
+    res_w = equation_search(X_np, y_np, niterations=1,
+                            ncycles_per_iteration=door_cycles, seed=99,
+                            warm_start_file=csv, **cfg)
+    torch.cuda.synchronize()
+    best_c = min(c.loss for c in res_c.frontier())
+    best_w = min(c.loss for c in res_w.frontier())
+    assert best_w <= best_c + 1e-5, (best_w, best_c)
+    csv_dir.cleanup()
+    door["csv"] = dict(s=time.time() - t_d, members=len(back),
+                       best=best_c, warm_best=best_w)
+    log(f"front door, CSV: {len(back)} members round trip exact (equations "
+        f"and complexities); warm start best loss {best_w:.6g} against "
+        f"{best_c:.6g}; {door['csv']['s']:.1f} s for both searches")
+
+    # a resume of both outputs from return_state
+    before = [checksum(s) for s in res_2.state]
+    zero_counts()
+    t_d = time.time()
+    res_r = equation_search(X_np, Y2, niterations=1,
+                            ncycles_per_iteration=door_cycles, seed=0,
+                            saved_state=res_2.state, return_state=True, **cfg)
+    torch.cuda.synchronize()
+    door["resume"] = dict(s=time.time() - t_d,
+                          iterations=[s.iteration for s in res_r.state],
+                          best=[res_r.best_loss(j).loss for j in range(2)])
+    assert [checksum(s) for s in res_2.state] == before, "saved state changed"
+    assert door["resume"]["iterations"] == [2, 2], door["resume"]
+    for j in range(2):
+        assert res_r.best_loss(j).loss <= res_2.best_loss(j).loss, j
+    assert sum(g.captures for g in cg._CACHE.values()) == 2, [
+        g.captures for g in cg._CACHE.values()]
+    log(f"front door, resume: {door['resume']['s']:.1f} s, iterations "
+        f"{door['resume']['iterations']}, best {door['resume']['best']} "
+        f"(before {door['two_outputs']['best']}); the saved state unchanged; "
+        "2 captures in all (one per graph key)")
+    del res_2, res_r, res_m, res_c, res_w, solo_1, g2, gm, graphs
+    cg.clear_cache()
+
     # ---- 6. the cycle alone ---------------------------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from symbolicregression_jl_tpu_torch.api import _baseline_loss
+    from symbolicregression_jl_tpu_torch.models.dataset import (
+        make_dataset, update_baseline_loss,
+    )
     from symbolicregression_jl_tpu_torch.models.evolve import (
         init_island_state, s_r_cycle_islands,
     )
@@ -1607,7 +1802,8 @@ def main():
     )
 
     opts = make_options(**cfg)
-    base = _baseline_loss(X, y, None, opts)
+    base = update_baseline_loss(make_dataset(X, y, device=dev),
+                                opts).baseline_loss
     cgen = make_generator(2, dev)
     st = init_island_state(cgen, opts, 1, X, y, None, base, 64)
 
@@ -1872,6 +2068,45 @@ def main():
     assert kg.LOSS_LAUNCHES.get(key, 0) - before == 9 * rec3.iterations
     assert rb3.loss < 1e-2, rec3
 
+    # the reference's test_multi_output on the recovery fixture: both
+    # targets at once on the normal X, each held to its threshold above
+    # (the early stop waits for both outputs)
+    Ym = np.stack([Xc[0] * Xc[0] - Xc[1] * Xc[2], yc]).astype(np.float32)
+    tr = time.time()
+    rec_m = equation_search(Xc, Ym, binary_operators=["+", "-", "*", "/"],
+                            unary_operators=["cos", "exp"], npopulations=16,
+                            npop=100, ncycles_per_iteration=40, maxsize=18,
+                            niterations=30, seed=0, early_stop_condition=1e-6,
+                            verbosity=0)
+    rec_multi = dict(s=time.time() - tr, iterations=rec_m.iterations,
+                     best=[rec_m.best_loss(j).loss for j in range(2)],
+                     equations=[rec_m.best_loss(j).equation for j in range(2)])
+    log(f"recovery with 2 outputs: {rec_multi['equations']} losses "
+        f"{rec_multi['best']} after {rec_m.iterations} rounds, "
+        f"{rec_multi['s']:.1f} s")
+    assert rec_m.multi_output, rec_m
+    assert rec_multi["best"][0] < 1e-6 and rec_multi["best"][1] < 1e-2, rec_m
+    # to_callable on the card: B1's value mode, bit-equal to predict and to
+    # B1's plain version on the same CUDA tensors
+    from symbolicregression_jl_tpu_torch.utils.export import to_callable
+
+    Xcd = torch.tensor(Xc, device=dev)
+    for j in range(2):
+        pick = rec_m.best(j)
+        v0 = ke.LAUNCHES["value"]
+        y_call = to_callable(pick.tree, rec_m.options)(Xcd)
+        assert ke.LAUNCHES["value"] == v0 + 1, "to_callable did not launch B1"
+        y_pred = rec_m.predict(Xc, output=j)
+        tree_d = pick.tree.map(lambda x: x.to(dev).unsqueeze(0))
+        y_plain, _ = ke.eval_trees_plain(tree_d, Xcd, rec_m.options.operators)
+        assert torch.equal(y_call.cpu(), torch.from_numpy(y_pred)), j
+        assert torch.equal(y_call, y_plain[0]), j
+        # an array goes to the card by default
+        y_arr = to_callable(pick.tree, rec_m.options)(Xc)
+        assert y_arr.is_cuda and torch.equal(y_arr, y_call), j
+    log("to_callable on the card: B1, bit-equal to predict and to B1's plain "
+        "version for both outputs' best; an array runs on the card")
+
     # the reference's precision sweep (tests/test_precision.py
     # _tiny_search: loss < 1e-4 at float32, < 1e-2 below) on the card: the
     # count of recovered seeds over seeds 0-15 at float32 against the
@@ -2025,7 +2260,8 @@ def main():
                                          storage_timing.items()},
                       "storage_paths": {f"{k[0]}:{k[1]}": v for k, v in
                                         storage_runs.items()},
-                      "tiny_search": tiny}))
+                      "tiny_search": tiny, "front_door": door,
+                      "recovery_multi": rec_multi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,16 +12,16 @@ from .trees import CONST, UNA, VAR, TreeBatch, valid_mask
 
 def compute_complexity(trees: TreeBatch, options: Options) -> torch.Tensor:
     """Complexity per tree; shape = batch shape of ``trees``."""
-    use, bin_c, una_c, var_c, const_c = options.complexity_arrays()
-    if not use:
+    cm = options.complexity_mapping
+    if not cm.use:
         return trees.length
     dev = trees.kind.device
-    bin_t = table(tuple(bin_c.tolist()) or (1,), dev)
-    una_t = table(tuple(una_c.tolist()) or (1,), dev)
+    bin_t = table(cm.binop_complexities or (1,), dev)
+    una_t = table(cm.unaop_complexities or (1,), dev)
     per_node = torch.where(
-        trees.kind == CONST, const_c,
+        trees.kind == CONST, cm.constant_complexity,
         torch.where(
-            trees.kind == VAR, var_c,
+            trees.kind == VAR, cm.variable_complexity,
             torch.where(
                 trees.kind == UNA,
                 una_t[trees.op.clamp(0, una_t.shape[0] - 1)],

@@ -411,6 +411,16 @@ def s_r_cycle_islands(gen, states: IslandState, curmaxsize, X, y, weights,
     return states._replace(stats=move_window(states.stats))
 
 
+def s_r_cycle(gen, state: IslandState, curmaxsize, X, y, weights, baseline,
+              options: Options, ncycles: Optional[int] = None) -> IslandState:
+    """``s_r_cycle_islands`` for one island: ``state`` without the leading
+    island axis."""
+    states = _map_tensors(lambda x: x.unsqueeze(0), state)
+    states = s_r_cycle_islands(gen, states, curmaxsize, X, y, weights,
+                               baseline, options, ncycles)
+    return _map_tensors(lambda x: x[0], states)
+
+
 def simplify_population_islands(states: IslandState, curmaxsize, X, y,
                                 weights, baseline: float,
                                 options: Options) -> IslandState:

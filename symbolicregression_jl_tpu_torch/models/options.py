@@ -15,7 +15,6 @@ import copy
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from ..ops.losses import ElementwiseLoss, resolve_loss
@@ -32,6 +31,20 @@ RANDOMIZE = 6
 DO_NOTHING = 7
 OPTIMIZE = 8
 N_MUTATIONS = 9
+
+
+@dataclasses.dataclass(frozen=True)
+class ComplexityMapping:
+    """Per-operator, variable and constant complexity weights, aligned with
+    the operator set; with ``use`` False complexity is the node count.
+    ``Options.complexity_mapping`` builds it from the ``complexity_of_*``
+    fields."""
+
+    use: bool = False
+    binop_complexities: Tuple[int, ...] = ()
+    unaop_complexities: Tuple[int, ...] = ()
+    variable_complexity: int = 1
+    constant_complexity: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,11 +188,18 @@ ORCHESTRATION_FIELDS = (
     "max_evals",
     "seed",
     "verbosity",
+    "progress",
+    "output_file",
+    "save_to_file",
+    "terminal_width",
     "telemetry",
     "telemetry_dir",
     "snapshot_path",
     "snapshot_every_dispatches",
+    "data_policy",
 )
+
+DATA_POLICIES = ("reject", "mask", "repair")
 
 # Process-lifetime identity tokens for callable config values: an id() is
 # reused once its object is collected, so the registry pins each callable
@@ -273,6 +293,14 @@ class Options:
     # --- misc ---
     seed: int = 0
     verbosity: int = 1
+    progress: bool = True
+    output_file: Optional[str] = None
+    # False keeps output_file configured but writes nothing
+    save_to_file: bool = True
+    terminal_width: Optional[int] = None  # progress bar width; None = 40
+    # what the front door does with non-finite cells (models/dataset.py):
+    # raise, drop their rows through zero weights, or impute X cells
+    data_policy: str = "reject"
     recorder: bool = False
     cache_fitness: bool = False
     telemetry: bool = False
@@ -345,6 +373,10 @@ class Options:
             )
         if self.tournament_selection_n > self.npop:
             raise ValueError("tournament_selection_n must be <= npop")
+        if self.data_policy not in DATA_POLICIES:
+            raise ValueError(
+                "data_policy must be one of reject/mask/repair, got "
+                f"{self.data_policy!r}")
         object.__setattr__(self, "_operators", make_operator_set(
             self.binary_operators, self.unary_operators))
         resolve_loss(self.loss)
@@ -366,17 +398,19 @@ class Options:
     def actual_maxsize(self) -> int:
         return self.maxsize + 2
 
-    def complexity_arrays(self):
-        """(use_custom, binop_c, unaop_c, var_c, const_c), numpy tables
-        aligned with the operator set."""
+    @property
+    def complexity_mapping(self) -> ComplexityMapping:
         ops = self.operators
         custom = {canonical_name(k): v for k, v in self.complexity_of_operators}
-        use = (bool(custom) or self.complexity_of_constants != 1
-               or self.complexity_of_variables != 1)
-        bin_c = np.array([int(custom.get(n, 1)) for n in ops.binary_names], np.int64)
-        una_c = np.array([int(custom.get(n, 1)) for n in ops.unary_names], np.int64)
-        return (use, bin_c, una_c, int(self.complexity_of_variables),
-                int(self.complexity_of_constants))
+        return ComplexityMapping(
+            use=(bool(custom) or self.complexity_of_constants != 1
+                 or self.complexity_of_variables != 1),
+            binop_complexities=tuple(int(custom.get(n, 1))
+                                     for n in ops.binary_names),
+            unaop_complexities=tuple(int(custom.get(n, 1))
+                                     for n in ops.unary_names),
+            variable_complexity=int(self.complexity_of_variables),
+            constant_complexity=int(self.complexity_of_constants))
 
     def early_stop_fn(self) -> Optional[Callable]:
         cond = self.early_stop_condition

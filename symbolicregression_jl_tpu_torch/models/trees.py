@@ -367,3 +367,49 @@ def valid_mask(tree: TreeBatch) -> torch.Tensor:
 
 def count_constants(tree: TreeBatch) -> torch.Tensor:
     return torch.sum((tree.kind == CONST) & valid_mask(tree), dim=-1)
+
+
+def get_constants(tree: TreeBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cval, is_const_mask): the constants stay in place in ``cval``; the
+    mask selects the live CONST slots."""
+    return tree.cval, (tree.kind == CONST) & valid_mask(tree)
+
+
+def set_constants(tree: TreeBatch, cval: torch.Tensor) -> TreeBatch:
+    """``tree`` with its live constants taken from ``cval`` (same shape);
+    every other slot keeps its value."""
+    _, mask = get_constants(tree)
+    return tree._replace(cval=torch.where(mask, cval, tree.cval))
+
+
+def tree_hash(tree: TreeBatch) -> np.ndarray:
+    """Content hash of the program(s), host side: blake2b (8 bytes) over
+    the length and the live slots' fields, with the fields a node's kind
+    ignores zeroed, so padded tails and ``max_len`` do not change it. A
+    single tree gives a 0-d uint64 array, a batch one hash per tree; the
+    JAX package's ``tree_hash`` gives the same bits."""
+    import hashlib
+
+    def host(x, dtype):
+        return torch.as_tensor(x).detach().cpu().to(dtype).contiguous().numpy()
+
+    kind = host(tree.kind, torch.int32)
+    # leaf and unary slots: the op / feat fields their kind ignores are noise
+    op = np.where(kind >= UNA, host(tree.op, torch.int32), 0).astype(np.int32)
+    feat = np.where(kind == VAR, host(tree.feat, torch.int32),
+                    0).astype(np.int32)
+    cval = np.where(kind == CONST, host(tree.cval, torch.float64), 0.0)
+    length = host(tree.length, torch.int32)
+
+    flat_shape = kind.shape[:-1]
+    out = np.empty(flat_shape, dtype=np.uint64)
+    for i in np.ndindex(flat_shape):
+        n = int(length[i])
+        h = hashlib.blake2b(digest_size=8)
+        h.update(np.int32(n).tobytes())
+        h.update(kind[i][:n].tobytes())
+        h.update(op[i][:n].tobytes())
+        h.update(feat[i][:n].tobytes())
+        h.update(cval[i][:n].tobytes())
+        out[i] = np.frombuffer(h.digest(), dtype=np.uint64)[0]
+    return out[()] if flat_shape == () else out

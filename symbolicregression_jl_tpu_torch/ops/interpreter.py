@@ -8,12 +8,16 @@ marks the tree incomplete (``ok=False``).
 
 This is the portable oracle for the kernel's plain version
 (``ops/kernel_eval.py``), which evaluates through the operand schedule
-instead of a stack.
+instead of a stack, and the function the derivatives differentiate:
+``eval_grad_constants`` and ``eval_diff_tree`` in forward mode
+(``torch.func.jvp``), ``eval_grad_variables`` in reverse mode
+(``torch.autograd``). ``eval_loss_trees_fused`` evaluates through the
+kernels (``models/fitness.py``'s routes), not through this interpreter.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -71,3 +75,92 @@ def eval_tree(tree: TreeBatch, X: torch.Tensor,
     """Single tree (batch shape ()) -> (y (nrows,), ok)."""
     y, ok = eval_trees(tree.map(lambda x: x.unsqueeze(0)), X, operators)
     return y[0], ok[0]
+
+
+def eval_loss_trees_fused(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
+                          weights: Optional[torch.Tensor],
+                          operators: OperatorSet, loss_fn,
+                          rows_per_tile: int = 0,
+                          deterministic: bool = False) -> torch.Tensor:
+    """Per-tree aggregated loss (+inf where the evaluation left the finite
+    domain): trees batch shape (...,); X (nfeat, nrows); y (nrows,) ->
+    (...,).
+
+    With ``rows_per_tile`` 0 (or at least nrows) and ``deterministic``
+    off this is the search's scoring call (``fitness.eval_loss_trees``):
+    on the card at float32, unweighted under a registry loss, the scoring
+    kernel's fused mode, else its value mode followed by the loss. With
+    ``deterministic`` the rows reduce by ``pairwise_sum``. With
+    ``rows_per_tile`` the rows go through the value mode in tiles of that
+    width, the (weighted) loss sums and weight sums accumulating tile by
+    tile: the peak memory per tree is a tile's, and the sum's order is
+    not the untiled one's."""
+    from ..models.fitness import eval_loss_trees
+    from . import kernel_eval
+    from .losses import aggregate_loss, contain_nonfinite, pairwise_sum
+
+    nrows = X.shape[1]
+    tiled = 0 < rows_per_tile < nrows
+    if not (tiled or deterministic):
+        return eval_loss_trees(trees, X, y, weights, operators, loss_fn)
+    if not tiled:
+        y_pred, ok = kernel_eval.eval_trees(trees, X, operators)
+        loss = aggregate_loss(loss_fn(y_pred, y), weights,
+                              deterministic=True)
+        return contain_nonfinite(loss, ok)
+    rowsum = pairwise_sum if deterministic else (lambda v: v.sum(-1))
+    num = den = None
+    ok = torch.ones(trees.length.shape, dtype=torch.bool, device=X.device)
+    for r0 in range(0, nrows, rows_per_tile):
+        rows = slice(r0, min(r0 + rows_per_tile, nrows))
+        y_pred, ok_t = kernel_eval.eval_trees(trees, X[:, rows], operators)
+        elem = loss_fn(y_pred, y[rows])
+        w = (torch.ones_like(y[rows]) if weights is None
+             else weights[rows])
+        n_t, d_t = rowsum(elem * w), rowsum(w)
+        num = n_t if num is None else num + n_t
+        den = d_t if den is None else den + d_t
+        ok = ok & ok_t
+    return contain_nonfinite(num / den, ok)
+
+
+def eval_grad_constants(trees: TreeBatch, X: torch.Tensor,
+                        operators: OperatorSet):
+    """Each tree's values and their derivative with respect to each
+    constant slot: (y (..., nrows), ok (...,), dy_dc (..., L, nrows)),
+    one forward-mode pass per slot (zero for slots that hold no
+    constant)."""
+    L = trees.max_len
+    cval = trees.cval.to(X.dtype)
+    y, ok = eval_trees(trees._replace(cval=cval), X, operators)
+    dy = []
+    for s in range(L):
+        tangent = torch.zeros_like(cval)
+        tangent[..., s] = 1.0
+        _, d = torch.func.jvp(
+            lambda c: eval_trees(trees._replace(cval=c), X, operators)[0],
+            (cval,), (tangent,))
+        dy.append(d)
+    return y, ok, torch.stack(dy, dim=-2)
+
+
+def eval_grad_variables(tree: TreeBatch, X: torch.Tensor,
+                        operators: OperatorSet):
+    """A single tree's values and the gradient of their sum with respect
+    to X: (y (nrows,), dy_dX (nfeat, nrows))."""
+    Xv = X.detach().requires_grad_(True)
+    with torch.enable_grad():
+        y, _ = eval_tree(tree, Xv, operators)
+        (g,) = torch.autograd.grad(y.sum(), Xv)
+    return y.detach(), g
+
+
+def eval_diff_tree(tree: TreeBatch, X: torch.Tensor, operators: OperatorSet,
+                   direction: int):
+    """Forward-mode derivative of a single tree's values with respect to
+    feature ``direction``: (y (nrows,), dy_dx (nrows,), ok)."""
+    tangent = torch.zeros_like(X)
+    tangent[direction] = 1.0
+    y, dy, ok = torch.func.jvp(lambda Xv: eval_tree(tree, Xv, operators),
+                               (X,), (tangent,), has_aux=True)
+    return y, dy, ok

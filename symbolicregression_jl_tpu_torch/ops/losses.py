@@ -516,9 +516,66 @@ def contain_nonfinite(value: torch.Tensor, ok=None,
     return torch.where(fin, value, torch.full_like(value, float("inf")))
 
 
+def pairwise_sum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Fixed-order pairwise-tree sum along ``axis``: adjacent pairs are
+    added, then adjacent pair sums, log2(n) levels of elementwise adds
+    (zero-padded to the next power of two; ``x + 0`` is exact). The order
+    is fixed by the code, so the JAX package's ``pairwise_sum`` gives the
+    same bits, and the error grows as log n, not n."""
+    x = torch.movedim(x, axis, -1)
+    n = x.shape[-1]
+    if n == 0:
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    size = 1
+    while size < n:
+        size *= 2
+    if size != n:
+        x = torch.nn.functional.pad(x, (0, size - n))
+    while size > 1:
+        x = x.reshape(x.shape[:-1] + (size // 2, 2))
+        x = x[..., 0] + x[..., 1]
+        size //= 2
+    return x[..., 0]
+
+
+def _tiled_row_sum(elem: torch.Tensor, tile_rows: int) -> torch.Tensor:
+    """Row sum along the last axis in tiles: zero-pad to a multiple of
+    ``tile_rows``, sum each (tile_rows // 128, 128) block, then add the
+    tiles' partial sums left to right (the JAX package's tiled order)."""
+    n = elem.shape[-1]
+    padded = -(-n // tile_rows) * tile_rows
+    if padded != n:
+        elem = torch.nn.functional.pad(elem, (0, padded - n))
+    tiles = elem.reshape(elem.shape[:-1]
+                         + (padded // tile_rows, tile_rows // 128, 128))
+    partials = tiles.sum(dim=(-2, -1))
+    acc = partials[..., 0]
+    for t in range(1, partials.shape[-1]):
+        acc = acc + partials[..., t]
+    return acc
+
+
 def aggregate_loss(elem: torch.Tensor, weights: Optional[torch.Tensor] = None,
-                   dim: int = -1) -> torch.Tensor:
-    """Mean / weighted mean over ``dim``."""
+                   axis: int = -1, deterministic: bool = False,
+                   tile_rows: int = 0) -> torch.Tensor:
+    """Mean / weighted mean over ``axis``. ``deterministic`` reduces by
+    ``pairwise_sum``; ``tile_rows`` (a positive multiple of 128,
+    unweighted, ``axis=-1``) by ``_tiled_row_sum``, then divides by the
+    row count."""
+    if tile_rows:
+        if weights is not None or deterministic or axis != -1:
+            raise ValueError(
+                "tile_rows applies to the unweighted non-deterministic "
+                "axis=-1 aggregation only")
+        if tile_rows < 128 or tile_rows % 128:
+            raise ValueError(
+                f"tile_rows must be a positive multiple of 128, got "
+                f"{tile_rows}")
+        return _div(_tiled_row_sum(elem, tile_rows), float(elem.shape[-1]))
+    if deterministic:
+        if weights is None:
+            return _div(pairwise_sum(elem, axis), float(elem.shape[axis]))
+        return pairwise_sum(elem * weights, axis) / pairwise_sum(weights, axis)
     if weights is None:
-        return torch.mean(elem, dim=dim)
-    return torch.sum(elem * weights, dim=dim) / torch.sum(weights, dim=dim)
+        return torch.mean(elem, dim=axis)
+    return torch.sum(elem * weights, dim=axis) / torch.sum(weights, dim=axis)

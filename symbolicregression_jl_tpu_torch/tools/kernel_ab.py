@@ -173,8 +173,11 @@ def capture_children(ops) -> TreeBatch:
                         unary_operators=["cos", "exp"], npopulations=64,
                         npop=1000, maxsize=20, loss="L2DistLoss",
                         niterations=2, ncycles_per_iteration=550, seed=0,
-                        verbosity=0, on_iteration=lambda it, c: seen.update(
-                            iterations=it + 1))
+                        verbosity=0,
+                        # (iteration, cands), or (output, iteration, cands)
+                        # since the multi-output front door
+                        on_iteration=lambda *a: seen.update(
+                            iterations=a[-2] + 1))
     except _Captured:
         pass
     finally:

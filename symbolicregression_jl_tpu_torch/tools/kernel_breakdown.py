@@ -147,7 +147,7 @@ def host_syncs(cycles: int = 10) -> dict:
     64 islands x 1000, by the PyTorch operator that issued them."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ..api import _baseline_loss
+    from ..models.dataset import make_dataset, update_baseline_loss
     from ..models.evolve import init_island_state, s_r_cycle_islands
     from ..models.options import make_options
     from ..utils.rng import make_generator
@@ -160,7 +160,8 @@ def host_syncs(cycles: int = 10) -> dict:
     opts = make_options(binary_operators=["+", "-", "*", "/"],
                         unary_operators=["cos", "exp"], npopulations=64,
                         npop=1000, maxsize=20, loss="L2DistLoss", verbosity=0)
-    base = _baseline_loss(X, y, None, opts)
+    base = update_baseline_loss(make_dataset(X, y, device=dev),
+                                opts).baseline_loss
     gen = make_generator(2, dev)
     st = init_island_state(gen, opts, 1, X, y, None, base, 64)
     st = s_r_cycle_islands(gen, st, opts.maxsize, X, y, None, base, opts, ncycles=3)

@@ -1,9 +1,14 @@
-"""Hall-of-fame rendering (counterpart of the candidate/table parts of
-``symbolicregression_jl_tpu/utils/output.py``)."""
+"""Hall-of-fame rendering, the CSV checkpoint and its reader (counterpart
+of ``symbolicregression_jl_tpu/utils/output.py``).
+
+The checkpoint is written twice, to the path and to ``path.bkup``, so a
+kill in the middle of one write leaves the other whole; the reader falls
+back to the backup when the main file is missing or torn."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -11,7 +16,9 @@ import torch
 
 from ..models.options import Options
 from ..models.population import HallOfFame, calculate_pareto_frontier
-from ..models.trees import TreeBatch, decode_tree, expr_to_string
+from ..models.trees import (
+    TreeBatch, decode_tree, encode_tree, expr_to_string, parse_expression,
+)
 
 
 @dataclasses.dataclass
@@ -66,3 +73,52 @@ def pareto_table(candidates: List[Candidate], title: str = "Hall of Fame") -> st
         lines.append(f"{c.complexity:<12}{c.loss:<16.8g}{c.score:<12.4g}{c.equation}")
     lines.append("-" * 78)
     return "\n".join(lines)
+
+
+def save_hof_csv(candidates: List[Candidate], path: str) -> None:
+    """Write the frontier to ``path``, then to ``path.bkup``."""
+    body = "Complexity;Loss;Equation\n" + "".join(
+        f"{c.complexity};{c.loss:.12g};{c.equation}\n" for c in candidates)
+    for p in (path, path + ".bkup"):
+        with open(p, "w") as f:
+            f.write(body)
+
+
+def _parse_hof_csv(path, options, variable_names):
+    """One checkpoint file -> (candidates, clean); ``clean`` is False when
+    a line did not parse (a file torn by a kill in mid-write). The trees
+    are float32 CPU tensors."""
+    out: List[Candidate] = []
+    clean = True
+    with open(path) as f:
+        f.readline()  # header
+        for line in f:
+            parts = line.rstrip("\n").split(";", 2)
+            try:
+                if len(parts) != 3:
+                    raise ValueError("short line")
+                c, loss, eq = parts
+                expr = parse_expression(eq, options.operators, variable_names)
+                out.append(Candidate(
+                    complexity=int(c), loss=float(loss), score=0.0,
+                    equation=eq,
+                    tree=encode_tree(expr, options.max_len, device="cpu")))
+            except (ValueError, KeyError):
+                clean = False
+    return out, clean
+
+
+def load_hof_csv(path: str, options: Options,
+                 variable_names=None) -> List[Candidate]:
+    """The candidates of a checkpoint, equations parsed again by
+    ``parse_expression``. A missing or torn main file falls back to
+    ``.bkup`` when the backup parses clean (the main file, the newer
+    write, wins ties)."""
+    bkup = path + ".bkup"
+    cands, clean = (_parse_hof_csv(path, options, variable_names)
+                    if os.path.exists(path) else ([], False))
+    if not clean and os.path.exists(bkup):
+        bcands, bclean = _parse_hof_csv(bkup, options, variable_names)
+        if bclean or len(bcands) > len(cands):
+            return bcands
+    return cands

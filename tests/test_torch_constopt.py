@@ -281,9 +281,10 @@ def test_equation_search_fits_constants_on_cpu():
         unary_operators=["cos"], npopulations=4, npop=40, maxsize=8,
         ncycles_per_iteration=20, niterations=10, seed=0,
         mutation_weights=dict(optimize=0.05), early_stop_condition=1e-4,
-        verbosity=0, on_iteration=lambda it, c: calls.append(it))
+        verbosity=0, return_state=True,
+        on_iteration=lambda j, it, c: calls.append(it))
     assert res.best_loss().loss < 1e-4, res
-    counts = res.state.island_states.mut_counts
+    counts = res.state[0].island_states.mut_counts
     assert int(counts[:, tevolve.MUTATION_NAMES.index("optimize"), 0].sum()) > 0
     assert tkg.LAUNCHES == {"loss_grad": 0, "loss": 0}  # CPU: plain versions
 

@@ -69,7 +69,8 @@ def test_search_through_graph_equals_eager_search():
     curriculum and batching: the same halls of fame and states."""
     X, y = (t.numpy() for t in _data(1, 40))
     kw = dict(CFG, niterations=3, ncycles_per_iteration=6,
-              warmup_maxsize_by=0.6, batching=True, batch_size=10, seed=3)
+              warmup_maxsize_by=0.6, batching=True, batch_size=10, seed=3,
+              return_state=True)
     cg.clear_cache()
     a = sr.equation_search(X, y, device="cpu", **kw)
     graph_loop = api.s_r_cycle_islands_graph
@@ -78,9 +79,9 @@ def test_search_through_graph_equals_eager_search():
         b = sr.equation_search(X, y, device="cpu", **kw)
     finally:
         api.s_r_cycle_islands_graph = graph_loop
-    assert [(c.complexity, c.loss, c.equation) for c in a.candidates] == [
-        (c.complexity, c.loss, c.equation) for c in b.candidates]
-    _assert_states_equal(a.state.island_states, b.state.island_states)
+    assert [(c.complexity, c.loss, c.equation) for c in a.frontier()] == [
+        (c.complexity, c.loss, c.equation) for c in b.frontier()]
+    _assert_states_equal(a.state[0].island_states, b.state[0].island_states)
 
 
 def test_second_search_reuses_the_graph_buffers():
@@ -93,19 +94,19 @@ def test_second_search_reuses_the_graph_buffers():
     X1, y1 = (t.numpy() for t in _data(2))
     X2, y2 = (t.numpy() for t in _data(3))
     cg.clear_cache()
-    r1 = sr.equation_search(X1, y1, device="cpu", **kw)
-    kept = [t.clone() for t in cg._leaves(r1.state.island_states)]
+    r1 = sr.equation_search(X1, y1, device="cpu", return_state=True, **kw)
+    kept = [t.clone() for t in cg._leaves(r1.state[0].island_states)]
     (g,) = cg._CACHE.values()
     r2 = sr.equation_search(X2, y2, device="cpu", alpha=0.4, parsimony=0.01,
                             **kw)
     assert list(cg._CACHE.values()) == [g]
-    for t, k in zip(cg._leaves(r1.state.island_states), kept):
+    for t, k in zip(cg._leaves(r1.state[0].island_states), kept):
         assert torch.equal(t, k)
     cg.clear_cache()
     r3 = sr.equation_search(X2, y2, device="cpu", alpha=0.4, parsimony=0.01,
                             **kw)
-    assert [(c.complexity, c.loss, c.equation) for c in r2.candidates] == [
-        (c.complexity, c.loss, c.equation) for c in r3.candidates]
+    assert [(c.complexity, c.loss, c.equation) for c in r2.frontier()] == [
+        (c.complexity, c.loss, c.equation) for c in r3.frontier()]
 
 
 @pytest.mark.parametrize("kw", [

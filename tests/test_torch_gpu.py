@@ -10,8 +10,9 @@ max_len 512, 1,024 and 2,048 (the narrow routes, with their stacks, slot
 values or results in shared or global memory), B5 / B6 at their longest
 and the instruction-program scoring call without a host wait; the cycle
 captured as a CUDA graph, bit-equal to the eager loop with the same launch
-counts, reused by a second search, and raising when it cannot be
-captured. Marked ``gpu``;
+counts, reused by a second search and by a second output, and raising
+when it cannot be captured; the mask policy's weighted route and
+``to_callable`` on B1. Marked ``gpu``;
 each skips without a card (decided in a fixture, so every test worker
 collects the same tests).
 
@@ -124,7 +125,7 @@ def test_equation_search_on_card(cuda):
         ncycles_per_iteration=40, maxsize=12, niterations=2, seed=0,
         verbosity=0)
     assert tke.LAUNCHES["fused"] - before >= 2 * 40
-    assert res.candidates and np.isfinite(res.best_loss().loss)
+    assert res.frontier() and np.isfinite(res.best_loss().loss)
 
 
 def _assert_grad_outputs_close(got, ref, scale=None):
@@ -346,7 +347,7 @@ def test_instr_searches_on_card(cuda):
             niterations=2, seed=0, verbosity=0, kernel_program=program)
         assert tki.LAUNCHES[program] - before == 1 + 2 * 30 + 2
         fronts[program] = [(c.complexity, c.loss, c.equation)
-                           for c in res.candidates]
+                           for c in res.frontier()]
     assert fronts["instr"] == fronts["instr_packed"] and fronts["instr"]
 
 
@@ -1076,14 +1077,15 @@ def test_precision_search_routes_on_card(cuda, precision):
                              binary_operators=["+", "*"],
                              unary_operators=["cos"], npop=30, npopulations=4,
                              ncycles_per_iteration=15, maxsize=10,
-                             precision=precision, verbosity=0, seed=0)
+                             precision=precision, verbosity=0, seed=0,
+                             return_state=True)
     assert not any({**tke.LAUNCHES, **tkg.LAUNCHES, **tki.LAUNCHES}.values())
     assert tke.STORAGE_LAUNCHES[f"value{sfx}"] == 2 * (15 + 1) + 1
     assert tke.STORAGE_LAUNCHES[f"slots{sfx}"] >= 2 * 15
     assert tkg.STORAGE_LAUNCHES[f"loss_grad{sfx}"] == 2 * 9
     assert tkg.STORAGE_LAUNCHES[f"loss{sfx}"] == 2 * 8
-    assert res.state.island_states.pop.losses.dtype == dt
-    assert res.state.island_states.pop.trees.cval.dtype == dt
+    assert res.state[0].island_states.pop.losses.dtype == dt
+    assert res.state[0].island_states.pop.trees.cval.dtype == dt
     assert np.isfinite(res.best_loss().loss)
     assert res.predict(X).shape == (60,)
 
@@ -1166,8 +1168,8 @@ def test_second_search_replays_the_first_capture_on_card(cuda):
     assert g.captures == 1 and g.replays == 4 * 15
     cg.clear_cache()
     r3 = sr.equation_search(X2, np.cos(X2[0]) + X2[1], alpha=0.5, **kw)
-    assert [(c.complexity, c.loss, c.equation) for c in r2.candidates] == [
-        (c.complexity, c.loss, c.equation) for c in r3.candidates]
+    assert [(c.complexity, c.loss, c.equation) for c in r2.frontier()] == [
+        (c.complexity, c.loss, c.equation) for c in r3.frontier()]
 
 
 @pytest.mark.gpu
@@ -1193,3 +1195,87 @@ def test_failed_capture_raises_on_card(cuda, monkeypatch):
     assert g.graph is None and g.replays == 0
     cg.clear_cache()
     torch.cuda.synchronize()
+
+
+def _frontier_bits(cands):
+    return [(c.complexity, c.loss, c.equation) for c in cands]
+
+
+@pytest.mark.gpu
+def test_two_outputs_share_one_capture_on_card(cuda):
+    """A 2-output search captures its cycle once and replays it for both
+    outputs; output 1 equals the solo search at seed + 7919 bit for bit,
+    which replays the same capture."""
+    kw = dict(GRAPH_CFG, niterations=2, ncycles_per_iteration=15)
+    rng = np.random.default_rng(2)
+    X = (rng.standard_normal((2, 100)) * 2).astype("f4")
+    Y = np.stack([X[0] * X[1], np.cos(X[0]) + X[1]])
+    cg.clear_cache()
+    _zero_counts()
+    res = sr.equation_search(X, Y, seed=3, **kw)
+    (g,) = cg._CACHE.values()
+    assert g.captures == 1 and g.replays == 2 * 2 * 15
+    assert tke.LAUNCHES["fused"] == 2 * (1 + 2 * (15 + 1))
+    solo = sr.equation_search(X, Y[1], seed=3 + 7919, **kw)
+    assert list(cg._CACHE.values()) == [g] and g.captures == 1
+    assert _frontier_bits(solo.frontier()) == _frontier_bits(res.frontier(1))
+    cg.clear_cache()
+
+
+@pytest.mark.gpu
+def test_mask_route_launches_on_card(cuda, monkeypatch):
+    """data_policy="mask" on NaN rows is a weighted search: its own
+    capture, every scoring call on B1's value mode, BFGS on weighted B3 /
+    B4, and no plain version reached."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((tke, "eval_trees_plain"),
+                      (tke, "eval_loss_trees_plain"),
+                      (tke, "eval_slot_values_plain"),
+                      (tkg, "_plain_loss_grad")):
+        monkeypatch.setattr(mod, name, refuse)
+    weighted = []
+    stage = tkg.stage_launch
+
+    def spy(trees, X_, y_, weights, *rest, **k):
+        weighted.append(weights is not None)
+        return stage(trees, X_, y_, weights, *rest, **k)
+
+    monkeypatch.setattr(tkg, "stage_launch", spy)
+    rng = np.random.default_rng(4)
+    X = (rng.standard_normal((2, 100)) * 2).astype("f4")
+    y = X[0] * X[1]
+    y[[3, 50, 77]] = np.nan
+    cg.clear_cache()
+    _zero_counts()
+    res = sr.equation_search(X, y, seed=0, niterations=1,
+                             ncycles_per_iteration=15, data_policy="mask",
+                             **GRAPH_CFG)
+    (g,) = cg._CACHE.values()
+    assert g.captures == 1 and g.weights is not None
+    assert res.dataset_diagnostics["masked_rows"] == 3
+    assert tke.LAUNCHES["value"] == 1 + 15 + 1 and tke.LAUNCHES["fused"] == 0
+    assert tkg.LAUNCHES == {"loss_grad": 9, "loss": 8}
+    assert weighted and all(weighted)
+    assert all(np.isfinite(c.loss) for c in res.frontier())
+    cg.clear_cache()
+
+
+@pytest.mark.gpu
+def test_to_callable_runs_b1_on_card(cuda):
+    """to_callable on a CUDA tensor launches B1's value mode once and
+    equals B1's plain version on the same tensors bit for bit."""
+    from symbolicregression_jl_tpu_torch.utils.export import to_callable
+
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    tree = encode_tree(parse_expression("2*cos(x1) + x0*x0 - exp(x1/3)", ops),
+                       L, device="cpu")
+    X = torch.tensor(np.random.default_rng(6).standard_normal((2, 300)),
+                     dtype=torch.float32, device=cuda)
+    before = tke.LAUNCHES["value"]
+    got = to_callable(tree, ops)(X)
+    assert tke.LAUNCHES["value"] == before + 1 and got.is_cuda
+    plain, _ = tke.eval_trees_plain(tree.map(lambda x: x.to(cuda)[None]), X,
+                                    ops)
+    assert torch.equal(got, plain[0])

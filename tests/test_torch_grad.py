@@ -355,7 +355,7 @@ def test_search_with_the_added_operators_runs_to_its_end(monkeypatch):
         ncycles_per_iteration=12, maxsize=12, niterations=2, seed=0,
         verbosity=0)
     assert res.options.should_optimize_constants
-    assert res.candidates and np.isfinite(res.best_loss().loss)
+    assert res.frontier() and np.isfinite(res.best_loss().loss)
     # every unary operator here is an added one, and so are binary 2 and 3
     added = [bool(((t.kind == jtrees.UNA) | ((t.kind == jtrees.BIN)
                                              & (t.op >= 2))).any())

@@ -302,5 +302,5 @@ def test_equation_search_at_maxsize_110_runs_its_bfgs_on_cpu(monkeypatch):
         ncycles_per_iteration=6, maxsize=110, niterations=2, seed=0,
         verbosity=0)
     assert res.options.should_optimize_constants
-    assert res.candidates and np.isfinite(res.best_loss().loss)
+    assert res.frontier() and np.isfinite(res.best_loss().loss)
     assert widths and set(widths) == {112}

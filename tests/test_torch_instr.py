@@ -386,6 +386,6 @@ def test_instr_searches_give_the_same_hall_of_fame(monkeypatch):
             ncycles_per_iteration=12, maxsize=12, niterations=2, seed=3,
             verbosity=0, kernel_program=program)
         fronts[program] = [(c.complexity, c.loss, c.equation)
-                           for c in res.candidates]
+                           for c in res.frontier()]
     assert fronts["instr"] == fronts["instr_packed"] and fronts["instr"]
     assert calls == {"instr": 1 + 2 * 12 + 2, "instr_packed": 1 + 2 * 12 + 2}

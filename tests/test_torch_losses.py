@@ -366,5 +366,5 @@ def test_equation_search_under_l1_runs_its_bfgs_on_cpu(monkeypatch):
     assert tkg.LAUNCHES == before and not any(tke.LAUNCHES.values())
     best = res.best_loss()
     assert np.isfinite(best.loss)
-    mae = np.mean(np.abs(res.predict(X, best.complexity) - y))
+    mae = np.mean(np.abs(res.predict(X, complexity=best.complexity) - y))
     np.testing.assert_allclose(best.loss, mae, rtol=1e-5)

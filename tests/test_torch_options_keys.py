@@ -72,7 +72,8 @@ ALT = dict(
     tournament_selection_p=0.5, fraction_replaced=0.1,
     fraction_replaced_hof=0.2, warmup_maxsize_by=0.5,
     early_stop_condition=1e-3, timeout_in_seconds=10.0, max_evals=100,
-    seed=4, verbosity=1,
+    seed=4, verbosity=1, progress=False, output_file="hof.csv",
+    save_to_file=False, terminal_width=72, data_policy="mask",
 )
 # fields whose only accepted value is the default (the port raises for
 # the others): their class is still checked above

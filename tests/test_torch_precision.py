@@ -269,10 +269,11 @@ def test_tiny_search_at_precision(precision):
     leaves are int64 in the port (torch's index type) and int32 there."""
     torch_dt, jax_dt = DTYPES[precision]
     X, y = _tiny_data()
-    res = sr.equation_search(X, y, precision=precision, device="cpu", **TINY)
+    res = sr.equation_search(X, y, precision=precision, device="cpu",
+                             return_state=True, **TINY)
     assert res.best_loss().loss < 1e-2
-    st = res.state.island_states
-    assert res.state.global_hof.losses.dtype == torch_dt
+    st = res.state[0].island_states
+    assert res.state[0].global_hof.losses.dtype == torch_dt
     jo = jmake(binary_operators=["+", "*"], npop=16, npopulations=2,
                tournament_selection_n=6, maxsize=10, precision=precision)
     js = jax.jit(jax.vmap(lambda k: jevolve.init_island_state(

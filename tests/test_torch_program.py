@@ -197,7 +197,7 @@ def test_equation_search_at_maxsize_509_runs_on_cpu():
         tournament_selection_n=4, ncycles_per_iteration=2, maxsize=509,
         niterations=1, seed=0, verbosity=0)
     assert res.options.max_len == 512 and res.options.should_optimize_constants
-    assert res.candidates and np.isfinite(res.best_loss().loss)
+    assert res.frontier() and np.isfinite(res.best_loss().loss)
 
 
 def _valid_then_invalid():
