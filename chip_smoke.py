@@ -10,7 +10,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``csrc/instr_eval.cu`` (instruction programs) built with nvcc for each
    working dtype (float32, and the bfloat16 and float16 storage builds,
    ``-DSR_STORAGE``), nine processes started together, each with its nvcc
-   seconds and ptxas's register / shared-memory / spill lines;
+   seconds and ptxas's register / shared-memory / spill lines; with them
+   the eleven libraries of the headers generated for the user operators
+   and the loss callable of phases 3f, 5g and 8 (``-DSR_USER_OPS``);
 2. scoring kernels vs plain PyTorch versions on the card at the main
    path's shapes (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's
    children at 64 islands x 1000, 64,000 trees = one rescore), poisoning
@@ -54,6 +56,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    plain versions (which round every value as the kernels do), B5/B6 to
    B1, B3's loss to B4's, two launches the same bits, programs that
    overflow only at the storage rounding and invalid programs poisoned;
+3f. user operators (the reference's ``op2c`` / ``op3c``) and a loss
+   callable in every kernel: 4,096 random trees over ``+ * op2c | op3c
+   cos`` x 2,048 rows at float32 and bfloat16, B1, the slot mode, B5, B6
+   against their plain versions (B5 / B6 bit-equal to B1), B2, B3 and B4
+   under ``(p - t) ** 2`` (B3 against its mirror, B4's loss B3's in every
+   bit), two launches the same bits; the bit-equal share of each, the rest
+   at phase 3's tolerances; then each user instantiation timed beside the
+   registry's full instantiation on trees of the same shape (``+ * atan2
+   | sin cos``, B2-B4 under ``LPDistLoss(2)``), with its bound;
 4. timing of every kernel alone (its launches queued behind a spin on the
    card, CUDA events), beside its plain version and its bound (bytes over
    3.35 TB/s, f32 operations over 67 TFLOP/s); the launch layout of the
@@ -94,6 +105,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    version reached); the CSV checkpoint (its round trip exact on equations
    and complexities) and a warm start from it; a resume of both outputs
    from ``return_state`` (the saved state unchanged);
+5g. user operators and the loss callable at the same widths: 1 iteration
+   of 100 cycles over ``+ * op2c | op3c cos`` under ``(p - t) ** 2`` with
+   BFGS, Nelder-Mead and Newton (every plain version a raising stub): 102
+   fused launches of B2's user instantiation, no value mode, no registry
+   library, B3 / B4's user instantiation 9 / 8, 0 / 25 and 8 / 8 times,
+   each optimisation pass timed; then 20 cycles weighted, on ``"instr"``
+   and on ``"instr_packed"`` (B1's, B5's and B6's user instantiations);
 6. the cycle alone at the same widths: milliseconds per eager cycle with
    the constant fold through the slot-values kernel and through its plain
    version (interleaved, twice each), and a profile of 20 eager cycles
@@ -117,7 +135,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the reference's precision sweep (``tests/test_precision.py``
    ``_tiny_search``) at float32 over seeds 0-15, its count of recovered
    seeds beside the reference's (at least the reference's less 2), then
-   bfloat16 and float16 at every seed float32 recovers.
+   bfloat16 and float16 at every seed float32 recovers; the reference's
+   ``test_search_with_custom_operator``, ``test_custom_elementwise_loss``
+   and ``test_nelder_mead_search`` (and Newton on its target), each to a
+   loss below 1e-2.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -211,6 +232,269 @@ def device_ms(fn, reps):
         spin *= 2
 
 
+def register_custom_pair():
+    """The reference's custom operator pair (tests/test_custom_operators.py
+    :22-23), as torch callables."""
+    from symbolicregression_jl_tpu_torch import register_binary, register_unary
+
+    register_binary("op2c", lambda x, y: x * x + 1.0 / (y * y + 0.1))
+    register_unary("op3c", lambda x: torch.sin(x) + torch.cos(x))
+
+
+def user_loss(p, t):
+    """The reference's loss callable (tests/test_mixed.py:104)."""
+    return (p - t) ** 2
+
+
+def bits_share(got, ref):
+    """The share of elements whose bits are equal (NaN counted equal)."""
+    if got.numel() == 0:
+        return 1.0
+    same = (got.view(torch.int32) == ref.view(torch.int32)) | (
+        torch.isnan(got) & torch.isnan(ref))
+    return float(same.float().mean())
+
+
+def phase_user_kernels(dev, log_fn, T=4096):
+    """Phase 3f: every kernel with user operators (``+ * op2c``, ``op3c
+    cos``) and under the user loss, on 4,096 random trees x 2,048 rows, at
+    float32 and in the bfloat16 build, against its plain version on the
+    same card tensors; then each user instantiation timed beside the full
+    registry instantiation on trees of the same shape (``+ * atan2``,
+    ``sin cos``: as many operators, the full instantiation too) and its
+    bound. Returns the report."""
+    from symbolicregression_jl_tpu_torch.models.mutate_device import (
+        gen_random_tree_fixed_size,
+    )
+    from symbolicregression_jl_tpu_torch.models.trees import UNA
+    from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
+    from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
+    from symbolicregression_jl_tpu_torch.ops import kernel_instr as ki
+    from symbolicregression_jl_tpu_torch.ops import user_ops
+    from symbolicregression_jl_tpu_torch.ops.losses import lp_dist_loss
+    from symbolicregression_jl_tpu_torch.ops.operators import (
+        is_user_operator, make_operator_set,
+    )
+    from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+
+    uops = make_operator_set(["+", "*", "op2c"], ["op3c", "cos"])
+    rops = make_operator_set(["+", "*", "atan2"], ["sin", "cos"])
+    # the registry's operators at the same indices, on the user build (the
+    # set's user operators are listed last, so no tree uses them, and the
+    # header is ``uops``'s): the instantiation's cost apart from the user
+    # operators' own
+    rops_u = make_operator_set(["+", "*", "atan2", "op2c"],
+                               ["sin", "cos", "op3c"])
+    assert ke.uses_full_kernel(uops) and ke.uses_full_kernel(rops)
+    loss = user_ops.require_kernel_loss(user_loss)
+    # the registry's any-loss instantiation under the same arithmetic
+    reg_loss = lp_dist_loss(2.0)
+    nfeat = 3
+    gen = make_generator(11, dev)
+    trees = gen_random_tree_fixed_size(
+        gen, torch.randint(1, 21, (T,), generator=gen, device=dev), nfeat,
+        uops, 24, dev)
+    Xf = torch.randn((nfeat, ROWS), generator=gen, device=dev) * 1.5
+    yf = torch.randn(ROWS, generator=gen, device=dev)
+    ls_cval = trees.cval.repeat_interleave(LS_STEPS, 0) * (
+        1 + 0.1 * torch.randn((T * LS_STEPS, 24), generator=gen, device=dev))
+    report = {"bit_equal_share": {}, "max_rel_err": {}, "max_abs_err": {},
+              "timing": {}}
+
+    def check(name, got, ref, rtol, atol):
+        got, ref = got.float(), ref.float()
+        fin = torch.isfinite(ref)
+        assert torch.equal(torch.isfinite(got), fin), f"3f {name}: finite set"
+        report["bit_equal_share"][name] = bits_share(got, ref)
+        torch.testing.assert_close(got[fin], ref[fin], rtol=rtol, atol=atol)
+        rel = ((got - ref).abs() / ref.abs().clamp_min(1e-30))[fin]
+        report["max_rel_err"][name] = float(rel.max()) if rel.numel() else 0.0
+        report["max_abs_err"][name] = (float((got - ref)[fin].abs().max())
+                                       if rel.numel() else 0.0)
+
+    def assert_bits(name, got, ref):
+        assert bits_share(got.float(), ref.float()) == 1.0, (
+            f"3f {name}: not the same bits")
+
+    for dt in (torch.float32, torch.bfloat16):
+        sfx = ke.STORAGE[dt][1]
+        X = Xf.to(dt)
+        yk, okk = ke.eval_trees(trees, X, uops)
+        yk2, _ = ke.eval_trees(trees, X, uops)
+        assert_bits(f"B1{sfx} two launches", yk2[okk], yk[okk])
+        yp, okp = ke.eval_trees_plain(trees, X, uops)
+        assert torch.equal(okk, okp), f"3f B1{sfx}: ok differs"
+        assert int(okk.sum()) > 0
+        check(f"value{sfx}", yk[okk], yp[okk], 1e-5, 1e-6)
+        sk, sok = ke.eval_slot_values(trees, X[:, :1], uops)
+        sp, sokp = ke.eval_slot_values_plain(trees, X[:, :1], uops)
+        assert torch.equal(sok, sokp), f"3f slots{sfx}: ok differs"
+        check(f"slots{sfx}", sk, sp, 1e-5, 1e-6)
+        for name, packed in (("instr", False), ("instr_packed", True)):
+            ik, iok = ki.eval_trees_instr(trees, X, uops, packed)
+            assert torch.equal(iok, okk), f"3f {name}{sfx}: ok differs"
+            assert_bits(f"{name}{sfx} vs B1", ik[okk], yk[okk])
+            ip, iokp = ki.eval_trees_instr_plain(trees, X, uops, packed)
+            assert torch.equal(iokp, okk)
+            check(f"{name}{sfx}", ik[okk], ip[okk], 1e-5, 1e-6)
+        y = yf.to(dt)
+        # the kernels' float32 outputs (make_loss_kernel hands them back in
+        # the working dtype)
+        raw3 = kg.stage_launch(trees, X, y, None, uops, True, 1, loss)
+        l3, g3, b3 = raw3(trees.cval)
+        ok3 = (b3 == 0) & (trees.length > 0)
+        l3b, g3b, _ = raw3(trees.cval)
+        assert_bits(f"B3{sfx} two launches, loss", l3b, l3)
+        assert_bits(f"B3{sfx} two launches, gradient", g3b, g3)
+        lm, gm, okm = kg.eval_loss_grad_program_plain(trees, X, y, None, uops,
+                                                      loss=loss)
+        assert torch.equal(ok3, okm), f"3f B3{sfx}: ok differs from its mirror"
+        fin = okm & torch.isfinite(lm)
+        check(f"loss_grad{sfx}", l3[fin].float(), lm[fin], 1e-5, 0)
+        _, gs, _, scale = kg.eval_loss_grad_plain(trees, X, y, None, uops,
+                                                  scale=True, loss=loss)
+        m = fin.unsqueeze(-1) & torch.isfinite(gm) & torch.isfinite(scale)
+        g, r = g3.float()[m], gm[m]
+        report["bit_equal_share"][f"gradient{sfx}"] = bits_share(g, r)
+        report["max_abs_err"][f"gradient{sfx}"] = (
+            float((g - r).abs().max()) if g.numel() else 0.0)
+        assert bool(((g - r).abs() <= 1e-4 * r.abs() + 1e-5 * scale[m]).all()), (
+            f"3f B3{sfx}: gradient beyond the row-sum yardstick")
+        for reps in (1, LS_STEPS):
+            raw4 = kg.stage_launch(trees, X, y, None, uops, False, reps, loss)
+            l4, _, b4 = raw4(trees.cval.repeat_interleave(reps, 0))
+            assert torch.equal((b4.reshape(-1, reps) == 0).all(-1)
+                               & (trees.length > 0), ok3)
+            assert_bits(f"B4{sfx} (reps {reps}) vs B3, loss",
+                        l4.reshape(-1, reps)[ok3],
+                        l3.unsqueeze(-1).expand(-1, reps)[ok3])
+        if dt == torch.float32:
+            lk = ke.eval_loss_trees(trees, X, yf, uops, loss)
+            lk2 = ke.eval_loss_trees(trees, X, yf, uops, loss)
+            assert_bits("B2 two launches", lk2, lk)
+            lp = ke.eval_loss_trees_plain(trees, X, yf, uops, loss)
+            assert torch.equal(torch.isinf(lk), torch.isinf(lp))
+            check("fused", lk[torch.isfinite(lp)], lp[torch.isfinite(lp)],
+                  1e-4, 0)
+    torch.cuda.synchronize()
+    log_fn(f"3f user operators: {T} random trees x {ROWS} rows over + * op2c "
+           f"| op3c cos under the loss callable, every kernel against its "
+           f"plain version at float32 and bfloat16: bit-equal shares "
+           f"{report['bit_equal_share']}, max rel err {report['max_rel_err']}")
+
+    # timing: each user instantiation beside the registry's full one on
+    # trees of the same shape, and its bound (bytes over 3.35 TB/s, f32
+    # operations over 67 TFLOP/s; a user operator counts its program's
+    # primitives, a registry operator one)
+    prims = {}
+    for arity, names in ((1, uops.unary_names), (2, uops.binary_names)):
+        for j, n in enumerate(names):
+            prims[(arity, j)] = (sum(
+                nd.op not in ("in", "const")
+                for nd in user_ops.operator_program(arity, n).nodes)
+                if is_user_operator(arity, n) else 1)
+    loss_prims = sum(nd.op not in ("in", "const") for nd in loss.program.nodes)
+
+    def node_ops(ops_weighted):
+        kind, op = trees.kind, trees.op
+        live = torch.arange(24, device=dev) < trees.length.unsqueeze(-1)
+        total = 0
+        for (arity, j), w in prims.items():
+            k = UNA if arity == 1 else UNA + 1
+            n = int(((kind == k) & (op == j) & live).sum())
+            total += n * (w if ops_weighted else 1)
+        return total
+
+    live_slots = int(trees.length.sum())
+
+    def bound(n_ops, bytes_):
+        t_b = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_o = n_ops / F32_OPS_PER_S * 1e3
+        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+    for dt in (torch.float32, torch.bfloat16):
+        sfx = ke.STORAGE[dt][1]
+        el = 4 if dt == torch.float32 else 2
+        X = Xf.to(dt)
+        y = yf.to(dt)
+        in_trees = live_slots * (4 * 4 + el) + T * 16
+        rows_in = nfeat * ROWS * el
+        entries = [
+            ("value", ke.MODE_VALUE, X, None, T * ROWS * el + T * 4),
+            ("slots", ke.MODE_SLOTS, X[:, :1], None, T * 24 * el + T * 4)]
+        if dt == torch.float32:
+            entries.append(("fused", ke.MODE_FUSED, X, yf, T * 8))
+        for name, mode, Xm, ym, out_bytes in entries:
+            row = {}
+            for label, o, lo in (("user", uops, loss),
+                                 ("registry", rops, reg_loss),
+                                 ("registry_user_build", rops_u, loss)):
+                prep = ke.prepare_launch(trees, Xm, ym, o, mode, lo)
+                row[f"{label}_ms"] = device_ms(lambda: ke.run_prepared(prep),
+                                               30)
+            rows = Xm.shape[1]
+            n_ops = node_ops(True) * rows + (
+                (loss_prims + 1) * T * rows if mode == ke.MODE_FUSED else 0)
+            row["bound_ms"], row["bound_by"] = bound(
+                n_ops, in_trees + Xm.shape[0] * rows * el + out_bytes
+                + (ROWS * 4 if mode == ke.MODE_FUSED else 0))
+            row["plain_ms"] = cuda_ms(lambda: (ke.eval_loss_trees_plain(
+                trees, X, yf, uops, loss) if mode == ke.MODE_FUSED
+                else (ke.eval_trees_plain(trees, X, uops)
+                      if mode == ke.MODE_VALUE
+                      else ke.eval_slot_values_plain(trees, Xm, uops))), 1)
+            report["timing"][f"{name}{sfx}"] = row
+        for name, packed in (("instr", False), ("instr_packed", True)):
+            row = {}
+            for label, o in (("user", uops), ("registry", rops),
+                             ("registry_user_build", rops_u)):
+                prep = ki.prepare_launch(trees, X, o, packed)
+                row[f"{label}_ms"] = device_ms(lambda: ki.run_prepared(prep),
+                                               30)
+            row["bound_ms"], row["bound_by"] = bound(
+                node_ops(True) * ROWS, in_trees + rows_in + T * ROWS * el)
+            row["plain_ms"] = cuda_ms(lambda: ki.eval_trees_instr_plain(
+                trees, X, uops, packed), 1)
+            report["timing"][f"{name}{sfx}"] = row
+        for name, with_grad, reps, cv in (("loss_grad", True, 1, trees.cval),
+                                          ("loss", False, LS_STEPS, ls_cval)):
+            row = {}
+            for label, o, lo in (("user", uops, loss),
+                                 ("registry", rops, reg_loss),
+                                 ("registry_user_build", rops_u, loss)):
+                raw = kg.stage_launch(trees, X, y, None, o, with_grad, reps,
+                                      lo)
+                row[f"{label}_ms"] = device_ms(lambda: raw(cv), 30)
+            N = T * reps
+            n_ops = (reps * node_ops(True) * ROWS * (2 if with_grad else 1)
+                     + N * ROWS * (loss_prims + 2
+                                   + (loss_prims + 1 if with_grad else 0)))
+            row["bound_ms"], row["bound_by"] = bound(
+                n_ops, rows_in + ROWS * (el + 4) + live_slots * 24 + T * 16
+                + reps * live_slots * el + N * 8 + (N * 24 * 4 if with_grad
+                                                    else 0))
+            if with_grad:
+                plain = lambda: kg.eval_loss_grad_plain(trees, X, y, None,
+                                                        uops, loss=loss)
+            else:
+                reps_trees = trees.map(
+                    lambda f: f.repeat_interleave(reps, 0))._replace(cval=cv)
+                plain = lambda: [kg.eval_loss_plain(
+                    reps_trees[i:i + 8192], X, y, None, uops, loss=loss)
+                    for i in range(0, T * reps, 8192)]
+            row["plain_ms"] = cuda_ms(plain, 1)
+            report["timing"][f"{name}{sfx}"] = row
+    for k, v in report["timing"].items():
+        log_fn(f"3f timing {k}: user {v['user_ms']:.4f} ms, registry full "
+               f"instantiation {v['registry_ms']:.4f} ms (user / registry "
+               f"{v['user_ms'] / v['registry_ms']:.3f}; the registry's "
+               f"operators on the user build {v['registry_user_build_ms']:.4f} "
+               "ms), bound "
+               f"{v['bound_ms']:.5f} ms ({v['bound_by']}), share "
+               f"{v['bound_ms'] / v['user_ms']:.4f}, plain {v['plain_ms']:.2f} ms")
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ncycles", type=int, default=550,
@@ -233,8 +517,9 @@ def main():
     from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
     from symbolicregression_jl_tpu_torch.ops import kernel_instr as ki
     from symbolicregression_jl_tpu_torch.ops import losses as tlosses
+    from symbolicregression_jl_tpu_torch.ops import user_ops
     from symbolicregression_jl_tpu_torch.ops.operators import (
-        BINARY_REGISTRY, UNARY_REGISTRY, make_operator_set,
+        BINARY_REGISTRY, UNARY_REGISTRY, is_user_operator, make_operator_set,
     )
     from symbolicregression_jl_tpu_torch.utils.rng import make_generator
 
@@ -252,13 +537,33 @@ def main():
     log(f"host: {cpu}")
     tb = time.time()
     # one nvcc process per source and working dtype (float32, bfloat16,
-    # float16: nine libraries), all started together
+    # float16: nine libraries), all started together, and with them the
+    # libraries of the generated headers the user operators and the loss
+    # callable of phases 3f, 5g and 8 need: the set's operators alone (the
+    # value and slot modes, B5 / B6), with the loss (B2, B3, B4), and phase
+    # 8's two searches' (``op3c`` alone; the loss over registry operators)
+    register_custom_pair()
+    uops = make_operator_set(["+", "*", "op2c"], ["op3c", "cos"])
+    uloss = user_ops.require_kernel_loss(user_loss)
+    f32, bf16 = torch.float32, torch.bfloat16
+    h_ops, h_loss, h_op3c, h_mixed = (
+        user_ops.user_build(uops), user_ops.user_build(uops, uloss),
+        user_ops.user_build(make_operator_set(["+", "*"], ["op3c"])),
+        user_ops.user_build(make_operator_set(["+", "-", "*"], ["cos"]),
+                            uloss))
+    user_libs = [(ke, f32, h_ops), (ke, bf16, h_ops), (ki, f32, h_ops),
+                 (ki, bf16, h_ops), (ke, f32, h_loss), (kg, f32, h_loss),
+                 (kg, bf16, h_loss), (ke, f32, h_op3c), (kg, f32, h_op3c),
+                 (ke, f32, h_mixed), (kg, f32, h_mixed)]
     builds = [(m, d) for d in ke.STORAGE for m in (ke, kg, ki)]
-    with ThreadPoolExecutor(len(builds)) as pool:
-        for f in [pool.submit(m.build_library, True, d) for m, d in builds]:
+    with ThreadPoolExecutor(len(builds) + len(user_libs)) as pool:
+        for f in ([pool.submit(m.build_library, True, d) for m, d in builds]
+                  + [pool.submit(m.build_library, True, d, u)
+                     for m, d, u in user_libs]):
             f.result()
     build_s = time.time() - tb
-    log(f"build: nvcc {build_s:.1f} s for the three sources x three dtypes")
+    log(f"build: nvcc {build_s:.1f} s for the three sources x three dtypes "
+        f"and {len(user_libs)} libraries of generated headers")
     nvcc_s = {}
     for d in ke.STORAGE:
         for name, m in (("postfix_eval", ke), ("postfix_grad", kg),
@@ -270,6 +575,14 @@ def main():
                 if ("registers" in line or "spill" in line or "smem" in line
                         or "Compiling entry" in line):
                     log(f"ptxas {lib}: {line.strip()}")
+    src_name = {ke: "postfix_eval", kg: "postfix_grad", ki: "instr_eval"}
+    for m, d, u in user_libs:
+        lib = f"{src_name[m]}_u{u.key}{ke.STORAGE[d][1]}"
+        nvcc_s[lib] = m.BUILD_SECONDS[(d, u.key)]
+        log(f"build {lib}: nvcc {nvcc_s[lib]:.1f} s")
+        for line in m.BUILD_LOGS[(d, u.key)].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {lib}: {line.strip()}")
 
     # ---- 2. scoring kernel vs plain at the main path's shapes -------------
     ops = make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
@@ -552,8 +865,11 @@ def main():
         f"loss {rel['loss']:.3g}")
 
     # ---- 3b. every kernel on all 44 registry operators ----------------------
-    all_ops = make_operator_set(sorted(set(BINARY_REGISTRY) - {"pow"}),
-                                sorted(UNARY_REGISTRY))
+    # the registries' own 44 (phase 1 registered the user pair beside them)
+    all_ops = make_operator_set(
+        sorted(n for n in BINARY_REGISTRY
+               if n != "pow" and not is_user_operator(2, n)),
+        sorted(n for n in UNARY_REGISTRY if not is_user_operator(1, n)))
     T_GRID = 4096
     ggen = make_generator(3, dev)
     g_trees = gen_random_tree_fixed_size(
@@ -1057,6 +1373,12 @@ def main():
             f"programs poisoned; {rep}")
     log(f"storage builds checked in {time.time() - tstore:.1f} s")
 
+    # ---- 3f. user operators and a user loss in every kernel ---------------------
+    tuser = time.time()
+    user_report = phase_user_kernels(dev, log)
+    user_report["seconds"] = time.time() - tuser
+    log(f"3f: {user_report['seconds']:.1f} s")
+
     # ---- 4. timing ----------------------------------------------------------
     n_op_nodes = lambda tb_: int((tb_.kind >= UNA).sum())
 
@@ -1399,8 +1721,9 @@ def main():
                        ki.STORAGE_LAUNCHES):
             for k in counts:
                 counts[k] = 0
-        ke.LOSS_LAUNCHES.clear()
-        kg.LOSS_LAUNCHES.clear()
+        for counts in (ke.LOSS_LAUNCHES, kg.LOSS_LAUNCHES, ke.USER_LAUNCHES,
+                       kg.USER_LAUNCHES, ki.USER_LAUNCHES):
+            counts.clear()
 
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1786,6 +2109,102 @@ def main():
     del res_2, res_r, res_m, res_c, res_w, solo_1, g2, gm, graphs
     cg.clear_cache()
 
+    # ---- 5g. user operators and a loss callable at full width --------------------
+    # the north star's widths over + * op2c | op3c cos under the loss
+    # callable, 1 iteration of 100 cycles, with BFGS, then Nelder-Mead, then
+    # Newton; every plain version replaced by a raising stub. Every scoring
+    # call fuses in B2's user instantiation, none takes the value mode, and
+    # no registry library launches; the optimiser runs on the user
+    # instantiations of B3 / B4, each pass timed.
+    user_cycles = 100
+    ucfg = dict(cfg, binary_operators=["+", "*", "op2c"],
+                unary_operators=["op3c", "cos"], loss=user_loss)
+    user_runs = {}
+    for algo in ("BFGS", "NelderMead", "Newton"):
+        log(f"user path: equation_search over + * op2c | op3c cos, "
+            f"loss=(p - t) ** 2, 64 x 1000, {ROWS} rows, maxsize 20, "
+            f"optimizer_algorithm={algo!r}, 1 iteration of {user_cycles} "
+            "cycles")
+        zero_counts()
+        plain_calls.clear()
+        saved = [getattr(m, n) for m, n in plains]
+        for m, n in plains:
+            setattr(m, n, no_plain(n))
+        opt_s.clear()
+        api_mod.optimize_islands_constants = timed_optimize
+        t_u = time.time()
+        try:
+            res_u = equation_search(X_np, y_np, niterations=1,
+                                    ncycles_per_iteration=user_cycles, seed=0,
+                                    optimizer_algorithm=algo, **ucfg)
+            torch.cuda.synchronize()
+        finally:
+            for (m, n), f in zip(plains, saved):
+                setattr(m, n, f)
+            api_mod.optimize_islands_constants = untimed_optimize
+        run = user_runs[algo] = dict(
+            s=time.time() - t_u, user_eval=dict(ke.USER_LAUNCHES),
+            user_grad=dict(kg.USER_LAUNCHES),
+            registry={**ke.LAUNCHES, **kg.LAUNCHES},
+            by_loss={**ke.LOSS_LAUNCHES, **kg.LOSS_LAUNCHES},
+            optimize_ms=[v * 1e3 for v in opt_s],
+            best=res_u.best_loss().loss, equation=res_u.best_loss().equation,
+            plain_calls=len(plain_calls))
+        expect_opt = {"BFGS": {"loss_grad": 9, "loss": 8},
+                      "NelderMead": {"loss": 1 + 3 * 8},
+                      "Newton": {"loss_grad": 8, "loss": 8}}[algo]
+        assert run["plain_calls"] == 0, plain_calls
+        assert run["user_eval"].get("fused") == 1 + user_cycles + 1, run
+        assert run["user_eval"].get("value", 0) == 0, run
+        assert run["user_eval"].get("slots", 0) > 0, run
+        assert not any(run["registry"].values()), run
+        assert run["user_grad"] == expect_opt, run
+        assert run["by_loss"]["fused:UserLoss"] == 1 + user_cycles + 1, run
+        assert res_u.frontier() and np.isfinite(run["best"]), run
+        assert len(opt_s) == 1, opt_s
+        log(f"user path {algo}: {run['s']:.1f} s, user launches "
+            f"{run['user_eval']} {run['user_grad']}, registry launches "
+            f"{run['registry']}, optimisation pass "
+            f"{run['optimize_ms'][0]:.2f} ms, 0 plain calls; best "
+            f"{run['equation']} loss {run['best']:.6g}")
+    # the user instantiations the runs above do not reach: B1's value mode
+    # (a weighted search scores through it, then the loss), B5 and B6 (the
+    # instruction programs), 20 cycles each, plain versions stubbed
+    for label, kw in (("weighted", dict(weights=np.ones(ROWS, np.float32))),
+                      ("instr", dict(kernel_program="instr")),
+                      ("instr_packed", dict(kernel_program="instr_packed"))):
+        zero_counts()
+        plain_calls.clear()
+        saved = [getattr(m, n) for m, n in plains]
+        for m, n in plains:
+            setattr(m, n, no_plain(n))
+        t_u = time.time()
+        try:
+            res_u = equation_search(X_np, y_np, niterations=1,
+                                    ncycles_per_iteration=20, seed=0,
+                                    **kw, **ucfg)
+            torch.cuda.synchronize()
+        finally:
+            for (m, n), f in zip(plains, saved):
+                setattr(m, n, f)
+        run = user_runs[label] = dict(
+            s=time.time() - t_u, user_eval=dict(ke.USER_LAUNCHES),
+            user_grad=dict(kg.USER_LAUNCHES),
+            user_instr=dict(ki.USER_LAUNCHES),
+            registry={**ke.LAUNCHES, **kg.LAUNCHES, **ki.LAUNCHES},
+            plain_calls=len(plain_calls), best=res_u.best_loss().loss)
+        assert run["plain_calls"] == 0, plain_calls
+        assert not any(run["registry"].values()), run
+        assert res_u.frontier() and np.isfinite(run["best"]), run
+        key = {"weighted": ("user_eval", "value"),
+               "instr": ("user_instr", "instr"),
+               "instr_packed": ("user_instr", "instr_packed")}[label]
+        assert run[key[0]].get(key[1], 0) >= 1 + 20 + 1, run
+        log(f"user path {label} (20 cycles): {run['s']:.1f} s, user launches "
+            f"{run['user_eval']} {run['user_grad']} {run['user_instr']}")
+    del res_u
+    cg.clear_cache()
+
     # ---- 6. the cycle alone ---------------------------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2141,6 +2560,65 @@ def main():
     tiny["recovered_float32"] = len(recovered)
     tiny["reference_recovered_float32"] = ref_recovered
 
+    # the reference's bodies with a user operator, a loss callable and
+    # Nelder-Mead (tests/test_custom_operators.py:43, tests/test_mixed.py
+    # :104 and :85, each with the reference's data, rng seed 0), and Newton
+    # on the Nelder-Mead target; each must reach a loss below 1e-2 on the
+    # user instantiations (the first two) or the registry's (the others)
+    mixed = dict(niterations=14, npop=48, npopulations=4,
+                 ncycles_per_iteration=150, maxsize=14, verbosity=0,
+                 early_stop_condition=1e-6, binary_operators=["+", "-", "*"],
+                 unary_operators=["cos"])
+    user_bodies = {}
+
+    def body(name, fn):
+        zero_counts()
+        tr = time.time()
+        res_b = fn()
+        best_b = res_b.best_loss()
+        user_bodies[name] = dict(
+            s=time.time() - tr, loss=best_b.loss, equation=best_b.equation,
+            iterations=res_b.iterations,
+            user_launches={**{f"eval:{k}": v for k, v in ke.USER_LAUNCHES.items()},
+                           **{f"grad:{k}": v for k, v in kg.USER_LAUNCHES.items()}},
+            registry_launches={**ke.LAUNCHES, **kg.LAUNCHES})
+        log(f"reference body {name}: {best_b.equation} loss {best_b.loss:.3g} "
+            f"after {res_b.iterations} iterations, "
+            f"{user_bodies[name]['s']:.1f} s; user launches "
+            f"{user_bodies[name]['user_launches']}")
+        assert best_b.loss < 1e-2, (name, best_b)
+        return res_b
+
+    rng_b = np.random.default_rng(0)
+    Xb = rng_b.standard_normal((2, 60)).astype(np.float32)
+    yb = (np.sin(Xb[0]) + np.cos(Xb[0])) * 2.0
+    body("test_search_with_custom_operator", lambda: equation_search(
+        Xb, yb, niterations=4, binary_operators=["+", "*"],
+        unary_operators=["op3c"], npop=24, npopulations=2,
+        ncycles_per_iteration=40, maxsize=10, tournament_selection_n=6,
+        verbosity=0, progress=False, seed=0, early_stop_condition=1e-6))
+    assert user_bodies["test_search_with_custom_operator"]["user_launches"][
+        "eval:fused"] > 0
+    rng_b = np.random.default_rng(0)
+    Xm_ = (rng_b.standard_normal((3, 80)) * 2).astype(np.float32)
+    ym_ = Xm_[0] * Xm_[0] + 2.0 * np.cos(Xm_[2])
+    res_l = body("test_custom_elementwise_loss", lambda: equation_search(
+        Xm_, ym_, seed=8, loss=user_loss, **mixed))
+    assert user_bodies["test_custom_elementwise_loss"]["user_launches"][
+        "grad:loss_grad"] > 0
+    rng_t2 = np.random.default_rng(95)
+    Xt2 = (rng_t2.standard_normal((3, 80)) * 2).astype(np.float32)
+    np.testing.assert_allclose(res_l.predict(Xt2),
+                               Xt2[0] * Xt2[0] + 2.0 * np.cos(Xt2[2]),
+                               atol=0.15)
+    rng_b = np.random.default_rng(0)
+    Xn = (rng_b.standard_normal((2, 80)) * 2).astype(np.float32)
+    yn = 2.5382 * np.cos(Xn[1]) + Xn[0] * Xn[0] - 0.5
+    for algo in ("NelderMead", "Newton"):
+        body(f"test_nelder_mead_search ({algo})", lambda: equation_search(
+            Xn, yn, seed=7, optimizer_algorithm=algo,
+            optimizer_probability=0.3, **mixed))
+
     # ---- the record -----------------------------------------------------------
     replaces = {
         "fused": "symbolicregression_jl_tpu/ops/pallas_eval.py:1014 "
@@ -2237,6 +2715,49 @@ def main():
                 "float32_ms": h["f32_ms"],
                 "nvcc_s": nvcc_s[src + sfx],
             })
+    # the user instantiations (the generated headers' builds): launches
+    # from phase 5g's runs, errors and times from phase 3f
+    user_src = {"fused": ("postfix_eval", h_loss), "value": ("postfix_eval", h_ops),
+                "slots": ("postfix_eval", h_ops),
+                "loss_grad": ("postfix_grad", h_loss),
+                "loss": ("postfix_grad", h_loss),
+                "instr": ("instr_eval", h_ops),
+                "instr_packed": ("instr_eval", h_ops)}
+    user_launch = {"fused": user_runs["BFGS"]["user_eval"]["fused"],
+                   "slots": user_runs["BFGS"]["user_eval"]["slots"],
+                   "loss_grad": user_runs["BFGS"]["user_grad"]["loss_grad"],
+                   "loss": user_runs["BFGS"]["user_grad"]["loss"],
+                   "value": user_runs["weighted"]["user_eval"]["value"],
+                   "instr": user_runs["instr"]["user_instr"]["instr"],
+                   "instr_packed": user_runs["instr_packed"]["user_instr"][
+                       "instr_packed"]}
+    user_hook = (", with user operators: the full instantiation's dispatch "
+                 "on operators.kernel_unary_fns / kernel_binary_fns "
+                 "(pallas_eval.py:433-434, :767-768; pallas_grad.py:80-81)")
+    loss_hook = (" and a loss callable (loss_fn: pallas_eval.py:1257, "
+                 "pallas_grad.py:183-191, :290)")
+    for name, (src, hdr) in user_src.items():
+        t = user_report["timing"][name]
+        # B4's loss is B3's in every bit, B3's against its mirror
+        err_key = {"loss_grad": "gradient", "loss": "loss_grad"}.get(name, name)
+        kernels.append({
+            "name": f"{src}_user.{name}",
+            "route": "cuda",
+            "source": f"symbolicregression_jl_tpu_torch/csrc/{src}.cu",
+            "build": f"-DSR_USER_OPS, header {hdr.key} generated by "
+                     "symbolicregression_jl_tpu_torch/ops/user_ops.py",
+            "replaces": replaces[name] + user_hook + (
+                loss_hook if hdr is h_loss else ""),
+            "launches": user_launch[name],
+            "max_abs_err": user_report["max_abs_err"][err_key],
+            "bit_equal_share": user_report["bit_equal_share"][err_key],
+            "ms": t["user_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "registry_full_ms": t["registry_ms"],
+            "registry_on_user_build_ms": t["registry_user_build_ms"],
+            "nvcc_s": nvcc_s[f"{src}_u{hdr.key}"],
+        })
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card, "host": cpu,
                       "main_path": {"s_per_iteration": [s for s, _ in per_iter],
@@ -2261,7 +2782,9 @@ def main():
                       "storage_paths": {f"{k[0]}:{k[1]}": v for k, v in
                                         storage_runs.items()},
                       "tiny_search": tiny, "front_door": door,
-                      "recovery_multi": rec_multi}))
+                      "recovery_multi": rec_multi,
+                      "user_kernels": user_report, "user_paths": user_runs,
+                      "user_bodies": user_bodies}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

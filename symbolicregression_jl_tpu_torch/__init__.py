@@ -65,7 +65,9 @@ from .ops.interpreter import (
     eval_trees,
 )
 from .ops.losses import LOSS_REGISTRY, contain_nonfinite, pairwise_sum
-from .ops.operators import OperatorSet, make_operator_set
+from .ops.operators import (
+    OperatorSet, make_operator_set, register_binary, register_unary,
+)
 from .utils.export import (
     from_sympy,
     sympy_simplify_tree,
@@ -88,7 +90,8 @@ __all__ = [
     "eval_trees", "from_sympy", "gen_random_tree_fixed_size",
     "get_constants", "init_hall_of_fame", "init_population",
     "load_csv_dataset", "load_hof_csv", "make_dataset", "make_operator_set",
-    "make_options", "pairwise_sum", "parse_expression", "s_r_cycle",
+    "make_options", "pairwise_sum", "parse_expression", "register_binary",
+    "register_unary", "s_r_cycle",
     "sanitize_dataset", "save_hof_csv", "set_constants", "simplify_tree",
     "sympy_simplify_tree", "to_callable", "to_latex", "to_sympy",
     "tree_hash", "tree_to_string", "update_baseline_loss",

@@ -302,13 +302,38 @@ def _front_door(X, y, weights, options: Options):
     return X, ys, weights, diags, multi
 
 
+def _check_scheduling_kwargs(parallelism, numprocs, procs,
+                             addprocs_function) -> None:
+    """The reference's worker-scheduling keywords: validated, and a
+    warning where they ask for something other than what runs."""
+    if parallelism is not None:
+        if not isinstance(parallelism, str):
+            raise ValueError(f"unknown parallelism {parallelism!r}")
+        p = parallelism[1:] if parallelism.startswith(":") else parallelism
+        if p not in ("serial", "multithreading", "multiprocessing"):
+            raise ValueError(f"unknown parallelism {parallelism!r}")
+        if p != "multithreading":
+            warnings.warn(
+                f"parallelism={parallelism!r} has no effect: every island "
+                "runs together on the one device in this process",
+                stacklevel=3)
+    if any(x is not None for x in (numprocs, procs, addprocs_function)):
+        warnings.warn(
+            "numprocs/procs/addprocs_function have no effect: worker "
+            "processes are replaced by the islands' batch on the one "
+            "device", stacklevel=3)
+
+
 def equation_search(X, y, *, weights=None,
                     variable_names: Optional[Sequence[str]] = None,
                     options: Optional[Options] = None, niterations: int = 10,
                     saved_state: Optional[List[SearchState]] = None,
                     warm_start_file: Optional[str] = None,
-                    return_state: bool = False,
-                    on_iteration: Optional[Callable] = None, device="cuda",
+                    return_state: bool = False, runtests: bool = True,
+                    on_iteration: Optional[Callable] = None,
+                    parallelism: Optional[str] = None,
+                    numprocs: Optional[int] = None, procs=None,
+                    addprocs_function=None, device="cuda",
                     **option_kwargs) -> EquationSearchResult:
     """Search for expressions f(X) ~= y on one device.
 
@@ -325,7 +350,16 @@ def equation_search(X, y, *, weights=None,
     read and write ``base.out{j}.ext``). ``on_iteration(output,
     iteration, candidates)`` is called after every iteration. The search
     runs on ``device`` (default the CUDA card; raises when there is none)
-    — pass ``device="cpu"`` for the plain PyTorch path."""
+    — pass ``device="cpu"`` for the plain PyTorch path.
+
+    The reference's scheduling keywords are taken for drop-in migration:
+    ``parallelism`` is validated (``":serial"`` spelling included) and
+    warns unless it is ``"multithreading"``, since the islands always run
+    together on the one device; ``numprocs`` / ``procs`` /
+    ``addprocs_function`` warn that they have no effect. ``runtests``: the
+    front door's census of the data (``models/dataset.py``) runs on every
+    call, as the JAX package's preflight does with ``runtests=True``."""
+    _check_scheduling_kwargs(parallelism, numprocs, procs, addprocs_function)
     dev = resolve_device(device)
     if options is None:
         options = make_options(**option_kwargs)

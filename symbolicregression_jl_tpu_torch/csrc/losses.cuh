@@ -24,6 +24,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#ifdef SR_USER_OPS
+// a build with the generated header: with SR_USER_LOSS 1 it carries the
+// loss callable's user_loss_elem / user_loss_seed (ops/user_ops.py)
+#include "operators.cuh"
+#endif
+
 namespace srloss {
 
 // the loss ids of ops/losses.py
@@ -32,6 +38,17 @@ enum : int {
   kZeroOne, kPerceptron, kL1Hinge, kL2Hinge, kSmoothedL1Hinge, kModifiedHuber,
   kL2Margin, kExp, kSigmoid, kDwdMargin, kLogitMargin, kLogCosh, kNumLosses
 };
+
+// The loss ids a launch takes: the registry's, and kUser, a traced loss
+// callable, in a build whose generated header has one (only the kAnyLoss
+// instantiations dispatch on the id, so only they carry it).
+#if defined(SR_USER_OPS) && SR_USER_LOSS
+#define SR_HAS_USER_LOSS 1
+constexpr int kUser = kNumLosses;
+#define SR_LOSS_KINDS (srloss::kNumLosses + 1)
+#else
+#define SR_LOSS_KINDS srloss::kNumLosses
+#endif
 
 // A loss: its id and up to three float32 constants (ops/losses.py
 // ElementwiseLoss.constants).
@@ -142,6 +159,10 @@ __device__ __forceinline__ float loss_elem(const Loss& l, float p, float t) {
       const float d = fabsf(sub(p, t));
       return sub(add(d, log1pf(expf(mul(-2.f, d)))), kLn2);
     }
+#ifdef SR_HAS_USER_LOSS
+    case kUser:
+      return srops::user_loss_elem(p, t);
+#endif
     default: {  // kL2
       const float d = sub(p, t);
       return mul(d, d);
@@ -245,6 +266,10 @@ __device__ __forceinline__ float loss_seed(const Loss& l, float p, float t) {
       const float e = expf(mul(-2.f, fabsf(r)));
       return abs_vjp(r, add(1.f, mul(-2.f, mul(div(1.f, add(e, 1.f)), e))));
     }
+#ifdef SR_HAS_USER_LOSS
+    case kUser:
+      return srops::user_loss_seed(p, t);
+#endif
     default:  // kL2
       return mul(2.f, sub(p, t));
   }
@@ -294,6 +319,9 @@ __device__ __forceinline__ void with_loss(int kind, F&& f) {
     case kDwdMargin: f(Kind<kDwdMargin>{}); break;
     case kLogitMargin: f(Kind<kLogitMargin>{}); break;
     case kLogCosh: f(Kind<kLogCosh>{}); break;
+#ifdef SR_HAS_USER_LOSS
+    case kUser: f(Kind<kUser>{}); break;
+#endif
     default: f(Kind<kL2>{}); break;
   }
 }

@@ -18,11 +18,29 @@
 // one when the batch's operators allow it: with all 44 in one switch, the
 // scoring and loss-only kernels ran 11-13 % slower on the common
 // operators (PERF.md). A code outside the compiled set gives NaN.
+//
+// Operators of the user's own (ops/operators.py register_unary /
+// register_binary) and a loss callable come from a header that
+// ops/user_ops.py generates from their traces (sr_user_ops.cuh, under
+// build/, never in csrc/). A build with -DSR_USER_OPS and that header's
+// directory on the include path names the registry's four dispatch
+// functions registry_* (SR_REGISTRY) and defines apply_unary /
+// apply_binary / unary_vjp / binary_vjp at the end of this file: their kAll
+// instantiations run the user operators' codes (ids from 64 unary, 128
+// binary), everything else goes to the registry's. In every other build the
+// registry's functions carry those names themselves, so it is the code it
+// was.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#ifdef SR_USER_OPS
+#define SR_REGISTRY(name) registry_##name
+#else
+#define SR_REGISTRY(name) name
+#endif
 
 namespace srops {
 
@@ -84,7 +102,7 @@ __device__ __forceinline__ float gamma_f(float x) {
 }
 
 template <bool kAll>
-__device__ __forceinline__ float apply_unary(int code, float a) {
+__device__ __forceinline__ float SR_REGISTRY(apply_unary)(int code, float a) {
   switch (code) {
     case OP_COS: return cosf(a);
     case OP_SIN: return sinf(a);
@@ -128,7 +146,8 @@ __device__ __forceinline__ float apply_unary(int code, float a) {
 }
 
 template <bool kAll>
-__device__ __forceinline__ float apply_binary(int code, float b, float a) {
+__device__ __forceinline__ float SR_REGISTRY(apply_binary)(int code, float b,
+                                                           float a) {
   // b = left operand (second stack entry), a = right operand (top)
   switch (code) {
     case OP_ADD: return b + a;
@@ -229,8 +248,8 @@ __device__ __forceinline__ float asin_vjp(float a, float w, float sgn) {
 
 // dL/da of a unary slot: operand a, value v, adjoint w arriving at the slot.
 template <bool kAll>
-__device__ __forceinline__ float unary_vjp(int code, float a, float v,
-                                           float w) {
+__device__ __forceinline__ float SR_REGISTRY(unary_vjp)(int code, float a,
+                                                        float v, float w) {
   switch (code) {
     case OP_COS: return -(w * sinf(a));
     case OP_SIN: return w * cosf(a);
@@ -282,8 +301,10 @@ __device__ __forceinline__ float unary_vjp(int code, float a, float v,
 
 // (dL/db, dL/da) of a binary slot: left b, right a, value v, adjoint w.
 template <bool kAll>
-__device__ __forceinline__ void binary_vjp(int code, float b, float a, float v,
-                                           float w, float* db, float* da) {
+__device__ __forceinline__ void SR_REGISTRY(binary_vjp)(int code, float b,
+                                                        float a, float v,
+                                                        float w, float* db,
+                                                        float* da) {
   switch (code) {
     case OP_ADD: *db = w; *da = w; return;
     case OP_SUB: *db = w; *da = -w; return;
@@ -331,3 +352,62 @@ __device__ __forceinline__ void binary_vjp(int code, float b, float a, float v,
 }
 
 }  // namespace srops
+
+#ifdef SR_USER_OPS
+// the user operators' forward and VJP device functions, written in terms of
+// the registry_* functions above, the X-macros SR_UNARY_USER /
+// SR_BINARY_USER of their opcodes and the SR_USER_*_CASES of the four
+// dispatchers below; and, with SR_USER_LOSS 1, the loss callable's
+// user_loss_elem / user_loss_seed (csrc/losses.cuh)
+#include "sr_user_ops.cuh"
+
+namespace srops {
+
+template <bool kAll>
+__device__ __forceinline__ float apply_unary(int code, float a) {
+  if constexpr (kAll) {
+    switch (code) {
+      SR_USER_UNARY_CASES
+      default: break;
+    }
+  }
+  return registry_apply_unary<kAll>(code, a);
+}
+
+template <bool kAll>
+__device__ __forceinline__ float apply_binary(int code, float b, float a) {
+  if constexpr (kAll) {
+    switch (code) {
+      SR_USER_BINARY_CASES
+      default: break;
+    }
+  }
+  return registry_apply_binary<kAll>(code, b, a);
+}
+
+template <bool kAll>
+__device__ __forceinline__ float unary_vjp(int code, float a, float v,
+                                           float w) {
+  if constexpr (kAll) {
+    switch (code) {
+      SR_USER_UNARY_VJP_CASES
+      default: break;
+    }
+  }
+  return registry_unary_vjp<kAll>(code, a, v, w);
+}
+
+template <bool kAll>
+__device__ __forceinline__ void binary_vjp(int code, float b, float a, float v,
+                                           float w, float* db, float* da) {
+  if constexpr (kAll) {
+    switch (code) {
+      SR_USER_BINARY_VJP_CASES
+      default: break;
+    }
+  }
+  registry_binary_vjp<kAll>(code, b, a, v, w, db, da);
+}
+
+}  // namespace srops
+#endif

@@ -483,7 +483,7 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
                                 float c0, float c1, float c2, void* stream) {
   if (T <= 0) return cudaSuccess;
   if (n_unary + n_binary > kMaxOps || mode < 0 || mode > 2 || items < 1 ||
-      loss_kind < 0 || loss_kind >= srloss::kNumLosses ||
+      loss_kind < 0 || loss_kind >= SR_LOSS_KINDS ||
       range < 1 || warps < 1 || warps > kMaxWarps || L <= 0 ||
       L >= (1 << 24) || smem > kMaxSmemBytes || blocks < 1) {
     return cudaErrorInvalidValue;

@@ -652,7 +652,7 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
                           (plan[6] ? 0 : grad_narrow_scratch_bytes(L)))
              : grad_smem_bytes(static_cast<int>(plan[1]), L);
   if (n_unary + n_binary > srprog::kMaxOps || reps <= 0 || L <= 0 ||
-      loss_kind < 0 || loss_kind >= srloss::kNumLosses ||
+      loss_kind < 0 || loss_kind >= SR_LOSS_KINDS ||
       L >= (1 << 24) || plan[0] != (narrow ? 1 : kGradRows) ||
       plan[1] < 1 || plan[1] > kGradMaxWarps || plan[3] != smem ||
       plan[3] > kMaxSmemBytes || (plan[6] != 0) != (scratch != nullptr) ||
@@ -772,7 +772,7 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
                           (plan[8] ? 0 : 4LL * 32 * ((L + 1) / 2)))
              : loss_smem_bytes(static_cast<int>(plan[3]), L, cand);
   if (n_unary + n_binary > srprog::kMaxOps || plan[1] != cand ||
-      loss_kind < 0 || loss_kind >= srloss::kNumLosses ||
+      loss_kind < 0 || loss_kind >= SR_LOSS_KINDS ||
       plan[0] * cand != reps || L <= 0 || L >= (1 << 24) || plan[3] < 1 ||
       plan[3] > kLossMaxWarps || plan[5] != smem || smem > kMaxSmemBytes ||
       (narrow && cand != 1) || (plan[8] != 0) != (scratch != nullptr) ||

@@ -146,10 +146,27 @@ struct OpMap {
 // 34-45), so the slot loop's switch is over one dense range of cases; with
 // the opcodes' own numbers (leaves, 10-40, 50-61) the compiler built a
 // tree of compares and the kernels ran 2-8 % slower (PERF.md).
+#ifndef SR_USER_OPS
 __host__ __device__ constexpr int dense_code(int c) {
   return c < OP_COS ? c : (c < OP_ADD ? c - (OP_COS - 3)
                                       : c - (OP_ADD - (OP_GAMMA - OP_COS + 4)));
 }
+#else
+// With user operators: leaves 0-2, registry unary 3-33, user unary 34 ..
+// 33 + U, registry binary from 34 + U, user binary after them, so the unary
+// and the binary codes each stay one range, the binary ones above the unary
+// ones (ops/kernel_eval.py dense_code)
+__host__ __device__ constexpr int dense_code(int c) {
+  return c < OP_COS   ? c
+         : c < OP_ADD ? c - (OP_COS - 3)
+         : c < kUserUnaryBase
+             ? c - OP_ADD + (OP_GAMMA - OP_COS + 4) + SR_USER_NUNARY
+         : c < kUserBinaryBase
+             ? c - kUserUnaryBase + (OP_GAMMA - OP_COS + 4)
+             : c - kUserBinaryBase + (OP_GAMMA - OP_COS + 4) + SR_USER_NUNARY +
+                   (OP_LOGICAL_AND - OP_ADD + 1);
+}
+#endif
 
 // The launchers' OpMap from the operator ids of the set (host memory).
 inline OpMap make_op_map(const int* ids, int n_unary, int n_binary) {
@@ -382,7 +399,16 @@ __device__ __forceinline__ void poison(const float (&v)[kN], float (&pz)[kN]) {
   for (int i = 0; i < kN; ++i) pz[i] = __fmaf_rn(v[i], 0.f, pz[i]);
 }
 
-// The operators of the compact instantiation, then the others.
+// The operators of the compact instantiation, then the others (with the
+// user operators of a -DSR_USER_OPS build, which only the full
+// instantiation runs).
+#ifdef SR_USER_OPS
+#define SR_UNARY_USER_LIST(X) SR_UNARY_USER(X)
+#define SR_BINARY_USER_LIST(X) SR_BINARY_USER(X)
+#else
+#define SR_UNARY_USER_LIST(X)
+#define SR_BINARY_USER_LIST(X)
+#endif
 #define SR_UNARY_COMMON(X)                                                   \
   X(OP_COS) X(OP_SIN) X(OP_TAN) X(OP_EXP) X(OP_LOG) X(OP_LOG2) X(OP_LOG10)   \
   X(OP_LOG1P) X(OP_SQRT) X(OP_ABS) X(OP_SQUARE) X(OP_CUBE) X(OP_NEG)         \
@@ -390,11 +416,12 @@ __device__ __forceinline__ void poison(const float (&v)[kN], float (&pz)[kN]) {
   X(OP_IDENTITY) X(OP_SIGN) X(OP_GAUSS)
 #define SR_UNARY_OTHER(X)                                                    \
   X(OP_ASIN) X(OP_ACOS) X(OP_ATAN) X(OP_ASINH) X(OP_ACOSH) X(OP_ATANH)       \
-  X(OP_ERF) X(OP_ERFC) X(OP_GAMMA)
+  X(OP_ERF) X(OP_ERFC) X(OP_GAMMA) SR_UNARY_USER_LIST(X)
 #define SR_BINARY_COMMON(X)                                                  \
   X(OP_ADD) X(OP_SUB) X(OP_MUL) X(OP_DIV) X(OP_POW) X(OP_MAX) X(OP_MIN)
 #define SR_BINARY_OTHER(X)                                                   \
-  X(OP_MOD) X(OP_ATAN2) X(OP_GREATER) X(OP_LOGICAL_OR) X(OP_LOGICAL_AND)
+  X(OP_MOD) X(OP_ATAN2) X(OP_GREATER) X(OP_LOGICAL_OR) X(OP_LOGICAL_AND)     \
+  SR_BINARY_USER_LIST(X)
 
 // Runs slots [0, n) of the program in s_word on kN values per lane. v holds
 // the top of the stack: on return, the root. stack points at this lane's

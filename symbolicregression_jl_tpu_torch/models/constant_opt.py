@@ -1,19 +1,35 @@
 """Batched constant optimisation (counterpart of
-``symbolicregression_jl_tpu/models/constant_opt.py``, BFGS path).
+``symbolicregression_jl_tpu/models/constant_opt.py``).
 
 Members are selected with probability ``optimizer_probability`` (a fixed
-K = round(npop * p) per island), their constants fitted by BFGS with a
-parallel backtracking line search from the member's own constants and
+K = round(npop * p) per island), their constants fitted by
+``optimizer_algorithm`` from the member's own constants and
 ``optimizer_nrestarts`` perturbed restarts, and written back only where
-improved. Every (island x restart x member) instance runs in one batch:
-one launch of the gradient kernel per BFGS step and one launch of the
-loss-only kernel over all ``_LS_STEPS`` line-search candidates
-(``ops/kernel_grad.py``).
+improved. Every (island x restart x member) instance runs in one batch,
+in lockstep for a fixed number of iterations, on the kernels of
+``ops/kernel_grad.py``:
+
+* BFGS (``_bfgs_batched``): one launch of the gradient kernel (B3) per
+  step and one of the loss-only kernel (B4) over all ``_LS_STEPS``
+  line-search candidates;
+* Nelder-Mead (``_nelder_mead_batched``, the JAX package's
+  ``_nelder_mead_single`` for every instance at once): losses only, one B4
+  launch over the first simplex's L + 1 vertices, then one over the four
+  candidates of each of its ``3 * n_iters`` steps;
+* Newton (``_newton_batched``, ``_newton_single``): the gradient from B3,
+  the diagonal of the Hessian from ``torch.func`` forward mode through the
+  lockstep interpreter (``hessian_diagonal``, the port's form of the JAX
+  package's ``jax.jacfwd`` of the masked gradient), the line search of
+  ``_LS_STEPS`` on B4.
+
+None of the three loops reads the card from the host inside its
+iterations (Newton reads which slots hold constants once, before them:
+``hessian_plan``). The loss is the search's: any registry loss or a callable the
+tracer lowers (``ops/user_ops.py``).
 
 The random part (which members, which restarts) is ``_select_and_starts``
 and draws through ``utils/rng.py``; ``optimize_selected`` is the
-deterministic rest and takes the selection as tensors. Nelder-Mead and
-Newton are not ported yet: ``Options`` refuses them.
+deterministic rest and takes the selection as tensors.
 """
 
 from __future__ import annotations
@@ -22,8 +38,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops import interpreter
 from ..ops.kernel_grad import make_loss_kernel
-from ..ops.losses import contain_nonfinite, resolve_loss
+from ..ops.losses import aggregate_loss, contain_nonfinite, resolve_loss
 from ..utils import rng
 from .complexity import compute_complexity
 from .fitness import loss_to_score
@@ -34,9 +51,18 @@ from .trees import CONST, TreeBatch
 _LS_STEPS = 8  # candidate step sizes per line search: 2^0 .. 2^-7
 
 
-def evals_per_member(n_iters: int) -> int:
-    """Loss evaluations one BFGS instance is charged: the start, then per
-    iteration the line search and the gradient at the new point."""
+def evals_per_member(n_iters: int, max_len: int = 0,
+                     algorithm: str = "BFGS") -> int:
+    """Loss evaluations one instance is charged (the JAX package's
+    ``_OPTIMIZERS``): BFGS the start, then per iteration the line search
+    and the gradient at the new point; Nelder-Mead the first simplex's
+    ``max_len + 1`` vertices, then four candidates per step, three steps
+    per iteration; Newton the start, then per iteration the line search,
+    the gradient and the Hessian's diagonal."""
+    if algorithm == "NelderMead":
+        return (max_len + 1) + 3 * n_iters * 4
+    if algorithm == "Newton":
+        return 1 + n_iters * (_LS_STEPS + 2)
     return 1 + n_iters * (_LS_STEPS + 1)
 
 
@@ -107,6 +133,176 @@ def _bfgs_batched(trees_flat: TreeBatch, x0: torch.Tensor, cmask: torch.Tensor,
         f = torch.where(improved, f_new, f)
         x, g = x_new, g_new
     return torch.where(torch.isfinite(f).unsqueeze(-1), x, x0), f
+
+
+def _losses(fn, xs):
+    """Contained losses of a B4 closure's candidates."""
+    loss, _, ok = fn(xs)
+    return contain_nonfinite(loss, ok)
+
+
+def _nelder_mead_batched(trees_flat: TreeBatch, x0: torch.Tensor,
+                         cmask: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
+                         weights: Optional[torch.Tensor], options: Options,
+                         n_iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``_nelder_mead_single`` over M instances at once
+    (trees_flat (M, L), starts x0 (M, L), cmask (M, L)): a simplex of L + 1
+    vertices, x0 and x0 + offsets on the CONST slots (``0.05 x0 + 0.5``
+    on the diagonal, the ``(i * 31 + j * 17) % 7`` pattern on the rows of
+    inactive slots), then ``3 * n_iters`` steps of reflection, expansion,
+    contraction and a pull of the worst vertex halfway to the best (in
+    place of a shrink), the standard acceptance, non-finite candidates
+    rejected. Returns (x (M, L), f (M,)); an instance whose best vertex is
+    not finite hands back its start. Every loss is a B4 launch: the
+    simplex at reps L + 1, each step's four candidates at reps 4."""
+    M, L = x0.shape
+    ops = options.operators
+    loss = resolve_loss(options.loss)
+    init_fn = make_loss_kernel(trees_flat, X, y, weights, ops,
+                               with_grad=False, reps=L + 1, loss=loss)
+    step_fn = make_loss_kernel(trees_flat, X, y, weights, ops,
+                               with_grad=False, reps=4, loss=loss)
+    dev, dt = x0.device, x0.dtype
+    i = torch.arange(L, device=dev)
+    pattern = (((i[:, None] * 31 + i[None, :] * 17) % 7) - 3).to(dt) / 3.0
+    base = (0.05 * x0 + 0.5).unsqueeze(1)  # (M, 1, L)
+    eye = torch.eye(L, dtype=torch.bool, device=dev)
+    offs = torch.where(eye, base, pattern * base) * cmask.unsqueeze(1)
+    verts = torch.cat([x0.unsqueeze(1), x0.unsqueeze(1) + offs], 1)
+    fs = _losses(init_fn, verts)  # (M, L + 1)
+    for _ in range(n_iters * 3):
+        order = torch.argsort(fs, dim=1, stable=True)
+        verts = verts.gather(1, order.unsqueeze(-1).expand_as(verts))
+        fs = fs.gather(1, order)
+        best, worst = verts[:, 0], verts[:, -1]
+        f_best, f_second, f_worst = fs[:, 0], fs[:, -2], fs[:, -1]
+        centroid = verts[:, :-1].mean(1)
+        xr = centroid + (centroid - worst)
+        xe = centroid + 2.0 * (centroid - worst)
+        xc = centroid + 0.5 * (worst - centroid)
+        xs = best + 0.5 * (worst - best)
+        fr, fe, fc, fsh = _losses(step_fn, torch.stack([xr, xe, xc, xs],
+                                                       1)).unbind(1)
+        expand = (fr < f_best) & (fe < fr)
+        reflect = fr < f_second
+        contract = fc < f_worst
+        new_x = torch.where(expand[:, None], xe, torch.where(
+            reflect[:, None], xr, torch.where(contract[:, None], xc, xs)))
+        new_f = torch.where(expand, fe, torch.where(
+            reflect, fr, torch.where(contract, fc, fsh)))
+        accept = (new_f < f_worst) & torch.isfinite(new_f)
+        verts = torch.cat([verts[:, :-1], torch.where(
+            accept[:, None], new_x, worst).unsqueeze(1)], 1)
+        fs = torch.cat([fs[:, :-1], torch.where(accept, new_f,
+                                                f_worst).unsqueeze(1)], 1)
+    k = torch.argmin(fs, dim=1)
+    f = fs.gather(1, k.unsqueeze(1)).squeeze(1)
+    x = verts.gather(1, k[:, None, None].expand(-1, 1, L)).squeeze(1)
+    return torch.where(torch.isfinite(f).unsqueeze(-1), x, x0), f
+
+
+def hessian_plan(trees_flat: TreeBatch, cmask: torch.Tensor, chunk: int = 0,
+                 nrows: int = 1):
+    """Where ``hessian_diagonal`` works, fixed for a whole Newton pass and
+    read from the card once, before its iterations: every (instance,
+    slot) pair whose slot holds a constant, in chunks of ``chunk`` pairs
+    (0: as many as keep a chunk's values near 2^28 at ``nrows`` rows),
+    each chunk as (instance indices, slots, the instances' trees). Every
+    other entry of the diagonal is 0 (its masked gradient is 0 whatever
+    the constants)."""
+    M, L = cmask.shape
+    chunk = chunk or max(1, (1 << 28) // max(1, nrows * L))
+    pairs = torch.nonzero(cmask.cpu() != 0)  # the one read: the structure
+    plan = []
+    for k in range(0, len(pairs), chunk):
+        inst, slot = (v.to(cmask.device) for v in pairs[k:k + chunk].unbind(1))
+        plan.append((inst, slot, trees_flat.map(lambda f: f[inst])))
+    return plan
+
+
+def hessian_diagonal(trees_flat: TreeBatch, x: torch.Tensor,
+                     cmask: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
+                     weights: Optional[torch.Tensor], options: Options,
+                     chunk: int = 0, plan=None) -> torch.Tensor:
+    """diag(jacfwd(masked_grad))(x) of every instance (M, L), as the JAX
+    package's ``_newton_single`` takes it (non-finite entries 0): the
+    masked gradient ``g = d loss / d c * cmask`` (0 where not finite) of
+    the lockstep interpreter's loss (``interpreter.eval_trees``, the
+    loss and ``aggregate_loss``, contained), and its derivative along
+    each slot's own direction, by ``torch.func`` forward mode over forward
+    mode: d g_s / d c_s is the s-th diagonal entry, the s-th column of
+    ``jax.jacfwd``'s Jacobian read at row s. Each (instance, slot) pair of
+    ``hessian_plan`` (computed here unless given) is one row of a batch
+    whose tangent is that slot's direction, so every slot of every
+    instance goes through the interpreter together."""
+    ops = options.operators
+    loss_fn = resolve_loss(options.loss)
+    if plan is None:
+        plan = hessian_plan(trees_flat, cmask, chunk, X.shape[1])
+    h = torch.zeros_like(x)
+    for inst, slot, t in plan:
+        c0 = x[inst]
+        e = torch.nn.functional.one_hot(slot, x.shape[1]).to(x.dtype)
+        cm = cmask[inst, slot]
+
+        def loss(c, t=t):
+            y_pred, ok = interpreter.eval_trees(t._replace(cval=c), X, ops)
+            return contain_nonfinite(aggregate_loss(loss_fn(y_pred, y),
+                                                    weights), ok)
+
+        def grad_s(c, e=e, cm=cm, loss=loss):
+            g = torch.func.jvp(loss, (c,), (e,))[1] * cm
+            return torch.where(torch.isfinite(g), g, 0.0)
+
+        col = torch.func.jvp(grad_s, (c0,), (e,))[1]
+        h[inst, slot] = torch.where(torch.isfinite(col), col, 0.0).to(h.dtype)
+    return h
+
+
+def _newton_batched(trees_flat: TreeBatch, x0: torch.Tensor,
+                    cmask: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
+                    weights: Optional[torch.Tensor], options: Options,
+                    n_iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``_newton_single`` over M instances at once:
+    steps along ``g / |diag H|`` (``g`` where ``|diag H| <= 1e-8``) with a
+    backtracking line search over ``_LS_STEPS`` step sizes, non-finite
+    steps rejected; with one active constant that is the Newton step, with
+    several a Jacobi-preconditioned gradient step. The gradient is B3's
+    (masked, non-finite components 0), the line search B4's, the Hessian's
+    diagonal ``hessian_diagonal``'s. Returns (x (M, L), f (M,)); an
+    instance that never reached a finite objective hands back its start."""
+    ops = options.operators
+    loss = resolve_loss(options.loss)
+    grad_fn = make_loss_kernel(trees_flat, X, y, weights, ops, with_grad=True,
+                               loss=loss)
+    ls_fn = make_loss_kernel(trees_flat, X, y, weights, ops, with_grad=False,
+                             reps=_LS_STEPS, loss=loss)
+    ts = 2.0 ** -torch.arange(_LS_STEPS, dtype=x0.dtype, device=x0.device)
+    plan = hessian_plan(trees_flat, cmask, nrows=X.shape[1])
+    f0, grad, ok0 = grad_fn(x0)
+    x, f = x0, contain_nonfinite(f0, ok0)
+    for it in range(n_iters):
+        if it:
+            _, grad, _ = grad_fn(x)
+        g = grad * cmask
+        g = torch.where(torch.isfinite(g), g, 0.0)
+        h = hessian_diagonal(trees_flat, x, cmask, X, y, weights, options,
+                             plan=plan)
+        step = torch.where(h.abs() > 1e-8, g / h.abs(), g)
+        cand = x.unsqueeze(1) - ts[:, None] * step.unsqueeze(1)
+        fs = _losses(ls_fn, cand)
+        k = torch.argmin(fs, dim=1)
+        f_new = fs.gather(1, k.unsqueeze(1)).squeeze(1)
+        improved = (f_new < f) & torch.isfinite(f_new)
+        x = torch.where(improved.unsqueeze(-1),
+                        cand.gather(1, k[:, None, None].expand(
+                            -1, 1, x.shape[1])).squeeze(1), x)
+        f = torch.where(improved, f_new, f)
+    return torch.where(torch.isfinite(f).unsqueeze(-1), x, x0), f
+
+
+_OPTIMIZERS = {"BFGS": _bfgs_batched, "NelderMead": _nelder_mead_batched,
+               "Newton": _newton_batched}
 
 
 def _static_shapes(npop: int, max_len: int, options: Options,
@@ -180,7 +376,8 @@ def _write_back(pops: Population, sel_idx, sub_trees: TreeBatch, sub_losses,
     trees = pops.trees._replace(cval=pops.trees.cval.scatter(1, ix, new_sub_cval))
     n_attempted = eligible.sum(-1)
     n_evals = (n_attempted.to(torch.float32) * n_starts
-               * evals_per_member(options.optimizer_iterations))
+               * evals_per_member(options.optimizer_iterations,
+                                  xs.shape[-1], options.optimizer_algorithm))
     return (Population(trees=trees,
                        scores=pops.scores.scatter(1, sel_idx, new_sub_scores),
                        losses=pops.losses.scatter(1, sel_idx, new_sub_losses),
@@ -191,18 +388,18 @@ def _write_back(pops: Population, sel_idx, sub_trees: TreeBatch, sub_losses,
 def optimize_selected(pops: Population, sel_idx: torch.Tensor,
                       starts: torch.Tensor, X, y, weights, baseline: float,
                       options: Options):
-    """The deterministic part of one pass: BFGS from ``starts`` (I,
-    n_starts, K, L) for the members ``sel_idx`` (I, K) of every island in
-    one batch, then the write-back. Returns (Population, n_evals (I,),
-    n_attempted (I,))."""
+    """The deterministic part of one pass: ``optimizer_algorithm`` from
+    ``starts`` (I, n_starts, K, L) for the members ``sel_idx`` (I, K) of
+    every island in one batch, then the write-back. Returns (Population,
+    n_evals (I,), n_attempted (I,))."""
     I, n_starts, K, L = starts.shape
     sub_trees = gather_trees(pops.trees, sel_idx)
     const = _const_slots(sub_trees)
     tiled, starts_flat, cmask_flat = _flatten_island_instances(
         sub_trees, starts, const.to(starts.dtype))
-    x_flat, f_flat = _bfgs_batched(tiled, starts_flat, cmask_flat, X, y,
-                                   weights, options,
-                                   options.optimizer_iterations)
+    x_flat, f_flat = _OPTIMIZERS[options.optimizer_algorithm](
+        tiled, starts_flat, cmask_flat, X, y, weights, options,
+        options.optimizer_iterations)
     xs = x_flat.reshape(n_starts, I, K, L).movedim(0, 1)
     fs = f_flat.reshape(n_starts, I, K).movedim(0, 1)
     return _write_back(pops, sel_idx, sub_trees, pops.losses.gather(1, sel_idx),

@@ -59,6 +59,8 @@ LAUNCH_COUNTERS = (
     kernel_eval.LOSS_LAUNCHES, kernel_grad.LAUNCHES,
     kernel_grad.STORAGE_LAUNCHES, kernel_grad.LOSS_LAUNCHES,
     kernel_instr.LAUNCHES, kernel_instr.STORAGE_LAUNCHES,
+    kernel_eval.USER_LAUNCHES, kernel_grad.USER_LAUNCHES,
+    kernel_instr.USER_LAUNCHES,
 )
 
 

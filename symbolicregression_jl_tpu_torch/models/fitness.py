@@ -5,9 +5,10 @@ Routing is by device, with no work gate: the kernel wrapper runs the CUDA
 kernel for CUDA tensors and its plain version for CPU tensors. The program
 is ``Options.kernel_program``: ``"auto"`` is ``"postfix"``, where
 unweighted scoring under any loss of the registry (an ``ElementwiseLoss``)
-takes the fused-loss epilogue, and weighted scoring and a user's own
-callable take value mode followed by the loss and ``aggregate_loss``, as
-the JAX package routes them; ``"instr"`` / ``"instr_packed"`` always take
+or a callable of the user's own that the tracer lowers (a ``UserLoss``,
+``ops/user_ops.py``) takes the fused-loss epilogue, as the JAX package
+fuses any ``loss_fn``, and weighted scoring and a callable the tracer
+cannot lower take value mode followed by the loss and ``aggregate_loss``; ``"instr"`` / ``"instr_packed"`` always take
 the instruction program's value mode followed by the loss and
 ``aggregate_loss`` (it has no fused loss). The working dtype is X's: the
 fused epilogue runs at float32 only, as in the JAX package; at bfloat16
@@ -22,9 +23,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import kernel_eval, kernel_instr
-from ..ops.losses import (
-    ElementwiseLoss, aggregate_loss, contain_nonfinite, resolve_loss,
-)
+from ..ops.losses import aggregate_loss, contain_nonfinite, resolve_loss
+from ..ops.user_ops import kernel_loss
 from ..ops.operators import OperatorSet
 from ..utils import rng
 from .complexity import compute_complexity
@@ -52,10 +52,10 @@ def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
         y = y[row_idx]
         weights = None if weights is None else weights[row_idx]
     loss_fn = resolve_loss(loss)
+    fused = kernel_loss(loss_fn)  # None for a callable that does not trace
     if (program in ("auto", "postfix") and weights is None
-            and X.dtype == torch.float32
-            and isinstance(loss_fn, ElementwiseLoss)):
-        return kernel_eval.eval_loss_trees(trees, X, y, operators, loss_fn)
+            and X.dtype == torch.float32 and fused is not None):
+        return kernel_eval.eval_loss_trees(trees, X, y, operators, fused)
     y_pred, ok = dispatch_eval(trees, X, operators, program)
     elem = loss_fn(y_pred, y)
     return contain_nonfinite(aggregate_loss(elem, weights), ok)

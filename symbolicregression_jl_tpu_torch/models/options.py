@@ -19,6 +19,7 @@ import torch
 
 from ..ops.losses import ElementwiseLoss, resolve_loss
 from ..ops.operators import OperatorSet, canonical_name, make_operator_set
+from ..ops.user_ops import operator_set_key, require_kernel_loss, user_loss_key
 
 # Mutation kind indices (MutationWeights order)
 MUTATE_CONSTANT = 0
@@ -79,12 +80,11 @@ _DEPRECATED_KWARGS = {
     "earlyStopCondition": "early_stop_condition",
 }
 
-_LATER_OPTIMIZERS = "Nelder-Mead and Newton come with a later slice of the port"
+OPTIMIZER_ALGORITHMS = ("BFGS", "NelderMead", "Newton")
 
 # JAX Options fields this slice does not honour, with the value that means
 # "off" and the slice that brings them. Passing anything else raises.
 _UNSUPPORTED = {
-    "optimizer_algorithm": ("BFGS", _LATER_OPTIMIZERS),
     "optimizer_backend": ("auto", "'jnp' and 'pallas' are the JAX package's "
                           "routing levers; the port routes by device"),
     "recorder": (False, "the lineage recorder comes with the host subsystems slice"),
@@ -97,6 +97,16 @@ _UNSUPPORTED = {
     "tenants": (1, "tenant-batched serving comes with the serving/ slice"),
     "loss_function": (None, "custom full-tree objectives come with a later slice"),
     "independent_island_batches": (False, "per-island minibatches come with a later slice"),
+    "recorder_file": ("pysr_recorder.json", "the lineage recorder comes with "
+                      "the host subsystems slice (ROADMAP.md section A.10)"),
+    "telemetry_every": (1, "telemetry comes with the telemetry/ slice "
+                        "(ROADMAP.md section A.11)"),
+    "telemetry_run_id": (None, "telemetry comes with the telemetry/ slice "
+                         "(ROADMAP.md section A.11)"),
+    "telemetry_attempt": (None, "telemetry comes with the telemetry/ slice "
+                          "(ROADMAP.md section A.11)"),
+    "profile_trace_dir": (None, "profile traces come with the telemetry/ "
+                          "slice (ROADMAP.md section A.11)"),
 }
 KERNEL_PROGRAMS = ("auto", "postfix", "instr", "instr_packed")
 # the working dtype of each precision the port runs
@@ -106,7 +116,7 @@ PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 _TPU_LEVERS = (
     "eval_backend", "kernel_leaf_skip", "eval_bucket_ladder",
     "eval_rows_per_tile", "max_cycles_per_dispatch", "cache_device_slots",
-    "cache_capacity", "island_axis", "row_axis", "tenant_axis", "turbo",
+    "cache_capacity", "island_axis", "row_axis", "tenant_axis",
 )
 
 
@@ -182,18 +192,27 @@ GRAPH_FIELDS = (
 )
 
 ORCHESTRATION_FIELDS = (
+    "skip_mutation_failures",
+    "fast_cycle",
     "warmup_maxsize_by",
     "early_stop_condition",
     "timeout_in_seconds",
     "max_evals",
     "seed",
+    "deterministic",
     "verbosity",
     "progress",
     "output_file",
     "save_to_file",
     "terminal_width",
+    "define_helper_functions",
+    "recorder_file",
     "telemetry",
     "telemetry_dir",
+    "telemetry_every",
+    "telemetry_run_id",
+    "telemetry_attempt",
+    "profile_trace_dir",
     "snapshot_path",
     "snapshot_every_dispatches",
     "data_policy",
@@ -220,10 +239,13 @@ def callable_token(fn: Callable) -> int:
 
 def _key_of(value):
     """A hashable key of a config value: a callable that is not a
-    registry loss is keyed by its token."""
+    registry loss is keyed by its token and, where it traces, by the hash
+    of the device code generated from it (``ops/user_ops.py``)."""
     if value is None or isinstance(value, (str, ElementwiseLoss)):
         return value
-    return callable_token(value) if callable(value) else value
+    if callable(value):
+        return (callable_token(value), user_loss_key(value))
+    return value
 
 
 def scalar_tensor(value, device, dtype: torch.dtype = torch.float32):
@@ -263,12 +285,18 @@ class Options:
     crossover_probability: float = 0.066
     perturbation_factor: float = 0.076
     probability_negate_constant: float = 0.01
+    # accepted for drop-in migration and without effect: a mutation that
+    # fails is always skipped (the JAX package's default), and the cycle
+    # is always batched over tournaments and islands (fast_cycle)
+    skip_mutation_failures: bool = True
+    fast_cycle: bool = False
     # --- migration ---
     migration: bool = True
     hof_migration: bool = True
     fraction_replaced: float = 0.00036
     fraction_replaced_hof: float = 0.035
-    # --- constant optimisation (BFGS, any loss of the registry) ---
+    # --- constant optimisation (BFGS, NelderMead or Newton; any loss of
+    # the registry or a traceable callable) ---
     should_optimize_constants: bool = True
     optimizer_algorithm: str = "BFGS"
     optimizer_probability: float = 0.14
@@ -292,6 +320,8 @@ class Options:
     max_evals: Optional[int] = None
     # --- misc ---
     seed: int = 0
+    # accepted without effect: a seed gives the same search on one card
+    deterministic: bool = True
     verbosity: int = 1
     progress: bool = True
     output_file: Optional[str] = None
@@ -301,10 +331,17 @@ class Options:
     # what the front door does with non-finite cells (models/dataset.py):
     # raise, drop their rows through zero weights, or impute X cells
     data_policy: str = "reject"
+    # accepted without effect: operators are Python callables already
+    define_helper_functions: bool = True
     recorder: bool = False
+    recorder_file: str = "pysr_recorder.json"
     cache_fitness: bool = False
     telemetry: bool = False
     telemetry_dir: Optional[str] = None
+    telemetry_every: int = 1
+    telemetry_run_id: Optional[str] = None
+    telemetry_attempt: Optional[int] = None
+    profile_trace_dir: Optional[str] = None
     snapshot_path: Optional[str] = None
     snapshot_every_dispatches: int = 0
     loss_function: Optional[Callable] = None
@@ -350,20 +387,18 @@ class Options:
                     f"{name}={value!r} is not supported by the PyTorch port "
                     f"yet: {why}"
                 )
+        if self.optimizer_algorithm not in OPTIMIZER_ALGORITHMS:
+            raise ValueError(
+                f"optimizer_algorithm {self.optimizer_algorithm!r} not in "
+                f"{list(OPTIMIZER_ALGORITHMS)}")
         optimizes = ((self.should_optimize_constants
                       and self.optimizer_probability > 0)
                      or self.mutation_weights.optimize > 0)
-        if optimizes and not isinstance(resolve_loss(self.loss),
-                                        ElementwiseLoss):
-            raise NotImplementedError(
-                f"constant optimisation with loss={self.loss!r}: the "
-                "constant-optimisation kernels compute the registry's losses "
-                "(a name of LOSS_REGISTRY or an ElementwiseLoss); a callable "
-                "of your own needs its CUDA source spliced into the kernels, "
-                "which comes with custom operators and objectives (ROADMAP.md "
-                "section A.6). Pass should_optimize_constants=False (and no "
-                "optimize mutation) to search without it"
-            )
+        if optimizes:
+            # a callable of the user's own is traced into the kernels' loss
+            # (ops/user_ops.py); one the tracer cannot follow raises here,
+            # naming what it met
+            require_kernel_loss(resolve_loss(self.loss))
         if not 0 < self.tournament_selection_p <= 1:
             raise ValueError("tournament_selection_p must be in (0, 1]")
         if self.kernel_program not in KERNEL_PROGRAMS:
@@ -429,7 +464,8 @@ class Options:
         through the cached graph's own Options."""
         return tuple(
             self.mutation_weights.as_tuple() if f == "mutation_weights"
-            else _key_of(getattr(self, f)) for f in GRAPH_FIELDS)
+            else _key_of(getattr(self, f)) for f in GRAPH_FIELDS) + (
+                operator_set_key(self.operators),)
 
     def traced_scalars(self, device) -> Tuple[torch.Tensor, ...]:
         """The TRACED_SCALAR_FIELDS as float32 0-dim tensors on
@@ -459,6 +495,13 @@ def make_options(**kwargs) -> Options:
     names and the ``elementwise_loss`` / ``una_constraints`` /
     ``bin_constraints`` spellings."""
     remapped = {}
+    # the reference's SIMD knob: turbo=True is the default routing (the
+    # hand-written kernels on the card); turbo=False would pin the JAX
+    # package's portable interpreter, a routing lever the port lacks
+    if kwargs.pop("turbo", True) is not True:
+        raise NotImplementedError(
+            "turbo=False pins the JAX package's portable interpreter; the "
+            "PyTorch port routes by device and carries no such knob")
     for k, v in kwargs.items():
         if k in _TPU_LEVERS:
             raise NotImplementedError(

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..models.trees import ARITY, BIN, CONST, PAD, UNA, VAR, TreeBatch
+from ..utils.device import table
 from .operators import OperatorSet
 
 
@@ -29,7 +30,7 @@ def _slot_step(stack, sp, bad, k, o, f, c, X, operators: OperatorSet):
     """One step for a flat batch: stack (D, T, R), sp (T,), bad (T, R);
     node fields k/o/f/c are (T,)."""
     D, T, R = stack.shape
-    ar = torch.as_tensor(ARITY, device=k.device)[k]
+    ar = table(tuple(ARITY.tolist()), k.device)[k]
     ti = torch.arange(T, device=k.device)
     a = stack[torch.clamp_min(sp - 1, 0), ti]  # top: unary / right operand
     b = stack[torch.clamp_min(sp - 2, 0), ti]  # second: left operand

@@ -35,6 +35,16 @@ counts the float32 build's launches by mode; their sum is the total.
 ``STORAGE_LAUNCHES`` counts the 2-byte builds' (``value_bf16``,
 ``slots_f16``, ...). ``LOSS_LAUNCHES`` counts the fused mode's launches
 by loss name (``fused:HuberLoss``).
+
+An operator set with user operators, or a loss callable of the user's own
+(``ops/user_ops.py``), runs a build of the same source with the header
+generated for them (``-DSR_USER_OPS``; ``user_ops.user_build``), one
+library per header and working dtype, named by the header's hash
+(``libpostfix_eval_u<hash>.so``, ``..._u<hash>_bf16.so``), built at first
+use. Its launches count in ``USER_LAUNCHES`` by mode and dtype suffix
+(``fused``, ``value_bf16``, ...) and not in ``LAUNCHES``; the fused mode's
+also in ``LOSS_LAUNCHES`` (``fused:UserLoss``). User operators run in the
+full instantiation only.
 """
 
 from __future__ import annotations
@@ -52,13 +62,17 @@ import torch
 
 from ..models.trees import ARITY, BIN, CONST, PAD, UNA, VAR, TreeBatch
 from ..utils.device import table
+from . import user_ops
 from .losses import L2, ElementwiseLoss, contain_nonfinite, l2_dist_loss
 from .operators import (
     KERNEL_BINARY_IDS, KERNEL_FULL_ONLY, KERNEL_UNARY_IDS, OperatorSet,
+    is_user_operator,
 )
+from .user_ops import USER_BINARY_BASE, USER_UNARY_BASE, UserBuild
 
 LAUNCHES = {"value": 0, "fused": 0, "slots": 0}  # launches by mode
 LOSS_LAUNCHES = {}  # the fused mode's launches by "fused:<loss name>"
+USER_LAUNCHES = {}  # the user builds' launches by mode and dtype suffix
 
 # The working dtypes the kernels are built for: each one's SR_STORAGE code
 # and the suffix of its library's name and of its launch counts.
@@ -112,11 +126,17 @@ def storage_round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def count_launch(counts: dict, storage_counts: dict, name: str,
-                 dtype: torch.dtype) -> None:
+                 dtype: torch.dtype, user_counts: Optional[dict] = None
+                 ) -> None:
     """One launch of variant ``name`` of ``dtype``'s build. The float32
     builds count apart from the 2-byte ones, so that a sum over
-    ``LAUNCHES`` is the float32 path's launches, as it always was."""
-    if dtype == torch.float32:
+    ``LAUNCHES`` is the float32 path's launches, as it always was; a user
+    build's launch (``user_counts`` given) counts in ``user_counts``
+    alone."""
+    if user_counts is not None:
+        key = name + STORAGE[dtype][1]
+        user_counts[key] = user_counts.get(key, 0) + 1
+    elif dtype == torch.float32:
         counts[name] += 1
     else:
         storage_counts[name + STORAGE[dtype][1]] += 1
@@ -124,39 +144,46 @@ def count_launch(counts: dict, storage_counts: dict, name: str,
 
 def build_storage(source: pathlib.Path, library: pathlib.Path,
                   dtype: torch.dtype, extra_flags, force: bool, logs: dict,
-                  seconds: dict) -> pathlib.Path:
+                  seconds: dict, user: Optional[UserBuild] = None
+                  ) -> pathlib.Path:
     """Compile ``source`` for ``dtype`` into its library (``libx.so``,
     ``libx_bf16.so``, ``libx_f16.so``) once, or again with ``force`` or an
     edited source. ``logs`` and ``seconds`` take nvcc's output and seconds
     by dtype. The float32 build gets no ``SR_STORAGE`` flag, so it is the
-    build it always was."""
+    build it always was. With ``user``, the build with that generated
+    header (``libx_u<hash>.so``, ...; logged under ``(dtype, hash)``)."""
     code, suffix = STORAGE[dtype]
-    lib = library.with_name(library.stem + suffix + library.suffix)
+    stem = library.stem + ("" if user is None else f"_u{user.key}")
+    lib = library.with_name(stem + suffix + library.suffix)
     if not force and is_built(source, lib):
         return lib
     t = time.time()
-    flags = (*extra_flags, *((f"-DSR_STORAGE={code}",) if code else ()))
-    logs[dtype] = compile_library(source, lib, flags)
-    seconds[dtype] = time.time() - t
+    flags = (*extra_flags, *((f"-DSR_STORAGE={code}",) if code else ()),
+             *(() if user is None else user.flags(BUILD_DIR)))
+    key = dtype if user is None else (dtype, user.key)
+    logs[key] = compile_library(source, lib, flags)
+    seconds[key] = time.time() - t
     return lib
 
 
 def load_storage(build, declare, storage_fn: str, dtype: torch.dtype,
-                 cache: dict):
-    """The build of the working dtype ``dtype`` from ``build(force,
-    dtype)``, its functions declared by ``declare(lib)``; checks that the
-    library reports ``dtype``'s storage code through ``storage_fn``.
-    Cached in ``cache``."""
+                 cache: dict, user: Optional[UserBuild] = None):
+    """The build of the working dtype ``dtype`` (with ``user``'s header,
+    when given) from ``build(force, dtype, user)``, its functions
+    declared by ``declare(lib)``; checks that the library reports
+    ``dtype``'s storage code through ``storage_fn``. Cached in
+    ``cache``."""
     check_storage(dtype)
-    lib = cache.get(dtype)
+    key = dtype if user is None else (dtype, user.key)
+    lib = cache.get(key)
     if lib is None:
-        path = build(False, dtype)
+        path = build(False, dtype, user)
         lib = declare(ctypes.CDLL(str(path)))
         fn = getattr(lib, storage_fn)
         fn.restype = ctypes.c_int
         if fn() != STORAGE[dtype][0]:
             raise RuntimeError(f"{path} is not the {dtype} build")
-        cache[dtype] = lib
+        cache[key] = lib
     return lib
 
 
@@ -204,11 +231,19 @@ def operand_schedule(kind: torch.Tensor, length: torch.Tensor):
     return torch.where(valid, lidx, last), torch.where(valid, ridx, last)
 
 
-@functools.lru_cache(maxsize=None)
 def host_operator_ids(operators: OperatorSet):
     """``kernel_operator_ids`` as a ctypes int array in host memory, built
-    once per operator set: the launchers copy it into the kernel's
-    arguments."""
+    once per operator set and what its user operators compile to (a name
+    re-registered with another function gets a new table): the launchers
+    copy it into the kernel's arguments. Raises ``NotImplementedError``
+    for a user operator the tracer cannot lower (``ops/user_ops.py``),
+    before any launch."""
+    user_ops.check_operators(operators)
+    return _host_ids(operators, user_ops.operator_set_key(operators))
+
+
+@functools.lru_cache(maxsize=None)
+def _host_ids(operators: OperatorSet, user_key: tuple):
     ids = kernel_operator_ids(operators)
     if len(ids) > MAX_OPERATORS:
         raise ValueError(f"the kernels take at most {MAX_OPERATORS} operators")
@@ -217,24 +252,48 @@ def host_operator_ids(operators: OperatorSet):
 
 def uses_full_kernel(operators: OperatorSet) -> bool:
     """Whether the kernels' full instantiation must run: the operator set
-    holds one of ``KERNEL_FULL_ONLY``."""
-    return not KERNEL_FULL_ONLY.isdisjoint(
+    holds one of ``KERNEL_FULL_ONLY`` or a user operator."""
+    return (not KERNEL_FULL_ONLY.isdisjoint(
         operators.unary_names + operators.binary_names)
+        or n_user_operators(operators) > 0)
+
+
+def n_user_operators(operators: OperatorSet, arity: Optional[int] = None
+                     ) -> int:
+    """The set's user operators (of ``arity`` 1 or 2, or both)."""
+    n = 0
+    if arity in (None, 1):
+        n += sum(is_user_operator(1, u) for u in operators.unary_names)
+    if arity in (None, 2):
+        n += sum(is_user_operator(2, b) for b in operators.binary_names)
+    return n
 
 
 def kernel_operator_ids(operators: OperatorSet) -> list:
-    """The kernels' operator id of each unary, then each binary operator.
-    Raises for a name outside the registries (an ``OperatorSet`` built by
-    hand): the kernels carry every registry operator and nothing else."""
-    missing = [n for n in operators.unary_names if n not in KERNEL_UNARY_IDS]
-    missing += [n for n in operators.binary_names if n not in KERNEL_BINARY_IDS]
+    """The kernels' operator id of each unary, then each binary operator:
+    a registry operator's ``KERNEL_*_IDS``, the k-th user operator of an
+    arity ``USER_*_BASE + k`` (the generated header's opcodes). Raises for
+    a name in neither (an ``OperatorSet`` built by hand)."""
+    ids, missing = [], []
+    for arity, names, table_, base in (
+            (1, operators.unary_names, KERNEL_UNARY_IDS, USER_UNARY_BASE),
+            (2, operators.binary_names, KERNEL_BINARY_IDS, USER_BINARY_BASE)):
+        k = 0
+        for n in names:
+            if is_user_operator(arity, n):
+                ids.append(base + k)
+                k += 1
+            elif n in table_:
+                ids.append(table_[n])
+            else:
+                missing.append(n)
     if missing:
         raise NotImplementedError(
-            f"the CUDA kernels have no device function for {missing}; an "
-            "operator outside the registries runs only on the CPU path"
+            f"the CUDA kernels have no device function for {missing}: "
+            "neither a registry operator nor one registered with "
+            "register_unary / register_binary"
         )
-    return ([KERNEL_UNARY_IDS[n] for n in operators.unary_names]
-            + [KERNEL_BINARY_IDS[n] for n in operators.binary_names])
+    return ids
 
 
 # ---------------------------------------------------------------------------
@@ -385,16 +444,33 @@ def eval_slot_values_plain(trees: TreeBatch, X: torch.Tensor,
             ~bad & (trees.length > 0))
 
 
-def dense_code(code: torch.Tensor) -> torch.Tensor:
+def dense_code(code: torch.Tensor, n_user_unary: int = 0) -> torch.Tensor:
     """The kernels' dense numbering of their opcodes (csrc/
     postfix_program.cuh ``dense_code``): leaves 0-2, unary 3-33, binary
-    34-45."""
+    34-45; with ``n_user_unary`` U user unary operators (ids from
+    ``USER_UNARY_BASE``), those at 34 .. 33 + U, the registry's binary
+    ones from 34 + U and the user binary ones (ids from
+    ``USER_BINARY_BASE``) after them."""
     first_u = min(KERNEL_UNARY_IDS.values())
     first_b = min(KERNEL_BINARY_IDS.values())
     n_u = max(KERNEL_UNARY_IDS.values()) - first_u + 1
-    return torch.where(code < first_u, code,
-                       torch.where(code < first_b, code - (first_u - 3),
-                                   code - (first_b - (n_u + 3))))
+    n_b = max(KERNEL_BINARY_IDS.values()) - first_b + 1
+    return torch.where(
+        code < first_u, code,
+        torch.where(code < first_b, code - (first_u - 3),
+                    torch.where(code < USER_UNARY_BASE,
+                                code - first_b + n_u + 3 + n_user_unary,
+                                torch.where(code < USER_BINARY_BASE,
+                                            code - USER_UNARY_BASE + n_u + 3,
+                                            code - USER_BINARY_BASE + n_u + 3
+                                            + n_user_unary + n_b))))
+
+
+def first_binary_code(operators: OperatorSet) -> int:
+    """The dense code of the first binary opcode: every binary code is at
+    or above it, every unary one below."""
+    return int(dense_code(torch.tensor(min(KERNEL_BINARY_IDS.values())),
+                          n_user_operators(operators, 1)))
 
 
 def program_words(flat: TreeBatch, operators: OperatorSet, nfeat: int):
@@ -413,8 +489,10 @@ def program_words(flat: TreeBatch, operators: OperatorSet, nfeat: int):
     una, binary = kind == UNA, kind == BIN
     leaf = ~una & ~binary
     pos = torch.where(una, flat.op, U + flat.op)
+    nu = n_user_operators(operators, 1)
     code = torch.where(una | binary,
-                       torch.where(op_in, dense_code(ids[pos.clamp(0, n_ops)]),
+                       torch.where(op_in,
+                                   dense_code(ids[pos.clamp(0, n_ops)], nu),
                                    0xFF), kind)
     entry = torch.where(leaf, before, before - 1)
     feat = torch.where(leaf & (kind != CONST), flat.feat, 0)
@@ -493,7 +571,8 @@ def eval_program_plain(flat: TreeBatch, X: torch.Tensor,
     top = torch.zeros((T, R), dtype=torch.float32, device=X.device)
     bad = invalid.clone()
     ids = dense_code(torch.tensor(kernel_operator_ids(operators),
-                                  dtype=torch.int64)).tolist()
+                                  dtype=torch.int64),
+                     n_user_operators(operators, 1)).tolist()
     fns = {c: (1 if j < operators.n_unary else 2, f) for j, (c, f) in
            enumerate(zip(ids, operators.unary_fns + operators.binary_fns))}
     codes, entries, feats = word_fields(words)
@@ -554,11 +633,13 @@ def is_built(source: pathlib.Path, library: pathlib.Path) -> bool:
 
 
 def build_library(force: bool = False,
-                  dtype: torch.dtype = torch.float32) -> pathlib.Path:
+                  dtype: torch.dtype = torch.float32,
+                  user: Optional[UserBuild] = None) -> pathlib.Path:
     """Compile csrc/postfix_eval.cu with nvcc into build/ (once) for the
-    working dtype ``dtype``."""
+    working dtype ``dtype``, with ``user``'s generated header when
+    given."""
     return build_storage(SOURCE, LIBRARY, dtype, (), force, BUILD_LOGS,
-                         BUILD_SECONDS)
+                         BUILD_SECONDS, user)
 
 
 def _declare(lib):
@@ -583,12 +664,13 @@ def _declare(lib):
     return lib
 
 
-def _library(dtype: torch.dtype = torch.float32):
-    """The build of the working dtype ``dtype``, built and loaded at first
-    use."""
+def _library(dtype: torch.dtype = torch.float32,
+             user: Optional[UserBuild] = None):
+    """The build of the working dtype ``dtype`` (with ``user``'s header),
+    built and loaded at first use."""
     with _lib_lock:
         return load_storage(build_library, _declare, "postfix_eval_storage",
-                            dtype, _libs)
+                            dtype, _libs, user)
 
 
 WAVES = 4  # a batch's blocks, in waves of resident blocks, at least
@@ -674,12 +756,14 @@ def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
 @functools.lru_cache(maxsize=256)
 def launch_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
                 full: bool, device: int, any_loss: bool = False,
-                dtype: torch.dtype = torch.float32) -> EvalPlan:
-    """``eval_plan`` with the layout and occupancy of ``dtype``'s build on
-    card ``device``; the narrow route's layout where one warp's stack of
-    the usual rows per lane does not fit in a block. ``any_loss``: the
-    fused mode's instantiation for a loss other than L2."""
-    lib = _library(dtype)
+                dtype: torch.dtype = torch.float32,
+                user: Optional[UserBuild] = None) -> EvalPlan:
+    """``eval_plan`` with the layout and occupancy of ``dtype``'s build
+    (with ``user``'s header) on card ``device``; the narrow route's layout
+    where one warp's stack of the usual rows per lane does not fit in a
+    block. ``any_loss``: the fused mode's instantiation for a loss other
+    than L2."""
+    lib = _library(dtype, user)
     cfg = (ctypes.c_int * 3)()
     lib.postfix_eval_config(cfg)
     if lib.postfix_eval_smem_bytes(1, L, nfeat, 1, 0, mode) > cfg[2]:
@@ -713,6 +797,7 @@ class PreparedLaunch(NamedTuple):
     plan: EvalPlan
     loss: ElementwiseLoss = l2_dist_loss
     dtype: torch.dtype = torch.float32  # the working dtype's build
+    user: Optional[UserBuild] = None  # the generated header's build
 
 
 def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
@@ -746,15 +831,18 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
                          f"{tuple(X.shape)}")
     if mode == MODE_SLOTS and nrows != 1:
         raise ValueError("the slot-values mode takes X with one row")
-    if not isinstance(loss, ElementwiseLoss):
-        raise NotImplementedError(
-            f"the fused kernel computes the registry's losses; {loss!r} runs "
-            "in value mode followed by the loss")
+    # the fused mode's loss: the registry's or a traced callable (a
+    # UserLoss; one the tracer cannot lower raises, naming what it met);
+    # the other modes compute none
+    loss = (user_ops.require_kernel_loss(loss) if mode == MODE_FUSED
+            else l2_dist_loss)
     full = uses_full_kernel(operators)
     ids = host_operator_ids(operators)
+    user = user_ops.user_build(operators,
+                               loss if mode == MODE_FUSED else None)
     any_loss = mode == MODE_FUSED and loss.kind != L2
     plan = launch_plan(T, L, nfeat, nrows, mode, full, dev.index or 0,
-                       any_loss, dtype)
+                       any_loss, dtype, user)
     fields = [f.to(torch.int64).contiguous()
               for f in (flat.kind, flat.op, flat.feat)]
     cval = flat.cval.to(dtype).contiguous()
@@ -780,12 +868,13 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
             nrows, mode, int(full), plan.items, plan.range, int(plan.staged),
             plan.warps, plan.smem, plan.blocks, int(plan.narrow), loss.kind,
             *loss.constants)
-    return PreparedLaunch(args, out, bad, length, mode, plan, loss, dtype)
+    return PreparedLaunch(args, out, bad, length, mode, plan, loss, dtype,
+                          user)
 
 
 def run_prepared(p: PreparedLaunch) -> None:
     """Launch the kernel on the current stream and check the launch."""
-    lib = _library(p.dtype)
+    lib = _library(p.dtype, p.user)
     tensors, rest = p.args[:13], p.args[13:]
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream(p.out.device).cuda_stream
@@ -793,7 +882,8 @@ def run_prepared(p: PreparedLaunch) -> None:
     if rc != 0:
         raise RuntimeError("postfix_eval kernel launch failed: "
                            + lib.postfix_eval_error_string(rc).decode())
-    count_launch(LAUNCHES, STORAGE_LAUNCHES, MODE_NAMES[p.mode], p.dtype)
+    count_launch(LAUNCHES, STORAGE_LAUNCHES, MODE_NAMES[p.mode], p.dtype,
+                 None if p.user is None else USER_LAUNCHES)
     if p.mode == MODE_FUSED:
         key = f"fused:{p.loss.name}"
         LOSS_LAUNCHES[key] = LOSS_LAUNCHES.get(key, 0) + 1

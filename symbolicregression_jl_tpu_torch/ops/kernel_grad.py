@@ -31,6 +31,16 @@ back loss and gradient in the working dtype. ``LAUNCHES`` counts the
 float32 build's launches by variant, ``STORAGE_LAUNCHES`` the 2-byte
 builds' (``loss_grad_bf16``, ...), ``LOSS_LAUNCHES`` every build's by
 variant and loss name (``loss_grad:HuberLoss``).
+
+A loss callable of the user's own that traces (``ops/user_ops.py``; a
+``UserLoss``, or the callable itself, which ``make_loss_kernel`` traces)
+runs as the kernels' ``kUser`` loss kind in the build with the header
+generated for it and for the set's user operators
+(``kernel_eval.build_storage``); the plain versions call it and take its
+seed from ``torch.func.vjp``, and a user operator's derivative there is
+``operators.vjp_of``. The user builds' launches count in
+``USER_LAUNCHES`` (``loss_grad``, ``loss_bf16``, ...), not in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -45,13 +55,16 @@ import torch
 
 from ..models.trees import CONST, TreeBatch
 from . import kernel_eval as ke
+from . import user_ops
 from .losses import L2, ElementwiseLoss, l2_dist_loss
-from .operators import BINARY_VJP, KERNEL_BINARY_IDS, UNARY_VJP, OperatorSet
+from .operators import OperatorSet, vjp_of
+from .user_ops import UserBuild
 
 LAUNCHES = {"loss_grad": 0, "loss": 0}  # launches by variant
 STORAGE_LAUNCHES = {f"{v}{ke.STORAGE[d][1]}": 0 for d in ke.NARROW_STORAGE
                     for v in LAUNCHES}
 LOSS_LAUNCHES = {}  # launches by "<variant>:<loss name>"
+USER_LAUNCHES = {}  # the user builds' launches by variant and dtype suffix
 
 SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "postfix_grad.cu"
 LIBRARY = ke.BUILD_DIR / "libpostfix_grad.so"
@@ -88,6 +101,7 @@ def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
     CONST slot's sum over rows of |row term|, which bounds the rounding of
     its row sum (a comparison's yardstick). The forward values are rounded
     to X's dtype; the rest is float32 and so are the outputs."""
+    loss_fn = user_ops.plain_loss(loss_fn)
     root, bad, vals = ke._plain_forward(flat, X, operators)
     y = y.to(torch.float32)
     ok = ~bad & (flat.length > 0)
@@ -113,9 +127,9 @@ def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
         db = torch.zeros_like(w)
         for j, name in enumerate(operators.unary_names):
             da = torch.where((c == 3 + j).unsqueeze(-1),
-                             UNARY_VJP[name](a, v, w), da)
+                             vjp_of(1, name)(a, v, w), da)
         for j, name in enumerate(operators.binary_names):
-            db_j, da_j = BINARY_VJP[name](b, a, v, w)
+            db_j, da_j = vjp_of(2, name)(b, a, v, w)
             sel = (c == 3 + U + j).unsqueeze(-1)
             da = torch.where(sel, da_j, da)
             db = torch.where(sel, db_j, db)
@@ -158,12 +172,14 @@ def eval_loss_plain(trees: TreeBatch, X, y, weights, operators: OperatorSet,
     return total.reshape(shape), ok.reshape(shape)
 
 
-def adjoint_words(words: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+def adjoint_words(words: torch.Tensor, length: torch.Tensor,
+                  first_binary: Optional[int] = None) -> torch.Tensor:
     """Plain version of the gradient kernel's ``derive_adjoint_words``: the
     words of valid programs (``ke.program_words``) with, in the feature
     field, each binary slot's left operand (the slot just before the last
     leaf that pushed to the binary slot's stack entry) and each CONST
-    slot's rank among the CONST slots."""
+    slot's rank among the CONST slots. ``first_binary``: the set's
+    ``ke.first_binary_code`` (the registry's without user operators)."""
     T, L = words.shape
     code, entry, _ = ke.word_fields(words)
     # a valid program's entries are below (L + 1) // 2; the clamp keeps the
@@ -172,8 +188,9 @@ def adjoint_words(words: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     live = torch.arange(L, device=words.device) < length.unsqueeze(-1)
     leaf = live & (code <= 2)
     const = live & (code == 1)
-    binary = live & (code >= int(ke.dense_code(
-        torch.tensor(min(KERNEL_BINARY_IDS.values())))))
+    if first_binary is None:
+        first_binary = ke.first_binary_code(OperatorSet((), ()))
+    binary = live & (code >= first_binary)
     last = torch.zeros((T, (L + 1) // 2), dtype=torch.int64,
                        device=words.device)
     left = torch.zeros_like(words)
@@ -204,6 +221,7 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
     program is poisoned, its loss and gradient 0. The forward sweep rounds
     every value to X's dtype as the kernel does; the rest is float32, the
     kernel's outputs."""
+    loss = user_ops.plain_loss(loss)
     flat = ke._flatten(trees)
     T, L = flat.kind.shape
     nfeat, R = X.shape
@@ -213,13 +231,14 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
     wn = normalized_weights(weights, R, X.device)
     words, invalid = ke.program_words(flat, operators, nfeat)
     n = torch.where(invalid, 0, flat.length)
-    words = adjoint_words(words, n)
+    words = adjoint_words(words, n, ke.first_binary_code(operators))
     code, entry, field = ke.word_fields(words)
     left = torch.where(code >= 3, field, 0)
     feat = field.clamp(0, nfeat - 1)
     ti = torch.arange(T, device=X.device)
     cap = (L + 1) // 2
-    ids = ke.dense_code(torch.tensor(ke.kernel_operator_ids(operators))).tolist()
+    ids = ke.dense_code(torch.tensor(ke.kernel_operator_ids(operators)),
+                        ke.n_user_operators(operators, 1)).tolist()
     U = operators.n_unary
     fns = list(zip(ids, operators.unary_fns + operators.binary_fns,
                    operators.unary_names + operators.binary_names))
@@ -262,9 +281,9 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
         for j, (cj, _, name) in enumerate(fns):
             sel = live & (c == cj).unsqueeze(-1)
             if j < U:
-                new_w = torch.where(sel, UNARY_VJP[name](a, v, w), new_w)
+                new_w = torch.where(sel, vjp_of(1, name)(a, v, w), new_w)
             else:
-                dl, da = BINARY_VJP[name](lv, a, v, w)
+                dl, da = vjp_of(2, name)(lv, a, v, w)
                 new_w = torch.where(sel, da, new_w)
                 stack[e, ti] = torch.where(sel, dl, stack[e, ti])
         w = new_w
@@ -283,11 +302,13 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
 
 
 def build_library(force: bool = False,
-                  dtype: torch.dtype = torch.float32) -> pathlib.Path:
+                  dtype: torch.dtype = torch.float32,
+                  user: Optional[UserBuild] = None) -> pathlib.Path:
     """Compile csrc/postfix_grad.cu with nvcc into build/ (once) for the
-    working dtype ``dtype``."""
+    working dtype ``dtype``, with ``user``'s generated header when
+    given."""
     return ke.build_storage(SOURCE, LIBRARY, dtype, NVCC_EXTRA_FLAGS, force,
-                            BUILD_LOGS, BUILD_SECONDS)
+                            BUILD_LOGS, BUILD_SECONDS, user)
 
 
 def _declare(lib):
@@ -314,12 +335,13 @@ def _declare(lib):
     return lib
 
 
-def _library(dtype: torch.dtype = torch.float32):
-    """The build of the working dtype ``dtype``, built and loaded at first
-    use."""
+def _library(dtype: torch.dtype = torch.float32,
+             user: Optional[UserBuild] = None):
+    """The build of the working dtype ``dtype`` (with ``user``'s header),
+    built and loaded at first use."""
     with _lib_lock:
         return ke.load_storage(build_library, _declare, "postfix_grad_storage",
-                               dtype, _libs)
+                               dtype, _libs, user)
 
 
 def candidate_groups(reps: int, per_lane: int) -> int:
@@ -366,10 +388,11 @@ class GradPlan(NamedTuple):
 @functools.lru_cache(maxsize=64)
 def grad_plan(T: int, reps: int, L: int, full: bool,
               any_loss: bool = False,
-              dtype: torch.dtype = torch.float32) -> GradPlan:
-    """The gradient kernel's layout in ``dtype``'s build; ``any_loss``:
-    its instantiation for a loss other than L2."""
-    lib = _library(dtype)
+              dtype: torch.dtype = torch.float32,
+              user: Optional[UserBuild] = None) -> GradPlan:
+    """The gradient kernel's layout in ``dtype``'s build (with ``user``'s
+    header); ``any_loss``: its instantiation for a loss other than L2."""
+    lib = _library(dtype, user)
     plan = (ctypes.c_longlong * 7)()
     rc = lib.postfix_grad_plan(T, reps, L, int(full), int(any_loss), plan)
     if rc != 0:
@@ -381,10 +404,11 @@ def grad_plan(T: int, reps: int, L: int, full: bool,
 @functools.lru_cache(maxsize=64)
 def loss_plan(T: int, reps: int, L: int, full: bool,
               any_loss: bool = False,
-              dtype: torch.dtype = torch.float32) -> LossPlan:
-    """The loss-only kernel's layout in ``dtype``'s build; ``any_loss`` as
-    ``grad_plan``'s."""
-    lib = _library(dtype)
+              dtype: torch.dtype = torch.float32,
+              user: Optional[UserBuild] = None) -> LossPlan:
+    """The loss-only kernel's layout in ``dtype``'s build (with ``user``'s
+    header); ``any_loss`` as ``grad_plan``'s."""
+    lib = _library(dtype, user)
     cand = candidate_groups(reps, lib.postfix_loss_candidates())
     plan = (ctypes.c_longlong * 9)()
     rc = lib.postfix_loss_plan(T, reps, cand, L, int(full), int(any_loss),
@@ -429,12 +453,14 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
     if nfeat >= 1 << 16 or X.numel() >= 1 << 31:
         raise ValueError("the constant-optimisation kernels take fewer than "
                          "65536 features and X of fewer than 2^31 elements")
-    lib = _library(dtype)
-    full = ke.uses_full_kernel(operators)
     ids = ke.host_operator_ids(operators)
+    loss = user_ops.require_kernel_loss(loss)
+    user = user_ops.user_build(operators, loss)
+    lib = _library(dtype, user)
+    full = ke.uses_full_kernel(operators)
     any_loss = loss.kind != L2
-    plan = (grad_plan(T, reps, L, full, any_loss, dtype) if with_grad
-            else loss_plan(T, reps, L, full, any_loss, dtype))
+    plan = (grad_plan(T, reps, L, full, any_loss, dtype, user) if with_grad
+            else loss_plan(T, reps, L, full, any_loss, dtype, user))
     c_plan = (ctypes.c_longlong * len(plan))(*plan)
     scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
                            device=dev) if plan.scratch_bytes else None)
@@ -451,7 +477,8 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
         if rc != 0:
             raise RuntimeError("postfix_grad kernel launch failed: "
                                + lib.postfix_grad_error_string(rc).decode())
-        ke.count_launch(LAUNCHES, STORAGE_LAUNCHES, variant, dtype)
+        ke.count_launch(LAUNCHES, STORAGE_LAUNCHES, variant, dtype,
+                        None if user is None else USER_LAUNCHES)
         key = f"{variant}:{loss.name}"
         LOSS_LAUNCHES[key] = LOSS_LAUNCHES.get(key, 0) + 1
 
@@ -503,12 +530,12 @@ def make_loss_kernel(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
     ``(loss, grad | None, ok)`` under ``loss`` with ``cval`` of shape (...,
     L) holding ``reps`` constant vectors per tree, in tree order; the
     outputs take ``cval``'s leading shape, loss and gradient X's dtype (the
-    working dtype). CUDA tensors run the kernel, CPU tensors the plain
-    version."""
-    if not isinstance(loss, ElementwiseLoss):
-        raise NotImplementedError(
-            f"the constant-optimisation kernels compute the registry's losses "
-            f"and their seeds; {loss!r} is not one of them")
+    working dtype). ``loss``: a registry loss, or a callable (pred, target)
+    -> elem that the tracer lowers (``ops/user_ops.py``; on a CUDA tensor
+    one it cannot raises ``NotImplementedError`` naming what it met).
+    CUDA tensors run the kernel, CPU tensors the plain version."""
+    loss = (user_ops.require_kernel_loss(loss) if X.is_cuda
+            else user_ops.plain_loss(loss))
     flat = ke._flatten(trees)
     T, L = flat.kind.shape
     if X.is_cuda:

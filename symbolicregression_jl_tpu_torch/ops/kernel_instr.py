@@ -44,11 +44,14 @@ import torch
 from ..models.trees import BIN, CONST, UNA, VAR, TreeBatch
 from . import kernel_eval as ke
 from .kernel_grad import adjoint_words
-from .operators import KERNEL_BINARY_IDS, OperatorSet
+from . import user_ops
+from .operators import OperatorSet
+from .user_ops import UserBuild
 
 LAUNCHES = {"instr": 0, "instr_packed": 0}  # launches by variant
 STORAGE_LAUNCHES = {f"{v}{ke.STORAGE[d][1]}": 0 for d in ke.NARROW_STORAGE
                     for v in LAUNCHES}
+USER_LAUNCHES = {}  # the user builds' launches by variant and dtype suffix
 
 SOURCE = ke.CSRC / "instr_eval.cu"
 LIBRARY = ke.BUILD_DIR / "libinstr_eval.so"
@@ -219,12 +222,12 @@ def derive_instr_tables(flat: TreeBatch, operators: OperatorSet, nfeat: int):
     dev = flat.kind.device
     words, invalid = ke.program_words(flat, operators, nfeat)
     n = torch.where(invalid, 0, flat.length)
-    code, _, field = ke.word_fields(adjoint_words(words, n))
+    first_binary = ke.first_binary_code(operators)
+    code, _, field = ke.word_fields(adjoint_words(words, n, first_binary))
     slot = torch.arange(L, device=dev).expand(T, L)
     live = slot < n.unsqueeze(-1)
     is_op = live & (code > 2)
-    binary = is_op & (code >= int(ke.dense_code(
-        torch.tensor(min(KERNEL_BINARY_IDS.values())))))
+    binary = is_op & (code >= first_binary)
     pos = torch.cumsum(is_op.to(torch.int64), -1) - 1
     var = live & (code == 2)
     d_src = torch.where(is_op, SRC_RES, torch.where(var, SRC_VAR, SRC_CONST))
@@ -360,11 +363,13 @@ def eval_trees_instr_plain(trees: TreeBatch, X: torch.Tensor,
 
 
 def build_library(force: bool = False,
-                  dtype: torch.dtype = torch.float32) -> pathlib.Path:
+                  dtype: torch.dtype = torch.float32,
+                  user: Optional[UserBuild] = None) -> pathlib.Path:
     """Compile csrc/instr_eval.cu with nvcc into build/ (once) for the
-    working dtype ``dtype``, with the postfix scoring kernel's flags."""
+    working dtype ``dtype``, with the postfix scoring kernel's flags (and
+    ``user``'s generated header when given)."""
     return ke.build_storage(SOURCE, LIBRARY, dtype, (), force,
-                            BUILD_LOGS, BUILD_SECONDS)
+                            BUILD_LOGS, BUILD_SECONDS, user)
 
 
 def _declare(lib):
@@ -387,24 +392,26 @@ def _declare(lib):
     return lib
 
 
-def _library(dtype: torch.dtype = torch.float32):
-    """The build of the working dtype ``dtype``, built and loaded at first
-    use."""
+def _library(dtype: torch.dtype = torch.float32,
+             user: Optional[UserBuild] = None):
+    """The build of the working dtype ``dtype`` (with ``user``'s header),
+    built and loaded at first use."""
     with _lib_lock:
         return ke.load_storage(build_library, _declare, "instr_eval_storage",
-                               dtype, _libs)
+                               dtype, _libs, user)
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(T: int, L: int, nfeat: int, nrows: int, packed: bool,
                 full: bool, device: int,
-                dtype: torch.dtype = torch.float32) -> ke.EvalPlan:
+                dtype: torch.dtype = torch.float32,
+                user: Optional[UserBuild] = None) -> ke.EvalPlan:
     """The postfix kernel's plan (``kernel_eval.eval_plan``: work items,
     warps, X staged or not; B6 never stages X) with the layout and
     occupancy of ``dtype``'s build on card ``device``; the narrow route's
     layout where one warp's results of the usual rows per lane do not fit
-    in a block."""
-    lib = _library(dtype)
+    in a block. ``user``: the build with that generated header."""
+    lib = _library(dtype, user)
     cfg = (ctypes.c_int * 3)()
     lib.instr_eval_config(cfg)
     if lib.instr_eval_smem_bytes(int(packed), 1, L, nfeat, 1, 0) > cfg[2]:
@@ -437,6 +444,7 @@ class PreparedLaunch(NamedTuple):
     packed: bool
     plan: ke.EvalPlan
     dtype: torch.dtype = torch.float32  # the working dtype's build
+    user: Optional[UserBuild] = None  # the generated header's build
 
 
 def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
@@ -463,8 +471,9 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
                          f"got {tuple(X.shape)}")
     full = ke.uses_full_kernel(operators)
     ids = ke.host_operator_ids(operators)
+    user = user_ops.user_build(operators)
     plan = launch_plan(T, L, nfeat, nrows, packed, full, dev.index or 0,
-                       dtype)
+                       dtype, user)
     fields = [f.to(torch.int64).contiguous()
               for f in (flat.kind, flat.op, flat.feat)]
     cval = flat.cval.to(dtype).contiguous()
@@ -483,12 +492,12 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
             nrows, int(packed), int(full), plan.items, plan.range,
             int(plan.staged), plan.warps, plan.smem, plan.blocks,
             int(plan.narrow))
-    return PreparedLaunch(args, out, bad, length, packed, plan, dtype)
+    return PreparedLaunch(args, out, bad, length, packed, plan, dtype, user)
 
 
 def run_prepared(p: PreparedLaunch) -> None:
     """Launch the kernel on the current stream and check the launch."""
-    lib = _library(p.dtype)
+    lib = _library(p.dtype, p.user)
     tensors, rest = p.args[:11], p.args[11:]
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream(p.out.device).cuda_stream
@@ -497,7 +506,8 @@ def run_prepared(p: PreparedLaunch) -> None:
         raise RuntimeError("instr_eval kernel launch failed: "
                            + lib.instr_eval_error_string(rc).decode())
     ke.count_launch(LAUNCHES, STORAGE_LAUNCHES,
-                    "instr_packed" if p.packed else "instr", p.dtype)
+                    "instr_packed" if p.packed else "instr", p.dtype,
+                    None if p.user is None else USER_LAUNCHES)
 
 
 def eval_trees_instr(trees: TreeBatch, X: torch.Tensor, operators: OperatorSet,

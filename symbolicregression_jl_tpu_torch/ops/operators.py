@@ -13,6 +13,12 @@ registries, with the same guards, in one header (``csrc/operators.cuh``),
 under the ids of ``KERNEL_UNARY_IDS`` / ``KERNEL_BINARY_IDS``; each
 operator's closed-form derivative is in ``UNARY_VJP`` / ``BINARY_VJP``
 here and in the header.
+
+``register_unary`` / ``register_binary`` add an operator of the user's own
+(an elementwise torch callable), or replace a registry one. Such a "user
+operator" (``is_user_operator``) runs as its callable on the CPU, with
+``torch.func.vjp`` of it as its derivative (``vjp_of``); on the card the
+kernels run device code generated from its trace (``ops/user_ops.py``).
 """
 
 from __future__ import annotations
@@ -428,6 +434,80 @@ BINARY_VJP: Dict[str, Callable] = {
     "logical_or": _zero_vjp,
     "logical_and": _zero_vjp,
 }
+
+# the registries as the package defines them: a name whose function is
+# still this one runs the kernels' own device function
+_BUILTIN_UNARY = dict(UNARY_REGISTRY)
+_BUILTIN_BINARY = dict(BINARY_REGISTRY)
+# name -> the variant of a user operator that the kernels are generated
+# from (the counterpart of the JAX package's Mosaic-lowerable substitutes);
+# unary and binary names are separate namespaces, as the registries are
+KERNEL_FNS_UNARY: Dict[str, Callable] = {}
+KERNEL_FNS_BINARY: Dict[str, Callable] = {}
+
+
+def register_unary(name: str, fn: Callable,
+                   kernel_fn: Callable | None = None) -> None:
+    """Register a unary operator of the user's own: ``fn`` is an
+    elementwise torch callable; ``kernel_fn``, when given, is the variant
+    the CUDA kernels are generated from (``ops/user_ops.py`` traces
+    ``kernel_fn or fn``). Re-registering a name drops a stale
+    ``kernel_fn``."""
+    UNARY_REGISTRY[name] = fn
+    if kernel_fn is not None:
+        KERNEL_FNS_UNARY[name] = kernel_fn
+    else:
+        KERNEL_FNS_UNARY.pop(name, None)
+
+
+def register_binary(name: str, fn: Callable,
+                    kernel_fn: Callable | None = None) -> None:
+    """Register a binary operator of the user's own, ``fn(left, right)``;
+    as ``register_unary``."""
+    BINARY_REGISTRY[name] = fn
+    if kernel_fn is not None:
+        KERNEL_FNS_BINARY[name] = kernel_fn
+    else:
+        KERNEL_FNS_BINARY.pop(name, None)
+
+
+def is_user_operator(arity: int, name: str) -> bool:
+    """Whether the kernels run ``name`` (of arity 1 or 2) from generated
+    code: it was registered by the user, or a registry name was
+    re-registered with another function."""
+    reg, builtin, kfns = ((UNARY_REGISTRY, _BUILTIN_UNARY, KERNEL_FNS_UNARY)
+                          if arity == 1 else
+                          (BINARY_REGISTRY, _BUILTIN_BINARY, KERNEL_FNS_BINARY))
+    return name in kfns or reg.get(name) is not builtin.get(name)
+
+
+def kernel_fn_of(arity: int, name: str) -> Callable:
+    """The callable the kernels' code of a user operator comes from."""
+    if arity == 1:
+        return KERNEL_FNS_UNARY.get(name, UNARY_REGISTRY[name])
+    return KERNEL_FNS_BINARY.get(name, BINARY_REGISTRY[name])
+
+
+def vjp_of(arity: int, name: str) -> Callable:
+    """The derivative rule of operator ``name`` in ``UNARY_VJP`` /
+    ``BINARY_VJP``'s form; for a user operator ``torch.func.vjp`` of its
+    callable (the plain versions' counterpart of ``jax.vjp``)."""
+    if not is_user_operator(arity, name):
+        return (UNARY_VJP if arity == 1 else BINARY_VJP)[name]
+    if arity == 1:
+        fn = UNARY_REGISTRY[name]
+
+        def unary(a, v, w):
+            return torch.func.vjp(fn, a)[1](w)[0]
+
+        return unary
+    fn = BINARY_REGISTRY[name]
+
+    def binary(b, a, v, w):
+        return torch.func.vjp(fn, b, a)[1](w)
+
+    return binary
+
 
 _ALIASES = {
     "plus": "+",

@@ -236,6 +236,11 @@ def test_select_and_starts_invariants(carried, seed):
     dict(should_optimize_constants=False, loss="L1DistLoss"),
     dict(loss="L1DistLoss"), dict(loss="HuberLoss", should_optimize_constants=False,
                                   mutation_weights=dict(optimize=0.1)),
+    dict(optimizer_algorithm="NelderMead"), dict(optimizer_algorithm="Newton"),
+    # a callable of the user's own that the tracer lowers (ops/user_ops.py)
+    dict(loss=lambda p, t: (p - t) * (p - t)),
+    dict(loss=lambda p, t: abs(p - t), should_optimize_constants=False,
+         mutation_weights=dict(optimize=0.1)),
 ])
 def test_constant_optimisation_options_accepted(kw):
     o = sr.make_options(**kw)
@@ -247,11 +252,14 @@ def test_constant_optimisation_options_accepted(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(optimizer_algorithm="NelderMead"), dict(optimizer_algorithm="Newton"),
+    dict(loss_function=lambda tree, X, y, w, o: 0.0),
+    dict(loss=lambda p, t: torch.from_numpy(p.numpy() - t.numpy()) ** 2),
     dict(optimizer_backend="jnp"), dict(optimizer_backend="pallas"),
-    # a callable of the user's own has no seed in the kernels
-    dict(loss=lambda p, t: (p - t) * (p - t)),
-    dict(loss=lambda p, t: abs(p - t), should_optimize_constants=False,
+    # a callable of the user's own that the tracer cannot lower has no seed
+    # in the kernels
+    dict(loss=lambda p, t: (p - t) ** 2 if bool((p > t).all()) else p - t),
+    dict(loss=lambda p, t: torch.fft.fft(p - t).real,
+         should_optimize_constants=False,
          mutation_weights=dict(optimize=0.1)),
 ])
 def test_constant_optimisation_options_refused(kw):

@@ -11,7 +11,6 @@ import symbolicregression_jl_tpu_torch as sr
 
 # ROADMAP §A item -> the reference's public names that item brings
 STILL_TO_PORT = {
-    6: ("register_unary", "register_binary"),
     9: ("FitnessMemoBank", "clear_memo_banks", "tree_hash_host"),
     10: ("SymbolicRegressor", "do_precompilation", "enable_compilation_cache",
          "save_search_state", "load_search_state", "FaultInjected",

@@ -1279,3 +1279,106 @@ def test_to_callable_runs_b1_on_card(cuda):
     plain, _ = tke.eval_trees_plain(tree.map(lambda x: x.to(cuda)[None]), X,
                                     ops)
     assert torch.equal(got, plain[0])
+
+
+@pytest.fixture
+def custom_pair(monkeypatch):
+    """The reference's custom pair registered into copies of the
+    registries (undone at the test's end)."""
+    monkeypatch.setattr(tops, "UNARY_REGISTRY", dict(tops.UNARY_REGISTRY))
+    monkeypatch.setattr(tops, "BINARY_REGISTRY", dict(tops.BINARY_REGISTRY))
+    tops.register_binary("op2c", lambda x, y: x * x + 1.0 / (y * y + 0.1))
+    tops.register_unary("op3c", lambda x: torch.sin(x) + torch.cos(x))
+    return tops.make_operator_set(["+", "*", "op2c"], ["op3c", "cos"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_user_operators_and_loss_in_every_kernel_on_card(cuda, custom_pair,
+                                                         precision):
+    """Every kernel over the custom pair, and B2 / B3 / B4 under a loss
+    callable, against its plain version on the card (values at rtol 1e-5,
+    B2 at 1e-4, B3 against its mirror, B4's loss B3's in every bit, B5 /
+    B6 bit-equal to B1), launched from the user builds only."""
+    ops = custom_pair
+    dt = getattr(torch, precision)
+    loss = lambda p, t: (p - t) ** 2  # noqa: E731
+    gen = make_generator(4, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, 21, (600,), device=cuda), 3, ops, L, cuda)
+    X = (torch.randn(3, 333, device=cuda) * 1.5).to(dt)
+    y = torch.randn(333, device=cuda).to(dt)
+    for counts in (tke.USER_LAUNCHES, tkg.USER_LAUNCHES, tki.USER_LAUNCHES):
+        counts.clear()
+    before = sum(tke.LAUNCHES.values()) + sum(tkg.LAUNCHES.values())
+    yk, okk = tke.eval_trees(trees, X, ops)
+    yp, okp = tke.eval_trees_plain(trees, X, ops)
+    assert torch.equal(okk, okp) and int(okk.sum()) > 0
+    torch.testing.assert_close(yk[okk].float(), yp[okk].float(), rtol=1e-5,
+                               atol=1e-6)
+    for packed in (False, True):
+        ik, iok = tki.eval_trees_instr(trees, X, ops, packed)
+        assert torch.equal(iok, okk) and torch.equal(ik[okk], yk[okk])
+    raw = tkg.stage_launch(trees, X, y, None, ops, True, 1, loss)
+    l3, g3, b3 = raw(trees.cval)
+    lm, gm, okm = tkg.eval_loss_grad_program_plain(trees, X, y, None, ops,
+                                                   loss=loss)
+    assert torch.equal((b3 == 0) & (trees.length > 0), okm)
+    torch.testing.assert_close(l3[okm], lm[okm], rtol=1e-5, atol=0)
+    fin = okm.unsqueeze(-1) & torch.isfinite(gm)
+    torch.testing.assert_close(g3[fin], gm[fin], rtol=1e-4, atol=1e-4)
+    l4, _, _ = tkg.stage_launch(trees, X, y, None, ops, False, 1, loss)(
+        trees.cval)
+    assert torch.equal(l4[okm], l3[okm])
+    if dt == torch.float32:
+        lk = tke.eval_loss_trees(trees, X, y, ops, loss)
+        lp = tke.eval_loss_trees_plain(trees, X, y, ops, loss)
+        f = torch.isfinite(lp)
+        assert torch.equal(torch.isfinite(lk), f)
+        torch.testing.assert_close(lk[f], lp[f], rtol=1e-4, atol=0)
+    sfx = tke.STORAGE[dt][1]
+    assert tke.USER_LAUNCHES[f"value{sfx}"] == 1
+    assert tki.USER_LAUNCHES == {f"instr{sfx}": 1, f"instr_packed{sfx}": 1}
+    assert tkg.USER_LAUNCHES == {f"loss_grad{sfx}": 1, f"loss{sfx}": 1}
+    assert sum(tke.LAUNCHES.values()) + sum(tkg.LAUNCHES.values()) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["NelderMead", "Newton"])
+def test_nelder_mead_and_newton_on_card(cuda, custom_pair, algo):
+    """A short search over the custom pair under the loss callable with
+    each optimizer: its B4 (and Newton's B3) launches from the user build,
+    the launch counts of one pass, and a finite hall of fame."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((2, 200)).astype(np.float32)
+    y = (2.0 * (np.sin(X[0]) + np.cos(X[0])) + 0.5).astype(np.float32)
+    tkg.USER_LAUNCHES.clear()
+    res = sr.equation_search(
+        X, y, binary_operators=["+", "*", "op2c"],
+        unary_operators=["op3c", "cos"], npopulations=4, npop=40,
+        ncycles_per_iteration=20, maxsize=10, niterations=1, seed=0,
+        verbosity=0, optimizer_algorithm=algo, optimizer_iterations=4,
+        loss=lambda p, t: (p - t) ** 2)
+    assert np.isfinite(res.best_loss().loss)
+    want = ({"loss": 1 + 3 * 4} if algo == "NelderMead"
+            else {"loss_grad": 4, "loss": 4})
+    assert tkg.USER_LAUNCHES == want
+
+
+@pytest.mark.gpu
+def test_reregistering_rebuilds_on_card(cuda, custom_pair):
+    """Re-registering op3c with another function builds and loads another
+    library (another header hash), whose values follow the new function."""
+    ops = tops.make_operator_set(["+"], ["op3c"])
+    X = torch.linspace(-3, 3, 64, device=cuda).reshape(1, 64)
+    tree = encode_tree(parse_expression("op3c(x0)", ops), L,
+                       device=cuda).map(lambda f: f.unsqueeze(0))
+    first = tke.eval_trees(tree, X, ops)[0][0]
+    key = tke.user_ops.user_build(ops).key
+    tops.register_unary("op3c", lambda x: torch.sin(x) - torch.cos(x))
+    assert tke.user_ops.user_build(ops).key != key
+    second = tke.eval_trees(tree, X, ops)[0][0]
+    torch.testing.assert_close(first, torch.sin(X[0]) + torch.cos(X[0]),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(second, torch.sin(X[0]) - torch.cos(X[0]),
+                               rtol=1e-5, atol=1e-6)

@@ -74,13 +74,18 @@ ALT = dict(
     early_stop_condition=1e-3, timeout_in_seconds=10.0, max_evals=100,
     seed=4, verbosity=1, progress=False, output_file="hof.csv",
     save_to_file=False, terminal_width=72, data_policy="mask",
+    optimizer_algorithm="NelderMead", fast_cycle=True,
+    skip_mutation_failures=False, deterministic=False,
+    define_helper_functions=False,
 )
 # fields whose only accepted value is the default (the port raises for
 # the others): their class is still checked above
-FIXED = {"loss_function", "optimizer_algorithm", "optimizer_backend",
+FIXED = {"loss_function", "optimizer_backend",
          "independent_island_batches", "recorder", "cache_fitness",
          "row_shards", "tenants", "telemetry", "telemetry_dir",
-         "snapshot_path", "snapshot_every_dispatches"}
+         "snapshot_path", "snapshot_every_dispatches", "recorder_file",
+         "telemetry_every", "telemetry_run_id", "telemetry_attempt",
+         "profile_trace_dir"}
 
 
 def test_every_field_perturbed_or_fixed():

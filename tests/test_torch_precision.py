@@ -376,7 +376,7 @@ def test_storage_builds_never_take_the_plain_path(monkeypatch):
         "cpu")
     asked = []
 
-    def no_library(dtype=torch.float32):
+    def no_library(dtype=torch.float32, user=None):
         asked.append(dtype)
         raise RuntimeError("kernel launch attempted")
 

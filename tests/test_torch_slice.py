@@ -240,7 +240,7 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
                                  {"length": np.ones(1)})
 
 
-@pytest.mark.parametrize("kw", [dict(optimizer_algorithm="NelderMead"),
+@pytest.mark.parametrize("kw", [dict(telemetry_every=2),
                                 dict(recorder=True),
                                 dict(should_optimize_constants=False, row_shards=2),
                                 dict(should_optimize_constants=False,
@@ -265,15 +265,27 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     instruction-program wrappers raise instead of falling back, under L2
     and under every other loss of the registry (the fused scoring mode,
     the gradient and loss-only kernels, and the scoring route of
-    ``fitness``); an operator outside the registries has no kernel opcode
-    and raises too."""
+    ``fitness``), over a user operator and under a traced loss callable
+    too; an operator outside the registries has no kernel opcode and
+    raises too, and so does a user operator or loss callable that the
+    tracer cannot lower, before any launch."""
     ops = tops.make_operator_set(["+", "*"], ["cos", "erf"])
     trees = tmut.gen_random_tree_fixed_size(
         make_generator(0, "cpu"), torch.full((6,), 7), 2, ops, L, "cpu")
     X = torch.randn(2, 40).as_subclass(_OnCard)
     y = torch.randn(40)
+    # registered into copies of the registries, which the test's end undoes
+    monkeypatch.setattr(tops, "UNARY_REGISTRY", dict(tops.UNARY_REGISTRY))
+    monkeypatch.setattr(tops, "BINARY_REGISTRY", dict(tops.BINARY_REGISTRY))
+    tops.register_binary("op2c", lambda x, y: x * x + 1.0 / (y * y + 0.1))
+    tops.register_unary("opfft", lambda x: torch.fft.fft(x).real)
+    user_ops_set = tops.make_operator_set(["+", "op2c"], ["cos"])
+    user_trees = tmut.gen_random_tree_fixed_size(
+        make_generator(0, "cpu"), torch.full((6,), 7), 2, user_ops_set, L,
+        "cpu")
+    user_loss = lambda p, t: (p - t) ** 2  # noqa: E731
 
-    def no_library(dtype=torch.float32):
+    def no_library(*args, **kwargs):
         raise RuntimeError("kernel launch attempted")
 
     def no_plain(*a, **k):
@@ -302,8 +314,29 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
             lambda loss=loss: tkg.eval_loss(trees, X, y, None, ops, loss=loss),
             lambda loss=loss: tfit.eval_loss_trees(trees, X, y, None, ops,
                                                    loss)]
+    uo, ut = user_ops_set, user_trees
+    calls += [lambda: tke.eval_trees(ut, X, uo),
+              lambda: tke.eval_slot_values(ut, X[:, :1], uo),
+              lambda: tki.eval_trees_instr(ut, X, uo, packed=True)]
+    for o, t in ((ops, trees), (uo, ut)):
+        calls += [
+            lambda o=o, t=t: tke.eval_loss_trees(t, X, y, o, user_loss),
+            lambda o=o, t=t: tkg.eval_loss_grad(t, X, y, None, o,
+                                                loss=user_loss),
+            lambda o=o, t=t: tkg.eval_loss(t, X, y, None, o, loss=user_loss),
+            lambda o=o, t=t: tfit.eval_loss_trees(t, X, y, None, o,
+                                                  user_loss)]
     for call in calls:
         with pytest.raises(RuntimeError, match="kernel launch attempted"):
             call()
     with pytest.raises(NotImplementedError):
         tke.host_operator_ids(tops.OperatorSet(("my_op",), ("+",)))
+    fft_ops = tops.make_operator_set(["+"], ["opfft"])
+    with pytest.raises(NotImplementedError, match="fft"):
+        tke.eval_trees(trees, X, fft_ops)
+    bad_loss = lambda p, t: torch.fft.fft(p - t).real  # noqa: E731
+    with pytest.raises(NotImplementedError, match="fft"):
+        tkg.eval_loss(trees, X, y, None, ops, loss=bad_loss)
+    # scoring under it takes the value route (B1), which needs its library
+    with pytest.raises(RuntimeError, match="kernel launch attempted"):
+        tfit.eval_loss_trees(trees, X, y, None, ops, bad_loss)
