@@ -127,12 +127,13 @@ class EquationSearchResult:
         """Evaluate the selected equation on X (nfeatures, n) through the
         kernel's value mode on the search's device, at the search's working
         dtype (``Options.dtype``). The values come back as float16 numpy at
-        float16 and as float32 numpy at float32 and at bfloat16, which
-        numpy has no type for (float32 holds every bfloat16 value). A row
-        that left the operators' domain warns."""
+        float16, float64 numpy at float64 and as float32 numpy at float32
+        and at bfloat16, which numpy has no type for (float32 holds every
+        bfloat16 value). A row that left the operators' domain warns."""
         cand = self._pick(output, complexity)
         dev = resolve_device("cuda" if self.device is None else self.device)
-        X = np.asarray(X, np.float32)
+        X = np.asarray(X, np.float64 if self.options.dtype == torch.float64
+                       else np.float32)
         n_used = int(torch.where(cand.tree.kind == VAR, cand.tree.feat, -1).max()) + 1
         if X.ndim != 2 or X.shape[0] < n_used:
             raise ValueError(f"X must be (nfeatures >= {n_used}, n), got {X.shape}")
@@ -256,20 +257,23 @@ def _multi_output_path(path: str, output: int) -> str:
 def _front_door(X, y, weights, options: Options):
     """Cast, count and treat the data on the host: (X (nfeat, n), ys
     (nout, n), weights or None, as float32 numpy holding values of the
-    working dtype, the diagnostics, whether y was 2-D). Finite values
-    that the cast to float32 or to the working dtype turns infinite are
-    counted as ``cast_overflow_cells`` with an error entry, and the policy
-    treats them as the non-finite cells they became."""
+    working dtype (float64 numpy at float64), the diagnostics, whether y
+    was 2-D). Finite values that the cast to float32 or to the working
+    dtype turns infinite are counted as ``cast_overflow_cells`` with an
+    error entry, and the policy treats them as the non-finite cells they
+    became; at float64 the data keeps its double values, so no finite
+    value overflows."""
+    host = np.float64 if options.dtype == torch.float64 else np.float32
     X_raw, y_raw = np.asarray(X), np.asarray(y)
-    X = np.asarray(X_raw, np.float32)
-    y = np.asarray(y_raw, np.float32)
+    X = np.asarray(X_raw, host)
+    y = np.asarray(y_raw, host)
     if weights is not None:
-        weights = np.asarray(weights, np.float32)
+        weights = np.asarray(weights, host)
     cast_overflow = 0
-    if X_raw.dtype != np.float32 or y_raw.dtype != np.float32:
+    if X_raw.dtype != host or y_raw.dtype != host:
         cast_overflow = int((np.isfinite(X_raw) & ~np.isfinite(X)).sum()
                             + (np.isfinite(y_raw) & ~np.isfinite(y)).sum())
-    if options.dtype != torch.float32:
+    if options.dtype not in (torch.float32, torch.float64):
         # the values the device will hold, as float32 (which holds every
         # bfloat16 and float16 value)
         def held(a):

@@ -36,13 +36,13 @@ def _tensor(x, dtype, device):
 def _working(x, device):
     """A floating array of the working dtype, bit for bit: JAX hands
     bfloat16 over as an ``ml_dtypes`` array, which torch cannot read, so it
-    crosses as its 16-bit pattern; float16 crosses as it is, anything else
-    as float32."""
+    crosses as its 16-bit pattern; float16 and float64 (a JAX search with
+    ``jax_enable_x64``) cross as they are, anything else as float32."""
     a = np.array(x)
     if a.dtype.name == "bfloat16":
         bits = torch.from_numpy(a.view(np.uint16).view(np.int16))
         return bits.view(torch.bfloat16).to(device)
-    if a.dtype == np.float16:
+    if a.dtype in (np.float16, np.float64):
         return torch.from_numpy(a).to(device)
     return _tensor(a, torch.float32, device)
 

@@ -58,7 +58,10 @@
 // (pallas_eval.py:778-788), float16 the same rule: X, the constants and
 // the output in the storage type, each step's value computed in f32 and
 // rounded to the storage type (poison on the rounded value), the operand
-// finiteness test kept; they give B1's bits at the same storage type.
+// finiteness test kept; they give B1's bits at the same storage type. The
+// float64 build (SR_STORAGE 3) computes and stores in double; B6's records
+// there carry its constants' slots instead of their bits, read from the
+// constants as B5 reads them.
 // Built without --use_fast_math and, unlike the constant-optimisation
 // kernels, without -fmad=false: the flags of postfix_eval.cu, whose bits
 // these values must be.
@@ -90,7 +93,7 @@ struct InstrArgs {
   Storage* out;
   int* bad;
   int* part_bad;   // (T, items) poison flags; bad itself when items == 1
-  float* scratch;  // the narrow route's results in global memory, or null
+  SR_REAL* scratch;  // the narrow route's results in global memory, or null
   int T, L, nfeat, nrows, items, range, cap;
   OpMap map;
 };
@@ -107,25 +110,37 @@ __device__ __forceinline__ int make_desc(int src, int idx) {
 // the entry its result goes to << 12, y = ridx, z = lidx (a RES operand's
 // instruction, a VAR's feature, a CONST's postfix slot), w = the entry a
 // RES left operand is read from. B6: x = the packed word, y / z = the bits
-// of the left / right constant.
+// of the left / right constant (in the float64 build their postfix slots:
+// B6 reads its constants from the slots' constants as B5 does).
 template <bool kPacked>
 __device__ __forceinline__ int4 make_record(int code, int r, int l,
-                                            const float* cv, int nfeat, int L,
+                                            const SR_REAL* cv, int nfeat, int L,
                                             int store, int left_entry) {
   if constexpr (kPacked) {
     const auto unify = [&](int d) {
       return desc_src(d) == SRC_RES ? nfeat + desc_idx(d)
              : desc_src(d) == SRC_VAR ? desc_idx(d) : 0;
     };
+#if SR_STORAGE == 3
+    const auto slot = [&](int d) {
+      return desc_src(d) == SRC_CONST && desc_idx(d) < L ? desc_idx(d) : 0;
+    };
+    (void)cv;
+#else
     const auto constant = [&](int d) {
       return desc_src(d) == SRC_CONST && desc_idx(d) < L ? cv[desc_idx(d)]
-                                                         : 0.f;
+                                                         : SR_LIT(0.);
     };
+#endif
     const int word = code | (desc_src(l) == SRC_CONST) << 8 |
                      (desc_src(r) == SRC_CONST) << 9 | unify(l) << 10 |
                      unify(r) << 21;
+#if SR_STORAGE == 3
+    return make_int4(word, slot(l), slot(r), 0);
+#else
     return make_int4(word, __float_as_int(constant(l)),
                      __float_as_int(constant(r)), 0);
+#endif
   } else {
     return make_int4(code | desc_src(r) << 8 | desc_src(l) << 10 | store << 12,
                      desc_idx(r), desc_idx(l), left_entry);
@@ -144,7 +159,8 @@ __device__ __forceinline__ int4 make_record(int code, int r, int l,
 // it, as instruction_schedule has them.
 template <bool kPacked>
 __device__ __forceinline__ int derive_instructions(const int2* s_word, int n,
-                                                   int* s_desc, const float* cv,
+                                                   int* s_desc,
+                                                   const SR_REAL* cv,
                                                    int4* rec, int L, int nfeat,
                                                    int lane) {
   const unsigned below = (1u << lane) - 1u;
@@ -198,9 +214,9 @@ __device__ __forceinline__ int4 lds_record(unsigned a) {
 // One instruction's operator on kN values per lane: v = op(b, a), or op(a)
 // for a unary code (the dense numbering of postfix_program.cuh).
 template <bool kAll, int kN>
-__device__ __forceinline__ void apply_step(int code, const float (&a)[kN],
-                                           const float (&b)[kN],
-                                           float (&v)[kN]) {
+__device__ __forceinline__ void apply_step(int code, const SR_REAL (&a)[kN],
+                                           const SR_REAL (&b)[kN],
+                                           SR_REAL (&v)[kN]) {
 #define SR_UNARY_CASE(OPC)                                                   \
   case dense_code(OPC):                                                      \
     _Pragma("unroll") for (int i = 0; i < kN; ++i) v[i] =                    \
@@ -240,12 +256,17 @@ __device__ __forceinline__ void apply_step(int code, const float (&a)[kN],
 // at its slot. B6: res is this lane's part of the operand space's entry 0,
 // whose entries [0, nfeat) hold the features. The next record loads while
 // a step runs.
+#if SR_STORAGE == 3
+#define B6_CONST(field) SR_LDS(cval_a + SR_RB * (field))
+#else
+#define B6_CONST(field) __int_as_float(field)
+#endif
 template <bool kPacked, bool kAll, int kN, bool kGeneric, class Var>
 __device__ __forceinline__ void run_instr(unsigned rec_a, int ni,
                                           unsigned cval_a,
                                           typename Stack<kN, kGeneric>::Addr res,
-                                          int nfeat, float (&r)[kN],
-                                          float (&pz)[kN], Var var) {
+                                          int nfeat, SR_REAL (&r)[kN],
+                                          SR_REAL (&pz)[kN], Var var) {
   using St = Stack<kN, kGeneric>;
   using Addr = typename St::Addr;
   constexpr unsigned kEntryBytes = St::kEntryBytes;
@@ -256,11 +277,11 @@ __device__ __forceinline__ void run_instr(unsigned rec_a, int ni,
     if (k + 1 < ni) next = lds_record(rec_a + 16u * (k + 1));
     const int code = q.x & 0xff;
     const bool binary = code >= dense_code(OP_ADD);
-    float a[kN], b[kN], v[kN];
+    SR_REAL a[kN], b[kN], v[kN];
     if constexpr (kPacked) {
       if ((q.x >> 9) & 1) {
 #pragma unroll
-        for (int i = 0; i < kN; ++i) a[i] = __int_as_float(q.z);
+        for (int i = 0; i < kN; ++i) a[i] = B6_CONST(q.z);
       } else {
         St::load(res + static_cast<Addr>((q.x >> 21) & 0x7ff) * kEntryBytes, a);
       }
@@ -268,7 +289,7 @@ __device__ __forceinline__ void run_instr(unsigned rec_a, int ni,
       if (binary) {
         if ((q.x >> 8) & 1) {
 #pragma unroll
-          for (int i = 0; i < kN; ++i) b[i] = __int_as_float(q.y);
+          for (int i = 0; i < kN; ++i) b[i] = B6_CONST(q.y);
         } else {
           St::load(res + static_cast<Addr>((q.x >> 10) & 0x7ff) * kEntryBytes,
                    b);
@@ -276,11 +297,11 @@ __device__ __forceinline__ void run_instr(unsigned rec_a, int ni,
         poison(b, pz);
       }
     } else {
-      const auto leaf = [&](int src, int idx, float (&x)[kN]) {
+      const auto leaf = [&](int src, int idx, SR_REAL (&x)[kN]) {
         if (src == SRC_VAR) {
           var(idx, x);
         } else {
-          const float c = lds_f32(cval_a + 4u * idx);
+          const SR_REAL c = SR_LDS(cval_a + SR_RB * idx);
 #pragma unroll
           for (int i = 0; i < kN; ++i) x[i] = c;
         }
@@ -320,10 +341,17 @@ __host__ __device__ constexpr long long space_entries(bool packed, int L,
 }
 
 // Floats per warp of the records and (B5) the constants, the constants
-// rounded to an even count so what follows stays 8-byte aligned.
+// rounded to an even count so what follows stays 8-byte aligned; in the
+// float64 build doubles, a record two, and B6 keeps the constants too.
+#if SR_STORAGE == 3
+__host__ __device__ constexpr long long fixed_floats(bool, int L) {
+  return 2LL * L + (L + 1) / 2 * 2LL;
+}
+#else
 __host__ __device__ constexpr long long fixed_floats(bool packed, int L) {
   return 4LL * L + (packed ? 0 : (L + 1) / 2 * 2LL);
 }
+#endif
 
 // The prologue of one tree: its program derived into s_rec (and, B5, its
 // constants into s_cval), the derivation's words and descriptors in the
@@ -331,25 +359,30 @@ __host__ __device__ constexpr long long fixed_floats(bool packed, int L) {
 // the number of steps, 0 for an empty or invalid tree; *invalid says which.
 template <bool kPacked>
 __device__ __forceinline__ int prologue(const InstrArgs& a, long long t,
-                                        float* tmp, int4* s_rec,
-                                        float* s_cval, int lane,
+                                        SR_REAL* tmp, int4* s_rec,
+                                        SR_REAL* s_cval, int lane,
                                         bool* invalid) {
   const long long len = a.length[t];
   int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
   int2* s_word = reinterpret_cast<int2*>(tmp);
   int* s_last = reinterpret_cast<int*>(s_word + a.L + 1);
   int* s_desc = s_last + a.cap;
-  float* cv = kPacked ? reinterpret_cast<float*>(s_desc + a.L) : s_cval;
+#if SR_STORAGE == 3
+  SR_REAL* cv = s_cval;
+  (void)s_desc;
+#else
+  SR_REAL* cv = kPacked ? reinterpret_cast<SR_REAL*>(s_desc + a.L) : s_cval;
+#endif
   // the first 32 constants load while the program is derived
-  const float c0 = lane < n ? to_f32(a.cval[t * a.L + lane]) : 0.f;
+  const SR_REAL c0 = lane < n ? to_f32(a.cval[t * a.L + lane]) : SR_LIT(0.);
   *invalid = derive_program(a.kind, a.op, a.feat, t * a.L, n, a.cap, a.nfeat,
                             a.map, s_word, lane) ||
              n != len;
   __syncwarp();
   if (*invalid) n = 0;
   for (int s = lane; s < n; s += 32) {
-    const float c = s < 32 ? c0 : to_f32(a.cval[t * a.L + s]);
-    cv[s] = word_code(s_word[s]) == OP_CONST ? c : 0.f;  // PAD gives 0
+    const SR_REAL c = s < 32 ? c0 : to_f32(a.cval[t * a.L + s]);
+    cv[s] = word_code(s_word[s]) == OP_CONST ? c : SR_LIT(0.);  // PAD gives 0
   }
   if (n > 0) derive_adjoint_words(s_word, n, s_last, lane);
   return derive_instructions<kPacked>(s_word, n, s_desc, cv, s_rec, a.L,
@@ -363,7 +396,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 instr_kernel(const __grid_constant__ InstrArgs a) {
   constexpr int kR = kRows;
   using St = Stack<kR>;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) SR_REAL smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -371,12 +404,12 @@ instr_kernel(const __grid_constant__ InstrArgs a) {
   const int row0 = r * a.range;
   const int rows = min(a.range, a.nrows - row0);
   const long long space = space_entries(kPacked, a.L, a.nfeat) * St::kEntry;
-  float* xs = smem;
-  float* results = xs + (kStaged ? a.nfeat * a.range : 0);
-  float* mine = results + warp * space;
+  SR_REAL* xs = smem;
+  SR_REAL* results = xs + (kStaged ? a.nfeat * a.range : 0);
+  SR_REAL* mine = results + warp * space;
   int4* recs = reinterpret_cast<int4*>(results + warps * space);
   int4* s_rec = recs + warp * a.L;
-  float* s_cval = reinterpret_cast<float*>(recs + warps * a.L) +
+  SR_REAL* s_cval = reinterpret_cast<SR_REAL*>(recs + warps * a.L) +
                   warp * ((a.L + 1) / 2 * 2);  // B5's constants
 
   if constexpr (kStaged) {
@@ -403,19 +436,19 @@ instr_kernel(const __grid_constant__ InstrArgs a) {
   }
   if (!active) return;
 
-  float pz[kR] = {};
+  SR_REAL pz[kR] = {};
   const unsigned rec_a = opaque(smem_u32(s_rec));
   const unsigned cval_a = opaque(smem_u32(s_cval));
   const unsigned res_a = opaque(smem_u32(mine + lane * kR));
   const unsigned x_lane = opaque(smem_u32(xs + lane * kR));
-  const unsigned range_b = opaque(4u * a.range);
+  const unsigned range_b = opaque(SR_RB * a.range);
   for (int base = 0; base < rows; base += 32 * kR) {
     const int lr = base + lane * kR;  // local row of this lane's first row
-    float v[kR] = {};
+    SR_REAL v[kR] = {};
     if constexpr (kPacked) {
       // this lane's rows of every feature, in front of the results
       for (int f = 0; f < a.nfeat; ++f) {
-        float x[kR];
+        SR_REAL x[kR];
         const Storage* xf = a.X + f * a.nrows;
 #pragma unroll
         for (int i = 0; i < kR; ++i) {
@@ -425,9 +458,9 @@ instr_kernel(const __grid_constant__ InstrArgs a) {
       }
     }
     run_instr<kPacked, kAll, kR, false>(
-        rec_a, ni, cval_a, res_a, a.nfeat, v, pz, [&](int f, float (&x)[kR]) {
+        rec_a, ni, cval_a, res_a, a.nfeat, v, pz, [&](int f, SR_REAL (&x)[kR]) {
           if constexpr (kStaged) {
-            St::load(x_lane + 4u * base + f * range_b, x);
+            St::load(x_lane + SR_RB * base + f * range_b, x);
           } else {
             const Storage* xf = a.X + f * a.nrows;
 #pragma unroll
@@ -456,18 +489,22 @@ template <bool kPacked, bool kAll>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 instr_narrow_kernel(const __grid_constant__ InstrArgs a) {
   using St = Stack<1, true>;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) SR_REAL smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long gw = static_cast<long long>(blockIdx.x) * warps + warp;
   const long long space = space_entries(kPacked, a.L, a.nfeat) * St::kEntry;
   int4* s_rec = reinterpret_cast<int4*>(smem) + warp * a.L;
-  float* s_cval = reinterpret_cast<float*>(reinterpret_cast<int4*>(smem) +
+  SR_REAL* s_cval = reinterpret_cast<SR_REAL*>(reinterpret_cast<int4*>(smem) +
                                            warps * a.L);
-  float* results = s_cval + (kPacked ? 0 : warps * ((a.L + 1) / 2 * 2LL));
+#if SR_STORAGE == 3
+  SR_REAL* results = s_cval + warps * ((a.L + 1) / 2 * 2LL);
+#else
+  SR_REAL* results = s_cval + (kPacked ? 0 : warps * ((a.L + 1) / 2 * 2LL));
+#endif
   s_cval += warp * ((a.L + 1) / 2 * 2);
-  float* mine = a.scratch ? a.scratch + gw * space : results + warp * space;
+  SR_REAL* mine = a.scratch ? a.scratch + gw * space : results + warp * space;
   const unsigned rec_a = opaque(smem_u32(s_rec));
   const unsigned cval_a = opaque(smem_u32(s_cval));
   const unsigned long long res_a = gen_u64(mine + lane);
@@ -476,21 +513,22 @@ instr_narrow_kernel(const __grid_constant__ InstrArgs a) {
     const long long t = a.order[g];
     bool invalid;
     const int ni = prologue<kPacked>(a, t, mine, s_rec, s_cval, lane, &invalid);
-    float pz[1] = {};
+    SR_REAL pz[1] = {};
     for (int base = 0; base < a.nrows; base += 32) {
       const int row = base + lane;
       const unsigned xr = min(row, a.nrows - 1);
-      float v[1] = {};
+      SR_REAL v[1] = {};
       if constexpr (kPacked) {
         for (int f = 0; f < a.nfeat; ++f) {
-          const float x[1] = {
+          const SR_REAL x[1] = {
               to_f32(a.X[static_cast<unsigned>(f) * a.nrows + xr])};
           St::store(res_a + static_cast<unsigned long long>(f) * St::kEntryBytes,
                     x);
         }
       }
       run_instr<kPacked, kAll, 1, true>(
-          rec_a, ni, cval_a, res_a, a.nfeat, v, pz, [&](int f, float (&x)[1]) {
+          rec_a, ni, cval_a, res_a, a.nfeat, v, pz, [&](int f,
+                                                        SR_REAL (&x)[1]) {
             x[0] = to_f32(a.X[static_cast<unsigned>(f) * a.nrows + xr]);
           });
       if (row < a.nrows) a.out[t * a.nrows + row] = from_f32(v[0]);
@@ -535,6 +573,20 @@ KernelFn kernel_for(bool packed, bool all, bool staged, bool narrow) {
 // staged (B5), X's rows of the work item.
 long long wide_smem_bytes(bool packed, int warps, int L, int nfeat, int range,
                           bool staged) {
+#if SR_STORAGE == 3
+  return 8LL * warps *
+             (space_entries(packed, L, nfeat) * 32 * kRows +
+              fixed_floats(packed, L)) +
+         (staged && !packed ? 8LL * nfeat * range : 0);
+}
+
+long long narrow_fixed_bytes(bool packed, int L) {
+  return 8LL * fixed_floats(packed, L);
+}
+long long narrow_space_bytes(bool packed, int L, int nfeat) {
+  return 8LL * 32 * space_entries(packed, L, nfeat);
+}
+#else
   return 4LL * warps *
              (space_entries(packed, L, nfeat) * 32 * kRows +
               fixed_floats(packed, L)) +
@@ -547,13 +599,14 @@ long long narrow_fixed_bytes(bool packed, int L) {
 long long narrow_space_bytes(bool packed, int L, int nfeat) {
   return 4LL * 32 * space_entries(packed, L, nfeat);
 }
+#endif
 
 }  // namespace
 
 extern "C" {
 
-// The build's storage type (SR_STORAGE: 0 float, 1 bfloat16, 2 float16),
-// the type of X, cval and out.
+// The build's storage type (SR_STORAGE: 0 float, 1 bfloat16, 2 float16,
+// 3 double), the type of X, cval and out.
 int instr_eval_storage() { return SR_STORAGE; }
 
 // The wide routes' fixed layout: cfg[0] rows per lane per pass, [1] most
@@ -656,7 +709,7 @@ cudaError_t instr_eval_launch(const void* kind, const void* op,
   a.out = static_cast<Storage*>(out);
   a.bad = static_cast<int*>(bad);
   a.part_bad = static_cast<int*>(part_bad);
-  a.scratch = static_cast<float*>(scratch);
+  a.scratch = static_cast<SR_REAL*>(scratch);
   a.T = T;
   a.L = L;
   a.nfeat = nfeat;

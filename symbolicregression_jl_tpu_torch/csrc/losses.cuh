@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "real.cuh"
+
 #ifdef SR_USER_OPS
 // a build with the generated header: with SR_USER_LOSS 1 it carries the
 // loss callable's user_loss_elem / user_loss_seed (ops/user_ops.py)
@@ -50,228 +52,258 @@ constexpr int kUser = kNumLosses;
 #define SR_LOSS_KINDS srloss::kNumLosses
 #endif
 
-// A loss: its id and up to three float32 constants (ops/losses.py
-// ElementwiseLoss.constants).
+// A loss: its id and up to three constants (ops/losses.py
+// ElementwiseLoss.constants), float32, or float64 in the float64 build.
 struct Loss {
   int kind;
-  float c0, c1, c2;
+  SR_REAL c0, c1, c2;
 };
 
-constexpr float kPi = 3.14159274101257324f;   // jnp.pi in float32
-constexpr float kLn2 = 0.693147182464599609f;  // jnp.log(2.0) in float32
+#if SR_STORAGE == 3
+constexpr double kPi = 3.14159265358979323846;   // jnp.pi in float64
+constexpr double kLn2 = 0.69314718055994530942;  // jnp.log(2.0) in float64
+#else
+constexpr SR_REAL kPi = SR_LIT(3.14159274101257324);   // jnp.pi in float32
+// jnp.log(2.0) in float32
+constexpr SR_REAL kLn2 = SR_LIT(0.693147182464599609);
+#endif
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ SR_REAL mul(SR_REAL a, SR_REAL b) {
+  return SR_RN(mul)(a, b);
+}
+__device__ __forceinline__ SR_REAL add(SR_REAL a, SR_REAL b) {
+  return SR_RN(add)(a, b);
+}
+__device__ __forceinline__ SR_REAL sub(SR_REAL a, SR_REAL b) {
+  return SR_RN(sub)(a, b);
+}
+__device__ __forceinline__ SR_REAL div(SR_REAL a, SR_REAL b) {
+  return SR_RN(div)(a, b);
+}
 
 // abs's derivative times g: g where x >= 0 (0 included), -g elsewhere (NaN
 // included)
-__device__ __forceinline__ float abs_vjp(float x, float g) {
-  return x >= 0.f ? g : -g;
+__device__ __forceinline__ SR_REAL abs_vjp(SR_REAL x, SR_REAL g) {
+  return x >= SR_LIT(0.) ? g : -g;
 }
 
 // maximum(x, m) for a constant m, NaN kept (x < m ? m : x)
-__device__ __forceinline__ float max_c(float x, float m) {
+__device__ __forceinline__ SR_REAL max_c(SR_REAL x, SR_REAL m) {
   return x < m ? m : x;
 }
 
 // d maximum(x, other) / dx where the maximum was `ans`: 1 where it picked
 // x, 0.5 at a tie, 0 elsewhere (NaN included)
-__device__ __forceinline__ float share(float x, float ans, float other) {
-  return div(x == ans ? 1.f : 0.f, ans == other ? 2.f : 1.f);
+__device__ __forceinline__ SR_REAL share(SR_REAL x, SR_REAL ans,
+                                         SR_REAL other) {
+  return div(x == ans ? SR_LIT(1.) : SR_LIT(0.),
+             ans == other ? SR_LIT(2.) : SR_LIT(1.));
 }
 
 // x ** e, with the exponents 1 and 2 exact
-__device__ __forceinline__ float pow_c(float x, float e) {
-  return e == 1.f ? x : (e == 2.f ? mul(x, x) : powf(x, e));
+__device__ __forceinline__ SR_REAL pow_c(SR_REAL x, SR_REAL e) {
+  return e == SR_LIT(1.) ? x : (e == SR_LIT(2.) ? mul(x, x) : SR_FN(pow)(x, e));
 }
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return div(1.f, add(1.f, expf(-x)));
+__device__ __forceinline__ SR_REAL sigmoid(SR_REAL x) {
+  return div(SR_LIT(1.), add(SR_LIT(1.), SR_FN(exp)(-x)));
 }
 
-__device__ __forceinline__ float periodic_arg(const Loss& l, float p, float t) {
-  return div(mul(mul(sub(p, t), 2.f), kPi), l.c0);
+__device__ __forceinline__ SR_REAL periodic_arg(const Loss& l, SR_REAL p,
+                                                SR_REAL t) {
+  return div(mul(mul(sub(p, t), SR_LIT(2.)), kPi), l.c0);
 }
 
-__device__ __forceinline__ float loss_elem(const Loss& l, float p, float t) {
+__device__ __forceinline__ SR_REAL loss_elem(const Loss& l, SR_REAL p,
+                                             SR_REAL t) {
   switch (l.kind) {
     case kL1:
-      return fabsf(sub(p, t));
+      return SR_FN(fabs)(sub(p, t));
     case kLp:
-      return pow_c(fabsf(sub(p, t)), l.c0);
+      return pow_c(SR_FN(fabs)(sub(p, t)), l.c0);
     case kLogitDist: {
-      const float d = sub(p, t);
-      return -logf(mul(mul(4.f, sigmoid(d)), sigmoid(-d)));
+      const SR_REAL d = sub(p, t);
+      return -SR_FN(log)(mul(mul(SR_LIT(4.), sigmoid(d)), sigmoid(-d)));
     }
     case kHuber: {
-      const float d = fabsf(sub(p, t));
-      return d <= l.c0 ? mul(mul(0.5f, d), d) : mul(l.c0, sub(d, l.c1));
+      const SR_REAL d = SR_FN(fabs)(sub(p, t));
+      return d <= l.c0 ? mul(mul(SR_LIT(0.5), d), d) : mul(l.c0, sub(d, l.c1));
     }
     case kL1Eps:
-      return max_c(sub(fabsf(sub(p, t)), l.c0), 0.f);
+      return max_c(sub(SR_FN(fabs)(sub(p, t)), l.c0), SR_LIT(0.));
     case kL2Eps: {
-      const float e = max_c(sub(fabsf(sub(p, t)), l.c0), 0.f);
+      const SR_REAL e = max_c(sub(SR_FN(fabs)(sub(p, t)), l.c0), SR_LIT(0.));
       return mul(e, e);
     }
     case kPeriodic:
-      return sub(1.f, cosf(periodic_arg(l, p, t)));
+      return sub(SR_LIT(1.), SR_FN(cos)(periodic_arg(l, p, t)));
     case kQuantile: {
-      const float d = sub(t, p);
-      return d >= 0.f ? mul(l.c0, d) : mul(l.c1, d);
+      const SR_REAL d = sub(t, p);
+      return d >= SR_LIT(0.) ? mul(l.c0, d) : mul(l.c1, d);
     }
     case kZeroOne:
-      return mul(t, p) >= 0.f ? 0.f : 1.f;
+      return mul(t, p) >= SR_LIT(0.) ? SR_LIT(0.) : SR_LIT(1.);
     case kPerceptron:
-      return max_c(mul(-t, p), 0.f);
+      return max_c(mul(-t, p), SR_LIT(0.));
     case kL1Hinge:
-      return max_c(sub(1.f, mul(t, p)), 0.f);
+      return max_c(sub(SR_LIT(1.), mul(t, p)), SR_LIT(0.));
     case kL2Hinge: {
-      const float h = max_c(sub(1.f, mul(t, p)), 0.f);
+      const SR_REAL h = max_c(sub(SR_LIT(1.), mul(t, p)), SR_LIT(0.));
       return mul(h, h);
     }
     case kSmoothedL1Hinge: {
-      const float a = mul(t, p);
-      const float h = max_c(sub(1.f, a), 0.f);
+      const SR_REAL a = mul(t, p);
+      const SR_REAL h = max_c(sub(SR_LIT(1.), a), SR_LIT(0.));
       return a >= l.c0 ? mul(mul(l.c1, h), h) : sub(l.c2, a);
     }
     case kModifiedHuber: {
-      const float a = mul(t, p);
-      const float h = max_c(sub(1.f, a), 0.f);
-      return a >= -1.f ? mul(h, h) : mul(-4.f, a);
+      const SR_REAL a = mul(t, p);
+      const SR_REAL h = max_c(sub(SR_LIT(1.), a), SR_LIT(0.));
+      return a >= -SR_LIT(1.) ? mul(h, h) : mul(-SR_LIT(4.), a);
     }
     case kL2Margin: {
-      const float d = sub(1.f, mul(t, p));
+      const SR_REAL d = sub(SR_LIT(1.), mul(t, p));
       return mul(d, d);
     }
     case kExp:
-      return expf(mul(-t, p));
+      return SR_FN(exp)(mul(-t, p));
     case kSigmoid:
-      return sub(1.f, tanhf(mul(t, p)));
+      return sub(SR_LIT(1.), SR_FN(tanh)(mul(t, p)));
     case kDwdMargin: {
-      const float a = mul(t, p);
-      return a <= l.c0 ? sub(1.f, a) : div(l.c1, pow_c(max_c(a, l.c0), l.c2));
+      const SR_REAL a = mul(t, p);
+      return a <= l.c0 ? sub(SR_LIT(1.), a) : div(l.c1,
+                                                  pow_c(max_c(a, l.c0), l.c2));
     }
     case kLogitMargin:
-      return log1pf(expf(mul(-t, p)));
+      return SR_FN(log1p)(SR_FN(exp)(mul(-t, p)));
     case kLogCosh: {
-      const float d = fabsf(sub(p, t));
-      return sub(add(d, log1pf(expf(mul(-2.f, d)))), kLn2);
+      const SR_REAL d = SR_FN(fabs)(sub(p, t));
+      return sub(add(d, SR_FN(log1p)(SR_FN(exp)(mul(-SR_LIT(2.), d)))), kLn2);
     }
 #ifdef SR_HAS_USER_LOSS
     case kUser:
       return srops::user_loss_elem(p, t);
 #endif
     default: {  // kL2
-      const float d = sub(p, t);
+      const SR_REAL d = sub(p, t);
       return mul(d, d);
     }
   }
 }
 
-__device__ __forceinline__ float loss_seed(const Loss& l, float p, float t) {
+__device__ __forceinline__ SR_REAL loss_seed(const Loss& l, SR_REAL p,
+                                             SR_REAL t) {
   switch (l.kind) {
     case kL1:
-      return abs_vjp(sub(p, t), 1.f);
+      return abs_vjp(sub(p, t), SR_LIT(1.));
     case kLp: {
-      const float r = sub(p, t);
-      return abs_vjp(r, mul(l.c0, pow_c(fabsf(r), sub(l.c0, 1.f))));
+      const SR_REAL r = sub(p, t);
+      return abs_vjp(r,
+                     mul(l.c0, pow_c(SR_FN(fabs)(r), sub(l.c0, SR_LIT(1.)))));
     }
     case kLogitDist: {
-      const float d = sub(p, t);
-      const float s1 = sigmoid(d), s2 = sigmoid(-d);
-      const float four_s1 = mul(4.f, s1);
-      const float ct = div(-1.f, mul(four_s1, s2));
-      const float g1 = mul(mul(4.f, mul(ct, s2)), mul(s1, sub(1.f, s1)));
-      const float g2 = mul(mul(four_s1, ct), mul(s2, sub(1.f, s2)));
+      const SR_REAL d = sub(p, t);
+      const SR_REAL s1 = sigmoid(d), s2 = sigmoid(-d);
+      const SR_REAL four_s1 = mul(SR_LIT(4.), s1);
+      const SR_REAL ct = div(-SR_LIT(1.), mul(four_s1, s2));
+      const SR_REAL g1 = mul(mul(SR_LIT(4.), mul(ct, s2)),
+                             mul(s1, sub(SR_LIT(1.), s1)));
+      const SR_REAL g2 = mul(mul(four_s1, ct), mul(s2, sub(SR_LIT(1.), s2)));
       return sub(g1, g2);
     }
     case kHuber: {
-      const float r = sub(p, t);
-      const float d = fabsf(r);
-      const float cq = d <= l.c0 ? 1.f : 0.f;
-      return abs_vjp(r, add(mul(cq, d), mul(sub(1.f, cq), l.c0)));
+      const SR_REAL r = sub(p, t);
+      const SR_REAL d = SR_FN(fabs)(r);
+      const SR_REAL cq = d <= l.c0 ? SR_LIT(1.) : SR_LIT(0.);
+      return abs_vjp(r, add(mul(cq, d), mul(sub(SR_LIT(1.), cq), l.c0)));
     }
     case kL1Eps: {
-      const float r = sub(p, t);
-      const float a = sub(fabsf(r), l.c0);
-      return abs_vjp(r, share(a, max_c(a, 0.f), 0.f));
+      const SR_REAL r = sub(p, t);
+      const SR_REAL a = sub(SR_FN(fabs)(r), l.c0);
+      return abs_vjp(r, share(a, max_c(a, SR_LIT(0.)), SR_LIT(0.)));
     }
     case kL2Eps: {
-      const float r = sub(p, t);
-      const float a = sub(fabsf(r), l.c0);
-      const float e = max_c(a, 0.f);
-      return abs_vjp(r, mul(mul(2.f, e), share(a, e, 0.f)));
+      const SR_REAL r = sub(p, t);
+      const SR_REAL a = sub(SR_FN(fabs)(r), l.c0);
+      const SR_REAL e = max_c(a, SR_LIT(0.));
+      return abs_vjp(r, mul(mul(SR_LIT(2.), e), share(a, e, SR_LIT(0.))));
     }
     case kPeriodic:
-      return mul(mul(div(sinf(periodic_arg(l, p, t)), l.c0), kPi), 2.f);
+      return mul(mul(div(SR_FN(sin)(periodic_arg(l, p, t)), l.c0), kPi),
+                 SR_LIT(2.));
     case kQuantile:
-      return sub(t, p) >= 0.f ? -l.c0 : -l.c1;
+      return sub(t, p) >= SR_LIT(0.) ? -l.c0 : -l.c1;
     case kZeroOne:
-      return 0.f;
+      return SR_LIT(0.);
     case kPerceptron: {
-      const float a = mul(-t, p);
-      return mul(-t, share(a, max_c(a, 0.f), 0.f));
+      const SR_REAL a = mul(-t, p);
+      return mul(-t, share(a, max_c(a, SR_LIT(0.)), SR_LIT(0.)));
     }
     case kL1Hinge: {
-      const float a = sub(1.f, mul(t, p));
-      return mul(t, -share(a, max_c(a, 0.f), 0.f));
+      const SR_REAL a = sub(SR_LIT(1.), mul(t, p));
+      return mul(t, -share(a, max_c(a, SR_LIT(0.)), SR_LIT(0.)));
     }
     case kL2Hinge: {
-      const float a = sub(1.f, mul(t, p));
-      const float h = max_c(a, 0.f);
-      return mul(t, -mul(mul(2.f, h), share(a, h, 0.f)));
+      const SR_REAL a = sub(SR_LIT(1.), mul(t, p));
+      const SR_REAL h = max_c(a, SR_LIT(0.));
+      return mul(t, -mul(mul(SR_LIT(2.), h), share(a, h, SR_LIT(0.))));
     }
     case kSmoothedL1Hinge: {
-      const float a = mul(t, p);
-      const float b = sub(1.f, a);
-      const float h = max_c(b, 0.f);
-      const float cq = a >= l.c0 ? 1.f : 0.f;
-      const float q = mul(mul(l.c1, h), cq);
-      return mul(t, sub(-sub(1.f, cq), mul(add(q, q), share(b, h, 0.f))));
+      const SR_REAL a = mul(t, p);
+      const SR_REAL b = sub(SR_LIT(1.), a);
+      const SR_REAL h = max_c(b, SR_LIT(0.));
+      const SR_REAL cq = a >= l.c0 ? SR_LIT(1.) : SR_LIT(0.);
+      const SR_REAL q = mul(mul(l.c1, h), cq);
+      return mul(t,
+                 sub(-sub(SR_LIT(1.), cq),
+                     mul(add(q, q), share(b, h, SR_LIT(0.)))));
     }
     case kModifiedHuber: {
-      const float a = mul(t, p);
-      const float b = sub(1.f, a);
-      const float h = max_c(b, 0.f);
-      const float cq = a >= -1.f ? 1.f : 0.f;
-      const float q = mul(h, cq);
-      return mul(t, sub(mul(-4.f, sub(1.f, cq)),
-                        mul(add(q, q), share(b, h, 0.f))));
+      const SR_REAL a = mul(t, p);
+      const SR_REAL b = sub(SR_LIT(1.), a);
+      const SR_REAL h = max_c(b, SR_LIT(0.));
+      const SR_REAL cq = a >= -SR_LIT(1.) ? SR_LIT(1.) : SR_LIT(0.);
+      const SR_REAL q = mul(h, cq);
+      return mul(t, sub(mul(-SR_LIT(4.), sub(SR_LIT(1.), cq)),
+                        mul(add(q, q), share(b, h, SR_LIT(0.)))));
     }
     case kL2Margin:
-      return mul(t, -mul(2.f, sub(1.f, mul(t, p))));
+      return mul(t, -mul(SR_LIT(2.), sub(SR_LIT(1.), mul(t, p))));
     case kExp:
-      return mul(-t, expf(mul(-t, p)));
+      return mul(-t, SR_FN(exp)(mul(-t, p)));
     case kSigmoid: {
-      const float th = tanhf(mul(t, p));
-      return mul(t, mul(sub(-1.f, th), sub(1.f, th)));
+      const SR_REAL th = SR_FN(tanh)(mul(t, p));
+      return mul(t, mul(sub(-SR_LIT(1.), th), sub(SR_LIT(1.), th)));
     }
     case kDwdMargin: {
-      const float a = mul(t, p);
-      const float m = max_c(a, l.c0);
-      const float P = pow_c(m, l.c2);
-      const float cl = a <= l.c0 ? 1.f : 0.f;
-      const float P_bar = -mul(mul(sub(1.f, cl), div(1.f, mul(P, P))), l.c1);
-      const float m_bar = mul(P_bar, mul(l.c2, pow_c(m, sub(l.c2, 1.f))));
+      const SR_REAL a = mul(t, p);
+      const SR_REAL m = max_c(a, l.c0);
+      const SR_REAL P = pow_c(m, l.c2);
+      const SR_REAL cl = a <= l.c0 ? SR_LIT(1.) : SR_LIT(0.);
+      const SR_REAL P_bar = -mul(mul(sub(SR_LIT(1.), cl),
+                                     div(SR_LIT(1.), mul(P, P))), l.c1);
+      const SR_REAL m_bar = mul(P_bar,
+                                mul(l.c2, pow_c(m, sub(l.c2, SR_LIT(1.)))));
       return mul(t, add(-cl, mul(m_bar, share(a, m, l.c0))));
     }
     case kLogitMargin: {
-      const float e = expf(mul(-t, p));
-      return mul(-t, mul(div(1.f, add(e, 1.f)), e));
+      const SR_REAL e = SR_FN(exp)(mul(-t, p));
+      return mul(-t, mul(div(SR_LIT(1.), add(e, SR_LIT(1.))), e));
     }
     case kLogCosh: {
-      const float r = sub(p, t);
-      const float e = expf(mul(-2.f, fabsf(r)));
-      return abs_vjp(r, add(1.f, mul(-2.f, mul(div(1.f, add(e, 1.f)), e))));
+      const SR_REAL r = sub(p, t);
+      const SR_REAL e = SR_FN(exp)(mul(-SR_LIT(2.), SR_FN(fabs)(r)));
+      return abs_vjp(r,
+                     add(SR_LIT(1.),
+                         mul(-SR_LIT(2.),
+                             mul(div(SR_LIT(1.), add(e, SR_LIT(1.))), e))));
     }
 #ifdef SR_HAS_USER_LOSS
     case kUser:
       return srops::user_loss_seed(p, t);
 #endif
     default:  // kL2
-      return mul(2.f, sub(p, t));
+      return mul(SR_LIT(2.), sub(p, t));
   }
 }
 
@@ -283,12 +315,12 @@ struct Kind {
 };
 
 template <int K>
-__device__ __forceinline__ float elem(const Loss& l, float p, float t) {
+__device__ __forceinline__ SR_REAL elem(const Loss& l, SR_REAL p, SR_REAL t) {
   return loss_elem(Loss{K, l.c0, l.c1, l.c2}, p, t);
 }
 
 template <int K>
-__device__ __forceinline__ float seed(const Loss& l, float p, float t) {
+__device__ __forceinline__ SR_REAL seed(const Loss& l, SR_REAL p, SR_REAL t) {
   return loss_seed(Loss{K, l.c0, l.c1, l.c2}, p, t);
 }
 

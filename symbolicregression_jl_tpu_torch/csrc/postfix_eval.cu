@@ -25,6 +25,10 @@
 // the loss at float32 alone, fitness.py:331-335). X is staged in shared
 // memory as float (converted on the way in, so a 2-byte X of any row
 // count needs no alignment rule), and the outputs take half the bytes.
+// The float64 build (SR_STORAGE 3) computes and stores in double (the
+// reference runs float64 on its jnp interpreter, which no Pallas kernel
+// replaces): modes 0 and 2, every value, stack entry and staged X 8 bytes,
+// so each layout holds half the values per byte (postfix_eval_smem_bytes).
 //
 // What bounds it on this card: neither HBM bytes nor f32 peak but the
 // instructions issued per (tree, row, slot) step: the opcode read, the
@@ -86,12 +90,13 @@ struct EvalArgs {
   const long long* length;
   const long long* order;
   const Storage* X;
-  const float* y;   // the fused mode's (float build only)
+  const SR_REAL* y;   // the fused mode's (float build only)
   Storage* out;
   int* bad;
-  float* part;    // (T, items) partial losses; the fused mode's out when items == 1
+  // (T, items) partial losses; the fused mode's out when items == 1
+  SR_REAL* part;
   int* part_bad;  // (T, items) partial poison flags; bad when items == 1
-  float* scratch;  // the narrow route's stacks in global memory, or null
+  SR_REAL* scratch;  // the narrow route's stacks in global memory, or null
   int T, L, nfeat, nrows, items, range, cap;
   OpMap map;
   srloss::Loss loss_fn;  // the fused mode's loss (the kAnyLoss instantiations)
@@ -102,19 +107,19 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 postfix_kernel(const __grid_constant__ EvalArgs a) {
   // the slot-values mode has one row: one row per lane keeps its stack small
   constexpr int kR = kMode == 2 ? 1 : kRows;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) SR_REAL smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x % a.items;  // row range
   const int row0 = r * a.range;
   const int rows = min(a.range, a.nrows - row0);
-  float* stack = smem + warp * a.cap * Stack<kR>::kEntry +
+  SR_REAL* stack = smem + warp * a.cap * Stack<kR>::kEntry +
                  lane * Stack<kR>::kLaneWidth;
-  float* xs = smem + warps * a.cap * Stack<kR>::kEntry;
+  SR_REAL* xs = smem + warps * a.cap * Stack<kR>::kEntry;
   int2* words = reinterpret_cast<int2*>(xs + (kStaged ? a.nfeat * a.range : 0));
   int2* s_word = words + warp * (a.L + 1);
-  float* s_cval = reinterpret_cast<float*>(words + warps * (a.L + 1)) +
+  SR_REAL* s_cval = reinterpret_cast<SR_REAL*>(words + warps * (a.L + 1)) +
                   warp * a.L;
 
   if constexpr (kStaged) {
@@ -136,7 +141,7 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
     const long long len = a.length[t];
     n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     // the first 32 constants load while the program is derived
-    const float c0 = lane < n ? to_f32(a.cval[t * a.L + lane]) : 0.f;
+    const SR_REAL c0 = lane < n ? to_f32(a.cval[t * a.L + lane]) : SR_LIT(0.);
     invalid = derive_program(a.kind, a.op, a.feat, t * a.L, n, a.cap, a.nfeat,
                              a.map, s_word, lane) || n != len;
     if (lane < n) s_cval[lane] = c0;
@@ -152,26 +157,26 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
   __syncwarp();
   if (invalid) n = 0;
 
-  float acc = 0.f;
-  float pz[kR] = {};
+  SR_REAL acc = SR_LIT(0.);
+  SR_REAL pz[kR] = {};
   Storage* slots = kMode == 2 ? a.out + t * a.L : nullptr;
   const unsigned word_a = opaque(smem_u32(s_word));
   const unsigned stack_a = opaque(smem_u32(stack));
   const unsigned cval_a = opaque(smem_u32(s_cval));
   const unsigned x_lane = opaque(smem_u32(xs + lane * kR));
-  const unsigned range_b = opaque(4u * a.range);
+  const unsigned range_b = opaque(SR_RB * a.range);
   for (int base = 0; base < rows; base += (32 * kR)) {
     const int lr = base + lane * kR;  // local row of this lane's first row
-    const unsigned x_a = x_lane + 4u * base;
-    float v[kR] = {};
+    const unsigned x_a = x_lane + SR_RB * base;
+    SR_REAL v[kR] = {};
     run_program<kAll, kR>(
         word_a, n, stack_a, v, pz,
-        [&](int s, float (&x)[kR]) {
-          const float c = lds_f32(cval_a + 4u * s);
+        [&](int s, SR_REAL (&x)[kR]) {
+          const SR_REAL c = SR_LDS(cval_a + SR_RB * s);
 #pragma unroll
           for (int i = 0; i < kR; ++i) x[i] = c;
         },
-        [&](int f, float (&x)[kR]) {
+        [&](int f, SR_REAL (&x)[kR]) {
           if constexpr (kStaged) {
             Stack<kR>::load(x_a + f * range_b, x);
           } else {
@@ -182,7 +187,7 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
             }
           }
         },
-        [&](int s, const float (&x)[kR]) {
+        [&](int s, const SR_REAL (&x)[kR]) {
           if constexpr (kMode == 2) {
             if (lane == 0) slots[s] = from_f32(x[0]);
           }
@@ -206,14 +211,14 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
       for (int i = 0; i < kR; ++i) {
         const int row = row0 + lr + i;
         if (row < a.nrows) {
-          const float d = v[i] - a.y[row];
+          const SR_REAL d = v[i] - a.y[row];
           acc += d * d;
         }
       }
     }
   }
   if constexpr (kMode == 2) {
-    for (int s = n + lane; s < a.L; s += 32) slots[s] = from_f32(0.f);
+    for (int s = n + lane; s < a.L; s += 32) slots[s] = from_f32(SR_LIT(0.));
   }
   bool nonfinite = false;
 #pragma unroll
@@ -243,17 +248,17 @@ template <int kMode, bool kAll, bool kAnyLoss = false>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
   using St = Stack<1, true>;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) SR_REAL smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   int2* s_word = reinterpret_cast<int2*>(smem) + warp * (a.L + 1);
-  float* s_cval =
-      reinterpret_cast<float*>(reinterpret_cast<int2*>(smem) + warps * (a.L + 1));
-  float* stacks = s_cval + warps * a.L;
+  SR_REAL* s_cval = reinterpret_cast<SR_REAL*>(reinterpret_cast<int2*>(smem) +
+                                                warps * (a.L + 1));
+  SR_REAL* stacks = s_cval + warps * a.L;
   s_cval += warp * a.L;
   const long long gw = static_cast<long long>(blockIdx.x) * warps + warp;
-  float* stack = a.scratch ? a.scratch + gw * a.cap * St::kEntry
+  SR_REAL* stack = a.scratch ? a.scratch + gw * a.cap * St::kEntry
                            : stacks + warp * a.cap * St::kEntry;
   const unsigned word_a = opaque(smem_u32(s_word));
   const unsigned cval_a = opaque(smem_u32(s_cval));
@@ -263,7 +268,7 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
     const long long len = a.length[t];
     int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     __syncwarp();  // the last tree's words are read
-    const float c0 = lane < n ? to_f32(a.cval[t * a.L + lane]) : 0.f;
+    const SR_REAL c0 = lane < n ? to_f32(a.cval[t * a.L + lane]) : SR_LIT(0.);
     const bool invalid = derive_program(a.kind, a.op, a.feat, t * a.L, n,
                                         a.cap, a.nfeat, a.map, s_word, lane) ||
                          n != len;
@@ -273,20 +278,20 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
     }
     __syncwarp();
     if (invalid) n = 0;
-    float acc = 0.f;
-    float pz[1] = {};
+    SR_REAL acc = SR_LIT(0.);
+    SR_REAL pz[1] = {};
     Storage* slots = kMode == 2 ? a.out + t * a.L : nullptr;
     for (int base = 0; base < a.nrows; base += 32) {
       const int row = base + lane;
       const unsigned xr = min(row, a.nrows - 1);
-      float v[1] = {};
+      SR_REAL v[1] = {};
       run_program<kAll, 1, false, true>(
           word_a, n, stack_a, v, pz,
-          [&](int s, float (&x)[1]) { x[0] = lds_f32(cval_a + 4u * s); },
-          [&](int f, float (&x)[1]) {
+          [&](int s, SR_REAL (&x)[1]) { x[0] = SR_LDS(cval_a + SR_RB * s); },
+          [&](int f, SR_REAL (&x)[1]) {
             x[0] = to_f32(a.X[static_cast<unsigned>(f) * a.nrows + xr]);
           },
-          [&](int s, const float (&x)[1]) {
+          [&](int s, const SR_REAL (&x)[1]) {
             if constexpr (kMode == 2) {
               if (lane == 0) slots[s] = from_f32(x[0]);
             }
@@ -302,13 +307,13 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
         }
       } else if constexpr (kMode == 1) {
         if (row < a.nrows) {
-          const float d = v[0] - a.y[row];
+          const SR_REAL d = v[0] - a.y[row];
           acc += d * d;
         }
       }
     }
     if constexpr (kMode == 2) {
-      for (int s = n + lane; s < a.L; s += 32) slots[s] = from_f32(0.f);
+      for (int s = n + lane; s < a.L; s += 32) slots[s] = from_f32(SR_LIT(0.));
     }
     const bool any_bad = __any_sync(0xffffffffu, pz[0] != pz[0]) || invalid;
     if constexpr (kMode == 1) {
@@ -324,13 +329,13 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
 }
 
 // Each tree's partial sums and flags, in range order.
-__global__ void combine_kernel(const float* __restrict__ part,
+__global__ void combine_kernel(const SR_REAL* __restrict__ part,
                                const int* __restrict__ part_bad,
-                               float* __restrict__ out, int* __restrict__ bad,
+                               SR_REAL* __restrict__ out, int* __restrict__ bad,
                                int T, int items, int mode) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
-  float sum = 0.f;
+  SR_REAL sum = SR_LIT(0.);
   int b = 0;
   for (int r = 0; r < items; ++r) {
     if (mode == 1) sum += part[static_cast<long long>(t) * items + r];
@@ -364,8 +369,14 @@ KernelFn narrow_kernel_for(int mode, bool all, bool any_loss) {
 
 // Shared memory per warp of the narrow route: the words and constants,
 // and the stack ((L + 1) / 2 entries of one float per lane).
+#if SR_STORAGE == 3
+// (the float64 build: 8 bytes per value and per word)
+long long narrow_fixed_bytes(int L) { return 8LL * (2LL * L + 1); }
+long long narrow_stack_bytes(int L) { return 8LL * 32 * ((L + 1) / 2); }
+#else
 long long narrow_fixed_bytes(int L) { return 4LL * (3LL * L + 2); }
 long long narrow_stack_bytes(int L) { return 4LL * 32 * ((L + 1) / 2); }
+#endif
 
 KernelFn kernel_for(int mode, bool all, bool staged, bool any_loss) {
 #define SR_PICK(M, ANY)                                                      \
@@ -387,8 +398,8 @@ KernelFn kernel_for(int mode, bool all, bool staged, bool any_loss) {
 
 extern "C" {
 
-// The build's storage type (SR_STORAGE: 0 float, 1 bfloat16, 2 float16),
-// the type of X, cval and the value and slot outputs.
+// The build's storage type (SR_STORAGE: 0 float, 1 bfloat16, 2 float16,
+// 3 double), the type of X, cval and the value and slot outputs.
 int postfix_eval_storage() { return SR_STORAGE; }
 
 // The kernel's fixed layout: cfg[0] rows per lane per pass (1 in the
@@ -407,9 +418,16 @@ void postfix_eval_config(int* cfg) {
 int postfix_eval_smem_bytes(int warps, int L, int nfeat, int range,
                             int staged, int mode) {
   const int entry = 32 * (mode == 2 ? 1 : kRows);
+#if SR_STORAGE == 3
+  // the float64 build: values and words of 8 bytes
+  const long long b =
+      8LL * warps * ((L + 1) / 2 * static_cast<long long>(entry) + 2LL * L + 1) +
+      (staged ? 8LL * nfeat * range : 0);
+#else
   const long long b = 4LL * warps * ((L + 1) / 2 * static_cast<long long>(entry) +
                                      3LL * L + 2) +
                       (staged ? 4LL * nfeat * range : 0);
+#endif
   return b > kMaxSmemBytes ? kMaxSmemBytes + 1 : static_cast<int>(b);
 }
 
@@ -480,7 +498,8 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
                                 int nrows, int mode, int all_ops, int items,
                                 int range, int staged, int warps, int smem,
                                 int blocks, int narrow, int loss_kind,
-                                float c0, float c1, float c2, void* stream) {
+                                SR_REAL c0, SR_REAL c1, SR_REAL c2,
+                                void* stream) {
   if (T <= 0) return cudaSuccess;
   if (n_unary + n_binary > kMaxOps || mode < 0 || mode > 2 || items < 1 ||
       loss_kind < 0 || loss_kind >= SR_LOSS_KINDS ||
@@ -506,12 +525,12 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
   a.length = static_cast<const long long*>(length);
   a.order = static_cast<const long long*>(order);
   a.X = static_cast<const Storage*>(X);
-  a.y = static_cast<const float*>(y);
+  a.y = static_cast<const SR_REAL*>(y);
   a.out = static_cast<Storage*>(out);
   a.bad = static_cast<int*>(bad);
-  a.part = static_cast<float*>(part);
+  a.part = static_cast<SR_REAL*>(part);
   a.part_bad = static_cast<int*>(part_bad);
-  a.scratch = static_cast<float*>(scratch);
+  a.scratch = static_cast<SR_REAL*>(scratch);
   a.T = T;
   a.L = L;
   a.nfeat = nfeat;
@@ -534,7 +553,7 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
   err = cudaGetLastError();
   if (err != cudaSuccess || items == 1 || mode == 2) return err;
   combine_kernel<<<(T + 255) / 256, 256, 0, s>>>(
-      a.part, a.part_bad, static_cast<float*>(out), a.bad, T, items, mode);
+      a.part, a.part_bad, static_cast<SR_REAL*>(out), a.bad, T, items, mode);
   return cudaGetLastError();
 }
 

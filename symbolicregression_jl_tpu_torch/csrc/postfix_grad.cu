@@ -95,7 +95,13 @@
 // rounding every slot's value to it as the scoring kernel does, so BFGS
 // fits the values that scoring sees; the loss, its seed, the adjoint sweep
 // and the row sums stay in float32, and B3's loss is still B4's in every
-// bit.
+// bit. The float64 build (SR_STORAGE 3) runs all of it in double, with its
+// slot values, accumulators and stacks 8 bytes per value (the layouts of
+// grad_warp_floats, loss_smem_bytes and the narrow routes).
+// The gradient kernel's cotangent-seeded mode (kCotangent, below) replaces
+// the loss's seed by a seed per instance and row read from memory: the VJP
+// of the value mode with respect to the constants, which a custom
+// objective's gradient needs (ops/interpreter.py EvalTreeVJP).
 // The operators and their derivatives (the lax JVP rule of each JAX
 // registry function, in the forms of symbolicregression_jl_tpu_torch/ops/
 // operators.py UNARY_VJP / BINARY_VJP) are the shared library
@@ -113,7 +119,7 @@ using srprog::OpMap;
 
 constexpr int kMaxSmemBytes = 232448;  // 227 KB, the most a block may use
 
-__device__ __forceinline__ float warp_sum(float x) {
+__device__ __forceinline__ SR_REAL warp_sum(SR_REAL x) {
   for (int off = 16; off > 0; off >>= 1) {
     x += __shfl_xor_sync(0xffffffffu, x, off);
   }
@@ -136,62 +142,89 @@ struct GradArgs {
   const srprog::Storage* cval;  // (T * reps, L)
   const srprog::Storage* X;
   const srprog::Storage* y;
-  const float* wn;
-  float* loss;
-  float* grad;
+  const SR_REAL* wn;
+  SR_REAL* loss;
+  SR_REAL* grad;
   int* bad;
-  float* scratch;  // the narrow route's slot values in global memory, or null
+  SR_REAL* scratch;  // the narrow route's slot values in global memory, or null
+  const SR_REAL* cot;  // the cotangent mode's seeds (T * reps, nrows)
   int T, reps, L, nfeat, nrows, cap;
   OpMap map;
   srloss::Loss loss_fn;  // the kAnyLoss instantiations' loss
 };
 
+// The loss id of the cotangent-seeded mode (ops/kernel_grad.py
+// COTANGENT_KIND), beside the registry's ids and kUser: the seed of row r
+// of instance i is cot[i, r], read from memory, and its term cot[i, r] *
+// root, so the gradient is the vector-Jacobian product sum_r cot[i, r] *
+// d root[i, r] / d cval[i, :] of the value mode (B1), and the loss the sum
+// of the terms. No weights. The VJP of eval_tree (ops/interpreter.py)
+// under a custom objective.
+constexpr int kCotangent = 32;
+
 // Floats of shared memory per warp: slot values of rows floats per lane,
 // the CONST accumulators [rank][lane], then the words (L + 1, two floats
 // each) and the constants (L), rounded to 16 bytes.
+#if SR_STORAGE == 3
+// (The float64 build: doubles, a word one double, rounded to 16 bytes.)
+__host__ __device__ constexpr long long grad_warp_floats(int L, int rows) {
+  return static_cast<long long>(L) * 32 * rows + 32LL * ((L + 1) / 2) +
+         ((2LL * L + 1 + 1) & ~1LL);
+}
+#else
 __host__ __device__ constexpr long long grad_warp_floats(int L, int rows) {
   return static_cast<long long>(L) * 32 * rows + 32LL * ((L + 1) / 2) +
          ((3LL * L + 2 + 3) & ~3LL);
 }
+#endif
 
 // The narrow route's parts per warp: the words and constants (shared
 // memory) and the slot values and accumulators of one row per lane
 // (shared or global memory), in bytes.
+#if SR_STORAGE == 3
+long long grad_narrow_fixed_bytes(int L) { return 8LL * (2LL * L + 1); }
+long long grad_narrow_scratch_bytes(int L) {
+  return 8LL * 32 * (L + (L + 1) / 2);
+}
+#else
 long long grad_narrow_fixed_bytes(int L) { return 4LL * (3LL * L + 2); }
 long long grad_narrow_scratch_bytes(int L) {
   return 4LL * 32 * (L + (L + 1) / 2);
 }
+#endif
 
 // One warp per instance. kNarrow: the narrow route (kN is 1), the warps
 // looping over the instances. kAnyLoss: a loss other than L2 (a.loss_fn).
-template <bool kAll, int kN, bool kNarrow, bool kAnyLoss = false>
+// kCot: the cotangent-seeded mode (kCotangent).
+template <bool kAll, int kN, bool kNarrow, bool kAnyLoss = false,
+          bool kCot = false>
 __global__ void __launch_bounds__(kGradMaxWarps * 32)
 postfix_grad_kernel(const __grid_constant__ GradArgs a) {
   using St = srprog::Stack<kN, kNarrow>;
   using Addr = typename St::Addr;
   using M = typename St::M;
   constexpr unsigned kEntryBytes = St::kEntryBytes;
-  extern __shared__ __align__(16) float grad_smem[];
+  extern __shared__ __align__(16) SR_REAL grad_smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long gw = static_cast<long long>(blockIdx.x) * warps + warp;
-  float* vals;
+  SR_REAL* vals;
   int2* s_word;
-  float* s_cval;
+  SR_REAL* s_cval;
   if constexpr (kNarrow) {
     s_word = reinterpret_cast<int2*>(grad_smem) + warp * (a.L + 1);
-    float* cvals = reinterpret_cast<float*>(reinterpret_cast<int2*>(grad_smem) +
-                                            warps * (a.L + 1));
+    SR_REAL* cvals = reinterpret_cast<SR_REAL*>(
+        reinterpret_cast<int2*>(grad_smem) + warps * (a.L + 1));
     s_cval = cvals + warp * a.L;
     const long long per = 32LL * (a.L + a.cap);
     vals = a.scratch ? a.scratch + gw * per : cvals + warps * a.L + warp * per;
   } else {
     vals = grad_smem + warp * grad_warp_floats(a.L, kN);
     s_word = reinterpret_cast<int2*>(vals + a.L * St::kEntry + 32 * a.cap);
-    s_cval = reinterpret_cast<float*>(s_word + a.L + 1);
+    s_cval = reinterpret_cast<SR_REAL*>(s_word + a.L + 1);
   }
-  float* cacc = vals + a.L * St::kEntry;
+  SR_REAL* cacc = vals + a.L * St::kEntry;
   const long long total = static_cast<long long>(a.T) * a.reps;
   const unsigned word_a = srprog::opaque(srprog::smem_u32(s_word));
   const unsigned cval_a = srprog::opaque(srprog::smem_u32(s_cval));
@@ -209,8 +242,8 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
     const long long len = a.length[tree];
     int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     // the first 32 constants load while the program is derived
-    const float c0 =
-        lane < n ? srprog::to_f32(a.cval[inst * a.L + lane]) : 0.f;
+    const SR_REAL c0 =
+        lane < n ? srprog::to_f32(a.cval[inst * a.L + lane]) : SR_LIT(0.);
     const bool invalid =
         srprog::derive_program(a.kind, a.op, a.feat, tree * a.L, n, a.cap,
                                a.nfeat, a.map, s_word, lane) || n != len;
@@ -226,9 +259,9 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
                                    lane);
     }
 
-    float acc = 0.f;
-    float pz[kN] = {};
-    for (int k = 0; k < a.cap; ++k) M::st1(cacc_a + 128u * k, 0.f);
+    SR_REAL acc = SR_LIT(0.);
+    SR_REAL pz[kN] = {};
+    for (int k = 0; k < a.cap; ++k) M::st1(cacc_a + SR_WARP_RB * k, SR_LIT(0.));
     for (int base = 0; n > 0 && base < a.nrows; base += 32 * kN) {
       // this pass's rows, the last row repeated past the end; X has fewer
       // than 2^31 elements, so a VAR step's offsets are 32-bit
@@ -237,38 +270,50 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
       for (int j = 0; j < kN; ++j) {
         xrow[j] = min(base + j * 32 + lane, a.nrows - 1);
       }
-      float v[kN] = {};
+      SR_REAL v[kN] = {};
       srprog::run_program<kAll, kN, true, kNarrow>(
           word_a, n, vals_a, v, pz,
-          [&](int s, float (&x)[kN]) {
-            const float c = srprog::lds_f32(cval_a + 4u * s);
+          [&](int s, SR_REAL (&x)[kN]) {
+            const SR_REAL c = srprog::SR_LDS(cval_a + SR_RB * s);
 #pragma unroll
             for (int i = 0; i < kN; ++i) x[i] = c;
           },
-          [&](int f, float (&x)[kN]) {
+          [&](int f, SR_REAL (&x)[kN]) {
             const unsigned xf = static_cast<unsigned>(f) * a.nrows;
 #pragma unroll
             for (int j = 0; j < kN; ++j) {
               x[j] = srprog::to_f32(a.X[xf + xrow[j]]);
             }
           },
-          [&](int s, const float (&x)[kN]) {
+          [&](int s, const SR_REAL (&x)[kN]) {
             St::store(vals_a + s * kEntryBytes, x);
           });
-      float w[kN];
+      SR_REAL w[kN];
       unsigned real = 0;  // the rows of this pass that exist
-      if constexpr (kAnyLoss) {
+      if constexpr (kCot) {
+        const SR_REAL* cot = a.cot + inst * a.nrows;
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          const int row = base + j * 32 + lane;
+          w[j] = SR_LIT(0.);
+          if (row < a.nrows) {
+            real |= 1u << j;
+            w[j] = cot[row];
+            acc += w[j] * v[j];
+          }
+        }
+      } else if constexpr (kAnyLoss) {
         srloss::with_loss(a.loss_fn.kind, [&](auto k) {
           constexpr int K = decltype(k)::value;
 #pragma unroll
           for (int j = 0; j < kN; ++j) {
             const int row = base + j * 32 + lane;
-            w[j] = 0.f;
+            w[j] = SR_LIT(0.);
             if (row < a.nrows) {
               real |= 1u << j;
-              const float wr = a.wn[row];
-              if (wr != 0.f) {
-                const float yr = srprog::to_f32(a.y[row]);
+              const SR_REAL wr = a.wn[row];
+              if (wr != SR_LIT(0.)) {
+                const SR_REAL yr = srprog::to_f32(a.y[row]);
                 acc += srloss::elem<K>(a.loss_fn, v[j], yr) * wr;
                 w[j] = srloss::seed<K>(a.loss_fn, v[j], yr) * wr;
               }
@@ -279,22 +324,22 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
 #pragma unroll
         for (int j = 0; j < kN; ++j) {
           const int row = base + j * 32 + lane;
-          w[j] = 0.f;
+          w[j] = SR_LIT(0.);
           if (row < a.nrows) {
             real |= 1u << j;
-            const float wr = a.wn[row];
-            const float d = v[j] - srprog::to_f32(a.y[row]);
-            if (wr != 0.f) {
+            const SR_REAL wr = a.wn[row];
+            const SR_REAL d = v[j] - srprog::to_f32(a.y[row]);
+            if (wr != SR_LIT(0.)) {
               acc += (d * d) * wr;
-              w[j] = (2.f * d) * wr;
+              w[j] = (SR_LIT(2.) * d) * wr;
             }
           }
         }
       }
       srprog::run_adjoint<kAll, kN, kNarrow>(
-          word_a, n, vals_a, w, [&](int rank, const float (&ws)[kN]) {
-            const Addr c = cacc_a + 128u * rank;
-            float sum = M::ld1(c);
+          word_a, n, vals_a, w, [&](int rank, const SR_REAL (&ws)[kN]) {
+            const Addr c = cacc_a + SR_WARP_RB * rank;
+            SR_REAL sum = M::ld1(c);
 #pragma unroll
             for (int j = 0; j < kN; ++j) {
               if (real >> j & 1u) sum += ws[j];
@@ -318,12 +363,12 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
       const int2 word = s < n ? s_word[s] : make_int2(0, 0);
       unsigned consts = __ballot_sync(0xffffffffu,
                                       srprog::word_code(word) == OP_CONST);
-      float gs = 0.f;
+      SR_REAL gs = SR_LIT(0.);
       while (consts) {
         const int b = __ffs(consts) - 1;
         consts &= consts - 1;
         const int rank = __shfl_sync(0xffffffffu, srprog::word_feat(word), b);
-        const float t = warp_sum(M::ld1(cacc_a + 128u * rank));
+        const SR_REAL t = warp_sum(M::ld1(cacc_a + SR_WARP_RB * rank));
         if (lane == b) gs = t;
       }
       if (s < a.L) a.grad[inst * a.L + s] = gs;
@@ -342,18 +387,22 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
 
 using GradFn = void (*)(GradArgs);
 
-GradFn grad_kernel_for(bool all, bool narrow, bool any_loss) {
-#define SR_PICK(N, NARROW)                                               \
-  (any_loss ? (all ? &postfix_grad_kernel<true, N, NARROW, true>         \
-                   : &postfix_grad_kernel<false, N, NARROW, true>)       \
-            : (all ? &postfix_grad_kernel<true, N, NARROW, false>        \
-                   : &postfix_grad_kernel<false, N, NARROW, false>))
-  return narrow ? SR_PICK(1, true) : SR_PICK(kGradRows, false);
+// loss_mode: 0 L2, 1 any other loss, 2 the cotangent-seeded mode.
+GradFn grad_kernel_for(bool all, bool narrow, int loss_mode) {
+#define SR_PICK(N, NARROW, ANY, COT)                                     \
+  (all ? &postfix_grad_kernel<true, N, NARROW, ANY, COT>                 \
+       : &postfix_grad_kernel<false, N, NARROW, ANY, COT>)
+#define SR_PICK_LOSS(N, NARROW)                                          \
+  (loss_mode == 2   ? SR_PICK(N, NARROW, false, true)                    \
+   : loss_mode == 1 ? SR_PICK(N, NARROW, true, false)                    \
+                    : SR_PICK(N, NARROW, false, false))
+  return narrow ? SR_PICK_LOSS(1, true) : SR_PICK_LOSS(kGradRows, false);
+#undef SR_PICK_LOSS
 #undef SR_PICK
 }
 
 long long grad_smem_bytes(int warps, int L) {
-  return 4LL * warps * grad_warp_floats(L, kGradRows);
+  return static_cast<long long>(SR_RB) * warps * grad_warp_floats(L, kGradRows);
 }
 
 // ---------------------------------------------------------------------------
@@ -371,10 +420,10 @@ struct LossArgs {
   const srprog::Storage* cval;  // (T * reps, L)
   const srprog::Storage* X;
   const srprog::Storage* y;
-  const float* wn;
-  float* loss;
+  const SR_REAL* wn;
+  SR_REAL* loss;
   int* bad;
-  float* scratch;  // the narrow route's stacks in global memory, or null
+  SR_REAL* scratch;  // the narrow route's stacks in global memory, or null
   int T, reps, groups, L, nfeat, nrows, cap;
   OpMap map;
   srloss::Loss loss_fn;  // the kAnyLoss instantiations' loss
@@ -391,19 +440,19 @@ __global__ void __launch_bounds__(kLossMaxWarps * 32)
 loss_kernel(const __grid_constant__ LossArgs a) {
   constexpr int kN = kCand * kRows;  // values per lane: [candidate][row]
   using St = srprog::Stack<kN, kNarrow>;
-  extern __shared__ __align__(16) float loss_smem[];
-  float* smem = loss_smem;
+  extern __shared__ __align__(16) SR_REAL loss_smem[];
+  SR_REAL* smem = loss_smem;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long gw = static_cast<long long>(blockIdx.x) * warps + warp;
-  float* stack;
+  SR_REAL* stack;
   int2* s_word;
-  float* s_cval;
+  SR_REAL* s_cval;
   if constexpr (kNarrow) {
     s_word = reinterpret_cast<int2*>(smem) + warp * (a.L + 1);
-    float* cvals =
-        reinterpret_cast<float*>(reinterpret_cast<int2*>(smem) + warps * (a.L + 1));
+    SR_REAL* cvals = reinterpret_cast<SR_REAL*>(reinterpret_cast<int2*>(smem) +
+                                                warps * (a.L + 1));
     s_cval = cvals + warp * a.L * kCand;
     const long long per = static_cast<long long>(a.cap) * St::kEntry;
     stack = (a.scratch ? a.scratch + gw * per
@@ -413,7 +462,7 @@ loss_kernel(const __grid_constant__ LossArgs a) {
     stack = smem + warp * a.cap * St::kEntry + lane * St::kLaneWidth;
     s_word = reinterpret_cast<int2*>(smem + warps * a.cap * St::kEntry) +
              warp * (a.L + 1);
-    s_cval = reinterpret_cast<float*>(
+    s_cval = reinterpret_cast<SR_REAL*>(
                  reinterpret_cast<int2*>(smem + warps * a.cap * St::kEntry) +
                  warps * (a.L + 1)) +
              warp * a.L * kCand;  // [slot][candidate]
@@ -434,8 +483,8 @@ loss_kernel(const __grid_constant__ LossArgs a) {
     __syncwarp();
     if (invalid) n = 0;
 
-    float acc[kCand] = {};
-    float pz[kN] = {};
+    SR_REAL acc[kCand] = {};
+    SR_REAL pz[kN] = {};
     const unsigned word_a = srprog::opaque(srprog::smem_u32(s_word));
     typename St::Addr stack_a;
     if constexpr (kNarrow) {
@@ -445,21 +494,21 @@ loss_kernel(const __grid_constant__ LossArgs a) {
     }
     const unsigned cval_a = srprog::opaque(srprog::smem_u32(s_cval));
     for (int base = 0; n > 0 && base < a.nrows; base += 32 * kRows) {
-      float v[kN] = {};
+      SR_REAL v[kN] = {};
       srprog::run_program<kAll, kN, false, kNarrow>(
           word_a, n, stack_a, v, pz,
-          [&](int s, float (&x)[kN]) {
-            float cv[kCand];
+          [&](int s, SR_REAL (&x)[kN]) {
+            SR_REAL cv[kCand];
 #pragma unroll
             for (int c = 0; c < kCand; ++c) {
-              cv[c] = srprog::lds_f32(cval_a + 4u * (s * kCand + c));
+              cv[c] = srprog::SR_LDS(cval_a + SR_RB * (s * kCand + c));
             }
 #pragma unroll
             for (int i = 0; i < kN; ++i) x[i] = cv[i / kRows];
           },
-          [&](int f, float (&x)[kN]) {
+          [&](int f, SR_REAL (&x)[kN]) {
             const srprog::Storage* xf = a.X + f * a.nrows;
-            float xr[kRows];
+            SR_REAL xr[kRows];
 #pragma unroll
             for (int j = 0; j < kRows; ++j) {
               xr[j] = srprog::to_f32(xf[min(base + j * 32 + lane, a.nrows - 1)]);
@@ -467,7 +516,7 @@ loss_kernel(const __grid_constant__ LossArgs a) {
 #pragma unroll
             for (int i = 0; i < kN; ++i) x[i] = xr[i % kRows];
           },
-          [](int, const float (&)[kN]) {});
+          [](int, const SR_REAL (&)[kN]) {});
       if constexpr (kAnyLoss) {
         srloss::with_loss(a.loss_fn.kind, [&](auto k) {
           constexpr int K = decltype(k)::value;
@@ -475,12 +524,13 @@ loss_kernel(const __grid_constant__ LossArgs a) {
           for (int j = 0; j < kRows; ++j) {
             const int row = base + j * 32 + lane;
             if (row < a.nrows) {
-              const float yr = srprog::to_f32(a.y[row]);
-              const float wr = a.wn[row];
+              const SR_REAL yr = srprog::to_f32(a.y[row]);
+              const SR_REAL wr = a.wn[row];
 #pragma unroll
               for (int c = 0; c < kCand; ++c) {
-                const float p = v[c * kRows + j];
-                if (wr != 0.f) acc[c] += srloss::elem<K>(a.loss_fn, p, yr) * wr;
+                const SR_REAL p = v[c * kRows + j];
+                if (wr != SR_LIT(0.)) acc[c] += srloss::elem<K>(a.loss_fn, p,
+                                                                yr) * wr;
               }
             }
           }
@@ -490,12 +540,12 @@ loss_kernel(const __grid_constant__ LossArgs a) {
         for (int j = 0; j < kRows; ++j) {
           const int row = base + j * 32 + lane;
           if (row < a.nrows) {
-            const float yr = srprog::to_f32(a.y[row]);
-            const float wr = a.wn[row];
+            const SR_REAL yr = srprog::to_f32(a.y[row]);
+            const SR_REAL wr = a.wn[row];
 #pragma unroll
             for (int c = 0; c < kCand; ++c) {
-              const float d = v[c * kRows + j] - yr;
-              if (wr != 0.f) acc[c] += (d * d) * wr;
+              const SR_REAL d = v[c * kRows + j] - yr;
+              if (wr != SR_LIT(0.)) acc[c] += (d * d) * wr;
             }
           }
         }
@@ -509,7 +559,7 @@ loss_kernel(const __grid_constant__ LossArgs a) {
         nonfinite |= pz[c * kRows + j] != pz[c * kRows + j];
       }
       const bool any_bad = __any_sync(0xffffffffu, nonfinite) || invalid;
-      const float sum = warp_sum(acc[c]);
+      const SR_REAL sum = warp_sum(acc[c]);
       if (lane == 0) {
         a.loss[inst0 + c] = sum;
         a.bad[inst0 + c] = any_bad ? 1 : 0;
@@ -554,14 +604,24 @@ LossFn loss_kernel_for(bool all, int cand, bool narrow, bool any_loss) {
 
 long long loss_smem_bytes(int warps, int L, int cand) {
   const long long cap = (L + 1) / 2;
+#if SR_STORAGE == 3
+  return 8LL * warps * (cap * 32 * loss_values_per_lane(cand) + 1LL * (L + 1) +
+                       1LL * L * cand);
+#else
   return 4LL * warps *
          (cap * 32 * loss_values_per_lane(cand) + 2LL * (L + 1) + 1LL * L * cand);
+#endif
+}
+
+// The loss-only kernel's narrow stack per warp: one value per lane.
+long long loss_narrow_stack_bytes(int L) {
+  return static_cast<long long>(SR_RB) * 32 * ((L + 1) / 2);
 }
 
 // digamma_f elementwise: lets a test hold the hand-written digamma against
 // torch.digamma on the card (no kernel of the search calls it)
-__global__ void digamma_kernel(const float* __restrict__ x,
-                               float* __restrict__ out, int n) {
+__global__ void digamma_kernel(const SR_REAL* __restrict__ x,
+                               SR_REAL* __restrict__ out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = digamma_f(x[i]);
 }
@@ -570,8 +630,8 @@ __global__ void digamma_kernel(const float* __restrict__ x,
 
 extern "C" {
 
-// The build's storage type (SR_STORAGE: 0 float, 1 bfloat16, 2 float16),
-// the type of X, y and cval.
+// The build's storage type (SR_STORAGE: 0 float, 1 bfloat16, 2 float16,
+// 3 double), the type of X, y and cval.
 int postfix_grad_storage() { return SR_STORAGE; }
 
 // The launch layout of the gradient kernel for T trees x reps instances:
@@ -580,16 +640,18 @@ int postfix_grad_storage() { return SR_STORAGE; }
 // route, [6] bytes of global memory for its slot values (0 when they are in
 // shared memory). The warps per block are those that keep the most warps
 // resident; the narrow route where one warp of kGradRows rows per lane does
-// not fit. any_loss: the instantiation for a loss other than L2.
+// not fit. any_loss: the instantiation for a loss other than L2 (1) or the
+// cotangent-seeded mode (2).
 int postfix_grad_plan(int T, int reps, int L, int all_ops, int any_loss,
                       long long* plan) {
-  if (T < 0 || reps <= 0 || L <= 0 || L >= (1 << 24)) {
+  if (T < 0 || reps <= 0 || L <= 0 || L >= (1 << 24) || any_loss < 0 ||
+      any_loss > 2) {
     return cudaErrorInvalidValue;
   }
   if (grad_smem_bytes(1, L) > kMaxSmemBytes) {
     srprog::NarrowPlan np;
     const cudaError_t err = srprog::narrow_plan(
-        grad_kernel_for(all_ops != 0, true, any_loss != 0),
+        grad_kernel_for(all_ops != 0, true, any_loss),
         static_cast<long long>(T) * reps,
         grad_narrow_fixed_bytes(L), grad_narrow_scratch_bytes(L),
         kGradMaxWarps, kMaxSmemBytes, &np);
@@ -599,7 +661,7 @@ int postfix_grad_plan(int T, int reps, int L, int all_ops, int any_loss,
     for (int i = 0; i < 7; ++i) plan[i] = p[i];
     return cudaSuccess;
   }
-  const GradFn fn = grad_kernel_for(all_ops != 0, false, any_loss != 0);
+  const GradFn fn = grad_kernel_for(all_ops != 0, false, any_loss);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
@@ -633,7 +695,9 @@ int postfix_grad_plan(int T, int reps, int L, int all_ops, int any_loss,
 // operator outside the common set, so the instantiation with every operator
 // runs (operators.cuh). loss_kind, c0-c2: the loss (csrc/losses.cuh; ops/
 // losses.py ElementwiseLoss.kind / constants); the plan's any_loss is
-// loss_kind != L2. X, y and cval are of the build's storage type
+// loss_kind != L2, 2 for kCotangent, whose y is the seeds (T * reps, nrows)
+// of the compute type and wn is not read. X, y and cval are of the build's
+// storage type
 // (postfix_grad_storage); wn, loss and grad are float.
 cudaError_t postfix_grad_launch(const void* kind, const void* op,
                                 const void* feat, const void* length,
@@ -643,8 +707,9 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
                                 void* scratch, const int* opmap, int n_unary,
                                 int n_binary, int T, int reps, int L,
                                 int nfeat, int nrows, int all_ops,
-                                int loss_kind, float c0, float c1, float c2,
-                                const long long* plan, void* stream) {
+                                int loss_kind, SR_REAL c0, SR_REAL c1,
+                                SR_REAL c2, const long long* plan,
+                                void* stream) {
   if (T <= 0) return cudaSuccess;
   const bool narrow = plan[5] != 0;
   const long long smem =
@@ -652,7 +717,8 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
                           (plan[6] ? 0 : grad_narrow_scratch_bytes(L)))
              : grad_smem_bytes(static_cast<int>(plan[1]), L);
   if (n_unary + n_binary > srprog::kMaxOps || reps <= 0 || L <= 0 ||
-      loss_kind < 0 || loss_kind >= SR_LOSS_KINDS ||
+      loss_kind < 0 ||
+      (loss_kind >= SR_LOSS_KINDS && loss_kind != kCotangent) ||
       L >= (1 << 24) || plan[0] != (narrow ? 1 : kGradRows) ||
       plan[1] < 1 || plan[1] > kGradMaxWarps || plan[3] != smem ||
       plan[3] > kMaxSmemBytes || (plan[6] != 0) != (scratch != nullptr) ||
@@ -669,11 +735,11 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
   a.cval = static_cast<const srprog::Storage*>(cval);
   a.X = static_cast<const srprog::Storage*>(X);
   a.y = static_cast<const srprog::Storage*>(y);
-  a.wn = static_cast<const float*>(wn);
-  a.loss = static_cast<float*>(loss);
-  a.grad = static_cast<float*>(grad);
+  a.wn = static_cast<const SR_REAL*>(wn);
+  a.loss = static_cast<SR_REAL*>(loss);
+  a.grad = static_cast<SR_REAL*>(grad);
   a.bad = static_cast<int*>(bad);
-  a.scratch = static_cast<float*>(scratch);
+  a.scratch = static_cast<SR_REAL*>(scratch);
   a.T = T;
   a.reps = reps;
   a.L = L;
@@ -682,8 +748,11 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
   a.cap = (L + 1) / 2;
   a.map = srprog::make_op_map(opmap, n_unary, n_binary);
   a.loss_fn = srloss::Loss{loss_kind, c0, c1, c2};
-  const GradFn fn =
-      grad_kernel_for(all_ops != 0, narrow, loss_kind != srloss::kL2);
+  const bool cotangent = loss_kind == kCotangent;
+  a.cot = cotangent ? static_cast<const SR_REAL*>(y) : nullptr;
+  if (cotangent) a.y = nullptr;
+  const GradFn fn = grad_kernel_for(
+      all_ops != 0, narrow, cotangent ? 2 : (loss_kind != srloss::kL2 ? 1 : 0));
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
@@ -720,7 +789,7 @@ int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
     const cudaError_t err = srprog::narrow_plan(
         loss_kernel_for(all_ops != 0, 1, true, any_loss != 0),
         static_cast<long long>(T) * reps,
-        grad_narrow_fixed_bytes(L), 4LL * 32 * ((L + 1) / 2), kLossMaxWarps,
+        grad_narrow_fixed_bytes(L), loss_narrow_stack_bytes(L), kLossMaxWarps,
         kMaxSmemBytes, &np);
     if (err != cudaSuccess) return err;
     const long long p[9] = {reps, 1, 1, np.warps, np.blocks_per_sm, np.smem,
@@ -763,13 +832,13 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
                                 const int* opmap, int n_unary, int n_binary,
                                 int T, int reps, int cand, int L, int nfeat,
                                 int nrows, int all_ops, int loss_kind,
-                                float c0, float c1, float c2,
+                                SR_REAL c0, SR_REAL c1, SR_REAL c2,
                                 const long long* plan, void* stream) {
   if (T <= 0) return cudaSuccess;
   const bool narrow = plan[7] != 0;
   const long long smem =
       narrow ? plan[3] * (grad_narrow_fixed_bytes(L) +
-                          (plan[8] ? 0 : 4LL * 32 * ((L + 1) / 2)))
+                          (plan[8] ? 0 : loss_narrow_stack_bytes(L)))
              : loss_smem_bytes(static_cast<int>(plan[3]), L, cand);
   if (n_unary + n_binary > srprog::kMaxOps || plan[1] != cand ||
       loss_kind < 0 || loss_kind >= SR_LOSS_KINDS ||
@@ -789,10 +858,10 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
   a.cval = static_cast<const srprog::Storage*>(cval);
   a.X = static_cast<const srprog::Storage*>(X);
   a.y = static_cast<const srprog::Storage*>(y);
-  a.wn = static_cast<const float*>(wn);
-  a.loss = static_cast<float*>(loss);
+  a.wn = static_cast<const SR_REAL*>(wn);
+  a.loss = static_cast<SR_REAL*>(loss);
   a.bad = static_cast<int*>(bad);
-  a.scratch = static_cast<float*>(scratch);
+  a.scratch = static_cast<SR_REAL*>(scratch);
   a.T = T;
   a.reps = reps;
   a.groups = static_cast<int>(plan[0]);
@@ -817,7 +886,7 @@ cudaError_t postfix_grad_digamma(const void* x, void* out, int n,
   if (n <= 0) return cudaSuccess;
   digamma_kernel<<<(n + 255) / 256, 256, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n);
+      static_cast<const SR_REAL*>(x), static_cast<SR_REAL*>(out), n);
   return cudaGetLastError();
 }
 

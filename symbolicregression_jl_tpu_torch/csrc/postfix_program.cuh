@@ -37,7 +37,11 @@
 // type holds exactly. What the kernels keep in shared or global scratch
 // (stacks, slot values, results) stays float: it holds values of the
 // storage type. In the float build Storage is float and round_s is the
-// identity, so that build is the code it was.
+// identity, so that build is the code it was. SR_STORAGE 3 is the float64
+// build: storage and compute type (SR_REAL, csrc/real.cuh) are double,
+// round_s is the identity, and every value in scratch is a double, so each
+// launch layout counts 8 bytes per value (the *_bytes functions of the
+// three sources, which the wrappers' plans read).
 
 #pragma once
 
@@ -50,8 +54,8 @@
 #include <cuda_bf16.h>
 #elif SR_STORAGE == 2
 #include <cuda_fp16.h>
-#elif SR_STORAGE != 0
-#error "SR_STORAGE must be 0 (float), 1 (bfloat16) or 2 (float16)"
+#elif SR_STORAGE != 0 && SR_STORAGE != 3
+#error "SR_STORAGE must be 0 (float), 1 (bfloat16), 2 (float16) or 3 (double)"
 #endif
 
 #include "operators.cuh"
@@ -62,23 +66,31 @@ using namespace srops;
 
 #if SR_STORAGE == 1
 using Storage = __nv_bfloat16;
-__device__ __forceinline__ float to_f32(Storage x) { return __bfloat162float(x); }
-__device__ __forceinline__ Storage from_f32(float x) {
+__device__ __forceinline__ SR_REAL to_f32(Storage x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ Storage from_f32(SR_REAL x) {
   return __float2bfloat16_rn(x);
 }
 #elif SR_STORAGE == 2
 using Storage = __half;
-__device__ __forceinline__ float to_f32(Storage x) { return __half2float(x); }
-__device__ __forceinline__ Storage from_f32(float x) { return __float2half_rn(x); }
+__device__ __forceinline__ SR_REAL to_f32(Storage x) { return __half2float(x); }
+__device__ __forceinline__ Storage from_f32(SR_REAL x) {
+  return __float2half_rn(x);
+}
 #else
-using Storage = float;
-__device__ __forceinline__ float to_f32(Storage x) { return x; }
-__device__ __forceinline__ Storage from_f32(float x) { return x; }
+using Storage = SR_REAL;
+__device__ __forceinline__ SR_REAL to_f32(Storage x) { return x; }
+__device__ __forceinline__ Storage from_f32(SR_REAL x) { return x; }
 #endif
+#if SR_STORAGE == 3
+constexpr bool kFloatStorage = true;  // storage is the compute type
+#else
 constexpr bool kFloatStorage = SR_STORAGE == 0;
+#endif
 
 // A value produced in float32, as the storage type holds it.
-__device__ __forceinline__ float round_s(float x) {
+__device__ __forceinline__ SR_REAL round_s(SR_REAL x) {
   if constexpr (kFloatStorage) {
     return x;
   } else {
@@ -86,17 +98,27 @@ __device__ __forceinline__ float round_s(float x) {
   }
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(SR_REAL* dst, const SR_REAL* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
+#if SR_STORAGE == 3
+__device__ __forceinline__ void cp_async8(SR_REAL* dst, const SR_REAL* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+#endif
+
 // One element of X into a block's staged float copy of X: cp.async in the
-// float build, a load and a conversion in the 2-byte builds (so a 2-byte
-// X of any row count needs no alignment rule).
-__device__ __forceinline__ void stage_x(float* dst, const Storage* src) {
+// float build (an 8-byte one in the float64 build), a load and a
+// conversion in the 2-byte builds (so a 2-byte X of any row count needs no
+// alignment rule).
+__device__ __forceinline__ void stage_x(SR_REAL* dst, const Storage* src) {
 #if SR_STORAGE == 0
   cp_async4(dst, src);
+#elif SR_STORAGE == 3
+  cp_async8(dst, src);
 #else
   *dst = to_f32(*src);
 #endif
@@ -104,10 +126,20 @@ __device__ __forceinline__ void stage_x(float* dst, const Storage* src) {
 
 // Writes kN values of one lane's consecutive rows at o (value outputs).
 // With `aligned` every row is real and o is 4-element aligned: the float
-// build writes one float4, the 2-byte builds one 8-byte word per 4 rows.
+// build writes one float4, the float64 build two double2, the 2-byte
+// builds one 8-byte word per 4 rows.
 template <int kN>
-__device__ __forceinline__ void store_rows(Storage* o, const float (&v)[kN],
+__device__ __forceinline__ void store_rows(Storage* o, const SR_REAL (&v)[kN],
                                            bool aligned, int real) {
+#if SR_STORAGE == 3
+  if constexpr (kN == 4) {
+    if (aligned) {
+      reinterpret_cast<double2*>(o)[0] = make_double2(v[0], v[1]);
+      reinterpret_cast<double2*>(o)[1] = make_double2(v[2], v[3]);
+      return;
+    }
+  }
+#else
   if constexpr (kN == 4 && kFloatStorage) {
     if (aligned) {
       *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
@@ -122,6 +154,7 @@ __device__ __forceinline__ void store_rows(Storage* o, const float (&v)[kN],
       return;
     }
   }
+#endif
 #pragma unroll
   for (int i = 0; i < kN; ++i) {
     if (i < real) o[i] = from_f32(v[i]);
@@ -212,11 +245,27 @@ __device__ __forceinline__ int2 lds_word(unsigned a) {
                : "r"(a));
   return w;
 }
-__device__ __forceinline__ float lds_f32(unsigned a) {
-  float v;
+#if SR_STORAGE == 3
+__device__ __forceinline__ double lds_f64(unsigned a) {
+  double v;
+  asm volatile("ld.shared.f64 %0, [%1];" : "=d"(v) : "r"(a));
+  return v;
+}
+// one compute-type value from shared memory, a value's bytes, and the
+// bytes of one value per lane of a warp
+#define SR_LDS lds_f64
+#define SR_RB 8u
+#define SR_WARP_RB 256u
+#else
+__device__ __forceinline__ SR_REAL lds_f32(unsigned a) {
+  SR_REAL v;
   asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
   return v;
 }
+#define SR_LDS lds_f32
+#define SR_RB 4u
+#define SR_WARP_RB 128u
+#endif
 
 // Writes the words of the program of n slots at kind/op/feat + base into
 // s_word[0, n) and 0 into s_word[n] (the slot loop reads one word ahead).
@@ -311,43 +360,69 @@ __device__ __forceinline__ void derive_adjoint_words(int2* s_word, int n,
   }
 }
 
-// Loads and stores of 1, 2 or 4 floats through a shared-window address
-// (Mem<false>: 32-bit, ld/st.shared) or a generic address (Mem<true>:
-// 64-bit, ld/st; a stack or slot values in global memory, or in shared
-// memory reached generically). Volatile, so they stay in program order.
+// Loads and stores of 1, 2 or 4 floats (1 or 2 doubles in the float64
+// build) through a shared-window address (Mem<false>: 32-bit,
+// ld/st.shared) or a generic address (Mem<true>: 64-bit, ld/st; a stack or
+// slot values in global memory, or in shared memory reached generically).
+// Volatile, so they stay in program order.
 template <bool kGeneric>
 struct Mem;
+
+#if SR_STORAGE == 3
+#define SR_MEM(GENERIC, ADDR, SPACE, C)                                      \
+  template <>                                                                \
+  struct Mem<GENERIC> {                                                      \
+    using Addr = ADDR;                                                       \
+    __device__ __forceinline__ static double ld1(Addr a) {                   \
+      double v;                                                              \
+      asm volatile("ld" SPACE ".f64 %0, [%1];" : "=d"(v) : C(a));            \
+      return v;                                                              \
+    }                                                                        \
+    __device__ __forceinline__ static void st1(Addr a, double v) {           \
+      asm volatile("st" SPACE ".f64 [%0], %1;" ::C(a), "d"(v));              \
+    }                                                                        \
+    __device__ __forceinline__ static void ld2(Addr a, double* v) {          \
+      asm volatile("ld" SPACE ".v2.f64 {%0, %1}, [%2];"                      \
+                   : "=d"(v[0]), "=d"(v[1]) : C(a));                         \
+    }                                                                        \
+    __device__ __forceinline__ static void st2(Addr a, const double* v) {    \
+      asm volatile("st" SPACE ".v2.f64 [%0], {%1, %2};" ::C(a), "d"(v[0]),   \
+                   "d"(v[1]));                                               \
+    }                                                                        \
+  };
+#else
 
 #define SR_MEM(GENERIC, ADDR, SPACE, C)                                      \
   template <>                                                                \
   struct Mem<GENERIC> {                                                      \
     using Addr = ADDR;                                                       \
-    __device__ __forceinline__ static float ld1(Addr a) {                    \
-      float v;                                                               \
+    __device__ __forceinline__ static SR_REAL ld1(Addr a) {                    \
+      SR_REAL v;                                                               \
       asm volatile("ld" SPACE ".f32 %0, [%1];" : "=f"(v) : C(a));            \
       return v;                                                              \
     }                                                                        \
-    __device__ __forceinline__ static void st1(Addr a, float v) {            \
+    __device__ __forceinline__ static void st1(Addr a, SR_REAL v) {            \
       asm volatile("st" SPACE ".f32 [%0], %1;" ::C(a), "f"(v));              \
     }                                                                        \
-    __device__ __forceinline__ static void ld2(Addr a, float* v) {           \
+    __device__ __forceinline__ static void ld2(Addr a, SR_REAL* v) {           \
       asm volatile("ld" SPACE ".v2.f32 {%0, %1}, [%2];"                      \
                    : "=f"(v[0]), "=f"(v[1]) : C(a));                         \
     }                                                                        \
-    __device__ __forceinline__ static void st2(Addr a, const float* v) {     \
+    __device__ __forceinline__ static void st2(Addr a, const SR_REAL* v) {     \
       asm volatile("st" SPACE ".v2.f32 [%0], {%1, %2};" ::C(a), "f"(v[0]),   \
                    "f"(v[1]));                                               \
     }                                                                        \
-    __device__ __forceinline__ static void ld4(Addr a, float* v) {           \
+    __device__ __forceinline__ static void ld4(Addr a, SR_REAL* v) {           \
       asm volatile("ld" SPACE ".v4.f32 {%0, %1, %2, %3}, [%4];"              \
                    : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])          \
                    : C(a));                                                  \
     }                                                                        \
-    __device__ __forceinline__ static void st4(Addr a, const float* v) {     \
+    __device__ __forceinline__ static void st4(Addr a, const SR_REAL* v) {     \
       asm volatile("st" SPACE ".v4.f32 [%0], {%1, %2, %3, %4};" ::C(a),      \
                    "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]));              \
     }                                                                        \
   };
+#endif
 SR_MEM(false, unsigned, ".shared", "r")
 SR_MEM(true, unsigned long long, "", "l")
 #undef SR_MEM
@@ -361,7 +436,38 @@ __device__ __forceinline__ unsigned long long gen_u64(const void* p) {
 // [kN / 4 planes][32 lanes][4] above, so every access is one conflict-free
 // 8- or 16-byte access per lane (per plane). kGeneric: the entries are
 // reached by generic addresses (the kernels' routes whose stack or slot
-// values live in global memory).
+// values live in global memory). In the float64 build an entry is [32
+// lanes][kN] doubles for every kN, a lane's values one or kN / 2 16-byte
+// accesses, so a lane's values are consecutive as in a staged X.
+#if SR_STORAGE == 3
+template <int kN, bool kGeneric = false>
+struct Stack {
+  static_assert(kN == 1 || kN % 2 == 0, "one value or pairs per lane");
+  using M = Mem<kGeneric>;
+  using Addr = typename M::Addr;
+  static constexpr int kLaneWidth = kN;
+  static constexpr int kEntry = 32 * kN;  // doubles per entry
+  static constexpr unsigned kEntryBytes = 8u * kEntry;
+
+  __device__ __forceinline__ static void store(Addr e, const double (&v)[kN]) {
+    if constexpr (kN == 1) {
+      M::st1(e, v[0]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kN / 2; ++j) M::st2(e + j * 16, v + 2 * j);
+    }
+  }
+
+  __device__ __forceinline__ static void load(Addr e, double (&v)[kN]) {
+    if constexpr (kN == 1) {
+      v[0] = M::ld1(e);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kN / 2; ++j) M::ld2(e + j * 16, v + 2 * j);
+    }
+  }
+};
+#else
 template <int kN, bool kGeneric = false>
 struct Stack {
   using M = Mem<kGeneric>;
@@ -370,7 +476,7 @@ struct Stack {
   static constexpr int kEntry = 32 * kN;  // floats per entry
   static constexpr unsigned kEntryBytes = 4u * kEntry;
 
-  __device__ __forceinline__ static void store(Addr e, const float (&v)[kN]) {
+  __device__ __forceinline__ static void store(Addr e, const SR_REAL (&v)[kN]) {
     if constexpr (kN == 1) {
       M::st1(e, v[0]);
     } else if constexpr (kN == 2) {
@@ -381,7 +487,7 @@ struct Stack {
     }
   }
 
-  __device__ __forceinline__ static void load(Addr e, float (&v)[kN]) {
+  __device__ __forceinline__ static void load(Addr e, SR_REAL (&v)[kN]) {
     if constexpr (kN == 1) {
       v[0] = M::ld1(e);
     } else if constexpr (kN == 2) {
@@ -392,11 +498,13 @@ struct Stack {
     }
   }
 };
+#endif
 
 template <int kN>
-__device__ __forceinline__ void poison(const float (&v)[kN], float (&pz)[kN]) {
+__device__ __forceinline__ void poison(const SR_REAL (&v)[kN],
+                                       SR_REAL (&pz)[kN]) {
 #pragma unroll
-  for (int i = 0; i < kN; ++i) pz[i] = __fmaf_rn(v[i], 0.f, pz[i]);
+  for (int i = 0; i < kN; ++i) pz[i] = SR_FMA_RN(v[i], SR_LIT(0.), pz[i]);
 }
 
 // The operators of the compact instantiation, then the others (with the
@@ -434,7 +542,7 @@ template <bool kAll, int kN, bool kFromSlots = false, bool kGeneric = false,
           class ConstLeaf, class VarLeaf, class OnStep>
 __device__ __forceinline__ void run_program(
     unsigned s_word, int n, typename Stack<kN, kGeneric>::Addr stack,
-    float (&v)[kN], float (&pz)[kN], ConstLeaf const_leaf, VarLeaf var_leaf,
+    SR_REAL (&v)[kN], SR_REAL (&pz)[kN], ConstLeaf const_leaf, VarLeaf var_leaf,
     OnStep on_step) {
   using St = Stack<kN, kGeneric>;
   using Addr = typename St::Addr;
@@ -444,7 +552,7 @@ __device__ __forceinline__ void run_program(
     const Addr e = stack + static_cast<Addr>(kFromSlots ? word_feat(w)
                                                         : word_entry(w)) *
                                St::kEntryBytes;
-    float l[kN];
+    SR_REAL l[kN];
 #define SR_UNARY_CASE(OPC)                                                   \
   case dense_code(OPC):                                                      \
     _Pragma("unroll") for (int i = 0; i < kN; ++i) v[i] =                    \
@@ -524,16 +632,16 @@ __device__ __forceinline__ void run_program(
 template <bool kAll, int kN, bool kGeneric = false, class ConstLeaf>
 __device__ __forceinline__ void run_adjoint(
     unsigned s_word, int n, typename Stack<kN, kGeneric>::Addr vals,
-    float (&w)[kN], ConstLeaf const_leaf) {
+    SR_REAL (&w)[kN], ConstLeaf const_leaf) {
   using St = Stack<kN, kGeneric>;
   using Addr = typename St::Addr;
   constexpr unsigned kEntryBytes = St::kEntryBytes;
-  float v[kN];
+  SR_REAL v[kN];
   St::load(vals + static_cast<Addr>(n - 1) * kEntryBytes, v);
   int2 word = lds_word(s_word + 8 * (n - 1));
   for (int s = n - 1; s > 0; --s) {
     const int2 next = lds_word(s_word + 8 * (s - 1));
-    float a[kN];
+    SR_REAL a[kN];
     St::load(vals + static_cast<Addr>(s - 1) * kEntryBytes, a);
     // where the adjoint of the operand at the word's stack entry waits
     const Addr e =
@@ -545,7 +653,7 @@ __device__ __forceinline__ void run_adjoint(
     break;
 #define SR_BINARY_ADJ(OPC)                                                   \
   case dense_code(OPC): {                                                    \
-    float l[kN], dl[kN];                                                     \
+    SR_REAL l[kN], dl[kN];                                                     \
     St::load(vals + static_cast<Addr>(word_feat(word)) * kEntryBytes, l);  \
     _Pragma("unroll") for (int i = 0; i < kN; ++i)                           \
         binary_vjp<kAll>(OPC, l[i], a[i], v[i], w[i], &dl[i], &w[i]);       \

@@ -25,7 +25,16 @@ in lockstep for a fixed number of iterations, on the kernels of
 None of the three loops reads the card from the host inside its
 iterations (Newton reads which slots hold constants once, before them:
 ``hessian_plan``). The loss is the search's: any registry loss or a callable the
-tracer lowers (``ops/user_ops.py``).
+tracer lowers (``ops/user_ops.py``), or a custom full-tree objective
+(``Options.loss_function``), whose closures ``_objective_kernel`` makes
+in place of the kernels' (the JAX package's ``_member_loss_fn``): the
+gradient ``vmap(grad(objective))`` over the instances (one value-mode
+launch, B1, and one of the gradient kernel's cotangent-seeded mode, B3,
+through ``ops/interpreter.py``'s ``eval_tree``), the line search
+``vmap(objective)`` (one B1 launch), and Newton's Hessian diagonal
+forward over forward through the lockstep interpreter
+(``interpreter.plain_eval_tree``). In float64 every one of them runs on
+the float64 builds.
 
 The random part (which members, which restarts) is ``_select_and_starts``
 and draws through ``utils/rng.py``; ``optimize_selected`` is the
@@ -66,6 +75,54 @@ def evals_per_member(n_iters: int, max_len: int = 0,
     return 1 + n_iters * (_LS_STEPS + 1)
 
 
+def _objective_kernel(trees_flat: TreeBatch, X: torch.Tensor, y: torch.Tensor,
+                      weights: Optional[torch.Tensor], options: Options,
+                      with_grad: bool, reps: int):
+    """``make_loss_kernel``'s ``fn(cval) -> (loss, grad | None, ok)`` for
+    the custom objective: each of the ``reps`` constant vectors per tree
+    is an instance, the objective ``torch.func.vmap``-ed over all of them
+    (with ``grad_and_value`` for the gradient), contained; ``ok`` is all
+    True (the containment is in the loss)."""
+    T, L = trees_flat.kind.shape
+    inst = trees_flat if reps == 1 else trees_flat.map(
+        lambda f: f.repeat_interleave(reps, dim=0))
+    objective = options.loss_function
+
+    def f(tree, c):
+        return contain_nonfinite(objective(tree._replace(cval=c), X, y,
+                                           weights, options))
+
+    value_grad = torch.func.vmap(torch.func.grad_and_value(f, argnums=1))
+    value = torch.func.vmap(f)
+
+    def fn(cval: torch.Tensor):
+        lead = cval.shape[:-1]
+        cv = cval.reshape(T * reps, L).to(X.dtype)
+        if with_grad:
+            grad, loss = value_grad(inst, cv)
+            grad = grad.reshape(cval.shape)
+        else:
+            loss, grad = value(inst, cv), None
+        loss = loss.to(X.dtype).reshape(lead)
+        return loss, grad, torch.ones_like(loss, dtype=torch.bool)
+
+    return fn
+
+
+def _loss_closure(trees_flat: TreeBatch, X: torch.Tensor, y: torch.Tensor,
+                  weights: Optional[torch.Tensor], options: Options,
+                  with_grad: bool = True, reps: int = 1):
+    """The optimisers' ``fn(cval) -> (loss, grad | None, ok)``: the
+    kernels' (``make_loss_kernel`` under the search's loss), or the custom
+    objective's (``_objective_kernel``)."""
+    if options.loss_function is not None:
+        return _objective_kernel(trees_flat, X, y, weights, options,
+                                 with_grad, reps)
+    return make_loss_kernel(trees_flat, X, y, weights, options.operators,
+                            with_grad=with_grad, reps=reps,
+                            loss=resolve_loss(options.loss))
+
+
 def _bfgs_batched(trees_flat: TreeBatch, x0: torch.Tensor, cmask: torch.Tensor,
                   X: torch.Tensor, y: torch.Tensor,
                   weights: Optional[torch.Tensor], options: Options,
@@ -84,12 +141,9 @@ def _bfgs_batched(trees_flat: TreeBatch, x0: torch.Tensor, cmask: torch.Tensor,
     float32 it runs in full float32 because PyTorch keeps TF32 off for
     matrix products by default."""
     M, L = x0.shape
-    ops = options.operators
-    loss = resolve_loss(options.loss)
-    grad_fn = make_loss_kernel(trees_flat, X, y, weights, ops, with_grad=True,
-                               loss=loss)
-    ls_fn = make_loss_kernel(trees_flat, X, y, weights, ops, with_grad=False,
-                             reps=_LS_STEPS, loss=loss)
+    grad_fn = _loss_closure(trees_flat, X, y, weights, options)
+    ls_fn = _loss_closure(trees_flat, X, y, weights, options,
+                          with_grad=False, reps=_LS_STEPS)
 
     def loss_grad(x):
         loss, grad, ok = grad_fn(x)
@@ -156,12 +210,10 @@ def _nelder_mead_batched(trees_flat: TreeBatch, x0: torch.Tensor,
     not finite hands back its start. Every loss is a B4 launch: the
     simplex at reps L + 1, each step's four candidates at reps 4."""
     M, L = x0.shape
-    ops = options.operators
-    loss = resolve_loss(options.loss)
-    init_fn = make_loss_kernel(trees_flat, X, y, weights, ops,
-                               with_grad=False, reps=L + 1, loss=loss)
-    step_fn = make_loss_kernel(trees_flat, X, y, weights, ops,
-                               with_grad=False, reps=4, loss=loss)
+    init_fn = _loss_closure(trees_flat, X, y, weights, options,
+                            with_grad=False, reps=L + 1)
+    step_fn = _loss_closure(trees_flat, X, y, weights, options,
+                            with_grad=False, reps=4)
     dev, dt = x0.device, x0.dtype
     i = torch.arange(L, device=dev)
     pattern = (((i[:, None] * 31 + i[None, :] * 17) % 7) - 3).to(dt) / 3.0
@@ -234,9 +286,13 @@ def hessian_diagonal(trees_flat: TreeBatch, x: torch.Tensor,
     ``jax.jacfwd``'s Jacobian read at row s. Each (instance, slot) pair of
     ``hessian_plan`` (computed here unless given) is one row of a batch
     whose tangent is that slot's direction, so every slot of every
-    instance goes through the interpreter together."""
+    instance goes through the interpreter together. Under a custom
+    objective the loss is the objective vmapped over the pairs, whose
+    ``eval_tree`` calls run the lockstep interpreter
+    (``interpreter.plain_eval_tree``, counted in ``PLAIN_CALLS``)."""
     ops = options.operators
     loss_fn = resolve_loss(options.loss)
+    objective = options.loss_function
     if plan is None:
         plan = hessian_plan(trees_flat, cmask, chunk, X.shape[1])
     h = torch.zeros_like(x)
@@ -246,6 +302,9 @@ def hessian_diagonal(trees_flat: TreeBatch, x: torch.Tensor,
         cm = cmask[inst, slot]
 
         def loss(c, t=t):
+            if objective is not None:
+                return torch.func.vmap(lambda tc: contain_nonfinite(
+                    objective(tc, X, y, weights, options)))(t._replace(cval=c))
             y_pred, ok = interpreter.eval_trees(t._replace(cval=c), X, ops)
             return contain_nonfinite(aggregate_loss(loss_fn(y_pred, y),
                                                     weights), ok)
@@ -254,7 +313,8 @@ def hessian_diagonal(trees_flat: TreeBatch, x: torch.Tensor,
             g = torch.func.jvp(loss, (c,), (e,))[1] * cm
             return torch.where(torch.isfinite(g), g, 0.0)
 
-        col = torch.func.jvp(grad_s, (c0,), (e,))[1]
+        with interpreter.plain_eval_tree():
+            col = torch.func.jvp(grad_s, (c0,), (e,))[1]
         h[inst, slot] = torch.where(torch.isfinite(col), col, 0.0).to(h.dtype)
     return h
 
@@ -271,12 +331,9 @@ def _newton_batched(trees_flat: TreeBatch, x0: torch.Tensor,
     (masked, non-finite components 0), the line search B4's, the Hessian's
     diagonal ``hessian_diagonal``'s. Returns (x (M, L), f (M,)); an
     instance that never reached a finite objective hands back its start."""
-    ops = options.operators
-    loss = resolve_loss(options.loss)
-    grad_fn = make_loss_kernel(trees_flat, X, y, weights, ops, with_grad=True,
-                               loss=loss)
-    ls_fn = make_loss_kernel(trees_flat, X, y, weights, ops, with_grad=False,
-                             reps=_LS_STEPS, loss=loss)
+    grad_fn = _loss_closure(trees_flat, X, y, weights, options)
+    ls_fn = _loss_closure(trees_flat, X, y, weights, options,
+                          with_grad=False, reps=_LS_STEPS)
     ts = 2.0 ** -torch.arange(_LS_STEPS, dtype=x0.dtype, device=x0.device)
     plan = hessian_plan(trees_flat, cmask, nrows=X.shape[1])
     f0, grad, ok0 = grad_fn(x0)

@@ -35,7 +35,13 @@ and its launches are not counted.
 
 On the CPU, which has no graphs, ``run`` runs the same step eagerly on the
 same static buffers. On the card a failed capture or replay raises; there
-is no fallback to the eager loop.
+is no fallback to the eager loop. A custom objective (``loss_function``)
+runs inside the captured step (its vmapped ``eval_tree`` calls, one value-
+mode launch per scoring call), as do per-island minibatches (the gather
+and one scoring launch per island); an objective that reads a device
+value on the host, or builds a tensor from Python data, fails at capture
+with an error that names it. The float64 search captures its own graph
+(the working dtype is in the key), its baseline a float64 device scalar.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from ..ops import kernel_eval, kernel_grad, kernel_instr
 from .evolve import (
     IslandState, _map_tensors, cycle_step, temperature_schedule,
 )
+from .fitness import score_dtype
 from .options import TRACED_SCALAR_FIELDS, Options
 from .parsimony import move_window
 
@@ -60,7 +67,7 @@ LAUNCH_COUNTERS = (
     kernel_grad.STORAGE_LAUNCHES, kernel_grad.LOSS_LAUNCHES,
     kernel_instr.LAUNCHES, kernel_instr.STORAGE_LAUNCHES,
     kernel_eval.USER_LAUNCHES, kernel_grad.USER_LAUNCHES,
-    kernel_instr.USER_LAUNCHES,
+    kernel_instr.USER_LAUNCHES, kernel_grad.VJP_LAUNCHES,
 )
 
 
@@ -111,7 +118,8 @@ class CycleGraph:
         self.y = torch.empty_like(y)
         self.weights = None if weights is None else torch.empty_like(weights)
         f32 = dict(dtype=torch.float32, device=device)
-        self.baseline = torch.zeros((), **f32)
+        self.baseline = torch.zeros((), dtype=score_dtype(X.dtype),
+                                    device=device)
         self.temperature = torch.ones((), **f32)
         self.curmaxsize = torch.zeros((), dtype=torch.int64, device=device)
         self.scalars = tuple(torch.zeros((), **f32)
@@ -177,6 +185,15 @@ class CycleGraph:
                 # after the context's own synchronize and empty_cache
                 reserved = torch.cuda.memory_reserved(self.device)
                 self._step(graph_gen, self.state)
+        except RuntimeError as e:
+            fn = self.options.loss_function
+            if fn is None:
+                raise
+            raise RuntimeError(
+                f"the cycle step with the custom objective {fn!r} "
+                "(Options.loss_function) could not be captured in a CUDA "
+                "graph: the objective must be tensor math on the card, with "
+                f"no read of a device value on the host ({e})") from e
         finally:
             after = _snapshot()
             _restore(before)

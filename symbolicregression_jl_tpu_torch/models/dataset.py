@@ -380,7 +380,9 @@ def make_dataset(X, y, weights=None,
     def put(a):
         if isinstance(a, torch.Tensor):
             return a.to(device=dev, dtype=dtype)
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev).to(dtype)
+        # through float64 at float64 (float32 for the others, as before)
+        host = np.float64 if dtype == torch.float64 else np.float32
+        return torch.as_tensor(np.asarray(a, host), device=dev).to(dtype)
 
     X, y = put(X), put(y)
     if X.dim() != 2:
@@ -404,7 +406,22 @@ def update_baseline_loss(dataset: Dataset, options_or_loss) -> Dataset:
     """Score the constant predictor ``avg_y`` in the working dtype;
     ``baseline_loss`` is 1.0 where that is not finite and positive.
     Accepts an elementwise loss (a registry name or callable) or an
-    Options (its ``loss``)."""
+    Options (its ``loss``); with an Options whose ``loss_function`` is set
+    the baseline is that objective of the encoded constant tree ``avg_y``
+    (the JAX package's rule)."""
+    loss_function = getattr(options_or_loss, "loss_function", None)
+    if loss_function is not None:
+        from .trees import Expr, encode_tree
+
+        options = options_or_loss
+        tree = encode_tree(Expr.const(dataset.avg_y), options.max_len,
+                           device=dataset.y.device, dtype=dataset.y.dtype)
+        tree = tree._replace(cval=tree.cval.to(dataset.y.dtype))
+        base = float(loss_function(tree, dataset.X, dataset.y,
+                                   dataset.weights, options))
+        dataset.baseline_loss = (base if np.isfinite(base) and base > 0
+                                 else 1.0)
+        return dataset
     loss = getattr(options_or_loss, "loss", options_or_loss)
     elem = resolve_loss(loss)(torch.full_like(dataset.y, dataset.avg_y),
                               dataset.y)

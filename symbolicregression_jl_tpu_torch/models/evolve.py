@@ -29,7 +29,9 @@ from ..utils.device import table
 from .complexity import compute_complexity
 from .constant_opt import optimize_constants_islands
 from .constraints import check_constraints
-from .fitness import sample_batch_idx, score_trees
+from .fitness import (
+    sample_batch_idx, score_dtype, score_trees, score_trees_islands,
+)
 from .mutate_device import (
     append_random_op,
     combine_operators,
@@ -347,13 +349,19 @@ def reg_evol_cycle_islands(gen, states: IslandState, temperature, curmaxsize,
                            X, y, weights, baseline, options: Options,
                            row_idx: Optional[torch.Tensor] = None) -> IslandState:
     """One cycle on every island; all islands' children are scored in ONE
-    flat call (full data, or the shared ``row_idx`` minibatch)."""
+    flat call (full data, or the shared ``row_idx`` minibatch), or with a
+    ``row_idx`` of shape (islands, batch) one call per island on its own
+    minibatch (``score_trees_islands``)."""
     nfeatures = X.shape[0]
     prop = _propose_children(gen, states, temperature, curmaxsize, nfeatures,
                              options)
     I, B = prop.parent_scores.shape
-    s, l = score_trees(_flat(prop.children), X, y, weights, baseline, options,
-                       row_idx)
+    if row_idx is not None and row_idx.dim() == 2:
+        s, l = score_trees_islands(prop.children, X, y, weights, baseline,
+                                   options, row_idx)
+    else:
+        s, l = score_trees(_flat(prop.children), X, y, weights, baseline,
+                           options, row_idx)
     return _integrate_children(gen, states, prop, s.reshape(I, B),
                                l.reshape(I, B), temperature, X.shape[1],
                                options)
@@ -362,9 +370,14 @@ def reg_evol_cycle_islands(gen, states: IslandState, temperature, curmaxsize,
 def cycle_step(gen, states: IslandState, temperature, curmaxsize, X, y,
                weights, baseline, options: Options) -> IslandState:
     """One step of the cycle loop: with batching, a fresh minibatch shared
-    by all islands, then ``reg_evol_cycle_islands``. The step that
-    ``s_r_cycle_islands`` runs eagerly and ``cycle_graph`` captures."""
-    row_idx = (sample_batch_idx(gen, X.shape[1], options.batch_size, X.device)
+    by all islands (or, with ``independent_island_batches``, one per
+    island, drawn in one call), then ``reg_evol_cycle_islands``. The step
+    that ``s_r_cycle_islands`` runs eagerly and ``cycle_graph``
+    captures."""
+    per_island = (states.birth_counter.shape[0]
+                  if options.independent_island_batches else None)
+    row_idx = (sample_batch_idx(gen, X.shape[1], options.batch_size, X.device,
+                                per_island)
                if options.batching else None)
     return reg_evol_cycle_islands(gen, states, temperature, curmaxsize, X, y,
                                   weights, baseline, options, row_idx)
@@ -404,7 +417,7 @@ def s_r_cycle_islands(gen, states: IslandState, curmaxsize, X, y, weights,
     temps = temperature_schedule(ncycles, options.annealing, dev)
     options = bind_device_scalars(options, dev)
     cm = scalar_tensor(curmaxsize, dev, torch.int64)
-    base = scalar_tensor(baseline, dev)
+    base = scalar_tensor(baseline, dev, score_dtype(X.dtype))
     for c in range(ncycles):
         states = cycle_step(gen, states, temps[c], cm, X, y, weights, base,
                             options)

@@ -11,9 +11,16 @@ fuses any ``loss_fn``, and weighted scoring and a callable the tracer
 cannot lower take value mode followed by the loss and ``aggregate_loss``; ``"instr"`` / ``"instr_packed"`` always take
 the instruction program's value mode followed by the loss and
 ``aggregate_loss`` (it has no fused loss). The working dtype is X's: the
-fused epilogue runs at float32 only, as in the JAX package; at bfloat16
-and float16 scoring takes the value mode of that dtype's build, then the
-loss and ``aggregate_loss`` in the working dtype.
+fused epilogue runs at float32 only, as in the JAX package; at bfloat16,
+float16 and float64 scoring takes the value mode of that dtype's build,
+then the loss and ``aggregate_loss`` in the working dtype.
+
+A custom full-tree objective (``Options.loss_function``) replaces all of
+that: ``_custom_loss_trees`` vmaps it over the flattened population, so
+each scoring call is one ``eval_tree`` batch (one value-mode launch on the
+card, ``ops/interpreter.py``). With per-island minibatches (``row_idx``
+of shape (islands, batch)) ``score_trees_islands`` gathers each island's
+rows on the device and makes one scoring call per island.
 """
 
 from __future__ import annotations
@@ -61,32 +68,89 @@ def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
     return contain_nonfinite(aggregate_loss(elem, weights), ok)
 
 
+def score_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the score's quotient and of the baseline's device
+    scalar for the working dtype ``dtype``: float64 at float64, else
+    float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def loss_to_score(loss: torch.Tensor, baseline,
                   complexity: torch.Tensor, options: Options) -> torch.Tensor:
     """score = loss/baseline + complexity*parsimony, in the loss's dtype:
     parsimony is a float32 scalar (a Python number is filled in) cast to
     it on the device, as the JAX package casts its traced parsimony.
-    ``baseline`` is a Python number or a 0-dim device tensor."""
+    ``baseline`` is a Python number or a 0-dim device tensor (float64 at
+    float64)."""
     parsimony = scalar_tensor(options.parsimony, loss.device).to(loss.dtype)
-    # the quotient in float32, rounded once to the loss's dtype, whether
-    # the baseline is a Python number or a float32 device scalar
-    normalized = (loss.to(torch.float32) / baseline).to(loss.dtype)
+    # the quotient in float32 (float64 at float64), rounded once to the
+    # loss's dtype, whether the baseline is a Python number or a device
+    # scalar
+    normalized = (loss.to(score_dtype(loss.dtype)) / baseline).to(loss.dtype)
     return normalized + complexity.to(loss.dtype) * parsimony
+
+
+def _custom_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
+                       weights: Optional[torch.Tensor], options: Options,
+                       row_idx: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The custom full-tree objective ``options.loss_function(tree, X, y,
+    weights, options)`` of every tree, ``torch.func.vmap``-ed over the
+    flattened population (the JAX package's ``_custom_loss_trees``), on
+    the ``row_idx`` minibatch when given; +inf where it is not finite. In
+    X's dtype."""
+    if row_idx is not None:
+        X = X[:, row_idx]
+        y = y[row_idx]
+        weights = None if weights is None else weights[row_idx]
+    batch_shape = trees.length.shape
+    flat = trees.map(lambda x: x.reshape((-1,) + x.shape[len(batch_shape):]))
+    loss = torch.func.vmap(
+        lambda t: options.loss_function(t, X, y, weights, options))(flat)
+    return contain_nonfinite(loss.to(X.dtype)).reshape(batch_shape)
 
 
 def score_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
                 weights: Optional[torch.Tensor], baseline,
                 options: Options, row_idx: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(score, loss) per tree."""
-    loss = eval_loss_trees(trees, X, y, weights, options.operators,
-                           options.loss, row_idx, options.kernel_program)
+    """(score, loss) per tree: the custom objective's loss when
+    ``options.loss_function`` is set, else the elementwise loss's."""
+    if options.loss_function is not None:
+        loss = _custom_loss_trees(trees, X, y, weights, options, row_idx)
+    else:
+        loss = eval_loss_trees(trees, X, y, weights, options.operators,
+                               options.loss, row_idx, options.kernel_program)
     score = loss_to_score(loss, baseline, compute_complexity(trees, options),
                           options)
     return contain_nonfinite(score, ref=loss), loss
 
 
+def score_trees_islands(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
+                        weights: Optional[torch.Tensor], baseline,
+                        options: Options, row_idx: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(score, loss) (I, B) of each island's B trees (fields (I, B, ...))
+    on its own minibatch ``row_idx`` (I, batch): the rows gathered on the
+    device into (I, nfeat, batch), then one ``score_trees`` call per
+    island (the JAX package vmaps ``score_trees`` over the islands). On
+    the card each call is one launch: the fused mode at float32
+    unweighted, else the value mode and the loss."""
+    Xi = X[:, row_idx].movedim(1, 0).contiguous()
+    yi = y[row_idx]
+    wi = None if weights is None else weights[row_idx]
+    out = [score_trees(trees.map(lambda f: f[i]), Xi[i], yi[i],
+                       None if wi is None else wi[i], baseline, options)
+           for i in range(row_idx.shape[0])]
+    return (torch.stack([s for s, _ in out]),
+            torch.stack([l for _, l in out]))
+
+
 def sample_batch_idx(gen: torch.Generator, n_rows: int, batch_size: int,
-                     device) -> torch.Tensor:
-    """Minibatch rows sampled with replacement."""
-    return rng.randint(gen, (batch_size,), 0, n_rows, device)
+                     device, n_islands: Optional[int] = None
+                     ) -> torch.Tensor:
+    """Minibatch rows sampled with replacement: (batch_size,), or with
+    ``n_islands`` one minibatch per island, (n_islands, batch_size), in
+    one draw."""
+    shape = (batch_size,) if n_islands is None else (n_islands, batch_size)
+    return rng.randint(gen, shape, 0, n_rows, device)

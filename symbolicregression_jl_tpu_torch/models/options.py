@@ -95,8 +95,6 @@ _UNSUPPORTED = {
     "snapshot_every_dispatches": (0, "snapshots come with the resilience slice"),
     "row_shards": (1, "row sharding comes with the multi-GPU slice"),
     "tenants": (1, "tenant-batched serving comes with the serving/ slice"),
-    "loss_function": (None, "custom full-tree objectives come with a later slice"),
-    "independent_island_batches": (False, "per-island minibatches come with a later slice"),
     "recorder_file": ("pysr_recorder.json", "the lineage recorder comes with "
                       "the host subsystems slice (ROADMAP.md section A.10)"),
     "telemetry_every": (1, "telemetry comes with the telemetry/ slice "
@@ -111,7 +109,7 @@ _UNSUPPORTED = {
 KERNEL_PROGRAMS = ("auto", "postfix", "instr", "instr_packed")
 # the working dtype of each precision the port runs
 PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-              "float16": torch.float16}
+              "float16": torch.float16, "float64": torch.float64}
 # TPU levers of the JAX package that the port does not carry at all
 _TPU_LEVERS = (
     "eval_backend", "kernel_leaf_skip", "eval_bucket_ladder",
@@ -248,6 +246,12 @@ def _key_of(value):
     return value
 
 
+def _objective_key(fn: Optional[Callable]):
+    """The key of a custom full-tree objective (``loss_function``): its
+    token, as the JAX package keys it; None without one."""
+    return None if fn is None else callable_token(fn)
+
+
 def scalar_tensor(value, device, dtype: torch.dtype = torch.float32):
     """``value`` as a 0-dim tensor on ``device``: a tensor is moved and
     cast, a Python number is filled in (a fill kernel, no copy from host
@@ -306,6 +310,9 @@ class Options:
     # --- batching ---
     batching: bool = False
     batch_size: int = 50
+    # True: a minibatch per island per cycle (each island's children
+    # scored on its own rows, one scoring call per island); False: one
+    # minibatch per cycle that every island shares
     independent_island_batches: bool = False
     # --- constraints ---
     constraints: Tuple[Tuple[str, Any], ...] = ()
@@ -344,6 +351,11 @@ class Options:
     profile_trace_dir: Optional[str] = None
     snapshot_path: Optional[str] = None
     snapshot_every_dispatches: int = 0
+    # a custom full-tree objective (tree, X, y, weights, options) -> loss
+    # that calls ``eval_tree`` on the one tree it gets (ops/interpreter.py)
+    # and replaces ``loss`` in scoring and constant optimisation; the
+    # search vmaps it over the population (models/fitness.py). On the card
+    # it must be capturable in a CUDA graph: tensor math, no host read
     loss_function: Optional[Callable] = None
     n_parallel_tournaments: int = 0  # 0 => npop // tournament_selection_n
     kernel_program: str = "auto"
@@ -371,12 +383,6 @@ class Options:
                     (k, tuple(sorted(val.items())) if isinstance(val, dict) else val)
                     for k, val in sorted(v.items())
                 ))
-        if self.precision == "float64":
-            raise NotImplementedError(
-                "precision='float64' is not supported by the PyTorch port "
-                "yet: it needs double-precision builds of the operator and "
-                "loss libraries (csrc/operators.cuh, csrc/losses.cuh), which "
-                "come with the float64 kernel slice (ROADMAP.md)")
         if self.precision not in PRECISIONS:
             raise ValueError(
                 "precision must be one of float32/float64/bfloat16/float16")
@@ -394,7 +400,7 @@ class Options:
         optimizes = ((self.should_optimize_constants
                       and self.optimizer_probability > 0)
                      or self.mutation_weights.optimize > 0)
-        if optimizes:
+        if optimizes and self.loss_function is None:
             # a callable of the user's own is traced into the kernels' loss
             # (ops/user_ops.py); one the tracer cannot follow raises here,
             # naming what it met
@@ -464,6 +470,7 @@ class Options:
         through the cached graph's own Options."""
         return tuple(
             self.mutation_weights.as_tuple() if f == "mutation_weights"
+            else _objective_key(self.loss_function) if f == "loss_function"
             else _key_of(getattr(self, f)) for f in GRAPH_FIELDS) + (
                 operator_set_key(self.operators),)
 

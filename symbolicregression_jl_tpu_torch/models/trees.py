@@ -123,8 +123,10 @@ class Expr:
         return out
 
 
-def encode_tree(expr: Expr, max_len: int, device="cuda") -> TreeBatch:
-    """Expr -> single postfix TreeBatch (batch shape ())."""
+def encode_tree(expr: Expr, max_len: int, device="cuda",
+                dtype: torch.dtype = torch.float32) -> TreeBatch:
+    """Expr -> single postfix TreeBatch (batch shape ()), its constants
+    float32 (float64 with ``dtype`` float64)."""
     dev = resolve_device(device)
     nodes = expr.postfix()
     n = len(nodes)
@@ -133,7 +135,8 @@ def encode_tree(expr: Expr, max_len: int, device="cuda") -> TreeBatch:
     kind = np.zeros(max_len, np.int64)
     op = np.zeros(max_len, np.int64)
     feat = np.zeros(max_len, np.int64)
-    cval = np.zeros(max_len, np.float32)
+    cval = np.zeros(max_len, np.float64 if dtype == torch.float64
+                    else np.float32)
     for i, nd in enumerate(nodes):
         kind[i], op[i], feat[i], cval[i] = nd.kind, nd.op, nd.feat, nd.cval
     return TreeBatch(
@@ -147,7 +150,7 @@ def decode_tree(tree: TreeBatch) -> Expr:
     """Single postfix TreeBatch (batch shape ()) -> Expr. Validates arity."""
     kind, op, feat, cval = (np.asarray(torch.as_tensor(f).cpu())
                             for f in (tree.kind, tree.op, tree.feat,
-                                      torch.as_tensor(tree.cval).float()))
+                                      torch.as_tensor(tree.cval).double()))
     n = int(tree.length)
     stack: List[Expr] = []
     for i in range(n):

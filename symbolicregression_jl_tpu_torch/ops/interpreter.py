@@ -13,10 +13,28 @@ instead of a stack, and the function the derivatives differentiate:
 (``torch.func.jvp``), ``eval_grad_variables`` in reverse mode
 (``torch.autograd``). ``eval_loss_trees_fused`` evaluates through the
 kernels (``models/fitness.py``'s routes), not through this interpreter.
+
+``eval_tree``, the function a custom objective (``Options.loss_function``)
+calls on its one tree, is an ``autograd.Function`` (``EvalTree``) with a
+``vmap`` rule: under ``torch.func.vmap`` over a population it evaluates
+the whole batch in one call, on a CUDA tensor one launch of the scoring
+kernel's value mode (B1, ``kernel_eval.eval_trees``), on the CPU the
+lockstep interpreter; its backward (the derivative with respect to the
+constants) is ``EvalTreeVJP``, itself with a ``vmap`` rule: one launch of
+the gradient kernel's cotangent-seeded mode
+(``kernel_grad.eval_vjp_constants``) on the card, the lockstep
+interpreter's VJP on the CPU. So ``vmap(grad(objective))`` over a population is one B1 and one B3
+launch. Inside ``plain_eval_tree()`` it is the lockstep interpreter
+written without in-place updates instead (``eval_tree_plain``), which
+``torch.func`` differentiates in any mode and order: Newton's Hessian
+diagonal under a custom objective (``models/constant_opt.py``), the one
+path on the card that runs it; each such call counts in ``PLAIN_CALLS``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -24,6 +42,10 @@ import torch
 from ..models.trees import ARITY, BIN, CONST, PAD, UNA, VAR, TreeBatch
 from ..utils.device import table
 from .operators import OperatorSet
+
+# calls of eval_tree that ran the lockstep interpreter (plain_eval_tree)
+PLAIN_CALLS = {"eval_tree": 0}
+_plain = threading.local()
 
 
 def _slot_step(stack, sp, bad, k, o, f, c, X, operators: OperatorSet):
@@ -71,11 +93,165 @@ def eval_trees(trees: TreeBatch, X: torch.Tensor,
     return y.reshape(batch_shape + (R,)), ok.reshape(batch_shape)
 
 
-def eval_tree(tree: TreeBatch, X: torch.Tensor,
-              operators: OperatorSet) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single tree (batch shape ()) -> (y (nrows,), ok)."""
+def _eval_single(tree: TreeBatch, X: torch.Tensor,
+                 operators: OperatorSet) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``eval_trees`` on a single tree (batch shape ())."""
     y, ok = eval_trees(tree.map(lambda x: x.unsqueeze(0)), X, operators)
     return y[0], ok[0]
+
+
+def _to_front(x: torch.Tensor, dim: Optional[int], size: int) -> torch.Tensor:
+    """A vmap rule's argument with its batch dimension first (expanded
+    where it has none)."""
+    return x.movedim(dim, 0) if dim is not None else x.expand(size, *x.shape)
+
+
+def _check_unbatched_x(in_dims) -> None:
+    if in_dims[5] is not None:
+        raise NotImplementedError(
+            "eval_tree is vmapped over the trees of a population; a vmap "
+            "over X is not supported")
+
+
+class EvalTree(torch.autograd.Function):
+    """(y, ok) of the trees (kind, op, feat, cval, length) of any batch
+    shape over X; the derivative with respect to ``cval`` only."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(kind, op, feat, cval, length, X, operators):
+        trees = TreeBatch(kind, op, feat, cval, length)
+        if X.is_cuda:
+            from . import kernel_eval
+
+            return kernel_eval.eval_trees(trees, X, operators)
+        return eval_trees(trees, X, operators)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:6])
+        ctx.operators = inputs[6]
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, gy, _gok):
+        kind, op, feat, cval, length, X = ctx.saved_tensors
+        if ctx.needs_input_grad[5]:
+            raise NotImplementedError(
+                "eval_tree differentiates with respect to the constants; "
+                "use eval_grad_variables for the derivative in X")
+        g = EvalTreeVJP.apply(kind, op, feat, cval, length, X, gy,
+                              ctx.operators)
+        return None, None, None, g, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, kind, op, feat, cval, length, X, operators):
+        _check_unbatched_x(in_dims)
+        fields = [_to_front(x, d, info.batch_size)
+                  for x, d in zip((kind, op, feat, cval, length), in_dims)]
+        return EvalTree.apply(*fields, X, operators), (0, 0)
+
+
+class EvalTreeVJP(torch.autograd.Function):
+    """d (sum_r gy[..., r] * y[..., r]) / d cval of ``EvalTree``'s trees:
+    the gradient kernel's cotangent-seeded mode on the card, the lockstep
+    interpreter's VJP on the CPU. Not differentiable again."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(kind, op, feat, cval, length, X, gy, operators):
+        trees = TreeBatch(kind, op, feat, cval, length)
+        if X.is_cuda:
+            from . import kernel_grad
+
+            return kernel_grad.eval_vjp_constants(
+                trees, X, gy, operators)[0].to(cval.dtype)
+        _, pull = torch.func.vjp(
+            lambda c: eval_trees(trees._replace(cval=c), X, operators)[0],
+            cval.to(X.dtype))
+        return pull(gy.to(X.dtype))[0].to(cval.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, _g):
+        raise NotImplementedError(
+            "eval_tree has no second derivative on the kernels; Newton's "
+            "Hessian runs inside interpreter.plain_eval_tree()")
+
+    @staticmethod
+    def vmap(info, in_dims, kind, op, feat, cval, length, X, gy, operators):
+        _check_unbatched_x(in_dims)
+        args = [_to_front(x, d, info.batch_size) for x, d in
+                zip((kind, op, feat, cval, length), in_dims)]
+        gy = _to_front(gy, in_dims[6], info.batch_size)
+        return EvalTreeVJP.apply(*args, X, gy, operators), 0
+
+
+@contextlib.contextmanager
+def plain_eval_tree():
+    """Inside: ``eval_tree`` is ``eval_tree_plain`` (counted in
+    ``PLAIN_CALLS``), which ``torch.func`` differentiates in any mode."""
+    depth = getattr(_plain, "depth", 0)
+    _plain.depth = depth + 1
+    try:
+        yield
+    finally:
+        _plain.depth = depth
+
+
+def eval_tree(tree: TreeBatch, X: torch.Tensor,
+              operators: OperatorSet) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single tree (batch shape ()) -> (y (nrows,), ok): the function a
+    custom objective calls (``EvalTree``; ``eval_tree_plain`` inside
+    ``plain_eval_tree()``)."""
+    if getattr(_plain, "depth", 0):
+        PLAIN_CALLS["eval_tree"] += 1
+        return eval_tree_plain(tree, X, operators)
+    return EvalTree.apply(*tree, X, operators)
+
+
+def eval_tree_plain(tree: TreeBatch, X: torch.Tensor,
+                    operators: OperatorSet
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lockstep interpreter on a single tree (batch shape ()), with no
+    in-place update, so that ``torch.func`` transforms (vmap, jvp, grad,
+    in any nesting) go through it: (y (nrows,), ok)."""
+    L = tree.kind.shape[-1]
+    nfeat, R = X.shape
+    depth = torch.arange(L // 2 + 2, device=X.device).unsqueeze(-1)
+    cval = tree.cval.to(X.dtype)
+    stack = torch.zeros((L // 2 + 2, R), dtype=X.dtype, device=X.device)
+    sp = torch.zeros((), dtype=torch.int64, device=X.device)
+    bad = torch.zeros(R, dtype=torch.bool, device=X.device)
+
+    def entry(i):
+        return stack.gather(0, i.reshape(1, 1).expand(1, R))[0]
+
+    for s in range(L):
+        k, o, c = tree.kind[s], tree.op[s], cval[s]
+        f = tree.feat[s].clamp(0, nfeat - 1)
+        a = entry(torch.clamp_min(sp - 1, 0))  # top: unary / right operand
+        b = entry(torch.clamp_min(sp - 2, 0))  # second: left operand
+        v = torch.where(k == CONST, c, X.gather(0, f.reshape(1, 1).expand(
+            1, R))[0])
+        for j, fn in enumerate(operators.unary_fns):
+            v = torch.where((k == UNA) & (o == j), fn(a), v)
+        for j, fn in enumerate(operators.binary_fns):
+            v = torch.where((k == BIN) & (o == j), fn(b, a), v)
+        is_pad = k == PAD
+        arity = (k == UNA).long() + 2 * (k == BIN).long()  # ARITY[k]
+        sp_new = torch.where(is_pad, sp, sp - arity + 1)
+        write = torch.clamp_min(sp_new - 1, 0)
+        v = torch.where(is_pad, entry(write), v)
+        stack = torch.where(depth == write, v, stack)
+        bad = bad | (~is_pad & ~torch.isfinite(v))
+        sp = sp_new
+    return stack[0], ~bad.any() & (tree.length > 0)
 
 
 def eval_loss_trees_fused(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
@@ -151,7 +327,7 @@ def eval_grad_variables(tree: TreeBatch, X: torch.Tensor,
     to X: (y (nrows,), dy_dX (nfeat, nrows))."""
     Xv = X.detach().requires_grad_(True)
     with torch.enable_grad():
-        y, _ = eval_tree(tree, Xv, operators)
+        y, _ = _eval_single(tree, Xv, operators)
         (g,) = torch.autograd.grad(y.sum(), Xv)
     return y.detach(), g
 
@@ -162,6 +338,6 @@ def eval_diff_tree(tree: TreeBatch, X: torch.Tensor, operators: OperatorSet,
     feature ``direction``: (y (nrows,), dy_dx (nrows,), ok)."""
     tangent = torch.zeros_like(X)
     tangent[direction] = 1.0
-    y, dy, ok = torch.func.jvp(lambda Xv: eval_tree(tree, Xv, operators),
+    y, dy, ok = torch.func.jvp(lambda Xv: _eval_single(tree, Xv, operators),
                                (X,), (tangent,), has_aux=True)
     return y, dy, ok

@@ -20,21 +20,23 @@ the plain versions run it as the empty program (``runnable``), which is
 poisoned too.
 
 The working dtype (a search's ``Options.precision``) is X's: float32,
-bfloat16 or float16. Each is its own build of the kernel (``SR_STORAGE``,
-csrc/postfix_program.cuh): X, the constants and the outputs in that dtype,
-every slot's value computed in float32 and rounded to it where it is
-produced, poison judged on the rounded value (the JAX package's
-``compute_dtype="bfloat16"`` variant, and its float16 interpreter). The
-2-byte builds carry the value and slot-values modes; the fused mode runs
-at float32 alone, as the JAX package routes it. The plain versions round
-at the same places (``storage_round``).
+bfloat16, float16 or float64. Each is its own build of the kernel
+(``SR_STORAGE``, csrc/postfix_program.cuh): X, the constants and the
+outputs in that dtype, every slot's value computed in the build's compute
+type (``compute_dtype``: float32, or float64 in the float64 build) and
+rounded to the storage type where it is produced, poison judged on the
+rounded value (the JAX package's ``compute_dtype="bfloat16"`` variant,
+and its float16 and float64 interpreter). The 2-byte and float64 builds
+carry the value and slot-values modes; the fused mode runs at float32
+alone, as the JAX package routes it. The plain versions compute in the
+same type and round at the same places (``storage_round``).
 
 The kernel library is compiled with ``nvcc`` into ``build/`` at first use
 (one library per working dtype) and loaded with ctypes. ``LAUNCHES``
 counts the float32 build's launches by mode; their sum is the total.
-``STORAGE_LAUNCHES`` counts the 2-byte builds' (``value_bf16``,
-``slots_f16``, ...). ``LOSS_LAUNCHES`` counts the fused mode's launches
-by loss name (``fused:HuberLoss``).
+``STORAGE_LAUNCHES`` counts the other builds' (``value_bf16``,
+``slots_f16``, ``value_f64``, ...). ``LOSS_LAUNCHES`` counts the fused
+mode's launches by loss name (``fused:HuberLoss``).
 
 An operator set with user operators, or a loss callable of the user's own
 (``ops/user_ops.py``), runs a build of the same source with the header
@@ -77,10 +79,12 @@ USER_LAUNCHES = {}  # the user builds' launches by mode and dtype suffix
 # The working dtypes the kernels are built for: each one's SR_STORAGE code
 # and the suffix of its library's name and of its launch counts.
 STORAGE = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16"),
-           torch.float16: (2, "_f16")}
+           torch.float16: (2, "_f16"), torch.float64: (3, "_f64")}
 NARROW_STORAGE = (torch.bfloat16, torch.float16)
-# launches of the 2-byte builds by mode and dtype ("value_bf16", ...)
-STORAGE_LAUNCHES = {f"{m}{STORAGE[d][1]}": 0 for d in NARROW_STORAGE
+# every build but the float32 one
+OTHER_STORAGE = NARROW_STORAGE + (torch.float64,)
+# launches of the other builds by mode and dtype ("value_bf16", ...)
+STORAGE_LAUNCHES = {f"{m}{STORAGE[d][1]}": 0 for d in OTHER_STORAGE
                     for m in ("value", "slots")}
 
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -112,15 +116,22 @@ MODE_NAMES = {MODE_VALUE: "value", MODE_FUSED: "fused", MODE_SLOTS: "slots"}
 def check_storage(dtype: torch.dtype) -> None:
     """Raise unless the kernels are built for ``dtype``."""
     if dtype not in STORAGE:
-        raise ValueError(f"the kernels take float32, bfloat16 or float16 "
-                         f"data, got {dtype}")
+        raise ValueError(f"the kernels take float32, bfloat16, float16 or "
+                         f"float64 data, got {dtype}")
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the working dtype ``dtype``'s build computes in (csrc/
+    real.cuh): float64 at float64, else float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def storage_round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """float32 values as the working dtype holds them (round to nearest
-    even, then back to float32): the kernels' rounding of every value
-    where it is produced. The identity at float32."""
-    if dtype == torch.float32:
+    """Values of the compute type as the working dtype holds them (round
+    to nearest even, then back to float32): the kernels' rounding of
+    every value where it is produced. The identity at float32 and
+    float64, whose storage is their compute type."""
+    if dtype in (torch.float32, torch.float64):
         return v
     return v.to(dtype).to(torch.float32)
 
@@ -170,7 +181,7 @@ def load_storage(build, declare, storage_fn: str, dtype: torch.dtype,
                  cache: dict, user: Optional[UserBuild] = None):
     """The build of the working dtype ``dtype`` (with ``user``'s header,
     when given) from ``build(force, dtype, user)``, its functions
-    declared by ``declare(lib)``; checks that the library reports
+    declared by ``declare(lib, dtype)``; checks that the library reports
     ``dtype``'s storage code through ``storage_fn``. Cached in
     ``cache``."""
     check_storage(dtype)
@@ -178,7 +189,7 @@ def load_storage(build, declare, storage_fn: str, dtype: torch.dtype,
     lib = cache.get(key)
     if lib is None:
         path = build(False, dtype, user)
-        lib = declare(ctypes.CDLL(str(path)))
+        lib = declare(ctypes.CDLL(str(path)), dtype)
         fn = getattr(lib, storage_fn)
         fn.restype = ctypes.c_int
         if fn() != STORAGE[dtype][0]:
@@ -303,17 +314,19 @@ def kernel_operator_ids(operators: OperatorSet) -> list:
 
 def _plain_forward(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet):
     """(root (T, R), bad (T,), vals (L, T, R)) through the operand
-    schedule, for a batch of valid programs (``runnable``); float32 values,
-    each as X's dtype holds it (``storage_round``)."""
+    schedule, for a batch of valid programs (``runnable``); values of the
+    compute type (``compute_dtype``), each as X's dtype holds it
+    (``storage_round``)."""
     T, L = flat.kind.shape
     R = X.shape[1]
     S = X.dtype
-    X = X.to(torch.float32)
-    cval = flat.cval.to(S).to(torch.float32)
+    C = compute_dtype(S)
+    X = X.to(C)
+    cval = flat.cval.to(S).to(C)
     code = fuse_opcodes(flat, operators)
     lidx, ridx = operand_schedule(flat.kind, flat.length)
     U = operators.n_unary
-    vals = torch.zeros((L, T, R), dtype=torch.float32, device=X.device)
+    vals = torch.zeros((L, T, R), dtype=C, device=X.device)
     ti = torch.arange(T, device=X.device)
     bad = torch.zeros(T, dtype=torch.bool, device=X.device)
     for s in range(L):
@@ -557,18 +570,18 @@ def eval_program_plain(flat: TreeBatch, X: torch.Tensor,
     pushes it to its entry, a binary slot reads its left operand from its
     entry; a non-finite value at a slot that is not PAD poisons the tree,
     and an invalid program is poisoned without being run. Every value is
-    rounded to X's dtype where it is produced; the root comes in X's
-    dtype."""
+    computed in the compute type and rounded to X's dtype where it is
+    produced; the root comes in X's dtype."""
     T, L = flat.kind.shape
     nfeat, R = X.shape
     S = X.dtype
-    X = X.to(torch.float32)
-    cval = flat.cval.to(S).to(torch.float32)
+    C = compute_dtype(S)
+    X = X.to(C)
+    cval = flat.cval.to(S).to(C)
     words, invalid = program_words(flat, operators, nfeat)
     ti = torch.arange(T, device=X.device)
-    stack = torch.zeros(((L + 1) // 2, T, R), dtype=torch.float32,
-                        device=X.device)
-    top = torch.zeros((T, R), dtype=torch.float32, device=X.device)
+    stack = torch.zeros(((L + 1) // 2, T, R), dtype=C, device=X.device)
+    top = torch.zeros((T, R), dtype=C, device=X.device)
     bad = invalid.clone()
     ids = dense_code(torch.tensor(kernel_operator_ids(operators),
                                   dtype=torch.int64),
@@ -642,11 +655,17 @@ def build_library(force: bool = False,
                          BUILD_SECONDS, user)
 
 
-def _declare(lib):
+def real_ctype(dtype: torch.dtype):
+    """The ctypes type of a launcher's compute-type argument (the loss
+    constants) in ``dtype``'s build."""
+    return ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+
+
+def _declare(lib, dtype: torch.dtype):
     p = ctypes.c_void_p
     i = ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    f = ctypes.c_float
+    f = real_ctype(dtype)
     lib.postfix_eval_launch.argtypes = ([p] * 13 + [ip] + [i] * 16
                                         + [f] * 3 + [p])
     lib.postfix_eval_launch.restype = i
@@ -812,11 +831,12 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
     dev = X.device
     dtype = X.dtype
     if dtype not in STORAGE or X.dim() != 2:
-        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16 or "
-                         f"float16, got {dtype} {tuple(X.shape)}")
+        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16, "
+                         f"float16 or float64, got {dtype} {tuple(X.shape)}")
     if mode == MODE_FUSED and dtype != torch.float32:
-        raise ValueError("the fused mode runs at float32; at bfloat16 and "
-                         "float16 the loss follows the value mode")
+        raise ValueError("the fused mode runs at float32; at bfloat16, "
+                         "float16 and float64 the loss follows the value "
+                         "mode")
     if y is not None and (y.dtype != torch.float32 or y.device != dev
                           or y.shape != (X.shape[1],)):
         raise ValueError("y must be float32 (nrows,) on X's device")
@@ -839,7 +859,8 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
     full = uses_full_kernel(operators)
     ids = host_operator_ids(operators)
     user = user_ops.user_build(operators,
-                               loss if mode == MODE_FUSED else None)
+                               loss if mode == MODE_FUSED else None,
+                               dtype == torch.float64)
     any_loss = mode == MODE_FUSED and loss.kind != L2
     plan = launch_plan(T, L, nfeat, nrows, mode, full, dev.index or 0,
                        any_loss, dtype, user)
@@ -867,7 +888,7 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
             scratch, ids, operators.n_unary, operators.n_binary, T, L, nfeat,
             nrows, mode, int(full), plan.items, plan.range, int(plan.staged),
             plan.warps, plan.smem, plan.blocks, int(plan.narrow), loss.kind,
-            *loss.constants)
+            *loss.constants_of(dtype))
     return PreparedLaunch(args, out, bad, length, mode, plan, loss, dtype,
                           user)
 

@@ -23,14 +23,24 @@ table of ``ops/operators.py``. Both kernels derive the program from the
 are, with a longest-first order; ``eval_loss_grad_program_plain`` is the
 plain version of the gradient kernel's sweeps and sums, and the loss-only
 kernel runs a tree's candidates together, ``candidate_groups`` of them per
-warp. X's dtype (float32, bfloat16 or float16; y and the constants take
-it too) is the working dtype and picks the build, as in ``kernel_eval``:
-the forward sweep rounds every slot's value to it, while the loss, its
-seed, the adjoint sweep and the row sums stay in float32; ``fn`` hands
-back loss and gradient in the working dtype. ``LAUNCHES`` counts the
-float32 build's launches by variant, ``STORAGE_LAUNCHES`` the 2-byte
-builds' (``loss_grad_bf16``, ...), ``LOSS_LAUNCHES`` every build's by
-variant and loss name (``loss_grad:HuberLoss``).
+warp. X's dtype (float32, bfloat16, float16 or float64; y and the
+constants take it too) is the working dtype and picks the build, as in
+``kernel_eval``: the forward sweep rounds every slot's value to it, while
+the loss, its seed, the adjoint sweep and the row sums stay in the compute
+type (``kernel_eval.compute_dtype``: float32, or float64 in the float64
+build); ``fn`` hands back loss and gradient in the working dtype.
+``LAUNCHES`` counts the float32 build's launches by variant,
+``STORAGE_LAUNCHES`` the other builds' (``loss_grad_bf16``,
+``loss_f64``, ...), ``LOSS_LAUNCHES`` every build's by variant and loss
+name (``loss_grad:HuberLoss``).
+
+The gradient kernel's cotangent-seeded mode (``eval_vjp_constants``)
+seeds row r of instance i with ``cot[i, r]`` read from memory instead of
+a loss's derivative: its gradient is the vector-Jacobian product of the
+value mode (B1) with respect to the constants, the backward of
+``interpreter.eval_tree`` under a custom objective. Its launches count in
+``VJP_LAUNCHES`` (``vjp``, ``vjp_f64``, ...; user builds in
+``USER_LAUNCHES``).
 
 A loss callable of the user's own that traces (``ops/user_ops.py``; a
 ``UserLoss``, or the callable itself, which ``make_loss_kernel`` traces)
@@ -61,8 +71,11 @@ from .operators import OperatorSet, vjp_of
 from .user_ops import UserBuild
 
 LAUNCHES = {"loss_grad": 0, "loss": 0}  # launches by variant
-STORAGE_LAUNCHES = {f"{v}{ke.STORAGE[d][1]}": 0 for d in ke.NARROW_STORAGE
+STORAGE_LAUNCHES = {f"{v}{ke.STORAGE[d][1]}": 0 for d in ke.OTHER_STORAGE
                     for v in LAUNCHES}
+# the cotangent-seeded mode's launches by build ("vjp", "vjp_f64", ...)
+VJP_LAUNCHES = {f"vjp{ke.STORAGE[d][1]}": 0 for d in ke.STORAGE}
+COTANGENT_KIND = 32  # csrc/postfix_grad.cu kCotangent
 LOSS_LAUNCHES = {}  # launches by "<variant>:<loss name>"
 USER_LAUNCHES = {}  # the user builds' launches by variant and dtype suffix
 
@@ -79,12 +92,13 @@ _lib_lock = threading.Lock()
 
 
 def normalized_weights(weights: Optional[torch.Tensor], nrows: int,
-                       device) -> torch.Tensor:
-    """w / sum(w), or 1/nrows on every row without weights."""
+                       device, dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """w / sum(w), or 1/nrows on every row without weights, in the
+    compute type ``dtype``."""
     if weights is None:
-        return torch.full((nrows,), 1.0 / nrows, dtype=torch.float32,
-                          device=device)
-    w = weights.to(torch.float32)
+        return torch.full((nrows,), 1.0 / nrows, dtype=dtype, device=device)
+    w = weights.to(dtype)
     return (w / w.sum()).contiguous()
 
 
@@ -100,10 +114,10 @@ def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
     programs (``ke.runnable``) under ``loss_fn``; with ``scale`` also each
     CONST slot's sum over rows of |row term|, which bounds the rounding of
     its row sum (a comparison's yardstick). The forward values are rounded
-    to X's dtype; the rest is float32 and so are the outputs."""
+    to X's dtype; the rest is the compute type and so are the outputs."""
     loss_fn = user_ops.plain_loss(loss_fn)
     root, bad, vals = ke._plain_forward(flat, X, operators)
-    y = y.to(torch.float32)
+    y = y.to(root.dtype)
     ok = ~bad & (flat.length > 0)
     zero_w = wn == 0
     loss = torch.where(zero_w, 0.0, loss_fn(root, y) * wn).sum(-1)
@@ -154,7 +168,8 @@ def eval_loss_grad_plain(trees: TreeBatch, X, y, weights,
     ok (...,)) at the trees' own constants, and with ``scale`` the sum
     over rows of each gradient term's magnitude (..., L)."""
     flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
-    wn = normalized_weights(weights, X.shape[1], X.device)
+    wn = normalized_weights(weights, X.shape[1], X.device,
+                            ke.compute_dtype(X.dtype))
     out = _plain_loss_grad(flat, X, y, wn, operators, True, scale, loss)
     shapes = (trees.length.shape, trees.kind.shape, trees.length.shape,
               trees.kind.shape)
@@ -165,7 +180,8 @@ def eval_loss_plain(trees: TreeBatch, X, y, weights, operators: OperatorSet,
                     loss: ElementwiseLoss = l2_dist_loss):
     """Plain version of the loss-only variant: (loss (...,), ok (...,))."""
     flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
-    wn = normalized_weights(weights, X.shape[1], X.device)
+    wn = normalized_weights(weights, X.shape[1], X.device,
+                            ke.compute_dtype(X.dtype))
     total, _, ok = _plain_loss_grad(flat, X, y, wn, operators, False,
                                     loss_fn=loss)
     shape = trees.length.shape
@@ -207,7 +223,8 @@ def adjoint_words(words: torch.Tensor, length: torch.Tensor,
 
 def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
                                  operators: OperatorSet,
-                                 loss: ElementwiseLoss = l2_dist_loss):
+                                 loss: ElementwiseLoss = l2_dist_loss,
+                                 cot: Optional[torch.Tensor] = None):
     """Plain version of the gradient kernel as it runs (csrc/
     postfix_grad.cu): (loss (...,), grad (..., L), ok (...,)). The forward
     sweep is the stack machine over ``ke.program_words`` and keeps every
@@ -219,16 +236,20 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
     rows as the kernel sums them (``ke.lane_sum``, rows lane, lane + 32,
     ...), and the root's seed is ``loss.seed(root, y) * wn``. An invalid
     program is poisoned, its loss and gradient 0. The forward sweep rounds
-    every value to X's dtype as the kernel does; the rest is float32, the
-    kernel's outputs."""
+    every value to X's dtype as the kernel does; the rest is the compute
+    type, the kernel's outputs. With ``cot`` (..., nrows) the cotangent-
+    seeded mode: row r's seed is ``cot[..., r]`` and its term ``cot * root``
+    (no weights; ``y`` and ``loss`` unread)."""
     loss = user_ops.plain_loss(loss)
     flat = ke._flatten(trees)
     T, L = flat.kind.shape
     nfeat, R = X.shape
     S = X.dtype
-    X, y = X.to(torch.float32), y.to(torch.float32)
-    cval = flat.cval.to(S).to(torch.float32)
-    wn = normalized_weights(weights, R, X.device)
+    C = ke.compute_dtype(S)
+    X = X.to(C)
+    y = None if cot is not None else y.to(C)
+    cval = flat.cval.to(S).to(C)
+    wn = normalized_weights(weights, R, X.device, C)
     words, invalid = ke.program_words(flat, operators, nfeat)
     n = torch.where(invalid, 0, flat.length)
     words = adjoint_words(words, n, ke.first_binary_code(operators))
@@ -242,9 +263,9 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
     U = operators.n_unary
     fns = list(zip(ids, operators.unary_fns + operators.binary_fns,
                    operators.unary_names + operators.binary_names))
-    vals = torch.zeros((L, T, R), dtype=torch.float32, device=X.device)
-    stack = torch.zeros((cap, T, R), dtype=torch.float32, device=X.device)
-    top = torch.zeros((T, R), dtype=torch.float32, device=X.device)
+    vals = torch.zeros((L, T, R), dtype=C, device=X.device)
+    stack = torch.zeros((cap, T, R), dtype=C, device=X.device)
+    top = torch.zeros((T, R), dtype=C, device=X.device)
     bad = invalid.clone()
     for s in range(L):
         live = s < n
@@ -263,11 +284,15 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
         top = torch.where(live.unsqueeze(-1), new, top)
         vals[s] = top
         bad |= live & (c != 0) & ~torch.isfinite(new).all(-1)
-    zero_w = wn == 0
-    terms = torch.where(zero_w | (n == 0).unsqueeze(-1), 0.0,
-                        loss(top, y) * wn)
-    w = torch.where(zero_w, 0.0, loss.seed(top, y) * wn)
-    cacc = torch.zeros((L, T, R), dtype=torch.float32, device=X.device)
+    if cot is not None:
+        w = cot.reshape(T, R).to(C)
+        terms = torch.where((n == 0).unsqueeze(-1), 0.0, w * top)
+    else:
+        zero_w = wn == 0
+        terms = torch.where(zero_w | (n == 0).unsqueeze(-1), 0.0,
+                            loss(top, y) * wn)
+        w = torch.where(zero_w, 0.0, loss.seed(top, y) * wn)
+    cacc = torch.zeros((L, T, R), dtype=C, device=X.device)
     for s in range(L - 1, -1, -1):
         live = (s < n).unsqueeze(-1)
         c = code[:, s]
@@ -311,12 +336,12 @@ def build_library(force: bool = False,
                             BUILD_LOGS, BUILD_SECONDS, user)
 
 
-def _declare(lib):
+def _declare(lib, dtype: torch.dtype):
     p = ctypes.c_void_p
     i = ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     lp = ctypes.POINTER(ctypes.c_longlong)
-    f = ctypes.c_float
+    f = ke.real_ctype(dtype)
     lib.postfix_grad_plan.argtypes = [i] * 5 + [lp]
     lib.postfix_grad_plan.restype = i
     lib.postfix_grad_launch.argtypes = ([p] * 13 + [ip] + [i] * 9
@@ -387,11 +412,12 @@ class GradPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=64)
 def grad_plan(T: int, reps: int, L: int, full: bool,
-              any_loss: bool = False,
+              any_loss: int = 0,
               dtype: torch.dtype = torch.float32,
               user: Optional[UserBuild] = None) -> GradPlan:
     """The gradient kernel's layout in ``dtype``'s build (with ``user``'s
-    header); ``any_loss``: its instantiation for a loss other than L2."""
+    header); ``any_loss``: its instantiation for a loss other than L2 (1)
+    or the cotangent-seeded mode's (2)."""
     lib = _library(dtype, user)
     plan = (ctypes.c_longlong * 7)()
     rc = lib.postfix_grad_plan(T, reps, L, int(full), int(any_loss), plan)
@@ -422,10 +448,12 @@ def loss_plan(T: int, reps: int, L: int, full: bool,
 def _check_inputs(flat: TreeBatch, X, y, weights):
     dev = X.device
     if X.dtype not in ke.STORAGE or X.dim() != 2:
-        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16 or "
-                         f"float16, got {X.dtype} {tuple(X.shape)}")
+        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16, "
+                         f"float16 or float64, got {X.dtype} "
+                         f"{tuple(X.shape)}")
     nrows = X.shape[1]
-    if y.dtype != X.dtype or y.device != dev or y.shape != (nrows,):
+    if y is not None and (y.dtype != X.dtype or y.device != dev
+                          or y.shape != (nrows,)):
         raise ValueError("y must be (nrows,) of X's dtype on X's device")
     if weights is not None and (weights.device != dev
                                 or weights.shape != (nrows,)):
@@ -436,31 +464,35 @@ def _check_inputs(flat: TreeBatch, X, y, weights):
 
 def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
                  with_grad: bool, reps: int = 1,
-                 loss: ElementwiseLoss = l2_dist_loss) -> Callable:
+                 loss: ElementwiseLoss = l2_dist_loss,
+                 cotangent: bool = False) -> Callable:
     """Check the inputs, stage the structure on the card once, and return
     ``launch(cval (T * reps, L)) -> (loss, grad | None, bad)``: one kernel
     launch each, of X's dtype's build (the constants go in that dtype;
-    loss and gradient come in float32). Both kernels read the tree fields
-    as they are, trees longest first, and flag an invalid program
-    themselves."""
+    loss and gradient come in the compute type). Both kernels read the
+    tree fields as they are, trees longest first, and flag an invalid
+    program themselves. ``cotangent``: the gradient kernel's cotangent-
+    seeded mode, ``launch(cval, cot (T * reps, nrows))`` (``y``,
+    ``weights`` and ``loss`` unread)."""
     flat = ke._flatten(trees)
-    _check_inputs(flat, X, y, weights)
+    _check_inputs(flat, X, None if cotangent else y, weights)
     dev = X.device
     dtype = X.dtype
+    C = ke.compute_dtype(dtype)
     nfeat, nrows = X.shape
-    wn = normalized_weights(weights, nrows, dev)
+    wn = normalized_weights(weights, nrows, dev, C)
     T, L = flat.kind.shape
     if nfeat >= 1 << 16 or X.numel() >= 1 << 31:
         raise ValueError("the constant-optimisation kernels take fewer than "
                          "65536 features and X of fewer than 2^31 elements")
     ids = ke.host_operator_ids(operators)
-    loss = user_ops.require_kernel_loss(loss)
-    user = user_ops.user_build(operators, loss)
+    loss = None if cotangent else user_ops.require_kernel_loss(loss)
+    user = user_ops.user_build(operators, loss, dtype == torch.float64)
     lib = _library(dtype, user)
     full = ke.uses_full_kernel(operators)
-    any_loss = loss.kind != L2
+    any_loss = 2 if cotangent else int(loss.kind != L2)
     plan = (grad_plan(T, reps, L, full, any_loss, dtype, user) if with_grad
-            else loss_plan(T, reps, L, full, any_loss, dtype, user))
+            else loss_plan(T, reps, L, full, bool(any_loss), dtype, user))
     c_plan = (ctypes.c_longlong * len(plan))(*plan)
     scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
                            device=dev) if plan.scratch_bytes else None)
@@ -469,7 +501,8 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
               for f in (flat.kind, flat.op, flat.feat)]
     length = flat.length.to(torch.int64).contiguous()
     order = torch.argsort(length, descending=True, stable=True)
-    data = (X.contiguous(), y.contiguous(), wn)
+    Xc = X.contiguous()
+    yc = None if cotangent else y.contiguous()
     N = T * reps
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
 
@@ -477,18 +510,26 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
         if rc != 0:
             raise RuntimeError("postfix_grad kernel launch failed: "
                                + lib.postfix_grad_error_string(rc).decode())
+        if cotangent:
+            ke.count_launch(VJP_LAUNCHES, VJP_LAUNCHES, "vjp", dtype,
+                            None if user is None else USER_LAUNCHES)
+            return
         ke.count_launch(LAUNCHES, STORAGE_LAUNCHES, variant, dtype,
                         None if user is None else USER_LAUNCHES)
         key = f"{variant}:{loss.name}"
         LOSS_LAUNCHES[key] = LOSS_LAUNCHES.get(key, 0) + 1
 
-    loss_args = (loss.kind, *loss.constants)
+    loss_args = ((COTANGENT_KIND, 0.0, 0.0, 0.0) if cotangent
+                 else (loss.kind, *loss.constants_of(dtype)))
 
-    def launch(cval: torch.Tensor):
+    def launch(cval: torch.Tensor, cot: Optional[torch.Tensor] = None):
         cv = cval.to(dtype).reshape(N, L).contiguous()
-        out = torch.empty((N,), dtype=torch.float32, device=dev)
+        # the cotangent mode reads its seeds where y would be
+        yv = cot.to(C).reshape(N, nrows).contiguous() if cotangent else yc
+        out = torch.empty((N,), dtype=C, device=dev)
         bad = torch.empty((N,), dtype=torch.int32, device=dev)
-        head = [t.data_ptr() for t in (*fields, length, order, cv, *data, out)]
+        head = [t.data_ptr() for t in (*fields, length, order, cv, Xc, yv,
+                                       wn, out)]
         tail = (None if scratch is None else scratch.data_ptr(), ids,
                 operators.n_unary, operators.n_binary, T, reps)
         if not with_grad:
@@ -496,7 +537,7 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
                 *head, bad.data_ptr(), *tail, plan.candidates, L, nfeat,
                 nrows, int(full), *loss_args, c_plan, stream()), "loss")
             return out, None, bad
-        grad = torch.empty((N, L), dtype=torch.float32, device=dev)
+        grad = torch.empty((N, L), dtype=C, device=dev)
         check(lib.postfix_grad_launch(
             *head, grad.data_ptr(), bad.data_ptr(), *tail, L, nfeat, nrows,
             int(full), *loss_args, c_plan, stream()), "loss_grad")
@@ -508,11 +549,13 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
 def digamma_on_card(x: torch.Tensor) -> torch.Tensor:
     """The kernels' hand-written digamma (csrc/operators.cuh, which the
     CUDA math library lacks; gamma's derivative reads it) elementwise on
-    a CUDA float32 tensor, to hold it against ``torch.digamma``."""
+    a CUDA float32 tensor (float64: the float64 build's), to hold it
+    against ``torch.digamma``."""
     if not x.is_cuda:
         raise ValueError("digamma_on_card takes a CUDA tensor")
-    lib = _library()
-    x = x.to(torch.float32).contiguous()
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    lib = _library(dtype)
+    x = x.to(dtype).contiguous()
     out = torch.empty_like(x)
     rc = lib.postfix_grad_digamma(x.data_ptr(), out.data_ptr(), x.numel(),
                                   torch.cuda.current_stream(x.device).cuda_stream)
@@ -548,7 +591,8 @@ def make_loss_kernel(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
             return loss, grad, (bad == 0) & live
     else:
         _check_inputs(flat, X, y, weights)
-        wn = normalized_weights(weights, X.shape[1], X.device)
+        wn = normalized_weights(weights, X.shape[1], X.device,
+                                ke.compute_dtype(X.dtype))
         flat, _ = ke.runnable(flat, operators, X.shape[0])
         rep = flat if reps == 1 else flat.map(
             lambda f: f.repeat_interleave(reps, dim=0))
@@ -582,6 +626,26 @@ def eval_loss(trees: TreeBatch, X, y, weights, operators: OperatorSet,
     total, _, ok = make_loss_kernel(trees, X, y, weights, operators, False,
                                     loss=loss)(trees.cval)
     return total, ok
+
+
+def eval_vjp_constants(trees: TreeBatch, X: torch.Tensor, cot: torch.Tensor,
+                       operators: OperatorSet):
+    """The gradient kernel's cotangent-seeded mode at the trees' own
+    constants: (vjp (..., L), ok (...,)) with ``vjp[..., s] = sum_r
+    cot[..., r] * d y[..., r] / d cval[..., s]`` for the value mode's
+    ``y`` (0 at slots that hold no constant), ``cot`` (..., nrows). CUDA
+    tensors launch the kernel (X's dtype's build, one launch), CPU tensors
+    run its plain version (``eval_loss_grad_program_plain`` with ``cot``);
+    the result comes in the compute type."""
+    if not X.is_cuda:
+        _, grad, ok = eval_loss_grad_program_plain(trees, X, None, None,
+                                                   operators, cot=cot)
+        return grad, ok
+    flat = ke._flatten(trees)
+    raw = stage_launch(flat, X, None, None, operators, True, cotangent=True)
+    _, grad, bad = raw(flat.cval, cot)
+    ok = (bad == 0) & (flat.length > 0)
+    return grad.reshape(trees.kind.shape), ok.reshape(trees.length.shape)
 
 
 class ConstantLoss(torch.autograd.Function):

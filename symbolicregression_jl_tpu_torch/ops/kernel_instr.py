@@ -23,12 +23,14 @@ is that derivation's plain version, exact against
 ``instruction_schedule``), so the wrapper builds no table and never waits
 for the card: it passes the fields, a longest-first order and the launch
 plan of the postfix kernel's kind (``kernel_eval.eval_plan``). X's dtype
-(float32, bfloat16 or float16) is the working dtype and picks the build,
-as in ``kernel_eval``: each step's value is rounded to it where it is
-produced, and the output comes in it. The library is compiled with
-``nvcc`` into ``build/`` at first use (one per working dtype);
-``LAUNCHES`` counts the float32 build's launches by variant,
-``STORAGE_LAUNCHES`` the 2-byte builds' (``instr_bf16``, ...).
+(float32, bfloat16, float16 or float64) is the working dtype and picks
+the build, as in ``kernel_eval``: each step's value is computed in the
+compute type (``kernel_eval.compute_dtype``) and rounded to the working
+dtype where it is produced, and the output comes in it. The library is
+compiled with ``nvcc`` into ``build/`` at first use (one per working
+dtype); ``LAUNCHES`` counts the float32 build's launches by variant,
+``STORAGE_LAUNCHES`` the other builds' (``instr_bf16``,
+``instr_packed_f64``, ...).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from .operators import OperatorSet
 from .user_ops import UserBuild
 
 LAUNCHES = {"instr": 0, "instr_packed": 0}  # launches by variant
-STORAGE_LAUNCHES = {f"{v}{ke.STORAGE[d][1]}": 0 for d in ke.NARROW_STORAGE
+STORAGE_LAUNCHES = {f"{v}{ke.STORAGE[d][1]}": 0 for d in ke.OTHER_STORAGE
                     for v in LAUNCHES}
 USER_LAUNCHES = {}  # the user builds' launches by variant and dtype suffix
 
@@ -77,6 +79,12 @@ CODE_IDENT = 1
 # ---------------------------------------------------------------------------
 
 
+def _cval_dtype(cval: torch.Tensor) -> torch.dtype:
+    """The dtype of the tables' constants: float64 for float64 constants,
+    else float32 (the JAX package's tables)."""
+    return torch.float64 if cval.dtype == torch.float64 else torch.float32
+
+
 def instruction_schedule(trees: TreeBatch, operators: OperatorSet):
     """Compress flat (T, L) postfix programs to operator-only instruction
     tables: a dict of (T, L) int32 / float32 tables ``icode, lsrc, lidx,
@@ -102,7 +110,8 @@ def instruction_schedule(trees: TreeBatch, operators: OperatorSet):
     d_src = torch.where(is_op, SRC_RES,
                         torch.where(kind == VAR, SRC_VAR, SRC_CONST))
     d_idx = torch.where(is_op, pos, torch.where(kind == VAR, feat, slot))
-    d_cval = torch.where(kind == CONST, cval.to(torch.float32), 0.0)
+    cdt = _cval_dtype(cval)
+    d_cval = torch.where(kind == CONST, cval.to(cdt), 0.0)
 
     def operand(at):
         return (d_src.gather(1, at), d_idx.gather(1, at), d_cval.gather(1, at))
@@ -140,7 +149,7 @@ def instruction_schedule(trees: TreeBatch, operators: OperatorSet):
     tables["ridx"] = torch.where(first, r_idx, tables["ridx"])
     tables["rcval"] = torch.where(first, r_cval, tables["rcval"])
     tables["lidx"] = torch.where(first, L, tables["lidx"])
-    tables = {k: v.to(torch.float32 if k.endswith("cval") else i32)
+    tables = {k: v.to(cdt if k.endswith("cval") else i32)
               for k, v in tables.items()}
     n_instr = torch.where(bare[:, 0], 1, nins).to(i32)
     return tables, n_instr
@@ -232,7 +241,8 @@ def derive_instr_tables(flat: TreeBatch, operators: OperatorSet, nfeat: int):
     var = live & (code == 2)
     d_src = torch.where(is_op, SRC_RES, torch.where(var, SRC_VAR, SRC_CONST))
     d_idx = torch.where(is_op, pos, torch.where(var, field, slot))
-    d_cval = torch.where(live & (code == 1), flat.cval.to(torch.float32), 0.0)
+    cdt = _cval_dtype(flat.cval)
+    d_cval = torch.where(live & (code == 1), flat.cval.to(cdt), 0.0)
 
     def operand(at):
         return (d_src.gather(1, at), d_idx.gather(1, at), d_cval.gather(1, at))
@@ -262,7 +272,7 @@ def derive_instr_tables(flat: TreeBatch, operators: OperatorSet, nfeat: int):
                      ("ridx", d_idx[:, :1]), ("rcval", d_cval[:, :1]),
                      ("lidx", L)):
         tables[key] = torch.where(first, val, tables[key])
-    tables = {k: v.to(torch.float32 if k.endswith("cval") else torch.int32)
+    tables = {k: v.to(cdt if k.endswith("cval") else torch.int32)
               for k, v in tables.items()}
     n_instr = torch.where(bare, 1, is_op.sum(-1)).to(torch.int32)
     return tables, n_instr, invalid
@@ -300,7 +310,8 @@ def eval_trees_instr_plain(trees: TreeBatch, X: torch.Tensor,
     T, L = flat.kind.shape
     nfeat, R = X.shape
     S = X.dtype
-    X = X.to(torch.float32)
+    C = ke.compute_dtype(S)
+    X = X.to(C)
     if packed:
         check_packed_layout(operators, nfeat, L)
     tables, n_instr = instruction_schedule(flat._replace(
@@ -309,8 +320,7 @@ def eval_trees_instr_plain(trees: TreeBatch, X: torch.Tensor,
     if packed:
         code, lconst, rconst, lidx, ridx = decode_packed_word(
             pack_instr_tables(tables, nfeat))
-        space = torch.zeros((nfeat + L, T, R), dtype=torch.float32,
-                            device=X.device)
+        space = torch.zeros((nfeat + L, T, R), dtype=C, device=X.device)
         space[:nfeat] = X.unsqueeze(1)
 
         def operands(k):
@@ -324,7 +334,7 @@ def eval_trees_instr_plain(trees: TreeBatch, X: torch.Tensor,
         base = nfeat
     else:
         code = tables["icode"]
-        space = torch.zeros((L, T, R), dtype=torch.float32, device=X.device)
+        space = torch.zeros((L, T, R), dtype=C, device=X.device)
 
         def fetch(side, k):
             src = tables[side + "src"][:, k].unsqueeze(-1)
@@ -372,7 +382,7 @@ def build_library(force: bool = False,
                             BUILD_LOGS, BUILD_SECONDS, user)
 
 
-def _declare(lib):
+def _declare(lib, dtype: torch.dtype):
     p = ctypes.c_void_p
     i = ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
@@ -457,8 +467,8 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
     dev = X.device
     dtype = X.dtype
     if dtype not in ke.STORAGE or X.dim() != 2:
-        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16 or "
-                         f"float16, got {dtype} {tuple(X.shape)}")
+        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16, "
+                         f"float16 or float64, got {dtype} {tuple(X.shape)}")
     if any(f.device != dev for f in flat):
         raise ValueError("trees and X must lie on the same device")
     T, L = flat.kind.shape
@@ -471,7 +481,7 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet,
                          f"got {tuple(X.shape)}")
     full = ke.uses_full_kernel(operators)
     ids = ke.host_operator_ids(operators)
-    user = user_ops.user_build(operators)
+    user = user_ops.user_build(operators, None, dtype == torch.float64)
     plan = launch_plan(T, L, nfeat, nrows, packed, full, dev.index or 0,
                        dtype, user)
     fields = [f.to(torch.int64).contiguous()

@@ -12,9 +12,10 @@ callable that carries what a kernel needs, its ``kind`` (the loss id of
 are computed on the host in double, as the JAX package's Python
 expressions compute them before they meet a float32 array (``0.5 *
 delta``, ``0.5 / gamma``, ``q / (q + 1.0)``, ...), then rounded to
-float32; every function applies them in the JAX package's order of
-operations (``periodic_loss`` is ``((d * 2) * pi) / c``, not ``d * (2 pi /
-c)``).
+float32, or kept in double for a float64 array (``constants_of``, which
+the float64 kernels get; pi and log 2 are float64's there too); every
+function applies them in the JAX package's order of operations
+(``periodic_loss`` is ``((d * 2) * pi) / c``, not ``d * (2 pi / c)``).
 
 ``LOSS_VJP[kind](pred, target, constants)`` is d elem / d pred, the root
 seed of the constant-gradient kernel's adjoint sweep, composed as
@@ -55,9 +56,25 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _constants(kind: int, params: Tuple[float, ...]) -> Tuple[float, float, float]:
-    """The loss's float32 constants, each computed in double from its
-    parameter as the JAX package's expression computes it."""
+def _rnd(x: float, like: torch.Tensor) -> float:
+    """A constant computed in double as it meets ``like``: rounded to
+    float32 unless ``like`` is float64."""
+    return x if like.dtype == torch.float64 else _f32(x)
+
+
+def _pi(like: torch.Tensor) -> float:
+    return math.pi if like.dtype == torch.float64 else PI
+
+
+def _ln2(like: torch.Tensor) -> float:
+    return math.log(2.0) if like.dtype == torch.float64 else LN2
+
+
+def _constants(kind: int, params: Tuple[float, ...],
+               double: bool = False) -> Tuple[float, float, float]:
+    """The loss's float32 constants (float64 ones with ``double``), each
+    computed in double from its parameter as the JAX package's expression
+    computes it."""
     if kind == LP:
         (p,) = params
         c = (p,)
@@ -77,7 +94,7 @@ def _constants(kind: int, params: Tuple[float, ...]) -> Tuple[float, float, floa
         c = (q / (q + 1.0), (q ** q) / ((q + 1.0) ** (q + 1.0)), q)
     else:
         c = ()
-    c = tuple(_f32(v) for v in c)
+    c = tuple(float(v) if double else _f32(v) for v in c)
     return c + (0.0,) * (3 - len(c))
 
 
@@ -99,12 +116,19 @@ class ElementwiseLoss:
     def constants(self) -> Tuple[float, float, float]:
         return _constants(self.kind, self.params)
 
+    def constants_of(self, dtype: torch.dtype) -> Tuple[float, float, float]:
+        """The constants for data of ``dtype``: float64's at float64, else
+        ``constants``."""
+        return _constants(self.kind, self.params, dtype == torch.float64)
+
     def __call__(self, pred, target):
-        return LOSS_ELEM[self.kind](pred, target, self.constants)
+        return LOSS_ELEM[self.kind](pred, target,
+                                    self.constants_of(pred.dtype))
 
     def seed(self, pred, target):
         """d elem / d pred (``LOSS_VJP``)."""
-        return LOSS_VJP[self.kind](pred, target, self.constants)
+        return LOSS_VJP[self.kind](pred, target,
+                                   self.constants_of(pred.dtype))
 
     def __repr__(self):
         args = ", ".join(repr(p) for p in self.params)
@@ -192,7 +216,7 @@ def _lp(p, t, c):
 
 def _lp_vjp(p, t, c):
     r = p - t
-    e = _f32(c[0] - 1.0)  # sub(y, 1) in float32
+    e = _rnd(c[0] - 1.0, p)  # sub(y, 1) in float32
     return _abs_vjp(r, c[0] * _pow(torch.abs(r), e))
 
 
@@ -246,7 +270,7 @@ def _l2_eps_vjp(p, t, c):
 
 
 def _periodic_arg(p, t, c):
-    return _div(((p - t) * 2.0) * PI, c[0])
+    return _div(((p - t) * 2.0) * _pi(p), c[0])
 
 
 def _periodic(p, t, c):
@@ -254,7 +278,7 @@ def _periodic(p, t, c):
 
 
 def _periodic_vjp(p, t, c):
-    return (_div(torch.sin(_periodic_arg(p, t, c)), c[0]) * PI) * 2.0
+    return (_div(torch.sin(_periodic_arg(p, t, c)), c[0]) * _pi(p)) * 2.0
 
 
 def _quantile(p, t, c):
@@ -372,7 +396,7 @@ def _dwd_margin_vjp(p, t, c):
     P = _pow(m, c[2])
     cl, cb = _taken(a <= c[0])
     P_bar = -((cb * (1.0 / (P * P))) * c[1])
-    m_bar = P_bar * (c[2] * _pow(m, _f32(c[2] - 1.0)))
+    m_bar = P_bar * (c[2] * _pow(m, _rnd(c[2] - 1.0, a)))
     return t * (-cl + m_bar * _max_share(a, m, c[0]))
 
 
@@ -387,7 +411,7 @@ def _logit_margin_vjp(p, t, c):
 
 def _log_cosh(p, t, c):
     d = torch.abs(p - t)
-    return (d + torch.log1p(torch.exp(-2.0 * d))) - LN2
+    return (d + torch.log1p(torch.exp(-2.0 * d))) - _ln2(d)
 
 
 def _log_cosh_vjp(p, t, c):

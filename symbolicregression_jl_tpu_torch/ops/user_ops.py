@@ -17,8 +17,9 @@ straight-line program (``Program``) over a small table of primitives:
   ``isfinite`` / ``isnan``, ``clamp`` (a ``max`` then a ``min``, as
   ``jnp.clip``), casts (no-ops);
 * Python constants, rounded to float32 as JAX rounds its weak-typed
-  scalars; integer powers ``x ** n``, expanded to products as
-  ``lax.integer_pow`` expands them (``1 / x ** -n`` for n < 0).
+  scalars (kept in double for the float64 build); integer powers
+  ``x ** n``, expanded to products as ``lax.integer_pow`` expands them
+  (``1 / x ** -n`` for n < 0).
 
 The only new derivative rule is the reverse chain through the program
 (``vjp_program``; a ``where`` sends the adjoint to the branch it took). A
@@ -49,6 +50,7 @@ import hashlib
 import math
 import operator
 import pathlib
+import re
 import threading
 import types
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -90,10 +92,12 @@ class TraceError(NotImplementedError):
 
 
 class Node(NamedTuple):
-    """One step: ``op`` is "in" (input ``index``), "const" (``value``,
-    float32), "un" / "bin" (registry operator ``name``), "cmp" (``name``
-    one of gt lt ge le eq ne), "where" (cond, a, b), "not", "and", "or",
-    "isfinite", "isnan"; ``args`` index earlier steps."""
+    """One step: ``op`` is "in" (input ``index``), "const" (``value``, the
+    Python float: float32's rounding of it in the float builds' code, the
+    float itself in the float64 build's), "un" / "bin" (registry operator
+    ``name``), "cmp" (``name`` one of gt lt ge le eq ne), "where" (cond,
+    a, b), "not", "and", "or", "isfinite", "isnan"; ``args`` index
+    earlier steps."""
 
     op: str
     args: Tuple[int, ...] = ()
@@ -110,10 +114,6 @@ class Program:
     nodes: Tuple[Node, ...]
     out: int
     n_inputs: int
-
-
-def _f32(v) -> float:
-    return float(np.float32(v))
 
 
 _CMP = {operator.gt: "gt", operator.lt: "lt", operator.ge: "ge",
@@ -187,7 +187,7 @@ class _Lowering:
         return len(self.nodes) - 1
 
     def const(self, v) -> int:
-        return self.add(Node("const", value=_f32(v)))
+        return self.add(Node("const", value=float(v)))
 
     def integer_pow(self, x: int, n: int) -> int:
         """``lax.integer_pow``'s expansion: square-and-multiply, then
@@ -394,9 +394,21 @@ def vjp_program(prog: Program, inputs, w):
 # ---------------------------------------------------------------------------
 
 
-def _lit(v: float) -> str:
+def _lit(v: float, double: bool = False) -> str:
+    if double:
+        bits = int(np.float64(v).view(np.uint64))
+        return f"__longlong_as_double(0x{bits:016x}LL)"
     bits = int(np.float32(v).view(np.uint32))
     return f"__int_as_float(0x{bits:08x})"  # exact, inf and NaN included
+
+
+def _to_double(text: str) -> str:
+    """The float64 build's form of generated device code: ``double`` for
+    ``float``, the double round-to-nearest intrinsics, ``1.0`` / ``0.0``
+    for ``1.f`` / ``0.f`` (its literals come from ``_lit(v, True)``)."""
+    text = re.sub(r"\bfloat\b", "double", text)
+    text = re.sub(r"__f(add|sub|mul|div)_rn", r"__d\1_rn", text)
+    return re.sub(r"\b([01])\.f\b", r"\1.0", text)
 
 
 _CMP_C = {"gt": ">", "lt": "<", "ge": ">=", "le": "<=", "eq": "==", "ne": "!="}
@@ -407,16 +419,17 @@ _ARITH_C = {"+": "__fadd_rn", "-": "__fsub_rn", "*": "__fmul_rn",
             "/": "__fdiv_rn"}
 
 
-def _forward_c(prog: Program, params):
+def _forward_c(prog: Program, params, double: bool = False):
     """C statements computing every node into t<i>, inputs named by
-    ``params``."""
+    ``params`` (constants as ``double``'s literals; the rest is
+    ``_to_double``'s)."""
     lines = []
     for i, nd in enumerate(prog.nodes):
         a = [f"t{j}" for j in nd.args]
         if nd.op == "in":
             e = params[nd.index]
         elif nd.op == "const":
-            e = _lit(nd.value)
+            e = _lit(nd.value, double)
         elif nd.op == "un":
             e = f"registry_apply_unary<true>({KERNEL_UNARY_IDS[nd.name]}, {a[0]})"
         elif nd.op == "bin" and nd.name in _ARITH_C:
@@ -481,8 +494,8 @@ def _reverse_c(prog: Program, w: str):
     return lines, outs
 
 
-def _unary_c(k: int, name: str, prog: Program) -> str:
-    fwd = _forward_c(prog, ["a"])
+def _unary_c(k: int, name: str, prog: Program, double: bool) -> str:
+    fwd = _forward_c(prog, ["a"], double)
     rev, (da,) = _reverse_c(prog, "w")
     return "\n".join([
         f"// unary user operator {name!r}",
@@ -492,10 +505,10 @@ def _unary_c(k: int, name: str, prog: Program) -> str:
         "float w) {", *fwd, *rev, f"  return {da};", "}"])
 
 
-def _binary_c(k: int, name: str, prog: Program) -> str:
+def _binary_c(k: int, name: str, prog: Program, double: bool) -> str:
     # b = left operand (second stack entry), a = right operand (top), as
     # apply_binary / binary_vjp take them: the callable's (left, right)
-    fwd = _forward_c(prog, ["b", "a"])
+    fwd = _forward_c(prog, ["b", "a"], double)
     rev, (db, da) = _reverse_c(prog, "w")
     return "\n".join([
         f"// binary user operator {name!r}",
@@ -506,8 +519,8 @@ def _binary_c(k: int, name: str, prog: Program) -> str:
         f"  *db = {db};", f"  *da = {da};", "}"])
 
 
-def _loss_c(prog: Program) -> str:
-    fwd = _forward_c(prog, ["p", "t"])
+def _loss_c(prog: Program, double: bool) -> str:
+    fwd = _forward_c(prog, ["p", "t"], double)
     rev, (dp, _) = _reverse_c(prog, "1.f")
     return "\n".join([
         "// the loss: elem(pred, target) and d elem / d pred",
@@ -517,11 +530,13 @@ def _loss_c(prog: Program) -> str:
         *fwd, *rev, f"  return {dp};", "}"])
 
 
-def header_text(unary, binary, loss: Optional[Program]) -> str:
+def header_text(unary, binary, loss: Optional[Program],
+                double: bool = False) -> str:
     """The generated header for the user operators ``unary`` / ``binary``
     (lists of (name, Program), in the set's order) and the loss program
     (or None). csrc/operators.cuh includes it after the registry's device
-    functions, csrc/losses.cuh reads its loss."""
+    functions, csrc/losses.cuh reads its loss. ``double``: the float64
+    build's header, whose device code computes in double."""
     parts = [
         "// Generated by symbolicregression_jl_tpu_torch/ops/user_ops.py from",
         "// traced torch callables: included by csrc/operators.cuh in a build",
@@ -534,10 +549,11 @@ def header_text(unary, binary, loss: Optional[Program]) -> str:
         f"constexpr int kUserUnaryBase = {USER_UNARY_BASE};",
         f"constexpr int kUserBinaryBase = {USER_BINARY_BASE};",
     ]
-    parts += [_unary_c(k, n, p) for k, (n, p) in enumerate(unary)]
-    parts += [_binary_c(k, n, p) for k, (n, p) in enumerate(binary)]
+    code = [_unary_c(k, n, p, double) for k, (n, p) in enumerate(unary)]
+    code += [_binary_c(k, n, p, double) for k, (n, p) in enumerate(binary)]
     if loss is not None:
-        parts.append(_loss_c(loss))
+        code.append(_loss_c(loss, double))
+    parts += [_to_double(c) for c in code] if double else code
     parts.append("}  // namespace srops")
 
     def xmacro(kind, base, n):
@@ -655,6 +671,9 @@ class UserLoss:
     constants = (0.0, 0.0, 0.0)
     name = "UserLoss"
 
+    def constants_of(self, dtype):
+        return self.constants
+
     def __call__(self, pred, target):
         return self.fn(pred, target)
 
@@ -741,11 +760,13 @@ class UserBuild:
         return ("-DSR_USER_OPS", "-I", str(d))
 
 
-def user_build(operators: OperatorSet, loss=None) -> Optional[UserBuild]:
+def user_build(operators: OperatorSet, loss=None,
+               double: bool = False) -> Optional[UserBuild]:
     """The build the kernels need for ``operators`` and ``loss`` (its
     ``kernel_loss``): None when the set has no user operator and the loss
     is a registry one; raises ``TraceError`` for a user operator or loss
-    the tracer cannot lower."""
+    the tracer cannot lower. ``double``: the float64 build's header (its
+    own text, so its own hash and libraries)."""
     un, bi = user_operators(operators)
     prog = loss.program if isinstance(loss, UserLoss) else None
     if not un and not bi and prog is None:
@@ -754,11 +775,11 @@ def user_build(operators: OperatorSet, loss=None) -> Optional[UserBuild]:
     binary = [(n, operator_program(2, n)) for n in bi]
     ck = (tuple((n, _program_key(p)) for n, p in unary),
           tuple((n, _program_key(p)) for n, p in binary),
-          None if prog is None else _program_key(prog))
+          None if prog is None else _program_key(prog), double)
     with _lock:
         got = _BUILDS.get(ck)
         if got is None:
-            text = header_text(unary, binary, prog)
+            text = header_text(unary, binary, prog, double)
             got = UserBuild(hashlib.sha256(text.encode()).hexdigest()[:16],
                             text)
             _BUILDS[ck] = got

@@ -37,7 +37,10 @@ with the root's own value mode.
 ``--capture`` adds one batch from the main path's own search, the
 children of the first cycle of iteration 2 of ``equation_search`` at 64
 islands x 1000 (saved to ``build/kernel_ab/captured.pt`` and reused), timed
-in the fused mode (``fused_l2@captured``).
+in the fused mode (``fused_l2@captured``). ``--hof`` adds, in each timing
+process, the main path's search at the north star's widths for 1
+iteration of 100 cycles (seed 0) and compares its hall of fame (each
+member's complexity, loss bits and equation) with the first root's.
 
 The imports are absolute, so that this file, run by path in a root's
 process, drives that root's package.
@@ -290,9 +293,28 @@ def time_here(captured_path, bits_path) -> dict:
     return row
 
 
+def hall_of_fame_here() -> list:
+    """The main path's search at the north star's widths, 1 iteration of
+    100 cycles at seed 0: its hall of fame as (complexity, loss bits,
+    equation)."""
+    from symbolicregression_jl_tpu_torch import equation_search
+
+    X, y = north_star_data(torch.device("cuda"))
+    res = equation_search(X.cpu().numpy(), y.cpu().numpy(), niterations=1,
+                          ncycles_per_iteration=100, seed=0,
+                          binary_operators=["+", "-", "*", "/"],
+                          unary_operators=["cos", "exp"], npopulations=64,
+                          npop=1000, maxsize=20, verbosity=0)
+    return [(c.complexity, float(c.loss).hex(), c.equation)
+            for c in res.frontier()]
+
+
 def worker(argv) -> int:
-    """``--worker root build`` or ``--worker root time bits [captured]``:
-    check that the package imported is the root's, then do the one job."""
+    """``--worker root build`` or ``--worker root time bits [captured]
+    [--hof]``: check that the package imported is the root's, then do the
+    one job."""
+    hof = "--hof" in argv
+    argv = [a for a in argv if a != "--hof"]
     root, job = pathlib.Path(argv[0]).resolve(), argv[1]
     if root not in pathlib.Path(ke.__file__).resolve().parents:
         raise RuntimeError(f"imported {ke.__file__}, not the package of {root}")
@@ -300,6 +322,8 @@ def worker(argv) -> int:
         build_here()
         return 0
     row = time_here(argv[3] if len(argv) > 3 else None, argv[2])
+    if hof:
+        row["hof"] = hall_of_fame_here()
     print(json.dumps(row))
     return 0
 
@@ -326,8 +350,9 @@ def main(argv) -> int:
         print("kernel_ab: no CUDA device is available")
         return 2
     capture = "--capture" in argv
+    hof = ["--hof"] if "--hof" in argv else []
     roots = {n: pathlib.Path(r).resolve() for n, r in
-             (a.split("=", 1) for a in argv if a != "--capture")}
+             (a.split("=", 1) for a in argv if not a.startswith("--"))}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -347,7 +372,7 @@ def main(argv) -> int:
     for name in list(roots) + list(reversed(roots)):
         path = OUT_DIR / f"bits_{name}.pt"
         row = {"tree": name, **json.loads(run_in(
-            roots[name], "time", str(path), *captured).splitlines()[-1])}
+            roots[name], "time", str(path), *captured, *hof).splitlines()[-1])}
         bits.setdefault(name, torch.load(path))
         print(json.dumps(row), flush=True)
         rows.append(row)
@@ -370,6 +395,14 @@ def main(argv) -> int:
             b3_grad_bits_differ=int((b["grad_bits"] != ref["grad_bits"]).sum()),
             b3_poison_differs=int((b["grad_bad"] != ref["grad_bad"]).sum()))
         print(f"{name}: outputs against the first root {checks[name]}",
+              flush=True)
+    if hof:
+        first = rows[0]["hof"]
+        for row in rows:
+            checks[row["tree"]]["hof_equal"] = row["hof"] == first
+        if not all(row["hof"] == first for row in rows):
+            raise AssertionError("the halls of fame differ between the roots")
+        print(f"halls of fame: bit-equal in every run ({len(first)} members)",
               flush=True)
     record = {"card": card, "rows": rows, "loss_bits": checks}
     if capture:

@@ -44,8 +44,9 @@ def hof_to_candidates(hof: HallOfFame, options: Options,
     front = calculate_pareto_frontier(hof).cpu().numpy()
     exists = hof.exists.cpu().numpy()
     # the working dtype's losses, as float32 (which holds every bfloat16 and
-    # float16 value; numpy has no bfloat16)
-    losses = hof.losses.cpu().to(torch.float32).numpy()
+    # float16 value; numpy has no bfloat16), float64 at float64
+    losses = hof.losses.cpu().to(torch.float64 if hof.losses.dtype
+                                 == torch.float64 else torch.float32).numpy()
     trees = hof.trees.map(lambda x: x.cpu())
     pick = front if pareto_only else exists
     out: List[Candidate] = []

@@ -241,6 +241,8 @@ def test_select_and_starts_invariants(carried, seed):
     dict(loss=lambda p, t: (p - t) * (p - t)),
     dict(loss=lambda p, t: abs(p - t), should_optimize_constants=False,
          mutation_weights=dict(optimize=0.1)),
+    # a custom full-tree objective: its closures replace the kernels'
+    dict(loss_function=lambda tree, X, y, w, o: 0.0),
 ])
 def test_constant_optimisation_options_accepted(kw):
     o = sr.make_options(**kw)
@@ -252,7 +254,6 @@ def test_constant_optimisation_options_accepted(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(loss_function=lambda tree, X, y, w, o: 0.0),
     dict(loss=lambda p, t: torch.from_numpy(p.numpy() - t.numpy()) ** 2),
     dict(optimizer_backend="jnp"), dict(optimizer_backend="pallas"),
     # a callable of the user's own that the tracer cannot lower has no seed

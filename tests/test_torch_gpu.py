@@ -2,7 +2,10 @@
 constant-gradient kernel in both variants and the instruction-program
 kernels against their plain versions (the latter also bit-equal to the
 scoring kernel's value mode), each registry operator (and its derivative,
-and the hand-written digamma) on the edge grid, and short searches; the
+and the hand-written digamma) on the edge grid, and short searches; every
+float64 build and the gradient kernel's cotangent-seeded mode, eval_tree's
+batching rule (one B1 launch), per-island minibatches in the captured
+cycle and a custom objective's search; the
 redesigned scoring kernel below and above one wave of blocks, with ragged
 row counts, wide X and long or invalid programs, the loss-only kernel's
 candidate groups, and two launches giving the same bits; every kernel at
@@ -984,8 +987,8 @@ def test_every_loss_through_the_kernels_on_card(cuda, max_len):
 
 
 def _bits(t):
-    return t.contiguous().view(torch.int16 if t.element_size() == 2
-                               else torch.int32)
+    return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
 
 
 @pytest.mark.gpu
@@ -1382,3 +1385,223 @@ def test_reregistering_rebuilds_on_card(cuda, custom_pair):
                                rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(second, torch.sin(X[0]) - torch.cos(X[0]),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_len", [24, 512, 1024])
+def test_float64_builds_bit_equal_to_plain_on_card(cuda, max_len):
+    """The float64 builds of B1, the slot mode, B5, B6, B3 and B4 against
+    their plain versions (which compute in float64 too) bit for bit, B5/B6
+    against B1 and B3's loss against B4's, two launches the same bits; a
+    value beyond float32's range stays finite, one beyond float64's and an
+    invalid program are poisoned. At max_len 1,024 every kernel takes its
+    narrow route."""
+    dt = torch.float64
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    gen = make_generator(3, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, min(max_len, 24) - 1, (500,), device=cuda), 2,
+        ops, max_len, cuda)
+    edge = stack_trees([encode_tree(parse_expression(e, ops), max_len,
+                                    device=cuda, dtype=dt)
+                        for e in ("exp(x1 * 0.0 + 100.0)",
+                                  "exp(x1 * 0.0 + 710.0)", "x0 / (x1 - x1)")])
+    bad = edge[2:3]._replace(length=edge.length[2:3] + max_len)  # invalid
+    trees = TreeBatch(*(torch.cat(z) for z in zip(
+        edge, bad, trees._replace(cval=trees.cval.to(dt)))))
+    if max_len > 24:
+        deep = deep_trees(max_len, 2, device=cuda)
+        trees = TreeBatch(*(torch.cat(z) for z in zip(
+            trees, deep._replace(cval=deep.cval.to(dt)))))
+    X = (torch.rand(2, 777, device=cuda, dtype=dt) * 4 - 2)
+    y = torch.rand(777, device=cuda, dtype=dt) * 2
+    w = torch.rand(777, device=cuda) + 0.5
+    w[:40] = 0.0
+    before = dict(tke.STORAGE_LAUNCHES)
+    yk, okk = tke.eval_trees(trees, X, ops)
+    assert yk.dtype == dt
+    assert torch.equal(_bits(tke.eval_trees(trees, X, ops)[0]), _bits(yk))
+    ym, badm = tke.eval_program_plain(trees, X, ops)
+    assert torch.equal(okk, ~badm & (trees.length > 0))
+    assert bool(okk[0]) and float(yk[0, 0]) > 1e43
+    assert not okk[1:4].any()
+    assert torch.equal(_bits(yk[okk]), _bits(ym[okk]))
+    assert tke.STORAGE_LAUNCHES["value_f64"] == before["value_f64"] + 2
+    X1 = X[:, :1]
+    sk, oks = tke.eval_slot_values(trees, X1, ops)
+    sp, okp = tke.eval_slot_values_plain(trees, X1, ops)
+    fin = torch.isfinite(sp)
+    assert torch.equal(torch.isfinite(sk), fin) and torch.equal(oks, okp)
+    assert torch.equal(_bits(sk[fin]), _bits(sp[fin]))
+    for packed in (False, True):
+        yi, oki = tki.eval_trees_instr(trees, X, ops, packed)
+        assert torch.equal(oki, okk)
+        assert torch.equal(_bits(yi[okk]), _bits(yk[okk]))
+        yip, okip = tki.eval_trees_instr_plain(trees, X, ops, packed)
+        assert torch.equal(okip, okk)
+        assert torch.equal(_bits(yi[okk]), _bits(yip[okk]))
+    for weights in (None, w):
+        raw = tkg.stage_launch(trees, X, y, weights, ops, True, 1)
+        l3, g3, b3 = raw(trees.cval)
+        assert l3.dtype == g3.dtype == dt
+        l3b, g3b, _ = raw(trees.cval)
+        assert torch.equal(_bits(l3b), _bits(l3))
+        assert torch.equal(_bits(g3b), _bits(g3))
+        lm, gm, okm = tkg.eval_loss_grad_program_plain(trees, X, y, weights, ops)
+        assert torch.equal((b3 == 0) & (trees.length > 0), okm)
+        assert torch.equal(_bits(l3[okm]), _bits(lm[okm]))
+        assert torch.equal(_bits(g3[okm]), _bits(gm[okm]))
+        for reps in (1, 8):
+            fn = tkg.stage_launch(trees, X, y, weights, ops, False, reps)
+            l4 = fn(trees.cval.repeat_interleave(reps, 0))[0]
+            assert torch.equal(_bits(l4.reshape(-1, reps)),
+                               _bits(l3.unsqueeze(-1).expand(-1, reps)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["float32", "float64"])
+def test_cotangent_mode_on_card(cuda, precision):
+    """B3's cotangent-seeded mode: bit-equal to its plain mirror and over
+    two launches, and within the row-sum yardstick of the lockstep
+    interpreter's autograd VJP on the same seeds; one launch, counted in
+    VJP_LAUNCHES."""
+    from symbolicregression_jl_tpu_torch.ops import interpreter as interp
+
+    dt = getattr(torch, precision)
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    gen = make_generator(5, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, 22, (300,), device=cuda), 2, ops, L, cuda)
+    trees = trees._replace(cval=trees.cval.to(dt))
+    X = (torch.rand(2, 555, device=cuda, dtype=torch.float64) * 4 - 2).to(dt)
+    g = (torch.rand(300, 555, device=cuda, dtype=torch.float64) * 2 - 1).to(dt)
+    sfx = tke.STORAGE[dt][1]
+    before = tkg.VJP_LAUNCHES["vjp" + sfx]
+    vk, okk = tkg.eval_vjp_constants(trees, X, g, ops)
+    assert tkg.VJP_LAUNCHES["vjp" + sfx] == before + 1
+    assert vk.dtype == dt
+    assert torch.equal(_bits(tkg.eval_vjp_constants(trees, X, g, ops)[0]),
+                       _bits(vk))
+    _, vm, okm = tkg.eval_loss_grad_program_plain(trees, X, None, None, ops,
+                                                  cot=g)
+    assert torch.equal(okk, okm) and 0 < int(okk.sum()) < 300
+    assert torch.equal(_bits(vk[okk]), _bits(vm[okk]))
+    _, pull = torch.func.vjp(
+        lambda c: interp.eval_trees(trees._replace(cval=c), X, ops)[0],
+        trees.cval)
+    ref = pull(g)[0]
+    dy = interp.eval_grad_constants(trees, X, ops)[2]
+    yard = (g.unsqueeze(1) * dy).abs().sum(-1)
+    m = okk.unsqueeze(-1) & torch.isfinite(ref) & torch.isfinite(yard)
+    tol = 1e-5 if dt == torch.float32 else 1e-13
+    assert bool(((vk - ref).abs()[m] <= tol * yard[m]).all())
+
+
+@pytest.mark.gpu
+def test_eval_tree_batching_rule_makes_one_launch_on_card(cuda):
+    """A custom objective vmapped over 200 trees is one B1 launch;
+    vmap(grad) of it one B1 and one cotangent launch, equal to the
+    objective's gradient through the lockstep interpreter; eval_tree on one
+    tree outside vmap one B1 launch (T = 1)."""
+    from symbolicregression_jl_tpu_torch.ops import interpreter as interp
+
+    ops = tops.make_operator_set(["+", "-", "*"], ["cos"])
+    gen = make_generator(2, cuda)
+    trees = tmut.gen_random_tree_fixed_size(
+        gen, torch.randint(1, 16, (200,), device=cuda), 2, ops, L, cuda)
+    X = torch.rand(2, 300, device=cuda) * 4 - 2
+    y = X[0] * X[1] - torch.cos(X[1])
+
+    def objective(tree):
+        pred, ok = sr.eval_tree(tree, X, ops)
+        return torch.where(ok, ((pred - y) ** 2).mean(), torch.inf)
+
+    def at(fields, c):
+        return objective(TreeBatch(*fields[:3], c, fields[4]))
+
+    before = tke.LAUNCHES["value"]
+    loss = torch.func.vmap(objective)(trees)
+    assert tke.LAUNCHES["value"] == before + 1
+    vjp0 = tkg.VJP_LAUNCHES["vjp"]
+    grad = torch.func.vmap(torch.func.grad(at, argnums=1))(tuple(trees),
+                                                           trees.cval)
+    assert tke.LAUNCHES["value"] == before + 2
+    assert tkg.VJP_LAUNCHES["vjp"] == vjp0 + 1
+    with interp.plain_eval_tree():
+        loss_p = torch.func.vmap(objective)(trees)
+        grad_p = torch.func.vmap(torch.func.grad(at, argnums=1))(
+            tuple(trees), trees.cval)
+    f = torch.isfinite(loss_p)
+    assert torch.equal(torch.isfinite(loss), f)
+    torch.testing.assert_close(loss[f], loss_p[f], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(grad[f], grad_p[f], rtol=1e-3, atol=1e-4)
+    one = trees[0]
+    pred, ok = sr.eval_tree(one, X, ops)
+    assert tke.LAUNCHES["value"] == before + 3 and pred.shape == (300,)
+
+
+@pytest.mark.gpu
+def test_island_batches_in_the_captured_cycle_on_card(cuda):
+    """Per-island minibatches: the captured cycle equals the eager loop bit
+    for bit, with one scoring launch per island per cycle."""
+    cg.clear_cache()
+    o, X, y, st = _graph_case(cuda, dict(batching=True, batch_size=30,
+                                         independent_island_batches=True))
+    ga, gb = make_generator(7, cuda), make_generator(7, cuda)
+    _zero_counts()
+    a = tevolve.s_r_cycle_islands(ga, st, 12, X, y, None, 1.5, o, ncycles=6)
+    assert tke.LAUNCHES["fused"] == 4 * 6
+    eager = [dict(c) for c in cg.LAUNCH_COUNTERS]
+    _zero_counts()
+    b = cg.s_r_cycle_islands_graph(gb, st, 12, X, y, None, 1.5, o, ncycles=6)
+    assert [dict(c) for c in cg.LAUNCH_COUNTERS] == eager
+    for fa, fb in zip(cg._leaves(a), cg._leaves(b), strict=True):
+        assert torch.equal(fa, fb)
+    (g,) = cg._CACHE.values()
+    assert g.captures == 1 and g.replays == 6
+    cg.clear_cache()
+
+
+@pytest.mark.gpu
+def test_float64_and_custom_objective_searches_on_card(cuda):
+    """A float64 search launches float64 builds only (its state float64,
+    predict float64); a search under a custom objective scores through B1
+    (one launch per scoring call, no B2) and fits constants through the
+    cotangent mode; an objective that reads the card from the host fails
+    at capture, naming the objective."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, (2, 80))
+    _zero_counts()
+    res = sr.equation_search(X, X[0] * X[0] + 0.5, precision="float64",
+                             niterations=1, ncycles_per_iteration=10,
+                             return_state=True, **GRAPH_CFG)
+    assert not any({**tke.LAUNCHES, **tkg.LAUNCHES, **tki.LAUNCHES}.values())
+    assert tke.STORAGE_LAUNCHES["value_f64"] == 1 + 10 + 1
+    assert res.state[0].island_states.pop.losses.dtype == torch.float64
+    assert res.predict(X).dtype == np.float64
+
+    def objective(tree, X_, y_, w_, options):
+        pred, ok = sr.eval_tree(tree, X_, options.operators)
+        return torch.where(ok, ((pred - y_) ** 2).mean(), torch.inf)
+
+    Xf = X.astype(np.float32)
+    _zero_counts()
+    cg.clear_cache()
+    res = sr.equation_search(Xf, Xf[0] * Xf[0] + 0.5, loss_function=objective,
+                             niterations=1, ncycles_per_iteration=10,
+                             **GRAPH_CFG)
+    assert tke.LAUNCHES["fused"] == 0 and tkg.VJP_LAUNCHES["vjp"] > 0
+    assert np.isfinite(res.best_loss().loss)
+
+    def host_read(tree, X_, y_, w_, options):
+        pred, ok = sr.eval_tree(tree, X_, options.operators)
+        two = torch.tensor(2.0, device=X_.device)  # a copy from host memory
+        return ((pred - y_) ** two).mean()
+
+    cg.clear_cache()
+    with pytest.raises(RuntimeError, match="host_read"):
+        sr.equation_search(Xf, Xf[0], loss_function=host_read,
+                           niterations=1, ncycles_per_iteration=3,
+                           **GRAPH_CFG)
+    cg.clear_cache()
+    torch.cuda.synchronize()

@@ -51,6 +51,12 @@ def test_shared_fields_have_the_reference_class(cls):
     assert port <= ref
 
 
+def _alt_objective(tree, X, y, weights, options):
+    """A custom full-tree objective, the loss_function field's perturbation."""
+    pred, ok = sr.eval_tree(tree, X, options.operators)
+    return torch.where(ok, ((pred - y) ** 2).mean(), torch.inf)
+
+
 # a value of each field that differs from the default and that the port
 # accepts; the traced scalars and orchestration fields must keep the key
 ALT = dict(
@@ -76,12 +82,12 @@ ALT = dict(
     save_to_file=False, terminal_width=72, data_policy="mask",
     optimizer_algorithm="NelderMead", fast_cycle=True,
     skip_mutation_failures=False, deterministic=False,
-    define_helper_functions=False,
+    define_helper_functions=False, loss_function=_alt_objective,
+    independent_island_batches=True,
 )
 # fields whose only accepted value is the default (the port raises for
 # the others): their class is still checked above
-FIXED = {"loss_function", "optimizer_backend",
-         "independent_island_batches", "recorder", "cache_fitness",
+FIXED = {"optimizer_backend", "recorder", "cache_fitness",
          "row_shards", "tenants", "telemetry", "telemetry_dir",
          "snapshot_path", "snapshot_every_dispatches", "recorder_file",
          "telemetry_every", "telemetry_run_id", "telemetry_attempt",

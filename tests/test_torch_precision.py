@@ -320,13 +320,13 @@ def test_convert_carries_state_bit_for_bit(precision):
 
 
 def test_precision_options():
-    """bfloat16 / float16 accepted with their torch dtype; float64 waits for
-    its kernel slice; anything else is refused as in the JAX package."""
+    """bfloat16 / float16 / float64 accepted with their torch dtype (float64
+    since its kernel slice); anything else is refused as in the JAX
+    package."""
     assert sr.make_options(precision="bfloat16").dtype == torch.bfloat16
     assert sr.make_options(precision="float16").dtype == torch.float16
     assert sr.make_options().dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="float64 kernel slice"):
-        sr.make_options(precision="float64")
+    assert sr.make_options(precision="float64").dtype == torch.float64
     with pytest.raises(ValueError):
         sr.make_options(binary_operators=["+"], precision="float8")
 
