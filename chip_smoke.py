@@ -14,6 +14,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    shared-memory / spill lines; with them the fourteen libraries of the
    headers generated for the user operators and the loss callable of
    phases 3f, 5g and 8 (``-DSR_USER_OPS``; three of them float64);
+1b. the threefry kernel (``csrc/threefry.cu``, every split and draw of the
+   search: threefry2x32 in JAX's partitionable mode) against its plain
+   version (``utils/rng.py``, run on the host) on 16,384 keys x 72 draws
+   (1,179,648 pairs, more than one pass of the kernel's grid) in every
+   mode and epilogue: split, fold_in, bits at 8, 16, 32 and 64, uniform /
+   normal / gumbel in float32, bfloat16, float16 and float64, randint with
+   a device bound, strided keys; bit-equal, but float64 normal and gumbel,
+   whose log is CUDA's against the C library's (within 1e-11 relative);
+   then jax 0.9's own draws, frozen in ``JAX_LITERALS``; then each mode at
+   the main path's shapes, bit-equal to its plain version there and timed
+   beside it (host clock) and its bound;
 2. scoring kernels vs plain PyTorch versions on the card at the main
    path's shapes (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's
    children at 64 islands x 1000, 64,000 trees = one rescore), poisoning
@@ -96,8 +107,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (BFGS), then ``predict``; every cycle is a replay of one captured CUDA
    graph (``models/cycle_graph.py``: one capture, niterations x ncycles
    replays, its pool's device memory printed beside the peak); the launch
-   counts (a replay adds what its capture counted) are zeroed just before
-   and read just after, and each iteration's optimisation pass is timed; then
+   counts (a replay adds what its capture counted; the threefry kernel's
+   by mode among them, every mode launched, float32 epilogues only) are
+   zeroed just before and read just after, and each iteration's
+   optimisation pass is timed; then
    the same search with ``kernel_program="instr"`` and ``"instr_packed"``
    (one iteration each, same seed: their halls of fame must be
    bit-equal), the counts zeroed before and read after each; then a short
@@ -141,8 +154,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    without init, simplify or rescore (device kernels per cycle, idle
    share, host synchronisations per cycle by issuing operator: there must
    be none, and no copy from or to host memory); then the captured cycle
-   against the eager one: bit-equal states, generators and launch counts
-   after 20 cycles from one state and seed, milliseconds per cycle A B B A
+   against the eager one: bit-equal states (the islands' threefry keys
+   included) and launch counts after 20 cycles from one state, the
+   threefry launches per replayed cycle, milliseconds per cycle A B B A
    over 50 cycles each, and a profile of 20 replayed cycles (device
    kernels per cycle, idle share), with replays, captures, capture seconds
    and the graph pool's memory; the scoring wrapper alone, and the
@@ -164,8 +178,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    loss below 1e-2; and ``test_custom_loss_function_steers_search`` (loss
    below 1e-2, its objective through ``eval_tree``),
    ``test_independent_island_batches`` (finite) and the search of
-   ``test_float64_in_subprocess`` (in this process, at its seed 0 and at
-   every seed the float32 sweep recovers: loss below 1e-8 at those).
+   ``test_float64_in_subprocess`` (in this process, at seeds 0-15: loss
+   below 1e-8 at its seed 0, and recovered at no fewer seeds than the
+   reference's float32 sweep, 9 of 16; a float64 search draws the
+   reference's x64 stream, so its seeds are not float32's).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -194,6 +210,27 @@ T_CYCLE = 64 * 84  # children per cycle: 64 islands x B=84
 T_RESCORE = 64 * 1000
 T_OPT = 64 * 3 * 140  # BFGS instances: islands x starts x round(1000 * 0.14)
 LS_STEPS = 8  # line-search candidates per instance
+
+# jax 0.9's draws for PRNGKey(20261018) on the CPU, frozen (this script
+# imports no JAX; tests/test_torch_prng.py checks them against JAX): the
+# threefry kernel must give these bits on the card
+JAX_LITERALS = {
+    "seed": 20261018,
+    "key": [0, 20261018],
+    "split4": [[1965894874, 4140079318], [1151226145, 1975769135],
+               [3142536735, 3559190347], [3438793069, 2923984588]],
+    "fold_in": [2471504572, 78645587],
+    "bits32": [2213131276, 828213518, 1869324628, 1656727457, 2089056151,
+               1365478434, 3665629991, 3544550453],
+    "uniform_bits": [1057221044, 1044739616, 1054791488, 1053130572,
+                     1056508140, 1050855192, 1062894866, 1062421900],
+    "normal_bits": [1025308740, 3210613918, 3190225133, 3197416851,
+                    3171660535, 3203559347, 1065784697, 1064274036],
+    "gumbel_bits": [1053975802, 3204391372, 1044152372, 1028056861,
+                    1051176072, 3188424302, 1072419404, 1070806567],
+    "randint": [100, 202, 457, 565, 662, 458, 255, 602],
+    "choice": [18, 4, 32, 20, 3, 21],
+}
 
 
 def log(*a):
@@ -261,6 +298,175 @@ def device_ms(fn, reps):
         spin *= 2
 
 
+def synthetic_generator(seed, dev):
+    """A torch generator for synthetic kernel inputs (tree sizes, data,
+    constant perturbations); the search itself draws from threefry keys."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def random_trees(gen, sizes, nfeatures, operators, max_len, dev):
+    """Random trees of ``sizes`` grown by the port's
+    ``gen_random_tree_fixed_size``, one threefry key per tree drawn with
+    ``gen``."""
+    from symbolicregression_jl_tpu_torch.models.mutate_device import (
+        gen_random_tree_fixed_size,
+    )
+
+    keys = torch.randint(0, 2 ** 32, (sizes.shape[0], 2), generator=gen,
+                         device=dev)
+    return gen_random_tree_fixed_size(keys, sizes, nfeatures, operators,
+                                      max_len)
+
+
+# the main path's threefry calls at 64 islands x 1000 (B = 84 tournaments,
+# 10 attempts, max_len 24): (keys, draws per key) of each mode's timed call
+RNG_SHAPES = {"split": (64 * 84 * 10, 2), "bits": (64 * 84, 1000),
+              "uniform": (64 * 84 * 10, 1), "normal": (64 * 84 * 10, 1),
+              "gumbel": (64 * 84 * 10, 24), "randint": (64 * 84 * 10, 1)}
+# hashes per pair, and the bytes the function writes per pair: a subkey is
+# two 32-bit words, a 32-bit draw or an int32 four bytes (the port holds
+# them in int64; the bound counts what the function needs)
+RNG_WORK = {"split": (1, 8), "bits": (1, 4), "uniform": (1, 4),
+            "normal": (1, 4), "gumbel": (1, 4), "randint": (4, 4)}
+KEY_BYTES = 8  # a key read once: two 32-bit words
+# the kernel's grid: at most 132 x 32 blocks of 256 threads, each thread
+# striding over the pairs beyond them
+GRID_PAIRS = 132 * 32 * 256
+# threefry2x32: 20 rounds of an add, a rotate and a xor, and 5 key
+# injections of three adds; integer ALU operations issue at a quarter of
+# the float32 rate (64 INT32 lanes per SM against 128 FP32 lanes counted
+# twice for the multiply-add)
+THREEFRY_OPS = 20 * 3 + 5 * 3
+INT32_OPS_PER_S = F32_OPS_PER_S / 4
+
+
+def phase_threefry(dev, log_fn):
+    """1b: the threefry kernel (csrc/threefry.cu) against its plain version
+    (utils/rng.py on the host) in every mode and epilogue, on 16,384 keys x
+    72 draws (1,179,648 pairs, past one pass of the kernel's grid) each,
+    plus jax 0.9's frozen draws; then each mode at the main path's shapes:
+    bit-equal to its plain version there too, and timed beside it and its
+    bound."""
+    from symbolicregression_jl_tpu_torch.ops import kernel_rng as kr
+    from symbolicregression_jl_tpu_torch.utils import rng
+
+    g = np.random.default_rng(0)
+    keys = torch.from_numpy(g.integers(0, 2 ** 32, (16384, 2),
+                                       dtype=np.uint64).astype(np.int64))
+    keys[:4] = torch.tensor([[0, 0], [2 ** 31, 1], [2 ** 32 - 1, 2 ** 32 - 1],
+                             [7, 2 ** 31 + 5]])
+    kd = keys.to(dev)
+    report = {"bit_equal_share": {}, "max_abs_err": {}, "pairs": {}}
+
+    def check(name, got, ref, exact=True):
+        torch.cuda.synchronize()
+        got, ref = got.cpu(), ref.cpu()
+        if got.dtype in (torch.bfloat16, torch.float16):
+            bits_g, bits_r = got.view(torch.int16), ref.view(torch.int16)
+        elif got.dtype == torch.float32:
+            bits_g, bits_r = got.view(torch.int32), ref.view(torch.int32)
+        elif got.dtype == torch.float64:
+            bits_g, bits_r = got.view(torch.int64), ref.view(torch.int64)
+        else:
+            bits_g, bits_r = got, ref
+        share = float((bits_g == bits_r).double().mean())
+        err = float((got.double() - ref.double()).abs().max())
+        report["bit_equal_share"][name] = share
+        report["max_abs_err"][name] = err
+        report["pairs"][name] = got.numel()
+        log_fn(f"threefry {name}: {got.numel()} values, bit-equal share "
+               f"{share:.6f}, max abs err {err:.3g}")
+        if exact:
+            assert share == 1.0, f"threefry {name} differs from its plain version"
+        else:  # float64 log: CUDA's against the C library's (ROADMAP C)
+            rel = ((got.double() - ref.double()).abs()
+                   / ref.double().abs().clamp_min(1e-300)).max()
+            assert float(rel) < 1e-11, f"threefry {name}: rel err {rel}"
+
+    D = 72  # 16,384 x 72 pairs: more than one pass of the grid
+    assert keys.shape[0] * D > GRID_PAIRS
+    check("split", rng.split(kd, D), rng.split(keys, D))
+    fold = torch.cat([kd] * (GRID_PAIRS // keys.shape[0] + 1))
+    check("fold_in", rng.fold_in(fold, 0x5F3759DF),
+          rng.fold_in(fold.cpu(), 0x5F3759DF))
+    for w in (8, 16, 32, 64):
+        check(f"bits{w}", rng.random_bits(kd, w, (D,)),
+              rng.random_bits(keys, w, (D,)))
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.float64):
+        sfx = kr.DTYPES[dt][1] or "_f32"
+        check("uniform" + sfx, rng.uniform(kd, (D,), dt, -0.75, 3.25),
+              rng.uniform(keys, (D,), dt, -0.75, 3.25))
+        check("normal" + sfx, rng.normal(kd, (D,), dt),
+              rng.normal(keys, (D,), dt), dt != torch.float64)
+        check("gumbel" + sfx, rng.gumbel(kd, (D,), dt),
+              rng.gumbel(keys, (D,), dt), dt != torch.float64)
+    check("randint", rng.randint(kd, (D,), 1, torch.tensor(23, device=dev)),
+          rng.randint(keys, (D,), 1, 23))
+    check("strided keys", rng.uniform(rng.split(kd, 6)[..., 2, :], (3,)),
+          rng.uniform(rng.split(keys, 6)[..., 2, :], (3,)))
+    # jax 0.9's own draws, frozen
+    lit = JAX_LITERALS
+    k = rng.key(lit["seed"], dev)
+    f32bits = lambda t: t.cpu().view(torch.int32).numpy().astype(
+        np.uint32).astype(np.int64).tolist()
+    got = {"key": k.cpu().tolist(), "split4": rng.split(k, 4).cpu().tolist(),
+           "fold_in": rng.fold_in(k, 0x5F3759DF).cpu().tolist(),
+           "bits32": rng.random_bits(k, 32, (8,)).cpu().tolist(),
+           "uniform_bits": f32bits(rng.uniform(k, (8,))),
+           "normal_bits": f32bits(rng.normal(k, (8,))),
+           "gumbel_bits": f32bits(rng.gumbel(k, (8,))),
+           "randint": rng.randint(k, (8,), 0, 1000).cpu().tolist(),
+           "choice": rng.choice_without_replacement(k, 33, 6).cpu().tolist()}
+    for name, v in got.items():
+        assert v == lit[name], f"threefry {name} on the card is not jax's: {v}"
+    log_fn(f"threefry: the card's draws equal jax 0.9's frozen literals "
+           f"({', '.join(got)})")
+
+    # each mode at the main path's shapes: kernel (device time) beside the
+    # plain version (host clock; it runs on the host only) and the bound,
+    # and the two outputs bit-equal (bits and gumbel there run past one
+    # pass of the grid)
+    timings = {}
+    for mode, (nk, per) in RNG_SHAPES.items():
+        kk = kd[:1].expand(nk, 2).contiguous() + torch.arange(
+            nk, device=dev).unsqueeze(-1)
+        kh = kk.cpu()
+        call = {
+            "split": lambda k_: rng.split(k_, per),
+            "bits": lambda k_: rng.random_bits(k_, 32, (per,)),
+            "uniform": lambda k_: rng.uniform(k_),
+            "normal": lambda k_: rng.normal(k_),
+            "gumbel": lambda k_: rng.gumbel(k_, (per,)),
+            "randint": lambda k_: rng.randint(k_, (), 1, 21),
+        }[mode]
+        ms = device_ms(lambda: call(kk), 50)
+        tp = time.time()
+        plain_out = call(kh)
+        plain_ms = (time.time() - tp) * 1e3
+        check(f"{mode} at {nk} x {per}", call(kk), plain_out)
+        pairs = nk * per
+        hashes, out_bytes = RNG_WORK[mode]
+        in_bytes = KEY_BYTES * nk
+        byte_ms = (in_bytes + out_bytes * pairs) / HBM_BYTES_PER_S * 1e3
+        op_ms = pairs * hashes * THREEFRY_OPS / INT32_OPS_PER_S * 1e3
+        timings[mode] = dict(
+            keys=nk, per_key=per, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="operations" if op_ms > byte_ms else "bytes")
+        log_fn(f"threefry {mode} at {nk} x {per}: {ms:.4f} ms on the card, "
+               f"plain {plain_ms:.1f} ms on the host, bound "
+               f"{timings[mode]['bound_ms']:.5f} ms "
+               f"({timings[mode]['bound_by']})")
+    report["timings"] = timings
+    report["build"] = dict(seconds=kr.BUILD_LOG.get("seconds"),
+                           ptxas=[ln.strip() for ln in kr.BUILD_LOG.get(
+                               "log", "").splitlines()
+                               if "registers" in ln or "spill" in ln])
+    return report
+
+
 def register_custom_pair():
     """The reference's custom operator pair (tests/test_custom_operators.py
     :22-23), as torch callables."""
@@ -293,9 +499,6 @@ def phase_user_kernels(dev, log_fn, T=4096):
     registry instantiation on trees of the same shape (``+ * atan2``,
     ``sin cos``: as many operators, the full instantiation too) and its
     bound. Returns the report."""
-    from symbolicregression_jl_tpu_torch.models.mutate_device import (
-        gen_random_tree_fixed_size,
-    )
     from symbolicregression_jl_tpu_torch.models.trees import UNA
     from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
     from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
@@ -305,8 +508,6 @@ def phase_user_kernels(dev, log_fn, T=4096):
     from symbolicregression_jl_tpu_torch.ops.operators import (
         is_user_operator, make_operator_set,
     )
-    from symbolicregression_jl_tpu_torch.utils.rng import make_generator
-
     uops = make_operator_set(["+", "*", "op2c"], ["op3c", "cos"])
     rops = make_operator_set(["+", "*", "atan2"], ["sin", "cos"])
     # the registry's operators at the same indices, on the user build (the
@@ -320,9 +521,8 @@ def phase_user_kernels(dev, log_fn, T=4096):
     # the registry's any-loss instantiation under the same arithmetic
     reg_loss = lp_dist_loss(2.0)
     nfeat = 3
-    gen = make_generator(11, dev)
-    trees = gen_random_tree_fixed_size(
-        gen, torch.randint(1, 21, (T,), generator=gen, device=dev), nfeat,
+    gen = synthetic_generator(11, dev)
+    trees = random_trees(gen, torch.randint(1, 21, (T,), generator=gen, device=dev), nfeat,
         uops, 24, dev)
     Xf = torch.randn((nfeat, ROWS), generator=gen, device=dev) * 1.5
     yf = torch.randn(ROWS, generator=gen, device=dev)
@@ -537,9 +737,6 @@ def main():
         return 2
     from symbolicregression_jl_tpu_torch import equation_search
     from symbolicregression_jl_tpu_torch.models import cycle_graph as cg
-    from symbolicregression_jl_tpu_torch.models.mutate_device import (
-        gen_random_tree_fixed_size,
-    )
     from symbolicregression_jl_tpu_torch.models.trees import (
         BIN, CONST, VAR, TreeBatch, UNA, encode_tree, parse_expression, stack_trees,
     )
@@ -551,7 +748,8 @@ def main():
     from symbolicregression_jl_tpu_torch.ops.operators import (
         BINARY_REGISTRY, UNARY_REGISTRY, is_user_operator, make_operator_set,
     )
-    from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+    from symbolicregression_jl_tpu_torch.ops import kernel_rng as kr
+    from symbolicregression_jl_tpu_torch.utils import rng as keyrng
 
     dev = torch.device("cuda")
     t0 = time.time()
@@ -590,14 +788,22 @@ def main():
                  (ke, f32, h_mixed), (kg, f32, h_mixed), (ke, f64, h_ops64),
                  (ki, f64, h_ops64), (kg, f64, h_loss64)]
     builds = [(m, d) for d in ke.STORAGE for m in (ke, kg, ki)]
-    with ThreadPoolExecutor(len(builds) + len(user_libs)) as pool:
+    with ThreadPoolExecutor(len(builds) + len(user_libs) + 1) as pool:
         for f in ([pool.submit(m.build_library, True, d) for m, d in builds]
                   + [pool.submit(m.build_library, True, d, u)
-                     for m, d, u in user_libs]):
+                     for m, d, u in user_libs]
+                  + [pool.submit(kr.build_library, True)]):
             f.result()
     build_s = time.time() - tb
-    log(f"build: nvcc {build_s:.1f} s for the three sources x four dtypes "
-        f"and {len(user_libs)} libraries of generated headers")
+    log(f"build: nvcc {build_s:.1f} s for the three sources x four dtypes, "
+        f"{len(user_libs)} libraries of generated headers and the threefry "
+        f"kernel ({kr.BUILD_LOG['seconds']:.1f} s)")
+    for line in kr.BUILD_LOG["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"ptxas threefry: {line.strip()}")
+
+    # ---- 1b. the threefry kernel vs plain, and jax's frozen draws ---------
+    rng_report = phase_threefry(dev, log)
     nvcc_s = {}
     for d in ke.STORAGE:
         for name, m in (("postfix_eval", ke), ("postfix_grad", kg),
@@ -623,9 +829,9 @@ def main():
     X_np, y_np = feynman_data()
     X = torch.tensor(X_np, device=dev)
     y = torch.tensor(y_np, device=dev)
-    gen = make_generator(1, dev)
+    gen = synthetic_generator(1, dev)
     sizes = torch.randint(3, 21, (T_RESCORE,), generator=gen, device=dev)
-    trees = gen_random_tree_fixed_size(gen, sizes, 1, ops, 24, dev)
+    trees = random_trees(gen, sizes, 1, ops, 24, dev)
     poison = [parse_expression(s, ops) for s in (
         "x0 / (x0 - x0)", "exp(exp(exp(exp(x0))))", "(x0 * 0.5) / (x0 - x0)",
         "cos(x0) + exp(exp(exp(exp(x0 + 1.5))))")]
@@ -875,8 +1081,7 @@ def main():
     # programs of up to 109 slots at max_len 128 (a search at maxsize 110
     # or more), which the gradient kernel of earlier versions refused
     L_LONG, T_LONG = 128, 4096
-    long_trees = gen_random_tree_fixed_size(
-        gen, torch.randint(3, 110, (T_LONG,), generator=gen, device=dev), 1,
+    long_trees = random_trees(gen, torch.randint(3, 110, (T_LONG,), generator=gen, device=dev), 1,
         ops, L_LONG, dev)
     long_trees = TreeBatch(*(torch.cat([a[: T_LONG - 4], b]) for a, b in zip(
         long_trees, stack_trees([encode_tree(e, L_LONG, device=dev)
@@ -905,9 +1110,8 @@ def main():
                if n != "pow" and not is_user_operator(2, n)),
         sorted(n for n in UNARY_REGISTRY if not is_user_operator(1, n)))
     T_GRID = 4096
-    ggen = make_generator(3, dev)
-    g_trees = gen_random_tree_fixed_size(
-        ggen, torch.randint(1, 21, (T_GRID,), generator=ggen, device=dev), 3,
+    ggen = synthetic_generator(3, dev)
+    g_trees = random_trees(ggen, torch.randint(1, 21, (T_GRID,), generator=ggen, device=dev), 3,
         all_ops, 24, dev)
     Xg = torch.randn((3, ROWS), generator=ggen, device=dev) * 1.5
     yg = torch.randn(ROWS, generator=ggen, device=dev)
@@ -1016,8 +1220,7 @@ def main():
     long_report = {}
     for L_big, T_big in ((512, 600), (1024, 200), (2048, 60)):
         tl = time.time()
-        big = gen_random_tree_fixed_size(
-            gen, torch.randint(1, L_big - 2, (T_big,), generator=gen,
+        big = random_trees(gen, torch.randint(1, L_big - 2, (T_big,), generator=gen,
                                device=dev), 1, ops, L_big, dev)
         kind_b = torch.zeros((len(shapes_), L_big), dtype=torch.int64,
                              device=dev)
@@ -1340,8 +1543,7 @@ def main():
                 dict(not_poisoned=int(ok3.sum())))
         # the long programs: narrow routes at 1,024
         for L_big, T_big in ((512, 600), (1024, 200)):
-            big = gen_random_tree_fixed_size(
-                gen, torch.randint(1, L_big - 2, (T_big,), generator=gen,
+            big = random_trees(gen, torch.randint(1, L_big - 2, (T_big,), generator=gen,
                                    device=dev), 1, ops, L_big, dev)
             big = TreeBatch(*(torch.cat(z) for z in zip(
                 big, deep_programs(L_big),
@@ -1864,6 +2066,8 @@ def main():
         for counts in (ke.LOSS_LAUNCHES, kg.LOSS_LAUNCHES, ke.USER_LAUNCHES,
                        kg.USER_LAUNCHES, ki.USER_LAUNCHES):
             counts.clear()
+        for k in kr.LAUNCHES:
+            kr.LAUNCHES[k] = 0
 
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1878,6 +2082,7 @@ def main():
     finally:
         api_mod.optimize_islands_constants = untimed_optimize
     launches = {**ke.LAUNCHES, **kg.LAUNCHES}
+    rng_launches = dict(kr.LAUNCHES)
     main_by_loss = {**ke.LOSS_LAUNCHES, **kg.LOSS_LAUNCHES}
     assert not any(ki.LAUNCHES.values()), ki.LAUNCHES  # postfix path only
     storage_launches = lambda: {**ke.STORAGE_LAUNCHES, **kg.STORAGE_LAUNCHES,
@@ -1914,6 +2119,12 @@ def main():
     assert launches["loss"] == 8 * args.niterations, launches
     assert len(opt_s) == args.niterations, opt_s
     assert all(v > 0 for v in launches.values()), launches
+    # every draw of the search went through the threefry kernel, float32
+    # epilogues only (no float64 / 2-byte draw at float32)
+    assert all(rng_launches[m] > 0 for m in RNG_SHAPES), rng_launches
+    assert not any(v for m, v in rng_launches.items()
+                   if m not in RNG_SHAPES), rng_launches
+    log(f"main path: threefry launches {rng_launches}")
     assert pred.shape == (ROWS,)
     best = res.best()
     log(f"main path: best {best.equation} loss {best.loss:.6g}; "
@@ -2507,14 +2718,14 @@ def main():
     opts = make_options(**cfg)
     base = update_baseline_loss(make_dataset(X, y, device=dev),
                                 opts).baseline_loss
-    cgen = make_generator(2, dev)
-    st = init_island_state(cgen, opts, 1, X, y, None, base, 64)
+    st = init_island_state(keyrng.split(keyrng.key(2, dev), 64), opts, 1, X,
+                           y, None, base)
 
     def cycles(n, loop=s_r_cycle_islands):
         nonlocal st
         torch.cuda.synchronize()
         tc = time.time()
-        st = loop(cgen, st, opts.maxsize, X, y, None, base, opts, ncycles=n)
+        st = loop(st, opts.maxsize, X, y, None, base, opts, ncycles=n)
         torch.cuda.synchronize()
         return (time.time() - tc) * 1e3 / n
 
@@ -2588,24 +2799,25 @@ def main():
     # over 50 cycles each, then a profile of 20 replayed cycles
     graph_cycles = cg.s_r_cycle_islands_graph
     st0 = st
-    bit_gens = [make_generator(11, dev), make_generator(11, dev)]
     zero_counts()
-    eager20 = s_r_cycle_islands(bit_gens[0], st0, opts.maxsize, X, y, None,
-                                base, opts, ncycles=20)
+    eager20 = s_r_cycle_islands(st0, opts.maxsize, X, y, None, base, opts,
+                                ncycles=20)
     eager_counts = [dict(c) for c in cg.LAUNCH_COUNTERS]
     zero_counts()
-    graph20 = graph_cycles(bit_gens[1], st0, opts.maxsize, X, y, None, base,
-                           opts, ncycles=20)
+    graph20 = graph_cycles(st0, opts.maxsize, X, y, None, base, opts,
+                           ncycles=20)
     graph_counts = [dict(c) for c in cg.LAUNCH_COUNTERS]
     torch.cuda.synchronize()
     leaves = list(zip(cg._leaves(eager20), cg._leaves(graph20)))
     n_differ = sum(not torch.equal(a, b) for a, b in leaves)
     assert n_differ == 0, f"{n_differ} of {len(leaves)} state fields differ"
-    assert torch.equal(bit_gens[0].get_state(), bit_gens[1].get_state())
+    assert not torch.equal(graph20.key, st0.key)  # the keys moved on
     assert eager_counts == graph_counts, (eager_counts, graph_counts)
+    rng_per_cycle = {k: v / 20 for k, v in kr.LAUNCHES.items() if v}
     log(f"cycle graph: 20 replayed cycles bit-equal to 20 eager cycles from "
-        f"one state (all {len(leaves)} IslandState fields and the generator), "
-        f"launch counts equal {graph_counts[:3]}")
+        f"one state (all {len(leaves)} IslandState fields, the islands' keys "
+        f"included), launch counts equal {graph_counts[:3]}; threefry "
+        f"launches per cycle {rng_per_cycle}")
     del eager20, graph20, st0
     graph_ms = {"eager": [], "captured": []}
     n_ab = 50
@@ -2621,6 +2833,7 @@ def main():
     log(gka.table(sort_by=dev_attr, row_limit=12))
     g_calls, _ = sync_counts(prof)
     graph_report = dict(
+        threefry_per_cycle=rng_per_cycle,
         ms_per_cycle=graph_ms, cycles_per_timing=n_ab,
         captures=cyc_graph.captures, replays=cyc_graph.replays,
         capture_s=cyc_graph.capture_s, pool_bytes=cyc_graph.pool_bytes,
@@ -2687,7 +2900,8 @@ def main():
         nonlocal st
         torch.cuda.synchronize()
         tc = time.time()
-        st = optimize_islands_constants(cgen, st, X, y, None, base, opts)
+        st = optimize_islands_constants(keyrng.split(keyrng.key(7, dev), 64),
+                                        st, X, y, None, base, opts)
         torch.cuda.synchronize()
         return (time.time() - tc) * 1e3
 
@@ -2939,15 +3153,17 @@ def main():
     log(f"reference body test_independent_island_batches: "
         f"{res_i.best_loss().equation} loss {res_i.best_loss().loss:.3g}, "
         f"{time.time() - tr:.1f} s")
-    # the search of test_float64_in_subprocess (its data in float64), at
-    # its own seed 0 (reported) and at every seed the float32 sweep above
-    # recovers, each to loss < 1e-8: the fixture is seed-marginal at every
-    # precision (ROADMAP §C), as the bfloat16 / float16 sweeps above hold
+    # the search of test_float64_in_subprocess (its data in float64) at
+    # seeds 0-15: loss < 1e-8 at the reference's seed 0 (its assertion),
+    # and recovered at no fewer seeds than the reference's float32 sweep
+    # (9 of 16). A float64 search draws the reference's x64 stream (64-bit
+    # draws, utils/rng.py draw_dtype), not the float32 search's, so the
+    # seeds it recovers are not float32's
     rng_b = np.random.default_rng(0)
     X64 = rng_b.standard_normal((2, 40)) * 2
     tr = time.time()
     losses64, res_64 = {}, None
-    for seed in sorted({0, *recovered}):
+    for seed in range(16):
         res_64 = equation_search(
             X64, X64[0] * X64[0], niterations=2, binary_operators=["+", "*"],
             npop=16, npopulations=2, ncycles_per_iteration=20,
@@ -2955,14 +3171,15 @@ def main():
             progress=False, maxsize=10, seed=seed)
         losses64[seed] = res_64.best_loss().loss
     assert res_64.predict(X64).dtype == np.float64
-    assert all(losses64[s] < 1e-8 for s in recovered), losses64
+    recovered64 = [s for s, v in losses64.items() if v < 1e-8]
+    assert losses64[0] < 1e-8, losses64
+    assert len(recovered64) >= ref_recovered, (losses64, recovered)
     user_bodies["test_float64_in_subprocess"] = dict(
-        s=time.time() - tr, losses_by_seed=losses64,
-        recovered=[s for s, v in losses64.items() if v < 1e-8])
+        s=time.time() - tr, losses_by_seed=losses64, recovered=recovered64)
     log(f"reference body test_float64_in_subprocess (in process, float64 "
-        f"data): losses by seed {losses64} (seed 0 is the reference's; the "
-        f"{len(recovered)} seeds float32 recovers must reach 1e-8), "
-        f"{time.time() - tr:.1f} s")
+        f"data): losses by seed {losses64}; recovered at {len(recovered64)} "
+        f"of 16 (float32: {len(recovered)}), seed 0 (the reference's) "
+        f"{losses64[0]:.3g}, {time.time() - tr:.1f} s")
 
     # ---- the record -----------------------------------------------------------
     replaces = {
@@ -3132,8 +3349,37 @@ def main():
             "registry_on_user_build_ms": t["registry_user_build_ms"],
             "nvcc_s": nvcc_s[f"{src}_u{hdr.key}"],
         })
+    # the threefry kernel, one entry per mode: launches from the main
+    # path's run (phase 5), errors and times from phase 1b
+    rng_replaces = (
+        "no Pallas kernel: XLA's threefry2x32 lowering (jax/_src/prng.py "
+        "threefry_2x32) behind every jax.random split and draw of the "
+        "search (symbolicregression_jl_tpu/models/mutate_device.py:51-74, "
+        "evolve.py:181-346,416-471,799-820, population.py:85-140, "
+        "fitness.py:552, constant_opt.py:445-460, parallel/migration.py:"
+        "104-121)")
+    for mode, t in rng_report["timings"].items():
+        at_shape = f"{mode} at {t['keys']} x {t['per_key']}"
+        kernels.append({
+            "name": f"threefry.{mode}",
+            "route": "cuda",
+            "source": "symbolicregression_jl_tpu_torch/csrc/threefry.cu",
+            "replaces": rng_replaces,
+            "launches": rng_launches[mode],
+            "launches_per_replayed_cycle": graph_report["threefry_per_cycle"].get(
+                mode, 0.0),
+            "max_abs_err": rng_report["max_abs_err"][at_shape],
+            "bit_equal_share": rng_report["bit_equal_share"][at_shape],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "plain_on": "host CPU",
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "shape": [t["keys"], t["per_key"]],
+        })
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card, "host": cpu,
+                      "threefry": {k: v for k, v in rng_report.items()
+                                   if k != "timings"},
                       "main_path": {"s_per_iteration": [s for s, _ in per_iter],
                                     "optimize_s_per_iteration": opt_s,
                                     "ncycles": args.ncycles,

@@ -4,11 +4,16 @@
 The front door runs on the host first: the data is cast to the working
 dtype, counted (``models/dataset.validate_dataset``) and treated by
 ``Options.data_policy`` (``sanitize_dataset``), before any tensor reaches
-the device. Every output row of ``y`` then gets its dataset, its
-``torch.Generator`` (seeded ``seed + 7919 * j``, so output j of a joint
-search is the solo search at that seed), its island state (fresh, resumed
-from ``saved_state`` or seeded from a ``warm_start_file``) and its merged
-hall of fame, and the outputs take turns, one iteration each per round.
+the device. Every output row of ``y`` then gets its dataset, its master
+threefry key (``PRNGKey(seed + 7919 * j)``, so output j of a joint search
+is the solo search at that seed), its island state (fresh, resumed from
+``saved_state`` or seeded from a ``warm_start_file``) and its merged hall
+of fame, and the outputs take turns, one iteration each per round. Every
+key is split as the JAX package's search splits it (``utils/rng.py``), so
+a search draws the reference's random stream; a float64 search draws it
+as the reference's ``jax_enable_x64`` mode does (its seed as an int64,
+its default-dtype draws in float64: ``rng.key(..., x64=True)`` and
+``rng.draw_dtype``).
 
 One iteration = the cycle loop on every island (each cycle scores all
 islands' children in one kernel call; on the card each cycle is one
@@ -66,15 +71,15 @@ from .utils.output import (
 from .utils.progress import (
     ProgressBar, QuitWatcher, ResourceMonitor, SearchProgress,
 )
-from .utils.rng import make_generator
+from .utils import rng
 
 
 @dataclasses.dataclass
 class SearchState:
-    """One output's resumable state. ``rng_key`` is that output's
-    ``torch.Generator`` state (``get_state()``, a CPU ByteTensor) when the
-    state was taken, so a resumed search continues its draw stream; None
-    seeds a fresh generator from ``Options.seed``."""
+    """One output's resumable state. ``rng_key`` is that output's master
+    threefry key ((2,) int64) when the state was taken, the reference's
+    ``SearchState.rng_key``, so a resumed search continues its key chain;
+    None keeps the key derived from ``Options.seed``."""
 
     island_states: IslandState  # leading (I,)
     global_hof: HallOfFame
@@ -369,6 +374,23 @@ def equation_search(X, y, *, weights=None,
         options = make_options(**option_kwargs)
     elif option_kwargs:
         raise ValueError("Pass either options= or option kwargs, not both")
+    return _search(X, y, weights, variable_names, options, niterations,
+                   saved_state, warm_start_file, return_state, on_iteration,
+                   dev)
+
+
+def _fresh_islands(key, options: Options, nfeatures: int, X, y, weights,
+                   baseline):
+    """New islands from an output's master key, as the reference's
+    ``_fresh_init``: (states, the master key's successor)."""
+    k = rng.split(key, 2)
+    return (init_island_state(rng.split(k[0], options.npopulations),
+                              options, nfeatures, X, y, weights, baseline),
+            k[1])
+
+
+def _search(X, y, weights, variable_names, options: Options, niterations,
+            saved_state, warm_start_file, return_state, on_iteration, dev):
     X, ys, weights, diags, multi = _front_door(X, y, weights, options)
     if diags.warnings and options.verbosity > 0:
         for msg in diags.warnings:
@@ -386,19 +408,21 @@ def equation_search(X, y, *, weights=None,
     # expected number of sampled optimize slots
     n_opt_mut = expected_optimize_count(options)
 
-    data, live_states, live_hofs, gens, start_iters = [], [], [], [], []
+    data, live_states, live_hofs, keys, start_iters = [], [], [], [], []
     for j in range(nout):
         ds = update_baseline_loss(
             make_dataset(Xt, ys[j], weights, variable_names, dtype, dev),
             options)
         Xj, yj, wj, bl = ds.X, ds.y, ds.weights, ds.baseline_loss
-        gen = make_generator(options.seed + 7919 * j, dev)
+        key = rng.key(options.seed + 7919 * j, dev,
+                      x64=options.precision == "float64")
         if saved_state is not None:
             state = saved_state[j]
             ok_pop, ok_hof = _saved_state_compatible(state, options, I)
             if ok_pop:
                 if state.rng_key is not None:
-                    gen.set_state(state.rng_key)
+                    key = torch.as_tensor(state.rng_key).to(
+                        dev, torch.int64, copy=True)
                 # copies: the caller's state stays as it was
                 states = _map_tensors(lambda x: x.to(dev, copy=True),
                                       state.island_states)
@@ -411,8 +435,8 @@ def equation_search(X, y, *, weights=None,
                     "recreating populations"
                     + (" but keeping the saved hall of fame" if ok_hof
                        else " and the hall of fame"))
-                states = init_island_state(gen, options, nfeatures, Xj, yj,
-                                           wj, bl, I)
+                states, key = _fresh_islands(key, options, nfeatures, Xj,
+                                             yj, wj, bl)
                 if ok_hof:
                     states = _seed_hof_islands(
                         states, _map_tensors(lambda x: x.to(dev),
@@ -420,8 +444,8 @@ def equation_search(X, y, *, weights=None,
                 ghof = merge_hofs_across_islands(states.hof)
             start_iter = state.iteration
         else:
-            states = init_island_state(gen, options, nfeatures, Xj, yj, wj,
-                                       bl, I)
+            states, key = _fresh_islands(key, options, nfeatures, Xj, yj, wj,
+                                         bl)
             if warm_start_file is not None:
                 path = (_multi_output_path(warm_start_file, j) if multi
                         else warm_start_file)
@@ -434,7 +458,7 @@ def equation_search(X, y, *, weights=None,
         data.append((Xj, yj, wj, bl))
         live_states.append(states)
         live_hofs.append(ghof)
-        gens.append(gen)
+        keys.append(key)
         start_iters.append(start_iter)
 
     progress = SearchProgress(niterations * nout, options)
@@ -452,25 +476,28 @@ def equation_search(X, y, *, weights=None,
         rounds = step + 1
         for j in range(nout):
             Xj, yj, wj, bl = data[j]
-            gen, states = gens[j], live_states[j]
+            states = live_states[j]
             its[j] = it = start_iters[j] + step
             cm = _curmaxsize(options, it, max(start_iters[j] + niterations, 1))
             t_dev = time.time()
-            states = s_r_cycle_islands_graph(gen, states, cm, Xj, yj, wj, bl,
+            k = rng.split(keys[j], 2)
+            keys[j] = k[0]
+            k_mig, k_opt, k_opt_mut = rng.split(k[1], 3).unbind(0)
+            states = s_r_cycle_islands_graph(states, cm, Xj, yj, wj, bl,
                                              options)
             states = simplify_population_islands(states, cm, Xj, yj, wj, bl,
                                                  options)
             if (options.should_optimize_constants
                     and options.optimizer_probability > 0):
-                states = optimize_islands_constants(gen, states, Xj, yj, wj,
-                                                    bl, options)
+                states = optimize_islands_constants(
+                    rng.split(k_opt, I), states, Xj, yj, wj, bl, options)
             if n_opt_mut > 0:
                 states = optimize_islands_constants(
-                    gen, states, Xj, yj, wj, bl, options,
+                    rng.split(k_opt_mut, I), states, Xj, yj, wj, bl, options,
                     probability=min(1.0, n_opt_mut / options.npop),
                     count_optimize_telemetry=True)
             ghof = merge_hofs_across_islands(states.hof)
-            states = migrate(gen, states, ghof, options)
+            states = migrate(k_mig, states, ghof, options)
             live_states[j], live_hofs[j] = states, ghof
             # the host's one read of the iteration: it waits for the device
             cands = latest[j] = hof_to_candidates(ghof, options,
@@ -517,7 +544,7 @@ def equation_search(X, y, *, weights=None,
                                          variable_names))
         out_states.append(SearchState(
             island_states=live_states[j], global_hof=live_hofs[j],
-            iteration=its[j] + 1, rng_key=gens[j].get_state()))
+            iteration=its[j] + 1, rng_key=keys[j].clone()))
     return EquationSearchResult(
         candidates=results,
         options=options,

@@ -4,11 +4,14 @@ The input is numpy only — e.g. ``jax.tree_util.tree_map(np.asarray,
 state)._asdict()`` for an ``IslandState`` — as nested mappings or
 attribute-bearing tuples; nothing of the JAX package is imported. Node
 codes and operator numbering are the same in both packages, so trees
-carry across unchanged. The JAX ``key`` field is dropped: this package
-draws from a ``torch.Generator`` held by the caller. Constants, losses and
-scores keep their working dtype (float32, bfloat16 or float16) bit for
-bit; the search statistics and evaluation counts are float32 in both
-packages.
+carry across unchanged, and so do the threefry keys (``uint32`` pairs
+become int64 pairs of the same words), so a converted state continues the
+reference's random stream. Constants, losses and scores keep their
+working dtype (float32, bfloat16 or float16) bit for bit; the search
+statistics and evaluation counts are float32 in both packages.
+``search_state_from_numpy`` carries a whole ``SearchState`` (with its
+master key ``rng_key``) so that ``equation_search(saved_state=[...])``
+resumes the reference's search where it stopped.
 """
 
 from __future__ import annotations
@@ -74,6 +77,12 @@ def hall_of_fame_from_numpy(h, device="cuda") -> HallOfFame:
     )
 
 
+def keys_from_numpy(k, device="cuda") -> torch.Tensor:
+    """Threefry keys (``uint32[..., 2]``) as this package's int64 keys."""
+    return torch.as_tensor(np.array(k).astype(np.int64),
+                           device=resolve_device(device))
+
+
 def island_state_from_numpy(s, device="cuda") -> IslandState:
     """A JAX ``IslandState`` with a leading islands axis (as numpy) ->
     this package's ``IslandState`` on ``device``."""
@@ -84,7 +93,22 @@ def island_state_from_numpy(s, device="cuda") -> IslandState:
         stats=RunningSearchStatistics(
             _tensor(_field(stats, "frequencies"), torch.float32, dev)),
         hof=hall_of_fame_from_numpy(_field(s, "hof"), dev),
+        key=keys_from_numpy(_field(s, "key"), dev),
         birth_counter=_tensor(_field(s, "birth_counter"), torch.int64, dev),
         num_evals=_tensor(_field(s, "num_evals"), torch.float32, dev),
         mut_counts=_tensor(_field(s, "mut_counts"), torch.int64, dev),
     )
+
+
+def search_state_from_numpy(s, device="cuda"):
+    """A JAX ``SearchState`` (its fields as numpy: ``island_states``,
+    ``global_hof``, ``iteration``, ``rng_key``) -> this package's
+    ``SearchState``: resuming from it continues the reference's search."""
+    from .api import SearchState
+    dev = resolve_device(device)
+    key = _field(s, "rng_key")
+    return SearchState(
+        island_states=island_state_from_numpy(_field(s, "island_states"), dev),
+        global_hof=hall_of_fame_from_numpy(_field(s, "global_hof"), dev),
+        iteration=int(_field(s, "iteration")),
+        rng_key=None if key is None else keys_from_numpy(key, dev))

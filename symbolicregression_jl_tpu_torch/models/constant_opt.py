@@ -378,20 +378,24 @@ def _const_slots(trees: TreeBatch) -> torch.Tensor:
     return (trees.kind == CONST) & (idx < trees.length.unsqueeze(-1))
 
 
-def _select_and_starts(gen, pops: Population, K: int, n_starts: int):
+def _select_and_starts(keys, pops: Population, K: int, n_starts: int):
     """The random part, for every island at once (pops fields (I, npop,
-    ...)): K members per island by uniform priority, members with
-    constants first (top-k), and their starts: the member's constants,
-    then ``n_starts - 1`` restarts ``c * (1 + 0.5 * N(0, 1))``. Returns
-    (sel_idx (I, K), starts (I, n_starts, K, L))."""
-    I, npop = pops.losses.shape
+    ...), ``keys`` (I, 2) split in two as the reference splits each
+    island's key): K members per island by uniform priority, members with
+    constants first (the reference's top-k, lower index first among
+    ties), and their starts: the member's constants, then ``n_starts - 1``
+    restarts ``c * (1 + 0.5 * N(0, 1))`` drawn in the working dtype.
+    Returns (sel_idx (I, K), starts (I, n_starts, K, L))."""
+    npop = pops.losses.shape[-1]
     dev = pops.losses.device
     L = pops.trees.max_len
+    k = rng.split(keys, 2)
     has_consts = _const_slots(pops.trees).any(-1)
-    priority = rng.uniform(gen, (I, npop), dev) + has_consts.float()
-    sel_idx = torch.topk(priority, K, dim=-1).indices
+    priority = rng.uniform(k[:, 0], (npop,), rng.draw_dtype(
+        pops.trees.cval.dtype)) + has_consts.float()
+    sel_idx = rng.top_k_indices(priority, K)
     cval = gather_trees(pops.trees, sel_idx).cval
-    eps = rng.normal(gen, (I, n_starts, K, L), dev).to(cval.dtype)
+    eps = rng.normal(k[:, 1], (n_starts, K, L), cval.dtype)
     scale = torch.full((n_starts, 1, 1), 0.5, dtype=cval.dtype, device=dev)
     scale[0] = 0.0
     return sel_idx, cval.unsqueeze(1) * (1.0 + scale * eps)
@@ -463,7 +467,7 @@ def optimize_selected(pops: Population, sel_idx: torch.Tensor,
                        const.any(-1), xs, fs, baseline, options)
 
 
-def optimize_constants_islands(gen, pops: Population, X, y, weights,
+def optimize_constants_islands(keys, pops: Population, X, y, weights,
                                baseline: float, options: Options,
                                probability: Optional[float] = None):
     """One pass over every island (pops fields (I, npop, ...)), members
@@ -471,12 +475,12 @@ def optimize_constants_islands(gen, pops: Population, X, y, weights,
     Returns (Population, n_evals (I,), n_attempted (I,))."""
     K, n_starts, _ = _static_shapes(pops.losses.shape[-1], pops.trees.max_len,
                                     options, probability)
-    sel_idx, starts = _select_and_starts(gen, pops, K, n_starts)
+    sel_idx, starts = _select_and_starts(keys, pops, K, n_starts)
     return optimize_selected(pops, sel_idx, starts, X, y, weights, baseline,
                              options)
 
 
-def optimize_constants_population(gen, pop: Population, X, y, weights,
+def optimize_constants_population(key, pop: Population, X, y, weights,
                                   baseline: float, options: Options,
                                   probability: Optional[float] = None):
     """The one-island form: (Population, n_evals, n_attempted)."""
@@ -484,7 +488,7 @@ def optimize_constants_population(gen, pop: Population, X, y, weights,
                       pop.scores.unsqueeze(0), pop.losses.unsqueeze(0),
                       pop.birth.unsqueeze(0))
     out, n_evals, n_attempted = optimize_constants_islands(
-        gen, pops, X, y, weights, baseline, options, probability)
+        key.unsqueeze(0), pops, X, y, weights, baseline, options, probability)
     return (Population(out.trees.map(lambda f: f[0]), out.scores[0],
                        out.losses[0], out.birth[0]),
             n_evals[0], n_attempted[0])

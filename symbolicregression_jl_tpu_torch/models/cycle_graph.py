@@ -21,16 +21,18 @@ widths replays the graph the first one captured, with other data, another
 branch structure, and the kernel arguments passed by value (operator ids,
 loss id and constants, row count, launch layout).
 
-The search's ``torch.Generator`` state is copied into the graph's own
-generator, which is registered with the graph so that its Philox offset
-advances on every replay, and copied back after the last replay: the
-captured draws are the eager step's draws. The kernels' launch counters
-are counted in Python at launch, which a replay does not run: the graph
-records what its capture counted and adds it once per replay, so every
-count means what it means on the eager path. The warm-up before capture
-(on a side stream, on a copy of the state and of the generator: it builds
-the kernel libraries and fills the device tables, launch plans and the
-allocator's blocks outside the capture) is set-up: its result is dropped
+The random stream is the islands' threefry keys (``IslandState.key``)
+and the minibatch chain's key, both static buffers: each replay's
+threefry launches (``ops/kernel_rng.py``) read them on the card and the
+step writes their successors back, so the captured draws are the eager
+step's draws and no generator state has to be carried into or out of the
+graph. The kernels' launch counters are counted in Python at launch,
+which a replay does not run: the graph records what its capture counted
+and adds it once per replay, so every count means what it means on the
+eager path. The warm-up before capture (on a side stream, on a copy of
+the state and of the chain's key: it builds the kernel libraries and
+fills the device tables, launch plans and the allocator's blocks outside
+the capture) is set-up: its result is dropped, the live keys do not move,
 and its launches are not counted.
 
 On the CPU, which has no graphs, ``run`` runs the same step eagerly on the
@@ -52,9 +54,9 @@ from typing import List, Optional
 
 import torch
 
-from ..ops import kernel_eval, kernel_grad, kernel_instr
+from ..ops import kernel_eval, kernel_grad, kernel_instr, kernel_rng
 from .evolve import (
-    IslandState, _map_tensors, cycle_step, temperature_schedule,
+    IslandState, _map_tensors, batch_key, cycle_step, temperature_schedule,
 )
 from .fitness import score_dtype
 from .options import TRACED_SCALAR_FIELDS, Options
@@ -68,6 +70,7 @@ LAUNCH_COUNTERS = (
     kernel_instr.LAUNCHES, kernel_instr.STORAGE_LAUNCHES,
     kernel_eval.USER_LAUNCHES, kernel_grad.USER_LAUNCHES,
     kernel_instr.USER_LAUNCHES, kernel_grad.VJP_LAUNCHES,
+    kernel_rng.LAUNCHES,
 )
 
 
@@ -125,8 +128,8 @@ class CycleGraph:
         self.scalars = tuple(torch.zeros((), **f32)
                              for _ in TRACED_SCALAR_FIELDS)
         self.state = _map_tensors(torch.empty_like, states)
+        self.bkey = torch.zeros(2, dtype=torch.int64, device=device)
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
-        self.gen: Optional[torch.Generator] = None
         self.launch_delta: list = []
         self.captures = 0
         self.replays = 0
@@ -147,44 +150,38 @@ class CycleGraph:
         for buf, f in zip(self.scalars, TRACED_SCALAR_FIELDS):
             _set(buf, getattr(options, f))
         _copy_state(self.state, states)
+        self.bkey.copy_(batch_key(states))
 
-    def _step(self, gen: torch.Generator, out: IslandState) -> None:
-        """One cycle on the static buffers, its result copied into
-        ``out``."""
+    def _step(self, out: IslandState, bkey: torch.Tensor) -> None:
+        """One cycle on the static buffers, its result copied into ``out``
+        and the chain's next key into ``bkey``."""
         opts = self.options.bind_scalars(self.scalars)
-        new = cycle_step(gen, self.state, self.temperature, self.curmaxsize,
-                         self.X, self.y, self.weights, self.baseline, opts)
+        new, nkey = cycle_step(self.state, self.bkey, self.temperature,
+                               self.curmaxsize, self.X, self.y, self.weights,
+                               self.baseline, opts)
         _copy_state(out, new)
+        bkey.copy_(nkey)
 
-    def capture(self, gen: torch.Generator) -> None:
+    def capture(self) -> None:
         """Warm up on a side stream, then capture one step. Raises if the
         card refuses the capture."""
-        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
-            raise RuntimeError(
-                "this PyTorch cannot register a torch.Generator with a CUDA "
-                "graph (torch.cuda.CUDAGraph.register_generator_state), so "
-                "the captured cycle's draws would not advance on replay")
         before = _snapshot()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            warm_gen = torch.Generator(device=self.device)
-            warm_gen.set_state(gen.get_state())
             scratch = _map_tensors(torch.clone, self.state)
-            self._step(warm_gen, scratch)
+            self._step(scratch, self.bkey.clone())
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
-        del scratch, warm_gen
+        del scratch
         _restore(before)
-        graph_gen = torch.Generator(device=self.device)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(graph_gen)
         t0 = time.time()
         try:
             with torch.cuda.graph(graph):
                 # after the context's own synchronize and empty_cache
                 reserved = torch.cuda.memory_reserved(self.device)
-                self._step(graph_gen, self.state)
+                self._step(self.state, self.bkey)
         except RuntimeError as e:
             fn = self.options.loss_function
             if fn is None:
@@ -203,23 +200,20 @@ class CycleGraph:
         self.launch_delta = [
             {k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
             for a, b in zip(after, before)]
-        self.graph, self.gen = graph, graph_gen
+        self.graph = graph
         self.captures += 1
 
-    def run(self, gen: torch.Generator, ncycles: int,
-            temps: torch.Tensor) -> None:
+    def run(self, ncycles: int, temps: torch.Tensor) -> None:
         """``ncycles`` cycles on the static state at temperatures
-        ``temps[0:ncycles]``, drawing from ``gen`` (whose state moves on
-        as the eager loop's would): replays of the captured step on the
-        card, the same step run eagerly on the CPU."""
+        ``temps[0:ncycles]``: replays of the captured step on the card, the
+        same step run eagerly on the CPU."""
         if self.device.type != "cuda":
             for c in range(ncycles):
                 self.temperature.copy_(temps[c])
-                self._step(gen, self.state)
+                self._step(self.state, self.bkey)
             return
         if self.graph is None:
-            self.capture(gen)
-        self.gen.set_state(gen.get_state())
+            self.capture()
         for c in range(ncycles):
             self.temperature.copy_(temps[c])
             self.graph.replay()
@@ -227,7 +221,6 @@ class CycleGraph:
                 for k, v in delta.items():
                     counter[k] = counter.get(k, 0) + v
         self.replays += ncycles
-        gen.set_state(self.gen.get_state())
 
 
 CACHE_SIZE = 8  # graphs kept, least recently used dropped first
@@ -260,7 +253,7 @@ def clear_cache() -> None:
     _CACHE.clear()
 
 
-def s_r_cycle_islands_graph(gen, states: IslandState, curmaxsize, X, y,
+def s_r_cycle_islands_graph(states: IslandState, curmaxsize, X, y,
                             weights, baseline, options: Options,
                             ncycles: Optional[int] = None) -> IslandState:
     """``evolve.s_r_cycle_islands`` through the cached graph of this
@@ -271,7 +264,7 @@ def s_r_cycle_islands_graph(gen, states: IslandState, curmaxsize, X, y,
     ncycles = ncycles or options.ncycles_per_iteration
     g = cycle_graph(options, states, X, y, weights)
     g.load(states, curmaxsize, X, y, weights, baseline, options)
-    g.run(gen, ncycles, temperature_schedule(ncycles, options.annealing,
-                                             X.device))
+    g.run(ncycles, temperature_schedule(ncycles, options.annealing,
+                                        X.device))
     out = _map_tensors(torch.clone, g.state)
     return out._replace(stats=move_window(out.stats))

@@ -86,12 +86,15 @@ N_RETRIES = 10
 
 
 class IslandState(NamedTuple):
-    """Every island's state, stacked on a leading (I,) axis. The random
-    stream is a ``torch.Generator`` held by the caller, not a field."""
+    """Every island's state, stacked on a leading (I,) axis. ``key`` is
+    each island's threefry key (the reference's ``IslandState.key``): a
+    cycle splits it as the reference's cycle step does and keeps the
+    first subkey."""
 
     pop: Population
     stats: RunningSearchStatistics
     hof: HallOfFame
+    key: torch.Tensor  # (I, 2) int64 threefry keys
     birth_counter: torch.Tensor  # (I,) int64
     num_evals: torch.Tensor  # (I,) float32
     mut_counts: torch.Tensor  # (I, len(MUTATION_NAMES), 2) proposed/accepted
@@ -152,43 +155,52 @@ def _first_success(ok: torch.Tensor, cands: TreeBatch, fallback: TreeBatch):
     return where_trees(success, picked, fallback), success
 
 
-def _mutate_members(gen, trees: TreeBatch, temperature, curmaxsize,
+def _mutate_members(keys, trees: TreeBatch, temperature, curmaxsize,
                     nfeatures: int, options: Options):
-    """Sample a mutation kind per member and apply it with up to
-    N_RETRIES i.i.d. attempts, all attempts of all members in one batch;
-    the first attempt that passes the constraints wins (the parent is kept
-    when none does). Returns (tree', was_mutated, always_accept, kind)."""
+    """Sample a mutation kind per member (key ``keys[n]``, split as the
+    reference's ``_mutate_member``) and apply it with N_RETRIES i.i.d.
+    attempts, all attempts of all members in one batch; the first attempt
+    that passes the constraints wins (the parent is kept when none does).
+    Every branch is computed for every attempt from that attempt's key,
+    as each of the reference's branches draws from its own key alone.
+    Returns (tree', was_mutated, always_accept, kind)."""
     N = trees.kind.shape[0]
     dev = trees.kind.device
     ops = options.operators
     L = trees.max_len
-    kind = rng.categorical(gen, _adjusted_mutation_logits(trees, curmaxsize,
-                                                          options))
+    k = rng.split(keys, 2)
+    kind = rng.categorical(k[:, 0], _adjusted_mutation_logits(
+        trees, curmaxsize, options))
+    # each attempt's key, split once more: the branch draws from the first
+    attempt = rng.split(rng.split(k[:, 1], N_RETRIES).reshape(-1, 2), 2)[:, 0]
+    sub = rng.split(attempt, 2)  # insert_node's and randomize's own split
     rep = trees.map(lambda x: x.repeat_interleave(N_RETRIES, dim=0))
     NR = N * N_RETRIES
     true_ = torch.ones(NR, dtype=torch.bool, device=dev)
     simp, _ = simplify_tree(trees, ops)  # deterministic: once per member
     hi = torch.clamp(scalar_tensor(curmaxsize, dev, torch.int64), 1, L) + 1
-    size = rng.randint_below(gen, (NR,), 1, hi, dev)
+    size = rng.randint(sub[:, 0], (), 1, hi)
     branches = {
         MUTATE_CONSTANT: mutate_constant(
-            gen, rep, temperature, options.perturbation_factor,
+            attempt, rep, temperature, options.perturbation_factor,
             options.probability_negate_constant),
-        MUTATE_OPERATOR: mutate_operator(gen, rep, ops),
-        ADD_NODE: append_random_op(gen, rep, nfeatures, ops),
-        INSERT_NODE: insert_random_op(
-            gen, rep, nfeatures, ops,
-            at_root=rng.bernoulli(gen, 0.5, (NR,), dev)),
-        DELETE_NODE: delete_random_op(gen, rep, nfeatures, ops),
+        MUTATE_OPERATOR: mutate_operator(attempt, rep, ops),
+        ADD_NODE: append_random_op(attempt, rep, nfeatures, ops),
+        INSERT_NODE: insert_random_op(sub[:, 1], rep, nfeatures, ops,
+                                      at_root=rng.bernoulli(
+                                          sub[:, 0], dtype=rng.draw_dtype(
+                                              trees.cval.dtype))),
+        DELETE_NODE: delete_random_op(attempt, rep, nfeatures, ops),
         SIMPLIFY: (simp.map(lambda x: x.repeat_interleave(N_RETRIES, dim=0)),
                    true_),
-        RANDOMIZE: (gen_random_tree_fixed_size(gen, size, nfeatures, ops, L,
-                                               dev, trees.cval.dtype), true_),
+        RANDOMIZE: (gen_random_tree_fixed_size(sub[:, 1], size, nfeatures,
+                                               ops, L, trees.cval.dtype),
+                    true_),
     }
     kind_r = kind.repeat_interleave(N_RETRIES)
     cand, ok = rep, true_
-    for k, (t, k_ok) in branches.items():
-        sel = kind_r == k
+    for kd, (t, k_ok) in branches.items():
+        sel = kind_r == kd
         cand = where_trees(sel, t, cand)
         ok = torch.where(sel, k_ok, ok)
     ok = ok & check_constraints(cand, options, curmaxsize)
@@ -198,12 +210,14 @@ def _mutate_members(gen, trees: TreeBatch, temperature, curmaxsize,
     return result, was_mutated, always_accept, kind
 
 
-def _crossover_pairs(gen, a: TreeBatch, b: TreeBatch, curmaxsize,
+def _crossover_pairs(keys, a: TreeBatch, b: TreeBatch, curmaxsize,
                      options: Options):
-    """Crossover of paired trees with up to N_RETRIES attempts each."""
+    """Crossover of paired trees with up to N_RETRIES attempts each, one
+    key per pair (split into the attempts' keys)."""
     P = a.kind.shape[0]
     rep = lambda t: t.map(lambda x: x.repeat_interleave(N_RETRIES, dim=0))
-    ca, cb, ok = crossover_trees(gen, rep(a), rep(b))
+    ca, cb, ok = crossover_trees(rng.split(keys, N_RETRIES).reshape(-1, 2),
+                                 rep(a), rep(b))
     ok = (ok & check_constraints(ca, options, curmaxsize)
           & check_constraints(cb, options, curmaxsize))
     ok = ok.reshape(P, N_RETRIES)
@@ -221,35 +235,39 @@ class _Proposed(NamedTuple):
     always_accept: torch.Tensor  # (I, B)
     use_cross: torch.Tensor  # (I, B)
     kind: torch.Tensor  # (I, B)
+    accept_keys: torch.Tensor  # (I, B, 2)
+    next_key: torch.Tensor  # (I, 2)
 
 
-def _propose_children(gen, states: IslandState, temperature, curmaxsize,
+def _propose_children(states: IslandState, temperature, curmaxsize,
                       nfeatures: int, options: Options) -> _Proposed:
-    """Tournaments + mutation/crossover on every island."""
+    """Tournaments + mutation/crossover on every island, each island's
+    key split as the reference's ``_propose_children`` splits it."""
     pop = states.pop
     I = pop.scores.shape[0]
-    dev = pop.scores.device
     B = options.n_parallel_tournaments
     B += B % 2
-    parent_idx = tournament_winner(gen, pop, states.stats.frequencies, B,
-                                   options)
+    k = rng.split(states.key, 6)  # key, tour, mut, acc, cross, coin
+    parent_idx = tournament_winner(rng.split(k[:, 1], B), pop,
+                                   states.stats.frequencies, options)
     parents = gather_trees(pop.trees, parent_idx)
     parent_scores = torch.gather(pop.scores, -1, parent_idx)
 
     mut, was_mutated, always_accept, kinds = _mutate_members(
-        gen, _flat(parents), temperature, curmaxsize, nfeatures, options)
+        rng.split(k[:, 2], B).reshape(-1, 2), _flat(parents), temperature,
+        curmaxsize, nfeatures, options)
     mut = _unflat(mut, (I, B))
 
     ca, cb, cross_ok = _crossover_pairs(
-        gen, _flat(parents[:, 0::2]), _flat(parents[:, 1::2]), curmaxsize,
-        options)
+        rng.split(k[:, 4], B // 2).reshape(-1, 2), _flat(parents[:, 0::2]),
+        _flat(parents[:, 1::2]), curmaxsize, options)
     cross = TreeBatch(*(
         torch.stack([fa.reshape((I, B // 2) + fa.shape[1:]),
                      fb.reshape((I, B // 2) + fb.shape[1:])], dim=2
                     ).reshape((I, B) + fa.shape[1:])
         for fa, fb in zip(ca, cb)))
-    use_cross_pair = (rng.bernoulli(gen, options.crossover_probability,
-                                    (I, B // 2), dev)
+    use_cross_pair = (rng.bernoulli(k[:, 5], options.crossover_probability,
+                                    (B // 2,), rng.draw_dtype(options.dtype))
                       & cross_ok.reshape(I, B // 2))
     use_cross = use_cross_pair.repeat_interleave(2, dim=-1)
     return _Proposed(
@@ -261,10 +279,12 @@ def _propose_children(gen, states: IslandState, temperature, curmaxsize,
         always_accept=always_accept.reshape(I, B),
         use_cross=use_cross,
         kind=kinds.reshape(I, B),
+        accept_keys=rng.split(k[:, 3], B),
+        next_key=k[:, 0],
     )
 
 
-def _accept_mutation(gen, prop: _Proposed, child_scores, temperature,
+def _accept_mutation(prop: _Proposed, child_scores, temperature,
                      frequencies, options: Options) -> torch.Tensor:
     """Annealing x adaptive-parsimony acceptance, (I, B) bool."""
     dev = child_scores.device
@@ -284,7 +304,8 @@ def _accept_mutation(gen, prop: _Proposed, child_scores, temperature,
             return torch.where(in_range, torch.clamp_min(raw, 1e-30), 1e-6)
 
         prob = prob * f_at(prop.parents) / f_at(prop.children)
-    accept = rng.uniform(gen, child_scores.shape, dev) < prob
+    accept = rng.uniform(prop.accept_keys, (),
+                         rng.draw_dtype(child_scores.dtype)) < prob
     return accept & torch.isfinite(child_scores)
 
 
@@ -295,13 +316,13 @@ def _scatter_members(field: torch.Tensor, idx: torch.Tensor,
     return field.scatter(1, ix, values)
 
 
-def _integrate_children(gen, states: IslandState, prop: _Proposed,
+def _integrate_children(states: IslandState, prop: _Proposed,
                         child_scores, child_losses, temperature, n_rows: int,
                         options: Options) -> IslandState:
     """Acceptance + replace-oldest + statistics on every island."""
     pop, stats = states.pop, states.stats
     I, B = child_scores.shape
-    accept = _accept_mutation(gen, prop, child_scores, temperature,
+    accept = _accept_mutation(prop, child_scores, temperature,
                               stats.frequencies, options)
     accept = accept | prop.use_cross | (prop.always_accept & ~prop.use_cross)
     accept = accept & (prop.was_mutated | prop.use_cross)
@@ -339,13 +360,14 @@ def _integrate_children(gen, states: IslandState, prop: _Proposed,
         pop=new_pop,
         stats=new_stats,
         hof=new_hof,
+        key=prop.next_key,
         birth_counter=states.birth_counter + B,
         num_evals=states.num_evals + B * eval_fraction,
         mut_counts=states.mut_counts + torch.stack([proposed, accepted], -1),
     )
 
 
-def reg_evol_cycle_islands(gen, states: IslandState, temperature, curmaxsize,
+def reg_evol_cycle_islands(states: IslandState, temperature, curmaxsize,
                            X, y, weights, baseline, options: Options,
                            row_idx: Optional[torch.Tensor] = None) -> IslandState:
     """One cycle on every island; all islands' children are scored in ONE
@@ -353,7 +375,7 @@ def reg_evol_cycle_islands(gen, states: IslandState, temperature, curmaxsize,
     ``row_idx`` of shape (islands, batch) one call per island on its own
     minibatch (``score_trees_islands``)."""
     nfeatures = X.shape[0]
-    prop = _propose_children(gen, states, temperature, curmaxsize, nfeatures,
+    prop = _propose_children(states, temperature, curmaxsize, nfeatures,
                              options)
     I, B = prop.parent_scores.shape
     if row_idx is not None and row_idx.dim() == 2:
@@ -362,25 +384,38 @@ def reg_evol_cycle_islands(gen, states: IslandState, temperature, curmaxsize,
     else:
         s, l = score_trees(_flat(prop.children), X, y, weights, baseline,
                            options, row_idx)
-    return _integrate_children(gen, states, prop, s.reshape(I, B),
+    return _integrate_children(states, prop, s.reshape(I, B),
                                l.reshape(I, B), temperature, X.shape[1],
                                options)
 
 
-def cycle_step(gen, states: IslandState, temperature, curmaxsize, X, y,
-               weights, baseline, options: Options) -> IslandState:
-    """One step of the cycle loop: with batching, a fresh minibatch shared
-    by all islands (or, with ``independent_island_batches``, one per
-    island, drawn in one call), then ``reg_evol_cycle_islands``. The step
-    that ``s_r_cycle_islands`` runs eagerly and ``cycle_graph``
+BATCH_KEY_DATA = 0x5F3759DF  # the reference's fold_in of the minibatch chain
+
+
+def batch_key(states: IslandState) -> torch.Tensor:
+    """The minibatch key chain's start for one call of
+    ``s_r_cycle_islands``: ``fold_in(states.key[0], 0x5F3759DF)``."""
+    return rng.fold_in(states.key[0], BATCH_KEY_DATA)
+
+
+def cycle_step(states: IslandState, bkey, temperature, curmaxsize, X, y,
+               weights, baseline, options: Options):
+    """One step of the cycle loop: with batching, a fresh minibatch from
+    the first half of ``split(bkey)`` (shared by all islands, or with
+    ``independent_island_batches`` one per island from its split), then
+    ``reg_evol_cycle_islands``. Returns (states, the chain's next key).
+    The step that ``s_r_cycle_islands`` runs eagerly and ``cycle_graph``
     captures."""
-    per_island = (states.birth_counter.shape[0]
-                  if options.independent_island_batches else None)
-    row_idx = (sample_batch_idx(gen, X.shape[1], options.batch_size, X.device,
-                                per_island)
-               if options.batching else None)
-    return reg_evol_cycle_islands(gen, states, temperature, curmaxsize, X, y,
-                                  weights, baseline, options, row_idx)
+    row_idx = None
+    if options.batching:
+        k = rng.split(bkey, 2)
+        kb, bkey = k[0], k[1]
+        if options.independent_island_batches:
+            kb = rng.split(kb, states.birth_counter.shape[0])
+        row_idx = sample_batch_idx(kb, X.shape[1], options.batch_size)
+    return (reg_evol_cycle_islands(states, temperature, curmaxsize, X, y,
+                                   weights, baseline, options, row_idx),
+            bkey)
 
 
 @functools.lru_cache(maxsize=64)
@@ -404,7 +439,7 @@ def bind_device_scalars(options: Options, device) -> Options:
     return options.bind_scalars(options.traced_scalars(device))
 
 
-def s_r_cycle_islands(gen, states: IslandState, curmaxsize, X, y, weights,
+def s_r_cycle_islands(states: IslandState, curmaxsize, X, y, weights,
                       baseline, options: Options,
                       ncycles: Optional[int] = None) -> IslandState:
     """ncycles evolution cycles over the annealing schedule LinRange(1, 0),
@@ -418,18 +453,19 @@ def s_r_cycle_islands(gen, states: IslandState, curmaxsize, X, y, weights,
     options = bind_device_scalars(options, dev)
     cm = scalar_tensor(curmaxsize, dev, torch.int64)
     base = scalar_tensor(baseline, dev, score_dtype(X.dtype))
+    bkey = batch_key(states)
     for c in range(ncycles):
-        states = cycle_step(gen, states, temps[c], cm, X, y, weights, base,
-                            options)
+        states, bkey = cycle_step(states, bkey, temps[c], cm, X, y, weights,
+                                  base, options)
     return states._replace(stats=move_window(states.stats))
 
 
-def s_r_cycle(gen, state: IslandState, curmaxsize, X, y, weights, baseline,
+def s_r_cycle(state: IslandState, curmaxsize, X, y, weights, baseline,
               options: Options, ncycles: Optional[int] = None) -> IslandState:
     """``s_r_cycle_islands`` for one island: ``state`` without the leading
     island axis."""
     states = _map_tensors(lambda x: x.unsqueeze(0), state)
-    states = s_r_cycle_islands(gen, states, curmaxsize, X, y, weights,
+    states = s_r_cycle_islands(states, curmaxsize, X, y, weights,
                                baseline, options, ncycles)
     return _map_tensors(lambda x: x[0], states)
 
@@ -453,7 +489,7 @@ def simplify_population_islands(states: IslandState, curmaxsize, X, y,
     )
 
 
-def optimize_islands_constants(gen, states: IslandState, X, y, weights,
+def optimize_islands_constants(keys, states: IslandState, X, y, weights,
                                baseline: float, options: Options,
                                probability: Optional[float] = None,
                                count_optimize_telemetry: bool = False
@@ -462,9 +498,9 @@ def optimize_islands_constants(gen, states: IslandState, X, y, weights,
     the improved members into each island's hall of fame. With
     ``count_optimize_telemetry`` (the ``optimize``-mutation pass) the
     attempted / improved counts land in the OPTIMIZE row of
-    ``mut_counts``."""
+    ``mut_counts``. ``keys`` (I, 2): one key per island."""
     pops, n_evals, n_attempted = optimize_constants_islands(
-        gen, states.pop, X, y, weights, baseline, options, probability)
+        keys, states.pop, X, y, weights, baseline, options, probability)
     return fold_optimized(states, pops, n_evals, n_attempted, options,
                           count_optimize_telemetry)
 
@@ -488,15 +524,16 @@ def fold_optimized(states: IslandState, pops: Population, n_evals,
     )
 
 
-def optimize_island_constants(gen, state: IslandState, X, y, weights,
+def optimize_island_constants(key, state: IslandState, X, y, weights,
                               baseline: float, options: Options,
                               probability: Optional[float] = None,
                               count_optimize_telemetry: bool = False
                               ) -> IslandState:
-    """The one-island form of ``optimize_islands_constants``."""
+    """The one-island form of ``optimize_islands_constants`` (``key``
+    (2,))."""
     out = optimize_islands_constants(
-        gen, _map_tensors(lambda x: x.unsqueeze(0), state), X, y, weights,
-        baseline, options, probability, count_optimize_telemetry)
+        key.unsqueeze(0), _map_tensors(lambda x: x.unsqueeze(0), state), X,
+        y, weights, baseline, options, probability, count_optimize_telemetry)
     return _map_tensors(lambda x: x[0], out)
 
 
@@ -514,15 +551,21 @@ def expected_optimize_count(options: Options) -> float:
             * (1.0 - options.crossover_probability) * w[OPTIMIZE] / total)
 
 
-def init_island_state(gen, options: Options, nfeatures: int, X, y, weights,
-                      baseline: float, n_islands: int) -> IslandState:
+def init_island_state(keys: torch.Tensor, options: Options, nfeatures: int,
+                      X, y, weights, baseline: float) -> IslandState:
+    """Fresh islands, one per key (``keys`` (I, 2)): each key split in two,
+    the population grown from the first, the island's key the second (the
+    reference's ``init_island_state``)."""
     dev = X.device
-    pop = init_population(gen, options, nfeatures, X, y, weights, baseline,
-                          n_islands)
+    n_islands = keys.shape[0]
+    k = rng.split(keys, 2)
+    pop = init_population(k[:, 0], options, nfeatures, X, y, weights,
+                          baseline)
     return IslandState(
         pop=pop,
         stats=init_search_statistics(options.actual_maxsize, (n_islands,), dev),
         hof=init_hall_of_fame(options, (n_islands,), dev),
+        key=k[:, 1].contiguous(),
         birth_counter=torch.full((n_islands,), options.npop, dtype=torch.int64,
                                  device=dev),
         num_evals=torch.full((n_islands,), float(options.npop), device=dev),

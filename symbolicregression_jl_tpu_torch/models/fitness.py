@@ -146,11 +146,10 @@ def score_trees_islands(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
             torch.stack([l for _, l in out]))
 
 
-def sample_batch_idx(gen: torch.Generator, n_rows: int, batch_size: int,
-                     device, n_islands: Optional[int] = None
+def sample_batch_idx(keys: torch.Tensor, n_rows: int, batch_size: int
                      ) -> torch.Tensor:
-    """Minibatch rows sampled with replacement: (batch_size,), or with
-    ``n_islands`` one minibatch per island, (n_islands, batch_size), in
-    one draw."""
-    shape = (batch_size,) if n_islands is None else (n_islands, batch_size)
-    return rng.randint(gen, shape, 0, n_rows, device)
+    """Minibatch rows sampled with replacement, the reference's
+    ``randint(key, (batch_size,), 0, n_rows)`` of each key: (batch_size,)
+    for one key, (n_islands, batch_size) for a key per island, in one
+    draw."""
+    return rng.randint(keys, (batch_size,), 0, n_rows)

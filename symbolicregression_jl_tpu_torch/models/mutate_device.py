@@ -3,16 +3,16 @@ simplification (counterpart of
 ``symbolicregression_jl_tpu/models/mutate_device.py``).
 
 The JAX functions act on one tree and are vmapped; here every function
-takes a flat batch (fields ``(N, L)``, per-tree scalars ``(N,)``) and draws
-its random numbers for the whole batch at once through ``utils/rng.py``.
+takes a flat batch (fields ``(N, L)``, per-tree scalars ``(N,)``) and one
+threefry key per tree (``(N, 2)``), which it splits as the JAX function
+splits its key, so each tree gets the reference's draws
+(``utils/rng.py``; one launch per split or draw for the whole batch).
 Each edit is the one ``splice`` primitive (replace a postfix span by a
 donor span) written as an index-mapped gather. Functions return
 ``(tree', ok)``; where ``ok`` is False the tree is returned unchanged.
 """
 
 from __future__ import annotations
-
-from typing import Tuple
 
 import torch
 
@@ -45,14 +45,25 @@ def _is_op(tree: TreeBatch) -> torch.Tensor:
     return ((tree.kind == UNA) | (tree.kind == BIN)) & valid_mask(tree)
 
 
-def make_random_leaf(gen, n: int, nfeatures: int, device,
+def select_node(keys: torch.Tensor, mask: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An index where ``mask`` is True, uniformly, for every tree: the
+    reference's categorical over logits 0 (allowed) and -1e9 (index 0
+    where no position is allowed), drawn as in a search of working dtype
+    ``dtype``."""
+    logits = torch.where(mask, 0.0, -1e9).to(rng.draw_dtype(dtype))
+    return rng.categorical(keys, logits)
+
+
+def make_random_leaf(keys: torch.Tensor, nfeatures: int,
                      dtype: torch.dtype = torch.float32):
     """50/50 constant (standard normal, drawn in float32 and cast to
-    ``dtype``) / feature leaf, for n trees. Returns (kind, op, feat, cval),
-    each (n,)."""
-    is_const = rng.bernoulli(gen, 0.5, (n,), device)
-    feat = rng.randint(gen, (n,), 0, nfeatures, device)
-    cval = rng.normal(gen, (n,), device).to(dtype)
+    ``dtype``) / feature leaf, one per key. Returns (kind, op, feat, cval),
+    each (N,)."""
+    k = rng.split(keys, 3)
+    is_const = rng.bernoulli(k[..., 0, :], dtype=rng.draw_dtype(dtype))
+    feat = rng.randint(k[..., 1, :], (), 0, nfeatures)
+    cval = rng.normal(k[..., 2, :], (), torch.float32).to(dtype)
     kind = torch.where(is_const, CONST, VAR)
     return kind, torch.zeros_like(kind), torch.where(is_const, 0, feat), cval
 
@@ -103,21 +114,21 @@ def _node_span(idx, sizes):
 # ---------------------------------------------------------------------------
 
 
-def mutate_constant(gen, tree: TreeBatch, temperature, perturbation_factor,
+def mutate_constant(keys, tree: TreeBatch, temperature, perturbation_factor,
                     probability_negate):
     """Multiplicative perturbation + occasional negation of one constant.
     ``temperature`` and the two Options scalars are Python numbers or
     0-dim device tensors (a captured cycle reads them from the card)."""
-    N = tree.kind.shape[0]
-    dev = tree.kind.device
+    k = rng.split(keys, 4)
+    fd = rng.draw_dtype(tree.cval.dtype)
     mask = (tree.kind == CONST) & valid_mask(tree)
-    idx = rng.choice_mask(gen, mask)
+    idx = select_node(k[..., 0, :], mask, tree.cval.dtype)
     ok = mask.any(dim=-1)
     max_change = perturbation_factor * temperature + 1.1
-    factor = max_change ** rng.uniform(gen, (N,), dev)
-    bigger = rng.bernoulli(gen, 0.5, (N,), dev)
+    factor = max_change ** rng.uniform(k[..., 1, :], (), fd)
+    bigger = rng.bernoulli(k[..., 2, :], dtype=fd)
     factor = torch.where(bigger, factor, 1.0 / factor)
-    negate = rng.bernoulli(gen, probability_negate, (N,), dev)
+    negate = rng.bernoulli(k[..., 3, :], probability_negate, dtype=fd)
     new_val = _take(tree.cval, idx) * factor * torch.where(negate, -1.0, 1.0)
     new_cval = tree.cval.scatter(-1, idx.unsqueeze(-1),
                                  new_val.to(tree.cval.dtype).unsqueeze(-1))
@@ -125,41 +136,41 @@ def mutate_constant(gen, tree: TreeBatch, temperature, perturbation_factor,
                                           tree.cval)), ok
 
 
-def mutate_operator(gen, tree: TreeBatch, operators: OperatorSet):
-    """Swap one operator for a random operator of the same arity."""
-    N = tree.kind.shape[0]
-    dev = tree.kind.device
+def mutate_operator(keys, tree: TreeBatch, operators: OperatorSet):
+    """Swap one operator for a random operator of the same arity (both
+    candidates drawn from the one key, as the reference does)."""
+    k = rng.split(keys, 2)
     mask = _is_op(tree)
-    idx = rng.choice_mask(gen, mask)
+    idx = select_node(k[..., 0, :], mask, tree.cval.dtype)
     ok = mask.any(dim=-1)
     is_una = _take(tree.kind, idx) == UNA
-    op_u = rng.randint(gen, (N,), 0, max(operators.n_unary, 1), dev)
-    op_b = rng.randint(gen, (N,), 0, max(operators.n_binary, 1), dev)
+    op_u = rng.randint(k[..., 1, :], (), 0, max(operators.n_unary, 1))
+    op_b = rng.randint(k[..., 1, :], (), 0, max(operators.n_binary, 1))
     new_op = tree.op.scatter(-1, idx.unsqueeze(-1),
                              torch.where(is_una, op_u, op_b).unsqueeze(-1))
     return tree._replace(op=torch.where(ok.unsqueeze(-1), new_op,
                                         tree.op)), ok
 
 
-def _choose_unary(gen, n: int, operators: OperatorSet, device):
+def _choose_unary(keys, operators: OperatorSet, dtype: torch.dtype):
+    n = keys.shape[0]
     if operators.n_unary == 0:
-        return torch.zeros(n, dtype=torch.bool, device=device)
+        return torch.zeros(n, dtype=torch.bool, device=keys.device)
     if operators.n_binary == 0:
-        return torch.ones(n, dtype=torch.bool, device=device)
-    return rng.bernoulli(gen, 0.5, (n,), device)
+        return torch.ones(n, dtype=torch.bool, device=keys.device)
+    return rng.bernoulli(keys, dtype=rng.draw_dtype(dtype))
 
 
-def _random_op_donor(gen, use_unary, nfeatures: int, operators: OperatorSet,
+def _random_op_donor(keys, use_unary, nfeatures: int, operators: OperatorSet,
                      dtype: torch.dtype):
     """Donor [leaf, OP] (unary, d_len=2) or [leaf, leaf, OP] (binary,
     d_len=3) with fresh random leaves, constants in ``dtype``; fields
     (N, 4)."""
-    N = use_unary.shape[0]
-    dev = use_unary.device
-    lk1, _, lf1, lc1 = make_random_leaf(gen, N, nfeatures, dev, dtype)
-    lk2, _, lf2, lc2 = make_random_leaf(gen, N, nfeatures, dev, dtype)
-    op_u = rng.randint(gen, (N,), 0, max(operators.n_unary, 1), dev)
-    op_b = rng.randint(gen, (N,), 0, max(operators.n_binary, 1), dev)
+    k = rng.split(keys, 4)
+    lk1, _, lf1, lc1 = make_random_leaf(k[..., 0, :], nfeatures, dtype)
+    lk2, _, lf2, lc2 = make_random_leaf(k[..., 1, :], nfeatures, dtype)
+    op_u = rng.randint(k[..., 2, :], (), 0, max(operators.n_unary, 1))
+    op_b = rng.randint(k[..., 3, :], (), 0, max(operators.n_binary, 1))
     z = torch.zeros_like(lk1)
     zf = torch.zeros_like(lc1)
     u = use_unary.unsqueeze(-1)
@@ -174,42 +185,45 @@ def _random_op_donor(gen, use_unary, nfeatures: int, operators: OperatorSet,
     return dk, do, df, dc, torch.where(use_unary, 2, 3)
 
 
-def append_random_op(gen, tree: TreeBatch, nfeatures: int,
+def append_random_op(keys, tree: TreeBatch, nfeatures: int,
                      operators: OperatorSet):
     """Replace a random leaf by a random operator over fresh leaves."""
-    N = tree.kind.shape[0]
+    k = rng.split(keys, 3)
     mask = _is_leaf(tree)
-    idx = rng.choice_mask(gen, mask)
+    idx = select_node(k[..., 0, :], mask, tree.cval.dtype)
     any_leaf = mask.any(dim=-1)
-    use_unary = _choose_unary(gen, N, operators, tree.kind.device)
-    dk, do, df, dc, d_len = _random_op_donor(gen, use_unary, nfeatures,
-                                             operators, tree.cval.dtype)
+    use_unary = _choose_unary(k[..., 1, :], operators, tree.cval.dtype)
+    dk, do, df, dc, d_len = _random_op_donor(k[..., 2, :], use_unary,
+                                             nfeatures, operators,
+                                             tree.cval.dtype)
     new, fit = splice(tree, idx, idx + 1, dk, do, df, dc, 0, d_len)
     ok = any_leaf & fit
     return where_trees(ok, new, tree), ok
 
 
-def insert_random_op(gen, tree: TreeBatch, nfeatures: int,
+def insert_random_op(keys, tree: TreeBatch, nfeatures: int,
                      operators: OperatorSet, at_root):
     """Make a node the child of a new random operator; a binary operator
     gets a fresh leaf as its other child, on a random side. ``at_root``
     (bool, or an (N,) bool tensor) picks the root instead of a random node
-    (the JAX package's prepend_random_op)."""
+    (the JAX package's prepend_random_op), with the same draws."""
     N = tree.kind.shape[0]
     dev = tree.kind.device
+    k = rng.split(keys, 6)
     sizes = subtree_sizes(tree.kind, tree.length)
     vmask = valid_mask(tree)
     at_root = (at_root.expand(N) if isinstance(at_root, torch.Tensor)
                else torch.full((N,), bool(at_root), device=dev))
     idx = torch.where(at_root, torch.clamp_min(tree.length - 1, 0),
-                      rng.choice_mask(gen, vmask))
+                      select_node(k[..., 0, :], vmask, tree.cval.dtype))
     any_node = torch.where(at_root, tree.length > 0, vmask.any(dim=-1))
     s, e = _node_span(idx, sizes)
-    use_unary = _choose_unary(gen, N, operators, dev)
-    as_left = rng.bernoulli(gen, 0.5, (N,), dev)
-    op_u = rng.randint(gen, (N,), 0, max(operators.n_unary, 1), dev)
-    op_b = rng.randint(gen, (N,), 0, max(operators.n_binary, 1), dev)
-    lk, _, lf, lc = make_random_leaf(gen, N, nfeatures, dev, tree.cval.dtype)
+    use_unary = _choose_unary(k[..., 1, :], operators, tree.cval.dtype)
+    as_left = rng.bernoulli(k[..., 2, :],
+                            dtype=rng.draw_dtype(tree.cval.dtype))
+    op_u = rng.randint(k[..., 3, :], (), 0, max(operators.n_unary, 1))
+    op_b = rng.randint(k[..., 4, :], (), 0, max(operators.n_binary, 1))
+    lk, _, lf, lc = make_random_leaf(k[..., 5, :], nfeatures, tree.cval.dtype)
     z = torch.zeros_like(lk)
     zf = torch.zeros_like(lc)
     op_kind = torch.where(use_unary, UNA, BIN)
@@ -236,15 +250,15 @@ def insert_random_op(gen, tree: TreeBatch, nfeatures: int,
     return where_trees(ok, new2, tree), ok
 
 
-def delete_random_op(gen, tree: TreeBatch, nfeatures: int,
+def delete_random_op(keys, tree: TreeBatch, nfeatures: int,
                      operators: OperatorSet):
     """Replace a random operator node by one of its children; a lone leaf
     is replaced by a fresh random leaf."""
-    N = tree.kind.shape[0]
     dev = tree.kind.device
+    k = rng.split(keys, 3)
     sizes = subtree_sizes(tree.kind, tree.length)
     mask = _is_op(tree)
-    idx = rng.choice_mask(gen, mask)
+    idx = select_node(k[..., 0, :], mask, tree.cval.dtype)
     any_op = mask.any(dim=-1)
     s, e = _node_span(idx, sizes)
     r_size = _take(sizes, torch.clamp_min(idx - 1, 0))
@@ -252,14 +266,15 @@ def delete_random_op(gen, tree: TreeBatch, nfeatures: int,
     l_root = idx - 1 - r_size
     l_start = l_root - _take(sizes, torch.clamp_min(l_root, 0)) + 1
     is_una = _take(tree.kind, idx) == UNA
-    keep_right = rng.bernoulli(gen, 0.5, (N,), dev) | is_una
+    keep_right = rng.bernoulli(
+        k[..., 1, :], dtype=rng.draw_dtype(tree.cval.dtype)) | is_una
     c_start = torch.where(keep_right, r_start, l_start)
     c_end = torch.where(keep_right, idx, l_root + 1)
     new, fit = splice(tree, s, e, tree.kind, tree.op, tree.feat, tree.cval,
                       c_start, c_end - c_start)
     ok = any_op & fit
 
-    lk, _, lf, lc = make_random_leaf(gen, N, nfeatures, dev, tree.cval.dtype)
+    lk, _, lf, lc = make_random_leaf(k[..., 2, :], nfeatures, tree.cval.dtype)
     first = (torch.arange(tree.max_len, device=dev) == 0).unsqueeze(0)
     leaf_tree = TreeBatch(
         torch.where(first, lk.unsqueeze(-1), 0),
@@ -273,15 +288,19 @@ def delete_random_op(gen, tree: TreeBatch, nfeatures: int,
     return out, ok | leaf_only
 
 
-def gen_random_tree_fixed_size(gen, target_size, nfeatures: int,
+def gen_random_tree_fixed_size(keys, target_size, nfeatures: int,
                                operators: OperatorSet, max_len: int,
-                               device, dtype: torch.dtype = torch.float32
+                               dtype: torch.dtype = torch.float32
                                ) -> TreeBatch:
-    """Grow random trees to ~target_size nodes (one per element of the
-    (N,) tensor ``target_size``) by repeatedly replacing a random leaf
-    with a random operator over fresh leaves; constants in ``dtype``."""
+    """Grow random trees to ~target_size nodes (one per key and element of
+    the (N,) tensor ``target_size``) by max_len // 2 + 1 steps that each
+    replace a random leaf by a random operator over fresh leaves;
+    constants in ``dtype``."""
     N = target_size.shape[0]
-    lk, _, lf, lc = make_random_leaf(gen, N, nfeatures, device, dtype)
+    device = keys.device
+    k = rng.split(keys, 2)
+    lk, _, lf, lc = make_random_leaf(k[..., 0, :], nfeatures, dtype)
+    key = k[..., 1, :]
     first = (torch.arange(max_len, device=device) == 0).unsqueeze(0)
     tree = TreeBatch(
         torch.where(first, lk.unsqueeze(-1), 0),
@@ -292,29 +311,33 @@ def gen_random_tree_fixed_size(gen, target_size, nfeatures: int,
     )
     target = torch.clamp_max(target_size, max_len)
     for _ in range(max_len // 2 + 1):
+        k = rng.split(key, 4)
+        key = k[..., 0, :]
         remaining = target - tree.length
         if operators.n_unary > 0 and operators.n_binary > 0:
-            use_unary = (remaining == 1) | rng.bernoulli(gen, 0.5, (N,), device)
+            use_unary = (remaining == 1) | rng.bernoulli(
+                k[..., 1, :], dtype=rng.draw_dtype(dtype))
         else:
             use_unary = torch.full((N,), operators.n_unary > 0, device=device)
         mask = _is_leaf(tree)
-        idx = rng.choice_mask(gen, mask)
-        dk, do, df, dc, d_len = _random_op_donor(gen, use_unary, nfeatures,
-                                                 operators, dtype)
+        idx = select_node(k[..., 2, :], mask, dtype)
+        dk, do, df, dc, d_len = _random_op_donor(k[..., 3, :], use_unary,
+                                                 nfeatures, operators, dtype)
         new, fit = splice(tree, idx, idx + 1, dk, do, df, dc, 0, d_len)
         grow = (tree.length < target) & mask.any(dim=-1) & fit
         tree = where_trees(grow, new, tree)
     return tree
 
 
-def crossover_trees(gen, a: TreeBatch, b: TreeBatch):
+def crossover_trees(keys, a: TreeBatch, b: TreeBatch):
     """Swap random subtrees between paired trees. Returns (a', b', ok);
     ok=False (both unchanged) where either result would overflow."""
+    k = rng.split(keys, 2)
     va, vb = valid_mask(a), valid_mask(b)
     sizes_a = subtree_sizes(a.kind, a.length)
     sizes_b = subtree_sizes(b.kind, b.length)
-    ia = rng.choice_mask(gen, va)
-    ib = rng.choice_mask(gen, vb)
+    ia = select_node(k[..., 0, :], va, a.cval.dtype)
+    ib = select_node(k[..., 1, :], vb, b.cval.dtype)
     sa, ea = _node_span(ia, sizes_a)
     sb, eb = _node_span(ib, sizes_b)
     a2, fit_a = splice(a, sa, ea, b.kind, b.op, b.feat, b.cval, sb, eb - sb)

@@ -66,17 +66,20 @@ def init_hall_of_fame(options: Options, batch_shape=(), device="cuda") -> HallOf
     )
 
 
-def init_population(gen, options: Options, nfeatures: int, X, y, weights,
-                    baseline: float, n_islands: int, nlength: int = 3
+def init_population(keys: torch.Tensor, options: Options, nfeatures: int,
+                    X, y, weights, baseline: float, nlength: int = 3
                     ) -> Population:
-    """Random initial populations of small trees for n_islands islands,
-    scored in one call; constants, losses and scores in the working
-    dtype."""
+    """Random initial populations of small trees, one per island key
+    (``keys`` (I, 2)): each member grows from ``split(key, npop)`` as in
+    the reference; all islands scored in one call; constants, losses and
+    scores in the working dtype."""
     dev = X.device
+    n_islands = keys.shape[0]
     n = n_islands * options.npop
+    member_keys = rng.split(keys, options.npop).reshape(n, 2)
     trees = gen_random_tree_fixed_size(
-        gen, torch.full((n,), nlength, dtype=torch.int64, device=dev),
-        nfeatures, options.operators, options.max_len, dev, options.dtype)
+        member_keys, torch.full((n,), nlength, dtype=torch.int64, device=dev),
+        nfeatures, options.operators, options.max_len, options.dtype)
     scores, losses = score_trees(trees, X, y, weights, baseline, options)
     shape = (n_islands, options.npop)
     return Population(
@@ -86,17 +89,31 @@ def init_population(gen, options: Options, nfeatures: int, X, y, weights,
     )
 
 
-def tournament_winner(gen, pop: Population, stats_frequencies: torch.Tensor,
-                      n_tournaments: int, options: Options,
-                      complexity: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``n_tournaments`` tournaments per island: sample
+def tournament_logits(options: Options, device) -> torch.Tensor:
+    """(n,) float32 log-probabilities p(1-p)^k of picking the k-th best of
+    a tournament: ``k * log1p(-p) + log(p)``."""
+    n = options.tournament_selection_n
+    # a traced scalar: float32 tensor math on the card, as in the JAX package
+    p = torch.clamp_max(scalar_tensor(options.tournament_selection_p, device),
+                        1 - 1e-6)
+    ranks = torch.arange(n, device=device, dtype=torch.float32)
+    return ranks * torch.log1p(-p) + torch.log(p)
+
+
+def tournament_winner(keys: torch.Tensor, pop: Population,
+                      stats_frequencies: torch.Tensor, options: Options,
+                      complexity: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """One tournament per key (``keys`` (I, B, 2)) on every island: sample
     tournament_selection_n members without replacement, reweight scores by
     the adaptive-parsimony frequency, pick the k-th best with probability
     p(1-p)^k. pop fields (I, npop); returns winner indices (I, B)."""
     I, npop = pop.scores.shape
+    n_tournaments = keys.shape[1]
     dev = pop.scores.device
     n = options.tournament_selection_n
-    idx = rng.sample_without_replacement(gen, (I, n_tournaments), npop, n, dev)
+    k = rng.split(keys, 2)
+    idx = rng.choice_without_replacement(k[..., 0, :], npop, n)
     flat_idx = idx.reshape(I, -1)
     scores = torch.gather(pop.scores, -1, flat_idx).reshape(I, n_tournaments, n)
     if options.use_frequency_in_tournament:
@@ -111,12 +128,7 @@ def tournament_winner(gen, pop: Population, stats_frequencies: torch.Tensor,
         freq = torch.where(in_range, freq, 0.0)
         scores = scores * torch.exp(options.adaptive_parsimony_scaling * freq)
     order = torch.argsort(scores, dim=-1, stable=True)
-    # a traced scalar: float32 tensor math on the card, as in the JAX package
-    p = torch.clamp_max(scalar_tensor(options.tournament_selection_p, dev),
-                        1 - 1e-6)
-    ranks = torch.arange(n, device=dev, dtype=torch.float32)
-    logits = ranks * torch.log1p(-p) + torch.log(p)
-    pick = rng.categorical(gen, logits.expand(I, n_tournaments, n))
+    pick = rng.categorical(k[..., 1, :], tournament_logits(options, dev))
     winner_pos = torch.gather(order, -1, pick.unsqueeze(-1))
     return torch.gather(idx, -1, winner_pos).squeeze(-1)
 

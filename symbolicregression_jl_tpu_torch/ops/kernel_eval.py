@@ -64,6 +64,7 @@ import torch
 
 from ..models.trees import ARITY, BIN, CONST, PAD, UNA, VAR, TreeBatch
 from ..utils.device import table
+from ..utils.fma import fma
 from . import user_ops
 from .losses import L2, ElementwiseLoss, contain_nonfinite, l2_dist_loss
 from .operators import (
@@ -389,12 +390,14 @@ def eval_loss_trees_plain(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
     return total.reshape(batch_shape)
 
 
-def lane_sum(terms: torch.Tensor, rows_per_lane: int = 1) -> torch.Tensor:
+def lane_sum(terms: torch.Tensor, rows_per_lane: int = 1,
+             square: bool = False) -> torch.Tensor:
     """The kernels' sum over rows (last dim): in each pass of 32 x
     ``rows_per_lane`` rows lane ``l`` takes rows ``l * rows_per_lane``,
     ... of the pass, and each lane adds its rows in order, pass after
     pass; then the butterfly of shuffles (xor 16, 8, 4, 2, 1) adds the
-    lanes; lane 0's bits."""
+    lanes; lane 0's bits. With ``square`` each lane adds the square of its
+    rows as one fused multiply-add."""
     R = terms.shape[-1]
     per_pass = 32 * rows_per_lane
     pad = -R % per_pass
@@ -405,7 +408,8 @@ def lane_sum(terms: torch.Tensor, rows_per_lane: int = 1) -> torch.Tensor:
                         device=terms.device)
     for p in range(passes.shape[-3]):
         for i in range(rows_per_lane):
-            lanes = lanes + passes[..., p, :, i]
+            t = passes[..., p, :, i]
+            lanes = fma(t, t, lanes) if square else lanes + t
     idx = torch.arange(32, device=terms.device)
     for off in (16, 8, 4, 2, 1):
         lanes = lanes + lanes[..., idx ^ off]
@@ -417,13 +421,16 @@ def fused_sums_plain(root: torch.Tensor, y: torch.Tensor,
     """The fused mode's per-tree sums from the roots (T, nrows) as the
     kernel adds them under ``plan`` (``launch_plan``): the loss of each
     row, each row range's ``lane_sum`` at the plan's rows per lane, the
-    ranges added in order."""
-    elem = loss(root, y)
+    ranges added in order. L2's instantiation adds each row's square as
+    one multiply-add (``acc += d * d``, contracted by nvcc), so its rows
+    are added with a fused multiply-add here."""
+    square = loss.kind == L2
+    elem = root - y if square else loss(root, y)
     R = root.shape[-1]
     total = None
     for r in range(plan.items):
         part = lane_sum(elem[:, r * plan.range:min((r + 1) * plan.range, R)],
-                        plan.rows_per_lane)
+                        plan.rows_per_lane, square)
         total = part if total is None else total + part
     return total
 

@@ -18,11 +18,12 @@ from ..models.trees import TreeBatch
 from ..utils import rng
 
 
-def migrate(gen, states: IslandState, global_hof: HallOfFame,
+def migrate(key: torch.Tensor, states: IslandState, global_hof: HallOfFame,
             options: Options) -> IslandState:
     """Replace random members of every island with members of the pooled
     top-n of all islands (probability fraction_replaced each) or with
-    Pareto-front hall-of-fame members (fraction_replaced_hof)."""
+    Pareto-front hall-of-fame members (fraction_replaced_hof), drawn from
+    ``key`` (2,) split in four as the reference does."""
     if not options.migration:
         return states
     I, npop = states.pop.scores.shape
@@ -33,11 +34,17 @@ def migrate(gen, states: IslandState, global_hof: HallOfFame,
     pool_trees = pool_trees.map(flat)
     pool_scores, pool_losses = flat(pool_scores), flat(pool_losses)
 
-    replace_pool = rng.bernoulli(gen, options.fraction_replaced, (I, npop), dev)
-    choice_pool = rng.randint(gen, (I, npop), 0, I * topn, dev)
+    k = rng.split(key, 4)
+    # the two fractions are traced scalars: float32 draws, as the
+    # reference's bound Options give
+    replace_pool = rng.bernoulli(k[0], options.fraction_replaced, (I, npop),
+                                 torch.float32)
+    choice_pool = rng.randint(k[1], (I, npop), 0, I * topn)
     front = calculate_pareto_frontier(global_hof)
-    choice_hof = rng.choice_mask(gen, front.expand(I, npop, front.shape[-1]))
-    replace_hof = (rng.bernoulli(gen, options.fraction_replaced_hof, (I, npop), dev)
+    logits = torch.where(front, 0.0, -1e9).to(rng.draw_dtype(options.dtype))
+    choice_hof = rng.categorical(k[2], logits.unsqueeze(0), (I, npop))
+    replace_hof = (rng.bernoulli(k[3], options.fraction_replaced_hof,
+                                 (I, npop), torch.float32)
                    & front.any() & options.hof_migration)
 
     def blend(member, pool, hof):

@@ -34,6 +34,12 @@ gradients and poison flags at max_len 24 and B4's losses and poison flags
 are compared bit for bit with the first root's, and B5's and B6's values
 with the root's own value mode.
 
+``--cycle`` adds, in each timing process, the main path's captured
+cycle at the north star's widths: milliseconds per replayed cycle (two
+runs of 50 replays, host clock) and device kernels per replay.
+The trees of every timing are made with numpy
+(``kernel_breakdown.fixed_length_trees``), the same in every root.
+
 ``--capture`` adds one batch from the main path's own search, the
 children of the first cycle of iteration 2 of ``equation_search`` at 64
 islands x 1000 (saved to ``build/kernel_ab/captured.pt`` and reused), timed
@@ -53,20 +59,18 @@ import os
 import pathlib
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from symbolicregression_jl_tpu_torch.models.mutate_device import (
-    gen_random_tree_fixed_size,
-)
 from symbolicregression_jl_tpu_torch.models.trees import TreeBatch
 from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
 from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
 from symbolicregression_jl_tpu_torch.ops import kernel_instr as ki
 from symbolicregression_jl_tpu_torch.ops.operators import make_operator_set
-from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+from symbolicregression_jl_tpu_torch.utils import rng as keyrng
 
 OUT_DIR = ke.BUILD_DIR / "kernel_ab"
 # the scoring kernel's fused mode (MODE_FUSED_L2 in the versions that fused
@@ -114,6 +118,14 @@ def device_ms(fn, reps):
         spin *= 2
 
 
+def synthetic_generator(seed: int, dev) -> torch.Generator:
+    """A torch generator for synthetic kernel inputs (sizes, constant
+    perturbations); the search itself draws from threefry keys."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
 def north_star_data(dev):
     rng = np.random.default_rng(0)
     X = torch.tensor(rng.uniform(1.0, 3.0, 2048).astype(np.float32),
@@ -121,11 +133,30 @@ def north_star_data(dev):
     return X, torch.exp(-X[0] ** 2 / 2) / np.sqrt(2 * np.pi)
 
 
+def mixed_trees(seed: int, T: int, lo: int, hi: int, ops, max_len: int,
+                dev) -> TreeBatch:
+    """T random programs of lo to hi - 1 slots, made with numpy
+    (``kernel_breakdown.fixed_length_trees``), so every root gets the same
+    trees whatever its random stream."""
+    from symbolicregression_jl_tpu_torch.tools.kernel_breakdown import (
+        fixed_length_trees,
+    )
+
+    g = np.random.default_rng(seed)
+    sizes = g.integers(lo, hi, T)
+    parts, where = [], []
+    for n in np.unique(sizes):
+        idx = np.nonzero(sizes == n)[0]
+        parts.append(fixed_length_trees(g, len(idx), int(n), 1, ops, max_len,
+                                        dev))
+        where.append(idx)
+    trees = TreeBatch(*(torch.cat(f) for f in zip(*parts)))
+    return trees[torch.from_numpy(np.argsort(np.concatenate(where))).to(dev)]
+
+
 def north_star_trees(ops, dev):
-    gen = make_generator(1, dev)
-    trees = gen_random_tree_fixed_size(
-        gen, torch.randint(3, 21, (64000,), generator=gen, device=dev), 1, ops,
-        24, dev)
+    trees = mixed_trees(1, 64000, 3, 21, ops, 24, dev)
+    gen = synthetic_generator(1, dev)
     cv8 = trees[:26880].cval.repeat_interleave(8, 0) * (
         1 + 0.1 * torch.randn((26880 * 8, 24), generator=gen, device=dev))
     return trees, cv8
@@ -134,10 +165,57 @@ def north_star_trees(ops, dev):
 def long_trees(ops, dev):
     """26,880 trees of 3-109 slots at max_len 128 (a search at maxsize
     110 or more)."""
-    gen = make_generator(4, dev)
-    return gen_random_tree_fixed_size(
-        gen, torch.randint(3, 110, (26880,), generator=gen, device=dev), 1,
-        ops, 128, dev)
+    return mixed_trees(4, 26880, 3, 110, ops, 128, dev)
+
+
+def cycle_here(ncycles: int = 50) -> dict:
+    """The main path's captured cycle at the north star's widths (64
+    islands x 1000, 2,048 rows, maxsize 20): milliseconds per replayed
+    cycle (host clock over ``ncycles`` replays after the capture, as
+    chip_smoke phase 6 takes it) and device kernels per replay (20 replays
+    profiled). A root older than the keyed random stream draws from a
+    generator."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from symbolicregression_jl_tpu_torch.models import cycle_graph as cg
+    from symbolicregression_jl_tpu_torch.models import evolve
+    from symbolicregression_jl_tpu_torch.models.dataset import (
+        make_dataset, update_baseline_loss,
+    )
+    from symbolicregression_jl_tpu_torch.models.options import make_options
+
+    dev = torch.device("cuda")
+    X, y = north_star_data(dev)
+    opts = make_options(binary_operators=["+", "-", "*", "/"],
+                        unary_operators=["cos", "exp"], npopulations=64,
+                        npop=1000, maxsize=20, verbosity=0)
+    base = update_baseline_loss(make_dataset(X, y, device=dev),
+                                opts).baseline_loss
+    if hasattr(keyrng, "split"):
+        st = evolve.init_island_state(keyrng.split(keyrng.key(2, dev), 64),
+                                      opts, 1, X, y, None, base)
+        head = ()
+    else:
+        gen = keyrng.make_generator(2, dev)
+        st = evolve.init_island_state(gen, opts, 1, X, y, None, base, 64)
+        head = (gen,)
+
+    def run(n):
+        torch.cuda.synchronize()
+        t = time.time()
+        cg.s_r_cycle_islands_graph(*head, st, opts.maxsize, X, y, None, base,
+                                   opts, ncycles=n)
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1e3 / n
+
+    run(5)  # warm-up and capture
+    ms = [run(ncycles), run(ncycles)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(20)
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"ms_per_cycle": ms, "kernels_per_cycle": n_kernels / 20}
 
 
 class _Captured(Exception):
@@ -313,8 +391,8 @@ def worker(argv) -> int:
     """``--worker root build`` or ``--worker root time bits [captured]
     [--hof]``: check that the package imported is the root's, then do the
     one job."""
-    hof = "--hof" in argv
-    argv = [a for a in argv if a != "--hof"]
+    hof, cycle = "--hof" in argv, "--cycle" in argv
+    argv = [a for a in argv if a not in ("--hof", "--cycle")]
     root, job = pathlib.Path(argv[0]).resolve(), argv[1]
     if root not in pathlib.Path(ke.__file__).resolve().parents:
         raise RuntimeError(f"imported {ke.__file__}, not the package of {root}")
@@ -324,6 +402,8 @@ def worker(argv) -> int:
     row = time_here(argv[3] if len(argv) > 3 else None, argv[2])
     if hof:
         row["hof"] = hall_of_fame_here()
+    if cycle:
+        row["cycle"] = cycle_here()
     print(json.dumps(row))
     return 0
 
@@ -351,6 +431,7 @@ def main(argv) -> int:
         return 2
     capture = "--capture" in argv
     hof = ["--hof"] if "--hof" in argv else []
+    cycle = ["--cycle"] if "--cycle" in argv else []
     roots = {n: pathlib.Path(r).resolve() for n, r in
              (a.split("=", 1) for a in argv if not a.startswith("--"))}
     card = subprocess.run(
@@ -372,7 +453,8 @@ def main(argv) -> int:
     for name in list(roots) + list(reversed(roots)):
         path = OUT_DIR / f"bits_{name}.pt"
         row = {"tree": name, **json.loads(run_in(
-            roots[name], "time", str(path), *captured, *hof).splitlines()[-1])}
+            roots[name], "time", str(path), *captured, *hof,
+            *cycle).splitlines()[-1])}
         bits.setdefault(name, torch.load(path))
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -150,7 +150,7 @@ def host_syncs(cycles: int = 10) -> dict:
     from ..models.dataset import make_dataset, update_baseline_loss
     from ..models.evolve import init_island_state, s_r_cycle_islands
     from ..models.options import make_options
-    from ..utils.rng import make_generator
+    from ..utils import rng as keyrng
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -162,12 +162,12 @@ def host_syncs(cycles: int = 10) -> dict:
                         npop=1000, maxsize=20, loss="L2DistLoss", verbosity=0)
     base = update_baseline_loss(make_dataset(X, y, device=dev),
                                 opts).baseline_loss
-    gen = make_generator(2, dev)
-    st = init_island_state(gen, opts, 1, X, y, None, base, 64)
-    st = s_r_cycle_islands(gen, st, opts.maxsize, X, y, None, base, opts, ncycles=3)
+    st = init_island_state(keyrng.split(keyrng.key(2, dev), 64), opts, 1, X,
+                           y, None, base)
+    st = s_r_cycle_islands(st, opts.maxsize, X, y, None, base, opts, ncycles=3)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        st = s_r_cycle_islands(gen, st, opts.maxsize, X, y, None, base, opts,
+        st = s_r_cycle_islands(st, opts.maxsize, X, y, None, base, opts,
                                ncycles=cycles)
     by_call, by_op = sync_counts(prof)
     runtime = sum(n for c, n in by_call.items() if c.startswith(SYNC_CALLS))

@@ -1,78 +1,583 @@
-"""Every random draw of the port goes through this module.
+"""Every random draw of the port: the JAX package's threefry stream.
 
-The JAX package splits a threefry key per island and vmaps; here one
-``torch.Generator`` on the search's device draws whole batches at once, so
-the island axis is just the leading dimension of each draw. The draws
-differ from JAX's (stochastic modules are held by invariants and at search
-level); a key-compatible generator can later replace these functions
-without touching their callers.
+The port draws what ``jax.random`` draws for the same key, bit for bit:
+``threefry2x32`` (20 rounds) in JAX's partitionable mode
+(``jax_threefry_partitionable=True``, raw ``uint32[2]`` keys, the default
+of jax 0.9), and the samplers of ``jax/_src/random.py`` on top of it.
 
-No function here synchronises with the host.
+A key is a tensor ``(..., 2)`` of int64 holding two 32-bit words. Every
+function takes a batch of keys with any leading shape and returns what
+``jax.vmap`` of the JAX call over those keys returns: in partitionable
+mode a key's draws depend on that key and the draw's shape alone, so the
+batched call is the vmapped one. ``split(keys, n)[..., i, :]`` is the
+reference's ``jax.random.split(key, n)[i]`` of each key, and equals
+``fold_in(keys, i)``: ``threefry2x32(key, (0, i))``.
+
+On a CUDA tensor every split and draw is one launch of the threefry kernel
+(``ops/kernel_rng.py``, ``csrc/threefry.cu``), batched over all the keys
+it is given; the torch code of this module is its plain version and runs
+on CPU tensors only. No function here reads the device from the host, so
+the captured cycle (``models/cycle_graph.py``) records every draw.
+
+The float math inside ``gumbel`` and ``normal`` is the reference's CPU
+arithmetic: XLA's CPU ``log`` and ``log1p`` (Cephes' polynomials) and
+``erf_inv`` (Giles' polynomials), op for op, so that both equal JAX's
+over the whole float32 lattice of ``uniform``. Float arithmetic that a
+caller does after a draw is plain torch, and can differ from XLA's by an
+ulp (ROADMAP C). A draw whose dtype the reference leaves to JAX's default
+is a float32 draw, or in a float64 search (which the reference runs with
+``jax_enable_x64``) a float64 draw of 64 bits: the caller passes
+``draw_dtype`` of its working dtype.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+import struct
+
+import numpy as np
 import torch
 
+from ..ops import kernel_rng
+from .fma import fma32 as _fma32, fma64 as _fma64
 
-def make_generator(seed: int, device) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return gen
-
-
-def uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
-    """U[0, 1) float32."""
-    return torch.rand(shape, generator=gen, device=device)
+MASK32 = 0xFFFFFFFF
 
 
-def normal(gen: torch.Generator, shape, device) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=device)
+def draw_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a draw whose dtype the reference leaves to JAX's
+    default, in a search of working dtype ``dtype``: float64 in a float64
+    search, else float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def randint(gen: torch.Generator, shape, low: int, high: int,
-            device) -> torch.Tensor:
-    """Integers in [low, high)."""
-    return torch.randint(int(low), int(high), shape, generator=gen,
-                         device=device)
+# ---------------------------------------------------------------------------
+# threefry2x32 and the key functions (plain versions: CPU tensors only)
+# ---------------------------------------------------------------------------
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def randint_below(gen: torch.Generator, shape, low: int, high: torch.Tensor,
-                  device) -> torch.Tensor:
-    """Integers in [low, high) where ``high`` (> low) is a 0-dim int64
-    tensor on the device: the card reads the bound, the host never does,
-    so a captured graph replays with whatever bound the tensor holds. A
-    24-bit draw reduced modulo the span (a bias below span / 2^24); it
-    takes from the generator what ``randint`` with a small range takes, so
-    the draws after it are those of ``randint(gen, shape, low, high)``."""
-    draw = torch.randint(0, 1 << 24, shape, generator=gen, device=device)
-    return low + torch.remainder(draw, high - low)
+def threefry2x32(k1, k2, x1, x2):
+    """JAX's ``threefry2x32_p`` on numpy ``uint32`` arrays (broadcast
+    together; uint32 arithmetic wraps as the hash's does); returns the two
+    output words."""
+    k1, k2 = np.asarray(k1, np.uint32), np.asarray(k2, np.uint32)
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    x1 = np.add(x1, ks[0], dtype=np.uint32)
+    x2 = np.add(x2, ks[1], dtype=np.uint32)
+    x1, x2 = np.broadcast_arrays(x1, x2)
+    x1, x2 = x1.copy(), x2.copy()
+    t = np.empty_like(x2)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 += x2
+            np.left_shift(x2, np.uint32(r), out=t)
+            x2 >>= np.uint32(32 - r)
+            x2 |= t
+            x2 ^= x1
+        x1 += ks[(i + 1) % 3]
+        x2 += ks[(i + 2) % 3]
+        x2 += np.uint32(i + 1)
+    return x1, x2
 
 
-def bernoulli(gen: torch.Generator, p, shape, device) -> torch.Tensor:
-    """Bool draws with probability ``p`` (a float or a tensor)."""
-    return uniform(gen, shape, device) < p
+def key(seed: int, device="cpu", x64: bool = False) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` as a (2,) int64 key: the seed as an
+    int32 (the reference's default) or, with ``x64`` (a float64 search),
+    as an int64, cut into its high and low words."""
+    s = int(seed) & (2 ** 64 - 1 if x64 else MASK32)
+    return torch.tensor([s >> 32, s & MASK32], dtype=torch.int64,
+                        device=device)
 
 
-def choice_mask(gen: torch.Generator, mask: torch.Tensor) -> torch.Tensor:
-    """Uniform index along the last axis among positions where ``mask`` is
-    True (index 0 where none is). The argmax of i.i.d. uniforms restricted
-    to the mask is a uniform pick."""
-    u = uniform(gen, mask.shape, mask.device)
-    return torch.argmax(torch.where(mask, u, -1.0), dim=-1)
+def _hash(keys: torch.Tensor, shape, offset: int = 0):
+    """threefry2x32 of every key with the counters of a draw of
+    ``shape`` (the flat index, plus ``offset``, as a 64-bit count): the
+    two words as int64 tensors of shape (..., *shape). CPU tensors only."""
+    if keys.is_cuda:
+        raise RuntimeError("the plain threefry runs on CPU tensors only")
+    count = np.arange(math.prod(shape), dtype=np.uint64).reshape(shape)
+    count = count + np.uint64(offset)
+    hi = (count >> np.uint64(32)).astype(np.uint32)
+    lo = (count & np.uint64(MASK32)).astype(np.uint32)
+    k = keys.numpy().astype(np.uint32)
+    extra = (1,) * len(shape)
+    k1 = k[..., 0].reshape(k.shape[:-1] + extra)
+    k2 = k[..., 1].reshape(k.shape[:-1] + extra)
+    with np.errstate(over="ignore"):
+        b1, b2 = threefry2x32(k1, k2, hi, lo)
+    return (torch.from_numpy(b1.astype(np.int64)),
+            torch.from_numpy(b2.astype(np.int64)))
 
 
-def categorical(gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
-    """Sample along the last axis by the Gumbel-max trick (``-inf`` logits
-    are never drawn unless every logit is ``-inf``)."""
-    u = uniform(gen, logits.shape, logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-    return torch.argmax(logits + gumbel, dim=-1)
+def _check_keys(keys: torch.Tensor) -> None:
+    if keys.dtype != torch.int64 or keys.shape[-1:] != (2,):
+        raise TypeError(f"keys must be (..., 2) int64, got {keys.dtype} "
+                        f"{tuple(keys.shape)}")
 
 
-def sample_without_replacement(gen: torch.Generator, batch_shape, n: int,
-                               k: int, device) -> torch.Tensor:
-    """``k`` distinct indices in [0, n) for every batch element: the k
-    smallest of n i.i.d. uniforms (a uniformly random k-subset)."""
-    u = uniform(gen, tuple(batch_shape) + (n,), device)
-    return torch.topk(u, k, dim=-1, largest=False).indices
+def split(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)`` of every key: (..., n, 2)."""
+    _check_keys(keys)
+    if keys.is_cuda:
+        return kernel_rng.split(keys, int(n))
+    b1, b2 = _hash(keys, (int(n),))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` of every key (``data`` a 32-bit
+    integer): threefry2x32(key, (0, data))."""
+    _check_keys(keys)
+    data = int(data) & MASK32
+    if keys.is_cuda:
+        return kernel_rng.split(keys, 1, offset=data)[..., 0, :]
+    b1, b2 = _hash(keys, (1,), offset=data)
+    return torch.stack([b1, b2], dim=-1)[..., 0, :]
+
+
+def _shape(shape) -> tuple:
+    return (int(shape),) if isinstance(shape, int) else tuple(
+        int(s) for s in shape)
+
+
+def random_bits(keys: torch.Tensor, width: int, shape=()) -> torch.Tensor:
+    """``jax.random.bits`` of ``width`` (8, 16, 32 or 64) bits and
+    ``shape`` per key, as int64: the 64-bit words as int64 bit patterns
+    (two's complement)."""
+    _check_keys(keys)
+    shape = _shape(shape)
+    if width not in (8, 16, 32, 64):
+        raise ValueError(f"width must be 8, 16, 32 or 64, got {width}")
+    if keys.is_cuda:
+        return kernel_rng.bits(keys, width, shape)
+    b1, b2 = _hash(keys, shape)
+    if width == 64:
+        return (b1 << 32) | b2  # wraps into the int64 bit pattern
+    return (b1 ^ b2) & ((1 << width) - 1)
+
+
+# ---------------------------------------------------------------------------
+# XLA's CPU float math (the op sequences of its LLVM IR; no contraction)
+# ---------------------------------------------------------------------------
+
+_SQRTHF = float.fromhex("0x1.6a09e6p-1")
+_LOG_P = tuple(float.fromhex(h) for h in (
+    "0x1.204376p-4", "-0x1.d7a37p-4", "0x1.de4a34p-4", "-0x1.fcba9ep-4",
+    "0x1.23d37ep-3", "-0x1.555cap-3", "0x1.999d58p-3", "-0x1.fffff8p-3",
+    "0x1.555554p-2"))
+_LOG_Q1 = float.fromhex("-0x1.bd0106p-13")
+_LOG_Q2 = float.fromhex("0x1.63p-1")
+_FLT_MIN = float.fromhex("0x1p-126")
+_LOG1P_SMALL = float.fromhex("0x1.a8279ap-2")
+_LOG1P_DEN = tuple(float.fromhex(h) for h in (
+    "0x1.e2035ap+3", "0x1.4c30b6p+6", "0x1.bb865ap+7", "0x1.351946p+8",
+    "0x1.b0db14p+7", "0x1.e0f304p+5"))
+_LOG1P_NUM = tuple(float.fromhex(h) for h in (
+    "0x1.7bc096p-15", "0x1.fe818ap-2", "0x1.a509f4p+2", "0x1.de9738p+4",
+    "0x1.e798ecp+5", "0x1.c8e75ap+5", "0x1.40a202p+4"))
+_ERFINV_LT5 = tuple(float.fromhex(h) for h in (
+    "0x1.e2cb1p-26", "0x1.70966cp-22", "-0x1.d8e6aep-19", "-0x1.26b582p-18",
+    "0x1.ca65b6p-13", "-0x1.48a81p-10", "-0x1.11c9dep-8", "0x1.f91ec6p-3",
+    "0x1.805c5ep+0"))
+_ERFINV_GE5 = tuple(float.fromhex(h) for h in (
+    "-0x1.a3e136p-13", "0x1.a76ad6p-14", "0x1.61b8e4p-10", "-0x1.e17bcep-9",
+    "0x1.7824f6p-8", "-0x1.f38baep-8", "0x1.354afcp-7", "0x1.006db6p+0",
+    "0x1.6a9efcp+1"))
+_SQRT2_F32 = float.fromhex("0x1.6a09e6p+0")
+
+
+def _np_fma32(a, b, c):
+    """A float32 fused multiply-add on numpy arrays, rounded once: the
+    exact product in float64 plus ``c`` rounded there, then to float32.
+    The two roundings differ from one only where the float64 sum is
+    inexact and lies exactly halfway between two float32 values; there it
+    is rounded to odd first."""
+    p = np.multiply(a, b, dtype=np.float64)
+    c = np.asarray(c, np.float64)
+    s = np.asarray(p + c)
+    bits = s.view(np.int64)
+    tie = (bits & 0x1FFFFFFF) == 0x10000000
+    if tie.any():
+        bb = s - p
+        err = (p - (s - bb)) + (c - bb)
+        nudge = tie & (err != 0)
+        bits = bits + np.where(nudge, np.where((err > 0) == (s > 0), 1, -1), 0)
+    return bits.view(np.float64).astype(np.float32)
+
+
+def _log_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 ``log`` on a numpy float32 array: Cephes'
+    polynomial on the mantissa in [sqrt(1/2), sqrt(2)) plus the exponent
+    times ln 2 in two parts, with the multiply-adds its code generator
+    contracts."""
+    f = np.float32
+    p = _LOG_P
+    xc = np.where(x <= _FLT_MIN, f(_FLT_MIN), x).astype(np.float32)
+    bits = xc.view(np.int32)
+    e = ((bits >> 23) - 127).astype(np.float32) + f(1.0)
+    m = ((bits & np.int32(-0x7F800001)) | np.int32(0x3F000000)).view(
+        np.float32)
+    small = m < f(_SQRTHF)
+    xm = (m - f(1.0)) + np.where(small, m, f(0.0))
+    e = e - np.where(small, f(1.0), f(0.0))
+    z = xm * xm
+    x3 = z * xm
+    y = _np_fma32(xm, _np_fma32(xm, p[0], p[1]), p[2])
+    y1 = _np_fma32(xm, _np_fma32(xm, p[3], p[4]), p[5])
+    y2 = _np_fma32(xm, _np_fma32(xm, p[6], p[7]), p[8])
+    y = _np_fma32(x3, _np_fma32(x3, y, y1), y2)
+    y = _np_fma32(x3, y, e * f(_LOG_Q1))
+    r = _np_fma32(-z, 0.5, xm) + y
+    r = _np_fma32(e, _LOG_Q2, r)
+    r = np.where(np.isnan(x) | (x < 0), f(np.nan), r)
+    r = np.where(x == 0, f(-np.inf), r)
+    return np.where(x == np.inf, f(np.inf), r).astype(np.float32)
+
+
+def _log1p_f32(a: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 ``log1p``: a rational approximation for
+    |a| < sqrt(2) - 1, else ``log(1 + a)``."""
+    f = np.float32
+    a2 = a * a
+    zero = a * f(0.0)
+    den = zero + f(1.0)
+    for c in _LOG1P_DEN:
+        den = _np_fma32(a, den, c)
+    num = zero + f(_LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = _np_fma32(a, num, c)
+    t = (a * a2) * (num / den)
+    small = a + _np_fma32(-a2, 0.5, t)
+    return np.where(np.abs(a) < f(_LOG1P_SMALL), small,
+                    _log_f32(a + f(1.0))).astype(np.float32)
+
+
+def _erfinv_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 ``erf_inv`` (Giles' single-precision polynomials
+    in w = -log1p(-x^2))."""
+    f = np.float32
+    lw = _log1p_f32(x * -x)  # -w
+    lt = lw > f(-5.0)
+    with np.errstate(invalid="ignore"):
+        root = np.sqrt(-lw)
+    w = np.where(lt, f(-2.5) - lw, root + f(-3.0))
+    p = np.where(lt, f(_ERFINV_LT5[0]), f(_ERFINV_GE5[0]))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _np_fma32(w, p, np.where(lt, f(a), f(b)))
+    p = np.where(np.abs(x) == f(1.0), f(np.inf), p)
+    return (x * p).astype(np.float32)
+
+
+def _f64(bits: str) -> float:
+    """A float64 constant from its bit pattern (XLA's LLVM IR spelling)."""
+    return struct.unpack(">d", bytes.fromhex(bits))[0]
+
+
+_LOG1P_SMALL_F64 = _f64("3FDA827999FCEF32")
+_LOG1P_DEN_F64 = tuple(_f64(h) for h in (
+    "402E20359E903E37", "4054C30B52213498", "406BB86590FCFB56",
+    "407351945DC908A5", "406B0DB13E48E066", "404E0F304466448E"))
+_LOG1P_NUM_F64 = tuple(_f64(h) for h in (
+    "3F07BC0962B395CA", "3FDFE818A0FE1A83", "401A509F46F4FA53",
+    "403DE9738B8CB9C9", "404E798EB86C3351", "404C8E7597479A10",
+    "40340A202D99830A"))
+# Giles' double-precision erf_inv: coefficient i for w < 6.25, w < 16 and
+# the rest; the first 17 shared by all three, 17-18 by the first two,
+# 19-22 by the first alone
+_ERFINV_F64 = tuple(tuple(_f64(h) for h in row) for row in (
+    ("BBB135D2E746E627", "3E23040F87DBD932", "BDBDCEC3A7785389"),
+    ("BC08DDF93324D327", "3E785CBE52878635", "BDF18FEEC0E38727"),
+    ("3C37B83EEF0B7C9F", "BE92777453DD3955", "3E19E6BF2DDA45E3"),
+    ("3C69BA72CD589B91", "3E5395ABCD554C6C", "BE30468FB24E2F5F"),
+    ("BCA33689090A6B96", "3EB936388A3790AD", "3E405AC6A8FBA182"),
+    ("3C782E11898132E0", "BED0D5DB812B5083", "BE50102E495FB9C0"),
+    ("3CFDE4ACFD9E26BA", "3EC8860CD5D652F6", "3E5F4C20E1334AF8"),
+    ("BD26D33EED66C487", "3EEA29A0CACDFB23", "BE722D220FDF9C3E"),
+    ("BD36F2167040D8E2", "BF08CEF1F80281F2", "3E8EBC8BB824CB54"),
+    ("3D872A22C2D77E20", "3F11E684D0B9188A", "BEB0A8D40EA372CC"),
+    ("BDAC8859C4E5C0AF", "3EF932CD54C8A222", "3ED2FBD29D093D2B"),
+    ("BDCDC583D118A561", "BF37448A89EF8AA3", "BEF4A3497E1E0FAC"),
+    ("3E120F47CCF46B3C", "3F4F3CC55AD40C25", "3F13EBF4EB00938F"),
+    ("BE31A9E38DC84D60", "BF5BA924132F38B1", "BF2C2F36A8FC5D53"),
+    ("BE5F36CD6D3D46A9", "3F6468EECA533CF8", "BF222EA5DF04047C"),
+    ("3E9C6B4F5D03B787", "BF6EBADABB891BBD", "3FF02A30D1FBA0DC"),
+    ("BEB6E8A5434AE8A2", "3F75FFCFE5B76AFC", "4013664DDD1AD7FB"),
+    ("BEED1D1F7B8736F6", "3FF0158A6D641D39"),
+    ("3F2879C2A212F024", "4008ABCC380D5A48"),
+    ("BF4845769484FCA8",), ("BF78B6C33114F909",), ("3FCEBD80D9B13E28",),
+    ("3FFA755E7C99AE86",)))
+_SQRT2_F64 = _f64("3FF6A09E667F3BCD")
+
+
+def _log_f64(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float64 ``log``: the C library's (through Python's
+    ``math.log``; torch's differs in the last bit at 0.35 % of inputs).
+    CPU tensors only."""
+    v = x.numpy()
+    pos = np.where(v > 0, v, 1.0)
+    out = np.frompyfunc(math.log, 1, 1)(pos).astype(np.float64)
+    out = np.where(v > 0, out, np.where(v == 0, -np.inf, np.nan))
+    out = np.where(v == np.inf, np.inf, out)
+    return torch.from_numpy(out)
+
+
+def _log1p_f64(a: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float64 ``log1p``, as ``_log1p_f32`` in double."""
+    a2 = a * a
+    zero = a * 0.0
+    den = zero + 1.0
+    for c in _LOG1P_DEN_F64:
+        den = _fma64(a, den, c)
+    num = zero + _LOG1P_NUM_F64[0]
+    for c in _LOG1P_NUM_F64[1:]:
+        num = _fma64(a, num, c)
+    t = (a * a2) * (num / den)
+    small = a + _fma64(-a2, 0.5, t)
+    return torch.where(torch.abs(a) < _LOG1P_SMALL_F64, small,
+                       _log_f64(a + 1.0))
+
+
+def _erfinv_f64(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float64 ``erf_inv``: Giles' double-precision polynomials in
+    w = -log1p(-x^2), w < 6.25, w < 16 and beyond. CPU tensors only."""
+    lw = _log1p_f64(x * -x)  # -w
+    lt6, lt16 = lw > -6.25, lw > -16.0
+    # torch's float64 sqrt on the CPU is not correctly rounded; numpy's is
+    root = torch.from_numpy(np.sqrt(np.maximum(-lw.numpy(), 0.0)))
+    w = torch.where(lt6, -3.125 - lw,
+                    root - torch.where(lt16, 3.25, 5.0).double())
+
+    def coef(row):
+        out = torch.full_like(x, row[-1])
+        if len(row) == 3:
+            out = torch.where(lt16, row[1], out)
+        return torch.where(lt6, row[0], out)
+
+    p = coef(_ERFINV_F64[0])
+    for row in _ERFINV_F64[1:17]:
+        p = _fma64(w, p, coef(row))
+    for row in _ERFINV_F64[17:19]:
+        p = torch.where(lt16, _fma64(w, p, coef(row)), p)
+    for row in _ERFINV_F64[19:]:
+        p = torch.where(lt6, _fma64(w, p, row[0]), p)
+    p = torch.where(torch.abs(x) == 1.0, float("inf"), p)
+    return x * p
+
+
+# ---------------------------------------------------------------------------
+# Samplers (jax/_src/random.py)
+# ---------------------------------------------------------------------------
+
+_MANT = {torch.float32: 23, torch.float64: 52, torch.bfloat16: 7,
+         torch.float16: 10}
+# the random bits a draw takes: the dtype's width, at least 8 mantissa bits'
+# worth (bfloat16 draws 8 bits)
+_WIDTH = {torch.float32: 32, torch.float64: 64, torch.bfloat16: 8,
+          torch.float16: 16}
+_ONE_BITS = {torch.float32: 0x3F800000, torch.float64: 0x3FF0000000000000,
+             torch.bfloat16: 0x3F80, torch.float16: 0x3C00}
+_VIEW_INT = {torch.float32: torch.int32, torch.float64: torch.int64,
+             torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def _dtype(dtype) -> torch.dtype:
+    dtype = torch.float32 if dtype is None else dtype
+    if dtype not in _MANT:
+        raise TypeError(f"no sampler for {dtype}")
+    return dtype
+
+
+def _unit(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Floats in [0, 1) of ``dtype`` from its width's random bits: the
+    mantissa bits under the exponent of 1.0, minus 1."""
+    nbits, nmant = _WIDTH[dtype], _MANT[dtype]
+    if nbits == 64:
+        m = (bits >> 12) & ((1 << 52) - 1)
+    else:
+        m = bits >> (nbits - nmant)
+    f = (m | _ONE_BITS[dtype]).to(_VIEW_INT[dtype]).view(dtype)
+    return f - 1.0
+
+
+def _round_to(x: float, dtype: torch.dtype) -> float:
+    """The Python float ``x`` rounded to ``dtype`` (to nearest, ties to
+    even), without building a tensor."""
+    if dtype == torch.float64:
+        return float(x)
+    if dtype == torch.float16:
+        return struct.unpack("<e", struct.pack("<e", x))[0]
+    f32 = struct.unpack("<f", struct.pack("<f", x))[0]
+    if dtype == torch.float32:
+        return f32
+    u = struct.unpack("<I", struct.pack("<f", f32))[0]  # bfloat16
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return struct.unpack("<f", struct.pack("<I", u & MASK32))[0]
+
+
+@functools.lru_cache(maxsize=None)
+def bounds(dtype: torch.dtype, minval: float, maxval: float):
+    """The uniform's lower bound and span in ``dtype``, rounded as the
+    reference rounds them (each converted to the dtype, then subtracted in
+    it)."""
+    lo = _round_to(minval, dtype)
+    return lo, _round_to(_round_to(maxval, dtype) - lo, dtype)
+
+
+def _uniform_plain(keys, shape, dtype, minval, maxval):
+    f = _unit(random_bits(keys, _WIDTH[dtype], shape), dtype)
+    lo, span = bounds(dtype, float(minval), float(maxval))
+    if dtype == torch.float64:
+        v = _fma64(f, span, lo)
+    else:  # the 2-byte types compute in float32 and round once
+        v = _fma32(f.float(), span, lo).to(dtype)
+    return torch.clamp_min(v, lo)
+
+
+def uniform(keys: torch.Tensor, shape=(), dtype=None, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)`` of every
+    key: (..., *shape)."""
+    _check_keys(keys)
+    dtype, shape = _dtype(dtype), _shape(shape)
+    if keys.is_cuda:
+        return kernel_rng.float_draw("uniform", keys, shape, dtype,
+                                     *bounds(dtype, float(minval),
+                                             float(maxval)))
+    return _uniform_plain(keys, shape, dtype, minval, maxval)
+
+
+def _next_after_minus_one(dtype: torch.dtype) -> float:
+    """nextafter(-1, 0) in ``dtype``."""
+    return -1.0 + 2.0 ** -(_MANT[dtype] + 1)
+
+
+def normal(keys: torch.Tensor, shape=(), dtype=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` of every key:
+    sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))."""
+    _check_keys(keys)
+    dtype, shape = _dtype(dtype), _shape(shape)
+    lo = _next_after_minus_one(dtype)
+    if keys.is_cuda:
+        return kernel_rng.float_draw("normal", keys, shape, dtype,
+                                     *bounds(dtype, lo, 1.0))
+    u = _uniform_plain(keys, shape, dtype, lo, 1.0)
+    if dtype == torch.float64:
+        return _SQRT2_F64 * _erfinv_f64(u)
+    e = torch.from_numpy(_erfinv_f32(u.float().numpy()))
+    if dtype == torch.float32:
+        return _SQRT2_F32 * e
+    # the 2-byte types: erf_inv upcast to float32, rounded once, then the
+    # product with sqrt(2) rounded to the type
+    return (e.to(dtype) * _round_to(math.sqrt(2), dtype)).to(dtype)
+
+
+def gumbel(keys: torch.Tensor, shape=(), dtype=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, dtype)`` in its default "low" mode:
+    -log(-log(uniform(tiny, 1)))."""
+    _check_keys(keys)
+    dtype, shape = _dtype(dtype), _shape(shape)
+    tiny = float(torch.finfo(dtype).tiny)
+    if keys.is_cuda:
+        return kernel_rng.float_draw("gumbel", keys, shape, dtype,
+                                     *bounds(dtype, tiny, 1.0))
+    if dtype == torch.float16:
+        # XLA folds float16's (u - 1) * (1 - tiny) + tiny, whose span
+        # rounds to 1, into u + (tiny - 1) = u - 1
+        u = torch.clamp_min(_unit(random_bits(keys, 16, shape), dtype), tiny)
+    else:
+        u = _uniform_plain(keys, shape, dtype, tiny, 1.0)
+    if dtype == torch.float64:
+        return -_log_f64(-_log_f64(u))
+    if dtype == torch.float32:
+        return torch.from_numpy(-_log_f32(-_log_f32(u.numpy())))
+    # the 2-byte types: each log in float32, rounded to the type
+    l1 = torch.from_numpy(-_log_f32(u.float().numpy())).to(dtype)
+    return torch.from_numpy(-_log_f32(l1.float().numpy())).to(dtype)
+
+
+def bernoulli(keys: torch.Tensor, p=0.5, shape=(), dtype=None
+              ) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` ("low" mode):
+    uniform(key, shape, dtype of p) < p. ``p`` is a Python float (drawn
+    in ``dtype``, float32 by default, as JAX's weak type) or a device
+    scalar of the draw's dtype."""
+    dtype = _dtype(p.dtype if isinstance(p, torch.Tensor) and dtype is None
+                   else dtype)
+    return uniform(keys, shape, dtype) < p
+
+
+def _mulmod32(a: torch.Tensor, m) -> torch.Tensor:
+    """(a * m) mod 2^32 for 32-bit a and m (a tensor or an int) held in
+    int64."""
+    hi = ((a * (m >> 16)) & 0xFFFF) << 16
+    return (hi + a * (m & 0xFFFF)) & MASK32
+
+
+def randint(keys: torch.Tensor, shape, minval: int, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)`` of
+    every key, as int64. ``maxval`` is an int or an int64 device scalar
+    (the card reads it; a captured graph replays with what it holds)."""
+    _check_keys(keys)
+    shape = _shape(shape)
+    if keys.is_cuda:
+        return kernel_rng.randint(keys, shape, int(minval), maxval)
+    k = split(keys, 2)
+    hi_bits = random_bits(k[..., 0, :], 32, shape)
+    lo_bits = random_bits(k[..., 1, :], 32, shape)
+    minv = max(min(int(minval), 2 ** 31 - 1), -2 ** 31)
+    if isinstance(maxval, torch.Tensor):
+        maxv = torch.clamp(maxval, -2 ** 31, 2 ** 31 - 1)
+        span = torch.where(maxv <= minv, 1, (maxv - minv) & MASK32)
+        mult = _mulmod32(2 ** 16 % span, 2 ** 16 % span) % span
+    else:
+        maxv = max(min(int(maxval), 2 ** 31 - 1), -2 ** 31)
+        span = 1 if maxv <= minv else (maxv - minv) & MASK32
+        mult = (2 ** 16 % span) ** 2 % 2 ** 32 % span
+    off = (_mulmod32(hi_bits % span, mult) + lo_bits % span) & MASK32
+    return minv + off % span
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor, shape=()
+                ) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` of every key:
+    argmax over the last axis of gumbel + logits. Each key draws its
+    gumbels over ``shape + (n,)`` (the reference's ``shape=`` argument
+    without the keys' own batch), and ``logits`` broadcasts against
+    (..., *shape, n); the gumbels take the logits' dtype."""
+    g = gumbel(keys, _shape(shape) + (logits.shape[-1],), logits.dtype)
+    return torch.argmax(g + logits, dim=-1)
+
+
+def _shuffle_rounds(n: int) -> int:
+    return int(math.ceil(3 * math.log(max(1, n)) / math.log(2 ** 32 - 1)))
+
+
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` of every key: rounds of a stable
+    sort of arange(n) keyed on fresh 32-bit draws (int64, (..., n))."""
+    x = torch.arange(n, device=keys.device).expand(keys.shape[:-1] + (n,))
+    for _ in range(_shuffle_rounds(n)):
+        k = split(keys, 2)
+        keys, sub = k[..., 0, :], k[..., 1, :]
+        order = torch.sort(random_bits(sub, 32, (n,)), dim=-1,
+                           stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x
+
+
+def choice_without_replacement(keys: torch.Tensor, n: int, k: int
+                               ) -> torch.Tensor:
+    """``jax.random.choice(key, n, (k,), replace=False)`` of every key:
+    the first k of a permutation (int64, (..., k))."""
+    return permutation(keys, n)[..., :k]
+
+
+def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``jax.lax.top_k(x, k)``'s indices along the last axis: the k
+    largest, the lower index first among equal values."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[
+        ..., :k]
+

@@ -24,7 +24,7 @@ from symbolicregression_jl_tpu_torch import convert
 from symbolicregression_jl_tpu_torch.models import constant_opt as tco
 from symbolicregression_jl_tpu_torch.models import evolve as tevolve
 from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
-from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+from torch_port_helpers import island_keys, make_generator, random_trees
 
 from torch_port_helpers import port_trees, to_numpy
 
@@ -213,7 +213,7 @@ def test_select_and_starts_invariants(carried, seed):
     *_, tstates = carried
     pops = tstates.pop
     K, n_starts = 7, 3
-    sel, starts = tco._select_and_starts(make_generator(seed, "cpu"), pops, K,
+    sel, starts = tco._select_and_starts(island_keys(seed, 2), pops, K,
                                          n_starts)
     assert sel.shape == (2, K) and starts.shape == (2, n_starts, K, 24)
     has = tco._const_slots(pops.trees).any(-1)
@@ -304,13 +304,13 @@ def test_one_island_forms_equal_the_islands_form(carried):
     X, y, baseline, _, to, _, tstates = carried
     Xt, yt = torch.tensor(X), torch.tensor(y)
     one = tevolve._map_tensors(lambda a: a[1:2], tstates)
-    ref = tevolve.optimize_islands_constants(make_generator(9, "cpu"), one, Xt,
+    ref = tevolve.optimize_islands_constants(island_keys(9, 1), one, Xt,
                                              yt, None, baseline, to)
     got = tevolve.optimize_island_constants(
-        make_generator(9, "cpu"), tevolve._map_tensors(lambda a: a[1], tstates),
+        island_keys(9, 1)[0], tevolve._map_tensors(lambda a: a[1], tstates),
         Xt, yt, None, baseline, to)
     pop, n_ev, _ = tco.optimize_constants_population(
-        make_generator(9, "cpu"), tevolve._map_tensors(lambda a: a[1], tstates.pop),
+        island_keys(9, 1)[0], tevolve._map_tensors(lambda a: a[1], tstates.pop),
         Xt, yt, None, baseline, to)
     for a, b in ((got.pop.losses, ref.pop.losses[0]), (pop.losses, ref.pop.losses[0]),
                  (got.pop.trees.cval, ref.pop.trees.cval[0]),

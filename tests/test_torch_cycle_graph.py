@@ -18,7 +18,7 @@ import symbolicregression_jl_tpu_torch as sr
 import symbolicregression_jl_tpu_torch.api as api
 from symbolicregression_jl_tpu_torch.models import cycle_graph as cg
 from symbolicregression_jl_tpu_torch.models import evolve as tevolve
-from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+from torch_port_helpers import island_keys, make_generator, random_trees
 
 CFG = dict(binary_operators=["+", "-", "*", "/"], unary_operators=["cos"],
            npop=16, npopulations=3, tournament_selection_n=6, maxsize=10,
@@ -44,21 +44,18 @@ def _assert_states_equal(a, b):
 def test_graph_step_is_the_eager_cycle(kw):
     """Two iterations of 5 cycles each at curmaxsize 4, then 10 (a
     curriculum): the graph path's state equals the eager loop's, field for
-    field, and so does the generator's."""
+    field, the islands' keys included."""
     cg.clear_cache()
     o = sr.make_options(**CFG, **kw)
     X, y = (t.to(o.dtype) for t in _data())
-    st0 = tevolve.init_island_state(make_generator(0, "cpu"), o, 2, X, y,
-                                    None, 1.25, 3)
-    ga, gb = make_generator(5, "cpu"), make_generator(5, "cpu")
+    st0 = tevolve.init_island_state(island_keys(0, 3), o, 2, X, y, None,
+                                    1.25)
     a = b = st0
     for cm in (4, 10):
-        a = tevolve.s_r_cycle_islands(ga, a, cm, X, y, None, 1.25, o,
-                                      ncycles=5)
-        b = cg.s_r_cycle_islands_graph(gb, b, cm, X, y, None, 1.25, o,
-                                       ncycles=5)
+        a = tevolve.s_r_cycle_islands(a, cm, X, y, None, 1.25, o, ncycles=5)
+        b = cg.s_r_cycle_islands_graph(b, cm, X, y, None, 1.25, o, ncycles=5)
         _assert_states_equal(a, b)
-        assert torch.equal(ga.get_state(), gb.get_state())
+        assert not torch.equal(a.key, st0.key)
     assert int(a.mut_counts.sum()) > 0
     assert len(cg._CACHE) == 1
 
@@ -118,9 +115,8 @@ def test_second_search_reuses_the_graph_buffers():
 def test_eager_cycle_builds_no_tensor_from_python_data(kw, monkeypatch):
     o = sr.make_options(**CFG, **kw)
     X, y = (t.to(o.dtype) for t in _data())
-    gen = make_generator(0, "cpu")
-    st = tevolve.init_island_state(gen, o, 2, X, y, None, 1.5, 3)
-    st = tevolve.s_r_cycle_islands(gen, st, 10, X, y, None, 1.5, o,
+    st = tevolve.init_island_state(island_keys(0, 3), o, 2, X, y, None, 1.5)
+    st = tevolve.s_r_cycle_islands(st, 10, X, y, None, 1.5, o,
                                    ncycles=1)  # warm-up: fills the tables
     calls = collections.Counter()
     for name in ("tensor", "as_tensor"):
@@ -132,5 +128,5 @@ def test_eager_cycle_builds_no_tensor_from_python_data(kw, monkeypatch):
             return _real(data, *a, **k)
 
         monkeypatch.setattr(torch, name, counted)
-    tevolve.s_r_cycle_islands(gen, st, 10, X, y, None, 1.5, o, ncycles=1)
+    tevolve.s_r_cycle_islands(st, 10, X, y, None, 1.5, o, ncycles=1)
     assert not calls, dict(calls)

@@ -67,7 +67,7 @@ def test_reference_aliases():
 
     from symbolicregression_jl_tpu_torch.models import evolve as tevolve
     from symbolicregression_jl_tpu_torch.models.cycle_graph import _leaves
-    from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+    from torch_port_helpers import island_keys, make_generator, random_trees
 
     assert sr.EquationSearch is sr.equation_search
     X = torch.randn(2, 30, generator=torch.Generator().manual_seed(0))
@@ -75,13 +75,10 @@ def test_reference_aliases():
     o = sr.make_options(binary_operators=["+", "*"], npop=16, npopulations=1,
                         tournament_selection_n=6, maxsize=8, verbosity=0,
                         should_optimize_constants=False)
-    st = tevolve.init_island_state(make_generator(0, "cpu"), o, 2, X, y, None,
-                                   1.0, 1)
-    one = sr.s_r_cycle(make_generator(1, "cpu"),
-                       tevolve._map_tensors(lambda x: x[0], st), 8, X, y,
+    st = tevolve.init_island_state(island_keys(0, 1), o, 2, X, y, None, 1.0)
+    one = sr.s_r_cycle(tevolve._map_tensors(lambda x: x[0], st), 8, X, y,
                        None, 1.0, o, ncycles=3)
-    ref = tevolve.s_r_cycle_islands(make_generator(1, "cpu"), st, 8, X, y,
-                                    None, 1.0, o, ncycles=3)
+    ref = tevolve.s_r_cycle_islands(st, 8, X, y, None, 1.0, o, ncycles=3)
     got = _leaves(tevolve._map_tensors(lambda x: x.unsqueeze(0), one))
     assert len(got) == len(_leaves(ref))
     assert all(torch.equal(t, u) for t, u in zip(got, _leaves(ref)))

@@ -42,8 +42,9 @@ from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
 from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
 from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
 from symbolicregression_jl_tpu_torch.ops import losses as tlosses
+from symbolicregression_jl_tpu_torch.ops import kernel_rng as tkr
 from symbolicregression_jl_tpu_torch.ops import operators as tops
-from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+from torch_port_helpers import island_keys, make_generator, random_trees
 
 from torch_port_helpers import deep_trees
 
@@ -68,7 +69,7 @@ def test_kernel_matches_plain_on_card(cuda):
     torch.manual_seed(0)
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp", "sqrt", "log"])
     gen = make_generator(0, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, 24, (700,), device=cuda), 3, ops, L, cuda)
     X = torch.randn(3, 333, device=cuda) * 2
     y = torch.randn(333, device=cuda)
@@ -162,7 +163,7 @@ def test_grad_kernel_matches_plain_on_card(cuda, weighted):
     the line search's repeated structure (reps = 8)."""
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp", "sqrt", "log"])
     gen = make_generator(1, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, 24, (500,), device=cuda), 3, ops, L, cuda)
     edge = stack_trees([encode_tree(parse_expression(e, ops), L, device=cuda)
                         for e in ("x0 / (x1 - x1)", "exp(exp(exp(x1 * 1.5)))",
@@ -273,7 +274,7 @@ def test_instr_kernel_matches_plain_and_value_mode_on_card(cuda, packed,
     ops = (tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
            if operators == "main" else _all_operators())
     gen = make_generator(2, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, 24, (900,), device=cuda, generator=gen), 3, ops,
         L, cuda)
     X = torch.randn(3, 333, device=cuda, generator=gen) * 1.5
@@ -362,7 +363,7 @@ def test_compact_and_full_instantiations_agree_on_card(cuda, monkeypatch):
     assert not tke.uses_full_kernel(ops)
     assert tke.uses_full_kernel(tops.make_operator_set(["+", "mod"], []))
     gen = make_generator(4, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, 24, (600,), device=cuda, generator=gen), 2, ops,
         L, cuda)
     X = torch.randn(2, 333, device=cuda, generator=gen) * 1.5
@@ -550,7 +551,7 @@ def _grad_case(cuda, max_len, T, seed=0):
     weights with zero-weight rows."""
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp", "sqrt", "log"])
     gen = make_generator(seed, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, max_len - 2, (T,), generator=gen, device=cuda), 2,
         ops, max_len, cuda)
     edge = stack_trees([encode_tree(parse_expression(e, ops), max_len,
@@ -617,7 +618,7 @@ def test_grad_kernel_two_launches_and_its_mirror_on_card(cuda):
     library functions agree (+ - * /, cos, exp)."""
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
     gen = make_generator(2, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, 23, (3000,), generator=gen, device=cuda), 1,
         ops, L, cuda)
     X = torch.rand(1, 2048, generator=gen, device=cuda) * 2 + 1
@@ -680,7 +681,7 @@ def _long_batch(cuda, max_len, nfeat=3, T=60, seed=0):
     300 rows, y, weights with zero-weight rows."""
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
     gen = make_generator(seed, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, max_len - 2, (T,), generator=gen, device=cuda),
         nfeat, ops, max_len, cuda)
     edge = stack_trees([encode_tree(parse_expression(e, ops), max_len,
@@ -800,7 +801,7 @@ def test_instr_scoring_call_makes_no_host_wait_on_card(cuda):
 
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
     gen = make_generator(7, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, 21, (5376,), generator=gen, device=cuda), 1, ops,
         L, cuda)
     X = torch.rand(1, 2048, generator=gen, device=cuda) * 2 + 1
@@ -846,7 +847,7 @@ def _loss_case(cuda, max_len):
         return _long_batch(cuda, max_len)
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
     gen = make_generator(5, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, L - 2, (2000,), generator=gen, device=cuda), 2,
         ops, L, cuda)
     edge = stack_trees([encode_tree(parse_expression(e, ops), L, device=cuda)
@@ -1004,7 +1005,7 @@ def test_precision_builds_bit_equal_to_plain_on_card(cuda, precision, max_len):
     dt = getattr(torch, precision)
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
     gen = make_generator(3, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, min(max_len, 24) - 1, (500,), device=cuda), 2,
         ops, max_len, cuda)
     over = stack_trees([encode_tree(parse_expression(e, ops), max_len,
@@ -1114,8 +1115,8 @@ def _graph_case(cuda, kw):
     X = torch.tensor((rng.standard_normal((2, 200)) * 2).astype("f4"),
                      device=cuda).to(o.dtype)
     y = (X[0] * X[0] - torch.cos(X[1])).to(o.dtype)
-    st = tevolve.init_island_state(make_generator(0, cuda), o, 2, X, y, None,
-                                   1.5, 4)
+    st = tevolve.init_island_state(island_keys(0, 4, cuda), o, 2, X, y, None,
+                                   1.5)
     return o, X, y, st
 
 
@@ -1128,26 +1129,23 @@ def _graph_case(cuda, kw):
 def test_captured_cycle_bit_equal_to_eager_on_card(cuda, kw):
     """Two iterations of 10 cycles (curmaxsize 5, then 12) replayed from
     one capture give the eager loop's state bit for bit, every
-    ``IslandState`` field and the generator, with the same launch
-    counts."""
+    ``IslandState`` field, the islands' keys included, with the same
+    launch counts."""
     cg.clear_cache()
     o, X, y, st = _graph_case(cuda, kw)
-    ga, gb = make_generator(7, cuda), make_generator(7, cuda)
     a = b = st
     for cm in (5, 12):
         _zero_counts()
-        a = tevolve.s_r_cycle_islands(ga, a, cm, X, y, None, 1.5, o,
-                                      ncycles=10)
+        a = tevolve.s_r_cycle_islands(a, cm, X, y, None, 1.5, o, ncycles=10)
         eager = [dict(c) for c in cg.LAUNCH_COUNTERS]
         _zero_counts()
-        b = cg.s_r_cycle_islands_graph(gb, b, cm, X, y, None, 1.5, o,
-                                       ncycles=10)
+        b = cg.s_r_cycle_islands_graph(b, cm, X, y, None, 1.5, o, ncycles=10)
         captured = [dict(c) for c in cg.LAUNCH_COUNTERS]
         assert captured == eager
         assert sum(sum(c.values()) for c in eager) > 0
         for fa, fb in zip(cg._leaves(a), cg._leaves(b), strict=True):
             assert torch.equal(fa, fb)
-        assert torch.equal(ga.get_state(), gb.get_state())
+        assert tkr.LAUNCHES["split"] > 0
     (g,) = cg._CACHE.values()
     assert g.captures == 1 and g.replays == 20
 
@@ -1183,7 +1181,7 @@ def test_failed_capture_raises_on_card(cuda, monkeypatch):
 
     def host_read(*a, **k):
         out = real(*a, **k)
-        if bool(out.num_evals.sum() < 0):  # a wait for the card
+        if bool(out[0].num_evals.sum() < 0):  # a wait for the card
             raise AssertionError("unreachable")
         return out
 
@@ -1307,7 +1305,7 @@ def test_user_operators_and_loss_in_every_kernel_on_card(cuda, custom_pair,
     dt = getattr(torch, precision)
     loss = lambda p, t: (p - t) ** 2  # noqa: E731
     gen = make_generator(4, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, 21, (600,), device=cuda), 3, ops, L, cuda)
     X = (torch.randn(3, 333, device=cuda) * 1.5).to(dt)
     y = torch.randn(333, device=cuda).to(dt)
@@ -1399,7 +1397,7 @@ def test_float64_builds_bit_equal_to_plain_on_card(cuda, max_len):
     dt = torch.float64
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
     gen = make_generator(3, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, min(max_len, 24) - 1, (500,), device=cuda), 2,
         ops, max_len, cuda)
     edge = stack_trees([encode_tree(parse_expression(e, ops), max_len,
@@ -1470,7 +1468,7 @@ def test_cotangent_mode_on_card(cuda, precision):
     dt = getattr(torch, precision)
     ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
     gen = make_generator(5, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, 22, (300,), device=cuda), 2, ops, L, cuda)
     trees = trees._replace(cval=trees.cval.to(dt))
     X = (torch.rand(2, 555, device=cuda, dtype=torch.float64) * 4 - 2).to(dt)
@@ -1507,7 +1505,7 @@ def test_eval_tree_batching_rule_makes_one_launch_on_card(cuda):
 
     ops = tops.make_operator_set(["+", "-", "*"], ["cos"])
     gen = make_generator(2, cuda)
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         gen, torch.randint(1, 16, (200,), device=cuda), 2, ops, L, cuda)
     X = torch.rand(2, 300, device=cuda) * 4 - 2
     y = X[0] * X[1] - torch.cos(X[1])
@@ -1547,13 +1545,12 @@ def test_island_batches_in_the_captured_cycle_on_card(cuda):
     cg.clear_cache()
     o, X, y, st = _graph_case(cuda, dict(batching=True, batch_size=30,
                                          independent_island_batches=True))
-    ga, gb = make_generator(7, cuda), make_generator(7, cuda)
     _zero_counts()
-    a = tevolve.s_r_cycle_islands(ga, st, 12, X, y, None, 1.5, o, ncycles=6)
+    a = tevolve.s_r_cycle_islands(st, 12, X, y, None, 1.5, o, ncycles=6)
     assert tke.LAUNCHES["fused"] == 4 * 6
     eager = [dict(c) for c in cg.LAUNCH_COUNTERS]
     _zero_counts()
-    b = cg.s_r_cycle_islands_graph(gb, st, 12, X, y, None, 1.5, o, ncycles=6)
+    b = cg.s_r_cycle_islands_graph(st, 12, X, y, None, 1.5, o, ncycles=6)
     assert [dict(c) for c in cg.LAUNCH_COUNTERS] == eager
     for fa, fb in zip(cg._leaves(a), cg._leaves(b), strict=True):
         assert torch.equal(fa, fb)

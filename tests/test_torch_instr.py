@@ -26,7 +26,7 @@ from symbolicregression_jl_tpu_torch.models import mutate_device as tmut
 from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
 from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
 from symbolicregression_jl_tpu_torch.ops import operators as tops
-from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+from torch_port_helpers import island_keys, make_generator, random_trees
 
 from symbolicregression_jl_tpu_torch.models.trees import (
     BIN, TreeBatch, UNA, VAR,
@@ -291,7 +291,7 @@ def test_plain_instr_bit_equal_to_postfix_value_mode(trees, data, program,
     else:
         ops = _all_operators()
         gen = make_generator(5, "cpu")
-        tt = tmut.gen_random_tree_fixed_size(
+        tt = random_trees(
             gen, torch.randint(1, 21, (300,), generator=gen), NFEAT, ops, 24,
             "cpu")
         X = torch.randn(NFEAT, 150, generator=gen) * 1.5

@@ -24,7 +24,7 @@ from symbolicregression_jl_tpu_torch.models import cycle_graph as cg
 from symbolicregression_jl_tpu_torch.models import evolve as tevolve
 from symbolicregression_jl_tpu_torch.models import fitness as tfit
 from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
-from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+from torch_port_helpers import island_keys, make_generator, random_trees
 
 from torch_port_helpers import jax_trees, port_trees
 
@@ -83,8 +83,7 @@ def test_cycle_step_draws_a_minibatch_per_island():
     rng = np.random.default_rng(1)
     X = torch.tensor(rng.uniform(-2, 2, (2, 80)).astype(np.float32))
     y = X[0] * X[1]
-    gen = make_generator(3, "cpu")
-    st = tevolve.init_island_state(gen, o, 2, X, y, None, 1.0, I)
+    st = tevolve.init_island_state(island_keys(3, I), o, 2, X, y, None, 1.0)
     drawn = []
     real = tfit.sample_batch_idx
 
@@ -102,9 +101,10 @@ def test_cycle_step_draws_a_minibatch_per_island():
 
     tevolve.sample_batch_idx, tevolve.score_trees_islands = spy, score_spy
     try:
-        new = tevolve.cycle_step(gen, st, torch.tensor(1.0), torch.tensor(10),
-                                 X, y, None, torch.tensor(1.0),
-                                 tevolve.bind_device_scalars(o, "cpu"))
+        new, _ = tevolve.cycle_step(st, tevolve.batch_key(st),
+                                    torch.tensor(1.0), torch.tensor(10), X, y,
+                                    None, torch.tensor(1.0),
+                                    tevolve.bind_device_scalars(o, "cpu"))
     finally:
         tevolve.sample_batch_idx, tevolve.score_trees_islands = real, real_score
     assert len(drawn) == 1 and drawn[0].shape == (I, BATCH)
@@ -123,16 +123,14 @@ def test_captured_step_equals_the_eager_loop_on_cpu():
     rng = np.random.default_rng(2)
     X = torch.tensor(rng.uniform(-2, 2, (2, 80)).astype(np.float32))
     y = X[0] - torch.cos(X[1])
-    st = tevolve.init_island_state(make_generator(0, "cpu"), o, 2, X, y, None,
-                                   1.0, I)
-    ga, gb = make_generator(5, "cpu"), make_generator(5, "cpu")
+    st = tevolve.init_island_state(island_keys(0, I), o, 2, X, y, None, 1.0)
     cg.clear_cache()
-    a = tevolve.s_r_cycle_islands(ga, st, 10, X, y, None, 1.0, o, ncycles=4)
-    b = cg.s_r_cycle_islands_graph(gb, st, 10, X, y, None, 1.0, o, ncycles=4)
+    a = tevolve.s_r_cycle_islands(st, 10, X, y, None, 1.0, o, ncycles=4)
+    b = cg.s_r_cycle_islands_graph(st, 10, X, y, None, 1.0, o, ncycles=4)
     cg.clear_cache()
     for fa, fb in zip(cg._leaves(a), cg._leaves(b), strict=True):
         assert torch.equal(fa, fb)
-    assert torch.equal(ga.get_state(), gb.get_state())
+    assert not torch.equal(a.key, st.key)
     assert tke.LAUNCHES == {"value": 0, "fused": 0, "slots": 0}  # CPU
 
 

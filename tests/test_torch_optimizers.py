@@ -25,7 +25,7 @@ from symbolicregression_jl_tpu_torch.models import options as topts
 from symbolicregression_jl_tpu_torch.models.population import Population
 from symbolicregression_jl_tpu_torch.models.trees import Expr
 from symbolicregression_jl_tpu_torch.ops import kernel_grad as tkg
-from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+from torch_port_helpers import island_keys, make_generator, random_trees
 
 from torch_port_helpers import port_trees
 
@@ -172,7 +172,7 @@ def test_population_optimize_nelder_mead():
         (4,) + (1,) * f.dim())), scores=torch.full((4,), 1e9),
         losses=torch.full((4,), 1e9), birth=torch.zeros(4, dtype=torch.int64))
     pop2, n_evals, _ = tco.optimize_constants_population(
-        make_generator(0, "cpu"), pop, torch.tensor(X), torch.tensor(y), None,
+        island_keys(0, 1)[0], pop, torch.tensor(X), torch.tensor(y), None,
         1.0, o)
     assert float(pop2.losses.min()) < 1e-3
     assert float(n_evals) == 4 * 2 * tco.evals_per_member(30, o.max_len,
@@ -202,7 +202,7 @@ def test_nonfinite_initial_objective_restores_constants(algo):
     pop = Population(trees=trees, scores=scores, losses=losses,
                      birth=torch.zeros(1, dtype=torch.int64))
     pop2, _, _ = tco.optimize_constants_population(
-        make_generator(0, "cpu"), pop, X, y, None, 1.0, o)
+        island_keys(0, 1)[0], pop, X, y, None, 1.0, o)
     assert torch.equal(pop.trees.cval, pop2.trees.cval)
     assert torch.equal(pop.losses, pop2.losses)
 

@@ -21,7 +21,7 @@ from symbolicregression_jl_tpu_torch.models.population import tournament_winner
 from symbolicregression_jl_tpu_torch.parallel.migration import (
     merge_hofs_across_islands, migrate,
 )
-from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+from torch_port_helpers import island_keys, make_generator, random_trees
 
 CLASSES = ("GRAPH_FIELDS", "TRACED_SCALAR_FIELDS", "ORCHESTRATION_FIELDS")
 CFG = dict(binary_operators=["+", "*"], unary_operators=["cos"], npop=16,
@@ -142,20 +142,17 @@ def test_bound_scalars_reach_every_cycle_use_site():
                         tournament_selection_p=0.7, fraction_replaced=0.3,
                         fraction_replaced_hof=0.3)
     bound = o.bind_scalars(o.traced_scalars("cpu"))
-    gen = make_generator(1, "cpu")
-    st = tevolve.init_island_state(gen, o, 2, X, y, None, 1.5, 2)
-    a = tevolve.s_r_cycle_islands(make_generator(2, "cpu"), st, 8, X, y,
-                                  None, 1.5, o, ncycles=3)
-    b = tevolve.s_r_cycle_islands(make_generator(2, "cpu"), st,
-                                  torch.tensor(8), X, y, None,
+    st = tevolve.init_island_state(island_keys(1, 2), o, 2, X, y, None, 1.5)
+    a = tevolve.s_r_cycle_islands(st, 8, X, y, None, 1.5, o, ncycles=3)
+    b = tevolve.s_r_cycle_islands(st, torch.tensor(8), X, y, None,
                                   torch.tensor(1.5), bound, ncycles=3)
     for x, z in zip(_leaves(a), _leaves(b), strict=True):
         assert torch.equal(x, z)
     ghof = merge_hofs_across_islands(b.hof)
-    m = migrate(make_generator(3, "cpu"), b, ghof, bound)
+    m = migrate(island_keys(3, 1)[0], b, ghof, bound)
     assert torch.isfinite(m.pop.scores).any()
-    winners = tournament_winner(make_generator(4, "cpu"), b.pop,
-                                b.stats.frequencies, 4, bound)
+    winners = tournament_winner(island_keys(4, 8).reshape(2, 4, 2), b.pop,
+                                b.stats.frequencies, bound)
     assert winners.shape == (2, 4)
     s = loss_to_score(torch.tensor([1.0, 2.0]), torch.tensor(2.0),
                       torch.tensor([1, 3]), bound)

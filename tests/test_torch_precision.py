@@ -33,6 +33,7 @@ from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 
 from torch_port_helpers import jax_trees, port_trees, to_numpy
+from torch_port_helpers import random_trees
 
 BINS = ["+", "-", "*", "/"]
 UNAS = ["cos", "exp"]
@@ -371,7 +372,7 @@ def test_storage_builds_never_take_the_plain_path(monkeypatch):
     card) the scoring, slot-values, instruction-program and
     constant-optimisation wrappers raise instead of falling back to a
     plain version or to the float32 build."""
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         torch.Generator().manual_seed(0), torch.full((6,), 7), 2, TOPS, 24,
         "cpu")
     asked = []

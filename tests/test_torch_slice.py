@@ -32,7 +32,8 @@ from symbolicregression_jl_tpu_torch.ops import kernel_instr as tki
 from symbolicregression_jl_tpu_torch.ops import losses as tlosses
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 from symbolicregression_jl_tpu_torch.parallel import migration as tmig
-from symbolicregression_jl_tpu_torch.utils.rng import make_generator
+from symbolicregression_jl_tpu_torch.utils import rng as trng
+from torch_port_helpers import island_keys, make_generator, random_trees
 
 from torch_port_helpers import L, assert_trees_equal
 
@@ -141,22 +142,24 @@ def test_mutations_and_crossover_yield_valid_programs(carried, seed):
     ops = to.operators
     gen = make_generator(seed, "cpu")
     t = tstates.pop.trees.map(lambda x: x.reshape((-1,) + x.shape[2:]))
-    for _ in range(6):  # grow, then edit the grown trees
-        t, _ = tmut.append_random_op(gen, t, 3, ops)
+    base = island_keys(seed, t.kind.shape[0])
+    for step in range(6):  # grow, then edit the grown trees
+        k = trng.split(trng.fold_in(base, step), 7).unbind(-2)
+        t, _ = tmut.append_random_op(k[0], t, 3, ops)
         outs = [
-            tmut.mutate_constant(gen, t, 1.0, 0.076, 0.01)[0],
-            tmut.mutate_operator(gen, t, ops)[0],
-            tmut.insert_random_op(gen, t, 3, ops, at_root=False)[0],
-            tmut.insert_random_op(gen, t, 3, ops, at_root=True)[0],
-            tmut.delete_random_op(gen, t, 3, ops)[0],
+            tmut.mutate_constant(k[1], t, 1.0, 0.076, 0.01)[0],
+            tmut.mutate_operator(k[2], t, ops)[0],
+            tmut.insert_random_op(k[3], t, 3, ops, at_root=False)[0],
+            tmut.insert_random_op(k[4], t, 3, ops, at_root=True)[0],
+            tmut.delete_random_op(k[5], t, 3, ops)[0],
             tmut.simplify_tree(t, ops)[0],
             tmut.combine_operators(t, ops)[0],
-            *tmut.crossover_trees(gen, t, t.map(lambda x: x.flip(0)))[:2],
+            *tmut.crossover_trees(k[6], t, t.map(lambda x: x.flip(0)))[:2],
         ]
         for o in outs:
             _assert_valid(o)
     sizes = torch.randint(1, 21, (64,), generator=torch.Generator().manual_seed(seed))
-    g = tmut.gen_random_tree_fixed_size(gen, sizes, 3, ops, L, "cpu")
+    g = random_trees(gen, sizes, 3, ops, L, "cpu")
     _assert_valid(g)
     assert (g.length <= sizes).all()
 
@@ -166,16 +169,15 @@ def test_proposed_children_respect_maxsize_and_constraints(carried):
     opts = sr.make_options(should_optimize_constants=False,
                            constraints={"cos": 5, "/": (-1, 3)},
                            nested_constraints={"cos": {"cos": 0}}, **CFG)
-    gen = make_generator(7, "cpu")
     states = tstates
     Xt, yt = torch.tensor(X), torch.tensor(y)
     for _ in range(8):
-        prop = tevolve._propose_children(gen, states, 1.0, 9, 3, opts)
+        prop = tevolve._propose_children(states, 1.0, 9, 3, opts)
         changed = prop.was_mutated | prop.use_cross
         ok = tcons.check_constraints(prop.children, opts, 9)
         assert ok[changed].all()
         _assert_valid(prop.children)
-        states = tevolve.reg_evol_cycle_islands(gen, states, 1.0, 9, Xt, yt,
+        states = tevolve.reg_evol_cycle_islands(states, 1.0, 9, Xt, yt,
                                                 None, baseline, opts)
     _assert_valid(states.pop.trees)
 
@@ -270,7 +272,7 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     raises too, and so does a user operator or loss callable that the
     tracer cannot lower, before any launch."""
     ops = tops.make_operator_set(["+", "*"], ["cos", "erf"])
-    trees = tmut.gen_random_tree_fixed_size(
+    trees = random_trees(
         make_generator(0, "cpu"), torch.full((6,), 7), 2, ops, L, "cpu")
     X = torch.randn(2, 40).as_subclass(_OnCard)
     y = torch.randn(40)
@@ -280,7 +282,7 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     tops.register_binary("op2c", lambda x, y: x * x + 1.0 / (y * y + 0.1))
     tops.register_unary("opfft", lambda x: torch.fft.fft(x).real)
     user_ops_set = tops.make_operator_set(["+", "op2c"], ["cos"])
-    user_trees = tmut.gen_random_tree_fixed_size(
+    user_trees = random_trees(
         make_generator(0, "cpu"), torch.full((6,), 7), 2, user_ops_set, L,
         "cpu")
     user_loss = lambda p, t: (p - t) ** 2  # noqa: E731

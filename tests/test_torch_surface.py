@@ -94,7 +94,8 @@ def test_resume_continues_the_uninterrupted_search():
                             **TINY)
     assert r1.state is not None and len(r1.state) == 1
     assert r1.state[0].iteration == 1
-    assert r1.state[0].rng_key.dtype == torch.uint8
+    assert r1.state[0].rng_key.dtype == torch.int64
+    assert r1.state[0].rng_key.shape == (2,)
     kept = [t.clone() for t in cg._leaves(r1.state[0].island_states)]
     full = sr.equation_search(X, y, niterations=2, seed=1, **TINY)
     r2 = sr.equation_search(X, y, niterations=1, saved_state=r1.state, seed=1,

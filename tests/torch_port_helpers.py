@@ -122,3 +122,28 @@ def loss_pair(label):
         return jlosses.LOSS_REGISTRY[label], tlosses.LOSS_REGISTRY[label]
     name, p = label[:-1].split("(")
     return getattr(jlosses, name)(float(p)), getattr(tlosses, name)(float(p))
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    """A torch generator for a test's synthetic inputs (tree sizes, data,
+    constants); the search itself draws from threefry keys."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def island_keys(seed: int, n: int, device="cpu") -> torch.Tensor:
+    """n threefry keys split from ``PRNGKey(seed)``: (n, 2)."""
+    from symbolicregression_jl_tpu_torch.utils import rng
+    return rng.split(rng.key(seed, device), n)
+
+
+def random_trees(gen: torch.Generator, sizes, nfeatures, operators, max_len,
+                 device, dtype=torch.float32):
+    """Random trees grown by the port's ``gen_random_tree_fixed_size`` to
+    ``sizes``, one threefry key per tree drawn from ``gen``."""
+    from symbolicregression_jl_tpu_torch.models import mutate_device as tmut
+    keys = torch.randint(0, 2 ** 32, (sizes.shape[0], 2), generator=gen,
+                         device=device)
+    return tmut.gen_random_tree_fixed_size(keys, sizes, nfeatures, operators,
+                                           max_len, dtype)
