@@ -24,7 +24,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    whose log is CUDA's against the C library's (within 1e-11 relative);
    then jax 0.9's own draws, frozen in ``JAX_LITERALS``; then each mode at
    the main path's shapes, bit-equal to its plain version there and timed
-   beside it (host clock) and its bound;
+   beside it (host clock) and its bound; then every draw plan of the main
+   path (``propose``, ``mutate`` with the random-tree loop,
+   ``crossover``, init's ``random_tree_draws``, 5h(c)'s ``minibatch``) at
+   its shape, one launch of the plan kernel bit-equal to its plain
+   version and to the per-call kernels' chain, timed beside that chain,
+   the plain version and its bound; and the first four again in float64
+   (phase 5h(a)'s float64 search; the plan kernel's float64
+   instantiation), bit-equal to the per-call chain and to the plain
+   version but their normal and gumbel draws, within 1e-11 of it relative
+   to max(|value|, 1) (CUDA's log against the C library's);
 2. scoring kernels vs plain PyTorch versions on the card at the main
    path's shapes (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's
    children at 64 islands x 1000, 64,000 trees = one rescore), poisoning
@@ -108,7 +117,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    graph (``models/cycle_graph.py``: one capture, niterations x ncycles
    replays, its pool's device memory printed beside the peak); the launch
    counts (a replay adds what its capture counted; the threefry kernel's
-   by mode among them, every mode launched, float32 epilogues only) are
+   by mode and by plan among them, every per-call mode but ``bits`` and
+   every plan of the cycle launched, float32 epilogues only) are
    zeroed just before and read just after, and each iteration's
    optimisation pass is timed; then
    the same search with ``kernel_program="instr"`` and ``"instr_packed"``
@@ -156,7 +166,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    be none, and no copy from or to host memory); then the captured cycle
    against the eager one: bit-equal states (the islands' threefry keys
    included) and launch counts after 20 cycles from one state, the
-   threefry launches per replayed cycle, milliseconds per cycle A B B A
+   threefry launches per replayed cycle by plan (the propose, mutate and
+   crossover plans once each, no per-call launch; at most 24), milliseconds
+   per cycle A B B A
    over 50 cycles each, and a profile of 20 replayed cycles (device
    kernels per cycle, idle share), with replays, captures, capture seconds
    and the graph pool's memory; the scoring wrapper alone, and the
@@ -296,6 +308,9 @@ def device_ms(fn, reps):
         if queued:
             return e0.elapsed_time(e1) / reps
         spin *= 2
+        # a call that waits for the card, or more launches than the
+        # card's queue holds behind the spin, never ends queued
+        assert spin < 1 << 34, "device_ms: the calls do not stay queued"
 
 
 def synthetic_generator(seed, dev):
@@ -464,6 +479,129 @@ def phase_threefry(dev, log_fn):
                            ptxas=[ln.strip() for ln in kr.BUILD_LOG.get(
                                "log", "").splitlines()
                                if "registers" in ln or "spill" in ln])
+    return report
+
+
+# the main path's draw plans at 64 islands x 1000 (B = 84 tournaments of
+# 12, 10 attempts, max_len 24, 1 feature, 2 unary and 4 binary operators):
+# (plan, root keys, device bounds) of each; the minibatch plan at phase
+# 5h(c)'s 64 islands x 50 rows of 2,048; the cycle's and init's plans
+# again in float64, as phase 5h(a)'s float64 search draws them
+F64_SUFFIX = "_f64"
+
+
+def main_path_plans():
+    from symbolicregression_jl_tpu_torch.models import evolve, fitness
+    from symbolicregression_jl_tpu_torch.models import mutate_device as md
+
+    def in_dtype(dt, sfx):
+        return {
+            "propose" + sfx: (evolve.proposal_plan(84, 1000, 12, dt), 64, {}),
+            "mutate" + sfx: (evolve.mutation_plan(1, 2, 4, 24, dt), 64 * 84,
+                             {"hi": 21}),
+            "crossover" + sfx: (evolve.crossover_plan(24, dt), 64 * 42, {}),
+            "random_tree_draws" + sfx: (
+                md.single_plan(md.random_tree_draws, 1, 2, 4, 24, dt),
+                64 * 1000, {}),
+        }
+
+    return {**in_dtype(torch.float32, ""),
+            "minibatch": (fitness.minibatch_plan(ROWS, 50, 64), 1, {}),
+            **in_dtype(torch.float64, F64_SUFFIX)}
+
+
+def phase_plans(dev, log_fn):
+    """1b (plans): every draw plan of the main path at its shape, on the
+    card (one launch of the plan kernel) against its plain version (numpy
+    on the host) and against the per-call kernels (one launch per node and
+    draw, the route before draw plans), every output bit-equal to both
+    (a float64 normal or gumbel draw within 1e-11 of the plain version,
+    relative to max(|value|, 1): CUDA's log against the C library's, whose
+    last-bit difference is absolute where gumbel's value nears 0; it is
+    bit-equal to the per-call kernels, which run the same epilogue); timed
+    (device time)
+    beside the per-call chain (CUDA events around its launches), the
+    plain version and the bound."""
+    from symbolicregression_jl_tpu_torch.ops import kernel_rng as kr
+    from symbolicregression_jl_tpu_torch.utils import rng
+
+    g = np.random.default_rng(1)
+    report = {}
+    for name, (plan, n_keys, bound_vals) in main_path_plans().items():
+        keys = torch.from_numpy(g.integers(0, 2 ** 32, (n_keys, 2),
+                                           dtype=np.uint64).astype(np.int64))
+        if n_keys == 1:
+            keys = keys[0]
+        kd = keys.to(dev)
+        bd = {k: torch.tensor(v, device=dev) for k, v in bound_vals.items()}
+        bh = {k: torch.tensor(v) for k, v in bound_vals.items()}
+        before = kr.PLAN_LAUNCHES.get(plan.name, 0)
+        got = plan.run(kd, bd)
+        torch.cuda.synchronize()
+        assert kr.PLAN_LAUNCHES[plan.name] == before + 1, "one launch a plan"
+        calls_before = sum(kr.LAUNCHES.values())
+        chain = plan.run_per_call(kd, bd)
+        torch.cuda.synchronize()
+        chain_launches = sum(kr.LAUNCHES.values()) - calls_before
+        tp = time.time()
+        plain = plan.run(keys, bh)
+        plain_ms = (time.time() - tp) * 1e3
+        n_values = n_equal = 0
+        max_err = max_rel = 0.0
+        for out in got.names():
+            a = got[out].cpu()
+            kind = plan._draws[plan._names[out]].kind
+            log_based = a.dtype == torch.float64 and kind in ("normal",
+                                                              "gumbel")
+            for ref, what in ((plain[out], "plain version"),
+                              (chain[out].cpu(), "per-call kernels")):
+                assert a.shape == ref.shape and a.dtype == ref.dtype, (
+                    name, out, a.shape, ref.shape)
+                ab, rb = (a.view(torch.int32), ref.view(torch.int32)) \
+                    if a.dtype == torch.float32 else (
+                        (a.view(torch.int64), ref.view(torch.int64))
+                        if a.dtype == torch.float64 else (a, ref))
+                if what == "plain version":
+                    n_equal += int((ab == rb).sum())
+                    if a.is_floating_point():
+                        diff = (a.double() - ref.double()).abs()
+                        max_err = max(max_err, float(diff.max()))
+                        max_rel = max(max_rel, float(
+                            (diff / ref.double().abs().clamp_min(1.0))
+                            .max()))
+                    if log_based:
+                        continue
+                assert torch.equal(ab, rb), (
+                    f"plan {name}: {out} differs from the {what}")
+            n_values += a.numel()
+        log_fn(f"threefry plan {name}: {n_equal} of {n_values} values "
+               f"bit-equal to its plain version, max abs err {max_err:.3g}, "
+               f"relative to max(|value|, 1) {max_rel:.3g}")
+        assert max_rel < 1e-11, f"plan {name}: err {max_rel} to plain"
+        ms = device_ms(lambda: plan.run(kd, bd), 50)
+        # hundreds of launches do not stay queued behind a spin: the
+        # chain's time is CUDA events around its calls, launching included
+        chain_ms = cuda_ms(lambda: plan.run_per_call(kd, bd), 3)
+        hashes, nbytes = plan.work(n_keys)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = hashes * THREEFRY_OPS / INT32_OPS_PER_S * 1e3
+        n_ops = len(plan.compile().words) // rng.OP_WORDS
+        report[name] = dict(
+            keys=n_keys, axes=list(plan.axes), ops=n_ops,
+            draws=len(plan._draws), values=n_values, hashes=hashes,
+            bytes=nbytes, ms=ms, per_call_ms=chain_ms,
+            per_call_launches=chain_launches, plain_ms=plain_ms,
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="operations" if op_ms > byte_ms else "bytes",
+            max_abs_err=max_err, bit_equal_share=n_equal / n_values)
+        log_fn(f"threefry plan {name}: {n_keys} keys x axes {plan.axes}, "
+               f"{n_ops} ops, {n_values} values bit-equal to "
+               f"{chain_launches} per-call launches; "
+               f"{ms:.4f} ms on the card (per-call chain {chain_ms:.4f} ms "
+               "with its launching), "
+               f"plain {plain_ms:.1f} ms on the host, bound "
+               f"{report[name]['bound_ms']:.5f} ms ({report[name]['bound_by']}, "
+               f"{hashes} hashes, {nbytes} B)")
     return report
 
 
@@ -804,6 +942,7 @@ def main():
 
     # ---- 1b. the threefry kernel vs plain, and jax's frozen draws ---------
     rng_report = phase_threefry(dev, log)
+    plan_report = phase_plans(dev, log)
     nvcc_s = {}
     for d in ke.STORAGE:
         for name, m in (("postfix_eval", ke), ("postfix_grad", kg),
@@ -2068,6 +2207,7 @@ def main():
             counts.clear()
         for k in kr.LAUNCHES:
             kr.LAUNCHES[k] = 0
+        kr.PLAN_LAUNCHES.clear()
 
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -2083,6 +2223,7 @@ def main():
         api_mod.optimize_islands_constants = untimed_optimize
     launches = {**ke.LAUNCHES, **kg.LAUNCHES}
     rng_launches = dict(kr.LAUNCHES)
+    plan_launches = dict(kr.PLAN_LAUNCHES)
     main_by_loss = {**ke.LOSS_LAUNCHES, **kg.LOSS_LAUNCHES}
     assert not any(ki.LAUNCHES.values()), ki.LAUNCHES  # postfix path only
     storage_launches = lambda: {**ke.STORAGE_LAUNCHES, **kg.STORAGE_LAUNCHES,
@@ -2120,11 +2261,19 @@ def main():
     assert len(opt_s) == args.niterations, opt_s
     assert all(v > 0 for v in launches.values()), launches
     # every draw of the search went through the threefry kernel, float32
-    # epilogues only (no float64 / 2-byte draw at float32)
-    assert all(rng_launches[m] > 0 for m in RNG_SHAPES), rng_launches
+    # epilogues only (no float64 / 2-byte draw at float32): the cycle's
+    # through its plans, the per-iteration draws (init, migration, constant
+    # optimisation's selection, the api's splits) per call; the
+    # permutation's bits are the propose plan's
+    assert all(rng_launches[m] > 0 for m in RNG_SHAPES if m != "bits"), \
+        rng_launches
     assert not any(v for m, v in rng_launches.items()
                    if m not in RNG_SHAPES), rng_launches
-    log(f"main path: threefry launches {rng_launches}")
+    assert all(plan_launches.get(n, 0) > 0 for n in main_path_plans()
+               if n != "minibatch" and not n.endswith(F64_SUFFIX)), \
+        plan_launches
+    log(f"main path: threefry launches per call {rng_launches}, per plan "
+        f"{plan_launches}")
     assert pred.shape == (ROWS,)
     best = res.best()
     log(f"main path: best {best.equation} loss {best.loss:.6g}; "
@@ -2610,6 +2759,7 @@ def main():
         return res_r, dict(
             s=time.time() - t_r, s_per_iteration=its,
             float32={**ke.LAUNCHES, **kg.LAUNCHES, **ki.LAUNCHES},
+            plans=dict(kr.PLAN_LAUNCHES),
             storage={k: v for k, v in storage_launches().items() if v},
             vjp={k: v for k, v in vjp_counts.items() if v},
             by_loss={**ke.LOSS_LAUNCHES, **kg.LOSS_LAUNCHES},
@@ -2691,6 +2841,8 @@ def main():
     assert run["float32"]["fused"] == 64 * 100 + 2, run
     assert run["float32"]["value"] == 0, run
     assert run["float32"]["loss_grad"] == 9 and run["float32"]["loss"] == 8
+    # the minibatch chain: one plan launch per replayed cycle
+    assert run["plans"].get("minibatch") == 100, run["plans"]
     assert res_b.frontier() and np.isfinite(run["best"]), run
     log(f"5h(c) independent_island_batches (batch 50): {run['s']:.1f} s for "
         f"100 cycles, 1 capture and {run['replays']} replays (no host wait "
@@ -2813,11 +2965,28 @@ def main():
     assert n_differ == 0, f"{n_differ} of {len(leaves)} state fields differ"
     assert not torch.equal(graph20.key, st0.key)  # the keys moved on
     assert eager_counts == graph_counts, (eager_counts, graph_counts)
-    rng_per_cycle = {k: v / 20 for k, v in kr.LAUNCHES.items() if v}
+    # what one replay launches: its capture's counts (the per-call split
+    # of the minibatch chain's start runs once per call, outside it)
+    (cyc_graph,) = [g for g in cg._CACHE.values() if g.X.shape == X.shape
+                    and g.options == opts]
+    delta = dict(zip(map(id, cg.LAUNCH_COUNTERS), cyc_graph.launch_delta))
+    rng_per_cycle = {k: float(v) for k, v in delta[id(kr.LAUNCHES)].items()
+                     if v}
+    plan_per_cycle = {k: float(v) for k, v in
+                      delta[id(kr.PLAN_LAUNCHES)].items() if v}
+    per_replay = sum(rng_per_cycle.values()) + sum(plan_per_cycle.values())
+    assert kr.PLAN_LAUNCHES == {k: 20 * v for k, v in plan_per_cycle.items()}
     log(f"cycle graph: 20 replayed cycles bit-equal to 20 eager cycles from "
         f"one state (all {len(leaves)} IslandState fields, the islands' keys "
         f"included), launch counts equal {graph_counts[:3]}; threefry "
-        f"launches per cycle {rng_per_cycle}")
+        f"launches per replayed cycle {per_replay}: per call "
+        f"{rng_per_cycle}, by plan {plan_per_cycle}")
+    # every draw of the cycle through a plan: propose, mutate (every branch
+    # and the random-tree loop in one launch) and crossover, once each
+    assert not rng_per_cycle, rng_per_cycle
+    assert plan_per_cycle == {"propose": 1.0, "mutate": 1.0,
+                              "crossover": 1.0}, plan_per_cycle
+    assert per_replay <= 24, per_replay
     del eager20, graph20, st0
     graph_ms = {"eager": [], "captured": []}
     n_ab = 50
@@ -2826,14 +2995,13 @@ def main():
             n_ab, s_r_cycle_islands if variant == "eager" else graph_cycles))
         log(f"cycle A/B: {variant}: {graph_ms[variant][-1]:.3f} ms per cycle "
             f"({n_ab} cycles, host clock)")
-    (cyc_graph,) = [g for g in cg._CACHE.values() if g.X.shape == X.shape
-                    and g.options == opts]
     prof, gprof_ms = cycle_profile_of(prof_cycles, graph_cycles)
     gka, _, gbusy_ms, g_kernels = device_busy(prof)
     log(gka.table(sort_by=dev_attr, row_limit=12))
     g_calls, _ = sync_counts(prof)
     graph_report = dict(
-        threefry_per_cycle=rng_per_cycle,
+        threefry_per_cycle=rng_per_cycle, plans_per_cycle=plan_per_cycle,
+        threefry_launches_per_replay=per_replay,
         ms_per_cycle=graph_ms, cycles_per_timing=n_ab,
         captures=cyc_graph.captures, replays=cyc_graph.replays,
         capture_s=cyc_graph.capture_s, pool_bytes=cyc_graph.pool_bytes,
@@ -3376,8 +3544,60 @@ def main():
             "library_ms": None,
             "shape": [t["keys"], t["per_key"]],
         })
+    # the draw plans, one entry per plan: launches from the main
+    # path's run (phase 5; the minibatch plan's from phase 5h(c)), errors
+    # and times from phase 1b
+    plan_replaces = {
+        "propose": "evolve.py:403-471 (_propose_children's splits, the "
+                   "coin and acceptance draws) and population.py:106-140 "
+                   "(tournament_winner)",
+        "mutate": "evolve.py:248-300 (_mutate_member) with every branch of "
+                  "mutate_device.py:51-460, gen_random_tree_fixed_size's "
+                  "loop (:391-430) included",
+        "crossover": "evolve.py:329-346 (_crossover_pair), "
+                     "mutate_device.py crossover_trees",
+        "random_tree_draws": "population.py:85 (init_population) -> "
+                             "mutate_device.py:391-430",
+        "minibatch": "evolve.py:795-806 (the minibatch chain), "
+                     "fitness.py:552 (sample_batch_idx)",
+    }
+    # the float64 plans' launches: phase 5h(a)'s and 5h(b)'s float64
+    # searches (each run's counts zeroed before it)
+    f64_runs = [r for k, r in slice_runs.items()
+                if k.startswith("float64:") or k == "loss_function_f64"]
+    for name, t in plan_report.items():
+        base = name.removesuffix(F64_SUFFIX)
+        if name != base:
+            launches = sum(r["plans"].get(base, 0) for r in f64_runs)
+        elif name == "minibatch":
+            launches = slice_runs["island_batches"]["plans"].get(name, 0)
+        else:
+            launches = plan_launches.get(name, 0)
+        assert launches > 0, f"plan {name} did not launch on its path"
+        kernels.append({
+            "name": f"threefry.plan.{name}",
+            "route": "cuda",
+            "source": "symbolicregression_jl_tpu_torch/csrc/threefry.cu",
+            "replaces": ("no Pallas kernel: XLA's threefry2x32 lowering "
+                         "behind the jax.random splits and draws of "
+                         "symbolicregression_jl_tpu/models/"
+                         + plan_replaces[base]),
+            "launches": launches,
+            "launches_per_replayed_cycle": None if name != base else
+            graph_report["plans_per_cycle"].get(name, 0.0),
+            "max_abs_err": t["max_abs_err"],
+            "bit_equal_share": t["bit_equal_share"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "plain_on": "host CPU",
+            "per_call_ms": t["per_call_ms"],
+            "per_call_launches": t["per_call_launches"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "shape": [t["keys"]] + t["axes"],
+        })
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card, "host": cpu,
+                      "threefry_plans": plan_report,
                       "threefry": {k: v for k, v in rng_report.items()
                                    if k != "timings"},
                       "main_path": {"s_per_iteration": [s for s, _ in per_iter],

@@ -32,9 +32,11 @@
 // Bound: integer operations. A pair is ~140 32-bit integer operations
 // (20 rounds of add / rotate / xor, 5 key injections), plus the epilogue;
 // it reads its key once (16 bytes) and writes 2-16 bytes. At the main
-// path's sizes (<= 10^6 pairs a launch) a launch is latency-bound: the
-// design keeps it to one launch per reference call, no scratch and no
-// second pass.
+// path's sizes (<= 10^6 pairs a launch) a per-call launch is
+// latency-bound: the cycle draws through plan_kernel below instead, one
+// launch per call site's draw plan, which walks the call site's split path
+// per thread and makes every draw of it (a float32 and a float64
+// instantiation, so the float32 path carries no float64 erf_inv).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,6 +51,10 @@ namespace {
 enum Mode { kSplit = 0, kBits = 1, kUniform = 2, kNormal = 3, kGumbel = 4,
             kRandint = 5 };
 enum Dtype { kF32 = 0, kF64 = 1, kBF16 = 2, kF16 = 3 };
+// a plan's kinds of draw (utils/rng.py DRAW_KINDS)
+enum DrawKind { kDrawBits = 0, kDrawUniform = 1, kDrawNormal = 2,
+                kDrawGumbel = 3, kDrawRandint = 4 };
+constexpr int kAllDtypes = 7;  // float_epilogue's mask of every dtype
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -246,6 +252,63 @@ __device__ __forceinline__ float round_f16(float v) {
   return __half2float(__float2half_rn(v));
 }
 
+// the float epilogue of element ``idx`` of a uniform, normal or gumbel draw
+// from its two hash words, the one copy of it both kernels run: kMask
+// enables the float64 (1), bfloat16 (2) and float16 (4) paths beside
+// float32's. The 2-byte types compute in float32, rounded to the type
+// where the reference's code rounds.
+template <int kMask, typename Index>
+__device__ __forceinline__ void float_epilogue(int kind, int dtype,
+                                               uint32_t x1, uint32_t x2,
+                                               double lo_d, double span_d,
+                                               void* out, Index idx) {
+  const uint32_t bits = x1 ^ x2;
+  if ((kMask & 1) && dtype == kF64) {
+    double u = fmax(lo_d, __fma_rn(unit_f64(x1, x2), span_d, lo_d));
+    double v = u;
+    if (kind == kDrawNormal)
+      v = __dmul_rn(__longlong_as_double(0x3FF6A09E667F3BCDLL),
+                    xla_erfinv_f64(u));
+    else if (kind == kDrawGumbel)
+      v = -log(-log(u));
+    ((double*)out)[idx] = v;
+    return;
+  }
+  const float lo = (float)lo_d, span = (float)span_d;
+  if (((kMask & 6) == 0) || dtype == kF32) {
+    float u = fmaxf(lo, __fmaf_rn(unit_f32(bits), span, lo));
+    float v = u;
+    if (kind == kDrawNormal)
+      v = __fmul_rn(0x1.6a09e6p+0f, xla_erfinv_f32(u));
+    else if (kind == kDrawGumbel)
+      v = -xla_log_f32(-xla_log_f32(u));
+    ((float*)out)[idx] = v;
+    return;
+  }
+  const bool bf = (kMask & 2) && dtype == kBF16;
+  float f = bf ? unit_bf16(bits) : unit_f16(bits);
+  float u;
+  if (kind == kDrawGumbel && !bf) {
+    u = fmaxf(lo, f);  // XLA folds float16's (f * span + tiny) to f
+  } else {
+    float r = __fmaf_rn(f, span, lo);
+    u = fmaxf(lo, bf ? round_bf16(r) : round_f16(r));
+  }
+  float v = u;
+  if (kind == kDrawNormal) {
+    float e = xla_erfinv_f32(u);
+    e = bf ? round_bf16(e) : round_f16(e);
+    const float s2 = bf ? round_bf16(1.41421356237309515f)
+                        : round_f16(1.41421356237309515f);
+    v = __fmul_rn(s2, e);
+  } else if (kind == kDrawGumbel) {
+    float l1 = -xla_log_f32(u);
+    l1 = bf ? round_bf16(l1) : round_f16(l1);
+    v = -xla_log_f32(l1);
+  }
+  ((unsigned short*)out)[idx] = bf ? to_bf16_bits(v) : to_f16_bits(v);
+}
+
 struct Args {
   const long long* keys;
   long long nkeys, key_stride, per_key, offset;
@@ -302,54 +365,164 @@ __global__ void threefry_kernel(Args a) {
       ((long long*)a.out)[t] = v;
       continue;
     }
-    const uint32_t bits = x1 ^ x2;
-    if (a.dtype == kF64) {
-      double u = unit_f64(x1, x2);
-      u = fmax(a.lo, __fma_rn(u, a.span, a.lo));
-      double v = u;
-      if (a.mode == kNormal)
-        v = __dmul_rn(__longlong_as_double(0x3FF6A09E667F3BCDLL),
-                      xla_erfinv_f64(u));
-      else if (a.mode == kGumbel)
-        v = -log(-log(u));
-      ((double*)a.out)[t] = v;
+    float_epilogue<kAllDtypes>(a.mode - kUniform + kDrawUniform, a.dtype, x1,
+                               x2, a.lo, a.span, a.out, t);
+  }
+}
+
+// ---- draw plans: every split and draw of one call site in one launch ------
+//
+// The host (utils/rng.py DrawPlan) compiles a call site's static split path
+// into a table of ops, 18 int32 words each, the same for every thread:
+//   node  [0, allow, dst slot, src slot, counter, fan axis]
+//         key[dst] = threefry2x32(key[src], (0, counter)), or with a fan axis
+//         the thread's index on that axis as the counter (slot -1 = root)
+//   draw  [1, allow, kind, src slot, n, element axis, buffer, column, level,
+//          width or dtype, bound index, lo (2 words), span (2 words), imin,
+//          imax]
+//         the n elements of the draw from key[src]; with an element axis a
+//         the thread takes elements i_a, i_a + F_a, ...; else all of them
+//   keep  [2, allow, -, src slot, 2, 0, buffer, column, level]
+// An op runs in a thread when the thread's nonzero fan-out indices all lie
+// on the op's allowed axes (bit a for axis a), so a draw of level l is made
+// once per (root, i_1..i_l) and a node only where something below needs it.
+// Element c of a draw at level l lands at
+//   out[buffer] + ((root * F_1 + i_1) ... * F_l + i_l) * sp[buffer]
+//              + (column + c) * sc[buffer],
+// a buffer row-major (sc = 1) or column-major (sp = 1) so that a warp's
+// stores are adjacent.
+// Threads are (root, i_1, ..., i_m), the last axis fastest. Keys live in
+// shared memory by slot (the host sizes it to the slots the table uses; in
+// local memory a full card's threads overflowed L1), the thread's indices
+// in registers; 32-bit indices throughout (the host refuses plans of 2^31
+// threads or elements). The plan's draws are float32 or float64 (the
+// search draws in no other dtype; the host refuses a 2-byte draw on the
+// card), so there are two instantiations, and the float32 one carries no
+// float64 erf_inv.
+
+constexpr int kOpWords = 18;
+constexpr int kMaxSlots = 24;  // 24 x 2 words x 256 threads: 48 KB
+constexpr int kMaxAxes = 3;
+constexpr int kMaxBuffers = 16;
+constexpr int kMaxBounds = 4;
+
+struct PlanArgs {
+  const long long* roots;
+  int root_stride, naxes, nops;
+  int axes[kMaxAxes];
+  const int* ops;
+  void* out[kMaxBuffers];
+  int sp[kMaxBuffers], sc[kMaxBuffers];  // strides of a prefix, a column
+  const long long* bound[kMaxBounds];
+};
+
+// one of four per-thread values by a run-time index, kept in registers
+__device__ __forceinline__ int pick4(int i, int v0, int v1, int v2, int v3) {
+  return i == 0 ? v0 : (i == 1 ? v1 : (i == 2 ? v2 : v3));
+}
+
+template <int kMask>
+__global__ void __launch_bounds__(256) plan_kernel(PlanArgs a, int nthreads) {
+  // the key slots: [slot][word][thread of the block] in shared memory, so
+  // a warp's reads and writes of a slot are conflict-free and the slots
+  // of every resident thread stay on the SM
+  extern __shared__ uint32_t slots[];
+  uint32_t* const s1 = slots + threadIdx.x;
+  uint32_t* const s2 = slots + 256 + threadIdx.x;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= nthreads) return;
+  // (root, i_1..i_m) of the thread, the prefix index of each level and the
+  // axes on which its index is nonzero
+  int i1 = 0, i2 = 0, i3 = 0, rem = t;
+  for (int l = a.naxes; l >= 1; --l) {
+    const int f = a.axes[l - 1];
+    const int q = rem / f;
+    const int i = rem - q * f;
+    i1 = l == 1 ? i : i1;
+    i2 = l == 2 ? i : i2;
+    i3 = l == 3 ? i : i3;
+    rem = q;
+  }
+  const int p0 = rem;
+  const int p1 = a.naxes >= 1 ? p0 * a.axes[0] + i1 : p0;
+  const int p2 = a.naxes >= 2 ? p1 * a.axes[1] + i2 : p1;
+  const int p3 = a.naxes >= 3 ? p2 * a.axes[2] + i3 : p2;
+  const int nz = (i1 ? 2 : 0) | (i2 ? 4 : 0) | (i3 ? 8 : 0);
+  const long long* kp = a.roots + (long long)rem * a.root_stride;
+  const uint32_t r1 = (uint32_t)kp[0], r2 = (uint32_t)kp[1];
+  for (int o = 0; o < a.nops; ++o) {
+    const int* w = a.ops + o * kOpWords;
+    if (nz & ~__ldg(w + 1)) continue;
+    const int type = __ldg(w), src = __ldg(w + 3);
+    const uint32_t k1 = src < 0 ? r1 : s1[src * 512];
+    const uint32_t k2 = src < 0 ? r2 : s2[src * 512];
+    if (type == 0) {
+      const int axis = __ldg(w + 5);
+      uint32_t x1 = 0, x2 = axis ? (uint32_t)pick4(axis, 0, i1, i2, i3)
+                                 : (uint32_t)__ldg(w + 4);
+      threefry2x32(k1, k2, x1, x2);
+      const int dst = __ldg(w + 2);
+      s1[dst * 512] = x1;
+      s2[dst * 512] = x2;
       continue;
     }
-    const float lo = (float)a.lo, span = (float)a.span;
-    if (a.dtype == kF32) {
-      float u = fmaxf(lo, __fmaf_rn(unit_f32(bits), span, lo));
-      float v = u;
-      if (a.mode == kNormal)
-        v = __fmul_rn(0x1.6a09e6p+0f, xla_erfinv_f32(u));
-      else if (a.mode == kGumbel)
-        v = -xla_log_f32(-xla_log_f32(u));
-      ((float*)a.out)[t] = v;
+    const int b = __ldg(w + 6), level = __ldg(w + 8);
+    const unsigned sc = (unsigned)a.sc[b];
+    const unsigned base =
+        (unsigned)pick4(level, p0, p1, p2, p3) * (unsigned)a.sp[b] +
+        (unsigned)__ldg(w + 7) * sc;
+    if (type == 2) {
+      ((long long*)a.out[b])[base] = k1;
+      ((long long*)a.out[b])[base + sc] = k2;
       continue;
     }
-    // the 2-byte types: float32 arithmetic rounded to the type where the
-    // reference's code rounds
-    const bool bf = a.dtype == kBF16;
-    float f = bf ? unit_bf16(bits) : unit_f16(bits);
-    float u;
-    if (a.mode == kGumbel && !bf) {
-      u = fmaxf(lo, f);  // XLA folds float16's (f * span + tiny) to f
-    } else {
-      float r = __fmaf_rn(f, span, lo);
-      u = fmaxf(lo, bf ? round_bf16(r) : round_f16(r));
+    const int kind = __ldg(w + 2), n = __ldg(w + 4), eaxis = __ldg(w + 5);
+    const int c0 = pick4(eaxis, 0, i1, i2, i3);
+    const int step = eaxis ? a.axes[eaxis - 1] : 1;
+    if (kind == 4) {  // randint: split(key) once, two 32-bit draws a value
+      uint32_t h1 = 0, h2 = 0, l1 = 0, l2 = 1;
+      threefry2x32(k1, k2, h1, h2);
+      threefry2x32(k1, k2, l1, l2);
+      const int bi = __ldg(w + 10), imin = __ldg(w + 15);
+      long long maxv = bi >= 0 ? *a.bound[bi] : (long long)__ldg(w + 16);
+      maxv = maxv > 2147483647LL ? 2147483647LL
+                                 : (maxv < -2147483648LL ? -2147483648LL : maxv);
+      const uint32_t span = maxv <= imin ? 1u : (uint32_t)(maxv - imin);
+      uint32_t mult = 65536u % span;
+      mult = (mult * mult) % span;
+      for (int c = c0; c < n; c += step) {
+        uint32_t x1 = 0, x2 = (uint32_t)c, y1 = 0, y2 = (uint32_t)c;
+        threefry2x32(h1, h2, x1, x2);
+        threefry2x32(l1, l2, y1, y2);
+        const uint32_t off = ((x1 ^ x2) % span) * mult + (y1 ^ y2) % span;
+        ((long long*)a.out[b])[base + c * sc] = imin + (long long)(off % span);
+      }
+      continue;
     }
-    float v = u;
-    if (a.mode == kNormal) {
-      float e = xla_erfinv_f32(u);
-      e = bf ? round_bf16(e) : round_f16(e);
-      const float s2 = bf ? round_bf16(1.41421356237309515f)
-                          : round_f16(1.41421356237309515f);
-      v = __fmul_rn(s2, e);
-    } else if (a.mode == kGumbel) {
-      float l1 = -xla_log_f32(u);
-      l1 = bf ? round_bf16(l1) : round_f16(l1);
-      v = -xla_log_f32(l1);
+    if (kind == 0) {  // bits
+      const int width = __ldg(w + 9);
+      for (int c = c0; c < n; c += step) {
+        uint32_t x1 = 0, x2 = (uint32_t)c;
+        threefry2x32(k1, k2, x1, x2);
+        long long v;
+        if (width == 64)
+          v = (long long)(((unsigned long long)x1 << 32) | x2);
+        else
+          v = (long long)((x1 ^ x2) &
+                          (width == 32 ? 0xFFFFFFFFu : ((1u << width) - 1u)));
+        ((long long*)a.out[b])[base + c * sc] = v;
+      }
+      continue;
     }
-    ((unsigned short*)a.out)[t] = bf ? to_bf16_bits(v) : to_f16_bits(v);
+    const int dtype = __ldg(w + 9);
+    const double lo = __hiloint2double(__ldg(w + 12), __ldg(w + 11));
+    const double span = __hiloint2double(__ldg(w + 14), __ldg(w + 13));
+    for (int c = c0; c < n; c += step) {
+      uint32_t x1 = 0, x2 = (uint32_t)c;
+      threefry2x32(k1, k2, x1, x2);
+      float_epilogue<kMask>(kind, dtype, x1, x2, lo, span, a.out[b],
+                            base + c * sc);
+    }
   }
 }
 
@@ -373,6 +546,50 @@ int threefry_launch(const long long* keys, long long nkeys,
   Args a{keys, nkeys, key_stride, per_key, offset, mode, dtype, width,
          lo,   span,  imin,       imax,    imax_ptr, out};
   threefry_kernel<<<grid_for(total), 256, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// a draw plan's launch: ``axes`` (naxes sizes), ``outs`` / ``strides``
+// (nbuf buffers and, for each, the strides in elements of a prefix and of
+// a column), ``bounds`` (nbound device scalars) are host arrays read here;
+// ``ops`` is the op table of nops ops on the card; ``mask`` picks the
+// instantiation: 1 where the plan draws in float64, else 0
+int threefry_plan_launch(const long long* roots, int nroots, int root_stride,
+                         int naxes, const int* axes, const int* ops, int nops,
+                         int nslots, int nbuf, void* const* outs,
+                         const int* strides, int nbound,
+                         const long long* const* bounds, int mask,
+                         void* stream) {
+  if (naxes > kMaxAxes || nbuf > kMaxBuffers || nbound > kMaxBounds ||
+      nops < 0 || nslots < 0 || nslots > kMaxSlots || mask < 0 || mask > 1)
+    return (int)cudaErrorInvalidValue;
+  PlanArgs a{};
+  a.roots = roots;
+  a.root_stride = root_stride;
+  a.naxes = naxes;
+  a.nops = nops;
+  a.ops = ops;
+  long long total = nroots;
+  for (int i = 0; i < naxes; ++i) {
+    a.axes[i] = axes[i];
+    total *= axes[i];
+  }
+  if (total <= 0) return 0;
+  if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < nbuf; ++i) {
+    a.out[i] = outs[i];
+    a.sp[i] = strides[2 * i];
+    a.sc[i] = strides[2 * i + 1];
+  }
+  for (int i = 0; i < nbound; ++i) a.bound[i] = bounds[i];
+  const int nt = (int)total;
+  const int grid = (nt + 255) / 256;
+  const size_t smem = (size_t)nslots * 2 * 256 * sizeof(uint32_t);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mask)
+    plan_kernel<1><<<grid, 256, smem, s>>>(a, nt);
+  else
+    plan_kernel<0><<<grid, 256, smem, s>>>(a, nt);
   return (int)cudaGetLastError();
 }
 

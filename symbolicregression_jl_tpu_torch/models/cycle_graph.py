@@ -23,16 +23,17 @@ loss id and constants, row count, launch layout).
 
 The random stream is the islands' threefry keys (``IslandState.key``)
 and the minibatch chain's key, both static buffers: each replay's
-threefry launches (``ops/kernel_rng.py``) read them on the card and the
-step writes their successors back, so the captured draws are the eager
+threefry launches (``ops/kernel_rng.py``, one per draw plan: propose,
+mutate, crossover, and the minibatch when batching) read them on the card
+and the step writes their successors back, so the captured draws are the eager
 step's draws and no generator state has to be carried into or out of the
 graph. The kernels' launch counters are counted in Python at launch,
 which a replay does not run: the graph records what its capture counted
 and adds it once per replay, so every count means what it means on the
 eager path. The warm-up before capture (on a side stream, on a copy of
 the state and of the chain's key: it builds the kernel libraries and
-fills the device tables, launch plans and the allocator's blocks outside
-the capture) is set-up: its result is dropped, the live keys do not move,
+fills the device tables, the draw plans' op tables, launch plans and the
+allocator's blocks outside the capture) is set-up: its result is dropped, the live keys do not move,
 and its launches are not counted.
 
 On the CPU, which has no graphs, ``run`` runs the same step eagerly on the
@@ -70,7 +71,7 @@ LAUNCH_COUNTERS = (
     kernel_instr.LAUNCHES, kernel_instr.STORAGE_LAUNCHES,
     kernel_eval.USER_LAUNCHES, kernel_grad.USER_LAUNCHES,
     kernel_instr.USER_LAUNCHES, kernel_grad.VJP_LAUNCHES,
-    kernel_rng.LAUNCHES,
+    kernel_rng.LAUNCHES, kernel_rng.PLAN_LAUNCHES,
 )
 
 

@@ -30,17 +30,24 @@ from .complexity import compute_complexity
 from .constant_opt import optimize_constants_islands
 from .constraints import check_constraints
 from .fitness import (
-    sample_batch_idx, score_dtype, score_trees, score_trees_islands,
+    next_minibatch, score_dtype, score_trees, score_trees_islands,
 )
 from .mutate_device import (
-    append_random_op,
+    append_random_op_draws,
+    append_random_op_from,
     combine_operators,
-    crossover_trees,
-    delete_random_op,
-    gen_random_tree_fixed_size,
-    insert_random_op,
-    mutate_constant,
-    mutate_operator,
+    crossover_draws,
+    crossover_from,
+    delete_random_op_draws,
+    delete_random_op_from,
+    insert_random_op_draws,
+    insert_random_op_from,
+    mutate_constant_draws,
+    mutate_constant_from,
+    mutate_operator_draws,
+    mutate_operator_from,
+    random_tree_draws,
+    random_tree_from,
     simplify_tree,
 )
 from .options import (
@@ -71,7 +78,8 @@ from .population import (
     gather_trees,
     init_hall_of_fame,
     init_population,
-    tournament_winner,
+    tournament_draws,
+    tournament_from,
     update_hall_of_fame,
 )
 from .trees import TreeBatch, count_constants, tree_depth, where_trees
@@ -155,6 +163,36 @@ def _first_success(ok: torch.Tensor, cands: TreeBatch, fallback: TreeBatch):
     return where_trees(success, picked, fallback), success
 
 
+@functools.lru_cache(maxsize=None)
+def mutation_plan(nfeatures: int, n_unary: int, n_binary: int, max_len: int,
+                  dtype: torch.dtype) -> rng.DrawPlan:
+    """Every split and draw of ``_mutate_members`` from the members' keys,
+    in one plan: the kind's categorical per member, then per attempt (fan-
+    out axis 1, N_RETRIES) every branch's draws, the random-tree loop
+    included. ``size``'s randint reads its bound (``hi``) on the card."""
+    p = rng.DrawPlan("mutate", axes=(N_RETRIES,))
+    k = p.split(p.root, 2)
+    p.gumbel("kind", k[0], (N_MUTATIONS,), torch.float32)
+    # each attempt's key, split once more: the branch draws from the first
+    attempt = p.child(p.fan(k[1], 1), 0)
+    sub = p.split(attempt, 2)  # insert_node's and randomize's own split
+    fd = rng.draw_dtype(dtype)
+    p.randint("size", sub[0], (), 1, "hi")
+    p.uniform("at_root", sub[0], (), fd)
+    mutate_constant_draws(p, attempt, ("mc",), max_len, dtype)
+    mutate_operator_draws(p, attempt, ("mo",), max_len, n_unary, n_binary,
+                          dtype)
+    append_random_op_draws(p, attempt, ("add",), max_len, nfeatures, n_unary,
+                           n_binary, dtype)
+    insert_random_op_draws(p, sub[1], ("insert",), max_len, nfeatures,
+                           n_unary, n_binary, dtype)
+    delete_random_op_draws(p, attempt, ("delete",), max_len, nfeatures,
+                           dtype)
+    random_tree_draws(p, sub[1], ("randomize",), nfeatures, n_unary,
+                      n_binary, max_len, dtype)
+    return p
+
+
 def _mutate_members(keys, trees: TreeBatch, temperature, curmaxsize,
                     nfeatures: int, options: Options):
     """Sample a mutation kind per member (key ``keys[n]``, split as the
@@ -162,40 +200,35 @@ def _mutate_members(keys, trees: TreeBatch, temperature, curmaxsize,
     attempts, all attempts of all members in one batch; the first attempt
     that passes the constraints wins (the parent is kept when none does).
     Every branch is computed for every attempt from that attempt's key,
-    as each of the reference's branches draws from its own key alone.
+    as each of the reference's branches draws from its own key alone; all
+    their draws are one plan (``mutation_plan``).
     Returns (tree', was_mutated, always_accept, kind)."""
     N = trees.kind.shape[0]
     dev = trees.kind.device
     ops = options.operators
     L = trees.max_len
-    k = rng.split(keys, 2)
-    kind = rng.categorical(k[:, 0], _adjusted_mutation_logits(
-        trees, curmaxsize, options))
-    # each attempt's key, split once more: the branch draws from the first
-    attempt = rng.split(rng.split(k[:, 1], N_RETRIES).reshape(-1, 2), 2)[:, 0]
-    sub = rng.split(attempt, 2)  # insert_node's and randomize's own split
+    hi = torch.clamp(scalar_tensor(curmaxsize, dev, torch.int64), 1, L) + 1
+    d = mutation_plan(nfeatures, ops.n_unary, ops.n_binary, L,
+                      trees.cval.dtype).run(keys, {"hi": hi})
+    kind = torch.argmax(d["kind"] + _adjusted_mutation_logits(
+        trees, curmaxsize, options), dim=-1)
     rep = trees.map(lambda x: x.repeat_interleave(N_RETRIES, dim=0))
     NR = N * N_RETRIES
     true_ = torch.ones(NR, dtype=torch.bool, device=dev)
     simp, _ = simplify_tree(trees, ops)  # deterministic: once per member
-    hi = torch.clamp(scalar_tensor(curmaxsize, dev, torch.int64), 1, L) + 1
-    size = rng.randint(sub[:, 0], (), 1, hi)
     branches = {
-        MUTATE_CONSTANT: mutate_constant(
-            attempt, rep, temperature, options.perturbation_factor,
+        MUTATE_CONSTANT: mutate_constant_from(
+            d, ("mc",), rep, temperature, options.perturbation_factor,
             options.probability_negate_constant),
-        MUTATE_OPERATOR: mutate_operator(attempt, rep, ops),
-        ADD_NODE: append_random_op(attempt, rep, nfeatures, ops),
-        INSERT_NODE: insert_random_op(sub[:, 1], rep, nfeatures, ops,
-                                      at_root=rng.bernoulli(
-                                          sub[:, 0], dtype=rng.draw_dtype(
-                                              trees.cval.dtype))),
-        DELETE_NODE: delete_random_op(attempt, rep, nfeatures, ops),
+        MUTATE_OPERATOR: mutate_operator_from(d, ("mo",), rep),
+        ADD_NODE: append_random_op_from(d, ("add",), rep, ops),
+        INSERT_NODE: insert_random_op_from(d, ("insert",), rep, ops,
+                                           at_root=d.flat("at_root") < 0.5),
+        DELETE_NODE: delete_random_op_from(d, ("delete",), rep),
         SIMPLIFY: (simp.map(lambda x: x.repeat_interleave(N_RETRIES, dim=0)),
                    true_),
-        RANDOMIZE: (gen_random_tree_fixed_size(sub[:, 1], size, nfeatures,
-                                               ops, L, trees.cval.dtype),
-                    true_),
+        RANDOMIZE: (random_tree_from(d, ("randomize",), d.flat("size"), ops,
+                                     L, trees.cval.dtype), true_),
     }
     kind_r = kind.repeat_interleave(N_RETRIES)
     cand, ok = rep, true_
@@ -210,20 +243,49 @@ def _mutate_members(keys, trees: TreeBatch, temperature, curmaxsize,
     return result, was_mutated, always_accept, kind
 
 
+@functools.lru_cache(maxsize=None)
+def crossover_plan(max_len: int, dtype: torch.dtype) -> rng.DrawPlan:
+    """The crossover attempts' draws from the pairs' keys: one fan-out
+    (N_RETRIES) and two gumbel rows per attempt."""
+    p = rng.DrawPlan("crossover", axes=(N_RETRIES,))
+    crossover_draws(p, p.fan(p.root, 1), ("x",), max_len, dtype)
+    return p
+
+
 def _crossover_pairs(keys, a: TreeBatch, b: TreeBatch, curmaxsize,
                      options: Options):
     """Crossover of paired trees with up to N_RETRIES attempts each, one
     key per pair (split into the attempts' keys)."""
     P = a.kind.shape[0]
     rep = lambda t: t.map(lambda x: x.repeat_interleave(N_RETRIES, dim=0))
-    ca, cb, ok = crossover_trees(rng.split(keys, N_RETRIES).reshape(-1, 2),
-                                 rep(a), rep(b))
+    d = crossover_plan(a.max_len, a.cval.dtype).run(keys)
+    ca, cb, ok = crossover_from(d, ("x",), rep(a), rep(b))
     ok = (ok & check_constraints(ca, options, curmaxsize)
           & check_constraints(cb, options, curmaxsize))
     ok = ok.reshape(P, N_RETRIES)
     ra, success = _first_success(ok, ca, a)
     rb, _ = _first_success(ok, cb, b)
     return ra, rb, success
+
+
+@functools.lru_cache(maxsize=None)
+def proposal_plan(B: int, npop: int, tournament_n: int,
+                  dtype: torch.dtype) -> rng.DrawPlan:
+    """The islands' splits and draws of ``_propose_children`` that hang on
+    no data, from the islands' keys: the next key, the tournaments (fan-out
+    axis 1, B; their permutation's bits and the pick's gumbels spread over
+    axis 2, rng.SPREAD), the members' and the pairs' keys, the acceptance
+    uniforms and the crossover coins."""
+    p = rng.DrawPlan("propose", axes=(B, rng.SPREAD))
+    k = p.split(p.root, 6)  # key, tour, mut, acc, cross, coin
+    fd = rng.draw_dtype(dtype)
+    p.keep("next", k[0])
+    tournament_draws(p, p.fan(k[1], 1), ("tour",), npop, tournament_n, 2)
+    p.keep("member", p.fan(k[2], 1))
+    p.uniform("accept", p.fan(k[3], 1), (), fd)
+    p.keep("pair", p.fan(k[4], 1))  # the first B // 2 are the pairs'
+    p.uniform("coin", k[5], (B // 2,), fd, axis=1)
+    return p
 
 
 class _Proposed(NamedTuple):
@@ -235,39 +297,41 @@ class _Proposed(NamedTuple):
     always_accept: torch.Tensor  # (I, B)
     use_cross: torch.Tensor  # (I, B)
     kind: torch.Tensor  # (I, B)
-    accept_keys: torch.Tensor  # (I, B, 2)
+    accept_u: torch.Tensor  # (I, B) the acceptance uniforms
     next_key: torch.Tensor  # (I, 2)
 
 
 def _propose_children(states: IslandState, temperature, curmaxsize,
                       nfeatures: int, options: Options) -> _Proposed:
     """Tournaments + mutation/crossover on every island, each island's
-    key split as the reference's ``_propose_children`` splits it."""
+    key split as the reference's ``_propose_children`` splits it: one plan
+    from the islands' keys (``proposal_plan``), then one from the members'
+    keys (``mutation_plan``) and one from the pairs' (``crossover_plan``)."""
     pop = states.pop
     I = pop.scores.shape[0]
     B = options.n_parallel_tournaments
     B += B % 2
-    k = rng.split(states.key, 6)  # key, tour, mut, acc, cross, coin
-    parent_idx = tournament_winner(rng.split(k[:, 1], B), pop,
-                                   states.stats.frequencies, options)
+    d = proposal_plan(B, pop.npop, options.tournament_selection_n,
+                      options.dtype).run(states.key)
+    parent_idx = tournament_from(d, ("tour",), pop,
+                                 states.stats.frequencies, options)
     parents = gather_trees(pop.trees, parent_idx)
     parent_scores = torch.gather(pop.scores, -1, parent_idx)
 
     mut, was_mutated, always_accept, kinds = _mutate_members(
-        rng.split(k[:, 2], B).reshape(-1, 2), _flat(parents), temperature,
+        d["member"].reshape(-1, 2), _flat(parents), temperature,
         curmaxsize, nfeatures, options)
     mut = _unflat(mut, (I, B))
 
     ca, cb, cross_ok = _crossover_pairs(
-        rng.split(k[:, 4], B // 2).reshape(-1, 2), _flat(parents[:, 0::2]),
+        d["pair"][:, :B // 2].reshape(-1, 2), _flat(parents[:, 0::2]),
         _flat(parents[:, 1::2]), curmaxsize, options)
     cross = TreeBatch(*(
         torch.stack([fa.reshape((I, B // 2) + fa.shape[1:]),
                      fb.reshape((I, B // 2) + fb.shape[1:])], dim=2
                     ).reshape((I, B) + fa.shape[1:])
         for fa, fb in zip(ca, cb)))
-    use_cross_pair = (rng.bernoulli(k[:, 5], options.crossover_probability,
-                                    (B // 2,), rng.draw_dtype(options.dtype))
+    use_cross_pair = ((d["coin"] < options.crossover_probability)
                       & cross_ok.reshape(I, B // 2))
     use_cross = use_cross_pair.repeat_interleave(2, dim=-1)
     return _Proposed(
@@ -279,8 +343,8 @@ def _propose_children(states: IslandState, temperature, curmaxsize,
         always_accept=always_accept.reshape(I, B),
         use_cross=use_cross,
         kind=kinds.reshape(I, B),
-        accept_keys=rng.split(k[:, 3], B),
-        next_key=k[:, 0],
+        accept_u=d["accept"],
+        next_key=d["next"],
     )
 
 
@@ -304,8 +368,7 @@ def _accept_mutation(prop: _Proposed, child_scores, temperature,
             return torch.where(in_range, torch.clamp_min(raw, 1e-30), 1e-6)
 
         prob = prob * f_at(prop.parents) / f_at(prop.children)
-    accept = rng.uniform(prop.accept_keys, (),
-                         rng.draw_dtype(child_scores.dtype)) < prob
+    accept = prop.accept_u < prob
     return accept & torch.isfinite(child_scores)
 
 
@@ -408,11 +471,10 @@ def cycle_step(states: IslandState, bkey, temperature, curmaxsize, X, y,
     captures."""
     row_idx = None
     if options.batching:
-        k = rng.split(bkey, 2)
-        kb, bkey = k[0], k[1]
-        if options.independent_island_batches:
-            kb = rng.split(kb, states.birth_counter.shape[0])
-        row_idx = sample_batch_idx(kb, X.shape[1], options.batch_size)
+        row_idx, bkey = next_minibatch(
+            bkey, X.shape[1], options.batch_size,
+            states.birth_counter.shape[0]
+            if options.independent_island_batches else 0)
     return (reg_evol_cycle_islands(states, temperature, curmaxsize, X, y,
                                    weights, baseline, options, row_idx),
             bkey)

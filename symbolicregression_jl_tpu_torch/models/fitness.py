@@ -25,6 +25,7 @@ rows on the device and makes one scoring call per island.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -153,3 +154,29 @@ def sample_batch_idx(keys: torch.Tensor, n_rows: int, batch_size: int
     for one key, (n_islands, batch_size) for a key per island, in one
     draw."""
     return rng.randint(keys, (batch_size,), 0, n_rows)
+
+
+@functools.lru_cache(maxsize=None)
+def minibatch_plan(n_rows: int, batch_size: int, n_islands: int
+                   ) -> rng.DrawPlan:
+    """The minibatch chain's step from its key: ``split(key, 2)``, the
+    second half kept as the chain's next key, the rows drawn from the
+    first (or from its split per island when ``n_islands``), their
+    elements spread over the last axis (rng.SPREAD)."""
+    axes = (n_islands, rng.SPREAD) if n_islands else (rng.SPREAD,)
+    p = rng.DrawPlan("minibatch", axes=axes)
+    k = p.split(p.root, 2)
+    p.keep("next", k[1])
+    kb = p.fan(k[0], 1) if n_islands else k[0]
+    p.randint("rows", kb, (batch_size,), 0, n_rows, axis=len(axes))
+    return p
+
+
+def next_minibatch(bkey: torch.Tensor, n_rows: int, batch_size: int,
+                   n_islands: int = 0):
+    """One step of the minibatch chain in one plan: (rows, the chain's
+    next key); rows (batch_size,), or (n_islands, batch_size) with one
+    minibatch per island. The rows are ``sample_batch_idx`` of the first
+    half of ``split(bkey)`` (or of its split per island)."""
+    d = minibatch_plan(n_rows, batch_size, n_islands).run(bkey)
+    return d["rows"], d["next"]

@@ -6,13 +6,20 @@ The JAX functions act on one tree and are vmapped; here every function
 takes a flat batch (fields ``(N, L)``, per-tree scalars ``(N,)``) and one
 threefry key per tree (``(N, 2)``), which it splits as the JAX function
 splits its key, so each tree gets the reference's draws
-(``utils/rng.py``; one launch per split or draw for the whole batch).
+(``utils/rng.py``). Each function's splits and draws are a draw plan: its
+``*_draws`` function adds them to a ``DrawPlan`` below a node, and its
+``*_from`` function applies what the plan drew, so a caller can merge many
+functions' draws into one launch (``evolve._mutate_members`` draws every
+branch of every attempt, the random-tree loop included, in one). The
+functions that take keys run their own plan.
 Each edit is the one ``splice`` primitive (replace a postfix span by a
 donor span) written as an index-mapped gather. Functions return
 ``(tree', ok)``; where ``ok`` is False the tree is returned unchanged.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -55,17 +62,45 @@ def select_node(keys: torch.Tensor, mask: torch.Tensor,
     return rng.categorical(keys, logits)
 
 
+@functools.lru_cache(maxsize=None)
+def single_plan(draws, *args) -> rng.DrawPlan:
+    """The plan of one ``*_draws`` function at the root, cached per static
+    arguments."""
+    p = rng.DrawPlan(draws.__name__)
+    draws(p, p.root, (), *args)
+    return p
+
+
+def select_from(d: rng.Drawn, name, mask: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``select_node`` from the gumbel row ``name`` of a plan."""
+    logits = torch.where(mask, 0.0, -1e9).to(rng.draw_dtype(dtype))
+    return torch.argmax(d.flat(name) + logits, dim=-1)
+
+
+def make_random_leaf_draws(p: rng.DrawPlan, node: int, tag: tuple,
+                           nfeatures: int, dtype: torch.dtype) -> None:
+    k = p.split(node, 3)
+    p.uniform(tag + ("const",), k[0], (), rng.draw_dtype(dtype))
+    p.randint(tag + ("feat",), k[1], (), 0, nfeatures)
+    p.normal(tag + ("cval",), k[2], (), torch.float32)
+
+
+def make_random_leaf_from(d: rng.Drawn, tag: tuple, dtype: torch.dtype):
+    is_const = d.flat(tag + ("const",)) < 0.5
+    feat = d.flat(tag + ("feat",))
+    cval = d.flat(tag + ("cval",)).to(dtype)
+    kind = torch.where(is_const, CONST, VAR)
+    return kind, torch.zeros_like(kind), torch.where(is_const, 0, feat), cval
+
+
 def make_random_leaf(keys: torch.Tensor, nfeatures: int,
                      dtype: torch.dtype = torch.float32):
     """50/50 constant (standard normal, drawn in float32 and cast to
     ``dtype``) / feature leaf, one per key. Returns (kind, op, feat, cval),
     each (N,)."""
-    k = rng.split(keys, 3)
-    is_const = rng.bernoulli(k[..., 0, :], dtype=rng.draw_dtype(dtype))
-    feat = rng.randint(k[..., 1, :], (), 0, nfeatures)
-    cval = rng.normal(k[..., 2, :], (), torch.float32).to(dtype)
-    kind = torch.where(is_const, CONST, VAR)
-    return kind, torch.zeros_like(kind), torch.where(is_const, 0, feat), cval
+    d = single_plan(make_random_leaf_draws, nfeatures, dtype).run(keys)
+    return make_random_leaf_from(d, (), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -114,21 +149,27 @@ def _node_span(idx, sizes):
 # ---------------------------------------------------------------------------
 
 
-def mutate_constant(keys, tree: TreeBatch, temperature, perturbation_factor,
-                    probability_negate):
-    """Multiplicative perturbation + occasional negation of one constant.
-    ``temperature`` and the two Options scalars are Python numbers or
-    0-dim device tensors (a captured cycle reads them from the card)."""
-    k = rng.split(keys, 4)
-    fd = rng.draw_dtype(tree.cval.dtype)
+def mutate_constant_draws(p: rng.DrawPlan, node: int, tag: tuple,
+                          max_len: int, dtype: torch.dtype) -> None:
+    k = p.split(node, 4)
+    fd = rng.draw_dtype(dtype)
+    p.gumbel(tag + ("sel",), k[0], (max_len,), fd)
+    p.uniform(tag + ("factor",), k[1], (), fd)
+    p.uniform(tag + ("bigger",), k[2], (), fd)
+    p.uniform(tag + ("negate",), k[3], (), fd)
+
+
+def mutate_constant_from(d: rng.Drawn, tag: tuple, tree: TreeBatch,
+                         temperature, perturbation_factor,
+                         probability_negate):
     mask = (tree.kind == CONST) & valid_mask(tree)
-    idx = select_node(k[..., 0, :], mask, tree.cval.dtype)
+    idx = select_from(d, tag + ("sel",), mask, tree.cval.dtype)
     ok = mask.any(dim=-1)
     max_change = perturbation_factor * temperature + 1.1
-    factor = max_change ** rng.uniform(k[..., 1, :], (), fd)
-    bigger = rng.bernoulli(k[..., 2, :], dtype=fd)
+    factor = max_change ** d.flat(tag + ("factor",))
+    bigger = d.flat(tag + ("bigger",)) < 0.5
     factor = torch.where(bigger, factor, 1.0 / factor)
-    negate = rng.bernoulli(k[..., 3, :], probability_negate, dtype=fd)
+    negate = d.flat(tag + ("negate",)) < probability_negate
     new_val = _take(tree.cval, idx) * factor * torch.where(negate, -1.0, 1.0)
     new_cval = tree.cval.scatter(-1, idx.unsqueeze(-1),
                                  new_val.to(tree.cval.dtype).unsqueeze(-1))
@@ -136,41 +177,79 @@ def mutate_constant(keys, tree: TreeBatch, temperature, perturbation_factor,
                                           tree.cval)), ok
 
 
-def mutate_operator(keys, tree: TreeBatch, operators: OperatorSet):
-    """Swap one operator for a random operator of the same arity (both
-    candidates drawn from the one key, as the reference does)."""
-    k = rng.split(keys, 2)
+def mutate_constant(keys, tree: TreeBatch, temperature, perturbation_factor,
+                    probability_negate):
+    """Multiplicative perturbation + occasional negation of one constant.
+    ``temperature`` and the two Options scalars are Python numbers or
+    0-dim device tensors (a captured cycle reads them from the card)."""
+    d = single_plan(mutate_constant_draws, tree.max_len,
+                    tree.cval.dtype).run(keys)
+    return mutate_constant_from(d, (), tree, temperature,
+                                perturbation_factor, probability_negate)
+
+
+def mutate_operator_draws(p: rng.DrawPlan, node: int, tag: tuple,
+                          max_len: int, n_unary: int, n_binary: int,
+                          dtype: torch.dtype) -> None:
+    k = p.split(node, 2)
+    p.gumbel(tag + ("sel",), k[0], (max_len,), rng.draw_dtype(dtype))
+    p.randint(tag + ("op_u",), k[1], (), 0, max(n_unary, 1))
+    p.randint(tag + ("op_b",), k[1], (), 0, max(n_binary, 1))
+
+
+def mutate_operator_from(d: rng.Drawn, tag: tuple, tree: TreeBatch):
     mask = _is_op(tree)
-    idx = select_node(k[..., 0, :], mask, tree.cval.dtype)
+    idx = select_from(d, tag + ("sel",), mask, tree.cval.dtype)
     ok = mask.any(dim=-1)
     is_una = _take(tree.kind, idx) == UNA
-    op_u = rng.randint(k[..., 1, :], (), 0, max(operators.n_unary, 1))
-    op_b = rng.randint(k[..., 1, :], (), 0, max(operators.n_binary, 1))
-    new_op = tree.op.scatter(-1, idx.unsqueeze(-1),
-                             torch.where(is_una, op_u, op_b).unsqueeze(-1))
+    new_op = tree.op.scatter(-1, idx.unsqueeze(-1), torch.where(
+        is_una, d.flat(tag + ("op_u",)), d.flat(tag + ("op_b",))
+    ).unsqueeze(-1))
     return tree._replace(op=torch.where(ok.unsqueeze(-1), new_op,
                                         tree.op)), ok
 
 
-def _choose_unary(keys, operators: OperatorSet, dtype: torch.dtype):
-    n = keys.shape[0]
+def mutate_operator(keys, tree: TreeBatch, operators: OperatorSet):
+    """Swap one operator for a random operator of the same arity (both
+    candidates drawn from the one key, as the reference does)."""
+    d = single_plan(mutate_operator_draws, tree.max_len, operators.n_unary,
+                    operators.n_binary, tree.cval.dtype).run(keys)
+    return mutate_operator_from(d, (), tree)
+
+
+def _choose_unary_draws(p: rng.DrawPlan, node: int, name, n_unary: int,
+                        n_binary: int, dtype: torch.dtype) -> None:
+    if n_unary > 0 and n_binary > 0:
+        p.uniform(name, node, (), rng.draw_dtype(dtype))
+
+
+def _choose_unary_from(d: rng.Drawn, name, n: int, operators: OperatorSet,
+                       device) -> torch.Tensor:
     if operators.n_unary == 0:
-        return torch.zeros(n, dtype=torch.bool, device=keys.device)
+        return torch.zeros(n, dtype=torch.bool, device=device)
     if operators.n_binary == 0:
-        return torch.ones(n, dtype=torch.bool, device=keys.device)
-    return rng.bernoulli(keys, dtype=rng.draw_dtype(dtype))
+        return torch.ones(n, dtype=torch.bool, device=device)
+    return d.flat(name) < 0.5
 
 
-def _random_op_donor(keys, use_unary, nfeatures: int, operators: OperatorSet,
-                     dtype: torch.dtype):
+def _random_op_donor_draws(p: rng.DrawPlan, node: int, tag: tuple,
+                           nfeatures: int, n_unary: int, n_binary: int,
+                           dtype: torch.dtype) -> None:
+    k = p.split(node, 4)
+    make_random_leaf_draws(p, k[0], tag + ("leaf1",), nfeatures, dtype)
+    make_random_leaf_draws(p, k[1], tag + ("leaf2",), nfeatures, dtype)
+    p.randint(tag + ("op_u",), k[2], (), 0, max(n_unary, 1))
+    p.randint(tag + ("op_b",), k[3], (), 0, max(n_binary, 1))
+
+
+def _random_op_donor_from(d: rng.Drawn, tag: tuple, use_unary,
+                          dtype: torch.dtype):
     """Donor [leaf, OP] (unary, d_len=2) or [leaf, leaf, OP] (binary,
     d_len=3) with fresh random leaves, constants in ``dtype``; fields
     (N, 4)."""
-    k = rng.split(keys, 4)
-    lk1, _, lf1, lc1 = make_random_leaf(k[..., 0, :], nfeatures, dtype)
-    lk2, _, lf2, lc2 = make_random_leaf(k[..., 1, :], nfeatures, dtype)
-    op_u = rng.randint(k[..., 2, :], (), 0, max(operators.n_unary, 1))
-    op_b = rng.randint(k[..., 3, :], (), 0, max(operators.n_binary, 1))
+    lk1, _, lf1, lc1 = make_random_leaf_from(d, tag + ("leaf1",), dtype)
+    lk2, _, lf2, lc2 = make_random_leaf_from(d, tag + ("leaf2",), dtype)
+    op_u, op_b = d.flat(tag + ("op_u",)), d.flat(tag + ("op_b",))
     z = torch.zeros_like(lk1)
     zf = torch.zeros_like(lc1)
     u = use_unary.unsqueeze(-1)
@@ -185,45 +264,68 @@ def _random_op_donor(keys, use_unary, nfeatures: int, operators: OperatorSet,
     return dk, do, df, dc, torch.where(use_unary, 2, 3)
 
 
-def append_random_op(keys, tree: TreeBatch, nfeatures: int,
-                     operators: OperatorSet):
-    """Replace a random leaf by a random operator over fresh leaves."""
-    k = rng.split(keys, 3)
+def append_random_op_draws(p: rng.DrawPlan, node: int, tag: tuple,
+                           max_len: int, nfeatures: int, n_unary: int,
+                           n_binary: int, dtype: torch.dtype) -> None:
+    k = p.split(node, 3)
+    p.gumbel(tag + ("sel",), k[0], (max_len,), rng.draw_dtype(dtype))
+    _choose_unary_draws(p, k[1], tag + ("unary",), n_unary, n_binary, dtype)
+    _random_op_donor_draws(p, k[2], tag + ("donor",), nfeatures, n_unary,
+                           n_binary, dtype)
+
+
+def append_random_op_from(d: rng.Drawn, tag: tuple, tree: TreeBatch,
+                          operators: OperatorSet):
     mask = _is_leaf(tree)
-    idx = select_node(k[..., 0, :], mask, tree.cval.dtype)
+    idx = select_from(d, tag + ("sel",), mask, tree.cval.dtype)
     any_leaf = mask.any(dim=-1)
-    use_unary = _choose_unary(k[..., 1, :], operators, tree.cval.dtype)
-    dk, do, df, dc, d_len = _random_op_donor(k[..., 2, :], use_unary,
-                                             nfeatures, operators,
-                                             tree.cval.dtype)
+    use_unary = _choose_unary_from(d, tag + ("unary",), tree.kind.shape[0],
+                                   operators, tree.kind.device)
+    dk, do, df, dc, d_len = _random_op_donor_from(d, tag + ("donor",),
+                                                  use_unary, tree.cval.dtype)
     new, fit = splice(tree, idx, idx + 1, dk, do, df, dc, 0, d_len)
     ok = any_leaf & fit
     return where_trees(ok, new, tree), ok
 
 
-def insert_random_op(keys, tree: TreeBatch, nfeatures: int,
-                     operators: OperatorSet, at_root):
-    """Make a node the child of a new random operator; a binary operator
-    gets a fresh leaf as its other child, on a random side. ``at_root``
-    (bool, or an (N,) bool tensor) picks the root instead of a random node
-    (the JAX package's prepend_random_op), with the same draws."""
+def append_random_op(keys, tree: TreeBatch, nfeatures: int,
+                     operators: OperatorSet):
+    """Replace a random leaf by a random operator over fresh leaves."""
+    d = single_plan(append_random_op_draws, tree.max_len, nfeatures,
+                    operators.n_unary, operators.n_binary,
+                    tree.cval.dtype).run(keys)
+    return append_random_op_from(d, (), tree, operators)
+
+
+def insert_random_op_draws(p: rng.DrawPlan, node: int, tag: tuple,
+                           max_len: int, nfeatures: int, n_unary: int,
+                           n_binary: int, dtype: torch.dtype) -> None:
+    k = p.split(node, 6)
+    fd = rng.draw_dtype(dtype)
+    p.gumbel(tag + ("sel",), k[0], (max_len,), fd)
+    _choose_unary_draws(p, k[1], tag + ("unary",), n_unary, n_binary, dtype)
+    p.uniform(tag + ("left",), k[2], (), fd)
+    p.randint(tag + ("op_u",), k[3], (), 0, max(n_unary, 1))
+    p.randint(tag + ("op_b",), k[4], (), 0, max(n_binary, 1))
+    make_random_leaf_draws(p, k[5], tag + ("leaf",), nfeatures, dtype)
+
+
+def insert_random_op_from(d: rng.Drawn, tag: tuple, tree: TreeBatch,
+                          operators: OperatorSet, at_root):
     N = tree.kind.shape[0]
     dev = tree.kind.device
-    k = rng.split(keys, 6)
     sizes = subtree_sizes(tree.kind, tree.length)
     vmask = valid_mask(tree)
     at_root = (at_root.expand(N) if isinstance(at_root, torch.Tensor)
                else torch.full((N,), bool(at_root), device=dev))
     idx = torch.where(at_root, torch.clamp_min(tree.length - 1, 0),
-                      select_node(k[..., 0, :], vmask, tree.cval.dtype))
+                      select_from(d, tag + ("sel",), vmask, tree.cval.dtype))
     any_node = torch.where(at_root, tree.length > 0, vmask.any(dim=-1))
     s, e = _node_span(idx, sizes)
-    use_unary = _choose_unary(k[..., 1, :], operators, tree.cval.dtype)
-    as_left = rng.bernoulli(k[..., 2, :],
-                            dtype=rng.draw_dtype(tree.cval.dtype))
-    op_u = rng.randint(k[..., 3, :], (), 0, max(operators.n_unary, 1))
-    op_b = rng.randint(k[..., 4, :], (), 0, max(operators.n_binary, 1))
-    lk, _, lf, lc = make_random_leaf(k[..., 5, :], nfeatures, tree.cval.dtype)
+    use_unary = _choose_unary_from(d, tag + ("unary",), N, operators, dev)
+    as_left = d.flat(tag + ("left",)) < 0.5
+    op_u, op_b = d.flat(tag + ("op_u",)), d.flat(tag + ("op_b",))
+    lk, _, lf, lc = make_random_leaf_from(d, tag + ("leaf",), tree.cval.dtype)
     z = torch.zeros_like(lk)
     zf = torch.zeros_like(lc)
     op_kind = torch.where(use_unary, UNA, BIN)
@@ -250,15 +352,33 @@ def insert_random_op(keys, tree: TreeBatch, nfeatures: int,
     return where_trees(ok, new2, tree), ok
 
 
-def delete_random_op(keys, tree: TreeBatch, nfeatures: int,
-                     operators: OperatorSet):
-    """Replace a random operator node by one of its children; a lone leaf
-    is replaced by a fresh random leaf."""
+def insert_random_op(keys, tree: TreeBatch, nfeatures: int,
+                     operators: OperatorSet, at_root):
+    """Make a node the child of a new random operator; a binary operator
+    gets a fresh leaf as its other child, on a random side. ``at_root``
+    (bool, or an (N,) bool tensor) picks the root instead of a random node
+    (the JAX package's prepend_random_op), with the same draws."""
+    d = single_plan(insert_random_op_draws, tree.max_len, nfeatures,
+                    operators.n_unary, operators.n_binary,
+                    tree.cval.dtype).run(keys)
+    return insert_random_op_from(d, (), tree, operators, at_root)
+
+
+def delete_random_op_draws(p: rng.DrawPlan, node: int, tag: tuple,
+                           max_len: int, nfeatures: int,
+                           dtype: torch.dtype) -> None:
+    k = p.split(node, 3)
+    fd = rng.draw_dtype(dtype)
+    p.gumbel(tag + ("sel",), k[0], (max_len,), fd)
+    p.uniform(tag + ("right",), k[1], (), fd)
+    make_random_leaf_draws(p, k[2], tag + ("leaf",), nfeatures, dtype)
+
+
+def delete_random_op_from(d: rng.Drawn, tag: tuple, tree: TreeBatch):
     dev = tree.kind.device
-    k = rng.split(keys, 3)
     sizes = subtree_sizes(tree.kind, tree.length)
     mask = _is_op(tree)
-    idx = select_node(k[..., 0, :], mask, tree.cval.dtype)
+    idx = select_from(d, tag + ("sel",), mask, tree.cval.dtype)
     any_op = mask.any(dim=-1)
     s, e = _node_span(idx, sizes)
     r_size = _take(sizes, torch.clamp_min(idx - 1, 0))
@@ -266,15 +386,14 @@ def delete_random_op(keys, tree: TreeBatch, nfeatures: int,
     l_root = idx - 1 - r_size
     l_start = l_root - _take(sizes, torch.clamp_min(l_root, 0)) + 1
     is_una = _take(tree.kind, idx) == UNA
-    keep_right = rng.bernoulli(
-        k[..., 1, :], dtype=rng.draw_dtype(tree.cval.dtype)) | is_una
+    keep_right = (d.flat(tag + ("right",)) < 0.5) | is_una
     c_start = torch.where(keep_right, r_start, l_start)
     c_end = torch.where(keep_right, idx, l_root + 1)
     new, fit = splice(tree, s, e, tree.kind, tree.op, tree.feat, tree.cval,
                       c_start, c_end - c_start)
     ok = any_op & fit
 
-    lk, _, lf, lc = make_random_leaf(k[..., 2, :], nfeatures, tree.cval.dtype)
+    lk, _, lf, lc = make_random_leaf_from(d, tag + ("leaf",), tree.cval.dtype)
     first = (torch.arange(tree.max_len, device=dev) == 0).unsqueeze(0)
     leaf_tree = TreeBatch(
         torch.where(first, lk.unsqueeze(-1), 0),
@@ -288,19 +407,41 @@ def delete_random_op(keys, tree: TreeBatch, nfeatures: int,
     return out, ok | leaf_only
 
 
-def gen_random_tree_fixed_size(keys, target_size, nfeatures: int,
-                               operators: OperatorSet, max_len: int,
-                               dtype: torch.dtype = torch.float32
-                               ) -> TreeBatch:
-    """Grow random trees to ~target_size nodes (one per key and element of
-    the (N,) tensor ``target_size``) by max_len // 2 + 1 steps that each
-    replace a random leaf by a random operator over fresh leaves;
-    constants in ``dtype``."""
+def delete_random_op(keys, tree: TreeBatch, nfeatures: int,
+                     operators: OperatorSet):
+    """Replace a random operator node by one of its children; a lone leaf
+    is replaced by a fresh random leaf."""
+    d = single_plan(delete_random_op_draws, tree.max_len, nfeatures,
+                    tree.cval.dtype).run(keys)
+    return delete_random_op_from(d, (), tree)
+
+
+def random_tree_draws(p: rng.DrawPlan, node: int, tag: tuple,
+                      nfeatures: int, n_unary: int, n_binary: int,
+                      max_len: int, dtype: torch.dtype) -> None:
+    """Every draw of the random-tree loop: no draw depends on the tree, so
+    the chain ``key_{s+1} = split(key_s, 4)[0]`` and each step's draws are
+    drawn before the loop runs."""
+    k = p.split(node, 2)
+    make_random_leaf_draws(p, k[0], tag + ("leaf",), nfeatures, dtype)
+    key = k[1]
+    fd = rng.draw_dtype(dtype)
+    for step in range(max_len // 2 + 1):
+        k = p.split(key, 4)
+        key = k[0]
+        _choose_unary_draws(p, k[1], tag + ("unary", step), n_unary,
+                            n_binary, dtype)
+        p.gumbel(tag + ("sel", step), k[2], (max_len,), fd)
+        _random_op_donor_draws(p, k[3], tag + ("donor", step), nfeatures,
+                               n_unary, n_binary, dtype)
+
+
+def random_tree_from(d: rng.Drawn, tag: tuple, target_size,
+                     operators: OperatorSet, max_len: int,
+                     dtype: torch.dtype = torch.float32) -> TreeBatch:
     N = target_size.shape[0]
-    device = keys.device
-    k = rng.split(keys, 2)
-    lk, _, lf, lc = make_random_leaf(k[..., 0, :], nfeatures, dtype)
-    key = k[..., 1, :]
+    device = target_size.device
+    lk, _, lf, lc = make_random_leaf_from(d, tag + ("leaf",), dtype)
     first = (torch.arange(max_len, device=device) == 0).unsqueeze(0)
     tree = TreeBatch(
         torch.where(first, lk.unsqueeze(-1), 0),
@@ -310,40 +451,64 @@ def gen_random_tree_fixed_size(keys, target_size, nfeatures: int,
         torch.ones(N, dtype=torch.int64, device=device),
     )
     target = torch.clamp_max(target_size, max_len)
-    for _ in range(max_len // 2 + 1):
-        k = rng.split(key, 4)
-        key = k[..., 0, :]
+    both = operators.n_unary > 0 and operators.n_binary > 0
+    for step in range(max_len // 2 + 1):
         remaining = target - tree.length
-        if operators.n_unary > 0 and operators.n_binary > 0:
-            use_unary = (remaining == 1) | rng.bernoulli(
-                k[..., 1, :], dtype=rng.draw_dtype(dtype))
+        if both:
+            use_unary = (remaining == 1) | (
+                d.flat(tag + ("unary", step)) < 0.5)
         else:
             use_unary = torch.full((N,), operators.n_unary > 0, device=device)
         mask = _is_leaf(tree)
-        idx = select_node(k[..., 2, :], mask, dtype)
-        dk, do, df, dc, d_len = _random_op_donor(k[..., 3, :], use_unary,
-                                                 nfeatures, operators, dtype)
+        idx = select_from(d, tag + ("sel", step), mask, dtype)
+        dk, do, df, dc, d_len = _random_op_donor_from(
+            d, tag + ("donor", step), use_unary, dtype)
         new, fit = splice(tree, idx, idx + 1, dk, do, df, dc, 0, d_len)
         grow = (tree.length < target) & mask.any(dim=-1) & fit
         tree = where_trees(grow, new, tree)
     return tree
 
 
-def crossover_trees(keys, a: TreeBatch, b: TreeBatch):
-    """Swap random subtrees between paired trees. Returns (a', b', ok);
-    ok=False (both unchanged) where either result would overflow."""
-    k = rng.split(keys, 2)
+def gen_random_tree_fixed_size(keys, target_size, nfeatures: int,
+                               operators: OperatorSet, max_len: int,
+                               dtype: torch.dtype = torch.float32
+                               ) -> TreeBatch:
+    """Grow random trees to ~target_size nodes (one per key and element of
+    the (N,) tensor ``target_size``) by max_len // 2 + 1 steps that each
+    replace a random leaf by a random operator over fresh leaves;
+    constants in ``dtype``. Every draw of the loop is one plan, drawn
+    before the loop."""
+    d = single_plan(random_tree_draws, nfeatures, operators.n_unary,
+                    operators.n_binary, max_len, dtype).run(keys)
+    return random_tree_from(d, (), target_size, operators, max_len, dtype)
+
+
+def crossover_draws(p: rng.DrawPlan, node: int, tag: tuple, max_len: int,
+                    dtype: torch.dtype) -> None:
+    k = p.split(node, 2)
+    p.gumbel(tag + ("sel_a",), k[0], (max_len,), rng.draw_dtype(dtype))
+    p.gumbel(tag + ("sel_b",), k[1], (max_len,), rng.draw_dtype(dtype))
+
+
+def crossover_from(d: rng.Drawn, tag: tuple, a: TreeBatch, b: TreeBatch):
     va, vb = valid_mask(a), valid_mask(b)
     sizes_a = subtree_sizes(a.kind, a.length)
     sizes_b = subtree_sizes(b.kind, b.length)
-    ia = select_node(k[..., 0, :], va, a.cval.dtype)
-    ib = select_node(k[..., 1, :], vb, b.cval.dtype)
+    ia = select_from(d, tag + ("sel_a",), va, a.cval.dtype)
+    ib = select_from(d, tag + ("sel_b",), vb, b.cval.dtype)
     sa, ea = _node_span(ia, sizes_a)
     sb, eb = _node_span(ib, sizes_b)
     a2, fit_a = splice(a, sa, ea, b.kind, b.op, b.feat, b.cval, sb, eb - sb)
     b2, fit_b = splice(b, sb, eb, a.kind, a.op, a.feat, a.cval, sa, ea - sa)
     ok = va.any(dim=-1) & vb.any(dim=-1) & fit_a & fit_b
     return where_trees(ok, a2, a), where_trees(ok, b2, b), ok
+
+
+def crossover_trees(keys, a: TreeBatch, b: TreeBatch):
+    """Swap random subtrees between paired trees. Returns (a', b', ok);
+    ok=False (both unchanged) where either result would overflow."""
+    d = single_plan(crossover_draws, a.max_len, a.cval.dtype).run(keys)
+    return crossover_from(d, (), a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ leading (island) dims, which replaces the JAX package's vmap.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -100,6 +101,22 @@ def tournament_logits(options: Options, device) -> torch.Tensor:
     return ranks * torch.log1p(-p) + torch.log(p)
 
 
+def tournament_draws(p: rng.DrawPlan, node: int, tag: tuple, npop: int,
+                     n: int, axis: int = 0) -> None:
+    """A tournament's draws from ``node``'s key: the permutation's 32-bit
+    draws and the pick's gumbels (their elements spread over ``axis``)."""
+    k = p.split(node, 2)
+    rng.permutation_draws(p, k[0], tag + ("perm",), npop, axis)
+    p.gumbel(tag + ("pick",), k[1], (n,), torch.float32, axis)
+
+
+@functools.lru_cache(maxsize=None)
+def tournament_plan(npop: int, n: int) -> rng.DrawPlan:
+    p = rng.DrawPlan("tournament", axes=(rng.SPREAD,))
+    tournament_draws(p, p.root, ("tour",), npop, n, 1)
+    return p
+
+
 def tournament_winner(keys: torch.Tensor, pop: Population,
                       stats_frequencies: torch.Tensor, options: Options,
                       complexity: Optional[torch.Tensor] = None
@@ -108,12 +125,22 @@ def tournament_winner(keys: torch.Tensor, pop: Population,
     tournament_selection_n members without replacement, reweight scores by
     the adaptive-parsimony frequency, pick the k-th best with probability
     p(1-p)^k. pop fields (I, npop); returns winner indices (I, B)."""
+    d = tournament_plan(pop.npop, options.tournament_selection_n).run(keys)
+    return tournament_from(d, ("tour",), pop, stats_frequencies, options,
+                           complexity)
+
+
+def tournament_from(d: rng.Drawn, tag: tuple, pop: Population,
+                    stats_frequencies: torch.Tensor, options: Options,
+                    complexity: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """``tournament_winner`` from the draws ``tournament_draws`` made, one
+    tournament per key: (I, B)."""
     I, npop = pop.scores.shape
-    n_tournaments = keys.shape[1]
     dev = pop.scores.device
     n = options.tournament_selection_n
-    k = rng.split(keys, 2)
-    idx = rng.choice_without_replacement(k[..., 0, :], npop, n)
+    idx = rng.permutation_of(d, tag + ("perm",), npop)[..., :n]
+    n_tournaments = idx.shape[1]
     flat_idx = idx.reshape(I, -1)
     scores = torch.gather(pop.scores, -1, flat_idx).reshape(I, n_tournaments, n)
     if options.use_frequency_in_tournament:
@@ -128,7 +155,8 @@ def tournament_winner(keys: torch.Tensor, pop: Population,
         freq = torch.where(in_range, freq, 0.0)
         scores = scores * torch.exp(options.adaptive_parsimony_scaling * freq)
     order = torch.argsort(scores, dim=-1, stable=True)
-    pick = rng.categorical(k[..., 1, :], tournament_logits(options, dev))
+    pick = torch.argmax(d[tag + ("pick",)] + tournament_logits(options, dev),
+                        dim=-1)
     winner_pos = torch.gather(order, -1, pick.unsqueeze(-1))
     return torch.gather(idx, -1, winner_pos).squeeze(-1)
 

@@ -1,9 +1,11 @@
 """The threefry kernel's build and wrappers (``csrc/threefry.cu``).
 
-Every split and draw of the search on the card is one launch of this
-kernel (``utils/rng.py`` calls these wrappers for CUDA tensors; its torch
-code is the plain version, for CPU tensors). A launch serves one call of
-the reference's ``jax.random``, batched over all the keys it is given.
+Every split and draw of the search on the card runs in this kernel
+(``utils/rng.py`` calls these wrappers for CUDA tensors; its torch code is
+the plain version, for CPU tensors). A per-call launch serves one call of
+the reference's ``jax.random``, batched over all the keys it is given; a
+plan launch (``plan``) serves a whole draw plan, every split and draw of
+one call site of the cycle.
 
 The library is compiled with ``nvcc`` into ``build/libthreefry.so`` at
 first use (one build: keys and bits are integers, and each float epilogue
@@ -11,7 +13,8 @@ takes its dtype as an argument) and launched through ctypes on the
 current stream, so a captured CUDA graph records it. ``LAUNCHES`` counts
 launches by mode (``"split"``, ``"bits"``, ``"uniform"``, ``"normal"``,
 ``"gumbel"``, ``"randint"``; a float epilogue of another dtype than
-float32 as ``"uniform_bf16"``, ``"normal_f64"``, ...).
+float32 as ``"uniform_bf16"``, ``"normal_f64"``, ...), ``PLAN_LAUNCHES``
+by plan name.
 A CUDA tensor never takes the plain version: the wrapper launches or
 raises.
 """
@@ -39,6 +42,10 @@ for _m in ("uniform", "normal", "gumbel"):
     for _code, _sfx in DTYPES.values():
         LAUNCHES[_m + _sfx] = 0
 
+# launches of draw plans (``utils/rng.py`` ``DrawPlan``), by plan name
+PLAN_LAUNCHES = {}
+OP_WORDS = 18  # int32 words of one op of a plan's table
+
 BUILD_LOG = {}  # nvcc's output (-Xptxas -v lines) and seconds of the build
 
 _lib = [None]
@@ -64,6 +71,9 @@ def _library():
             lib.threefry_launch.argtypes = [p, ll, ll, ll, ll, i, i, i, d, d,
                                             ll, ll, p, p, p]
             lib.threefry_launch.restype = i
+            lib.threefry_plan_launch.argtypes = [p, i, i, i, p, p, i, i, i,
+                                                 p, p, i, p, i, p]
+            lib.threefry_plan_launch.restype = i
             lib.threefry_error_string.argtypes = [i]
             lib.threefry_error_string.restype = ctypes.c_char_p
             _lib[0] = lib
@@ -152,3 +162,40 @@ def randint(keys, shape, minval: int, maxval):
     return _launch(keys, shape, "randint", torch.int64, imin=minval,
                    imax=int(maxval))
 
+
+
+def plan(table: torch.Tensor, n_slots: int, keys: torch.Tensor, axes,
+         bufs, strides, bounds, mask: int, name: str) -> None:
+    """One launch of a draw plan (``csrc/threefry.cu`` ``plan_kernel``):
+    ``table`` its op table on the card, ``n_slots`` the key slots its ops
+    use, ``bufs`` the output buffers it fills with ``strides`` (elements
+    per prefix index, per column) each, ``bounds`` its device bounds
+    (int64 scalars), ``mask`` 1 where it draws in float64 (the float64
+    instantiation), else 0. Counted in ``PLAN_LAUNCHES[name]``."""
+    k, nkeys, stride = _flat_keys(keys)
+    if nkeys == 0:
+        return
+    dev = keys.device
+    for t in (table, *bufs, *bounds):
+        if t.device != dev:
+            raise RuntimeError("a draw plan's tensors must lie on its keys' "
+                               "device")
+    for b in bounds:
+        if b.numel() != 1 or b.dtype != torch.int64:
+            raise TypeError("a device bound must be one int64")
+    bounds = [b.reshape(()).contiguous() for b in bounds]
+    lib = _library()
+    c_axes = (ctypes.c_int * max(len(axes), 1))(*axes)
+    c_outs = (ctypes.c_void_p * max(len(bufs), 1))(
+        *[b.data_ptr() for b in bufs])
+    c_strides = (ctypes.c_int * max(2 * len(bufs), 1))(
+        *[v for st in strides for v in st])
+    c_bounds = (ctypes.c_void_p * max(len(bounds), 1))(
+        *[b.data_ptr() for b in bounds])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.threefry_plan_launch(
+        k.data_ptr(), nkeys, stride, len(axes), c_axes, table.data_ptr(),
+        table.numel() // OP_WORDS, int(n_slots), len(bufs), c_outs,
+        c_strides, len(bounds), c_bounds, int(mask), stream)
+    _check(lib, code, f"plan {name}")
+    PLAN_LAUNCHES[name] = PLAN_LAUNCHES.get(name, 0) + 1

@@ -45,8 +45,13 @@ children of the first cycle of iteration 2 of ``equation_search`` at 64
 islands x 1000 (saved to ``build/kernel_ab/captured.pt`` and reused), timed
 in the fused mode (``fused_l2@captured``). ``--hof`` adds, in each timing
 process, the main path's search at the north star's widths for 1
-iteration of 100 cycles (seed 0) and compares its hall of fame (each
-member's complexity, loss bits and equation) with the first root's.
+iteration of 100 cycles (seed 0), timed (``hof_search_s``), and compares
+its hall of fame (each member's complexity, loss bits and equation) with
+the first root's. ``--main`` adds, in each timing process, chip_smoke
+phase 5's search (the north star's widths, 2 iterations of 550 cycles,
+seed 0, default constant optimisation): its seconds per iteration (host
+clock at each ``on_iteration``, which reads the candidates' losses from
+the card; the first iteration includes init and the capture).
 
 The imports are absolute, so that this file, run by path in a root's
 process, drives that root's package.
@@ -371,28 +376,58 @@ def time_here(captured_path, bits_path) -> dict:
     return row
 
 
-def hall_of_fame_here() -> list:
+def hall_of_fame_here():
     """The main path's search at the north star's widths, 1 iteration of
     100 cycles at seed 0: its hall of fame as (complexity, loss bits,
-    equation)."""
+    equation), and the search's seconds (host clock, init and capture
+    included)."""
     from symbolicregression_jl_tpu_torch import equation_search
 
     X, y = north_star_data(torch.device("cuda"))
+    torch.cuda.synchronize()
+    t = time.time()
     res = equation_search(X.cpu().numpy(), y.cpu().numpy(), niterations=1,
                           ncycles_per_iteration=100, seed=0,
                           binary_operators=["+", "-", "*", "/"],
                           unary_operators=["cos", "exp"], npopulations=64,
                           npop=1000, maxsize=20, verbosity=0)
-    return [(c.complexity, float(c.loss).hex(), c.equation)
-            for c in res.frontier()]
+    torch.cuda.synchronize()
+    return ([(c.complexity, float(c.loss).hex(), c.equation)
+             for c in res.frontier()], time.time() - t)
+
+
+def main_path_here(niterations: int = 2, ncycles: int = 550) -> dict:
+    """chip_smoke phase 5's search: seconds (host clock) and best loss of
+    each iteration."""
+    from symbolicregression_jl_tpu_torch import equation_search
+
+    X, y = north_star_data(torch.device("cuda"))
+    X_np, y_np = X.cpu().numpy(), y.cpu().numpy()
+    torch.cuda.synchronize()
+    t = [time.time()]
+    per_iter, best = [], []
+
+    def on_iteration(j, it, cands):
+        best.append(min(c.loss for c in cands))
+        per_iter.append(time.time() - t[0])
+        t[0] = time.time()
+
+    equation_search(X_np, y_np, niterations=niterations,
+                    ncycles_per_iteration=ncycles, seed=0,
+                    on_iteration=on_iteration,
+                    binary_operators=["+", "-", "*", "/"],
+                    unary_operators=["cos", "exp"], npopulations=64,
+                    npop=1000, maxsize=20, loss="L2DistLoss", verbosity=0)
+    return {"s_per_iteration": per_iter, "best_loss": best}
 
 
 def worker(argv) -> int:
     """``--worker root build`` or ``--worker root time bits [captured]
-    [--hof]``: check that the package imported is the root's, then do the
-    one job."""
-    hof, cycle = "--hof" in argv, "--cycle" in argv
-    argv = [a for a in argv if a not in ("--hof", "--cycle")]
+    [--hof] [--cycle] [--main]``: check that the package imported is the
+    root's, then do the one job."""
+    hof, cycle, main_path = ("--hof" in argv, "--cycle" in argv,
+                             "--main" in argv)
+    argv = [a for a in argv if a not in ("--hof", "--cycle", "--main")]
     root, job = pathlib.Path(argv[0]).resolve(), argv[1]
     if root not in pathlib.Path(ke.__file__).resolve().parents:
         raise RuntimeError(f"imported {ke.__file__}, not the package of {root}")
@@ -401,9 +436,11 @@ def worker(argv) -> int:
         return 0
     row = time_here(argv[3] if len(argv) > 3 else None, argv[2])
     if hof:
-        row["hof"] = hall_of_fame_here()
+        row["hof"], row["hof_search_s"] = hall_of_fame_here()
     if cycle:
         row["cycle"] = cycle_here()
+    if main_path:
+        row["main_path"] = main_path_here()
     print(json.dumps(row))
     return 0
 
@@ -432,6 +469,7 @@ def main(argv) -> int:
     capture = "--capture" in argv
     hof = ["--hof"] if "--hof" in argv else []
     cycle = ["--cycle"] if "--cycle" in argv else []
+    main_path = ["--main"] if "--main" in argv else []
     roots = {n: pathlib.Path(r).resolve() for n, r in
              (a.split("=", 1) for a in argv if not a.startswith("--"))}
     card = subprocess.run(
@@ -454,7 +492,7 @@ def main(argv) -> int:
         path = OUT_DIR / f"bits_{name}.pt"
         row = {"tree": name, **json.loads(run_in(
             roots[name], "time", str(path), *captured, *hof,
-            *cycle).splitlines()[-1])}
+            *cycle, *main_path).splitlines()[-1])}
         bits.setdefault(name, torch.load(path))
         print(json.dumps(row), flush=True)
         rows.append(row)

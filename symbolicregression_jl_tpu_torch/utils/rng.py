@@ -13,11 +13,14 @@ batched call is the vmapped one. ``split(keys, n)[..., i, :]`` is the
 reference's ``jax.random.split(key, n)[i]`` of each key, and equals
 ``fold_in(keys, i)``: ``threefry2x32(key, (0, i))``.
 
-On a CUDA tensor every split and draw is one launch of the threefry kernel
-(``ops/kernel_rng.py``, ``csrc/threefry.cu``), batched over all the keys
-it is given; the torch code of this module is its plain version and runs
-on CPU tensors only. No function here reads the device from the host, so
-the captured cycle (``models/cycle_graph.py``) records every draw.
+On a CUDA tensor every split and draw of the functions below is one
+launch of the threefry kernel (``ops/kernel_rng.py``, ``csrc/threefry.cu``),
+batched over all the keys it is given; the torch code of this module is
+its plain version and runs on CPU tensors only. The cycle draws through
+draw plans instead (``DrawPlan``, at the end): every split and draw of one
+call site in one launch, and in a few numpy calls on the CPU. No function
+here reads the device from the host, so the captured cycle
+(``models/cycle_graph.py``) records every draw.
 
 The float math inside ``gumbel`` and ``normal`` is the reference's CPU
 arithmetic: XLA's CPU ``log`` and ``log1p`` (Cephes' polynomials) and
@@ -35,6 +38,7 @@ from __future__ import annotations
 import functools
 import math
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,6 +67,7 @@ def threefry2x32(k1, k2, x1, x2):
     """JAX's ``threefry2x32_p`` on numpy ``uint32`` arrays (broadcast
     together; uint32 arithmetic wraps as the hash's does); returns the two
     output words."""
+    PLAIN_CALLS["threefry"] += 1
     k1, k2 = np.asarray(k1, np.uint32), np.asarray(k2, np.uint32)
     ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
     x1 = np.add(x1, ks[0], dtype=np.uint32)
@@ -581,3 +586,667 @@ def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[
         ..., :k]
 
+
+
+# ---------------------------------------------------------------------------
+# Draw plans: the splits and draws of one call site in one launch
+# ---------------------------------------------------------------------------
+#
+# A call site of the cycle splits its keys along a static path and draws at
+# the leaves. A ``DrawPlan`` records that path once: nodes (each a key,
+# ``split(parent, n)[i]`` = threefry2x32(parent, (0, i)), or a fan-out
+# whose counter is the thread's index on an axis), and the draws and kept
+# keys at the nodes. ``run`` computes the whole plan from a batch of root
+# keys: on the card in one launch of the plan kernel (one thread per root
+# key and fan-out index, ``csrc/threefry.cu``), on the CPU in numpy with
+# one threefry call per depth of the path and one epilogue per kind of
+# draw. Every draw is the one the per-call functions above give for the
+# same key.
+
+PLAIN_CALLS = {"threefry": 0}  # numpy threefry2x32 calls of the plain path
+
+# the kernel's op table: 18 int32 words per op (csrc/threefry.cu)
+OP_WORDS = kernel_rng.OP_WORDS
+OP_NODE, OP_DRAW, OP_KEEP = 0, 1, 2
+DRAW_KINDS = {"bits": 0, "uniform": 1, "normal": 2, "gumbel": 3,
+              "randint": 4}
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+               torch.float16: 3}
+MAX_AXES = 3
+MAX_SLOTS = 24  # keys a thread holds at once (in shared memory)
+MAX_BUFFERS = 16
+MAX_BOUNDS = 4
+# the threads one wide draw (a permutation's bits, a minibatch's rows) is
+# spread over: its elements i, i + SPREAD, ... go to index i of the
+# fan-out axis it names
+SPREAD = 32
+
+
+class _Draw(NamedTuple):
+    kind: str
+    node: int
+    shape: tuple
+    dtype: torch.dtype  # float dtype, or int64 for bits / randint / keys
+    axis: int  # 0: the thread draws every element; a: elements i_a + F_a j
+    width: int = 32  # bits
+    minval: float = 0.0  # uniform
+    maxval: float = 1.0
+    imin: int = 0  # randint
+    imax: object = 0  # an int, or the name of a device bound
+
+    @property
+    def n(self) -> int:
+        return math.prod(self.shape)
+
+    def bounds(self):
+        """The uniform's lower bound and span in the dtype."""
+        if self.kind == "normal":
+            return bounds(self.dtype, _next_after_minus_one(self.dtype), 1.0)
+        if self.kind == "gumbel":
+            return bounds(self.dtype, float(torch.finfo(self.dtype).tiny),
+                          1.0)
+        if self.kind == "uniform":
+            return bounds(self.dtype, self.minval, self.maxval)
+        return 0.0, 0.0
+
+    def out_bytes(self) -> int:
+        """Bytes of one element the function needs: 32-bit draws and
+        int32 randints 4, a key two 32-bit words."""
+        if self.kind == "key":
+            return 4
+        if self.kind == "bits":
+            return 8 if self.width == 64 else 4
+        if self.kind == "randint":
+            return 4
+        return torch.finfo(self.dtype).bits // 8
+
+
+class Drawn:
+    """The outputs of one run of a plan, by name: a draw of ``shape`` at a
+    node under fan-out axes 1..l is (*keys' batch, F_1, ..., F_l, *shape);
+    a kept key (*keys' batch, F_1, ..., F_l, 2)."""
+
+    def __init__(self, values: dict, shapes: dict):
+        self._values = values
+        self._shapes = shapes
+
+    def __getitem__(self, name) -> torch.Tensor:
+        return self._values[name]
+
+    def names(self):
+        return list(self._values)
+
+    def flat(self, name) -> torch.Tensor:
+        """The draw with every key and fan-out index on one leading axis."""
+        return self._values[name].reshape((-1,) + self._shapes[name])
+
+
+class DrawPlan:
+    """A static plan of splits and draws from one batch of root keys.
+
+    ``axes`` are the fan-out axes' sizes, nested: a fan on axis a hangs
+    below a node of level a - 1 (the root's level is 0). The plan is built
+    once per call site and static arguments (the functions making plans
+    are cached) and compiled on first use; equal nodes and equal draws are
+    merged."""
+
+    def __init__(self, name: str, axes=()):
+        if len(axes) > MAX_AXES:
+            raise ValueError(f"at most {MAX_AXES} fan-out axes")
+        self.name = name
+        self.axes = tuple(int(a) for a in axes)
+        self._parent = [-1]
+        self._counter = [0]
+        self._fan = [0]
+        self._level = [0]
+        self._nodes = {}
+        self._draws = []
+        self._sig = {}
+        self._names = {}
+        self._program = []  # ("n", node) / ("d", draw) in the order made
+        self._compiled = None
+
+    root = 0
+
+    def _node(self, parent: int, counter: int, axis: int) -> int:
+        if self._compiled is not None:
+            raise RuntimeError("the plan is compiled")
+        key = (parent, counter, axis)
+        if key not in self._nodes:
+            self._nodes[key] = len(self._parent)
+            self._parent.append(parent)
+            self._counter.append(counter)
+            self._fan.append(axis)
+            self._level.append(axis or self._level[parent])
+            self._program.append(("n", self._nodes[key]))
+        return self._nodes[key]
+
+    def child(self, node: int, i: int) -> int:
+        """``split(node, n)[i]`` for any n > i (``fold_in(node, i)``)."""
+        return self._node(node, int(i) & MASK32, 0)
+
+    def split(self, node: int, n: int) -> list:
+        return [self.child(node, i) for i in range(n)]
+
+    def fan(self, node: int, axis: int) -> int:
+        """``split(node, F_axis)[i_axis]``: the thread's index on ``axis``
+        becomes the counter; below it the draws gain that axis."""
+        if not 1 <= axis <= len(self.axes) or self._level[node] != axis - 1:
+            raise ValueError(f"a fan on axis {axis} hangs below a node of "
+                             f"level {axis - 1}")
+        return self._node(node, 0, axis)
+
+    def _add(self, name, draw: _Draw) -> None:
+        if name in self._names:
+            raise ValueError(f"the plan already draws {name!r}")
+        if draw.axis and not self._level[draw.node] < draw.axis <= len(
+                self.axes):
+            raise ValueError("a draw's element axis lies below its node")
+        if draw.n >= 2 ** 31:
+            raise ValueError("a draw of 2^31 elements or more")
+        if draw not in self._sig:
+            self._sig[draw] = len(self._draws)
+            self._draws.append(draw)
+            self._program.append(("d", self._sig[draw]))
+        self._names[name] = self._sig[draw]
+
+    def bits(self, name, node: int, width: int, shape=(), axis: int = 0):
+        if width not in (8, 16, 32, 64):
+            raise ValueError(f"width must be 8, 16, 32 or 64, got {width}")
+        self._add(name, _Draw("bits", node, _shape(shape), torch.int64,
+                              axis, width=width))
+
+    def uniform(self, name, node: int, shape=(), dtype=None,
+                minval: float = 0.0, maxval: float = 1.0, axis: int = 0):
+        self._add(name, _Draw("uniform", node, _shape(shape), _dtype(dtype),
+                              axis, minval=float(minval),
+                              maxval=float(maxval)))
+
+    def normal(self, name, node: int, shape=(), dtype=None, axis: int = 0):
+        self._add(name, _Draw("normal", node, _shape(shape), _dtype(dtype),
+                              axis))
+
+    def gumbel(self, name, node: int, shape=(), dtype=None, axis: int = 0):
+        self._add(name, _Draw("gumbel", node, _shape(shape), _dtype(dtype),
+                              axis))
+
+    def randint(self, name, node: int, shape, minval: int, maxval,
+                axis: int = 0):
+        """``maxval`` an int, or a string: the name of an int64 device
+        scalar that ``run`` gets in ``bounds``."""
+        if not isinstance(maxval, str):
+            maxval = max(min(int(maxval), 2 ** 31 - 1), -2 ** 31)
+        self._add(name, _Draw("randint", node, _shape(shape), torch.int64,
+                              axis, imin=max(min(int(minval), 2 ** 31 - 1),
+                                             -2 ** 31), imax=maxval))
+
+    def keep(self, name, node: int):
+        """Write the key of ``node`` out: (..., 2) int64."""
+        self._add(name, _Draw("key", node, (2,), torch.int64, 0))
+
+    # ---- compilation --------------------------------------------------
+
+    def compile(self) -> "_Compiled":
+        if self._compiled is None:
+            self._compiled = _Compiled(self)
+        return self._compiled
+
+    def run(self, keys: torch.Tensor, bounds=None) -> Drawn:
+        """Every draw and kept key of the plan for ``keys`` (..., 2): on a
+        CUDA tensor one launch of the plan kernel, on a CPU tensor the
+        plain version. ``bounds``: name -> int64 scalar tensor of each
+        device bound of a randint."""
+        _check_keys(keys)
+        c = self.compile()
+        bounds = dict(bounds or {})
+        missing = set(c.bound_names) - set(bounds)
+        if missing:
+            raise ValueError(f"plan {self.name!r} needs bounds {missing}")
+        if keys.is_cuda:
+            return c.run_kernel(keys, bounds)
+        return c.run_plain(keys, bounds)
+
+    def run_per_call(self, keys: torch.Tensor, bounds=None) -> Drawn:
+        """The plan through the per-call functions above, one call (on the
+        card one launch) per node and draw: the reference the plan is
+        held against."""
+        c = self.compile()
+        bounds = dict(bounds or {})
+        node_keys = {0: keys}
+        values, shapes = {}, {}
+        for t, i in c.program:
+            if t == "n":
+                parent = node_keys[self._parent[i]]
+                node_keys[i] = (split(parent, self.axes[self._fan[i] - 1])
+                                if self._fan[i] else
+                                fold_in(parent, self._counter[i]))
+        out = []
+        for d in self._draws:
+            k = node_keys[d.node]
+            if d.kind == "key":
+                out.append(k)
+            elif d.kind == "bits":
+                out.append(random_bits(k, d.width, d.shape))
+            elif d.kind == "uniform":
+                out.append(uniform(k, d.shape, d.dtype, d.minval, d.maxval))
+            elif d.kind == "normal":
+                out.append(normal(k, d.shape, d.dtype))
+            elif d.kind == "gumbel":
+                out.append(gumbel(k, d.shape, d.dtype))
+            else:
+                out.append(randint(k, d.shape, d.imin, bounds[d.imax]
+                                   if isinstance(d.imax, str) else d.imax))
+        for name, i in self._names.items():
+            values[name], shapes[name] = out[i], self._draws[i].shape
+        return Drawn(values, shapes)
+
+    def work(self, n_keys: int):
+        """(hashes, bytes) the plan needs for ``n_keys`` root keys: each
+        node hashed once per (root, fan-out prefix of its level), each draw
+        element once (a randint's twice, beside its key's split), each
+        root key read once (two 32-bit words) and each output written
+        once at the width the function needs."""
+        c = self.compile()
+        per = [n_keys * math.prod(self.axes[:l])
+               for l in range(len(self.axes) + 1)]
+        hashes = sum(per[self._level[i]] for t, i in c.program if t == "n")
+        out_bytes = 0
+        for d in self._draws:
+            m = per[self._level[d.node]]
+            if d.kind == "randint":
+                hashes += m * (2 + 2 * d.n)
+            elif d.kind != "key":
+                hashes += m * d.n
+            out_bytes += m * d.n * d.out_bytes()
+        return hashes, 8 * n_keys + out_bytes
+
+
+def _storage(d: _Draw):
+    return d.dtype if d.dtype in DTYPE_CODES else torch.int64
+
+
+class _Compiled:
+    """A plan's kernel op table and its plain version's schedule."""
+
+    def __init__(self, plan: DrawPlan):
+        self.plan = plan
+        axes = plan.axes
+        self.axes = axes
+        par, lev = plan._parent, plan._level
+        draws = plan._draws
+        # prune nodes that lead to nothing
+        used = [False] * len(par)
+        for d in draws:
+            used[d.node] = True
+        for n in range(len(par) - 1, 0, -1):
+            if used[n]:
+                used[par[n]] = True
+        program = [(t, i) for t, i in plan._program
+                   if t == "d" or used[i]]
+        # which threads run a draw: those whose nonzero fan-out indices lie
+        # on its allowed axes (a bit per axis); a node's are its consumers'
+        self.allow = []
+        for d in draws:
+            m = sum(1 << a for a in range(1, lev[d.node] + 1))
+            self.allow.append(m | ((1 << d.axis) if d.axis else 0))
+        self.program = program
+        # output buffers: one per (level, storage dtype, element axis or
+        # not), draws as columns. A warp's threads are consecutive prefixes
+        # (or, under an element axis, consecutive elements), so a buffer
+        # whose draws spread over no axis is column-major (each column's
+        # prefixes adjacent) and one whose draws do row-major: either way
+        # a warp's stores are adjacent
+        self.buffers = []  # [level, dtype, width, row-major]
+        buf_of, self.columns = {}, []
+        for d in draws:
+            key = (lev[d.node], _storage(d), bool(d.axis))
+            if key not in buf_of:
+                buf_of[key] = len(self.buffers)
+                self.buffers.append([key[0], key[1], 0, key[2]])
+            b = buf_of[key]
+            self.columns.append((b, self.buffers[b][2]))
+            self.buffers[b][2] += d.n
+        if len(self.buffers) > MAX_BUFFERS:
+            raise ValueError(f"plan {plan.name!r}: more than {MAX_BUFFERS} "
+                             "output buffers")
+        self.bound_names = sorted({d.imax for d in draws
+                                   if isinstance(d.imax, str)})
+        if len(self.bound_names) > MAX_BOUNDS:
+            raise ValueError(f"plan {plan.name!r}: too many device bounds")
+        # the op table (refuses a plan that holds too many keys) and the
+        # key slots it uses
+        words = self._encode(program)
+        self.words = tuple(v for w in words for v in w)
+        self.n_slots = 1 + max((w[2] for w in words if w[0] == OP_NODE),
+                               default=-1)
+        dtypes = {d.dtype for d in draws}
+        # the kernel's instantiation: 1 where the plan draws in float64
+        self.mask = int(torch.float64 in dtypes)
+        self.two_byte = bool(dtypes & {torch.bfloat16, torch.float16})
+        self._tables = {}
+        # the plain version's schedule: every node's two words are a row
+        # of its level's (nodes, R * F_1 * ... * F_l) arrays; the hashes of
+        # one depth are one threefry call, in groups that each gather their
+        # parents' rows at once
+        depth = [0] * len(par)
+        nrows, row = [0] * (len(axes) + 1), {0: 0}
+        nrows[0] = 1
+        stages = {}
+
+        def stage(d):
+            return stages.setdefault(d, {"node": {}, "draw": {}, "split": {},
+                                         "relem": {}})
+
+        for t, i in program:
+            if t == "n":
+                depth[i] = depth[par[i]] + 1
+                row[i] = nrows[lev[i]]
+                nrows[lev[i]] += 1
+                g = stage(depth[i])["node"].setdefault(
+                    (lev[i], plan._fan[i]), ([], [], []))
+                g[0].append(row[par[i]])
+                g[1].append(plan._counter[i])
+                g[2].append(row[i])
+                continue
+            d = draws[i]
+            if d.kind == "key":
+                continue
+            dd, l = depth[d.node], lev[d.node]
+            if d.kind == "randint":
+                g = stage(dd + 1)["split"].setdefault(l, ([], []))
+                g[0].append(row[d.node])
+                g[1].append(i)
+                stage(dd + 2)["relem"].setdefault((l, d.n), []).append(i)
+            else:
+                g = stage(dd + 1)["draw"].setdefault((l, d.n), ([], []))
+                g[0].append(row[d.node])
+                g[1].append(i)
+        self.nrows, self.row = nrows, row
+        arr = lambda g: tuple(np.asarray(v) for v in g[:-1]) + (g[-1],)
+        self.stages = [dict(
+            node={k: tuple(map(np.asarray, g))
+                  for k, g in stages[d]["node"].items()},
+            split={k: arr(g) for k, g in stages[d]["split"].items()},
+            draw={k: arr(g) for k, g in stages[d]["draw"].items()},
+            relem=stages[d]["relem"]) for d in sorted(stages)]
+        groups = {}
+        for i, d in enumerate(draws):
+            if d.kind != "key":
+                groups.setdefault(d._replace(node=0, shape=(), axis=0),
+                                  []).append(i)
+        self.groups = list(groups.items())
+
+    # ---- the kernel's op table -------------------------------------------
+
+    def _path(self, node: int) -> list:
+        par, out = self.plan._parent, []
+        while node:
+            out.append(node)
+            node = par[node]
+        return out
+
+    def _encode(self, program: list) -> list:
+        """The ops: key slots (a node's slot is free after its last
+        consumer), each node allowed where any of its consumers is."""
+        plan, draws = self.plan, self.plan._draws
+        par, lev = plan._parent, plan._level
+        allow_n = {}
+        for t, i in program:
+            if t == "d":
+                for n in self._path(draws[i].node):
+                    allow_n[n] = allow_n.get(n, 0) | self.allow[i]
+        last = {}
+        for pos, (t, i) in enumerate(program):
+            last[par[i] if t == "n" else draws[i].node] = pos
+        slot, free, words = {0: -1}, list(range(MAX_SLOTS - 1, -1, -1)), []
+        for pos, (t, i) in enumerate(program):
+            w = [0] * OP_WORDS
+            if t == "n":
+                if not free:
+                    raise ValueError(f"plan {plan.name!r} holds more than "
+                                     f"{MAX_SLOTS} keys at once")
+                slot[i] = free.pop()
+                w[:6] = [OP_NODE, allow_n[i], slot[i], slot[par[i]],
+                         plan._counter[i], plan._fan[i]]
+                src = par[i]
+            else:
+                d = draws[i]
+                b, col = self.columns[i]
+                w[:11] = [OP_KEEP if d.kind == "key" else OP_DRAW,
+                          self.allow[i], DRAW_KINDS.get(d.kind, 0),
+                          slot[d.node], d.n, d.axis, b, col, lev[d.node],
+                          d.width if d.kind == "bits"
+                          else DTYPE_CODES.get(d.dtype, 0),
+                          self.bound_names.index(d.imax)
+                          if isinstance(d.imax, str) else -1]
+                lo_span = d.bounds()
+                lo = struct.unpack("<ii", struct.pack("<d", lo_span[0]))
+                sp = struct.unpack("<ii", struct.pack("<d", lo_span[1]))
+                w[11:17] = [lo[0], lo[1], sp[0], sp[1], d.imin,
+                            0 if isinstance(d.imax, str) else d.imax]
+                src = d.node
+            if src != 0 and last.get(src) == pos:
+                free.append(slot[src])
+            words.append(w)
+        return words
+
+    # ---- the plain version (CPU tensors only) ---------------------------
+
+    def run_plain(self, keys: torch.Tensor, bounds: dict) -> Drawn:
+        if keys.is_cuda:
+            raise RuntimeError("the plain draw plan runs on CPU tensors only")
+        plan, axes = self.plan, self.axes
+        draws, lev = plan._draws, plan._level
+        batch = tuple(keys.shape[:-1])
+        R = math.prod(batch)
+        k = keys.reshape(R, 2).numpy().astype(np.uint32)
+        E = [R * math.prod(axes[:l]) for l in range(len(axes) + 1)]
+        W1 = [np.empty((n, e), np.uint32) for n, e in zip(self.nrows, E)]
+        W2 = [np.empty((n, e), np.uint32) for n, e in zip(self.nrows, E)]
+        W1[0][0], W2[0][0] = k[:, 0], k[:, 1]
+        words, split_words = {}, {}
+        for st in self.stages:
+            parts = []  # (k1, k2, counters, where the words go)
+            for (l, fan), (prow, cnt, drow) in st["node"].items():
+                if fan:
+                    F = axes[l - 1]
+                    p1 = np.repeat(W1[l - 1][prow], F, axis=1)
+                    p2 = np.repeat(W2[l - 1][prow], F, axis=1)
+                    c = np.broadcast_to(np.tile(np.arange(
+                        F, dtype=np.uint32), E[l - 1]), p1.shape)
+                else:
+                    p1, p2 = W1[l][prow], W2[l][prow]
+                    c = np.broadcast_to(cnt.astype(np.uint32)[:, None],
+                                        p1.shape)
+                parts.append((p1, p2, c, ("node", l, drow)))
+            for l, (prow, ids) in st["split"].items():
+                shape = (len(ids), E[l], 2)
+                p1 = np.broadcast_to(W1[l][prow][..., None], shape)
+                p2 = np.broadcast_to(W2[l][prow][..., None], shape)
+                c = np.broadcast_to(np.arange(2, dtype=np.uint32), shape)
+                parts.append((p1, p2, c, ("split", ids)))
+            for (l, n), (prow, ids) in st["draw"].items():
+                shape = (len(ids), E[l], n)
+                p1 = np.broadcast_to(W1[l][prow][..., None], shape)
+                p2 = np.broadcast_to(W2[l][prow][..., None], shape)
+                c = np.broadcast_to(np.arange(n, dtype=np.uint32), shape)
+                parts.append((p1, p2, c, ("draw", ids)))
+            for (l, n), ids in st["relem"].items():
+                shape = (len(ids), E[l], 2, n)
+                h1 = np.stack([split_words[i][0] for i in ids])[..., None]
+                h2 = np.stack([split_words[i][1] for i in ids])[..., None]
+                c = np.broadcast_to(np.arange(n, dtype=np.uint32), shape)
+                parts.append((np.broadcast_to(h1, shape),
+                              np.broadcast_to(h2, shape), c, ("draw", ids)))
+            k1 = np.concatenate([p[0].ravel() for p in parts])
+            k2 = np.concatenate([p[1].ravel() for p in parts])
+            x2 = np.concatenate([p[2].ravel() for p in parts])
+            with np.errstate(over="ignore"):
+                b1, b2 = threefry2x32(k1, k2, np.uint32(0), x2)
+            at = 0
+            for p1, _, _, sink in parts:
+                size = p1.size
+                o1 = b1[at:at + size].reshape(p1.shape)
+                o2 = b2[at:at + size].reshape(p1.shape)
+                at += size
+                if sink[0] == "node":
+                    W1[sink[1]][sink[2]] = o1
+                    W2[sink[1]][sink[2]] = o2
+                else:
+                    into = split_words if sink[0] == "split" else words
+                    for j, i in enumerate(sink[1]):
+                        into[i] = (o1[j], o2[j])
+
+        out = [None] * len(draws)
+        for i, d in enumerate(draws):
+            if d.kind == "key":
+                l, r = lev[d.node], self.row[d.node]
+                out[i] = torch.from_numpy(np.stack(
+                    [W1[l][r], W2[l][r]], -1).astype(np.int64))
+        for proto, members in self.groups:
+            if proto.kind == "randint":
+                b1 = _cat([words[i][0][:, 0] ^ words[i][1][:, 0]
+                           for i in members])
+                b2 = _cat([words[i][0][:, 1] ^ words[i][1][:, 1]
+                           for i in members])
+                maxval = (bounds[proto.imax] if isinstance(proto.imax, str)
+                          else proto.imax)
+                flat = _randint_from_bits(b1, b2, proto.imin, maxval)
+            else:
+                b1 = _cat([words[i][0] for i in members])
+                b2 = _cat([words[i][1] for i in members])
+                flat = _draw_from_words(proto, b1, b2)
+            at = 0
+            for i in members:
+                size = E[lev[draws[i].node]] * draws[i].n
+                out[i] = flat[at:at + size]
+                at += size
+        values, shapes = {}, {}
+        for name, i in plan._names.items():
+            d = draws[i]
+            values[name] = out[i].reshape(batch + axes[:lev[d.node]]
+                                          + d.shape)
+            shapes[name] = d.shape
+        return Drawn(values, shapes)
+
+    # ---- the kernel -----------------------------------------------------
+
+    def table(self, device) -> torch.Tensor:
+        """The op table on ``device``, copied there once (a captured graph
+        may not copy from host memory: the warm-up before a capture builds
+        it)."""
+        t = self._tables.get(device)
+        if t is None:
+            t = self._tables[device] = torch.tensor(
+                self.words, dtype=torch.int32, device=device)
+        return t
+
+    def run_kernel(self, keys: torch.Tensor, bounds: dict) -> Drawn:
+        if self.two_byte:
+            raise TypeError(f"plan {self.plan.name!r}: the plan kernel draws "
+                            "float32 and float64 only (the search draws in "
+                            "no other dtype)")
+        plan, axes = self.plan, self.axes
+        draws, lev = plan._draws, plan._level
+        batch = tuple(keys.shape[:-1])
+        R = math.prod(batch)
+        bufs, strides = [], []
+        for l, dt, w, by_row in self.buffers:
+            lead = (R,) + axes[:l]
+            shape = lead + (w,) if by_row else (w,) + lead
+            bufs.append(torch.empty(shape, dtype=dt, device=keys.device))
+            strides.append((w, 1) if by_row else (1, math.prod(lead)))
+        kernel_rng.plan(self.table(keys.device), self.n_slots, keys, axes,
+                        bufs, strides,
+                        [bounds[n] for n in self.bound_names], self.mask,
+                        plan.name)
+        values, shapes = {}, {}
+        for name, i in plan._names.items():
+            d = draws[i]
+            b, col = self.columns[i]
+            lead = batch + axes[:lev[d.node]]
+            v = bufs[b][..., col:col + d.n] if self.buffers[b][3] else \
+                bufs[b][col:col + d.n].movedim(0, -1)
+            values[name] = v.reshape(lead + d.shape)
+            shapes[name] = d.shape
+        return Drawn(values, shapes)
+
+
+def _cat(arrays) -> torch.Tensor:
+    return torch.from_numpy(np.concatenate(
+        [a.ravel() for a in arrays]).astype(np.int64))
+
+
+def _draw_from_words(d: _Draw, b1: torch.Tensor, b2: torch.Tensor):
+    """The epilogue of a draw on its elements' two hash words (flat int64
+    tensors): the per-call functions' arithmetic on the same bits."""
+    width = d.width if d.kind == "bits" else _WIDTH[d.dtype]
+    if width == 64:
+        bits = (b1 << 32) | b2
+    else:
+        bits = (b1 ^ b2) & ((1 << width) - 1)
+    if d.kind == "bits":
+        return bits
+    dtype = d.dtype
+    lo, span = d.bounds()
+    if d.kind == "gumbel" and dtype == torch.float16:
+        u = torch.clamp_min(_unit(bits, dtype), lo)
+    else:
+        f = _unit(bits, dtype)
+        if dtype == torch.float64:
+            u = _fma64(f, span, lo)
+        else:
+            u = _fma32(f.float(), span, lo).to(dtype)
+        u = torch.clamp_min(u, lo)
+    if d.kind == "uniform":
+        return u
+    if d.kind == "normal":
+        if dtype == torch.float64:
+            return _SQRT2_F64 * _erfinv_f64(u)
+        e = torch.from_numpy(_erfinv_f32(u.float().numpy()))
+        if dtype == torch.float32:
+            return _SQRT2_F32 * e
+        return (e.to(dtype) * _round_to(math.sqrt(2), dtype)).to(dtype)
+    if dtype == torch.float64:
+        return -_log_f64(-_log_f64(u))
+    if dtype == torch.float32:
+        return torch.from_numpy(-_log_f32(-_log_f32(u.numpy())))
+    l1 = torch.from_numpy(-_log_f32(u.float().numpy())).to(dtype)
+    return torch.from_numpy(-_log_f32(l1.float().numpy())).to(dtype)
+
+
+def _randint_from_bits(hi_bits, lo_bits, minv: int, maxval):
+    """``randint``'s reduction of its two 32-bit draws (``maxval`` an int
+    or an int64 scalar tensor)."""
+    if isinstance(maxval, torch.Tensor):
+        maxv = torch.clamp(maxval, -2 ** 31, 2 ** 31 - 1)
+        span = torch.where(maxv <= minv, 1, (maxv - minv) & MASK32)
+        mult = _mulmod32(2 ** 16 % span, 2 ** 16 % span) % span
+    else:
+        maxv = maxval
+        span = 1 if maxv <= minv else (maxv - minv) & MASK32
+        mult = (2 ** 16 % span) ** 2 % 2 ** 32 % span
+    off = (_mulmod32(hi_bits % span, mult) + lo_bits % span) & MASK32
+    return minv + off % span
+
+
+def permutation_draws(plan: DrawPlan, node: int, name, n: int,
+                      axis: int = 0) -> None:
+    """The 32-bit draws of ``permutation(node's key, n)``'s rounds, as
+    ``name + (round,)`` (the elements spread over ``axis`` when given)."""
+    for r in range(_shuffle_rounds(n)):
+        k = plan.split(node, 2)
+        node = k[0]
+        plan.bits(tuple(name) + (r,), k[1], 32, (n,), axis)
+
+
+def permutation_of(drawn: Drawn, name, n: int) -> torch.Tensor:
+    """``permutation`` from the draws ``permutation_draws`` made."""
+    x = None
+    for r in range(_shuffle_rounds(n)):
+        bits = drawn[tuple(name) + (r,)]
+        if x is None:
+            x = torch.arange(n, device=bits.device).expand(bits.shape)
+        order = torch.sort(bits, dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x

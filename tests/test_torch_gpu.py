@@ -15,7 +15,8 @@ and the instruction-program scoring call without a host wait; the cycle
 captured as a CUDA graph, bit-equal to the eager loop with the same launch
 counts, reused by a second search and by a second output, and raising
 when it cannot be captured; the mask policy's weighted route and
-``to_callable`` on B1. Marked ``gpu``;
+``to_callable`` on B1; the threefry draw plans in the plan kernel's
+float32 and float64 instantiations. Marked ``gpu``;
 each skips without a card (decided in a fixture, so every test worker
 collects the same tests).
 
@@ -1602,3 +1603,75 @@ def test_float64_and_custom_objective_searches_on_card(cuda):
                            **GRAPH_CFG)
     cg.clear_cache()
     torch.cuda.synchronize()
+
+
+def _draw_plan_cases(dtype):
+    """The cycle's and init's draw plans at small widths in ``dtype``, and
+    one plan over every kind of op (nested fan-outs, element axes, a
+    device bound, kept keys): (plan, root keys, device bounds)."""
+    from symbolicregression_jl_tpu_torch.utils import rng as keyrng
+
+    g = np.random.default_rng(3)
+
+    def keys(n):
+        return torch.from_numpy(g.integers(0, 2 ** 32, (n, 2),
+                                           dtype=np.uint64).astype(np.int64))
+
+    p = keyrng.DrawPlan("mixed", axes=(4, 3))
+    k = p.split(p.root, 3)
+    f = p.fan(k[1], 1)
+    p.keep("f", f)
+    p.uniform("u", f, (5,), dtype, -0.75, 3.25)
+    p.normal("n", p.child(f, 1), (2,), dtype, axis=2)
+    p.gumbel("g", p.child(f, 2), (7,), dtype, axis=2)
+    p.bits("b8", k[2], 8, (6,), axis=1)
+    p.randint("rd", p.fan(p.child(f, 5), 2), (), -5, "hi")
+    return [
+        (p, keys(300), {"hi": 17}),
+        (tevolve.proposal_plan(12, 200, 6, dtype), keys(8), {}),
+        (tevolve.mutation_plan(2, 2, 4, 24, dtype), keys(96), {"hi": 13}),
+        (tevolve.crossover_plan(24, dtype), keys(48), {}),
+        (tmut.single_plan(tmut.random_tree_draws, 2, 2, 4, 24, dtype),
+         keys(500), {}),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_draw_plans_bit_equal_on_card(cuda, dtype):
+    """Each draw plan in one launch of the plan kernel (its float32 or
+    float64 instantiation) is bit-equal to the per-call kernels' chain
+    (the same epilogue) and to its plain version on the host, but a
+    float64 normal or gumbel draw, whose log is CUDA's against the C
+    library's: within 1e-11 there, relative to max(|value|, 1) (a last-bit
+    difference of log is absolute where gumbel's value nears 0). A 2-byte
+    plan is refused on the card."""
+    from symbolicregression_jl_tpu_torch.utils import rng as keyrng
+
+    for plan, keys, bounds in _draw_plan_cases(dtype):
+        kd = keys.to(cuda)
+        bd = {n: torch.tensor(v, device=cuda) for n, v in bounds.items()}
+        before = tkr.PLAN_LAUNCHES.get(plan.name, 0)
+        got = plan.run(kd, bd)
+        assert tkr.PLAN_LAUNCHES[plan.name] == before + 1
+        assert plan.compile().mask == (dtype == torch.float64)
+        chain = plan.run_per_call(kd, bd)
+        plain = plan.run(keys, {n: torch.tensor(v) for n, v in bounds.items()})
+        for name in got.names():
+            a, c, r = got[name].cpu(), chain[name].cpu(), plain[name]
+            assert a.dtype == r.dtype and a.shape == r.shape, name
+            view = {torch.float32: torch.int32,
+                    torch.float64: torch.int64}.get(a.dtype)
+            bits = (lambda t: t.view(view)) if view else (lambda t: t)
+            assert torch.equal(bits(a), bits(c)), (plan.name, name)
+            kind = plan._draws[plan._names[name]].kind
+            if a.dtype == torch.float64 and kind in ("normal", "gumbel"):
+                rel = ((a - r).abs() / r.abs().clamp_min(1.0)).max()
+                assert float(rel) < 1e-11, (plan.name, name, float(rel))
+            else:
+                assert torch.equal(bits(a), bits(r)), (plan.name, name)
+    half = keyrng.DrawPlan("half")
+    half.uniform("u", half.root, (3,), torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 and float64 only"):
+        half.run(torch.zeros(4, 2, dtype=torch.int64, device=cuda))

@@ -85,11 +85,11 @@ def test_cycle_step_draws_a_minibatch_per_island():
     y = X[0] * X[1]
     st = tevolve.init_island_state(island_keys(3, I), o, 2, X, y, None, 1.0)
     drawn = []
-    real = tfit.sample_batch_idx
+    real = tfit.next_minibatch
 
     def spy(*a, **k):
         out = real(*a, **k)
-        drawn.append(out)
+        drawn.append(out[0])
         return out
 
     scored = []
@@ -99,14 +99,14 @@ def test_cycle_step_draws_a_minibatch_per_island():
         scored.append(trees.length.shape)
         return real_score(trees, *a, **k)
 
-    tevolve.sample_batch_idx, tevolve.score_trees_islands = spy, score_spy
+    tevolve.next_minibatch, tevolve.score_trees_islands = spy, score_spy
     try:
         new, _ = tevolve.cycle_step(st, tevolve.batch_key(st),
                                     torch.tensor(1.0), torch.tensor(10), X, y,
                                     None, torch.tensor(1.0),
                                     tevolve.bind_device_scalars(o, "cpu"))
     finally:
-        tevolve.sample_batch_idx, tevolve.score_trees_islands = real, real_score
+        tevolve.next_minibatch, tevolve.score_trees_islands = real, real_score
     assert len(drawn) == 1 and drawn[0].shape == (I, BATCH)
     assert int(drawn[0].min()) >= 0 and int(drawn[0].max()) < 80
     n_b = o.n_parallel_tournaments + o.n_parallel_tournaments % 2
