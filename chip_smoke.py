@@ -38,8 +38,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    path's shapes (Feynman-I.6.2a, 2048 rows; 5,376 trees = one cycle's
    children at 64 islands x 1000, 64,000 trees = one rescore), poisoning
    trees, bare leaves and a unary chain included: the postfix kernel in
-   every mode (value and slot modes bit-equal to their plain versions; two
-   launches of the fused mode give the same bits), and the
+   both modes (the value mode bit-equal to its plain version; two
+   launches of the fused mode give the same bits); the constant-fold
+   kernel (``simplify_tree`` in one launch) on those trees and on copies
+   whose variables are mostly constants (many folds, some to a value
+   that is not finite): every field and ``changed`` bit-equal to the
+   plain fold and over two launches, and its slot-values output bit-equal
+   to its plain version; invalid programs left as they were; and the
    instruction-program kernels, whose values must be bit-equal to the
    postfix value mode's;
 3. constant-optimisation kernel vs plain version at the main path's
@@ -52,13 +57,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    same bits); unweighted and weighted with zero-weight rows, poisoning
    trees included; both variants at max_len 128 on programs of up to 109
    slots; then every kernel on random trees over all 44 registry
-   operators, the hand-written digamma against torch.digamma, a short
+   operators (the fold's structure exact, its constants within rtol 1e-5:
+   torch's and CUDA's bodies of some operators differ in an ulp), the
+   hand-written digamma against torch.digamma, a short
    search over the operators the earlier slices did not carry, and a
    short search at maxsize 110 (max_len 112) with the default BFGS;
 3c. every kernel at max_len 512, 1,024 and 2,048 (the narrow routes,
-   their stacks, slot values or results in shared or global memory) on
-   2,048 rows, random and deep programs, poisoning and invalid programs:
-   B1 and the slot mode bit-equal to their plain versions, B2 within rtol
+   their stacks or results in shared or global memory; the fold's arenas
+   in shared memory at 512, in global memory above) on 2,048 rows, random
+   and deep programs, poisoning and invalid programs: B1, the slot values
+   and the fold bit-equal to their plain versions, B2 within rtol
    1e-4, B3 bit-equal to its plain mirror with its loss bit-equal to B4's,
    B5 / B6 bit-equal to B1 (B6 where its packed word takes the width), two
    launches the same bits; then a short search at maxsize 509 (max_len
@@ -70,7 +78,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    first 4,096 instances) bit for bit for the losses without a
    transcendental function, within rtol 1e-5 (and the row-sum yardstick
    for gradients) for the rest;
-3e. the bfloat16 and float16 builds: B1, the slot mode, B5 and B6 at
+3e. the bfloat16 and float16 builds: B1, the fold, B5 and B6 at
    5,376 and 64,000 trees, B3 at 26,880 instances and B4 at 26,880 and
    215,040, x 2,048 rows (unweighted and with zero-weight rows), then every
    kernel at max_len 512 and 1,024 (the narrow routes): bit-equal to the
@@ -90,7 +98,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3f. user operators (the reference's ``op2c`` / ``op3c``) and a loss
    callable in every kernel: 4,096 random trees over ``+ * op2c | op3c
    cos`` x 2,048 rows at float32, bfloat16 and float64, B1, the slot
-   mode, B5, B6
+   values, the fold, B5, B6
    against their plain versions (B5 / B6 bit-equal to B1), B2, B3 and B4
    under ``(p - t) ** 2`` (B3 against its mirror, B4's loss B3's in every
    bit), two launches the same bits; the bit-equal share of each, the rest
@@ -118,7 +126,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    replays, its pool's device memory printed beside the peak); the launch
    counts (a replay adds what its capture counted; the threefry kernel's
    by mode and by plan among them, every per-call mode but ``bits`` and
-   every plan of the cycle launched, float32 epilogues only) are
+   every plan of the cycle launched, float32 epilogues only; the fold
+   kernel once a cycle and once a rescore) are
    zeroed just before and read just after, and each iteration's
    optimisation pass is timed; then
    the same search with ``kernel_program="instr"`` and ``"instr_packed"``
@@ -158,16 +167,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    scoring call one B1 launch, no B2, BFGS's gradient on B3's cotangent
    mode; then 20 cycles at float64), and ``independent_island_batches``
    (batch 50, 100 cycles: one capture, 64 B2 launches per replay);
-6. the cycle alone at the same widths: milliseconds per eager cycle with
-   the constant fold through the slot-values kernel and through its plain
-   version (interleaved, twice each), and a profile of 20 eager cycles
+6. the cycle alone at the same widths: 10 eager cycles with
+   ``simplify_tree`` on the fold kernel bit-equal to 10 on the plain fold
+   from one state, milliseconds per eager cycle through each
+   (interleaved, twice each), and a profile of 20 eager cycles
    without init, simplify or rescore (device kernels per cycle, idle
    share, host synchronisations per cycle by issuing operator: there must
    be none, and no copy from or to host memory); then the captured cycle
    against the eager one: bit-equal states (the islands' threefry keys
    included) and launch counts after 20 cycles from one state, the
    threefry launches per replayed cycle by plan (the propose, mutate and
-   crossover plans once each, no per-call launch; at most 24), milliseconds
+   crossover plans once each, no per-call launch; at most 24) and the
+   fold kernel's (one), milliseconds
    per cycle A B B A
    over 50 cycles each, and a profile of 20 replayed cycles (device
    kernels per cycle, idle share), with replays, captures, capture seconds
@@ -333,6 +344,82 @@ def random_trees(gen, sizes, nfeatures, operators, max_len, dev):
                          device=dev)
     return gen_random_tree_fixed_size(keys, sizes, nfeatures, operators,
                                       max_len)
+
+
+# constants that fold to an overflow, NaN, infinities or signed zeros, or
+# round differently at each working dtype
+FOLD_SPECIAL = (0.0, -0.0, 1e30, float("inf"), float("nan"), 300.0, 70000.0,
+                0.1)
+
+
+def constant_heavy(trees, gen, share=0.7):
+    """``trees`` with about ``share`` of their variables turned into
+    constants (normal x 2, a tenth of them ``FOLD_SPECIAL``), so that many
+    subtrees fold and some fold to a value that is not finite; the
+    constants in ``trees``' dtype."""
+    from symbolicregression_jl_tpu_torch.models.trees import CONST, VAR
+
+    shape, dev = trees.kind.shape, trees.kind.device
+    flip = (trees.kind == VAR) & (
+        torch.rand(shape, generator=gen, device=dev) < share)
+    special = torch.tensor(FOLD_SPECIAL, device=dev)[torch.randint(
+        0, len(FOLD_SPECIAL), shape, generator=gen, device=dev)]
+    c = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.1,
+                    special, torch.randn(shape, generator=gen, device=dev) * 2)
+    return trees._replace(kind=torch.where(flip, CONST, trees.kind),
+                          feat=torch.where(flip, 0, trees.feat),
+                          cval=torch.where(flip, c.to(trees.cval.dtype),
+                                           trees.cval))
+
+
+def float_bits(t):
+    """The bit patterns of 2-, 4- or 8-byte floats."""
+    return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+def fold_mismatch(got, ref):
+    """{field: count} of the ``simplify_tree`` fields (and ``changed``)
+    whose bits differ between two (trees, changed) results."""
+    (gt, gc), (rt, rc) = got, ref
+    out = {}
+    for f in gt._fields:
+        a, b = getattr(gt, f), getattr(rt, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        if a.is_floating_point():
+            a, b = float_bits(a), float_bits(b)
+        n = int((a != b).sum())
+        if n:
+            out[f] = n
+    if int((gc != rc).sum()):
+        out["changed"] = int((gc != rc).sum())
+    return out
+
+
+def fold_bytes(trees, changed):
+    """The bytes a fold of ``trees`` must move, given which trees it
+    changes (``changed``, the plain fold's): each length read once; the
+    live slots of a changed tree read once (its tail is written as PAD
+    unread) and every slot of an unchanged tree read once (it is written
+    back as it was), as int64 kind, op and feat and the constants; every
+    field and ``changed`` written once."""
+    T, L = trees.kind.shape
+    slot = 24 + trees.cval.element_size()
+    ch = changed.to(torch.bool)
+    read_slots = int(trees.length[ch].sum()) + L * int((~ch).sum())
+    return (read_slots * slot + T * 8) + (T * L * slot + T * 8 + T)
+
+
+def plain_fold(trees, operators, chunk=8192):
+    """``simplify_tree_plain`` in chunks of trees (its (T, L, L) masks)."""
+    from symbolicregression_jl_tpu_torch.models.mutate_device import (
+        simplify_tree_plain,
+    )
+
+    parts = [simplify_tree_plain(trees[i:i + chunk], operators)
+             for i in range(0, trees.length.shape[0], chunk)]
+    return (type(trees)(*(torch.cat(z) for z in zip(*(q[0] for q in parts)))),
+            torch.cat([q[1] for q in parts]))
 
 
 # the main path's threefry calls at 64 islands x 1000 (B = 84 tournaments,
@@ -698,6 +785,15 @@ def phase_user_kernels(dev, log_fn, T=4096):
         sp, sokp = ke.eval_slot_values_plain(trees, X[:, :1], uops)
         assert torch.equal(sok, sokp), f"3f slots{sfx}: ok differs"
         check(f"slots{sfx}", sk, sp, 1e-5, 1e-6)
+        heavy = constant_heavy(trees._replace(cval=trees.cval.to(dt)), gen)
+        fk = ke.fold_trees(heavy, uops)
+        assert not fold_mismatch(ke.fold_trees(heavy, uops), fk), (
+            f"3f fold{sfx}: two launches differ")
+        fp = plain_fold(heavy, uops)
+        bad = fold_mismatch(fk, fp)
+        assert set(bad) <= {"cval"}, f"3f fold{sfx}: {bad}"
+        assert int(fk[1].sum()) > T // 2
+        check(f"fold{sfx}", fk[0].cval, fp[0].cval, 1e-5, 1e-6)
         for name, packed in (("instr", False), ("instr_packed", True)):
             ik, iok = ki.eval_trees_instr(trees, X, uops, packed)
             assert torch.equal(iok, okk), f"3f {name}{sfx}: ok differs"
@@ -787,9 +883,7 @@ def phase_user_kernels(dev, log_fn, T=4096):
         y = yf.to(dt)
         in_trees = live_slots * (4 * 4 + el) + T * 16
         rows_in = nfeat * ROWS * el
-        entries = [
-            ("value", ke.MODE_VALUE, X, None, T * ROWS * el + T * 4),
-            ("slots", ke.MODE_SLOTS, X[:, :1], None, T * 24 * el + T * 4)]
+        entries = [("value", ke.MODE_VALUE, X, None, T * ROWS * el + T * 4)]
         if dt == torch.float32:
             entries.append(("fused", ke.MODE_FUSED, X, yf, T * 8))
         for name, mode, Xm, ym, out_bytes in entries:
@@ -808,10 +902,19 @@ def phase_user_kernels(dev, log_fn, T=4096):
                 + (ROWS * 4 if mode == ke.MODE_FUSED else 0))
             row["plain_ms"] = cuda_ms(lambda: (ke.eval_loss_trees_plain(
                 trees, X, yf, uops, loss) if mode == ke.MODE_FUSED
-                else (ke.eval_trees_plain(trees, X, uops)
-                      if mode == ke.MODE_VALUE
-                      else ke.eval_slot_values_plain(trees, Xm, uops))), 1)
+                else ke.eval_trees_plain(trees, X, uops)), 1)
             report["timing"][f"{name}{sfx}"] = row
+        # the fold kernel (one value per operator node at most)
+        tb_f = trees._replace(cval=trees.cval.to(dt))
+        row = {}
+        for label, o in (("user", uops), ("registry", rops),
+                         ("registry_user_build", rops_u)):
+            prep = ke.prepare_fold(tb_f, o)
+            row[f"{label}_ms"] = device_ms(lambda: ke.run_fold(prep), 30)
+        row["bound_ms"], row["bound_by"] = bound(
+            node_ops(True), fold_bytes(tb_f, plain_fold(tb_f, uops)[1]))
+        row["plain_ms"] = cuda_ms(lambda: plain_fold(tb_f, uops), 1)
+        report["timing"][f"fold{sfx}"] = row
         for name, packed in (("instr", False), ("instr_packed", True)):
             row = {}
             for label, o in (("user", uops), ("registry", rops),
@@ -982,7 +1085,7 @@ def main():
     trees = TreeBatch(*(torch.cat([a[: T_RESCORE - 7], e, b]) for a, e, b in
                         zip(trees, edge, pt)))
     cycle = trees[T_RESCORE - T_CYCLE:]  # includes the poisoning trees
-    err = {"value": 0.0, "fused": 0.0, "slots": 0.0}
+    err = {"value": 0.0, "fused": 0.0, "slots": 0.0, "fold": 0.0}
     rel = dict(err)
 
     def note(name, got, ref):
@@ -1030,8 +1133,36 @@ def main():
         fin = torch.isfinite(sp)
         assert torch.equal(torch.isfinite(sk), fin), "slots: finite set differs"
         torch.testing.assert_close(sk[fin], sp[fin], rtol=1e-5, atol=1e-6)
-        assert_bits("slot mode vs plain", sk[fin], sp[fin])
+        assert_bits("slot values vs plain", sk[fin], sp[fin])
         note("slots", sk[fin], sp[fin])
+
+    fold_report = {}
+
+    def check_fold(tb_, opsc, label, exact=True, chunk=8192):
+        """The fold kernel (``simplify_tree`` on the card) against the
+        plain fold on the same card tensors: every field and ``changed``
+        bit for bit (with ``exact`` False, the 44 operators, whose torch
+        and CUDA bodies differ in an ulp, the structure exactly and the
+        constants within rtol 1e-5), and two launches the same bits.
+        Returns the number of trees it changed."""
+        got = ke.fold_trees(tb_, opsc)
+        again = fold_mismatch(ke.fold_trees(tb_, opsc), got)
+        assert not again, f"fold {label}: two launches differ: {again}"
+        ref = plain_fold(tb_, opsc, chunk)
+        bad = fold_mismatch(got, ref)
+        if exact:
+            assert not bad, f"fold {label}: differs from the plain fold: {bad}"
+        else:
+            assert set(bad) <= {"cval"}, f"fold {label}: {bad}"
+            torch.testing.assert_close(got[0].cval, ref[0].cval, rtol=1e-5,
+                                       atol=1e-6, equal_nan=True)
+        fin = torch.isfinite(ref[0].cval)
+        note("fold", got[0].cval[fin].double(), ref[0].cval[fin].double())
+        n_changed = int(got[1].sum())
+        fold_report[label] = dict(
+            trees=int(tb_.length.shape[0]), max_len=tb_.max_len,
+            changed=n_changed, cval_bits_differ=bad.get("cval", 0))
+        return n_changed
 
     for name in ("instr", "instr_packed"):
         err[name] = rel[name] = 0.0
@@ -1065,6 +1196,13 @@ def main():
     check_fused(trees)
     check_slots(cycle)
     check_slots(trees)
+    fgen = synthetic_generator(5, dev)
+    for tb_ in (cycle, trees):
+        T = tb_.length.shape[0]
+        assert check_fold(tb_, ops, f"search-like@{T}") > 0
+        heavy = constant_heavy(tb_, fgen)
+        assert check_fold(heavy, ops, f"constant-heavy@{T}") > T // 2
+        check_slots(heavy)
     for tb_ in (cycle, trees):
         n_ok = check_instr(tb_, X, ops, f"T={tb_.length.shape[0]}")
         log(f"instr kernels T={tb_.length.shape[0]}: ok equal and values "
@@ -1072,6 +1210,8 @@ def main():
     torch.cuda.synchronize()
     log(f"kernel vs plain: agree at T={T_CYCLE} and T={T_RESCORE} x {ROWS} "
         f"rows; max abs err {err}; max rel err {rel}")
+    log(f"fold kernel vs plain fold: every field and changed bit-equal, two "
+        f"launches the same bits: {fold_report}")
 
     # invalid programs (stack underflow, unfinished, a length beyond L, a
     # negative length, an operator outside the set, an unknown kind, a
@@ -1096,6 +1236,10 @@ def main():
     for fn in (ke.eval_slot_values, ke.eval_slot_values_plain):
         sv, oks = fn(invalid, X1, ops)
         assert not oks.any() and not sv.any(), fn.__name__
+    # the fold leaves an invalid program as it was (the last, a VAR leaf
+    # whose feature is out of range, is a valid program to the fold, which
+    # reads no feature, and has nothing to fold)
+    assert check_fold(invalid, ops, "invalid") == 0
     for packed in (False, True):
         for fn in (ki.eval_trees_instr, ki.eval_trees_instr_plain):
             yv, okv = fn(invalid, X, ops, packed)
@@ -1254,7 +1398,8 @@ def main():
         all_ops, 24, dev)
     Xg = torch.randn((3, ROWS), generator=ggen, device=dev) * 1.5
     yg = torch.randn(ROWS, generator=ggen, device=dev)
-    grid_err = dict.fromkeys(("value", "fused", "slots", "loss_grad", "loss",
+    grid_err = dict.fromkeys(("value", "fused", "slots", "fold", "loss_grad",
+                              "loss",
                               "instr", "instr_packed"), 0.0)
     saved = dict(err), dict(rel)
     for k in grid_err:
@@ -1276,6 +1421,8 @@ def main():
     assert torch.equal(torch.isfinite(sk), fin), "44 operators, slots: finite set"
     torch.testing.assert_close(sk[fin], sp[fin], rtol=1e-5, atol=1e-6)
     note("slots", sk[fin], sp[fin])
+    n_grid_fold = check_fold(constant_heavy(g_trees, ggen), all_ops,
+                             "44 operators", exact=False)
     n_grid_ok = check_instr(g_trees, Xg, all_ops, "44 operators")
     g_cval = g_trees.cval.repeat_interleave(LS_STEPS, 0) * (
         1 + 0.1 * torch.randn((T_GRID * LS_STEPS, 24), generator=ggen,
@@ -1305,8 +1452,9 @@ def main():
         f"kernel agree with the plain versions ({n_grid_ok} not poisoned; "
         f"B5/B6 bit-equal to the value mode; {n_grad} non-zero CONST "
         f"gradients compared, {n_equal} bit-equal, worst excess {worst:.3g} "
-        f"of the row-sum yardstick, {n_over} whose row sum overflows); max "
-        f"abs err {grid_err}; digamma vs torch.digamma max abs err "
+        f"of the row-sum yardstick, {n_over} whose row sum overflows; the "
+        f"fold changed {n_grid_fold} constant-heavy trees, its structure "
+        f"exact); max abs err {grid_err}; digamma vs torch.digamma max abs err "
         f"{digamma_err:.3g}")
     rng_s = np.random.default_rng(1)
     Xs = rng_s.uniform(-1.5, 1.5, (2, 400)).astype(np.float32)
@@ -1396,7 +1544,15 @@ def main():
         sp, _ = ke.eval_slot_values_plain(big, X1, ops)
         fin = torch.isfinite(sp)
         assert torch.equal(torch.isfinite(sk), fin) and not oks[-nb:].any()
-        assert_bits(f"max_len {L_big}, slot mode vs plain", sk[fin], sp[fin])
+        assert_bits(f"max_len {L_big}, slot values vs plain", sk[fin], sp[fin])
+        # the fold: its arenas in shared memory at 512, in global memory
+        # above; the invalid programs left as they were
+        chunk = max(8, (1 << 28) // L_big ** 2)
+        check_fold(big, ops, f"max_len {L_big}", chunk=chunk)
+        assert check_fold(constant_heavy(big, gen), ops,
+                          f"max_len {L_big}, constant-heavy",
+                          chunk=chunk) > T_big // 2
+        assert not ke.fold_trees(big, ops)[1][-nb:].any()
         lg, gg, okg = kg.eval_loss_grad(big, X, y, w_zero, ops)
         lg2, gg2, _ = kg.eval_loss_grad(big, X, y, w_zero, ops)
         assert_bits(f"max_len {L_big}, gradient: two launches", gg2, gg)
@@ -1425,14 +1581,18 @@ def main():
             instr_checked.append(name)
         torch.cuda.synchronize()
         T_all = big.length.shape[0]
+        fold_layout = ke.fold_launch_plan(T_all, L_big, torch.float32, None, 0)
         layouts = dict(
             value=ke.launch_plan(T_all, L_big, 1, ROWS, ke.MODE_VALUE, False, 0),
             loss_grad=kg.grad_plan(T_all, 1, L_big, False),
             loss=kg.loss_plan(T_all, LS_STEPS, L_big, False),
             instr=ki.launch_plan(T_all, L_big, 1, ROWS, False, False, 0))
         long_report[L_big] = {k: v._asdict() for k, v in layouts.items()}
+        long_report[L_big]["fold"] = fold_layout._asdict()
         log(f"max_len {L_big}: {T_all} trees ({int(okk.sum())} not poisoned, "
-            f"{nb} invalid) x {ROWS} rows: value and slot modes bit-equal to "
+            f"{nb} invalid) x {ROWS} rows: value mode, slot values and the "
+            f"fold (arenas {'in global memory' if fold_layout.scratch_bytes else 'in shared memory'}, "
+            f"{fold_layout.blocks} blocks) bit-equal to "
             f"the plain versions, fused within rtol 1e-4, gradient bit-equal "
             f"to its mirror and its loss to the loss-only kernel's, "
             f"{' and '.join(instr_checked)} bit-equal to the value mode, two "
@@ -1454,7 +1614,7 @@ def main():
     assert after_all["loss_grad"] - before_all["loss_grad"] == 9 * 2
     assert after_all["loss"] - before_all["loss"] == 8 * 2
     assert after_all["fused"] - before_all["fused"] >= 2 * 30
-    assert after_all["slots"] - before_all["slots"] >= 2 * 30
+    assert after_all["fold"] - before_all["fold"] >= 2 * 30
     long_report["search_509"] = dict(
         s=time.time() - tr, best=res_509.best_loss().loss,
         max_len=res_509.options.max_len,
@@ -1625,6 +1785,11 @@ def main():
             assert torch.equal(torch.isfinite(sk), fin) and torch.equal(oks, okps)
             assert_same(f"slots{sfx} T={T} vs plain", sk[fin], sp[fin],
                         "slots" + sfx)
+            tb_dt = tb_._replace(cval=tb_.cval.to(dt))
+            check_fold(tb_dt, ops, f"{sfx[1:]}@{T}")
+            assert check_fold(constant_heavy(tb_dt, gen), ops,
+                              f"{sfx[1:]}, constant-heavy@{T}") > T // 2
+            store_err["fold" + sfx] = 0.0  # every bit equal (check_fold)
             for name, packed in (("instr", False), ("instr_packed", True)):
                 yi, oki = ki.eval_trees_instr(tb_, Xs, ops, packed)
                 assert torch.equal(oki, okk), f"{name}{sfx}: ok differs from B1"
@@ -1701,6 +1866,9 @@ def main():
             assert torch.equal(torch.isfinite(sk), fin), L_big
             assert_same(f"max_len {L_big}, slots{sfx} vs plain", sk[fin],
                         sp[fin], "slots" + sfx)
+            big_dt = constant_heavy(big._replace(cval=big.cval.to(dt)), gen)
+            assert check_fold(big_dt, ops, f"max_len {L_big}, {sfx[1:]}",
+                              chunk=(1 << 28) // L_big ** 2) > T_big // 2
             for name, packed in (("instr", False), ("instr_packed", True)):
                 yi, oki = ki.eval_trees_instr(big, Xs, ops, packed)
                 assert torch.equal(oki, okk), (name, L_big)
@@ -1748,7 +1916,7 @@ def main():
         torch.cuda.synchronize()
         rep["seconds"] = time.time() - t_dt
         log(f"{'3g' if dt == torch.float64 else '3e'} storage {sfx[1:]}: "
-            f"B1, slots, B5, B6 at {T_CYCLE} and "
+            f"B1, the slot values, the fold, B5, B6 at {T_CYCLE} and "
             f"{T_RESCORE} trees, B3 at {T_OPT} and B4 at {T_OPT} x 1 / "
             f"{T_OPT * LS_STEPS} instances x {ROWS} rows (unweighted and "
             f"weighted), every kernel at max_len 512 and 1,024: bit-equal to "
@@ -1832,7 +2000,7 @@ def main():
         value (2 for the bfloat16 and float16 builds, 8 for float64, whose
         operations count at ``F64_OPS_PER_S``)."""
         T, L = tb_.kind.shape
-        nfeat = X.shape[0] if mode != ke.MODE_SLOTS else 1
+        nfeat = X.shape[0]
         # four 4-byte entries and a constant per live slot (opcode, feature,
         # two operand slots, constant: the compact encoding of a program),
         # plus each tree's length and its place in the length sort
@@ -1841,8 +2009,7 @@ def main():
         if mode == ke.MODE_FUSED:
             bytes_in += nrows * 4
         bytes_out = T * 4 + {ke.MODE_VALUE: T * nrows * elem,
-                             ke.MODE_FUSED: T * 4,
-                             ke.MODE_SLOTS: T * L * elem}[mode]
+                             ke.MODE_FUSED: T * 4}[mode]
         ops_ = n_op_nodes(tb_) * nrows + ((loss_ops[loss_name][0] + 1) * T
                                           * nrows if mode == ke.MODE_FUSED
                                           else 0)
@@ -1855,21 +2022,28 @@ def main():
                                     for i in range(0, tb_.length.shape[0], 8192)],
         ke.MODE_FUSED: lambda tb_: [ke.eval_loss_trees_plain(tb_[i:i + 8192], X, y, ops)
                                        for i in range(0, tb_.length.shape[0], 8192)],
-        ke.MODE_SLOTS: lambda tb_: [ke.eval_slot_values_plain(tb_[i:i + 8192], X1, ops)
-                                    for i in range(0, tb_.length.shape[0], 8192)],
     }
+
+    def fold_bound(tb_, ops_per_s=F32_OPS_PER_S):
+        """Bytes: the fields this run's fold must read and write
+        (``fold_bytes``, with the plain fold's ``changed``); operations:
+        one per operator node at most."""
+        t_bytes = (fold_bytes(tb_, plain_fold(tb_, ops)[1])
+                   / HBM_BYTES_PER_S * 1e3)
+        t_ops = n_op_nodes(tb_) / ops_per_s * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
     timings = {}
-    for mode in (ke.MODE_FUSED, ke.MODE_VALUE, ke.MODE_SLOTS):
+    for mode in (ke.MODE_FUSED, ke.MODE_VALUE):
         name = ke.MODE_NAMES[mode]
         for tb_ in (cycle, trees):
             T = tb_.length.shape[0]
-            Xm = X1 if mode == ke.MODE_SLOTS else X
+            Xm = X
             ym = y if mode == ke.MODE_FUSED else None
             prep = ke.prepare_launch(tb_, Xm, ym, ops, mode)
             ms = device_ms(lambda: ke.run_prepared(prep), 50)
             wrap = {ke.MODE_VALUE: lambda: ke.eval_trees(tb_, X, ops),
-                    ke.MODE_FUSED: lambda: ke.eval_loss_trees(tb_, X, y, ops),
-                    ke.MODE_SLOTS: lambda: ke.eval_slot_values(tb_, X1, ops)}[mode]
+                    ke.MODE_FUSED: lambda: ke.eval_loss_trees(tb_, X, y, ops)}[mode]
             wrap_ms = cuda_ms(wrap, 20)
             plain_ms = cuda_ms(lambda: plain_fn[mode](tb_), 2)
             b_ms, b_by = bound(tb_, mode, Xm.shape[1])
@@ -1888,6 +2062,22 @@ def main():
                 f"{wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
                 f"({b_by}), share {b_ms / ms:.4f}, "
                 f"{T * Xm.shape[1] / (ms * 1e-3):.4g} trees*rows/s")
+    # the fold kernel (simplify_tree) at the cycle's and the rescore's trees
+    for tb_ in (cycle, trees):
+        T = tb_.length.shape[0]
+        prep = ke.prepare_fold(tb_, ops)
+        ms = device_ms(lambda: ke.run_fold(prep), 50)
+        wrap_ms = cuda_ms(lambda: ke.fold_trees(tb_, ops), 20)
+        plain_ms = cuda_ms(lambda: plain_fold(tb_, ops), 2)
+        b_ms, b_by = fold_bound(tb_)
+        timings[("fold", T)] = dict(T=T, rows=0, ms=ms, wrapper_ms=wrap_ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, roofline_share=b_ms / ms,
+                                    layout=prep.plan._asdict())
+        log(f"timing fold T={T}: kernel {ms:.5f} ms, with host prep "
+            f"{wrap_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}), share {b_ms / ms:.4f}; {prep.plan.blocks} blocks of "
+            f"{ke.FOLD_TREES} trees, {prep.plan.smem} B shared memory")
 
     def grad_bound(tb_, reps, with_grad, loss_name="L2DistLoss", elem=4,
                    ops_per_s=F32_OPS_PER_S, cotangent=False):
@@ -2073,10 +2263,11 @@ def main():
                  ke.run_prepared,
                  lambda: chunks(lambda c: ke.eval_trees_plain(c, Xs, ops)),
                  bound(tb_, ke.MODE_VALUE, ROWS, elem=el, ops_per_s=rate)),
-                ("slots", ke.prepare_launch(tb_, X1s, None, ops, ke.MODE_SLOTS),
-                 ke.run_prepared,
-                 lambda: chunks(lambda c: ke.eval_slot_values_plain(c, X1s, ops)),
-                 bound(tb_, ke.MODE_SLOTS, 1, elem=el, ops_per_s=rate))]
+                ("fold", ke.prepare_fold(tb_._replace(
+                    cval=tb_.cval.to(dt)), ops), ke.run_fold,
+                 lambda: plain_fold(tb_._replace(cval=tb_.cval.to(dt)), ops),
+                 fold_bound(tb_._replace(cval=tb_.cval.to(dt)),
+                            ops_per_s=rate))]
             for name, packed in (("instr", False), ("instr_packed", True)):
                 cases.append((name, ki.prepare_launch(tb_, Xs, ops, packed),
                               ki.run_prepared,
@@ -2254,6 +2445,8 @@ def main():
     assert all(np.isfinite(b) for _, b in per_iter), per_iter
     assert per_iter[-1][1] <= per_iter[0][1], per_iter
     assert launches["fused"] >= args.niterations * args.ncycles, launches
+    # simplify_tree: once a cycle (in the captured step) and once a rescore
+    assert launches["fold"] == args.niterations * (args.ncycles + 1), launches
     # one BFGS pass per iteration: the start and 8 steps (gradient), 8 line
     # searches (loss only)
     assert launches["loss_grad"] == 9 * args.niterations, launches
@@ -2344,13 +2537,21 @@ def main():
         count_invalid(trees, X_, operators)
         return stage(trees, X_, y_, weights, operators, *rest)
 
+    prepare_fold = ke.prepare_fold
+
+    def prepare_fold_checked(flat, operators, X_=None):
+        count_invalid(flat, X if X_ is None else X_, operators)
+        return prepare_fold(flat, operators, X_)
+
     ke.prepare_launch, kg.stage_launch = prepare_checked, stage_checked
+    ke.prepare_fold = prepare_fold_checked
     cg.clear_cache()
     try:
         equation_search(X_np, y_np, niterations=1, ncycles_per_iteration=30,
                         seed=1, **cfg)
     finally:
         ke.prepare_launch, kg.stage_launch = prepare, stage
+        ke.prepare_fold = prepare_fold
         cg.clear_cache()
     n_checked = n_checked.tolist()
     assert n_checked[0] > 60, n_checked
@@ -2379,7 +2580,7 @@ def main():
                                     "loss_grad:HuberLoss": 9,
                                     "loss:HuberLoss": 8}, huber_run
     assert huber_run["launches"]["value"] == 0, huber_run
-    assert huber_run["launches"]["slots"] > 0, huber_run
+    assert huber_run["launches"]["fold"] > 0, huber_run
     assert not any(ki.LAUNCHES.values()), ki.LAUNCHES
     assert res_h.frontier() and np.isfinite(res_h.best_loss().loss)
     log(f"Huber path: {huber_run['s']:.1f} s, launches {huber_run['launches']}, "
@@ -2391,7 +2592,7 @@ def main():
     # 100 cycles on the default program, then 20 cycles on each instruction
     # program. Every launch must be of that dtype's builds: the value mode
     # (or B5 / B6) for every scoring call, never the fused mode (float32
-    # only), the slot-values mode for the fold, B3 / B4 for BFGS.
+    # only), the fold kernel for simplify_tree, B3 / B4 for BFGS.
     storage_runs = {}
     for precision in ("bfloat16", "float16"):
         sfx = ke.STORAGE[{"bfloat16": torch.bfloat16,
@@ -2419,8 +2620,8 @@ def main():
             for k, v in run["storage"].items():
                 if k in expected:
                     assert v == expected[k], (k, run)
-                elif k == f"slots{sfx}":
-                    assert v >= n_cyc + 1, run
+                elif k == f"fold{sfx}":
+                    assert v == n_cyc + 1, run
                 else:
                     assert v == 0, (k, run)
             assert res_s.frontier() and np.isfinite(res_s.best_loss().loss)
@@ -2517,8 +2718,11 @@ def main():
         weighted_stages.append(weights is not None)
         return stage_unspied(trees, X_, y_, weights, *rest, **kw)
 
+    from symbolicregression_jl_tpu_torch.models import mutate_device as tmut
+
     plains = [(ke, "eval_trees_plain"), (ke, "eval_loss_trees_plain"),
-              (ke, "eval_slot_values_plain"), (kg, "_plain_loss_grad"),
+              (ke, "eval_slot_values_plain"), (tmut, "simplify_tree_plain"),
+              (kg, "_plain_loss_grad"),
               (ki, "eval_trees_instr_plain")]
     saved = [getattr(m, n) for m, n in plains]
     for m, n in plains:
@@ -2656,7 +2860,7 @@ def main():
         assert run["plain_calls"] == 0, plain_calls
         assert run["user_eval"].get("fused") == 1 + user_cycles + 1, run
         assert run["user_eval"].get("value", 0) == 0, run
-        assert run["user_eval"].get("slots", 0) > 0, run
+        assert run["user_eval"].get("fold", 0) == user_cycles + 1, run
         assert not any(run["registry"].values()), run
         assert run["user_grad"] == expect_opt, run
         assert run["by_loss"]["fused:UserLoss"] == 1 + user_cycles + 1, run
@@ -2784,7 +2988,7 @@ def main():
             if k in expected:
                 assert v == expected[k], (k, run)
             else:
-                assert k == "slots_f64" and v >= n_cyc + 1, (k, run)
+                assert k == "fold_f64" and v == n_cyc + 1, (k, run)
         assert res_f.state[0].global_hof.losses.dtype == torch.float64
         assert res_f.state[0].island_states.pop.trees.cval.dtype == torch.float64
         assert run["captures"] == 1 and run["replays"] == n_cyc, run
@@ -2825,7 +3029,7 @@ def main():
     assert run["plain_calls"] == 0 and run["interpreter_calls"] == 0, run
     assert not any(run["float32"].values()), run
     assert run["storage"] == {"value_f64": (1 + 20 + 1) + 1 + 9 + 8,
-                              "slots_f64": run["storage"]["slots_f64"]}, run
+                              "fold_f64": 20 + 1}, run
     assert run["vjp"] == {"vjp_f64": 9}, run
     log(f"5h(b) loss_function at float64 (20 cycles): {run['s']:.1f} s, "
         f"launches {run['storage']} and cotangent {run['vjp']}")
@@ -2882,15 +3086,43 @@ def main():
         return (time.time() - tc) * 1e3 / n
 
     cycles(5)  # warm-up
-    kernel_fold = ke.eval_slot_values
+    from symbolicregression_jl_tpu_torch.models import mutate_device as tmut
+
+    kernel_fold = ke.fold_trees
+
+    def fold_with(variant):
+        """The cycle's simplify_tree through the fold kernel or, for
+        ``plain_fold``, through the plain fold on the same card tensors."""
+        ke.fold_trees = (kernel_fold if variant == "kernel_fold"
+                         else tmut.simplify_tree_plain)
+
+    # the eager cycle with the fold on the kernel against the same cycle
+    # with the plain fold: the same bits after 10 cycles from one state
+    ends = {}
+    for variant in ("kernel_fold", "plain_fold"):
+        fold_with(variant)
+        try:
+            ends[variant] = s_r_cycle_islands(st, opts.maxsize, X, y, None,
+                                              base, opts, ncycles=10)
+        finally:
+            fold_with("kernel_fold")
+    fold_leaves = list(zip(cg._leaves(ends["kernel_fold"]),
+                           cg._leaves(ends["plain_fold"])))
+    n_fold_differ = sum(not torch.equal(a, b) for a, b in fold_leaves)
+    assert n_fold_differ == 0, (
+        f"the kernel fold's cycle differs from the plain fold's in "
+        f"{n_fold_differ} of {len(fold_leaves)} state fields")
+    del ends
+    log(f"cycle alone: 10 eager cycles with the fold kernel bit-equal to 10 "
+        f"with the plain fold from one state (all {len(fold_leaves)} "
+        "IslandState fields)")
     cycle_ms = {"kernel_fold": [], "plain_fold": []}
     for variant in ("kernel_fold", "plain_fold", "kernel_fold", "plain_fold"):
-        ke.eval_slot_values = (kernel_fold if variant == "kernel_fold"
-                               else ke.eval_slot_values_plain)
+        fold_with(variant)
         try:
             cycle_ms[variant].append(cycles(20))
         finally:
-            ke.eval_slot_values = kernel_fold
+            fold_with("kernel_fold")
         log(f"cycle alone: {variant}: {cycle_ms[variant][-1]:.2f} ms per cycle "
             "(20 cycles, eager, host clock)")
 
@@ -2987,6 +3219,9 @@ def main():
     assert plan_per_cycle == {"propose": 1.0, "mutate": 1.0,
                               "crossover": 1.0}, plan_per_cycle
     assert per_replay <= 24, per_replay
+    # the cycle's simplify_tree: one launch of the fold kernel per replay
+    fold_per_cycle = delta[id(ke.LAUNCHES)].get("fold", 0)
+    assert fold_per_cycle == 1, delta[id(ke.LAUNCHES)]
     del eager20, graph20, st0
     graph_ms = {"eager": [], "captured": []}
     n_ab = 50
@@ -3000,6 +3235,7 @@ def main():
     log(gka.table(sort_by=dev_attr, row_limit=12))
     g_calls, _ = sync_counts(prof)
     graph_report = dict(
+        fold_launches_per_replay=fold_per_cycle,
         threefry_per_cycle=rng_per_cycle, plans_per_cycle=plan_per_cycle,
         threefry_launches_per_replay=per_replay,
         ms_per_cycle=graph_ms, cycles_per_timing=n_ab,
@@ -3021,17 +3257,16 @@ def main():
         f"share {graph_report['idle_share_profiled']:.3f} under the profiler, "
         f"{graph_report['idle_share_unprofiled']:.3f} against the unprofiled "
         f"captured cycle; runtime calls {dict(g_calls)}")
-    # the scoring wrapper alone: the cycle's fused scoring and slot-values
-    # calls must not wait for the card
-    Xs1 = X[:, :1].contiguous()
+    # the scoring wrapper alone: the cycle's fused scoring and fold calls
+    # must not wait for the card
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
             ke.eval_loss_trees(cycle, X, y, ops)
-            ke.eval_slot_values(cycle, Xs1, ops)
+            ke.fold_trees(cycle, ops)
     wrapper_calls, wrapper_ops = sync_counts(prof)
     cycle_profile["scoring_wrapper_host_calls"] = dict(wrapper_calls)
-    log(f"scoring wrapper alone (10 fused + 10 slot-values calls at "
+    log(f"scoring wrapper alone (10 fused + 10 fold calls at "
         f"{T_CYCLE} trees): {dict(wrapper_calls)}, by operator "
         f"{dict(wrapper_ops)}")
     # the profiler's own closing synchronize has no issuing operator
@@ -3355,8 +3590,9 @@ def main():
                     "(_postfix_call via eval_loss_trees_pallas :1257)",
         "value": "symbolicregression_jl_tpu/ops/pallas_eval.py:1014 "
                  "(_postfix_call via eval_trees_pallas :1059)",
-        "slots": "symbolicregression_jl_tpu/models/mutate_device.py:469 "
-                 "(_const_fold_scan, a lax.scan, not a Pallas kernel)",
+        "fold": "symbolicregression_jl_tpu/models/mutate_device.py:469-582 "
+                "(_const_fold_scan, a lax.scan, and simplify_tree; not a "
+                "Pallas kernel)",
     }
     grad_src = "symbolicregression_jl_tpu/ops/pallas_grad.py:414 "
     replaces["loss_grad"] = grad_src + (
@@ -3370,14 +3606,14 @@ def main():
         "1510 (_make_instr_kernel(packed=False) :737 via _eval_instr :1407)")
     replaces["instr_packed"] = instr_src + (
         "1490 (_make_instr_kernel(packed=True) :737 via _eval_instr :1407)")
-    headline = {"fused": T_CYCLE, "value": T_CYCLE, "slots": T_CYCLE,
+    headline = {"fused": T_CYCLE, "value": T_CYCLE, "fold": T_CYCLE,
                 "loss_grad": T_OPT, "loss": T_OPT * LS_STEPS,
                 "instr": T_CYCLE, "instr_packed": T_CYCLE}
-    sources = dict.fromkeys(("fused", "value", "slots"), "postfix_eval")
+    sources = dict.fromkeys(("fused", "value", "fold"), "postfix_eval")
     sources.update(loss_grad="postfix_grad", loss="postfix_grad",
                    instr="instr_eval", instr_packed="instr_eval")
     kernels = []
-    for name in ("fused", "value", "slots", "loss_grad", "loss", "instr",
+    for name in ("fused", "value", "fold", "loss_grad", "loss", "instr",
                  "instr_packed"):
         h = timings[(name, headline[name])]
         src = sources[name]
@@ -3423,7 +3659,7 @@ def main():
         sfx = ke.STORAGE[dt][1]
         precision = {torch.bfloat16: "bfloat16", torch.float16: "float16",
                      torch.float64: "float64"}[dt]
-        for name in ("value", "slots", "loss_grad", "loss", "instr",
+        for name in ("value", "fold", "loss_grad", "loss", "instr",
                      "instr_packed"):
             h = storage_timing[(name + sfx, headline[name])]
             program = name if name.startswith("instr") else "auto"
@@ -3477,13 +3713,13 @@ def main():
     # the user instantiations (the generated headers' builds): launches
     # from phase 5g's runs, errors and times from phase 3f
     user_src = {"fused": ("postfix_eval", h_loss), "value": ("postfix_eval", h_ops),
-                "slots": ("postfix_eval", h_ops),
+                "fold": ("postfix_eval", h_ops),
                 "loss_grad": ("postfix_grad", h_loss),
                 "loss": ("postfix_grad", h_loss),
                 "instr": ("instr_eval", h_ops),
                 "instr_packed": ("instr_eval", h_ops)}
     user_launch = {"fused": user_runs["BFGS"]["user_eval"]["fused"],
-                   "slots": user_runs["BFGS"]["user_eval"]["slots"],
+                   "fold": user_runs["BFGS"]["user_eval"]["fold"],
                    "loss_grad": user_runs["BFGS"]["user_grad"]["loss_grad"],
                    "loss": user_runs["BFGS"]["user_grad"]["loss"],
                    "value": user_runs["weighted"]["user_eval"]["value"],

@@ -519,18 +519,17 @@ def crossover_trees(keys, a: TreeBatch, b: TreeBatch):
 def _const_fold(tree: TreeBatch, operators: OperatorSet):
     """Per-node (is_const, folded_value, parent_is_const). A node is
     constant when its subtree holds no variable and every value in it is
-    finite; values come from one evaluation of every slot (the kernel's
-    slot-values mode on the card) with variables read as 0, which cannot
-    matter because a subtree with a variable is never folded. The values
-    are computed at the constants' dtype (that dtype's build of the
-    kernel), as the JAX package folds."""
-    from ..ops.kernel_eval import eval_slot_values
+    finite; values come from one evaluation of every slot (the plain
+    slot values) with variables read as 0, which cannot matter because a
+    subtree with a variable is never folded. The values are computed at
+    the constants' dtype, as the JAX package folds."""
+    from ..ops.kernel_eval import eval_slot_values_plain
 
     L = tree.max_len
     dev = tree.kind.device
     zero_x = torch.zeros((1, 1), dtype=tree.cval.dtype, device=dev)
-    vals, _ = eval_slot_values(tree._replace(feat=torch.zeros_like(tree.feat)),
-                               zero_x, operators)
+    vals, _ = eval_slot_values_plain(
+        tree._replace(feat=torch.zeros_like(tree.feat)), zero_x, operators)
     vals = vals.to(tree.cval.dtype)
     live = valid_mask(tree)
     start = subtree_starts(tree.kind, tree.length)
@@ -561,22 +560,39 @@ def _compact(tree_fields, keep: torch.Tensor, L: int):
     return out, keep.sum(dim=-1)
 
 
-def simplify_tree(tree: TreeBatch, operators: OperatorSet):
-    """Fold maximal constant subtrees into single CONST leaves and compact
-    the survivors. Returns (tree', changed)."""
+def simplify_tree_plain(tree: TreeBatch, operators: OperatorSet):
+    """Plain version of the fold kernel (``simplify_tree``): fold maximal
+    constant subtrees into single CONST leaves and compact the survivors.
+    A program that is not a valid postfix program is left as it is.
+    Returns (tree', changed)."""
+    from ..ops.kernel_eval import runnable
+
     L = tree.max_len
-    is_const, fold_val, parent_const = _const_fold(tree, operators)
+    valid, _ = runnable(tree._replace(feat=torch.zeros_like(tree.feat)),
+                        operators, 1)
+    run = tree._replace(kind=valid.kind, length=valid.length)
+    is_const, fold_val, parent_const = _const_fold(run, operators)
     fold_root = is_const & ~parent_const
-    keep = valid_mask(tree) & (~is_const | fold_root)
+    keep = valid_mask(run) & (~is_const | fold_root)
     (kind, op, feat, cval), n_new = _compact([
-        (torch.where(fold_root, CONST, tree.kind), PAD),
-        (torch.where(fold_root, 0, tree.op), 0),
-        (torch.where(fold_root, 0, tree.feat), 0),
-        (torch.where(fold_root, fold_val, tree.cval), 0.0),
+        (torch.where(fold_root, CONST, run.kind), PAD),
+        (torch.where(fold_root, 0, run.op), 0),
+        (torch.where(fold_root, 0, run.feat), 0),
+        (torch.where(fold_root, fold_val, run.cval), 0.0),
     ], keep, L)
-    changed = n_new < tree.length
+    changed = n_new < run.length
     return where_trees(changed, TreeBatch(kind, op, feat, cval, n_new),
                        tree), changed
+
+
+def simplify_tree(tree: TreeBatch, operators: OperatorSet):
+    """Fold maximal constant subtrees into single CONST leaves and compact
+    the survivors, for a flat (T, L) batch: the fold kernel on the card
+    (``ops/kernel_eval.py`` ``fold_trees``), ``simplify_tree_plain`` on
+    the CPU. Returns (tree', changed)."""
+    from ..ops.kernel_eval import fold_trees
+
+    return fold_trees(tree, operators)
 
 
 # ---------------------------------------------------------------------------

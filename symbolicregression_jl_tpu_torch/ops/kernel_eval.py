@@ -1,11 +1,14 @@
 """Scoring kernel wrapper: the counterpart of ``ops/pallas_eval.py``.
 
-``eval_trees`` (value mode), ``eval_loss_trees`` (fused loss, any
-elementwise loss of the registry: an ``ElementwiseLoss``) and
-``eval_slot_values`` (every slot's value on one row, for constant folding)
-launch the hand-written CUDA kernel ``csrc/postfix_eval.cu`` for CUDA
-tensors and run the kernel's plain PyTorch version (the ``*_plain``
-functions) for CPU tensors. There is no fallback: on a CUDA tensor the
+``eval_trees`` (value mode) and ``eval_loss_trees`` (fused loss, any
+elementwise loss of the registry: an ``ElementwiseLoss``) launch the
+hand-written CUDA scoring kernel of ``csrc/postfix_eval.cu``;
+``fold_trees`` (``simplify_tree``: every maximal constant subtree folded
+into one constant) and ``eval_slot_values`` (every slot's value on one
+row) launch the constant-fold kernel of the same source. CUDA tensors go
+to the kernels, CPU tensors to their plain PyTorch versions (the
+``*_plain`` functions; the fold's is ``models/mutate_device.py``
+``simplify_tree_plain``). There is no fallback: on a CUDA tensor the
 wrapper launches the kernel or raises.
 
 The kernel derives each tree's program from the ``TreeBatch`` fields in
@@ -27,15 +30,16 @@ type (``compute_dtype``: float32, or float64 in the float64 build) and
 rounded to the storage type where it is produced, poison judged on the
 rounded value (the JAX package's ``compute_dtype="bfloat16"`` variant,
 and its float16 and float64 interpreter). The 2-byte and float64 builds
-carry the value and slot-values modes; the fused mode runs at float32
+carry the value mode and the fold kernel; the fused mode runs at float32
 alone, as the JAX package routes it. The plain versions compute in the
 same type and round at the same places (``storage_round``).
 
 The kernel library is compiled with ``nvcc`` into ``build/`` at first use
 (one library per working dtype) and loaded with ctypes. ``LAUNCHES``
-counts the float32 build's launches by mode; their sum is the total.
+counts the float32 build's launches by kernel (``value``, ``fused``, and
+``fold`` for the fold kernel, either output); their sum is the total.
 ``STORAGE_LAUNCHES`` counts the other builds' (``value_bf16``,
-``slots_f16``, ``value_f64``, ...). ``LOSS_LAUNCHES`` counts the fused
+``fold_f16``, ``value_f64``, ...). ``LOSS_LAUNCHES`` counts the fused
 mode's launches by loss name (``fused:HuberLoss``).
 
 An operator set with user operators, or a loss callable of the user's own
@@ -73,7 +77,7 @@ from .operators import (
 )
 from .user_ops import USER_BINARY_BASE, USER_UNARY_BASE, UserBuild
 
-LAUNCHES = {"value": 0, "fused": 0, "slots": 0}  # launches by mode
+LAUNCHES = {"value": 0, "fused": 0, "fold": 0}  # launches by kernel
 LOSS_LAUNCHES = {}  # the fused mode's launches by "fused:<loss name>"
 USER_LAUNCHES = {}  # the user builds' launches by mode and dtype suffix
 
@@ -84,9 +88,9 @@ STORAGE = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16"),
 NARROW_STORAGE = (torch.bfloat16, torch.float16)
 # every build but the float32 one
 OTHER_STORAGE = NARROW_STORAGE + (torch.float64,)
-# launches of the other builds by mode and dtype ("value_bf16", ...)
+# launches of the other builds by kernel and dtype ("value_bf16", ...)
 STORAGE_LAUNCHES = {f"{m}{STORAGE[d][1]}": 0 for d in OTHER_STORAGE
-                    for m in ("value", "slots")}
+                    for m in ("value", "fold")}
 
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -105,8 +109,7 @@ BUILD_SECONDS = {}  # nvcc's seconds for the last build of each dtype
 MAX_OPERATORS = 64  # csrc/postfix_program.cuh kMaxOps
 MODE_VALUE = 0
 MODE_FUSED = 1
-MODE_SLOTS = 2
-MODE_NAMES = {MODE_VALUE: "value", MODE_FUSED: "fused", MODE_SLOTS: "slots"}
+MODE_NAMES = {MODE_VALUE: "value", MODE_FUSED: "fused"}
 
 
 # ---------------------------------------------------------------------------
@@ -452,7 +455,8 @@ def eval_loss_trees_program_plain(trees: TreeBatch, X: torch.Tensor,
 
 def eval_slot_values_plain(trees: TreeBatch, X: torch.Tensor,
                           operators: OperatorSet):
-    """Plain version of the slot-values mode: X has one row; returns
+    """Plain version of the fold kernel's slot-values output: X has one
+    row; returns
     (vals (T, L) in X's dtype — every slot's value, 0 past the length — and
     ok (T,))."""
     trees, _ = runnable(trees, operators, X.shape[0])
@@ -681,10 +685,14 @@ def _declare(lib, dtype: torch.dtype):
     lib.postfix_eval_narrow_plan.restype = i
     lib.postfix_eval_config.argtypes = [ip]
     lib.postfix_eval_config.restype = None
-    lib.postfix_eval_smem_bytes.argtypes = [i] * 6
+    lib.postfix_eval_smem_bytes.argtypes = [i] * 5
     lib.postfix_eval_smem_bytes.restype = i
     lib.postfix_eval_occupancy.argtypes = [i] * 6
     lib.postfix_eval_occupancy.restype = i
+    lib.postfix_fold_config.argtypes = [ip]
+    lib.postfix_fold_config.restype = None
+    lib.postfix_fold_launch.argtypes = [p] * 15 + [ip] + [i] * 8 + [p]
+    lib.postfix_fold_launch.restype = i
     lib.postfix_eval_error_string.argtypes = [i]
     lib.postfix_eval_error_string.restype = ctypes.c_char_p
     return lib
@@ -739,7 +747,7 @@ def narrow_plan(plan_fn, nrows: int) -> EvalPlan:
                     scratch)
 
 
-def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
+def eval_plan(T: int, L: int, nfeat: int, nrows: int,
               rows_per_lane: int, max_warps: int, max_smem: int,
               smem_bytes, occupancy, sms: int, stage: bool = True) -> EvalPlan:
     """The work-item split: the most warps per block (up to ``max_warps``)
@@ -748,8 +756,7 @@ def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
     blocks, with each range's X staged when it fits (and ``stage``: the
     instruction-program kernel B6 never stages). ``smem_bytes(warps,
     range, staged)`` and ``occupancy(staged, warps, smem)`` are the
-    kernel's (its library's) answers. The slot-values mode takes one range
-    and reads X from global memory."""
+    kernel's (its library's) answers."""
     warps = max_warps
     while warps > 1 and smem_bytes(warps, 1, False) > max_smem:
         warps //= 2
@@ -757,13 +764,12 @@ def eval_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
         raise ValueError(f"max_len {L} needs more shared memory per warp "
                          "than a block may use")
     per_pass = 32 * rows_per_lane
-    max_items = 1 if mode == MODE_SLOTS else -(-nrows // per_pass)
+    max_items = -(-nrows // per_pass)
     groups = -(-T // warps)
     chosen, want = None, 1
     while True:
         items, rng = split_rows(nrows, min(want, max_items), per_pass)
-        staged = (stage and mode != MODE_SLOTS
-                  and smem_bytes(warps, rng, True) <= max_smem)
+        staged = stage and smem_bytes(warps, rng, True) <= max_smem
         smem = smem_bytes(warps, rng, staged)
         occ = occupancy(staged, warps, smem)
         if occ > 0:
@@ -792,7 +798,7 @@ def launch_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
     lib = _library(dtype, user)
     cfg = (ctypes.c_int * 3)()
     lib.postfix_eval_config(cfg)
-    if lib.postfix_eval_smem_bytes(1, L, nfeat, 1, 0, mode) > cfg[2]:
+    if lib.postfix_eval_smem_bytes(1, L, nfeat, 1, 0) > cfg[2]:
         return narrow_plan(lambda out: lib.postfix_eval_narrow_plan(
             T, L, mode, int(full), int(any_loss), out), nrows)
 
@@ -804,10 +810,9 @@ def launch_plan(T: int, L: int, nfeat: int, nrows: int, mode: int,
         return occ
 
     return eval_plan(
-        T, L, nfeat, nrows, mode, 1 if mode == MODE_SLOTS else cfg[0], cfg[1],
-        cfg[2],
+        T, L, nfeat, nrows, cfg[0], cfg[1], cfg[2],
         lambda warps, rng, staged: lib.postfix_eval_smem_bytes(
-            warps, L, nfeat, rng, int(staged), mode),
+            warps, L, nfeat, rng, int(staged)),
         occupancy,
         torch.cuda.get_device_properties(device).multi_processor_count)
 
@@ -832,9 +837,9 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
     """Check the inputs and allocate the kernel's outputs for a flat (T, L)
     batch on the card; the trees go to the kernel as they are, in
     longest-first order. ``loss``: the fused mode's loss. X's dtype picks
-    the build (float32, bfloat16 or float16; the fused mode float32
-    only); the constants go to the kernel in that dtype and the value or
-    slot outputs come in it."""
+    the build (float32, bfloat16, float16 or float64; the fused mode
+    float32 only); the constants go to the kernel in that dtype and the
+    value output comes in it."""
     dev = X.device
     dtype = X.dtype
     if dtype not in STORAGE or X.dim() != 2:
@@ -856,8 +861,6 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
         raise ValueError("the scoring kernel takes fewer than 65536 features "
                          f"and X of fewer than 2^31 elements; got "
                          f"{tuple(X.shape)}")
-    if mode == MODE_SLOTS and nrows != 1:
-        raise ValueError("the slot-values mode takes X with one row")
     # the fused mode's loss: the registry's or a traced callable (a
     # UserLoss; one the tracer cannot lower raises, naming what it met);
     # the other modes compute none
@@ -878,8 +881,6 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
     order = torch.argsort(length, descending=True, stable=True)
     if mode == MODE_VALUE:
         out = torch.empty((T, nrows), dtype=dtype, device=dev)
-    elif mode == MODE_SLOTS:
-        out = torch.empty((T, L), dtype=dtype, device=dev)
     else:
         out = torch.empty((T,), dtype=torch.float32, device=dev)
     bad = torch.empty((T,), dtype=torch.int32, device=dev)
@@ -960,7 +961,154 @@ def eval_slot_values(trees: TreeBatch, X: torch.Tensor,
                      operators: OperatorSet):
     """Every slot's value on the single row of X (nfeat, 1): (vals (T, L)
     in X's dtype, ok (T,)) for a flat (T, L) batch; 0 past each tree's
-    length. Constant folding reads subtree values from it."""
+    length. On the card, the fold kernel's slot-values output."""
     if not X.is_cuda:
         return eval_slot_values_plain(trees, X, operators)
-    return _launch(trees, X, None, operators, MODE_SLOTS)
+    p = prepare_fold(trees, operators, X)
+    run_fold(p)
+    vals, bad, length = p.out
+    return vals, (bad == 0) & (length > 0)
+
+
+# ---------------------------------------------------------------------------
+# The constant-fold kernel: simplify_tree in one launch
+# ---------------------------------------------------------------------------
+
+FOLD_TREES = 32  # csrc/postfix_eval.cu kFoldTrees: trees (threads) a block
+# global-memory arenas (max_len beyond a block's shared memory): the grid
+# holds at most this many bytes of them, but at least one block per SM
+FOLD_SCRATCH_BUDGET = 32 << 20
+
+
+class FoldPlan(NamedTuple):
+    """The fold kernel's grid: ``blocks`` of ``FOLD_TREES`` trees, each
+    block's arena (max_len rows of ``slot_bytes``) in ``smem`` bytes of
+    shared memory, or, with ``scratch_bytes`` > 0, in that much global
+    memory, one arena per block, the blocks looping over the trees."""
+
+    blocks: int
+    smem: int
+    scratch_bytes: int = 0
+
+
+def fold_plan(T: int, L: int, slot_bytes: int, max_smem: int, sms: int,
+              trees_per_block: int = FOLD_TREES) -> FoldPlan:
+    """One block per ``trees_per_block`` trees with its arena in shared
+    memory where it fits in ``max_smem``; else the arenas in global
+    memory (each at a multiple of 16 bytes) for at most
+    ``FOLD_SCRATCH_BUDGET`` bytes of blocks, but at least ``sms``."""
+    tiles = max(1, -(-T // trees_per_block))
+    arena = L * slot_bytes
+    if arena <= max_smem:
+        return FoldPlan(tiles, arena)
+    stride = -(-arena // 16) * 16
+    blocks = min(tiles, max(sms, FOLD_SCRATCH_BUDGET // stride))
+    return FoldPlan(blocks, 0, blocks * stride)
+
+
+@functools.lru_cache(maxsize=256)
+def fold_launch_plan(T: int, L: int, dtype: torch.dtype,
+                     user: Optional[UserBuild], device: int) -> FoldPlan:
+    """``fold_plan`` with the layout of ``dtype``'s build (with ``user``'s
+    header) on card ``device``."""
+    lib = _library(dtype, user)
+    cfg = (ctypes.c_int * 3)()
+    lib.postfix_fold_config(cfg)
+    if cfg[0] != FOLD_TREES:
+        raise RuntimeError(f"the fold kernel takes {cfg[0]} trees a block, "
+                           f"the wrapper {FOLD_TREES}")
+    return fold_plan(T, L, cfg[1], cfg[2], torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
+class PreparedFold(NamedTuple):
+    """Everything one launch of the fold kernel reads and writes, on the
+    card: ``out`` is (TreeBatch, changed) for the fold, (vals, bad,
+    length) for the slot-values output."""
+
+    args: tuple
+    out: tuple
+    plan: FoldPlan
+    dtype: torch.dtype
+    user: Optional[UserBuild] = None
+
+
+def prepare_fold(flat: TreeBatch, operators: OperatorSet,
+                 X: Optional[torch.Tensor] = None) -> PreparedFold:
+    """Check a flat (T, L) batch on the card and allocate the fold
+    kernel's outputs: the folded trees and ``changed``, or, with X
+    (nfeat, 1), every slot's value and the poison flags. The constants'
+    dtype (X's, when given) picks the build; the fields go to the kernel
+    as they are."""
+    dtype = flat.cval.dtype if X is None else X.dtype
+    check_storage(dtype)
+    dev = flat.cval.device if X is None else X.device
+    if flat.kind.dim() != 2:
+        raise ValueError("the fold kernel takes a flat (T, L) batch")
+    if X is not None and (X.dim() != 2 or X.shape[1] != 1
+                          or X.shape[0] >= 1 << 31):
+        raise ValueError("the slot-values output takes X of shape (nfeat, 1)")
+    for f in flat:
+        if f.device != dev:
+            raise ValueError("trees and X must lie on the same device")
+    T, L = flat.kind.shape
+    full = uses_full_kernel(operators)
+    ids = host_operator_ids(operators)
+    user = user_ops.user_build(operators, None, dtype == torch.float64)
+    plan = fold_launch_plan(T, L, dtype, user, dev.index or 0)
+    kind, op, feat = (f.to(torch.int64).contiguous()
+                      for f in (flat.kind, flat.op, flat.feat))
+    cval = flat.cval.to(dtype).contiguous()
+    length = flat.length.to(torch.int64).contiguous()
+    scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+               if plan.scratch_bytes else None)
+    if X is None:
+        outs = (torch.empty_like(kind), torch.empty_like(op),
+                torch.empty_like(feat), torch.empty_like(cval),
+                torch.empty_like(length),
+                torch.empty(T, dtype=torch.bool, device=dev))
+        tensors = (kind, op, feat, cval, length, None, *outs, None, None,
+                   scratch)
+        out = (TreeBatch(*outs[:5]), outs[5])
+        nfeat = 0
+    else:
+        vals = torch.empty((T, L), dtype=dtype, device=dev)
+        bad = torch.empty((T,), dtype=torch.int32, device=dev)
+        tensors = (kind, op, feat, cval, length, X.contiguous(),
+                   *(None,) * 6, vals, bad, scratch)
+        out = (vals, bad, length)
+        nfeat = X.shape[0]
+    # the tensors ride along so their memory outlives every launch
+    args = (*tensors, ids, operators.n_unary, operators.n_binary, T, L,
+            nfeat, int(full), plan.blocks, plan.smem)
+    return PreparedFold(args, out, plan, dtype, user)
+
+
+def run_fold(p: PreparedFold) -> None:
+    """Launch the fold kernel on the current stream and check the
+    launch."""
+    lib = _library(p.dtype, p.user)
+    tensors, rest = p.args[:15], p.args[15:]
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    stream = torch.cuda.current_stream(p.args[3].device).cuda_stream
+    rc = lib.postfix_fold_launch(*ptrs, *rest, stream)
+    if rc != 0:
+        raise RuntimeError("postfix_eval fold kernel launch failed: "
+                           + lib.postfix_eval_error_string(rc).decode())
+    count_launch(LAUNCHES, STORAGE_LAUNCHES, "fold", p.dtype,
+                 None if p.user is None else USER_LAUNCHES)
+
+
+def fold_trees(trees: TreeBatch, operators: OperatorSet):
+    """``simplify_tree`` on a flat (T, L) batch: every maximal constant
+    subtree folded into one CONST leaf, the survivors compacted; returns
+    (trees', changed (T,)). CUDA tensors run the fold kernel (the
+    constants' dtype's build), CPU tensors the plain version
+    (``models/mutate_device.py`` ``simplify_tree_plain``)."""
+    if not trees.cval.is_cuda:
+        from ..models.mutate_device import simplify_tree_plain
+        return simplify_tree_plain(trees, operators)
+    p = prepare_fold(trees, operators)
+    run_fold(p)
+    return p.out
+

@@ -436,7 +436,7 @@ def launch_plan(T: int, L: int, nfeat: int, nrows: int, packed: bool,
         return occ
 
     return ke.eval_plan(
-        T, L, nfeat, nrows, ke.MODE_VALUE, cfg[0], cfg[1], cfg[2],
+        T, L, nfeat, nrows, cfg[0], cfg[1], cfg[2],
         lambda warps, rng, staged: lib.instr_eval_smem_bytes(
             int(packed), warps, L, nfeat, rng, int(staged)),
         occupancy,

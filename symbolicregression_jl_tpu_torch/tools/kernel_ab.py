@@ -19,20 +19,27 @@ A timing process times each kernel alone (``device_ms``: the launches
 queued behind a spin on the card, CUDA events around them) at the north
 star's shapes (Feynman-I.6.2a, 2,048 rows): the value mode (B1) and the
 fused L2 mode (B2) at 5,376 and 64,000 trees, the slot-values mode at 5,376
-and 64,000 trees on one row, the gradient kernel (B3) at 26,880 instances
+and 64,000 trees on one row (a root that still has it), the gradient
+kernel (B3) at 26,880 instances
 at max_len 24 and at max_len 128 (trees of 3-109 slots; ``null`` where the
 root's wrapper refuses that max_len) and the loss-only kernel (B4) at
 215,040 (26,880 trees x 8 candidates), and the instruction-program
 kernels B5 / B6 at 5,376 and 64,000 trees; 50 launches each (20 for B4,
 10 for B3 at max_len 128); the compact instantiation (these operators) and
-the full one forced (``full:`` keys). Then the wrappers, host prep
-included: ``eval_loss_trees`` at 5,376 and 64,000 trees,
-``eval_slot_values`` at 5,376 and ``eval_trees_instr`` (both programs) at
-5,376 and 64,000. The outputs at 5,376 trees (value mode, fused losses,
-slot values, B5's and B6's values and poison flags), B3's losses,
-gradients and poison flags at max_len 24 and B4's losses and poison flags
-are compared bit for bit with the first root's, and B5's and B6's values
-with the root's own value mode.
+the full one forced (``full:`` keys). Then the constant fold at 5,376 and
+64,000 trees: the fold kernel alone (``fold@``, a root that has it,
+``device_ms``) and the root's whole ``simplify_tree`` on the card, one
+call captured as a CUDA graph and replayed (``simplify@``: the slot-values
+launch and the PyTorch kernels around it in a root before the fold
+kernel, the fold kernel's one launch after), 50 of each. Then the
+wrappers, host prep included: ``eval_loss_trees`` at 5,376 and 64,000
+trees, ``eval_slot_values`` at 5,376 and ``eval_trees_instr`` (both
+programs) at 5,376 and 64,000. The outputs at 5,376 trees (value mode,
+fused losses, slot values, ``simplify_tree``'s fields and ``changed``,
+B5's and B6's values and poison flags), B3's losses, gradients and poison
+flags at max_len 24 and B4's losses and poison flags are compared bit for
+bit with the first root's, and B5's and B6's values with the root's own
+value mode.
 
 ``--cycle`` adds, in each timing process, the main path's captured
 cycle at the north star's widths: milliseconds per replayed cycle (two
@@ -70,6 +77,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from symbolicregression_jl_tpu_torch.models import mutate_device as tmut
 from symbolicregression_jl_tpu_torch.models.trees import TreeBatch
 from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
 from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
@@ -97,6 +105,22 @@ def cuda_ms(fn, reps):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps):
+    """Milliseconds per replay of a CUDA graph holding one call of fn
+    (which must not read the card from the host): the device time of a
+    call's kernels as the captured cycle runs them, without the host's
+    launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up: plans and libraries, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
 
 
 def device_ms(fn, reps):
@@ -306,11 +330,12 @@ def time_here(captured_path, bits_path) -> dict:
     trees, cv8 = north_star_trees(ops, dev)
     cycle, opt = trees[64000 - 5376:], trees[:26880]
     long = long_trees(ops, dev)
+    modes = [("value", ke.MODE_VALUE), ("fused_l2", MODE_FUSED)]
+    slot_mode = getattr(ke, "MODE_SLOTS", None)  # before the fold kernel
+    if slot_mode is not None:
+        modes.append(("slots", slot_mode))
     shapes = [(f"{label}@{tb.length.shape[0]}", tb, mode)
-              for label, mode in (("value", ke.MODE_VALUE),
-                                  ("fused_l2", MODE_FUSED),
-                                  ("slots", ke.MODE_SLOTS))
-              for tb in (cycle, trees)]
+              for label, mode in modes for tb in (cycle, trees)]
     if captured_path:
         captured = TreeBatch(*torch.load(captured_path, map_location="cuda"))
         shapes.append(("fused_l2@captured", captured, MODE_FUSED))
@@ -322,10 +347,11 @@ def time_here(captured_path, bits_path) -> dict:
             pre = "full:" if full else ""
             for label, tb, mode in shapes:
                 p = ke.prepare_launch(
-                    tb, X1 if mode == ke.MODE_SLOTS else X,
+                    tb, X1 if mode == slot_mode else X,
                     y if mode == MODE_FUSED else None, ops, mode)
                 row[pre + label] = device_ms(lambda: ke.run_prepared(p), 50)
-                if not full and label.endswith("@5376"):
+                if (not full and label.endswith("@5376")
+                        and mode != slot_mode):
                     outs[label] = p.out.nan_to_num().view(torch.int32).cpu()
                 del p
             for name, packed in (("instr", False), ("instr_packed", True)):
@@ -362,6 +388,26 @@ def time_here(captured_path, bits_path) -> dict:
                             "grad_bad": gbad.cpu()}, bits_path)
     finally:
         ke.uses_full_kernel = uses_full
+    outs["slots@5376"] = ke.eval_slot_values(cycle, X1, ops)[0].nan_to_num(
+        ).view(torch.int32).cpu()
+    for tb in (cycle, trees):
+        T = tb.length.shape[0]
+        if hasattr(ke, "prepare_fold"):
+            p = ke.prepare_fold(tb, ops)
+            row[f"fold@{T}"] = device_ms(lambda: ke.run_fold(p), 50)
+            del p
+        else:
+            row[f"fold@{T}"] = None
+        row[f"simplify@{T}"] = graph_ms(lambda: tmut.simplify_tree(tb, ops),
+                                        50)
+        if T == 5376:
+            folded, changed = tmut.simplify_tree(tb, ops)
+            outs["simplify@5376"] = torch.cat(
+                [f.reshape(T, -1).to(torch.float64).nan_to_num().view(
+                    torch.int64) for f in folded]
+                + [changed.reshape(T, 1).to(torch.int64)], 1).cpu()
+    torch.save({**torch.load(bits_path), **{k: outs[k] for k in (
+        "slots@5376", "simplify@5376")}}, bits_path)
     for T in (5376, 64000):
         tb = trees[64000 - T:]
         row[f"wrapper_fused_l2@{T}"] = cuda_ms(
@@ -498,8 +544,8 @@ def main(argv) -> int:
         rows.append(row)
     ref = bits[next(iter(roots))]
     checks = {}
-    outputs = ("value@5376", "fused_l2@5376", "slots@5376", "instr",
-               "instr_bad", "instr_packed", "instr_packed_bad")
+    outputs = ("value@5376", "fused_l2@5376", "slots@5376", "simplify@5376",
+               "instr", "instr_bad", "instr_packed", "instr_packed_bad")
     for name, b in bits.items():
         if not torch.equal(b["value@5376"], ref["value@5376"]):
             raise AssertionError(f"{name}: value mode differs from the first root")

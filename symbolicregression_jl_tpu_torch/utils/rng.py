@@ -199,18 +199,22 @@ def _np_fma32(a, b, c):
     exact product in float64 plus ``c`` rounded there, then to float32.
     The two roundings differ from one only where the float64 sum is
     inexact and lies exactly halfway between two float32 values; there it
-    is rounded to odd first."""
+    is rounded to odd first. Such ties are a few in a hundred in a
+    polynomial's Horner steps, so only their elements are revisited."""
     p = np.multiply(a, b, dtype=np.float64)
-    c = np.asarray(c, np.float64)
-    s = np.asarray(p + c)
-    bits = s.view(np.int64)
-    tie = (bits & 0x1FFFFFFF) == 0x10000000
-    if tie.any():
-        bb = s - p
-        err = (p - (s - bb)) + (c - bb)
-        nudge = tie & (err != 0)
-        bits = bits + np.where(nudge, np.where((err > 0) == (s > 0), 1, -1), 0)
-    return bits.view(np.float64).astype(np.float32)
+    s = np.asarray(p + c, np.float64)
+    bits = s.reshape(-1).view(np.int64)
+    tie = np.flatnonzero((bits & 0x1FFFFFFF) == 0x10000000)
+    if tie.size:
+        at = np.unravel_index(tie, s.shape)
+        pt = np.broadcast_to(p, s.shape)[at]
+        ct = np.broadcast_to(np.asarray(c, np.float64), s.shape)[at]
+        st = s.reshape(-1)[tie]
+        bb = st - pt
+        err = (pt - (st - bb)) + (ct - bb)
+        bits[tie] += np.where(err == 0, 0,
+                              np.where((err > 0) == (st > 0), 1, -1))
+    return s.astype(np.float32)
 
 
 def _log_f32(x: np.ndarray) -> np.ndarray:

@@ -3,7 +3,9 @@ constant-gradient kernel in both variants and the instruction-program
 kernels against their plain versions (the latter also bit-equal to the
 scoring kernel's value mode), each registry operator (and its derivative,
 and the hand-written digamma) on the edge grid, and short searches; every
-float64 build and the gradient kernel's cotangent-seeded mode, eval_tree's
+float64 build and the gradient kernel's cotangent-seeded mode, the
+constant-fold kernel (``simplify_tree``) at every build, with a user
+operator and at max_len 512, 1,024 and 2,048, eval_tree's
 batching rule (one B1 launch), per-island minibatches in the captured
 cycle and a custom objective's search; the
 redesigned scoring kernel below and above one wave of blocks, with ragged
@@ -1067,7 +1069,7 @@ def test_precision_builds_bit_equal_to_plain_on_card(cuda, precision, max_len):
 def test_precision_search_routes_on_card(cuda, precision):
     """A search at bfloat16 / float16 launches that dtype's builds only:
     the value mode for every scoring call (never the fused mode, which is
-    float32 only), the slot mode for the fold, B3 / B4 for BFGS, and no
+    float32 only), the fold kernel for simplify_tree, B3 / B4 for BFGS, and no
     float32 build; its state is in the working dtype."""
     dt = getattr(torch, precision)
     sfx = tke.STORAGE[dt][1]
@@ -1086,7 +1088,7 @@ def test_precision_search_routes_on_card(cuda, precision):
                              return_state=True)
     assert not any({**tke.LAUNCHES, **tkg.LAUNCHES, **tki.LAUNCHES}.values())
     assert tke.STORAGE_LAUNCHES[f"value{sfx}"] == 2 * (15 + 1) + 1
-    assert tke.STORAGE_LAUNCHES[f"slots{sfx}"] >= 2 * 15
+    assert tke.STORAGE_LAUNCHES[f"fold{sfx}"] == 2 * (15 + 1)
     assert tkg.STORAGE_LAUNCHES[f"loss_grad{sfx}"] == 2 * 9
     assert tkg.STORAGE_LAUNCHES[f"loss{sfx}"] == 2 * 8
     assert res.state[0].island_states.pop.losses.dtype == dt
@@ -1235,6 +1237,7 @@ def test_mask_route_launches_on_card(cuda, monkeypatch):
     for mod, name in ((tke, "eval_trees_plain"),
                       (tke, "eval_loss_trees_plain"),
                       (tke, "eval_slot_values_plain"),
+                      (tmut, "simplify_tree_plain"),
                       (tkg, "_plain_loss_grad")):
         monkeypatch.setattr(mod, name, refuse)
     weighted = []
@@ -1675,3 +1678,138 @@ def test_draw_plans_bit_equal_on_card(cuda, dtype):
     half.uniform("u", half.root, (3,), torch.bfloat16)
     with pytest.raises(TypeError, match="float32 and float64 only"):
         half.run(torch.zeros(4, 2, dtype=torch.int64, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# The constant-fold kernel (simplify_tree in one launch)
+# ---------------------------------------------------------------------------
+
+_FOLD_SPECIAL = (0.0, -0.0, 1e30, float("inf"), float("nan"), 300.0,
+                 70000.0, 0.1)
+
+
+def _constant_heavy(trees, gen, dtype=torch.float32):
+    """Most variables turned into constants (a tenth of them special
+    values), so many subtrees fold, some to a value that is not finite;
+    the constants in ``dtype``."""
+    shape, dev = trees.kind.shape, trees.kind.device
+    flip = (trees.kind == VAR) & (
+        torch.rand(shape, generator=gen, device=dev) < 0.7)
+    special = torch.tensor(_FOLD_SPECIAL, device=dev)[torch.randint(
+        0, len(_FOLD_SPECIAL), shape, generator=gen, device=dev)]
+    c = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.1,
+                    special, torch.randn(shape, generator=gen, device=dev) * 2)
+    return trees._replace(kind=torch.where(flip, CONST, trees.kind),
+                          feat=torch.where(flip, 0, trees.feat),
+                          cval=torch.where(flip, c, trees.cval).to(dtype))
+
+
+def _invalid_fold_programs(L, ops, device):
+    """Underflow, unfinished, lengths beyond L and below 0, an operator
+    outside the set, an unknown kind; then a PAD slot inside the length,
+    which the fold reads as a constant 0."""
+    rows = [([VAR, BIN], 2), ([CONST, CONST], 2), ([UNA], 1), ([CONST], L + 1),
+            ([CONST], -1), ([CONST, CONST, BIN], 3), ([7], 1),
+            ([CONST, 0, BIN], 3)]
+    kind = torch.tensor([r + [0] * (L - len(r)) for r, _ in rows],
+                        device=device)
+    op = torch.zeros_like(kind)
+    op[5, 2] = ops.n_binary
+    return TreeBatch(kind, op, torch.zeros_like(kind),
+                     torch.full(kind.shape, 0.75, device=device),
+                     torch.tensor([n for _, n in rows], device=device))
+
+
+def _assert_fold_bit_equal(trees, ops, chunk=4096):
+    """The fold kernel against the plain fold on the same card tensors,
+    every field and ``changed`` bit for bit, and two launches the same
+    bits; returns the kernel's result."""
+    got = tke.fold_trees(trees, ops)
+    again = tke.fold_trees(trees, ops)
+    parts = [tmut.simplify_tree_plain(trees[i:i + chunk], ops)
+             for i in range(0, trees.length.shape[0], chunk)]
+    ref = (TreeBatch(*(torch.cat(z) for z in zip(*(q[0] for q in parts)))),
+           torch.cat([q[1] for q in parts]))
+    for res in (again, ref):
+        for a, b in zip((*got[0], got[1]), (*res[0], res[1])):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if a.is_floating_point():
+                a, b = _bits(a), _bits(b)
+            assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64],
+                         ids=["f32", "bf16", "f16", "f64"])
+def test_fold_kernel_bit_equal_to_plain_on_card(cuda, dtype):
+    """simplify_tree on the card: one launch of the fold kernel (counted
+    as ``fold``), every field and ``changed`` bit-equal to the plain fold,
+    invalid programs left as they were, the slot-values output bit-equal
+    to its plain version where finite."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    gen = make_generator(4, cuda)
+    trees = random_trees(gen, torch.randint(1, 21, (3000,), device=cuda,
+                                            generator=gen), 2, ops, L, cuda)
+    bad = _invalid_fold_programs(L, ops, cuda)
+    trees = TreeBatch(*(torch.cat(z) for z in zip(
+        _constant_heavy(trees, gen, dtype), bad._replace(
+            cval=bad.cval.to(dtype)))))
+    key = "fold" + tke.STORAGE[dtype][1]
+    counts = tke.LAUNCHES if dtype == torch.float32 else tke.STORAGE_LAUNCHES
+    before = counts[key]
+    folded, changed = _assert_fold_bit_equal(trees, ops)
+    assert counts[key] == before + 2
+    assert folded.cval.dtype == dtype
+    assert 1500 < int(changed.sum()) < 3000
+    assert not changed[-8:-1].any() and bool(changed[-1])
+    X1 = torch.zeros((1, 1), dtype=dtype, device=cuda)
+    sk, oks = tke.eval_slot_values(trees, X1, ops)
+    sp, okp = tke.eval_slot_values_plain(trees, X1, ops)
+    fin = torch.isfinite(sp)
+    assert torch.equal(oks, okp) and torch.equal(torch.isfinite(sk), fin)
+    assert torch.equal(_bits(sk[fin]), _bits(sp[fin]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_len", [512, 1024, 2048])
+def test_fold_kernel_long_programs_on_card(cuda, max_len):
+    """Long programs: the arenas in shared memory at 512, in global
+    memory above (the blocks looping over the trees), bit-equal to the
+    plain fold at float32 and float64."""
+    ops = tops.make_operator_set(["+", "-", "*", "/"], ["cos", "exp"])
+    gen = make_generator(5, cuda)
+    trees = random_trees(gen, torch.randint(1, max_len - 2, (48,), device=cuda,
+                                            generator=gen), 1, ops, max_len,
+                         cuda)
+    trees = TreeBatch(*(torch.cat(z) for z in zip(
+        trees, deep_trees(max_len, 1, device=cuda))))
+    plan = tke.fold_launch_plan(trees.length.shape[0], max_len, torch.float32,
+                                None, 0)
+    assert (plan.scratch_bytes > 0) == (max_len > 512)
+    for dtype in (torch.float32, torch.float64):
+        _, changed = _assert_fold_bit_equal(
+            _constant_heavy(trees, gen, dtype), ops, chunk=16)
+        assert int(changed.sum()) > 24
+
+
+@pytest.mark.gpu
+def test_fold_kernel_with_user_operators_on_card(cuda, custom_pair):
+    """The fold kernel's user instantiation (the generated header): the
+    structure equal to the plain fold's and the constants within rtol
+    1e-5 (the user operators' torch and CUDA bodies may differ in an
+    ulp), counted in ``USER_LAUNCHES``."""
+    gen = make_generator(6, cuda)
+    trees = _constant_heavy(random_trees(
+        gen, torch.randint(1, 21, (2000,), device=cuda, generator=gen), 3,
+        custom_pair, L, cuda), gen)
+    before = tke.USER_LAUNCHES.get("fold", 0)
+    got = tke.fold_trees(trees, custom_pair)
+    ref = tmut.simplify_tree_plain(trees, custom_pair)
+    assert tke.USER_LAUNCHES.get("fold", 0) == before + 1
+    for f in ("kind", "op", "feat", "length"):
+        assert torch.equal(getattr(got[0], f), getattr(ref[0], f)), f
+    assert torch.equal(got[1], ref[1]) and int(got[1].sum()) > 1000
+    torch.testing.assert_close(got[0].cval, ref[0].cval, rtol=1e-5, atol=1e-6,
+                               equal_nan=True)

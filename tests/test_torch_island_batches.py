@@ -131,7 +131,7 @@ def test_captured_step_equals_the_eager_loop_on_cpu():
     for fa, fb in zip(cg._leaves(a), cg._leaves(b), strict=True):
         assert torch.equal(fa, fb)
     assert not torch.equal(a.key, st.key)
-    assert tke.LAUNCHES == {"value": 0, "fused": 0, "slots": 0}  # CPU
+    assert tke.LAUNCHES == {"value": 0, "fused": 0, "fold": 0}  # CPU
 
 
 def test_independent_island_batches():

@@ -336,22 +336,21 @@ def _smem(per_warp, x_per_row):
 
 
 @pytest.mark.parametrize("case", [
-    # (T, L, nfeat, nrows, mode, per-warp bytes, X bytes per row) -> plan
-    ((5376, 24, 1, 2048, tke.MODE_FUSED, 6340, 4), (4, 8, True, 512)),
-    ((64000, 24, 1, 2048, tke.MODE_FUSED, 6340, 4), (1, 8, True, 2048)),
-    ((37, 24, 1, 2048, tke.MODE_VALUE, 6340, 4), (16, 8, True, 128)),
-    ((5376, 24, 1, 1, tke.MODE_SLOTS, 1732, 4), (1, 8, False, 32)),
-    ((5376, 24, 1000, 2048, tke.MODE_FUSED, 6340, 4000), (4, 8, False, 512)),
-    ((5376, 200, 1, 2048, tke.MODE_FUSED, 52000, 4), (1, 4, True, 2048)),
-], ids=["cycle", "rescore", "few-trees", "slots", "wide-X", "long-programs"])
+    # (T, L, nfeat, nrows, per-warp bytes, X bytes per row) -> plan
+    ((5376, 24, 1, 2048, 6340, 4), (4, 8, True, 512)),
+    ((64000, 24, 1, 2048, 6340, 4), (1, 8, True, 2048)),
+    ((37, 24, 1, 2048, 6340, 4), (16, 8, True, 128)),
+    ((5376, 24, 1, 1, 6340, 4), (1, 8, True, 128)),
+    ((5376, 24, 1000, 2048, 6340, 4000), (4, 8, False, 512)),
+    ((5376, 200, 1, 2048, 52000, 4), (1, 4, True, 2048)),
+], ids=["cycle", "rescore", "few-trees", "one-row", "wide-X", "long-programs"])
 def test_eval_plan(case):
     """The fewest row ranges that give 4 waves of blocks (132 SMs), X
-    staged when it fits, fewer warps per block when the stacks do not; the
-    slot-values mode (one row, one row per lane) in one range."""
-    (T, L_, nfeat, nrows, mode, per_warp, xrow), want = case
+    staged when it fits, fewer warps per block when the stacks do not; one
+    row in one range of one pass."""
+    (T, L_, nfeat, nrows, per_warp, xrow), want = case
     occ = lambda staged, warps, smem: min(232448 // smem, 64 // warps)
-    rows_per_lane = 1 if mode == tke.MODE_SLOTS else 4
-    plan = tke.eval_plan(T, L_, nfeat, nrows, mode, rows_per_lane, 8, 232448,
+    plan = tke.eval_plan(T, L_, nfeat, nrows, 4, 8, 232448,
                          _smem(per_warp, xrow), occ, 132)
     assert (plan.items, plan.warps, plan.staged, plan.range) == want
     assert plan.blocks == -(-T // plan.warps) * plan.items
@@ -360,7 +359,7 @@ def test_eval_plan(case):
 
 def test_eval_plan_refuses_programs_too_long_for_a_block():
     with pytest.raises(ValueError, match="shared memory"):
-        tke.eval_plan(10, 2000, 1, 2048, 1, 4, 8, 232448,
+        tke.eval_plan(10, 2000, 1, 2048, 4, 8, 232448,
                       _smem(300000, 4), lambda *a: 1, 132)
 
 

@@ -263,7 +263,8 @@ class _OnCard(torch.Tensor):
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """On a CUDA tensor every wrapper launches its kernel or raises: with
     the library unavailable (checked without a card, on a tensor that
-    says it lies on one) the scoring, constant-optimisation and
+    says it lies on one) the scoring, constant-fold (``fold_trees``, and
+    ``simplify_tree`` through it), constant-optimisation and
     instruction-program wrappers raise instead of falling back, under L2
     and under every other loss of the registry (the fused scoring mode,
     the gradient and loss-only kernels, and the scoring route of
@@ -286,6 +287,7 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         make_generator(0, "cpu"), torch.full((6,), 7), 2, user_ops_set, L,
         "cpu")
     user_loss = lambda p, t: (p - t) ** 2  # noqa: E731
+    on_card = lambda t: t._replace(cval=t.cval.as_subclass(_OnCard))  # noqa: E731
 
     def no_library(*args, **kwargs):
         raise RuntimeError("kernel launch attempted")
@@ -297,12 +299,15 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         monkeypatch.setattr(mod, "_library", no_library)
     for mod, name in ((tke, "eval_trees_plain"), (tke, "eval_loss_trees_plain"),
                       (tke, "eval_slot_values_plain"),
+                      (tmut, "simplify_tree_plain"),
                       (tkg, "_plain_loss_grad"),
                       (tki, "eval_trees_instr_plain")):
         monkeypatch.setattr(mod, name, no_plain)
     calls = [lambda: tke.eval_trees(trees, X, ops),
              lambda: tke.eval_loss_trees(trees, X, y, ops),
              lambda: tke.eval_slot_values(trees, X[:, :1], ops),
+             lambda: tke.fold_trees(on_card(trees), ops),
+             lambda: tmut.simplify_tree(on_card(trees), ops),
              lambda: tkg.eval_loss_grad(trees, X, y, None, ops),
              lambda: tkg.eval_loss(trees, X, y, None, ops),
              lambda: tki.eval_trees_instr(trees, X, ops, packed=False),
@@ -319,6 +324,7 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     uo, ut = user_ops_set, user_trees
     calls += [lambda: tke.eval_trees(ut, X, uo),
               lambda: tke.eval_slot_values(ut, X[:, :1], uo),
+              lambda: tke.fold_trees(on_card(ut), uo),
               lambda: tki.eval_trees_instr(ut, X, uo, packed=True)]
     for o, t in ((ops, trees), (uo, ut)):
         calls += [

@@ -3,6 +3,8 @@ printing, structural queries, kernel host tables, complexity, constraints,
 parsimony statistics, simplification and hall-of-fame bookkeeping. The same
 numpy inputs go to both packages."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +32,9 @@ from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
 from symbolicregression_jl_tpu_torch.ops import operators as tops
 from symbolicregression_jl_tpu_torch.parallel import migration as tmig
 
-from torch_port_helpers import L, assert_trees_equal, jax_trees, port_trees
+from torch_port_helpers import (
+    L, assert_trees_equal, fold_trees_mirror, jax_trees, port_trees,
+)
 
 BINS = ["+", "-", "*", "/"]
 UNAS = ["cos", "exp", "neg", "square"]
@@ -122,32 +126,61 @@ def test_parsimony_update_and_move_window_exact():
                                   got.numpy())
 
 
-@pytest.mark.parametrize("fn", ["simplify_tree", "combine_operators"])
+@functools.lru_cache(maxsize=None)
+def _jax_fold(fn, seed, rational):
+    """The JAX package's ``fn`` (``simplify_tree`` or ``combine_operators``)
+    on 128 seeded trees, over ``+ - * /`` with ``neg square`` (rational)
+    or with ``cos exp neg square`` too: (its trees, the input trees, its
+    changed flags), computed once per process for the port's functions and
+    the fold kernel's mirror alike."""
+    ops_j = (jops.make_operator_set(BINS, ["neg", "square"]) if rational
+             else JOPS)
+    jt = jax_trees(np.random.default_rng(seed), ops_j, 128, nfeat=2)
+    ref, ch_ref = jax.jit(jax.vmap(lambda t: getattr(jmut, fn)(t, ops_j)))(jt)
+    return ref, jt, np.asarray(ch_ref)
+
+
+@pytest.mark.parametrize("fn", ["simplify_tree", "combine_operators",
+                                "fold_trees_mirror"])
 def test_simplify_and_combine_exact(fn):
     """Folded constants of + - * / neg square are correctly rounded in both
-    packages, so the result is bit-equal."""
-    ops_j = jops.make_operator_set(BINS, ["neg", "square"])
+    packages, so the result is bit-equal; the fold kernel's mirror (one
+    tree at a time in the kernel's order) too."""
     ops_t = tops.make_operator_set(BINS, ["neg", "square"])
-    jt = jax_trees(np.random.default_rng(5), ops_j, 128, nfeat=2)
-    ref, ch_ref = jax.jit(jax.vmap(lambda t: getattr(jmut, fn)(t, ops_j)))(jt)
-    got, ch = getattr(tmut, fn)(port_trees(jt), ops_t)
+    port_fn = (fold_trees_mirror if fn == "fold_trees_mirror"
+               else getattr(tmut, fn))
+    ref, jt, ch_ref = _jax_fold(
+        "simplify_tree" if fn == "fold_trees_mirror" else fn, 5, True)
+    got, ch = port_fn(port_trees(jt), ops_t)
     assert_trees_equal(ref, got)
-    np.testing.assert_array_equal(np.asarray(ch_ref), ch.numpy())
-    assert int(np.asarray(ch_ref).sum()) > 10
+    np.testing.assert_array_equal(ch_ref, ch.numpy())
+    assert int(ch_ref.sum()) > 10
+
+
+def _assert_transcendental_fold(ref, ch_ref, got, ch):
+    for f in ("kind", "op", "feat", "length"):
+        np.testing.assert_array_equal(np.asarray(getattr(ref, f)),
+                                      getattr(got, f).numpy())
+    np.testing.assert_array_equal(ch_ref, ch.numpy())
+    np.testing.assert_allclose(got.cval.numpy(), np.asarray(ref.cval),
+                               rtol=1e-6, atol=0)
 
 
 def test_simplify_transcendental_folds():
     """cos/exp folds: the structure is exact; a folded constant may differ
     by a couple of ulps (XLA's and torch's CPU cos/exp round differently),
     so values are held at rtol 1e-6."""
-    jt = jax_trees(np.random.default_rng(6), JOPS, 128, nfeat=2)
-    ref, _ = jax.jit(jax.vmap(lambda t: jmut.simplify_tree(t, JOPS)))(jt)
-    got, _ = tmut.simplify_tree(port_trees(jt), TOPS)
-    for f in ("kind", "op", "feat", "length"):
-        np.testing.assert_array_equal(np.asarray(getattr(ref, f)),
-                                      getattr(got, f).numpy())
-    np.testing.assert_allclose(got.cval.numpy(), np.asarray(ref.cval),
-                               rtol=1e-6, atol=0)
+    ref, jt, ch_ref = _jax_fold("simplify_tree", 6, False)
+    _assert_transcendental_fold(ref, ch_ref,
+                                *tmut.simplify_tree(port_trees(jt), TOPS))
+
+
+def test_fold_mirror_transcendental_folds():
+    """The fold kernel's mirror on the same cos/exp trees: the structure
+    and the changed flags exact, constants at rtol 1e-6."""
+    ref, jt, ch_ref = _jax_fold("simplify_tree", 6, False)
+    _assert_transcendental_fold(ref, ch_ref,
+                                *fold_trees_mirror(port_trees(jt), TOPS))
 
 
 def _hof_inputs(seed, n_islands=3, n=40):

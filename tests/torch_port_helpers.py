@@ -3,13 +3,16 @@ made from a seed, go to the JAX package and to the port. The JAX package
 is imported only by the functions that build or read its trees, so the
 card-only tests, on a machine without JAX, can use the rest."""
 
+import math
+
 import numpy as np
 import torch
 
 from symbolicregression_jl_tpu_torch import convert
 from symbolicregression_jl_tpu_torch.models.trees import (
-    BIN, CONST, UNA, VAR, TreeBatch,
+    BIN, CONST, PAD, UNA, VAR, TreeBatch,
 )
+from symbolicregression_jl_tpu_torch.ops import kernel_eval as tke
 
 # one thread per test process: the suite runs several worker processes side by side
 torch.set_num_threads(1)
@@ -147,3 +150,77 @@ def random_trees(gen: torch.Generator, sizes, nfeatures, operators, max_len,
                          device=device)
     return tmut.gen_random_tree_fixed_size(keys, sizes, nfeatures, operators,
                                            max_len, dtype)
+
+
+def fold_trees_mirror(trees, operators):
+    """The fold kernel's algorithm in Python, one tree at a time in the
+    kernel's order (the mirror its CPU tests hold against
+    ``simplify_tree_plain``, the plain version the card holds the kernel
+    against): the kernel's validity rules per slot, then one walk whose
+    output map doubles as the value stack (a constant child is one output
+    slot; a parent whose children are all constant and whose value is
+    finite replaces them, so a child is a fold root exactly when its
+    parent does not take it in), then the write-back, an unchanged tree as
+    it was. Each operator's value is its slot's value on a zero row
+    (``eval_slot_values_plain``): a folded subtree holds no variable, and
+    the kernel computes that value from the same children."""
+    T, L = trees.kind.shape
+    cap = (L + 1) // 2
+    zero = torch.zeros((1, 1), dtype=trees.cval.dtype)
+    vals = tke.eval_slot_values_plain(
+        trees._replace(feat=torch.zeros_like(trees.feat)), zero,
+        operators)[0].tolist()
+    kind, op, feat, cval, length = (f.tolist() for f in trees)
+    U, B = operators.n_unary, operators.n_binary
+    fold = -1  # the output map's mark of a folded constant
+    changed = [False] * T
+    for t in range(T):
+        n = length[t]
+        invalid = n < 0 or n > L
+        n = 0 if invalid else n
+        depth = out = 0
+        A, V = [0] * L, [0.0] * L
+        for s in range(n):
+            k, o = kind[t][s], op[t][s]
+            if k in (PAD, CONST, VAR):
+                if depth >= cap:
+                    invalid = True
+                    break
+                depth += 1
+                x = cval[t][s] if k == CONST else 0.0
+                A[out] = fold if k != VAR and math.isfinite(x) else s
+                V[out] = x
+                out += 1
+            elif (k == UNA and 0 <= o < U) or (k == BIN and 0 <= o < B):
+                binary = k == BIN
+                if depth < (2 if binary else 1):
+                    invalid = True
+                    break
+                depth -= binary
+                top = out - 1
+                x = vals[t][s]
+                if (A[top] == fold and (not binary or A[top - 1] == fold)
+                        and math.isfinite(x)):
+                    out -= binary
+                    A[out - 1], V[out - 1] = fold, x
+                else:
+                    A[out] = s
+                    out += 1
+            else:
+                invalid = True
+                break
+        invalid |= n > 0 and depth != 1
+        if invalid or out >= n:
+            continue
+        changed[t] = True
+        rows = [[PAD, 0, 0, 0.0] for _ in range(L)]
+        for j in range(out):
+            rows[j] = ([CONST, 0, 0, V[j]] if A[j] == fold else
+                       [kind[t][A[j]], op[t][A[j]], feat[t][A[j]],
+                        cval[t][A[j]]])
+        kind[t], op[t], feat[t], cval[t] = (list(c) for c in zip(*rows))
+        length[t] = out
+    as_t = lambda x, f: torch.tensor(x, dtype=f.dtype)  # noqa: E731
+    return (TreeBatch(*(as_t(x, f) for x, f in
+                        zip((kind, op, feat, cval, length), trees))),
+            torch.tensor(changed))
