@@ -131,8 +131,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    zeroed just before and read just after, and each iteration's
    optimisation pass is timed; then
    the same search with ``kernel_program="instr"`` and ``"instr_packed"``
-   (one iteration each, same seed: their halls of fame must be
-   bit-equal), the counts zeroed before and read after each; then a short
+   (one iteration of 275 cycles each, same seed: their halls of fame must
+   be bit-equal), the counts zeroed before and read after each; then a short
    search whose every batch must hold valid programs only; then the
    search at the same widths under ``loss="HuberLoss"`` (1 iteration of
    100 cycles, default BFGS): every scoring call through the fused mode's
@@ -166,7 +166,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    squared error through ``eval_tree``, 1 iteration of 100 cycles: every
    scoring call one B1 launch, no B2, BFGS's gradient on B3's cotangent
    mode; then 20 cycles at float64), and ``independent_island_batches``
-   (batch 50, 100 cycles: one capture, 64 B2 launches per replay);
+   (batch 50, 100 cycles: one capture, one B2 launch per replay over
+   the 64 islands' minibatches, the per-set form);
 6. the cycle alone at the same widths: 10 eager cycles with
    ``simplify_tree`` on the fold kernel bit-equal to 10 on the plain fold
    from one state, milliseconds per eager cycle through each
@@ -204,7 +205,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``test_float64_in_subprocess`` (in this process, at seeds 0-15: loss
    below 1e-8 at its seed 0, and recovered at no fewer seeds than the
    reference's float32 sweep, 9 of 16; a float64 search draws the
-   reference's x64 stream, so its seeds are not float32's).
+   reference's x64 stream, so its seeds are not float32's);
+9. tenant-batched serving (``serving/``): (a) B1, B2, B3 and B4 in the
+   per-set form (one launch over 64 datasets of (5, 256), the trees set-
+   major) at the serving search's trees per set (30 children a cycle, 495
+   members a rescore, 225 BFGS instances, 8 line-search candidates each;
+   30 and 225 are not multiples of the warps per block), float32 and
+   bfloat16, unweighted and weighted: each set bit-equal to the same
+   kernel launched on that set alone and to its plain version (B2 to its
+   mirror at phase 3d's L2 tolerance, with its bit-equal share), each
+   per-set launch timed beside the 64 single-set launches, its plain
+   version and its bound; (b) ``batched_equation_search`` of 64 tenants
+   (y_t = a_t cos(x3) + x0^2 - b_t from the seed) at the reference's
+   default widths (15 islands x 33, maxsize 20, 550 cycles, BFGS), every
+   plain version a raising stub: tenants 0 and 63 after one iteration
+   bit-equal to their solo ``equation_search`` (every island field, the
+   hall of fame, the key, the frontier), then 2 iterations with the
+   counts zeroed before and read after (one B2 launch per replayed cycle
+   for all 64 tenants, 9 B3 and 8 B4 per iteration), s per iteration
+   beside the solo search's, peak memory, and the batch's and one solo
+   search's captured cycle (ms per replay A B B A, device kernels and
+   host waits per replay: none); (c) 4 tenants x 2 iterations x 50
+   cycles, weighted, with ``batching=True``, with
+   ``independent_island_batches`` and at bfloat16, each tenant bit-equal
+   to its solo search; (d) the ``JobServer``: six jobs of 97-300 rows and
+   2 or 5 features (two buckets) at ``max_tenants=4``, 20 cycles, drained,
+   each result's frontier bit-equal to ``batched_equation_search`` of its
+   bucket's padded data.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -233,6 +260,7 @@ T_CYCLE = 64 * 84  # children per cycle: 64 islands x B=84
 T_RESCORE = 64 * 1000
 T_OPT = 64 * 3 * 140  # BFGS instances: islands x starts x round(1000 * 0.14)
 LS_STEPS = 8  # line-search candidates per instance
+INSTR_CYCLES = 275  # cycles of phase 5's one iteration on each instr program
 
 # jax 0.9's draws for PRNGKey(20261018) on the CPU, frozen (this script
 # imports no JAX; tests/test_torch_prng.py checks them against JAX): the
@@ -964,6 +992,586 @@ def phase_user_kernels(dev, log_fn, T=4096):
                f"{v['bound_ms']:.5f} ms ({v['bound_by']}), share "
                f"{v['bound_ms'] / v['user_ms']:.4f}, plain {v['plain_ms']:.2f} ms")
     return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: tenant-batched serving
+# ---------------------------------------------------------------------------
+
+SERVE_T = 64  # tenants of the full-width batch
+SERVE_NFEAT, SERVE_ROWS = 5, 256  # each tenant's X
+# the reference's default search (15 islands x 33, 550 cycles, BFGS) over
+# the serving operators
+SERVE_CFG = dict(binary_operators=["+", "-", "*", "/"],
+                 unary_operators=["cos", "exp"], maxsize=20, verbosity=0)
+
+
+def serving_data(seed, T=SERVE_T, weighted=False):
+    """T tenants' (X (5, 256), y, weights or None) float32 from ``seed``:
+    y_t = a_t cos(x3) + x0^2 - b_t, a_t and b_t drawn from the seed."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 3.0, T)
+    b = rng.uniform(-2.0, 2.0, T)
+    jobs = []
+    for t in range(T):
+        X = rng.standard_normal((SERVE_NFEAT, SERVE_ROWS)).astype(np.float32)
+        y = (a[t] * np.cos(X[3]) + X[0] ** 2 - b[t]).astype(np.float32)
+        w = (rng.uniform(0.5, 1.5, SERVE_ROWS).astype(np.float32)
+             if weighted else None)
+        jobs.append((X, y, w))
+    return jobs
+
+
+def zero_launch_counts():
+    """Every launch count of the kernel wrappers to 0."""
+    from symbolicregression_jl_tpu_torch.models import cycle_graph as cg
+
+    for counts in cg.LAUNCH_COUNTERS:
+        for k in list(counts):
+            counts[k] = 0
+
+
+def launch_counts():
+    """The non-zero launch counts of every kernel wrapper, by counter."""
+    from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
+    from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
+    from symbolicregression_jl_tpu_torch.ops import kernel_rng as kr
+
+    return {"eval": {k: v for k, v in ke.LAUNCHES.items() if v},
+            "eval_storage": {k: v for k, v in ke.STORAGE_LAUNCHES.items() if v},
+            "grad": {k: v for k, v in kg.LAUNCHES.items() if v},
+            "grad_storage": {k: v for k, v in kg.STORAGE_LAUNCHES.items() if v},
+            "plans": dict(kr.PLAN_LAUNCHES),
+            "threefry": {k: v for k, v in kr.LAUNCHES.items() if v}}
+
+
+class no_plain_versions:
+    """Every plain version of a kernel replaced by a raising stub: a card
+    tensor that reached one would end the run."""
+
+    def __enter__(self):
+        from symbolicregression_jl_tpu_torch.models import mutate_device as tm
+        from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
+        from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
+        from symbolicregression_jl_tpu_torch.ops import kernel_instr as ki
+
+        def stub(name):
+            def f(*a, **k):
+                raise AssertionError(f"the plain version {name} was reached")
+            return f
+
+        self.targets = [(ke, "eval_trees_plain"), (ke, "eval_loss_trees_plain"),
+                        (ke, "eval_slot_values_plain"),
+                        (tm, "simplify_tree_plain"), (kg, "_plain_loss_grad"),
+                        (ki, "eval_trees_instr_plain")]
+        self.saved = [getattr(m, n) for m, n in self.targets]
+        for m, n in self.targets:
+            setattr(m, n, stub(n))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self.targets, self.saved):
+            setattr(m, n, f)
+        return False
+
+
+def state_leaves(res):
+    """A result's first SearchState as one list of tensors: every island
+    field, the merged hall of fame and the key."""
+    from symbolicregression_jl_tpu_torch.models.cycle_graph import _leaves
+
+    st = res.state[0]
+    return _leaves(st.island_states) + _leaves(st.global_hof) + [st.rng_key]
+
+
+def frontier_of(res):
+    return [(c.complexity, c.equation, float(c.loss), float(c.score))
+            for c in res.frontier()]
+
+
+def assert_same_search(name, got, ref):
+    """Two searches' states (every island field, the hall of fame, the
+    key) and frontiers bit-equal."""
+    a, b = state_leaves(got), state_leaves(ref)
+    assert len(a) == len(b), name
+    differ = [i for i, (x, y) in enumerate(zip(a, b))
+              if x.shape != y.shape or not torch.equal(
+                  x.view(torch.int8) if x.is_floating_point() else x,
+                  y.view(torch.int8) if y.is_floating_point() else y)]
+    assert not differ, f"{name}: state fields {differ} of {len(a)} differ"
+    assert frontier_of(got) == frontier_of(ref), f"{name}: frontiers differ"
+    assert got.num_evals == ref.num_evals, name
+
+
+def serving_kernels(dev, log_fn):
+    """9a: B1-B4 in the per-set form at 64 sets of (5, 256), at the trees
+    per set of the serving search (15 islands x 33: 30 children a cycle,
+    495 members a rescore, 3 x 15 x 5 = 225 BFGS instances, 8 line-search
+    candidates each), each set bit-equal to the same kernel launched on
+    that set alone and to its plain version (B2: its mirror under the
+    set's launch plan), float32 and bfloat16; then each per-set launch
+    timed (device_ms) beside its plain version and its bound. Returns the
+    report and the per-kernel timing records."""
+    from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
+    from symbolicregression_jl_tpu_torch.ops import kernel_grad as kg
+    from symbolicregression_jl_tpu_torch.ops import losses as tl
+    from symbolicregression_jl_tpu_torch.ops.operators import make_operator_set
+
+    ops = make_operator_set(SERVE_CFG["binary_operators"],
+                            SERVE_CFG["unary_operators"])
+    gen = synthetic_generator(90, dev)
+    S, nf, R, L = SERVE_T, SERVE_NFEAT, SERVE_ROWS, 24
+    X = torch.randn(S, nf, R, generator=gen, device=dev)
+    y = torch.randn(S, R, generator=gen, device=dev)
+    w = torch.rand(S, R, generator=gen, device=dev) + 0.25
+    w[:, ::7] = 0.0  # zero-weight rows, as the job server pads
+    per = {"cycle": 30, "rescore": 495, "bfgs": 225}
+    trees = {k: random_trees(gen, torch.randint(1, 22, (S * p,), generator=gen,
+                                                device=dev), nf, ops, L, dev)
+             for k, p in per.items()}
+    bits = lambda t: t.view(torch.int16) if t.element_size() == 2 else (
+        t.view(torch.int32) if t.element_size() == 4 else t.view(torch.int64))
+    share = {}
+
+    def same(name, got, ref, strict=True):
+        """bit-equal share of two tensors (NaN payloads included); asserts
+        it is 1 when ``strict``."""
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        n_bad = int((bits(got) != bits(ref)).sum())
+        s = 1.0 - n_bad / max(got.numel(), 1)
+        share[name] = min(share.get(name, 1.0), s)
+        assert n_bad == 0 or not strict, f"9a {name}: {n_bad} values differ"
+        return s
+
+    def sets_of(tb, p):
+        return [tb[s * p:(s + 1) * p] for s in range(S)]
+
+    err = {}
+
+    def note(name, got, ref):
+        fin = torch.isfinite(ref) & torch.isfinite(got)
+        d = (got[fin].double() - ref[fin].double()).abs()
+        err[name] = max(err.get(name, 0.0), float(d.max()) if d.numel() else 0.0)
+
+    for dt in (torch.float32, torch.bfloat16):
+        sfx = ke.STORAGE[dt][1]
+        Xd, yd = X.to(dt), y.to(dt)
+        # B1, the value mode: the cycle's children (the weighted and the
+        # 2-byte searches' scoring route)
+        tb, p = trees["cycle"], per["cycle"]
+        v, ok = ke.eval_trees(tb, Xd, ops)
+        alone = [ke.eval_trees(t, Xd[s], ops) for s, t in enumerate(sets_of(tb, p))]
+        assert torch.equal(ok, torch.cat([o for _, o in alone]))
+        same(f"B1{sfx} per-set vs alone", v[ok], torch.cat([a for a, _ in alone])[ok])
+        vp, okp = ke.eval_trees_plain(tb, Xd, ops)
+        assert torch.equal(ok, okp)
+        same(f"B1{sfx} per-set vs plain", v[ok], vp[ok])
+        note(f"value{sfx}", v[ok], vp[ok])
+        # B3 and B4: the BFGS instances, unweighted and weighted
+        tb, p = trees["bfgs"], per["bfgs"]
+        for wt in (None, w):
+            tag = "weighted" if wt is not None else "unweighted"
+            raw3 = kg.stage_launch(tb, Xd, yd, wt, ops, True, 1)
+            l3, g3, b3 = raw3(tb.cval)
+            a3 = [kg.stage_launch(t, Xd[s], yd[s], None if wt is None else wt[s],
+                                  ops, True, 1)(t.cval)
+                  for s, t in enumerate(sets_of(tb, p))]
+            same(f"B3{sfx} {tag} per-set vs alone, loss", l3, torch.cat([a[0] for a in a3]))
+            same(f"B3{sfx} {tag} per-set vs alone", g3, torch.cat([a[1] for a in a3]))
+            assert torch.equal(b3, torch.cat([a[2] for a in a3]))
+            lm, gm, okm = kg.eval_loss_grad_program_plain(tb, Xd, yd, wt, ops)
+            ok3 = (b3 == 0) & (tb.length > 0)
+            assert torch.equal(ok3, okm), f"B3{sfx} ok vs mirror"
+            same(f"B3{sfx} {tag} per-set vs mirror, loss", l3[ok3], lm[ok3])
+            same(f"B3{sfx} {tag} per-set vs mirror", g3[ok3], gm[ok3])
+            note(f"loss_grad{sfx}", g3[ok3], gm[ok3])
+            cand = tb.cval.repeat_interleave(LS_STEPS, 0)
+            cand = cand * (1 + 0.01 * torch.randn(cand.shape, generator=gen,
+                                                  device=dev)).to(cand.dtype)
+            raw4 = kg.stage_launch(tb, Xd, yd, wt, ops, False, LS_STEPS)
+            l4, _, b4 = raw4(cand)
+            a4 = [kg.stage_launch(t, Xd[s], yd[s], None if wt is None else wt[s],
+                                  ops, False, LS_STEPS)(
+                cand[s * p * LS_STEPS:(s + 1) * p * LS_STEPS])
+                for s, t in enumerate(sets_of(tb, p))]
+            same(f"B4{sfx} {tag} per-set vs alone", l4, torch.cat([a[0] for a in a4]))
+            rep = tb.map(lambda f: f.repeat_interleave(LS_STEPS, 0))._replace(cval=cand)
+            lm4, _, okm4 = kg.eval_loss_grad_program_plain(rep, Xd, yd, wt, ops)
+            ok4 = (b4 == 0) & (rep.length > 0)
+            assert torch.equal(ok4, okm4), f"B4{sfx} ok vs mirror"
+            same(f"B4{sfx} {tag} per-set vs mirror", l4[ok4], lm4[ok4])
+            note(f"loss{sfx}", l4[ok4], lm4[ok4])
+    # B2, the fused mode (float32): the cycle's children and the rescore
+    for k in ("cycle", "rescore"):
+        tb, p = trees[k], per[k]
+        lk = ke.eval_loss_trees(tb, X, y, ops)
+        alone = torch.cat([ke.eval_loss_trees(t, X[s], y[s], ops)
+                           for s, t in enumerate(sets_of(tb, p))])
+        same(f"B2 {k} per-set vs alone", lk, alone)
+        plan = ke.launch_plan(p, L, nf, R, ke.MODE_FUSED, False, 0)
+        root, bad = ke.eval_program_plain(tb, X, ops)
+        sid = ke.set_index(root.shape[0], X)
+        lm = tl.contain_nonfinite(ke.fused_sums_plain(root, y[sid], tl.l2_dist_loss, plan)
+                                  / R, ~bad & (tb.length > 0))
+        assert torch.equal(torch.isinf(lk), torch.isinf(lm)), f"B2 {k}"
+        fin = torch.isfinite(lm)
+        # the mirror's L2 sums (phase 3d's rule for L2)
+        torch.testing.assert_close(lk[fin], lm[fin], atol=0, rtol=1e-6)
+        same(f"B2 {k} per-set vs mirror", lk[fin], lm[fin], strict=False)
+        note("fused", lk[fin], lm[fin])
+    log_fn(f"9a per-set kernels at {S} sets of ({nf}, {R}): bit-equal shares "
+           f"{share}; max |err| against the plain versions {err}")
+
+    # timing: each per-set launch alone (device_ms), its plain version and
+    # its bound (bytes: X, y, weights of every set, the live slots' fields
+    # and constants, the outputs; operations: each operator node per row,
+    # the loss per row in the fused and loss kernels)
+    def n_op(tb):
+        return int((tb.kind >= 3).sum())
+
+    def bound(tb, kind, reps=1, elem=4):
+        T = tb.length.shape[0]
+        N = T * reps
+        live = int(tb.length.sum())
+        b_in = S * nf * R * elem + live * (3 * 8 + reps * elem) + T * 16
+        if kind in ("fused", "loss_grad", "loss"):
+            b_in += S * R * 4 * (2 if kind != "fused" else 1)
+        b_out = N * 4 + {"value": N * R * elem, "fused": N * 4,
+                         "loss_grad": N * 4 + N * L * 4, "loss": N * 4}[kind]
+        row_ops = {"value": 0, "fused": 3, "loss_grad": 4 + 3, "loss": 4}[kind]
+        ops_ = (reps * n_op(tb) * R * (2 if kind == "loss_grad" else 1)
+                + N * R * row_ops)
+        t_b = (b_in + b_out) / HBM_BYTES_PER_S * 1e3
+        t_o = ops_ / F32_OPS_PER_S * 1e3
+        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+    timing = {}
+    for name, tb, p in (("value", trees["cycle"], per["cycle"]),
+                        ("fused", trees["cycle"], per["cycle"]),
+                        ("fused", trees["rescore"], per["rescore"]),
+                        ("loss_grad", trees["bfgs"], per["bfgs"]),
+                        ("loss", trees["bfgs"], per["bfgs"])):
+        if name in ("value", "fused"):
+            mode = ke.MODE_VALUE if name == "value" else ke.MODE_FUSED
+            prep = ke.prepare_launch(tb, X, y if name == "fused" else None, ops, mode)
+            ms = device_ms(lambda: ke.run_prepared(prep), 50)
+            plain = (lambda: ke.eval_trees_plain(tb, X, ops)) if name == "value" \
+                else (lambda: ke.eval_loss_trees_plain(tb, X, y, ops))
+            per_set_loop = [ke.prepare_launch(t, X[s], y[s] if name == "fused" else None,
+                                              ops, mode)
+                            for s, t in enumerate(sets_of(tb, p))]
+            loop_ms = device_ms(lambda: [ke.run_prepared(q) for q in per_set_loop], 2)
+            layout = prep.plan._asdict()
+            reps = 1
+        else:
+            reps = 1 if name == "loss_grad" else LS_STEPS
+            cv = tb.cval.repeat_interleave(reps, 0)
+            raw = kg.stage_launch(tb, X, y, None, ops, name == "loss_grad", reps)
+            ms = device_ms(lambda: raw(cv), 50)
+            plain = lambda: kg.eval_loss_grad_program_plain(
+                tb.map(lambda f: f.repeat_interleave(reps, 0))._replace(cval=cv),
+                X, y, None, ops)
+            raws = [kg.stage_launch(t, X[s], y[s], None, ops, name == "loss_grad", reps)
+                    for s, t in enumerate(sets_of(tb, p))]
+            cvs = [t.cval.repeat_interleave(reps, 0) for t in sets_of(tb, p)]
+            loop_ms = device_ms(lambda: [r(c) for r, c in zip(raws, cvs)], 2)
+            layout = None
+        plain_ms = cuda_ms(plain, 2)
+        b_ms, b_by = bound(tb, name, reps)
+        key = f"{name}@{S}x{p}"
+        timing[key] = dict(sets=S, per_set=p, reps=reps, ms=ms, plain_ms=plain_ms,
+                           single_set_launches_ms=loop_ms, bound_ms=b_ms,
+                           bound_by=b_by, roofline_share=b_ms / ms, layout=layout)
+        log_fn(f"9a timing {key}: per-set launch {ms:.4f} ms, {S} single-set "
+               f"launches {loop_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+               f"{b_ms:.5f} ms ({b_by}), share {b_ms / ms:.4f}"
+               + ("" if layout is None else
+                  f"; layout {layout['items']} items of {layout['range']} rows, "
+                  f"{layout['warps']} warps, {layout['blocks']} blocks"))
+    return dict(bit_equal_share=share, max_abs_err=err), timing
+
+
+def phase_serving(dev, log_fn, card, seed=0, tenants=SERVE_T, ncycles=550):
+    """9: tenant-batched serving (``serving/``): (a) the per-set kernels;
+    (b) ``batched_equation_search`` of 64 tenants at the reference's
+    default widths, 2 iterations, with every launch counted and every
+    plain version a raising stub, tenants 0 and 63 after one iteration
+    bit-equal to their solo searches, and the batch's captured cycle
+    profiled (device kernels and scoring launches per replay, host waits),
+    unweighted and weighted (the job server's path), beside a solo's;
+    (c) 4 tenants x 2 iterations x 50 cycles, weighted, with
+    ``batching=True``, with ``independent_island_batches`` and at
+    bfloat16, each tenant bit-equal to its solo search; (d) the
+    ``JobServer`` on six jobs of two buckets, each result bit-equal to the
+    batched search of its bucket's padded data."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from symbolicregression_jl_tpu_torch import (
+        JobServer, batched_equation_search, equation_search, make_options,
+    )
+    from symbolicregression_jl_tpu_torch import api as api_mod
+    from symbolicregression_jl_tpu_torch.models import cycle_graph as cg
+    from symbolicregression_jl_tpu_torch.models.dataset import (
+        make_dataset, update_baseline_loss,
+    )
+    from symbolicregression_jl_tpu_torch.models.fitness import score_dtype
+    from symbolicregression_jl_tpu_torch.ops import kernel_eval as ke
+    from symbolicregression_jl_tpu_torch.tools.kernel_breakdown import sync_counts
+
+    t_phase = time.time()
+    report = {}
+    report["kernels"], kernel_timing = serving_kernels(dev, log_fn)
+    report["kernels"]["seconds"] = time.time() - t_phase
+
+    # ---- (b) the engine at full width -------------------------------------
+    jobs = serving_data(seed, T=tenants)
+    seeds = [1000 + t for t in range(tenants)]
+    opts = make_options(seed=0, ncycles_per_iteration=ncycles, **SERVE_CFG)
+    cg.clear_cache()
+    tb0 = time.time()
+    with no_plain_versions():
+        one = batched_equation_search(jobs, options=opts, seeds=seeds,
+                                      niterations=1, return_state=True)
+        torch.cuda.synchronize()
+        one_s = time.time() - tb0
+        solo_its = {}
+        for t in (0, tenants - 1):
+            stamps = []
+            ts = time.time()
+            X_t, y_t, _ = jobs[t]
+            solo = equation_search(
+                X_t, y_t, options=dataclasses.replace(opts, seed=seeds[t]),
+                niterations=2 if t == 0 else 1, return_state=True,
+                on_iteration=lambda j, it, c: stamps.append(time.time()))
+            torch.cuda.synchronize()
+            solo_its[t] = [stamps[0] - ts] + [b - a for a, b in zip(stamps, stamps[1:])]
+            if t == 0:  # its first iteration's state, for the check below
+                solo1 = equation_search(
+                    X_t, y_t, options=dataclasses.replace(opts, seed=seeds[t]),
+                    niterations=1, return_state=True)
+            else:
+                solo1 = solo
+            assert_same_search(f"9b tenant {t} after 1 iteration", one[t], solo1)
+    log_fn(f"9b: tenants 0 and {tenants - 1} of the {tenants}-tenant batch "
+           f"bit-equal to their solo searches after 1 iteration (every island "
+           f"field, the hall of fame, the key, the frontier); 1-iteration batch "
+           f"{one_s:.2f} s (init and capture included); solo s per iteration "
+           f"{solo_its}")
+    # 2 iterations, counts zeroed just before and read just after, each
+    # iteration timed to its end on the card
+    it_s = []
+    plain_iterate = api_mod._iterate
+
+    def timed_iterate(*a, **k):
+        t_i = time.time()
+        out = plain_iterate(*a, **k)
+        torch.cuda.synchronize()
+        it_s.append(time.time() - t_i)
+        return out
+
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    api_mod._iterate = timed_iterate
+    t2 = time.time()
+    try:
+        with no_plain_versions():
+            two = batched_equation_search(jobs, options=opts, seeds=seeds,
+                                          niterations=2, return_state=True)
+            torch.cuda.synchronize()
+    finally:
+        api_mod._iterate = plain_iterate
+    batch_s = time.time() - t2
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    graphs = [g for g in cg._CACHE.values() if g.X.dim() == 3]
+    (bg,) = graphs
+    ncyc = opts.ncycles_per_iteration
+    assert bg.replays >= 2 * ncyc, bg.replays
+    delta = dict(zip(map(id, cg.LAUNCH_COUNTERS), bg.launch_delta))
+    scoring_per_replay = {k: v for k, v in delta[id(ke.LAUNCHES)].items() if v}
+    # one scoring launch per replayed cycle for all 64 tenants (float32,
+    # unweighted: B2's fused mode), and one fold launch
+    assert scoring_per_replay == {"fused": 1, "fold": 1}, scoring_per_replay
+    # init (1) + 2 x (550 cycles + 1 rescore) B2 launches for the batch;
+    # BFGS: 9 B3 and 8 B4 launches per iteration for every tenant
+    assert counts["eval"].get("fused") == 1 + 2 * (ncyc + 1), counts
+    assert counts["grad"] == {"loss_grad": 18, "loss": 16}, counts
+    assert all(np.isfinite(r.best_loss().loss) for r in two)
+    assert all(r.iterations == 2 for r in two)
+    best = [float(r.best_loss().loss) for r in two]
+    log_fn(f"9b: batch of {tenants} tenants x 15 islands x 33, 2 iterations "
+           f"of {ncyc} cycles in {batch_s:.2f} s: {it_s} s per iteration "
+           f"(solo: {solo_its[0]} s per iteration); launches {counts}; peak "
+           f"{peak / 2**20:.1f} MiB; per replayed cycle {scoring_per_replay}; "
+           f"best loss per tenant min {min(best):.3g} max {max(best):.3g}")
+    # the captured cycle of the batch and of one solo search: ms per replay
+    # (A B B A over 50 replays), device kernels and host waits per replay
+    Xb = torch.stack([torch.as_tensor(X_t, device=dev) for X_t, _, _ in jobs])
+    yb = torch.stack([torch.as_tensor(y_t, device=dev) for _, y_t, _ in jobs])
+    bl = torch.tensor([update_baseline_loss(make_dataset(X_t, y_t, device=dev),
+                                            opts).baseline_loss
+                       for X_t, y_t, _ in jobs],
+                      dtype=score_dtype(torch.float32), device=dev)
+    from symbolicregression_jl_tpu_torch.models.evolve import _map_tensors
+
+    # the 64 tenants' island states, tenant-major, as the batch holds them
+    parts = [r.state[0].island_states for r in two]
+    leaves_b = iter([torch.cat(ls) for ls in zip(*[cg._leaves(p) for p in parts])])
+    st_b = _map_tensors(lambda _: next(leaves_b), parts[0])
+    topts = dataclasses.replace(opts, tenants=tenants)
+    solo_st = two[0].state[0].island_states
+    X0 = Xb[0]
+    y0 = yb[0]
+    bl0 = float(bl[0])
+
+    # the served path: the job server pads every job with explicit
+    # weights, so its batches score through B1 and the weighted loss
+    wb = torch.as_tensor(np.random.default_rng(seed + 3).uniform(
+        0.5, 1.5, tuple(yb.shape)).astype(np.float32), device=dev)
+
+    def replay(which, n):
+        if which in ("batch", "weighted"):
+            return cg.s_r_cycle_islands_graph(
+                st_b, opts.maxsize, Xb, yb, wb if which == "weighted" else None,
+                bl, topts, ncycles=n)
+        return cg.s_r_cycle_islands_graph(solo_st, opts.maxsize, X0, y0, None,
+                                          bl0, opts, ncycles=n)
+
+    cyc_ms = {"batch": [], "weighted": [], "solo": []}
+    for which in ("batch", "weighted", "solo", "solo", "weighted", "batch"):
+        cyc_ms[which].append(cuda_ms(lambda: replay(which, 50), 1) / 50)
+    (wg,) = [g for g in cg._CACHE.values()
+             if g.X.dim() == 3 and g.weights is not None]
+    w_delta = dict(zip(map(id, cg.LAUNCH_COUNTERS), wg.launch_delta))
+    weighted_per_replay = {k: v for k, v in w_delta[id(ke.LAUNCHES)].items()
+                           if v}
+    # one value-mode launch per replayed cycle for all 64 weighted tenants
+    assert weighted_per_replay == {"value": 1, "fold": 1}, weighted_per_replay
+    prof_n = 10
+    replay_stats = {}
+    for which in ("batch", "weighted", "solo"):
+        replay(which, 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            replay(which, prof_n)
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        from torch.autograd import DeviceType
+        attr = ("self_device_time_total"
+                if hasattr(ka[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        ev = [e for e in ka if e.device_type == DeviceType.CUDA]
+        n_k = sum(e.count for e in ev)
+        busy = sum(getattr(e, attr) for e in ev) / 1e3
+        by_call, by_op = sync_counts(prof)
+        waits = {k: n for k, n in by_op.items()
+                 if "Synchronize" in k and " <- None " not in k}
+        replay_stats[which] = dict(
+            kernels_per_replay=n_k / prof_n, device_busy_ms_per_replay=busy / prof_n,
+            host_waits_per_replay=sum(waits.values()) / prof_n)
+        assert not waits, f"9b {which}: the replayed cycle waits for the card {waits}"
+        assert n_k > 0
+    log_fn(f"9b captured cycle ({card}): ms per replay {cyc_ms} (A B C C B A, "
+           f"50 replays each; weighted: the {tenants} tenants with weights, "
+           f"launches per replay {weighted_per_replay}); {replay_stats}")
+    report["engine"] = dict(
+        tenants=tenants, islands=15, npop=33, ncycles=ncyc, iterations=2,
+        batch_s=batch_s, s_per_iteration=it_s, one_iteration_batch_s=one_s,
+        solo_s_per_iteration=solo_its, launches=counts,
+        scoring_launches_per_replay=scoring_per_replay, peak_bytes=peak,
+        weighted_launches_per_replay=weighted_per_replay,
+        ms_per_replay=cyc_ms, replay=replay_stats,
+        captures=bg.captures, replays=bg.replays, capture_s=bg.capture_s,
+        pool_bytes=bg.pool_bytes, best_loss=best)
+    del one, two, solo, solo1, st_b, parts, solo_st
+    cg.clear_cache()
+
+    # ---- (c) bit-identity variants at 4 tenants ---------------------------
+    variants = {"weighted": dict(), "batching": dict(batching=True, batch_size=50),
+                "independent_island_batches": dict(
+                    batching=True, batch_size=50, independent_island_batches=True),
+                "bfloat16": dict(precision="bfloat16")}
+    report["variants"] = {}
+    for name, kw in variants.items():
+        tv = time.time()
+        vjobs = serving_data(seed + 1, T=4, weighted=name == "weighted")
+        vopts = make_options(seed=0, ncycles_per_iteration=50, **SERVE_CFG, **kw)
+        vseeds = [7, 8, 9, 10]
+        zero_launch_counts()
+        with no_plain_versions():
+            got = batched_equation_search(vjobs, options=vopts, seeds=vseeds,
+                                          niterations=2, return_state=True)
+            vcounts = launch_counts()
+            for t, (X_t, y_t, w_t) in enumerate(vjobs):
+                ref = equation_search(X_t, y_t, weights=w_t, niterations=2,
+                                      options=dataclasses.replace(vopts, seed=vseeds[t]),
+                                      return_state=True)
+                assert_same_search(f"9c {name} tenant {t}", got[t], ref)
+        report["variants"][name] = dict(s=time.time() - tv, launches=vcounts)
+        log_fn(f"9c {name}: 4 tenants x 2 iterations x 50 cycles, each tenant "
+               f"bit-equal to its solo search; batch launches {vcounts} "
+               f"({time.time() - tv:.1f} s with the solo searches)")
+        cg.clear_cache()
+
+    # ---- (d) the job server ------------------------------------------------
+    td = time.time()
+    rng = np.random.default_rng(seed + 2)
+    shapes = [(2, 97), (2, 120), (2, 128), (5, 260), (5, 290), (5, 300)]
+    dopts = make_options(seed=0, ncycles_per_iteration=20, **SERVE_CFG)
+    server = JobServer(dopts, niterations=1, max_tenants=4)
+    submitted = {}
+    for i, (nf, n) in enumerate(shapes):
+        Xj = rng.standard_normal((nf, n)).astype(np.float32)
+        yj = (Xj[0] ** 2 - np.cos(Xj[-1])).astype(np.float32)
+        jid = server.submit(Xj, yj, seed=100 + i, job_id=f"job{i}")
+        submitted[jid] = i
+    assert server.stats()["buckets"] == 2, server.stats()
+    with no_plain_versions():
+        done = server.drain()
+        by_bucket = {}
+        for r in done:
+            by_bucket.setdefault(r.bucket, []).append(r)
+        assert len(by_bucket) == 2 and server.pending() == 0
+        # each job's arrays again, in submission order
+        rng = np.random.default_rng(seed + 2)
+        arrays = []
+        for nf, n in shapes:
+            Xj = rng.standard_normal((nf, n)).astype(np.float32)
+            arrays.append((Xj, (Xj[0] ** 2 - np.cos(Xj[-1])).astype(np.float32)))
+        for bucket, rs in by_bucket.items():
+            n_pad, f_pad = bucket[0], bucket[1]
+            padded, jseeds = [], []
+            for r in rs:
+                i = submitted[r.job_id]
+                Xj, yj = arrays[i]
+                Xp = np.zeros((f_pad, n_pad), np.float32)
+                Xp[:Xj.shape[0], :Xj.shape[1]] = Xj
+                yp = np.zeros(n_pad, np.float32)
+                yp[:len(yj)] = yj
+                wp = np.zeros(n_pad, np.float32)
+                wp[:len(yj)] = 1.0
+                padded.append((Xp, yp, wp))
+                jseeds.append(100 + i)
+            ref = batched_equation_search(padded, options=dopts, seeds=jseeds,
+                                          niterations=1)
+            for r, rr in zip(rs, ref):
+                assert frontier_of(r.result) == frontier_of(rr), r.job_id
+                assert r.result.num_evals == rr.num_evals, r.job_id
+    report["job_server"] = dict(
+        s=time.time() - td, stats=server.stats(),
+        jobs={r.job_id: dict(bucket=list(r.bucket[:2]), tenants=r.tenants,
+                             latency_s=r.latency_s) for r in done})
+    log_fn(f"9d JobServer: 6 jobs in 2 buckets {sorted(set(r.bucket[:2] for r in done))}, "
+           f"max_tenants 4, drained in {time.time() - td:.1f} s with the checks; "
+           f"each result bit-equal to the batched search of its bucket's "
+           f"padded data; {server.stats()}")
+    cg.clear_cache()
+    report["seconds"] = time.time() - t_phase
+    log_fn(f"phase 9: {report['seconds']:.1f} s")
+    return report, kernel_timing
 
 
 def main():
@@ -2474,18 +3082,20 @@ def main():
         f"s/iteration {[round(s, 3) for s in opt_s]}")
 
     # ---- 5b. the instruction programs at full width --------------------------
+    # one iteration of INSTR_CYCLES cycles (cut from 550 to make room for
+    # phase 9 in half the time limit)
     instr_runs = {}
     for program in ("instr", "instr_packed"):
         log(f"instr path: equation_search kernel_program={program!r} 64 x 1000, "
             f"{ROWS} rows, maxsize 20, default constant optimisation, 1 "
-            "iteration of 550 cycles")
+            f"iteration of {INSTR_CYCLES} cycles")
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t_i = time.time()
         it_s = []
         res_i = equation_search(
-            X_np, y_np, niterations=1, ncycles_per_iteration=550, seed=0,
-            kernel_program=program,
+            X_np, y_np, niterations=1, ncycles_per_iteration=INSTR_CYCLES,
+            seed=0, kernel_program=program,
             on_iteration=lambda j, it, c: it_s.append(time.time() - t_i),
             **cfg)
         torch.cuda.synchronize()
@@ -2498,7 +3108,7 @@ def main():
         lc = run["launches"]
         other = "instr" if program == "instr_packed" else "instr_packed"
         # every scoring call: 1 at init, 1 per cycle, 1 rescore
-        assert lc[program] == 1 + 550 + 1, lc
+        assert lc[program] == 1 + INSTR_CYCLES + 1, lc
         assert lc[other] == 0 and lc["fused"] == 0 and lc["value"] == 0, lc
         assert lc["loss_grad"] == 9 and lc["loss"] == 8, lc
         assert res_i.frontier() and np.isfinite(res_i.best_loss().loss)
@@ -2923,7 +3533,8 @@ def main():
     #     B1 launch for its forward), its line search on B1;
     # (c) batching=True, batch_size=50, independent_island_batches=True,
     #     100 cycles: all replays of one capture (so no host wait in the
-    #     step), 64 B2 launches per replayed cycle.
+    #     step), one B2 launch per replayed cycle over the 64 islands'
+    #     minibatches (the per-set form).
     from symbolicregression_jl_tpu_torch.ops import interpreter as interp
 
     def objective_mse(tree, X_, y_, weights_, options_):
@@ -3040,9 +3651,10 @@ def main():
     slice_runs["island_batches"] = run
     assert run["plain_calls"] == 0, run
     assert run["captures"] == 1 and run["replays"] == 100, run
-    # the fused scoring calls: 64 islands per replayed cycle, plus init and
-    # the rescore on the full data
-    assert run["float32"]["fused"] == 64 * 100 + 2, run
+    # the fused scoring calls: one per replayed cycle for the 64 islands'
+    # minibatches (the per-set form), plus init and the rescore on the full
+    # data
+    assert run["float32"]["fused"] == 100 + 2, run
     assert run["float32"]["value"] == 0, run
     assert run["float32"]["loss_grad"] == 9 and run["float32"]["loss"] == 8
     # the minibatch chain: one plan launch per replayed cycle
@@ -3051,8 +3663,9 @@ def main():
     log(f"5h(c) independent_island_batches (batch 50): {run['s']:.1f} s for "
         f"100 cycles, 1 capture and {run['replays']} replays (no host wait "
         f"in the captured step), launches "
-        f"{ {k: v for k, v in run['float32'].items() if v} } (64 B2 per "
-        f"replayed cycle); best {run['equation']} loss {run['best']:.6g}")
+        f"{ {k: v for k, v in run['float32'].items() if v} } (1 B2 per "
+        f"replayed cycle for the 64 islands); best {run['equation']} loss "
+        f"{run['best']:.6g}")
     del res_f, res_c, res_b
     cg.clear_cache()
 
@@ -3584,6 +4197,9 @@ def main():
         f"of 16 (float32: {len(recovered)}), seed 0 (the reference's) "
         f"{losses64[0]:.3g}, {time.time() - tr:.1f} s")
 
+    # ---- 9. tenant-batched serving -------------------------------------------
+    serve_report, serve_timing = phase_serving(dev, log, card)
+
     # ---- the record -----------------------------------------------------------
     replaces = {
         "fused": "symbolicregression_jl_tpu/ops/pallas_eval.py:1014 "
@@ -3632,6 +4248,47 @@ def main():
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": None,
             "shapes": [v for (n, _), v in timings.items() if n == name],
+        })
+    # the per-set form (one launch over several datasets): launches from
+    # phase 9b's 64-tenant batch (the value mode's from 9c's weighted
+    # batch, 4 tenants x 2 iterations of 50 cycles; per replayed cycle at
+    # 64 tenants from 9b's weighted replay), errors and times from 9a
+    engine = serve_report["engine"]
+    launch_run = {n: f"9b: {engine['tenants']} tenants, 2 iterations of "
+                     f"{engine['ncycles']} cycles" for n in
+                  ("fused", "loss_grad", "loss")}
+    launch_run["value"] = ("9c weighted: 4 tenants, 2 iterations of 50 "
+                           "cycles; at 64 tenants (9b's weighted replay) "
+                           f"{engine['weighted_launches_per_replay']['value']}"
+                           " per replayed cycle")
+    set_launch = {"fused": engine["launches"]["eval"].get("fused", 0),
+                  "loss_grad": engine["launches"]["grad"].get("loss_grad", 0),
+                  "loss": engine["launches"]["grad"].get("loss", 0),
+                  "value": serve_report["variants"]["weighted"]["launches"][
+                      "eval"].get("value", 0)}
+    set_err = serve_report["kernels"]["max_abs_err"]
+    for key, h in serve_timing.items():
+        name, shape = key.split("@")
+        kernels.append({
+            "name": f"{sources[name]}.{name}@sets:{shape}",
+            "route": "cuda",
+            "source": f"symbolicregression_jl_tpu_torch/csrc/{sources[name]}.cu",
+            "replaces": replaces[name] + " under the tenants vmap "
+                        "(symbolicregression_jl_tpu/api.py:397-420, "
+                        "serving/batched.py)",
+            "launches": set_launch[name],
+            "launches_per_iteration": set_launch[name] / 2,
+            "launches_from": launch_run[name],
+            "max_abs_err": set_err.get(name, 0.0),
+            "bit_equal_share": {k: v for k, v in serve_report["kernels"][
+                "bit_equal_share"].items() if k.startswith(
+                    {"value": "B1", "fused": "B2", "loss_grad": "B3",
+                     "loss": "B4"}[name])},
+            "ms": h["ms"], "plain_ms": h["plain_ms"],
+            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "library_ms": None,
+            "single_set_launches_ms": h["single_set_launches_ms"],
+            "sets": h["sets"], "per_set": h["per_set"], "reps": h["reps"],
         })
     for name, src, shape_key, (b_ms, b_by) in (
             ("fused", "postfix_eval", f"B2@{T_CYCLE}",
@@ -3862,7 +4519,8 @@ def main():
                       "user_kernels": user_report, "user_paths": user_runs,
                       "user_bodies": user_bodies,
                       "cotangent": {"check": cot_report, "timing": cot_timing},
-                      "slice_paths": slice_runs}))
+                      "slice_paths": slice_runs,
+                      "serving": serve_report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -75,22 +75,28 @@ from .utils.export import (
     to_latex,
     to_sympy,
 )
+from .serving import (
+    JobResult, JobServer, batched_equation_search, pad_to_ladder,
+)
 from .utils.output import Candidate, load_hof_csv, save_hof_csv
 
 __all__ = [
     "Candidate", "ComplexityMapping", "Dataset", "DatasetDiagnostics",
     "EquationSearch", "EquationSearchResult", "Expr", "GRAPH_FIELDS",
-    "HallOfFame", "HostileDatasetError", "LOSS_REGISTRY", "MutationWeights",
+    "HallOfFame", "HostileDatasetError", "JobResult", "JobServer",
+    "LOSS_REGISTRY", "MutationWeights",
     "ORCHESTRATION_FIELDS", "OperatorSet", "Options", "Population",
     "SearchState", "TRACED_SCALAR_FIELDS", "TreeBatch",
-    "calculate_pareto_frontier", "callable_token", "combine_operators",
+    "batched_equation_search", "calculate_pareto_frontier",
+    "callable_token", "combine_operators",
     "compute_complexity", "contain_nonfinite", "decode_tree", "encode_tree",
     "equation_search", "eval_diff_tree", "eval_grad_constants",
     "eval_grad_variables", "eval_loss_trees_fused", "eval_tree",
     "eval_trees", "from_sympy", "gen_random_tree_fixed_size",
     "get_constants", "init_hall_of_fame", "init_population",
     "load_csv_dataset", "load_hof_csv", "make_dataset", "make_operator_set",
-    "make_options", "pairwise_sum", "parse_expression", "register_binary",
+    "make_options", "pad_to_ladder", "pairwise_sum", "parse_expression",
+    "register_binary",
     "register_unary", "s_r_cycle",
     "sanitize_dataset", "save_hof_csv", "set_constants", "simplify_tree",
     "sympy_simplify_tree", "to_callable", "to_latex", "to_sympy",

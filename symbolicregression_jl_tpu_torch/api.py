@@ -374,6 +374,14 @@ def equation_search(X, y, *, weights=None,
         options = make_options(**option_kwargs)
     elif option_kwargs:
         raise ValueError("Pass either options= or option kwargs, not both")
+    if options.tenants > 1:
+        raise ValueError(
+            "equation_search is the solo front door (one dataset); "
+            "Options.tenants > 1 runs many same-shape jobs as ONE "
+            "batched program — use "
+            "serving.batched_equation_search(datasets, options=...) "
+            "or the srserve job queue (serving.jobs)"
+        )
     return _search(X, y, weights, variable_names, options, niterations,
                    saved_state, warm_start_file, return_state, on_iteration,
                    dev)
@@ -382,11 +390,48 @@ def equation_search(X, y, *, weights=None,
 def _fresh_islands(key, options: Options, nfeatures: int, X, y, weights,
                    baseline):
     """New islands from an output's master key, as the reference's
-    ``_fresh_init``: (states, the master key's successor)."""
+    ``_fresh_init``: (states, the master key's successor). With T tenants'
+    keys (T, 2) and their data (X (T, nfeat, n), ...), every tenant's
+    islands as its solo search makes them, tenant-major, and the T
+    successors."""
     k = rng.split(key, 2)
-    return (init_island_state(rng.split(k[0], options.npopulations),
-                              options, nfeatures, X, y, weights, baseline),
-            k[1])
+    init_keys = rng.split(k[..., 0, :], options.npopulations).reshape(-1, 2)
+    return (init_island_state(init_keys, options, nfeatures, X, y, weights,
+                              baseline),
+            k[..., 1, :])
+
+
+def _iterate(key, states: IslandState, curmaxsize, X, y, weights, baseline,
+             options: Options, n_opt_mut: float):
+    """One iteration from an output's master key (2,): the cycles,
+    simplify and rescore, the constant-optimisation passes, the hall-of-
+    fame merge and migration, each key split as the reference's host loop
+    and iteration split it. Returns (the master key's successor, states,
+    the merged hall of fame). With T tenants' keys (T, 2) over their data
+    (X (T, nfeat, n), ...) and islands, every tenant's iteration is its
+    solo one: (keys (T, 2), states, halls of fame (T, ...))."""
+    tenants = X.shape[0] if X.dim() == 3 else 0
+    k = rng.split(key, 2)
+    key = k[..., 0, :]
+    k_mig, k_opt, k_opt_mut = rng.split(k[..., 1, :], 3).unbind(-2)
+    I = options.npopulations
+    states = s_r_cycle_islands_graph(states, curmaxsize, X, y, weights,
+                                     baseline, options)
+    states = simplify_population_islands(states, curmaxsize, X, y, weights,
+                                         baseline, options)
+    if options.should_optimize_constants and options.optimizer_probability > 0:
+        states = optimize_islands_constants(
+            rng.split(k_opt, I).reshape(-1, 2), states, X, y, weights,
+            baseline, options)
+    if n_opt_mut > 0:
+        states = optimize_islands_constants(
+            rng.split(k_opt_mut, I).reshape(-1, 2), states, X, y, weights,
+            baseline, options,
+            probability=min(1.0, n_opt_mut / options.npop),
+            count_optimize_telemetry=True)
+    ghof = merge_hofs_across_islands(states.hof, tenants)
+    states = migrate(k_mig, states, ghof, options)
+    return key, states, ghof
 
 
 def _search(X, y, weights, variable_names, options: Options, niterations,
@@ -480,24 +525,8 @@ def _search(X, y, weights, variable_names, options: Options, niterations,
             its[j] = it = start_iters[j] + step
             cm = _curmaxsize(options, it, max(start_iters[j] + niterations, 1))
             t_dev = time.time()
-            k = rng.split(keys[j], 2)
-            keys[j] = k[0]
-            k_mig, k_opt, k_opt_mut = rng.split(k[1], 3).unbind(0)
-            states = s_r_cycle_islands_graph(states, cm, Xj, yj, wj, bl,
-                                             options)
-            states = simplify_population_islands(states, cm, Xj, yj, wj, bl,
-                                                 options)
-            if (options.should_optimize_constants
-                    and options.optimizer_probability > 0):
-                states = optimize_islands_constants(
-                    rng.split(k_opt, I), states, Xj, yj, wj, bl, options)
-            if n_opt_mut > 0:
-                states = optimize_islands_constants(
-                    rng.split(k_opt_mut, I), states, Xj, yj, wj, bl, options,
-                    probability=min(1.0, n_opt_mut / options.npop),
-                    count_optimize_telemetry=True)
-            ghof = merge_hofs_across_islands(states.hof)
-            states = migrate(k_mig, states, ghof, options)
+            keys[j], states, ghof = _iterate(keys[j], states, cm, Xj, yj, wj,
+                                             bl, options, n_opt_mut)
             live_states[j], live_hofs[j] = states, ghof
             # the host's one read of the iteration: it waits for the device
             cands = latest[j] = hof_to_candidates(ghof, options,

@@ -9,6 +9,12 @@
 //   mode 0 (value): out[t, row] = root value            -> (T, nrows) f32
 //   mode 1 (fused): out[t] = sum_rows loss(root, y[row])  -> (T,) f32, for
 //                   any elementwise loss of the registry (csrc/losses.cuh)
+// Several datasets of one shape in one launch (tenant-batched serving, per-
+// island minibatches): X (S, nfeat, nrows) and y (S, nrows), the trees
+// set-major, tree t reading set t / per_set; S = 1 (per_set = T) is the
+// single-dataset call. Each set's trees get the layout (row ranges, rows
+// per lane) that a launch on that set alone gets, so a tree sums its rows
+// in the same order whatever S is.
 // In both modes bad[t] = 1 when the tree was poisoned. The trees are the
 // TreeBatch fields as they are (kind, op, feat int64; cval f32; length
 // int64); a tree that is not a valid postfix program counts as poisoned.
@@ -46,7 +52,10 @@
 //    trees. A block's warps take consecutive trees over one row range, and
 //    the block stages that range of X in shared memory once with cp.async;
 //    every VAR step reads it there with 32-bit offsets (X too large for
-//    shared memory is read from global memory instead).
+//    shared memory is read from global memory instead). With several
+//    sets, the order is longest first within each set and each set's
+//    trees fill whole blocks (its last block's surplus warps idle), so a
+//    block never holds trees of two sets and stages one set's X.
 //  * The fused loss: each lane sums its rows in order, a fixed butterfly of
 //    shuffles sums the lanes, and with several ranges a second pass adds
 //    each tree's partial sums in range order, so the loss is the same bits
@@ -94,7 +103,9 @@ struct EvalArgs {
   SR_REAL* part;
   int* part_bad;  // (T, items) partial poison flags; bad when items == 1
   SR_REAL* scratch;  // the narrow route's stacks in global memory, or null
-  int T, L, nfeat, nrows, items, range, cap;
+  // per_set: trees per dataset (T for one X); set_groups: blocks of warps
+  // per set and row range, ceil(per_set / warps)
+  int T, L, nfeat, nrows, items, range, cap, per_set, set_groups;
   OpMap map;
   srloss::Loss loss_fn;  // the fused mode's loss (the kAnyLoss instantiations)
 };
@@ -110,6 +121,14 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
   const int r = blockIdx.x % a.items;  // row range
   const int row0 = r * a.range;
   const int rows = min(a.range, a.nrows - row0);
+  // this block's dataset and its trees' places in the set's order
+  const int gb = blockIdx.x / a.items;
+  const int set = gb / a.set_groups;
+  const int g = (gb - set * a.set_groups) * warps + warp;
+  const long long set_base = static_cast<long long>(set) * a.per_set;
+  const Storage* X = a.X + static_cast<long long>(set) * a.nfeat * a.nrows;
+  const SR_REAL* y = kMode == 1 ? a.y + static_cast<long long>(set) * a.nrows
+                                : nullptr;
   SR_REAL* stack = smem + warp * a.cap * Stack<kR>::kEntry +
                  lane * Stack<kR>::kLaneWidth;
   SR_REAL* xs = smem + warps * a.cap * Stack<kR>::kEntry;
@@ -124,16 +143,15 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
     for (int i = threadIdx.x; i < a.nfeat * a.range; i += blockDim.x) {
       const int f = i / a.range;
       const int row = min(row0 + i - f * a.range, a.nrows - 1);
-      stage_x(xs + i, a.X + f * a.nrows + row);
+      stage_x(xs + i, X + f * a.nrows + row);
     }
   }
-  const int g = (blockIdx.x / a.items) * warps + warp;
-  const bool active = g < a.T;
+  const bool active = g < a.per_set;
   long long t = 0;
   int n = 0;
   bool invalid = false;
   if (active) {
-    t = a.order[g];
+    t = a.order[set_base + g];
     const long long len = a.length[t];
     n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     // the first 32 constants load while the program is derived
@@ -175,7 +193,7 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
           if constexpr (kStaged) {
             Stack<kR>::load(x_a + f * range_b, x);
           } else {
-            const Storage* xf = a.X + f * a.nrows;
+            const Storage* xf = X + f * a.nrows;
 #pragma unroll
             for (int i = 0; i < kR; ++i) {
               x[i] = to_f32(xf[min(row0 + lr + i, a.nrows - 1)]);
@@ -194,7 +212,7 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
 #pragma unroll
         for (int i = 0; i < kR; ++i) {
           const int row = row0 + lr + i;
-          if (row < a.nrows) acc += srloss::elem<K>(a.loss_fn, v[i], a.y[row]);
+          if (row < a.nrows) acc += srloss::elem<K>(a.loss_fn, v[i], y[row]);
         }
       });
     } else if constexpr (kMode == 1) {
@@ -202,7 +220,7 @@ postfix_kernel(const __grid_constant__ EvalArgs a) {
       for (int i = 0; i < kR; ++i) {
         const int row = row0 + lr + i;
         if (row < a.nrows) {
-          const SR_REAL d = v[i] - a.y[row];
+          const SR_REAL d = v[i] - y[row];
           acc += d * d;
         }
       }
@@ -249,6 +267,9 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
   const unsigned long long stack_a = gen_u64(stack + lane);
   for (long long g = gw; g < a.T; g += static_cast<long long>(gridDim.x) * warps) {
     const long long t = a.order[g];
+    const long long set = t / a.per_set;
+    const Storage* X = a.X + set * a.nfeat * a.nrows;
+    const SR_REAL* y = kMode == 1 ? a.y + set * a.nrows : nullptr;
     const long long len = a.length[t];
     int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     __syncwarp();  // the last tree's words are read
@@ -272,7 +293,7 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
           word_a, n, stack_a, v, pz,
           [&](int s, SR_REAL (&x)[1]) { x[0] = SR_LDS(cval_a + SR_RB * s); },
           [&](int f, SR_REAL (&x)[1]) {
-            x[0] = to_f32(a.X[static_cast<unsigned>(f) * a.nrows + xr]);
+            x[0] = to_f32(X[static_cast<unsigned>(f) * a.nrows + xr]);
           },
           [](int, const SR_REAL (&)[1]) {});
       if constexpr (kMode == 0) {
@@ -281,12 +302,12 @@ postfix_narrow_kernel(const __grid_constant__ EvalArgs a) {
         if (row < a.nrows) {
           srloss::with_loss(a.loss_fn.kind, [&](auto k) {
             constexpr int K = decltype(k)::value;
-            acc += srloss::elem<K>(a.loss_fn, v[0], a.y[row]);
+            acc += srloss::elem<K>(a.loss_fn, v[0], y[row]);
           });
         }
       } else if constexpr (kMode == 1) {
         if (row < a.nrows) {
-          const SR_REAL d = v[0] - a.y[row];
+          const SR_REAL d = v[0] - y[row];
           acc += d * d;
         }
       }
@@ -760,20 +781,26 @@ int postfix_eval_narrow_plan(int T, int L, int mode, int all_ops,
 // stacks in `scratch` (global memory of the plan's size) or, when scratch
 // is null, in shared memory. loss_kind, c0-c2: the fused mode's loss
 // (csrc/losses.cuh; ops/losses.py ElementwiseLoss.kind / constants); L2
-// runs its own instantiation.
+// runs its own instantiation. per_set: trees per dataset, X being
+// (T / per_set, nfeat, nrows) and y (T / per_set, nrows), the trees set-
+// major and `order` longest first within each set (per_set = T: one X);
+// blocks is then T / per_set x ceil(per_set / warps) x items.
 cudaError_t postfix_eval_launch(const void* kind, const void* op,
                                 const void* feat, const void* cval,
                                 const void* length, const void* order,
                                 const void* X, const void* y, void* out,
                                 void* bad, void* part, void* part_bad,
                                 void* scratch, const int* opmap, int n_unary,
-                                int n_binary, int T, int L, int nfeat,
-                                int nrows, int mode, int all_ops, int items,
+                                int n_binary, int T, int per_set, int L,
+                                int nfeat, int nrows, int mode, int all_ops,
+                                int items,
                                 int range, int staged, int warps, int smem,
                                 int blocks, int narrow, int loss_kind,
                                 SR_REAL c0, SR_REAL c1, SR_REAL c2,
                                 void* stream) {
   if (T <= 0) return cudaSuccess;
+  if (per_set < 1 || T % per_set != 0) return cudaErrorInvalidValue;
+  const int set_groups = warps < 1 ? 0 : (per_set + warps - 1) / warps;
   if (n_unary + n_binary > kMaxOps || mode < 0 || mode > 1 || items < 1 ||
       loss_kind < 0 || loss_kind >= SR_LOSS_KINDS ||
       range < 1 || warps < 1 || warps > kMaxWarps || L <= 0 ||
@@ -787,7 +814,8 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
                     (scratch ? 1 : T))
              : (smem != postfix_eval_smem_bytes(warps, L, nfeat, range,
                                                 staged) ||
-                blocks != (T + warps - 1) / warps * items)) {
+                static_cast<long long>(blocks) !=
+                    static_cast<long long>(T / per_set) * set_groups * items)) {
     return cudaErrorInvalidValue;
   }
   EvalArgs a;
@@ -811,6 +839,8 @@ cudaError_t postfix_eval_launch(const void* kind, const void* op,
   a.items = items;
   a.range = range;
   a.cap = (L + 1) / 2;
+  a.per_set = per_set;
+  a.set_groups = set_groups;
   a.map = make_op_map(opmap, n_unary, n_binary);
   a.loss_fn = srloss::Loss{loss_kind, c0, c1, c2};
   const bool any_loss = mode == 1 && loss_kind != srloss::kL2;

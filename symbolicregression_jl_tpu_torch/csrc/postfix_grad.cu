@@ -148,7 +148,9 @@ struct GradArgs {
   int* bad;
   SR_REAL* scratch;  // the narrow route's slot values in global memory, or null
   const SR_REAL* cot;  // the cotangent mode's seeds (T * reps, nrows)
-  int T, reps, L, nfeat, nrows, cap;
+  // per_set: trees per dataset; X (T / per_set, nfeat, nrows), y and wn
+  // (T / per_set, nrows), tree t reading set t / per_set
+  int T, per_set, reps, L, nfeat, nrows, cap;
   OpMap map;
   srloss::Loss loss_fn;  // the kAnyLoss instantiations' loss
 };
@@ -239,6 +241,10 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
   const auto instance = [&](long long g) {
     const long long tree = a.order[g / a.reps];
     const long long inst = tree * a.reps + g % a.reps;
+    const long long set = tree / a.per_set;
+    const srprog::Storage* X = a.X + set * a.nfeat * a.nrows;
+    const srprog::Storage* y = a.y ? a.y + set * a.nrows : nullptr;
+    const SR_REAL* wn = a.wn ? a.wn + set * a.nrows : nullptr;
     const long long len = a.length[tree];
     int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     // the first 32 constants load while the program is derived
@@ -282,7 +288,7 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
             const unsigned xf = static_cast<unsigned>(f) * a.nrows;
 #pragma unroll
             for (int j = 0; j < kN; ++j) {
-              x[j] = srprog::to_f32(a.X[xf + xrow[j]]);
+              x[j] = srprog::to_f32(X[xf + xrow[j]]);
             }
           },
           [&](int s, const SR_REAL (&x)[kN]) {
@@ -311,9 +317,9 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
             w[j] = SR_LIT(0.);
             if (row < a.nrows) {
               real |= 1u << j;
-              const SR_REAL wr = a.wn[row];
+              const SR_REAL wr = wn[row];
               if (wr != SR_LIT(0.)) {
-                const SR_REAL yr = srprog::to_f32(a.y[row]);
+                const SR_REAL yr = srprog::to_f32(y[row]);
                 acc += srloss::elem<K>(a.loss_fn, v[j], yr) * wr;
                 w[j] = srloss::seed<K>(a.loss_fn, v[j], yr) * wr;
               }
@@ -327,8 +333,8 @@ postfix_grad_kernel(const __grid_constant__ GradArgs a) {
           w[j] = SR_LIT(0.);
           if (row < a.nrows) {
             real |= 1u << j;
-            const SR_REAL wr = a.wn[row];
-            const SR_REAL d = v[j] - srprog::to_f32(a.y[row]);
+            const SR_REAL wr = wn[row];
+            const SR_REAL d = v[j] - srprog::to_f32(y[row]);
             if (wr != SR_LIT(0.)) {
               acc += (d * d) * wr;
               w[j] = (SR_LIT(2.) * d) * wr;
@@ -424,7 +430,8 @@ struct LossArgs {
   SR_REAL* loss;
   int* bad;
   SR_REAL* scratch;  // the narrow route's stacks in global memory, or null
-  int T, reps, groups, L, nfeat, nrows, cap;
+  // per_set: trees per dataset, as GradArgs'
+  int T, per_set, reps, groups, L, nfeat, nrows, cap;
   OpMap map;
   srloss::Loss loss_fn;  // the kAnyLoss instantiations' loss
 };
@@ -471,6 +478,10 @@ loss_kernel(const __grid_constant__ LossArgs a) {
   const auto group = [&](long long g) {
     const long long tree = a.order[g / a.groups];
     const long long inst0 = tree * a.reps + (g % a.groups) * kCand;
+    const long long set = tree / a.per_set;
+    const srprog::Storage* X = a.X + set * a.nfeat * a.nrows;
+    const srprog::Storage* y = a.y + set * a.nrows;
+    const SR_REAL* wn = a.wn + set * a.nrows;
     const long long len = a.length[tree];
     int n = len < 0 || len > a.L ? 0 : static_cast<int>(len);
     const bool invalid =
@@ -507,7 +518,7 @@ loss_kernel(const __grid_constant__ LossArgs a) {
             for (int i = 0; i < kN; ++i) x[i] = cv[i / kRows];
           },
           [&](int f, SR_REAL (&x)[kN]) {
-            const srprog::Storage* xf = a.X + f * a.nrows;
+            const srprog::Storage* xf = X + f * a.nrows;
             SR_REAL xr[kRows];
 #pragma unroll
             for (int j = 0; j < kRows; ++j) {
@@ -524,8 +535,8 @@ loss_kernel(const __grid_constant__ LossArgs a) {
           for (int j = 0; j < kRows; ++j) {
             const int row = base + j * 32 + lane;
             if (row < a.nrows) {
-              const SR_REAL yr = srprog::to_f32(a.y[row]);
-              const SR_REAL wr = a.wn[row];
+              const SR_REAL yr = srprog::to_f32(y[row]);
+              const SR_REAL wr = wn[row];
 #pragma unroll
               for (int c = 0; c < kCand; ++c) {
                 const SR_REAL p = v[c * kRows + j];
@@ -540,8 +551,8 @@ loss_kernel(const __grid_constant__ LossArgs a) {
         for (int j = 0; j < kRows; ++j) {
           const int row = base + j * 32 + lane;
           if (row < a.nrows) {
-            const SR_REAL yr = srprog::to_f32(a.y[row]);
-            const SR_REAL wr = a.wn[row];
+            const SR_REAL yr = srprog::to_f32(y[row]);
+            const SR_REAL wr = wn[row];
 #pragma unroll
             for (int c = 0; c < kCand; ++c) {
               const SR_REAL d = v[c * kRows + j] - yr;
@@ -698,14 +709,17 @@ int postfix_grad_plan(int T, int reps, int L, int all_ops, int any_loss,
 // loss_kind != L2, 2 for kCotangent, whose y is the seeds (T * reps, nrows)
 // of the compute type and wn is not read. X, y and cval are of the build's
 // storage type
-// (postfix_grad_storage); wn, loss and grad are float.
+// (postfix_grad_storage); wn, loss and grad are float. per_set: trees per
+// dataset, X being (T / per_set, nfeat, nrows) and y and wn (T / per_set,
+// nrows) (per_set = T: one X); the cotangent seeds stay per instance.
 cudaError_t postfix_grad_launch(const void* kind, const void* op,
                                 const void* feat, const void* length,
                                 const void* order, const void* cval,
                                 const void* X, const void* y, const void* wn,
                                 void* loss, void* grad, void* bad,
                                 void* scratch, const int* opmap, int n_unary,
-                                int n_binary, int T, int reps, int L,
+                                int n_binary, int T, int per_set, int reps,
+                                int L,
                                 int nfeat, int nrows, int all_ops,
                                 int loss_kind, SR_REAL c0, SR_REAL c1,
                                 SR_REAL c2, const long long* plan,
@@ -717,7 +731,7 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
                           (plan[6] ? 0 : grad_narrow_scratch_bytes(L)))
              : grad_smem_bytes(static_cast<int>(plan[1]), L);
   if (n_unary + n_binary > srprog::kMaxOps || reps <= 0 || L <= 0 ||
-      loss_kind < 0 ||
+      per_set < 1 || T % per_set != 0 || loss_kind < 0 ||
       (loss_kind >= SR_LOSS_KINDS && loss_kind != kCotangent) ||
       L >= (1 << 24) || plan[0] != (narrow ? 1 : kGradRows) ||
       plan[1] < 1 || plan[1] > kGradMaxWarps || plan[3] != smem ||
@@ -741,6 +755,7 @@ cudaError_t postfix_grad_launch(const void* kind, const void* op,
   a.bad = static_cast<int*>(bad);
   a.scratch = static_cast<SR_REAL*>(scratch);
   a.T = T;
+  a.per_set = per_set;
   a.reps = reps;
   a.L = L;
   a.nfeat = nfeat;
@@ -823,14 +838,15 @@ int postfix_loss_plan(int T, int reps, int cand, int L, int all_ops,
 // trees in the order `order`, cand per lane; opmap as postfix_eval_launch's;
 // plan from postfix_loss_plan for the same arguments, and for the narrow
 // route with its stacks in global memory, `scratch` of plan[8] bytes;
-// loss_kind, c0-c2 as postfix_grad_launch's.
+// loss_kind, c0-c2 and per_set as postfix_grad_launch's.
 cudaError_t postfix_loss_launch(const void* kind, const void* op,
                                 const void* feat, const void* length,
                                 const void* order, const void* cval,
                                 const void* X, const void* y, const void* wn,
                                 void* loss, void* bad, void* scratch,
                                 const int* opmap, int n_unary, int n_binary,
-                                int T, int reps, int cand, int L, int nfeat,
+                                int T, int per_set, int reps, int cand, int L,
+                                int nfeat,
                                 int nrows, int all_ops, int loss_kind,
                                 SR_REAL c0, SR_REAL c1, SR_REAL c2,
                                 const long long* plan, void* stream) {
@@ -841,6 +857,7 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
                           (plan[8] ? 0 : loss_narrow_stack_bytes(L)))
              : loss_smem_bytes(static_cast<int>(plan[3]), L, cand);
   if (n_unary + n_binary > srprog::kMaxOps || plan[1] != cand ||
+      per_set < 1 || T % per_set != 0 ||
       loss_kind < 0 || loss_kind >= SR_LOSS_KINDS ||
       plan[0] * cand != reps || L <= 0 || L >= (1 << 24) || plan[3] < 1 ||
       plan[3] > kLossMaxWarps || plan[5] != smem || smem > kMaxSmemBytes ||
@@ -863,6 +880,7 @@ cudaError_t postfix_loss_launch(const void* kind, const void* op,
   a.bad = static_cast<int*>(bad);
   a.scratch = static_cast<SR_REAL*>(scratch);
   a.T = T;
+  a.per_set = per_set;
   a.reps = reps;
   a.groups = static_cast<int>(plan[0]);
   a.L = L;

@@ -39,6 +39,12 @@ the float64 builds.
 The random part (which members, which restarts) is ``_select_and_starts``
 and draws through ``utils/rng.py``; ``optimize_selected`` is the
 deterministic rest and takes the selection as tensors.
+
+In a tenant-batched search (X (T, nfeat, nrows), the islands T tenant-
+major blocks) the instances are ordered tenant-major, so one B3 / B4
+launch per step serves every tenant through the kernels' per-set form;
+each instance's arithmetic is its own, so each tenant's pass is its solo
+pass.
 """
 
 from __future__ import annotations
@@ -139,8 +145,11 @@ def _bfgs_batched(trees_flat: TreeBatch, x0: torch.Tensor, cmask: torch.Tensor,
     loss and gradient in it. The ``V H V^T`` update is a batched matrix
     product left to PyTorch (as the JAX package leaves it to XLA); at
     float32 it runs in full float32 because PyTorch keeps TF32 off for
-    matrix products by default."""
+    matrix products by default; in a tenant-batched search one product
+    per tenant on the card (``_instance_einsum``), so a tenant's bits are
+    its solo search's."""
     M, L = x0.shape
+    sets = X.shape[0] if X.dim() == 3 else 1  # tenants
     grad_fn = _loss_closure(trees_flat, X, y, weights, options)
     ls_fn = _loss_closure(trees_flat, X, y, weights, options,
                           with_grad=False, reps=_LS_STEPS)
@@ -162,7 +171,7 @@ def _bfgs_batched(trees_flat: TreeBatch, x0: torch.Tensor, cmask: torch.Tensor,
     f, g = loss_grad(x0)
     H = eye.expand(M, L, L)
     for _ in range(n_iters):
-        d = -torch.einsum("mij,mj->mi", H, g)
+        d = -_instance_einsum("mij,mj->mi", sets, H, g)
         descent = (d * g).sum(-1) < 0
         d = torch.where(descent.unsqueeze(-1), d, -g)
         fs = loss_batch(x.unsqueeze(1) + ts[:, None] * d.unsqueeze(1))
@@ -180,13 +189,34 @@ def _bfgs_batched(trees_flat: TreeBatch, x0: torch.Tensor, cmask: torch.Tensor,
         ok_sy = sy.abs() > 1e-10
         rho = torch.where(ok_sy, 1.0 / torch.where(ok_sy, sy, 1.0), 0.0)
         V = eye - rho[:, None, None] * s.unsqueeze(-1) * yv.unsqueeze(-2)
-        H_new = (torch.einsum("mij,mjk,mlk->mil", V, H, V)
+        H_new = (_instance_einsum("mij,mjk,mlk->mil", sets, V, H, V)
                  + rho[:, None, None] * s.unsqueeze(-1) * s.unsqueeze(-2))
         ok_H = improved & (rho > 0) & torch.isfinite(H_new).all(-1).all(-1)
         H = torch.where(ok_H[:, None, None], H_new, H)
         f = torch.where(improved, f_new, f)
         x, g = x_new, g_new
     return torch.where(torch.isfinite(f).unsqueeze(-1), x, x0), f
+
+
+def _instance_einsum(eq: str, sets: int,
+                     *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *ops)`` over operands whose leading axis is the
+    instances, ``sets`` set-major blocks of them (a tenant-batched
+    search's tenants). cuBLAS picks its batched kernel by the batch count
+    and the operands' alignment, and its kernels round differently, so on
+    the card each block is its own product, at its solo search's instance
+    count and from a 256-byte-aligned address (a block that does not start
+    at one is copied), and a tenant's steps are its solo search's bits. A
+    solo search, and the CPU, make the one product."""
+    if sets == 1 or not ops[0].is_cuda:
+        return torch.einsum(eq, *ops)
+    m = ops[0].shape[0] // sets
+    out = []
+    for s in range(sets):
+        block = [o[s * m:(s + 1) * m] for o in ops]
+        out.append(torch.einsum(eq, *(b if b.data_ptr() % 256 == 0
+                                      else b.clone() for b in block)))
+    return torch.cat(out)
 
 
 def _losses(fn, xs):
@@ -294,7 +324,7 @@ def hessian_diagonal(trees_flat: TreeBatch, x: torch.Tensor,
     loss_fn = resolve_loss(options.loss)
     objective = options.loss_function
     if plan is None:
-        plan = hessian_plan(trees_flat, cmask, chunk, X.shape[1])
+        plan = hessian_plan(trees_flat, cmask, chunk, X.shape[-1])
     h = torch.zeros_like(x)
     for inst, slot, t in plan:
         c0 = x[inst]
@@ -335,7 +365,7 @@ def _newton_batched(trees_flat: TreeBatch, x0: torch.Tensor,
     ls_fn = _loss_closure(trees_flat, X, y, weights, options,
                           with_grad=False, reps=_LS_STEPS)
     ts = 2.0 ** -torch.arange(_LS_STEPS, dtype=x0.dtype, device=x0.device)
-    plan = hessian_plan(trees_flat, cmask, nrows=X.shape[1])
+    plan = hessian_plan(trees_flat, cmask, nrows=X.shape[-1])
     f0, grad, ok0 = grad_fn(x0)
     x, f = x0, contain_nonfinite(f0, ok0)
     for it in range(n_iters):
@@ -401,16 +431,23 @@ def _select_and_starts(keys, pops: Population, K: int, n_starts: int):
     return sel_idx, cval.unsqueeze(1) * (1.0 + scale * eps)
 
 
-def _flatten_island_instances(sub_trees: TreeBatch, starts, cmask):
-    """(I, K, ...) members + (I, n_starts, K, L) starts -> restart-major
-    flat instances of length n_starts * I * K."""
+def _flatten_island_instances(sub_trees: TreeBatch, starts, cmask,
+                              sets: int = 1):
+    """(I, K, ...) members + (I, n_starts, K, L) starts -> flat instances
+    of length n_starts * I * K, restart-major within each of ``sets``
+    blocks of I / sets islands (the tenants of a batched search), the
+    blocks set-major."""
     I, n_starts, K, L = starts.shape
-    flat_sub = sub_trees.map(lambda a: a.reshape((I * K,) + a.shape[2:]))
-    tiled = flat_sub.map(
-        lambda a: a.repeat((n_starts,) + (1,) * (a.dim() - 1)))
-    starts_flat = starts.movedim(1, 0).reshape(n_starts * I * K, L)
-    cmask_flat = cmask.reshape(I * K, L).repeat(n_starts, 1)
-    return tiled, starts_flat, cmask_flat
+    per = I // sets
+
+    def tile(a):  # (I, K, ...) -> (sets, n_starts, per * K, ...) flat
+        a = a.reshape((sets, 1, per * K) + a.shape[2:])
+        return a.expand((sets, n_starts) + a.shape[2:]).reshape(
+            (-1,) + a.shape[3:])
+
+    starts_flat = starts.reshape(sets, per, n_starts, K, L).movedim(
+        2, 1).reshape(-1, L)
+    return sub_trees.map(tile), starts_flat, tile(cmask)
 
 
 def _write_back(pops: Population, sel_idx, sub_trees: TreeBatch, sub_losses,
@@ -454,15 +491,19 @@ def optimize_selected(pops: Population, sel_idx: torch.Tensor,
     every island in one batch, then the write-back. Returns (Population,
     n_evals (I,), n_attempted (I,))."""
     I, n_starts, K, L = starts.shape
+    sets = X.shape[0] if X.dim() == 3 else 1  # tenants
     sub_trees = gather_trees(pops.trees, sel_idx)
     const = _const_slots(sub_trees)
     tiled, starts_flat, cmask_flat = _flatten_island_instances(
-        sub_trees, starts, const.to(starts.dtype))
+        sub_trees, starts, const.to(starts.dtype), sets)
     x_flat, f_flat = _OPTIMIZERS[options.optimizer_algorithm](
         tiled, starts_flat, cmask_flat, X, y, weights, options,
         options.optimizer_iterations)
-    xs = x_flat.reshape(n_starts, I, K, L).movedim(0, 1)
-    fs = f_flat.reshape(n_starts, I, K).movedim(0, 1)
+    per = I // sets
+    xs = x_flat.reshape(sets, n_starts, per, K, L).movedim(1, 2).reshape(
+        I, n_starts, K, L)
+    fs = f_flat.reshape(sets, n_starts, per, K).movedim(1, 2).reshape(
+        I, n_starts, K)
     return _write_back(pops, sel_idx, sub_trees, pops.losses.gather(1, sel_idx),
                        const.any(-1), xs, fs, baseline, options)
 

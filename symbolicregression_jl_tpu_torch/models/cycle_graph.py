@@ -45,6 +45,10 @@ and one scoring launch per island); an objective that reads a device
 value on the host, or builds a tensor from Python data, fails at capture
 with an error that names it. The float64 search captures its own graph
 (the working dtype is in the key), its baseline a float64 device scalar.
+A tenant-batched search (X (T, nfeat, nrows)) captures one graph for the
+whole batch, keyed by X's shape with T in it: its baseline and its
+minibatch chain's key are one per tenant, and each scoring call in it is
+one per-set launch over the T datasets.
 """
 
 from __future__ import annotations
@@ -122,14 +126,17 @@ class CycleGraph:
         self.y = torch.empty_like(y)
         self.weights = None if weights is None else torch.empty_like(weights)
         f32 = dict(dtype=torch.float32, device=device)
-        self.baseline = torch.zeros((), dtype=score_dtype(X.dtype),
+        # one per tenant in a tenant-batched search (X (T, nfeat, nrows))
+        lead = tuple(X.shape[:-2])
+        self.baseline = torch.zeros(lead, dtype=score_dtype(X.dtype),
                                     device=device)
         self.temperature = torch.ones((), **f32)
         self.curmaxsize = torch.zeros((), dtype=torch.int64, device=device)
         self.scalars = tuple(torch.zeros((), **f32)
                              for _ in TRACED_SCALAR_FIELDS)
         self.state = _map_tensors(torch.empty_like, states)
-        self.bkey = torch.zeros(2, dtype=torch.int64, device=device)
+        self.bkey = torch.zeros(lead + (2,), dtype=torch.int64,
+                                device=device)
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
         self.launch_delta: list = []
         self.captures = 0
@@ -151,7 +158,7 @@ class CycleGraph:
         for buf, f in zip(self.scalars, TRACED_SCALAR_FIELDS):
             _set(buf, getattr(options, f))
         _copy_state(self.state, states)
-        self.bkey.copy_(batch_key(states))
+        self.bkey.copy_(batch_key(states, X))
 
     def _step(self, out: IslandState, bkey: torch.Tensor) -> None:
         """One cycle on the static buffers, its result copied into ``out``

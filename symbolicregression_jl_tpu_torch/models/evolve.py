@@ -8,6 +8,14 @@ kernel call, applies annealing / adaptive-parsimony acceptance, and
 replaces the B oldest members of each island. The island axis is the
 leading dimension of every tensor (the JAX package's vmap over islands).
 
+A tenant-batched search (``serving/batched.py``) runs T same-shape
+searches as one: X (T, nfeat, nrows), y and weights (T, nrows), the
+baseline (T,), and T * I islands, tenant-major, on the island axis. Every
+island's step is its own, so the cycle is the solo cycle over more
+islands; what is per search becomes per tenant (the minibatch chain's key
+and rows, the baseline), and each scoring call is one launch over the T
+datasets (the kernels' per-set form).
+
 The cycle step is tensor ops that never synchronise with the host: every
 decision that depends on data is a ``torch.where``, every table is built
 once per device, and the temperature, ``curmaxsize``, the baseline and the
@@ -434,31 +442,44 @@ def reg_evol_cycle_islands(states: IslandState, temperature, curmaxsize,
                            X, y, weights, baseline, options: Options,
                            row_idx: Optional[torch.Tensor] = None) -> IslandState:
     """One cycle on every island; all islands' children are scored in ONE
-    flat call (full data, or the shared ``row_idx`` minibatch), or with a
-    ``row_idx`` of shape (islands, batch) one call per island on its own
-    minibatch (``score_trees_islands``)."""
-    nfeatures = X.shape[0]
+    flat call (full data, or the shared ``row_idx`` minibatch, one per
+    tenant over X (T, nfeat, nrows)), or with a ``row_idx`` of one
+    minibatch per island ((islands, batch), or (T, I, batch)) on those
+    minibatches (``score_trees_islands``), also one call."""
+    nfeatures = X.shape[-2]
     prop = _propose_children(states, temperature, curmaxsize, nfeatures,
                              options)
     I, B = prop.parent_scores.shape
-    if row_idx is not None and row_idx.dim() == 2:
+    if row_idx is not None and row_idx.dim() == X.dim():
         s, l = score_trees_islands(prop.children, X, y, weights, baseline,
                                    options, row_idx)
     else:
         s, l = score_trees(_flat(prop.children), X, y, weights, baseline,
                            options, row_idx)
     return _integrate_children(states, prop, s.reshape(I, B),
-                               l.reshape(I, B), temperature, X.shape[1],
+                               l.reshape(I, B), temperature, X.shape[-1],
                                options)
 
 
 BATCH_KEY_DATA = 0x5F3759DF  # the reference's fold_in of the minibatch chain
 
 
-def batch_key(states: IslandState) -> torch.Tensor:
+def tenants_of(X: torch.Tensor) -> int:
+    """The searches a dataset holds: T for X (T, nfeat, nrows) of a
+    tenant-batched search, 1 for X (nfeat, nrows)."""
+    return X.shape[0] if X.dim() == 3 else 1
+
+
+def batch_key(states: IslandState, X: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
     """The minibatch key chain's start for one call of
-    ``s_r_cycle_islands``: ``fold_in(states.key[0], 0x5F3759DF)``."""
-    return rng.fold_in(states.key[0], BATCH_KEY_DATA)
+    ``s_r_cycle_islands``: ``fold_in(states.key[0], 0x5F3759DF)`` (2,);
+    over the T tenants' X (T, nfeat, nrows) each tenant's from its first
+    island's key, (T, 2)."""
+    if X is None or X.dim() == 2:
+        return rng.fold_in(states.key[0], BATCH_KEY_DATA)
+    per = states.key.shape[0] // tenants_of(X)
+    return rng.fold_in(states.key[::per], BATCH_KEY_DATA)
 
 
 def cycle_step(states: IslandState, bkey, temperature, curmaxsize, X, y,
@@ -472,8 +493,8 @@ def cycle_step(states: IslandState, bkey, temperature, curmaxsize, X, y,
     row_idx = None
     if options.batching:
         row_idx, bkey = next_minibatch(
-            bkey, X.shape[1], options.batch_size,
-            states.birth_counter.shape[0]
+            bkey, X.shape[-1], options.batch_size,
+            states.birth_counter.shape[0] // tenants_of(X)
             if options.independent_island_batches else 0)
     return (reg_evol_cycle_islands(states, temperature, curmaxsize, X, y,
                                    weights, baseline, options, row_idx),
@@ -515,7 +536,7 @@ def s_r_cycle_islands(states: IslandState, curmaxsize, X, y, weights,
     options = bind_device_scalars(options, dev)
     cm = scalar_tensor(curmaxsize, dev, torch.int64)
     base = scalar_tensor(baseline, dev, score_dtype(X.dtype))
-    bkey = batch_key(states)
+    bkey = batch_key(states, X)
     for c in range(ncycles):
         states, bkey = cycle_step(states, bkey, temps[c], cm, X, y, weights,
                                   base, options)

@@ -94,7 +94,6 @@ _UNSUPPORTED = {
     "snapshot_path": (None, "snapshots come with the resilience slice"),
     "snapshot_every_dispatches": (0, "snapshots come with the resilience slice"),
     "row_shards": (1, "row sharding comes with the multi-GPU slice"),
-    "tenants": (1, "tenant-batched serving comes with the serving/ slice"),
     "recorder_file": ("pysr_recorder.json", "the lineage recorder comes with "
                       "the host subsystems slice (ROADMAP.md section A.10)"),
     "telemetry_every": (1, "telemetry comes with the telemetry/ slice "
@@ -116,6 +115,30 @@ _TPU_LEVERS = (
     "eval_rows_per_tile", "max_cycles_per_dispatch", "cache_device_slots",
     "cache_capacity", "island_axis", "row_axis", "tenant_axis",
 )
+# what a tenant-batched search (tenants > 1) does not run yet, each queued
+# under ROADMAP.md section A.12
+_TENANT_REFUSED = "is not supported with tenants > 1 yet (ROADMAP.md section A.12)"
+
+
+class TenantIsolationError(ValueError):
+    """Options combination that cannot keep tenants isolated in a
+    tenant-batched search (``Options.tenants > 1``, serving/batched.py):
+    a knob that funnels per-run host-side output into one shared location
+    (a snapshot file, a hall-of-fame CSV, the lineage recorder's one JSON
+    document) would interleave tenants. ``.fields`` names the conflicting
+    Options fields and ``.conflicts`` maps each to its reason (the JAX
+    package's error, field for field)."""
+
+    def __init__(self, conflicts):
+        self.conflicts = dict(conflicts)
+        self.fields = tuple(self.conflicts)
+        detail = "; ".join(
+            f"{name}: {reason}" for name, reason in conflicts
+        )
+        super().__init__(
+            f"tenants > 1 conflicts with field(s) "
+            f"{', '.join(self.fields)} — {detail}"
+        )
 
 
 # --- the compile-identity contract (the JAX package's options.py) -------
@@ -361,6 +384,9 @@ class Options:
     kernel_program: str = "auto"
     row_shards: int = 1
     precision: str = "float32"
+    # tenants > 1: the per-tenant Options of a tenant-batched search
+    # (serving/batched.py), checked here against the knobs that break
+    # per-tenant isolation; equation_search refuses it
     tenants: int = 1
     max_len: int = 0  # 0 => round_up(maxsize + 2, 8)
 
@@ -386,6 +412,7 @@ class Options:
         if self.precision not in PRECISIONS:
             raise ValueError(
                 "precision must be one of float32/float64/bfloat16/float16")
+        self._check_tenants()
         for name, (off, why) in _UNSUPPORTED.items():
             value = getattr(self, name)
             if value != off:
@@ -421,6 +448,57 @@ class Options:
         object.__setattr__(self, "_operators", make_operator_set(
             self.binary_operators, self.unary_operators))
         resolve_loss(self.loss)
+
+    def _check_tenants(self) -> None:
+        """The JAX package's per-tenant isolation contract for tenants > 1
+        (its ``__post_init__``, check for check), then the options the
+        port's tenant-batched search does not run yet."""
+        if self.tenants < 1:
+            raise ValueError("tenants must be >= 1")
+        if self.tenants == 1:
+            return
+        if self.row_shards > 1:
+            raise ValueError(
+                "tenants > 1 is incompatible with row_shards > 1: "
+                "the device mesh is (tenants, islands) in batched "
+                "serving — shard rows in solo searches only"
+            )
+        conflicts = []
+        if self.recorder:
+            conflicts.append((
+                "recorder",
+                "the lineage recorder materializes ONE run's "
+                "populations into one JSON document; there is no "
+                "per-tenant recorder — run the job solo",
+            ))
+        if (self.snapshot_path is not None
+                and "{tenant}" not in str(self.snapshot_path)):
+            conflicts.append((
+                "snapshot_path",
+                "a shared snapshot file would interleave tenants; "
+                "use a per-tenant template such as "
+                "'snaps/tenant{tenant}.npz'",
+            ))
+        if (self.output_file is not None
+                and "{tenant}" not in str(self.output_file)):
+            conflicts.append((
+                "output_file",
+                "a shared hall-of-fame CSV would interleave "
+                "tenants; use a per-tenant template such as "
+                "'hof_tenant{tenant}.csv'",
+            ))
+        if conflicts:
+            raise TenantIsolationError(conflicts)
+        if self.kernel_program in ("instr", "instr_packed"):
+            raise NotImplementedError(
+                f"kernel_program={self.kernel_program!r} {_TENANT_REFUSED}: "
+                "the instruction-program kernels have no per-dataset launch")
+        if self.loss_function is not None:
+            raise NotImplementedError(f"loss_function {_TENANT_REFUSED}")
+        if self.optimizer_algorithm == "Newton":
+            raise NotImplementedError(
+                f"optimizer_algorithm='Newton' {_TENANT_REFUSED}: its "
+                "Hessian runs the lockstep interpreter on one dataset")
 
     @property
     def operators(self) -> OperatorSet:

@@ -22,6 +22,14 @@ the card. The kernel reports a program that is not valid postfix poisoned;
 the plain versions run it as the empty program (``runnable``), which is
 poisoned too.
 
+Several datasets of one shape go to one launch: X (S, nfeat, nrows) and
+y (S, nrows), the trees' flat order set-major, tree t reading set
+``t // (T / S)`` (tenant-batched serving, per-island minibatches). Each
+set's trees take the layout a launch on that set alone takes
+(``launch_plan`` of one set's count, the longest-first order within each
+set), so each set's results are those of a call on it alone, bit for bit;
+a 2-D X is the one-set call. The plain versions take the same form.
+
 The working dtype (a search's ``Options.precision``) is X's: float32,
 bfloat16, float16 or float64. Each is its own build of the kernel
 (``SR_STORAGE``, csrc/postfix_program.cuh): X, the constants and the
@@ -316,13 +324,45 @@ def kernel_operator_ids(operators: OperatorSet) -> list:
 # ---------------------------------------------------------------------------
 
 
+def set_index(n: int, X: torch.Tensor) -> Optional[torch.Tensor]:
+    """The dataset of each of ``n`` set-major items (trees, or instances)
+    over X (S, nfeat, nrows): ``i // (n / S)``; None for a 2-D X (one
+    set)."""
+    if X.dim() == 2:
+        return None
+    S = X.shape[0]
+    if S < 1 or n % S:
+        raise ValueError(f"{n} trees do not split into {S} equal sets")
+    return torch.arange(n, device=X.device) // (n // S)
+
+
+def per_tree(a: Optional[torch.Tensor], sid: Optional[torch.Tensor]):
+    """A per-set row tensor (S, nrows) read by each tree (``set_index``):
+    (T, nrows); the tensor itself for one set (or None)."""
+    return a if a is None or sid is None else a[sid]
+
+
+def x_rows(X: torch.Tensor, feat: torch.Tensor, sid: Optional[torch.Tensor]):
+    """Each tree's row of X at its feature ``feat`` (T,): (T, nrows), from
+    its own set's X when ``sid`` is given."""
+    return X[feat] if sid is None else X[sid, feat]
+
+
+def slot_codes(code: torch.Tensor) -> list:
+    """The set of fused opcodes that some tree has at each slot of ``code``
+    (T, L): a plain version computes an operator at a slot only where one
+    of the trees selects it, which changes no value (CPU tensors only)."""
+    return [set(col) for col in code.T.tolist()]
+
+
 def _plain_forward(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet):
     """(root (T, R), bad (T,), vals (L, T, R)) through the operand
     schedule, for a batch of valid programs (``runnable``); values of the
     compute type (``compute_dtype``), each as X's dtype holds it
-    (``storage_round``)."""
+    (``storage_round``). X (nfeat, R) or, per set, (S, nfeat, R)."""
     T, L = flat.kind.shape
-    R = X.shape[1]
+    R = X.shape[-1]
+    sid = set_index(T, X)
     S = X.dtype
     C = compute_dtype(S)
     X = X.to(C)
@@ -333,17 +373,20 @@ def _plain_forward(flat: TreeBatch, X: torch.Tensor, operators: OperatorSet):
     vals = torch.zeros((L, T, R), dtype=C, device=X.device)
     ti = torch.arange(T, device=X.device)
     bad = torch.zeros(T, dtype=torch.bool, device=X.device)
+    used = slot_codes(code)
     for s in range(L):
         c = code[:, s]
         active = s < flat.length
         a = vals[ridx[:, s], ti]
         b = vals[lidx[:, s], ti]
         v = torch.where((c == 1).unsqueeze(-1), cval[:, s].unsqueeze(-1),
-                        X[flat.feat[:, s]])
+                        x_rows(X, flat.feat[:, s], sid))
         for j, fn in enumerate(operators.unary_fns):
-            v = torch.where((c == 3 + j).unsqueeze(-1), fn(a), v)
+            if 3 + j in used[s]:
+                v = torch.where((c == 3 + j).unsqueeze(-1), fn(a), v)
         for j, fn in enumerate(operators.binary_fns):
-            v = torch.where((c == 3 + U + j).unsqueeze(-1), fn(b, a), v)
+            if 3 + U + j in used[s]:
+                v = torch.where((c == 3 + U + j).unsqueeze(-1), fn(b, a), v)
         v = storage_round(v, S)
         vals[s] = v
         bad |= active & (c != 0) & ~torch.isfinite(v).all(dim=-1)
@@ -357,10 +400,10 @@ def eval_trees_plain(trees: TreeBatch, X: torch.Tensor,
     """Plain version of the value mode: (y (..., nrows) in X's dtype, ok
     (...,))."""
     batch_shape = trees.length.shape
-    flat, _ = runnable(_flatten(trees), operators, X.shape[0])
+    flat, _ = runnable(_flatten(trees), operators, X.shape[-2])
     root, bad, _ = _plain_forward(flat, X, operators)
     ok = ~bad & (flat.length > 0)
-    return (root.to(X.dtype).reshape(batch_shape + (X.shape[1],)),
+    return (root.to(X.dtype).reshape(batch_shape + (X.shape[-1],)),
             ok.reshape(batch_shape))
 
 
@@ -382,14 +425,15 @@ def eval_loss_trees_plain(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
     the kernel's work-item split: each range of ``split_rows`` gives a
     partial sum, and the partial sums are added in range order."""
     batch_shape = trees.length.shape
-    flat, _ = runnable(_flatten(trees), operators, X.shape[0])
+    flat, _ = runnable(_flatten(trees), operators, X.shape[-2])
     root, bad, _ = _plain_forward(flat, X, operators)
-    elem = loss(root, y)
-    n_items, rng = split_rows(X.shape[1], items, rows_per_pass)
+    elem = loss(root, per_tree(y, set_index(root.shape[0], X)))
+    nrows = X.shape[-1]
+    n_items, rng = split_rows(nrows, items, rows_per_pass)
     total = elem[:, :rng].sum(-1)
     for r in range(1, n_items):
         total = total + elem[:, r * rng:(r + 1) * rng].sum(-1)
-    total = contain_nonfinite(total / X.shape[1], ~bad & (flat.length > 0))
+    total = contain_nonfinite(total / nrows, ~bad & (flat.length > 0))
     return total.reshape(batch_shape)
 
 
@@ -449,6 +493,7 @@ def eval_loss_trees_program_plain(trees: TreeBatch, X: torch.Tensor,
     flat = _flatten(trees)
     root, bad = eval_program_plain(flat, X, operators)
     shape = trees.length.shape
+    y = per_tree(y, set_index(root.shape[0], X))
     return (fused_sums_plain(root, y, loss, plan).reshape(shape),
             (~bad & (flat.length > 0)).reshape(shape))
 
@@ -584,7 +629,8 @@ def eval_program_plain(flat: TreeBatch, X: torch.Tensor,
     computed in the compute type and rounded to X's dtype where it is
     produced; the root comes in X's dtype."""
     T, L = flat.kind.shape
-    nfeat, R = X.shape
+    nfeat, R = X.shape[-2:]
+    sid = set_index(T, X)
     S = X.dtype
     C = compute_dtype(S)
     X = X.to(C)
@@ -608,7 +654,7 @@ def eval_program_plain(flat: TreeBatch, X: torch.Tensor,
         leaf = live & (code <= 2)
         left = stack[entry, ti]
         new = torch.where((code == 1).unsqueeze(-1), cval[:, s].unsqueeze(-1),
-                          X[feat.clamp(0, nfeat - 1)])
+                          x_rows(X, feat.clamp(0, nfeat - 1), sid))
         new = torch.where(leaf.unsqueeze(-1), new, float("nan"))
         for c, (arity, f) in fns.items():
             v = f(top) if arity == 1 else f(left, top)
@@ -677,7 +723,7 @@ def _declare(lib, dtype: torch.dtype):
     i = ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     f = real_ctype(dtype)
-    lib.postfix_eval_launch.argtypes = ([p] * 13 + [ip] + [i] * 16
+    lib.postfix_eval_launch.argtypes = ([p] * 13 + [ip] + [i] * 17
                                         + [f] * 3 + [p])
     lib.postfix_eval_launch.restype = i
     lib.postfix_eval_narrow_plan.argtypes = [i] * 5 + [
@@ -831,32 +877,53 @@ class PreparedLaunch(NamedTuple):
     user: Optional[UserBuild] = None  # the generated header's build
 
 
+def set_order(length: torch.Tensor, sets: int) -> torch.Tensor:
+    """The kernels' order of a flat set-major batch: longest first within
+    each of ``sets`` sets (stable), as flat tree indices."""
+    T = length.shape[0]
+    if sets == 1:
+        return torch.argsort(length, descending=True, stable=True)
+    per = T // sets
+    local = torch.argsort(length.reshape(sets, per), dim=1, descending=True,
+                          stable=True)
+    base = torch.arange(sets, device=length.device).unsqueeze(1) * per
+    return (local + base).reshape(T)
+
+
 def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
                    operators: OperatorSet, mode: int,
                    loss: ElementwiseLoss = l2_dist_loss) -> PreparedLaunch:
     """Check the inputs and allocate the kernel's outputs for a flat (T, L)
     batch on the card; the trees go to the kernel as they are, in
-    longest-first order. ``loss``: the fused mode's loss. X's dtype picks
-    the build (float32, bfloat16, float16 or float64; the fused mode
-    float32 only); the constants go to the kernel in that dtype and the
-    value output comes in it."""
+    longest-first order (within each set). ``loss``: the fused mode's
+    loss. X (nfeat, nrows), or (S, nfeat, nrows) with y (S, nrows) for S
+    datasets of T / S set-major trees each. X's dtype picks the build
+    (float32, bfloat16, float16 or float64; the fused mode float32 only);
+    the constants go to the kernel in that dtype and the value output
+    comes in it."""
     dev = X.device
     dtype = X.dtype
-    if dtype not in STORAGE or X.dim() != 2:
-        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16, "
-                         f"float16 or float64, got {dtype} {tuple(X.shape)}")
+    if dtype not in STORAGE or X.dim() not in (2, 3):
+        raise ValueError(f"X must be (nfeat, nrows) or (sets, nfeat, nrows) "
+                         f"float32, bfloat16, float16 or float64, got "
+                         f"{dtype} {tuple(X.shape)}")
     if mode == MODE_FUSED and dtype != torch.float32:
         raise ValueError("the fused mode runs at float32; at bfloat16, "
                          "float16 and float64 the loss follows the value "
                          "mode")
+    sets = 1 if X.dim() == 2 else X.shape[0]
     if y is not None and (y.dtype != torch.float32 or y.device != dev
-                          or y.shape != (X.shape[1],)):
-        raise ValueError("y must be float32 (nrows,) on X's device")
+                          or y.shape != X.shape[:-2] + X.shape[-1:]):
+        raise ValueError("y must be float32 (nrows,), or (sets, nrows) for "
+                         "X (sets, nfeat, nrows), on X's device")
     for f in flat:
         if f.device != dev:
             raise ValueError("trees and X must lie on the same device")
     T, L = flat.kind.shape
-    nfeat, nrows = X.shape
+    nfeat, nrows = X.shape[-2:]
+    if sets < 1 or T % sets:
+        raise ValueError(f"{T} trees do not split into {sets} equal sets")
+    per_set = T // sets
     if nfeat >= 1 << 16 or X.numel() >= 1 << 31:
         raise ValueError("the scoring kernel takes fewer than 65536 features "
                          f"and X of fewer than 2^31 elements; got "
@@ -872,13 +939,20 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
                                loss if mode == MODE_FUSED else None,
                                dtype == torch.float64)
     any_loss = mode == MODE_FUSED and loss.kind != L2
-    plan = launch_plan(T, L, nfeat, nrows, mode, full, dev.index or 0,
+    # one set's layout (its row split fixes the order of a tree's sums),
+    # its blocks repeated for every set; the narrow route's for the batch
+    plan = launch_plan(per_set, L, nfeat, nrows, mode, full, dev.index or 0,
                        any_loss, dtype, user)
+    if plan.narrow and sets > 1:
+        plan = launch_plan(T, L, nfeat, nrows, mode, full, dev.index or 0,
+                           any_loss, dtype, user)
+    elif sets > 1:
+        plan = plan._replace(blocks=plan.blocks * sets)
     fields = [f.to(torch.int64).contiguous()
               for f in (flat.kind, flat.op, flat.feat)]
     cval = flat.cval.to(dtype).contiguous()
     length = flat.length.to(torch.int64).contiguous()
-    order = torch.argsort(length, descending=True, stable=True)
+    order = set_order(length, sets)
     if mode == MODE_VALUE:
         out = torch.empty((T, nrows), dtype=dtype, device=dev)
     else:
@@ -893,8 +967,9 @@ def prepare_launch(flat: TreeBatch, X: torch.Tensor, y: Optional[torch.Tensor],
     # the tensors ride along so their memory outlives every launch
     args = (*fields, cval, length, order, X.contiguous(),
             None if y is None else y.contiguous(), out, bad, part, part_bad,
-            scratch, ids, operators.n_unary, operators.n_binary, T, L, nfeat,
-            nrows, mode, int(full), plan.items, plan.range, int(plan.staged),
+            scratch, ids, operators.n_unary, operators.n_binary, T, per_set, L,
+            nfeat, nrows, mode, int(full), plan.items, plan.range,
+            int(plan.staged),
             plan.warps, plan.smem, plan.blocks, int(plan.narrow), loss.kind,
             *loss.constants_of(dtype))
     return PreparedLaunch(args, out, bad, length, mode, plan, loss, dtype,
@@ -935,12 +1010,13 @@ def _flatten(trees: TreeBatch) -> TreeBatch:
 def eval_trees(trees: TreeBatch, X: torch.Tensor,
                operators: OperatorSet) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value mode: (y (..., nrows) in X's dtype, ok (...,)). CUDA tensors
-    run the kernel (X's dtype's build); CPU tensors the plain version."""
+    run the kernel (X's dtype's build); CPU tensors the plain version.
+    X (S, nfeat, nrows): S datasets, the trees' flat order set-major."""
     if not X.is_cuda:
         return eval_trees_plain(trees, X, operators)
     batch_shape = trees.length.shape
     out, ok = _launch(_flatten(trees), X, None, operators, MODE_VALUE)
-    return (out.reshape(batch_shape + (X.shape[1],)),
+    return (out.reshape(batch_shape + (X.shape[-1],)),
             ok.reshape(batch_shape))
 
 
@@ -949,12 +1025,13 @@ def eval_loss_trees(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
                     loss: ElementwiseLoss = l2_dist_loss) -> torch.Tensor:
     """Fused loss: per-tree ``sum_rows loss(f(x), y) / nrows``, +inf for
     poisoned or empty trees; the (trees, rows) matrix never reaches device
-    memory on the card."""
+    memory on the card. X (S, nfeat, nrows) with y (S, nrows): S
+    datasets, the trees' flat order set-major."""
     if not X.is_cuda:
         return eval_loss_trees_plain(trees, X, y, operators, loss)
     batch_shape = trees.length.shape
     out, ok = _launch(_flatten(trees), X, y, operators, MODE_FUSED, loss)
-    return contain_nonfinite(out / X.shape[1], ok).reshape(batch_shape)
+    return contain_nonfinite(out / X.shape[-1], ok).reshape(batch_shape)
 
 
 def eval_slot_values(trees: TreeBatch, X: torch.Tensor,

@@ -34,6 +34,11 @@ build); ``fn`` hands back loss and gradient in the working dtype.
 ``loss_f64``, ...), ``LOSS_LAUNCHES`` every build's by variant and loss
 name (``loss_grad:HuberLoss``).
 
+X (S, nfeat, nrows) with y and weights (S, nrows) is S datasets in one
+launch, the trees' flat order set-major (``kernel_eval``'s per-set form):
+each set's rows are weighted by that set's own ``w / sum(w)``, and each
+set's results are those of a call on it alone, bit for bit.
+
 The gradient kernel's cotangent-seeded mode (``eval_vjp_constants``)
 seeds row r of instance i with ``cot[i, r]`` read from memory instead of
 a loss's derivative: its gradient is the vector-Jacobian product of the
@@ -66,7 +71,7 @@ import torch
 from ..models.trees import CONST, TreeBatch
 from . import kernel_eval as ke
 from . import user_ops
-from .losses import L2, ElementwiseLoss, l2_dist_loss
+from .losses import L2, ElementwiseLoss, l2_dist_loss, weight_sum
 from .operators import OperatorSet, vjp_of
 from .user_ops import UserBuild
 
@@ -95,11 +100,23 @@ def normalized_weights(weights: Optional[torch.Tensor], nrows: int,
                        device, dtype: torch.dtype = torch.float32
                        ) -> torch.Tensor:
     """w / sum(w), or 1/nrows on every row without weights, in the
-    compute type ``dtype``."""
+    compute type ``dtype``; weights (..., nrows) of several sets each over
+    its own sum (``weight_sum``: a set's bits do not depend on the number
+    of sets)."""
     if weights is None:
         return torch.full((nrows,), 1.0 / nrows, dtype=dtype, device=device)
     w = weights.to(dtype)
-    return (w / w.sum()).contiguous()
+    return (w / weight_sum(w).unsqueeze(-1)).contiguous()
+
+
+def _weights_for(X, weights, dtype) -> torch.Tensor:
+    """``normalized_weights`` of X's rows (nrows,), or for X (S, nfeat,
+    nrows) of each set's (S, nrows)."""
+    nrows = X.shape[-1]
+    if X.dim() == 3 and weights is None:
+        return torch.full((X.shape[0], nrows), 1.0 / nrows, dtype=dtype,
+                          device=X.device)
+    return normalized_weights(weights, nrows, X.device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +134,9 @@ def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
     to X's dtype; the rest is the compute type and so are the outputs."""
     loss_fn = user_ops.plain_loss(loss_fn)
     root, bad, vals = ke._plain_forward(flat, X, operators)
-    y = y.to(root.dtype)
+    sid = ke.set_index(root.shape[0], X)
+    y = ke.per_tree(y.to(root.dtype), sid)
+    wn = ke.per_tree(wn, sid)
     ok = ~bad & (flat.length > 0)
     zero_w = wn == 0
     loss = torch.where(zero_w, 0.0, loss_fn(root, y) * wn).sum(-1)
@@ -131,6 +150,7 @@ def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
     adj = torch.zeros_like(vals)
     adj[torch.clamp_min(flat.length - 1, 0), ti] = torch.where(
         zero_w, 0.0, loss_fn.seed(root, y) * wn)
+    used = ke.slot_codes(code)
     for s in range(L - 1, -1, -1):
         c = code[:, s]
         live = s < flat.length
@@ -140,9 +160,12 @@ def _plain_loss_grad(flat: TreeBatch, X, y, wn, operators: OperatorSet,
         da = torch.zeros_like(w)
         db = torch.zeros_like(w)
         for j, name in enumerate(operators.unary_names):
-            da = torch.where((c == 3 + j).unsqueeze(-1),
-                             vjp_of(1, name)(a, v, w), da)
+            if 3 + j in used[s]:
+                da = torch.where((c == 3 + j).unsqueeze(-1),
+                                 vjp_of(1, name)(a, v, w), da)
         for j, name in enumerate(operators.binary_names):
+            if 3 + U + j not in used[s]:
+                continue
             db_j, da_j = vjp_of(2, name)(b, a, v, w)
             sel = (c == 3 + U + j).unsqueeze(-1)
             da = torch.where(sel, da_j, da)
@@ -167,9 +190,8 @@ def eval_loss_grad_plain(trees: TreeBatch, X, y, weights,
     """Plain version of the gradient variant: (loss (...,), grad (..., L),
     ok (...,)) at the trees' own constants, and with ``scale`` the sum
     over rows of each gradient term's magnitude (..., L)."""
-    flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
-    wn = normalized_weights(weights, X.shape[1], X.device,
-                            ke.compute_dtype(X.dtype))
+    flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[-2])
+    wn = _weights_for(X, weights, ke.compute_dtype(X.dtype))
     out = _plain_loss_grad(flat, X, y, wn, operators, True, scale, loss)
     shapes = (trees.length.shape, trees.kind.shape, trees.length.shape,
               trees.kind.shape)
@@ -179,9 +201,8 @@ def eval_loss_grad_plain(trees: TreeBatch, X, y, weights,
 def eval_loss_plain(trees: TreeBatch, X, y, weights, operators: OperatorSet,
                     loss: ElementwiseLoss = l2_dist_loss):
     """Plain version of the loss-only variant: (loss (...,), ok (...,))."""
-    flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[0])
-    wn = normalized_weights(weights, X.shape[1], X.device,
-                            ke.compute_dtype(X.dtype))
+    flat, _ = ke.runnable(ke._flatten(trees), operators, X.shape[-2])
+    wn = _weights_for(X, weights, ke.compute_dtype(X.dtype))
     total, _, ok = _plain_loss_grad(flat, X, y, wn, operators, False,
                                     loss_fn=loss)
     shape = trees.length.shape
@@ -243,13 +264,14 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
     loss = user_ops.plain_loss(loss)
     flat = ke._flatten(trees)
     T, L = flat.kind.shape
-    nfeat, R = X.shape
+    nfeat, R = X.shape[-2:]
+    sid = ke.set_index(T, X)
     S = X.dtype
     C = ke.compute_dtype(S)
+    wn = ke.per_tree(_weights_for(X, weights, C), sid)
     X = X.to(C)
-    y = None if cot is not None else y.to(C)
+    y = None if cot is not None else ke.per_tree(y.to(C), sid)
     cval = flat.cval.to(S).to(C)
-    wn = normalized_weights(weights, R, X.device, C)
     words, invalid = ke.program_words(flat, operators, nfeat)
     n = torch.where(invalid, 0, flat.length)
     words = adjoint_words(words, n, ke.first_binary_code(operators))
@@ -274,7 +296,7 @@ def eval_loss_grad_program_plain(trees: TreeBatch, X, y, weights,
         leaf = live & (c <= 2)
         lv = stack[e, ti]
         new = torch.where((c == 1).unsqueeze(-1), cval[:, s].unsqueeze(-1),
-                          X[feat[:, s]])
+                          ke.x_rows(X, feat[:, s], sid))
         new = torch.where(leaf.unsqueeze(-1), new, float("nan"))
         for j, (cj, f, _) in enumerate(fns):
             out = f(top) if j < U else f(lv, top)
@@ -344,13 +366,13 @@ def _declare(lib, dtype: torch.dtype):
     f = ke.real_ctype(dtype)
     lib.postfix_grad_plan.argtypes = [i] * 5 + [lp]
     lib.postfix_grad_plan.restype = i
-    lib.postfix_grad_launch.argtypes = ([p] * 13 + [ip] + [i] * 9
+    lib.postfix_grad_launch.argtypes = ([p] * 13 + [ip] + [i] * 10
                                         + [f] * 3 + [lp, p])
     lib.postfix_grad_launch.restype = i
     lib.postfix_loss_candidates.restype = i
     lib.postfix_loss_plan.argtypes = [i] * 6 + [lp]
     lib.postfix_loss_plan.restype = i
-    lib.postfix_loss_launch.argtypes = ([p] * 12 + [ip] + [i] * 10
+    lib.postfix_loss_launch.argtypes = ([p] * 12 + [ip] + [i] * 11
                                         + [f] * 3 + [lp, p])
     lib.postfix_loss_launch.restype = i
     lib.postfix_grad_digamma.argtypes = [p, p, i, p]
@@ -447,19 +469,21 @@ def loss_plan(T: int, reps: int, L: int, full: bool,
 
 def _check_inputs(flat: TreeBatch, X, y, weights):
     dev = X.device
-    if X.dtype not in ke.STORAGE or X.dim() != 2:
-        raise ValueError(f"X must be (nfeat, nrows) float32, bfloat16, "
-                         f"float16 or float64, got {X.dtype} "
-                         f"{tuple(X.shape)}")
-    nrows = X.shape[1]
+    if X.dtype not in ke.STORAGE or X.dim() not in (2, 3):
+        raise ValueError(f"X must be (nfeat, nrows) or (sets, nfeat, nrows) "
+                         f"float32, bfloat16, float16 or float64, got "
+                         f"{X.dtype} {tuple(X.shape)}")
+    rows = X.shape[:-2] + X.shape[-1:]  # (nrows,) or (sets, nrows)
     if y is not None and (y.dtype != X.dtype or y.device != dev
-                          or y.shape != (nrows,)):
-        raise ValueError("y must be (nrows,) of X's dtype on X's device")
+                          or y.shape != rows):
+        raise ValueError(f"y must be {tuple(rows)} of X's dtype on X's "
+                         "device")
     if weights is not None and (weights.device != dev
-                                or weights.shape != (nrows,)):
-        raise ValueError("weights must be (nrows,) on X's device")
+                                or weights.shape != rows):
+        raise ValueError(f"weights must be {tuple(rows)} on X's device")
     if any(f.device != dev for f in flat):
         raise ValueError("trees and X must lie on the same device")
+    ke.set_index(flat.kind.shape[0], X)  # raises unless the sets are equal
 
 
 def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
@@ -469,9 +493,10 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
     """Check the inputs, stage the structure on the card once, and return
     ``launch(cval (T * reps, L)) -> (loss, grad | None, bad)``: one kernel
     launch each, of X's dtype's build (the constants go in that dtype;
-    loss and gradient come in the compute type). Both kernels read the
-    tree fields as they are, trees longest first, and flag an invalid
-    program themselves. ``cotangent``: the gradient kernel's cotangent-
+    loss and gradient come in the compute type), over X (nfeat, nrows) or
+    the per-set form's X (S, nfeat, nrows). Both kernels read the tree
+    fields as they are, trees longest first, and flag an invalid program
+    themselves. ``cotangent``: the gradient kernel's cotangent-
     seeded mode, ``launch(cval, cot (T * reps, nrows))`` (``y``,
     ``weights`` and ``loss`` unread)."""
     flat = ke._flatten(trees)
@@ -479,9 +504,10 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
     dev = X.device
     dtype = X.dtype
     C = ke.compute_dtype(dtype)
-    nfeat, nrows = X.shape
-    wn = normalized_weights(weights, nrows, dev, C)
+    nfeat, nrows = X.shape[-2:]
+    wn = _weights_for(X, weights, C)
     T, L = flat.kind.shape
+    per_set = T // (X.shape[0] if X.dim() == 3 else 1)
     if nfeat >= 1 << 16 or X.numel() >= 1 << 31:
         raise ValueError("the constant-optimisation kernels take fewer than "
                          "65536 features and X of fewer than 2^31 elements")
@@ -531,7 +557,7 @@ def stage_launch(trees: TreeBatch, X, y, weights, operators: OperatorSet,
         head = [t.data_ptr() for t in (*fields, length, order, cv, Xc, yv,
                                        wn, out)]
         tail = (None if scratch is None else scratch.data_ptr(), ids,
-                operators.n_unary, operators.n_binary, T, reps)
+                operators.n_unary, operators.n_binary, T, per_set, reps)
         if not with_grad:
             check(lib.postfix_loss_launch(
                 *head, bad.data_ptr(), *tail, plan.candidates, L, nfeat,
@@ -591,9 +617,8 @@ def make_loss_kernel(trees: TreeBatch, X: torch.Tensor, y: torch.Tensor,
             return loss, grad, (bad == 0) & live
     else:
         _check_inputs(flat, X, y, weights)
-        wn = normalized_weights(weights, X.shape[1], X.device,
-                                ke.compute_dtype(X.dtype))
-        flat, _ = ke.runnable(flat, operators, X.shape[0])
+        wn = _weights_for(X, weights, ke.compute_dtype(X.dtype))
+        flat, _ = ke.runnable(flat, operators, X.shape[-2])
         rep = flat if reps == 1 else flat.map(
             lambda f: f.repeat_interleave(reps, dim=0))
 

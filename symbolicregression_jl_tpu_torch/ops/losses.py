@@ -562,6 +562,17 @@ def pairwise_sum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return x[..., 0]
 
 
+def weight_sum(weights: torch.Tensor) -> torch.Tensor:
+    """Sum of the weights (..., nrows) over the rows: ``pairwise_sum`` in
+    float32 at least, rounded once to the weights' dtype (as ``torch.sum``
+    rounds a half-precision sum). Its adds are elementwise, so a dataset's
+    sum has the same bits whether it is summed alone or beside other
+    datasets (a tenant-batched search's, or per-island minibatches), on
+    the card as on the CPU, in one launch per tree level."""
+    acc = torch.promote_types(weights.dtype, torch.float32)
+    return pairwise_sum(weights.to(acc), -1).to(weights.dtype)
+
+
 def _tiled_row_sum(elem: torch.Tensor, tile_rows: int) -> torch.Tensor:
     """Row sum along the last axis in tiles: zero-pad to a multiple of
     ``tile_rows``, sum each (tile_rows // 128, 128) block, then add the

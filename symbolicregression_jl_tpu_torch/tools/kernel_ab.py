@@ -58,7 +58,8 @@ the first root's. ``--main`` adds, in each timing process, chip_smoke
 phase 5's search (the north star's widths, 2 iterations of 550 cycles,
 seed 0, default constant optimisation): its seconds per iteration (host
 clock at each ``on_iteration``, which reads the candidates' losses from
-the card; the first iteration includes init and the capture).
+the card; the first iteration includes init and the capture) and of each
+constant-optimisation pass (synchronized before and after).
 
 The imports are absolute, so that this file, run by path in a root's
 process, drives that root's package.
@@ -444,27 +445,42 @@ def hall_of_fame_here():
 
 def main_path_here(niterations: int = 2, ncycles: int = 550) -> dict:
     """chip_smoke phase 5's search: seconds (host clock) and best loss of
-    each iteration."""
-    from symbolicregression_jl_tpu_torch import equation_search
+    each iteration, and the seconds of each iteration's constant-
+    optimisation pass (host clock, synchronized before and after)."""
+    from symbolicregression_jl_tpu_torch import api, equation_search
 
     X, y = north_star_data(torch.device("cuda"))
     X_np, y_np = X.cpu().numpy(), y.cpu().numpy()
     torch.cuda.synchronize()
     t = [time.time()]
-    per_iter, best = [], []
+    per_iter, best, opt_s = [], [], []
+    untimed = api.optimize_islands_constants
 
     def on_iteration(j, it, cands):
         best.append(min(c.loss for c in cands))
         per_iter.append(time.time() - t[0])
         t[0] = time.time()
 
-    equation_search(X_np, y_np, niterations=niterations,
-                    ncycles_per_iteration=ncycles, seed=0,
-                    on_iteration=on_iteration,
-                    binary_operators=["+", "-", "*", "/"],
-                    unary_operators=["cos", "exp"], npopulations=64,
-                    npop=1000, maxsize=20, loss="L2DistLoss", verbosity=0)
-    return {"s_per_iteration": per_iter, "best_loss": best}
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t_o = time.time()
+        out = untimed(*a, **k)
+        torch.cuda.synchronize()
+        opt_s.append(time.time() - t_o)
+        return out
+
+    api.optimize_islands_constants = timed
+    try:
+        equation_search(X_np, y_np, niterations=niterations,
+                        ncycles_per_iteration=ncycles, seed=0,
+                        on_iteration=on_iteration,
+                        binary_operators=["+", "-", "*", "/"],
+                        unary_operators=["cos", "exp"], npopulations=64,
+                        npop=1000, maxsize=20, loss="L2DistLoss", verbosity=0)
+    finally:
+        api.optimize_islands_constants = untimed
+    return {"s_per_iteration": per_iter, "best_loss": best,
+            "optimisation_pass_s": opt_s}
 
 
 def worker(argv) -> int:

@@ -63,17 +63,33 @@ def draw_dtype(dtype: torch.dtype) -> torch.dtype:
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
+# elements per step of the plain threefry: its 20 rounds run on arrays
+# that stay in the CPU's cache
+_HASH_CHUNK = 1 << 15
+
+
 def threefry2x32(k1, k2, x1, x2):
     """JAX's ``threefry2x32_p`` on numpy ``uint32`` arrays (broadcast
     together; uint32 arithmetic wraps as the hash's does); returns the two
     output words."""
     PLAIN_CALLS["threefry"] += 1
-    k1, k2 = np.asarray(k1, np.uint32), np.asarray(k2, np.uint32)
+    k1, k2, x1, x2 = np.broadcast_arrays(*(np.asarray(a, np.uint32)
+                                           for a in (k1, k2, x1, x2)))
+    shape = x1.shape
+    k1, k2, x1, x2 = (np.ascontiguousarray(a).reshape(-1)
+                      for a in (k1, k2, x1, x2))
+    o1, o2 = np.empty_like(x1), np.empty_like(x2)
+    for c in range(0, x1.size, _HASH_CHUNK):
+        at = slice(c, c + _HASH_CHUNK)
+        o1[at], o2[at] = _threefry_rounds(k1[at], k2[at], x1[at], x2[at])
+    return o1.reshape(shape), o2.reshape(shape)
+
+
+def _threefry_rounds(k1, k2, x1, x2):
+    """``threefry2x32``'s 20 rounds on flat uint32 arrays of one size."""
     ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
     x1 = np.add(x1, ks[0], dtype=np.uint32)
     x2 = np.add(x2, ks[1], dtype=np.uint32)
-    x1, x2 = np.broadcast_arrays(x1, x2)
-    x1, x2 = x1.copy(), x2.copy()
     t = np.empty_like(x2)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
@@ -436,13 +452,9 @@ def bounds(dtype: torch.dtype, minval: float, maxval: float):
 
 
 def _uniform_plain(keys, shape, dtype, minval, maxval):
-    f = _unit(random_bits(keys, _WIDTH[dtype], shape), dtype)
-    lo, span = bounds(dtype, float(minval), float(maxval))
-    if dtype == torch.float64:
-        v = _fma64(f, span, lo)
-    else:  # the 2-byte types compute in float32 and round once
-        v = _fma32(f.float(), span, lo).to(dtype)
-    return torch.clamp_min(v, lo)
+    return _float_epilogue("uniform", dtype,
+                           *bounds(dtype, float(minval), float(maxval)),
+                           random_bits(keys, _WIDTH[dtype], shape))
 
 
 def uniform(keys: torch.Tensor, shape=(), dtype=None, minval: float = 0.0,
@@ -472,15 +484,10 @@ def normal(keys: torch.Tensor, shape=(), dtype=None) -> torch.Tensor:
     if keys.is_cuda:
         return kernel_rng.float_draw("normal", keys, shape, dtype,
                                      *bounds(dtype, lo, 1.0))
-    u = _uniform_plain(keys, shape, dtype, lo, 1.0)
-    if dtype == torch.float64:
-        return _SQRT2_F64 * _erfinv_f64(u)
-    e = torch.from_numpy(_erfinv_f32(u.float().numpy()))
-    if dtype == torch.float32:
-        return _SQRT2_F32 * e
     # the 2-byte types: erf_inv upcast to float32, rounded once, then the
-    # product with sqrt(2) rounded to the type
-    return (e.to(dtype) * _round_to(math.sqrt(2), dtype)).to(dtype)
+    # product with sqrt(2) rounded to the type (_float_epilogue)
+    return _float_draw("normal", dtype, *bounds(dtype, lo, 1.0),
+                       random_bits(keys, _WIDTH[dtype], shape))
 
 
 def gumbel(keys: torch.Tensor, shape=(), dtype=None) -> torch.Tensor:
@@ -492,19 +499,11 @@ def gumbel(keys: torch.Tensor, shape=(), dtype=None) -> torch.Tensor:
     if keys.is_cuda:
         return kernel_rng.float_draw("gumbel", keys, shape, dtype,
                                      *bounds(dtype, tiny, 1.0))
-    if dtype == torch.float16:
-        # XLA folds float16's (u - 1) * (1 - tiny) + tiny, whose span
-        # rounds to 1, into u + (tiny - 1) = u - 1
-        u = torch.clamp_min(_unit(random_bits(keys, 16, shape), dtype), tiny)
-    else:
-        u = _uniform_plain(keys, shape, dtype, tiny, 1.0)
-    if dtype == torch.float64:
-        return -_log_f64(-_log_f64(u))
-    if dtype == torch.float32:
-        return torch.from_numpy(-_log_f32(-_log_f32(u.numpy())))
-    # the 2-byte types: each log in float32, rounded to the type
-    l1 = torch.from_numpy(-_log_f32(u.float().numpy())).to(dtype)
-    return torch.from_numpy(-_log_f32(l1.float().numpy())).to(dtype)
+    # float16: XLA folds (u - 1) * (1 - tiny) + tiny, whose span rounds to
+    # 1, into u + (tiny - 1) = u - 1; the 2-byte types take each log in
+    # float32, rounded to the type (_float_epilogue)
+    return _float_draw("gumbel", dtype, *bounds(dtype, tiny, 1.0),
+                       random_bits(keys, _WIDTH[dtype], shape))
 
 
 def bernoulli(keys: torch.Tensor, p=0.5, shape=(), dtype=None
@@ -1191,20 +1190,59 @@ def _draw_from_words(d: _Draw, b1: torch.Tensor, b2: torch.Tensor):
         bits = (b1 ^ b2) & ((1 << width) - 1)
     if d.kind == "bits":
         return bits
-    dtype = d.dtype
-    lo, span = d.bounds()
-    if d.kind == "gumbel" and dtype == torch.float16:
+    return _float_draw(d.kind, d.dtype, *d.bounds(), bits)
+
+
+def _float_draw(kind: str, dtype: torch.dtype, lo: float, span: float,
+                bits: torch.Tensor) -> torch.Tensor:
+    """A uniform, normal or gumbel draw of ``dtype`` from its random bits,
+    with the uniform's bounds ``lo`` and ``span``. A normal or gumbel draw
+    below float64 is looked up in ``_lattice``, which holds that epilogue's
+    value at every one of the bits' mantissas."""
+    if kind in ("normal", "gumbel") and dtype != torch.float64:
+        return _lattice(kind, dtype, lo, span)[
+            bits >> (_WIDTH[dtype] - _MANT[dtype])]
+    return _float_epilogue(kind, dtype, lo, span, bits)
+
+
+# mantissas per step of building a lattice (bounds its temporary arrays)
+_LATTICE_CHUNK = 1 << 15
+
+
+@functools.lru_cache(maxsize=None)
+def _lattice(kind: str, dtype: torch.dtype, lo: float,
+             span: float) -> torch.Tensor:
+    """``_float_epilogue``'s value for every mantissa a draw of ``dtype``
+    below float64 can take (2^23 at float32, 2^10 at float16, 2^7 at
+    bfloat16), in mantissa order, built once per process: a float32
+    normal or gumbel draw is then one lookup instead of the host's
+    multiply-add polynomials on every element, with the same bits."""
+    shift = _WIDTH[dtype] - _MANT[dtype]
+    n = 1 << _MANT[dtype]
+    return torch.cat([
+        _float_epilogue(kind, dtype, lo, span,
+                        torch.arange(i, min(n, i + _LATTICE_CHUNK),
+                                     dtype=torch.int64) << shift)
+        for i in range(0, n, _LATTICE_CHUNK)])
+
+
+def _float_epilogue(kind: str, dtype: torch.dtype, lo: float, span: float,
+                    bits: torch.Tensor) -> torch.Tensor:
+    """``_float_draw``'s arithmetic on every element."""
+    if kind == "gumbel" and dtype == torch.float16:
         u = torch.clamp_min(_unit(bits, dtype), lo)
     else:
         f = _unit(bits, dtype)
-        if dtype == torch.float64:
+        if lo == 0.0 and span == 1.0:
+            u = f  # f * 1 + 0 is f, rounded once or not
+        elif dtype == torch.float64:
             u = _fma64(f, span, lo)
-        else:
+        else:  # the 2-byte types compute in float32 and round once
             u = _fma32(f.float(), span, lo).to(dtype)
         u = torch.clamp_min(u, lo)
-    if d.kind == "uniform":
+    if kind == "uniform":
         return u
-    if d.kind == "normal":
+    if kind == "normal":
         if dtype == torch.float64:
             return _SQRT2_F64 * _erfinv_f64(u)
         e = torch.from_numpy(_erfinv_f32(u.float().numpy()))

@@ -350,3 +350,20 @@ def test_a_reference_state_resumes_in_the_port(reference_search):
     assert _frontier(got.candidates[0]) == _frontier(ref.candidates[0])
     _equal(ref.state[0].island_states, got.state[0].island_states, "islands")
     _equal(ref.state[0].rng_key, got.state[0].rng_key, "rng_key")
+
+
+def test_a_batched_tenant_is_the_references_solo_search(reference_search):
+    """A 2-tenant ``batched_equation_search`` whose tenant 0 is the
+    fixture's data and seed: tenant 0's frontier, island states and key
+    equal the reference's solo search bit for bit; tenant 1 (other data,
+    another seed) parts from it."""
+    ref = reference_search
+    other = (np.array([[0.5], [2.0]], np.float32), np.array([1.0], np.float32))
+    got = sr.batched_equation_search(
+        [(X, Y), other], options=sr.make_options(**SEARCH), seeds=[5, 6],
+        niterations=2, return_state=True, device="cpu")
+    assert _frontier(got[0].candidates[0]) == _frontier(ref.candidates[0])
+    _equal(ref.state[0].island_states, got[0].state[0].island_states,
+           "islands")
+    _equal(ref.state[0].rng_key, got[0].state[0].rng_key, "rng_key")
+    assert _frontier(got[1].candidates[0]) != _frontier(got[0].candidates[0])

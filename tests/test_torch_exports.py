@@ -22,8 +22,7 @@ STILL_TO_PORT = {
          "DEFAULT_ALERT_RULES", "FleetScanner", "evaluate_alerts",
          "register_run", "render_openmetrics", "serve_metrics",
          "validate_exposition", "write_textfile"),
-    12: ("batched_equation_search", "JobServer", "JobResult", "pad_to_ladder",
-         "current_device_kind", "default_cache_path", "load_tune_cache",
+    12: ("current_device_kind", "default_cache_path", "load_tune_cache",
          "lookup_kernel_config", "model_ranked_sweep", "save_tune_cache",
          "sweep_to_cache", "tuned_min_work", "update_tune_cache",
          "validate_tune_cache"),

@@ -69,6 +69,8 @@ def _reference(fn, jt, X, *args):
     sign = np.where(np.arange(X.shape[0]) % 2 == 0, 1.0, -1.0)[:, None]
     moves = [(0.0, NUDGE), (0.0, -NUDGE)] + [
         (NUDGE * s, 0.0) for s in (sign, -sign, 1.0)]
+    # one compile for the six calls (same shapes), not a scan traced anew
+    fn = jax.jit(fn, static_argnums=tuple(range(2, 2 + len(args))))
     with jax.enable_x64():
         ref = np.asarray(fn(_x64(jt), jnp.asarray(X, jnp.float64), *args))
         spread = np.zeros(ref.shape)
@@ -108,6 +110,13 @@ def _jax_values(jt, X):
     return ref, ok, spread
 
 
+@pytest.fixture(scope="module")
+def values(data):
+    """``_jax_values`` on the module's trees and X, computed once for the
+    tests that read it."""
+    return _jax_values(data[0], data[2])
+
+
 def _close(got, ref, spread, atol=0.0):
     """Finite at the same places; within rtol 1e-10 plus 100 x the
     reference's change under the 4-ulp nudge."""
@@ -121,9 +130,9 @@ def _close(got, ref, spread, atol=0.0):
 
 @pytest.mark.parametrize("kernel", ["value", "program", "instr",
                                     "instr_packed"])
-def test_float64_value_plain_versions_match_jnp(data, kernel):
+def test_float64_value_plain_versions_match_jnp(data, values, kernel):
     jt, tt, X, _ = data
-    ref, ok_ref, spread = _jax_values(jt, X)
+    ref, ok_ref, spread = values
     Xt = torch.tensor(X)
     if kernel == "value":
         y, ok = tke.eval_trees_plain(tt, Xt, TOPS)
@@ -165,14 +174,15 @@ def test_float64_constant_fold_matches_jax(data):
 
 
 @pytest.mark.parametrize("weighted", [False, True])
-def test_float64_gradient_and_loss_plain_versions_match_jax(data, weighted):
+def test_float64_gradient_and_loss_plain_versions_match_jax(data, values,
+                                                           weighted):
     """B3's mirror (loss and gradient) and B4's plain version at float64
     against the jnp interpreter's L2 loss and its jax.grad under x64."""
     jt, tt, X, y = data
     w = np.random.default_rng(1).uniform(0.5, 1.5, X.shape[1])
     w[:5] = 0.0
     wt = torch.tensor(w) if weighted else None
-    ok_ref = _jax_values(jt, X)[1]
+    ok_ref = values[1]
 
     def loss(c, t, Xj):
         with jax.enable_x64():
@@ -200,13 +210,13 @@ def test_float64_gradient_and_loss_plain_versions_match_jax(data, weighted):
     _close(l4.numpy()[ok_ref], lref[ok_ref], lspread[ok_ref])
 
 
-def test_float64_cotangent_mode_matches_jax_vjp(data):
+def test_float64_cotangent_mode_matches_jax_vjp(data, values):
     """The cotangent-seeded mode's plain version at float64 against
     ``jax.vjp`` of the jnp interpreter's values with the same seeds."""
     jt, tt, X, _ = data
     g = np.random.default_rng(2).uniform(-1, 1, (tt.length.shape[0],
                                                  X.shape[1]))
-    ok_ref = _jax_values(jt, X)[1]
+    ok_ref = values[1]
 
     def vjp_of(t, x):
         _, pull = jax.vjp(lambda c: jinterp.eval_trees(

@@ -49,6 +49,14 @@ def case():
     return jt, port_trees(jt), X
 
 
+# The JAX package's derivatives of one tree, jitted once for the module:
+# the six single-tree cases below (and their float64 yardsticks) share a
+# compile per dtype instead of tracing the interpreter's scan anew on
+# every call.
+_J_GRAD_VARIABLES = jax.jit(jinterp.eval_grad_variables, static_argnums=2)
+_J_DIFF_TREE = jax.jit(jinterp.eval_diff_tree, static_argnums=(2, 3))
+
+
 def _single(jt, i):
     return jax.tree_util.tree_map(lambda a: a[i], jt)
 
@@ -93,16 +101,15 @@ def test_eval_grad_variables_and_diff_tree(case, i):
     jt, tt, X = case
     jt1, tt1 = _single(jt, i), tt[i]
     y, g = tinterp.eval_grad_variables(tt1, torch.tensor(X), TOPS)
-    jy, jg = jinterp.eval_grad_variables(jt1, jnp.asarray(X), JOPS)
-    y64, g64 = _ref64(jinterp.eval_grad_variables, jt1, X)
+    jy, jg = _J_GRAD_VARIABLES(jt1, jnp.asarray(X), JOPS)
+    y64, g64 = _ref64(_J_GRAD_VARIABLES, jt1, X)
     _close(g.numpy(), jg, g64)
     _close(y.numpy(), jy, y64)
     for direction in range(3):
         y, dy, ok = tinterp.eval_diff_tree(tt1, torch.tensor(X), TOPS,
                                            direction)
-        jy, jdy, jok = jinterp.eval_diff_tree(jt1, jnp.asarray(X), JOPS,
-                                              direction)
-        _, dy64, _ = _ref64(jinterp.eval_diff_tree, jt1, X, direction)
+        jy, jdy, jok = _J_DIFF_TREE(jt1, jnp.asarray(X), JOPS, direction)
+        _, dy64, _ = _ref64(_J_DIFF_TREE, jt1, X, direction)
         assert bool(ok) == bool(jok)
         _close(dy.numpy(), jdy, dy64)
 

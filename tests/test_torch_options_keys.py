@@ -83,15 +83,24 @@ ALT = dict(
     optimizer_algorithm="NelderMead", fast_cycle=True,
     skip_mutation_failures=False, deterministic=False,
     define_helper_functions=False, loss_function=_alt_objective,
-    independent_island_batches=True,
+    independent_island_batches=True, tenants=2,
 )
 # fields whose only accepted value is the default (the port raises for
 # the others): their class is still checked above
 FIXED = {"optimizer_backend", "recorder", "cache_fitness",
-         "row_shards", "tenants", "telemetry", "telemetry_dir",
+         "row_shards", "telemetry", "telemetry_dir",
          "snapshot_path", "snapshot_every_dispatches", "recorder_file",
          "telemetry_every", "telemetry_run_id", "telemetry_attempt",
          "profile_trace_dir"}
+
+
+@pytest.mark.parametrize("axis", ["island_axis", "row_axis", "tenant_axis"])
+def test_mesh_axis_names_are_refused_levers(axis):
+    """The JAX package's device-mesh axis names: the port has no mesh yet,
+    so none is a field and make_options refuses each as a TPU lever."""
+    assert axis not in {f.name for f in dataclasses.fields(topts.Options)}
+    with pytest.raises(NotImplementedError, match="TPU lever"):
+        sr.make_options(tenants=2, **{axis: "x"})
 
 
 def test_every_field_perturbed_or_fixed():

@@ -269,8 +269,9 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     and under every other loss of the registry (the fused scoring mode,
     the gradient and loss-only kernels, and the scoring route of
     ``fitness``), over a user operator and under a traced loss callable
-    too; an operator outside the registries has no kernel opcode and
-    raises too, and so does a user operator or loss callable that the
+    too, and in the per-set form (X of several datasets, and per-island
+    minibatches); an operator outside the registries has no kernel opcode
+    and raises too, and so does a user operator or loss callable that the
     tracer cannot lower, before any launch."""
     ops = tops.make_operator_set(["+", "*"], ["cos", "erf"])
     trees = random_trees(
@@ -321,6 +322,22 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
             lambda loss=loss: tkg.eval_loss(trees, X, y, None, ops, loss=loss),
             lambda loss=loss: tfit.eval_loss_trees(trees, X, y, None, ops,
                                                    loss)]
+    # the per-set form: 3 datasets of 2 trees each, and the per-island
+    # minibatches of one dataset
+    X3 = torch.randn(3, 2, 40).as_subclass(_OnCard)
+    y3, w3 = torch.randn(3, 40), torch.rand(3, 40)
+    rows = torch.randint(0, 40, (3, 10))
+    calls += [lambda: tke.eval_trees(trees, X3, ops),
+              lambda: tke.eval_loss_trees(trees, X3, y3, ops),
+              lambda: tkg.eval_loss_grad(trees, X3, y3, None, ops),
+              lambda: tkg.eval_loss_grad(trees, X3, y3, w3, ops),
+              lambda: tkg.eval_loss(trees, X3, y3, w3, ops),
+              lambda: tfit.eval_loss_trees(trees, X3, y3, None, ops,
+                                           "L2DistLoss"),
+              lambda: tfit.eval_loss_trees(trees, X3, y3, w3, ops,
+                                           "L2DistLoss"),
+              lambda: tfit.eval_loss_trees(trees, X, y, None, ops,
+                                           "L2DistLoss", row_idx=rows)]
     uo, ut = user_ops_set, user_trees
     calls += [lambda: tke.eval_trees(ut, X, uo),
               lambda: tke.eval_slot_values(ut, X[:, :1], uo),
